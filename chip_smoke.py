@@ -11,15 +11,22 @@ Phases; any failure ends the script with a non-zero exit:
 
 1. the card's name and power limit (``nvidia-smi``), the TF32 flags;
 2. build the kernels from ``woft_tpu_torch/csrc/*.cu`` with ``nvcc``;
-3. hold each kernel against its plain PyTorch version on the card at the
-   1280x720 main-path shapes, and time kernel, plain version, a PyTorch
-   library yardstick the port never calls, and the memory/compute bound;
+3. hold each kernel (A pre-warp, B pyramid lookup, C block-local volume,
+   D, E, F block-local lookups) against its plain PyTorch version on the
+   card at the 1280x720 main-path shapes, and time kernel, plain version, a
+   PyTorch library yardstick the port never calls, and the memory/compute
+   bound;
 4. track 1280x720 frames through ``WOFTTracker`` with the canonical
-   ``configs/WOFT.py`` (full-width RAFT-large, seeded weights), with the
-   launch counters zeroed before and read after, then drive the local-flow
-   fallback (``redetection='never'``);
-5. small-input references: an oracle-flow tracker must recover a known
-   homography, and the RAFT forward on the card must match the CPU path;
+   ``configs/WOFT.py`` and then with ``configs/WOFT_fast.py`` (block-local
+   correlation, bf16; both full-width RAFT-large, seeded weights), each
+   with the launch counters zeroed before and read after, and each followed
+   by the local-flow fallback (``redetection='never'``); then one
+   block-local forward whose ``flow_init`` makes blocks violate their fine
+   windows, so that kernel E rewrites them;
+5. references: the block-local forward must equal the dense one at
+   1280x720 in float32; on small inputs an oracle-flow tracker must recover
+   a known homography, and the RAFT forward on the card (dense and
+   block-local) must match the CPU path;
 6. a ``kernels`` JSON line, then the device JSON as the last line.
 """
 
@@ -37,9 +44,16 @@ import torch.nn.functional as F
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12              # H100 SXM dense bf16 on the tensor cores
 WARP_TOL = 1e-4                  # same float32 ops in the same order: 0 expected
 LOOKUP_TOL = 1e-5                # same float32 ops in the same order: 0 expected
 FLOW_TOL_PX = 1e-3               # cuDNN vs CPU convolutions, 12 GRU iterations
+BF16_FLOW_TOL_PX = 0.05          # the same in bf16 mode: each rounding of a
+#                                  differently ordered sum may fall either way
+# kernel C sums its D products in another order than the plain einsum:
+# float32 accumulation error, then (bf16) at most one bf16 ulp
+CORR_ATOL, CORR_RTOL_FP32, CORR_RTOL_BF16 = 2e-5, 1e-5, 2.0 ** -7
+LOCAL_LOOKUP_TOL = 1e-6          # same float32 ops in the same order: 0 expected
 CORNER_TOL_PX = 0.05             # oracle-flow homography recovery
 H_IMG, W_IMG = 720, 1280
 
@@ -49,12 +63,16 @@ def log(*args):
 
 
 def time_ms(fn, iters=20, warmup=3):
-    """Mean device time of ``fn()`` over ``iters`` calls (CUDA events)."""
+    """Mean device time of ``fn()`` over ``iters`` calls (CUDA events). The
+    device first spins for a few milliseconds, so the calls queue up behind
+    the spin and run back to back: a kernel shorter than its Python launch
+    is timed on the device, not at the rate the host can enqueue it."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(10_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -63,9 +81,9 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes, n_flops):
+def bound_ms(n_bytes, n_flops, flops_per_s=FP32_FLOPS):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / FP32_FLOPS * 1e3
+    t_ops = n_flops / flops_per_s * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -236,8 +254,286 @@ def check_lookup(kernels, corr, dev):
                 bound_ms=bnd, bound_by=by, library_ms=library_ms)
 
 
-def track_720p(kernels, dev):
-    """The main path: ``WOFTTracker`` at 1280x720 through configs/WOFT.py."""
+def _grid_720p(dev):
+    """(1, 90, 160, 2) (x, y) cell coordinates of the 1/8-resolution grid."""
+    ys, xs = torch.meshgrid(
+        torch.arange(H_IMG // 8, device=dev, dtype=torch.float32),
+        torch.arange(W_IMG // 8, device=dev, dtype=torch.float32),
+        indexing="ij")
+    return torch.stack([xs, ys], -1)[None]
+
+
+def _local_coords(dev, kind, seed=5):
+    """(1, 90, 160, 2) lookup centroids at 720p. 'smooth': a small affine
+    residual plus a block row pushed far out (saturation), every full
+    block inside its fine window. 'violating': a rotation-like field plus
+    +-12 cells of jitter on some blocks, beyond their fine windows.
+
+    90 rows are not a multiple of the 8-row block, so the last block row
+    holds padding queries at coordinate (0, 0), as in the JAX package: their
+    starts lie far from the real queries' and those 10 blocks violate their
+    fine windows on every field."""
+    H1, W1 = H_IMG // 8, W_IMG // 8
+    grid = _grid_720p(dev)
+    xs, ys = grid[0, ..., 0], grid[0, ..., 1]
+    if kind == "smooth":
+        res = torch.stack([0.02 * ys - 0.015 * xs + 2.3,
+                           0.012 * xs + 0.01 * ys - 3.1], -1)[None]
+        coords = grid + res
+        coords[0, :8] += 400.0
+    else:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        res = torch.stack([-0.12 * (ys - H1 / 2), 0.12 * (xs - W1 / 2)],
+                          -1)[None]
+        jitter = (torch.rand(grid.shape, device=dev, generator=g) - 0.5) * 24
+        res[0, 16:40, 32:96] += jitter[0, 16:40, 32:96]
+        coords = grid + res
+    return coords.contiguous()
+
+
+def check_local_corr(kernels, corr, dev):
+    """Kernel C against the plain construction at the four 720p level
+    shapes (120 blocks of 128 queries, D = 256), bf16 and float32."""
+    from woft_tpu_torch.ops.warp import avg_pool2d
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    H1, W1, D = H_IMG // 8, W_IMG // 8, 256
+    f1 = torch.randn(1, H1, W1, D, device=dev, generator=g)
+    f2 = torch.randn(1, H1, W1, D, device=dev, generator=g)
+    meta = corr._local_layout(H1, W1, 4, 4, 16)
+    nbh, nbw = meta["nbh"], meta["nbw"]
+    nb = nbh * nbw
+    levels = [f2]
+    for _ in meta["levels"][1:]:
+        levels.append(avg_pool2d(levels[-1]))
+    result = {}
+    for dtype, rtol, rate in ((torch.bfloat16, CORR_RTOL_BF16, BF16_FLOPS),
+                              (torch.float32, CORR_RTOL_FP32, FP32_FLOPS)):
+        name = str(dtype).split(".")[-1]
+        f1b = corr._to_blocked(f1.reshape(H1 * W1, D), meta).reshape(
+            nb, -1, D).to(dtype).contiguous()
+        lvs = [lv[0].to(dtype).contiguous() for lv in levels]
+        err, n_bytes, n_flops = 0.0, f1b.numel() * f1b.element_size(), 0
+        patches = []
+        for d, lv in zip(meta["levels"], lvs):
+            want = corr.block_local_corr_plain(f1b, lv, d, nbh, nbw, dtype)
+            got = kernels.local_corr_build(f1b, lv, d["pad"], d["sh"],
+                                           d["sw"], d["wh"], d["ww"], nbh,
+                                           nbw, dtype)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            bad = int((diff > CORR_ATOL + rtol * want.float().abs()).sum())
+            share = (diff > 0).float().mean().item()
+            err = max(err, diff.max().item())
+            log(f"kernel C [{name}, window {d['wh']}x{d['ww']}]: max_abs_err "
+                f"{diff.max().item():.3g}, entries that differ "
+                f"{100 * share:.3f} %, beyond atol {CORR_ATOL} + rtol "
+                f"{rtol:.3g}: {bad}")
+            if bad:
+                raise AssertionError(f"kernel C ({name}) disagrees on {bad} "
+                                     f"entries at window {d['wh']}x{d['ww']}")
+            n_bytes += (lv.numel() + got.numel()) * got.element_size()
+            n_flops += 2 * nb * 128 * D * d["wh"] * d["ww"]
+            # the library yardstick's operand: the windows gathered as the
+            # plain version gathers them (not timed)
+            fp = F.pad(lv, (0, 0, d["pad"], d["wp"] - lv.shape[1] - d["pad"],
+                            d["pad"], d["hp"] - lv.shape[0] - d["pad"]))
+            patches.append(torch.stack([
+                fp[by * d["sh"]:by * d["sh"] + d["wh"],
+                   bx * d["sw"] // 8 * 8:bx * d["sw"] // 8 * 8 + d["ww"]]
+                for by in range(nbh) for bx in range(nbw)]).reshape(nb, -1, D))
+            del want, got, diff
+
+        def build_all():
+            return [kernels.local_corr_build(
+                f1b, lv, d["pad"], d["sh"], d["sw"], d["wh"], d["ww"], nbh,
+                nbw, dtype) for d, lv in zip(meta["levels"], lvs)]
+
+        f1t = f1b.transpose(1, 2)
+        ms = time_ms(build_all, iters=10)
+        plain_ms = time_ms(lambda: [corr.block_local_corr_plain(
+            f1b, lv, d, nbh, nbw, dtype)
+            for d, lv in zip(meta["levels"], lvs)], iters=3, warmup=1)
+        library_ms = time_ms(lambda: [torch.bmm(p, f1t) for p in patches],
+                             iters=10)
+        bnd, by = bound_ms(n_bytes, n_flops, rate)
+        log(f"kernel C timing ({name}, 4 levels = one flow): kernel {ms:.4f} "
+            f"ms ({n_flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+            f"torch.bmm on gathered windows {library_ms:.4f} ms, bound "
+            f"{bnd:.4f} ms ({by}; {n_flops / 1e9:.1f} GFLOP, "
+            f"{n_bytes / 1e6:.1f} MB)")
+        result[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bnd, bound_by=by, library_ms=library_ms)
+        del patches
+    return result["bfloat16"]        # the WOFT_fast path builds bf16 volumes
+
+
+def _grid_sample_lookup(vol_q, starts, frac, k):
+    """Library yardstick of one level's lookup: ``F.grid_sample`` on the
+    volume re-laid query-major, vol_q (NB*BQ, 1, wh, ww) float32."""
+    n, _, wh, ww = vol_q.shape
+    off = torch.arange(k, device=vol_q.device, dtype=torch.float32)
+    cy = (starts[0].reshape(n, 1, 1) + frac[0].reshape(n, 1, 1)
+          + off[None, :, None])
+    cx = (starts[1].reshape(n, 1, 1) + frac[1].reshape(n, 1, 1)
+          + off[None, None, :])
+    cy, cx = torch.broadcast_tensors(cy, cx)
+    grid = torch.stack([2 * cx / (ww - 1) - 1, 2 * cy / (wh - 1) - 1], -1)
+    return F.grid_sample(vol_q, grid, mode="bilinear", padding_mode="zeros",
+                         align_corners=True)
+
+
+def check_local_lookups(kernels, corr, dev):
+    """Kernels D, E, F against their plain versions on a 720p bf16 volume
+    (built by kernel C), on a smooth field and on one with violating
+    blocks."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    H1, W1, D, k = H_IMG // 8, W_IMG // 8, 256, 9
+    f1 = torch.randn(1, H1, W1, D, device=dev, generator=g)
+    f2 = torch.randn(1, H1, W1, D, device=dev, generator=g)
+    local = corr.build_local_corr(f1, f2, 4, 4, 16, out_dtype=torch.bfloat16)
+    vols = local.volumes
+    nb, bq, L = vols[0].shape[0], vols[0].shape[3], len(vols)
+    od = torch.bfloat16
+    errs = {"D": 0.0, "E": 0.0, "F": 0.0}
+    fields = {}
+    for kind in ("smooth", "violating"):
+        coords = _local_coords(dev, kind)
+        starts, frac = corr._local_level_coords(local, coords)
+        rcs, rel, ok = corr._fine_anchor_starts(local, starts)
+        n_bad = int((~ok).sum().item())
+        n_full = int((~ok[:nb - local.meta["nbw"]]).sum().item())
+        fields[kind] = (starts, frac, rcs, rel, ok)
+        # the last block row's padding queries always violate (see
+        # _local_coords); the full blocks only on the violating field
+        if (n_full > 0) != (kind == "violating"):
+            raise AssertionError(f"{kind} field: {n_full} full blocks "
+                                 f"violate")
+
+        got = kernels.local_lookup_fine_multi(rcs, vols, rel, frac, k, od)
+        want = corr.block_local_lookup_fine_multi_plain(rcs, vols, rel, frac,
+                                                        k, od)
+        torch.cuda.synchronize()
+        e = (got.float() - want.float()).abs().max().item()
+        errs["D"] = max(errs["D"], e)
+        log(f"kernel D [{kind}, {n_bad} of {nb} blocks violate]: max_abs_err "
+            f"{e:.3g} (tol {LOCAL_LOOKUP_TOL})")
+
+        rc0 = rcs[:, 0].contiguous()
+        got_f = kernels.local_lookup_fine(rc0, vols[0], rel[0], frac[0], k, od)
+        want_f = corr.block_local_lookup_fine_plain(rc0, vols[0], rel[0],
+                                                    frac[0], k, od)
+        e = (got_f.float() - want_f.float()).abs().max().item()
+        errs["F"] = max(errs["F"], e)
+        log(f"kernel F [{kind}, level 0]: max_abs_err {e:.3g}")
+        if not torch.equal(got_f, got[:, :k * k]):
+            raise AssertionError("kernel F is not kernel D's level 0")
+
+        got_e = kernels.local_lookup_exact(vols[0], starts[0], frac[0], k)
+        want_e = corr.block_local_lookup_plain(vols[0], starts[0], frac[0], k)
+        e = (got_e - want_e).abs().max().item()
+        errs["E"] = max(errs["E"], e)
+        log(f"kernel E [{kind}, level 0, all blocks]: max_abs_err {e:.3g}")
+        # with the flag: flagged blocks rewritten in D's output, rest kept
+        flag = (~ok).to(torch.uint8)
+        flag[::17] = 1
+        out_k, out_p = got.clone(), want.clone()
+        kernels.local_lookup_exact(vols[0], starts[0], frac[0], k, flag=flag,
+                                   out=out_k, channel=0)
+        corr.block_local_lookup_plain(vols[0], starts[0], frac[0], k,
+                                      flag=flag, out=out_p, channel=0)
+        torch.cuda.synchronize()
+        e = (out_k.float() - out_p.float()).abs().max().item()
+        errs["E"] = max(errs["E"], e)
+        kept = torch.equal(out_k[flag == 0], got[flag == 0]) and torch.equal(
+            out_k[:, k * k:], got[:, k * k:])
+        log(f"kernel E [{kind}, level 0, flag on {int(flag.sum())} blocks]: "
+            f"max_abs_err {e:.3g}, other rows kept {kept}")
+        if not kept:
+            raise AssertionError("kernel E wrote rows it was not flagged for")
+
+        # the guarded lookup equals the exact one everywhere
+        guarded = corr.corr_lookup_local_blocked(local, coords, 4).data
+        exact = corr.corr_lookup_local_blocked(local, coords, 4,
+                                               fine=False).data
+        e = (guarded.float() - exact.to(od).float()).abs().max().item()
+        log(f"guarded lookup (D then E under ~ok) vs exact [{kind}]: "
+            f"max_abs_err {e:.3g}")
+        if e > LOCAL_LOOKUP_TOL:
+            raise AssertionError("the guarded lookup is not exact")
+    for name, e in errs.items():
+        if not e <= LOCAL_LOOKUP_TOL:
+            raise AssertionError(f"kernel {name} disagrees: {e}")
+
+    starts, frac, rcs, rel, ok = fields["smooth"]
+    esz = vols[0].element_size()
+    n_q = nb * bq
+    taps = (k + 1) ** 2                       # each query's own 10 x 10 patch
+    out_bytes = n_q * k * k * 2               # per level, bf16
+    idx_bytes = n_q * 2 * (4 + 4)             # per level: starts and fractions
+    flops = n_q * k * (3 * (k + 1) + 3 * k)   # per level: column and x blends
+    vq = [v.permute(0, 3, 1, 2).reshape(n_q, 1, *v.shape[1:3]).float()
+          for v in vols]
+    lib = _grid_sample_lookup(vq[0], starts[0], frac[0], k).reshape(
+        nb, bq, k * k).permute(0, 2, 1)
+    lib_err = (lib - corr.block_local_lookup_plain(vols[0], starts[0],
+                                                   frac[0], k)).abs().max()
+    log(f"kernels D, E, F: F.grid_sample on level 0 vs plain: max_abs_err "
+        f"{lib_err.item():.3g} (yardstick)")
+    rc0 = rcs[:, 0].contiguous()
+    flag0 = torch.zeros(nb, dtype=torch.uint8, device=dev)
+    scratch = torch.empty((nb, L * k * k, bq), dtype=od, device=dev)
+    rows = {}
+    timings = {
+        "D": (L, rcs.numel() * 4,
+              lambda: kernels.local_lookup_fine_multi(rcs, vols, rel, frac, k,
+                                                      od),
+              lambda: corr.block_local_lookup_fine_multi_plain(
+                  rcs, vols, rel, frac, k, od),
+              lambda: [_grid_sample_lookup(vq[l], starts[l], frac[l], k)
+                       for l in range(L)]),
+        "E": (1, 0,
+              lambda: kernels.local_lookup_exact(vols[0], starts[0], frac[0],
+                                                 k, out=scratch, channel=0),
+              lambda: corr.block_local_lookup_plain(vols[0], starts[0],
+                                                    frac[0], k),
+              lambda: _grid_sample_lookup(vq[0], starts[0], frac[0], k)),
+        "F": (1, rc0.numel() * 4,
+              lambda: kernels.local_lookup_fine(rc0, vols[0], rel[0], frac[0],
+                                                k, od),
+              lambda: corr.block_local_lookup_fine_plain(rc0, vols[0], rel[0],
+                                                         frac[0], k, od),
+              lambda: _grid_sample_lookup(vq[0], starts[0], frac[0], k)),
+    }
+    for name, (n_lv, extra, kern, plain, library) in timings.items():
+        ms = time_ms(kern)
+        plain_ms = time_ms(plain, iters=5, warmup=1)
+        library_ms = time_ms(library, iters=5, warmup=1)
+        bnd, by = bound_ms(n_lv * (n_q * taps * esz + idx_bytes + out_bytes)
+                           + extra, n_lv * flops)
+        log(f"kernel {name} timing ({n_lv} level(s), smooth field): kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, F.grid_sample on the "
+            f"query-major volume {library_ms:.4f} ms, bound {bnd:.4f} ms "
+            f"({by})")
+        rows[name] = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                          bound_ms=bnd, bound_by=by, library_ms=library_ms)
+    ms_idle = time_ms(lambda: kernels.local_lookup_exact(
+        vols[0], starts[0], frac[0], k, flag=flag0, out=scratch, channel=0))
+    log(f"kernel E with no block flagged (the steady path's launch): "
+        f"{ms_idle:.4f} ms")
+    return rows
+
+
+COUNTED = ("warp_perspective_bilinear", "corr_pyramid_lookup",
+           "local_corr_build", "local_lookup_fine_multi",
+           "local_lookup_exact", "local_lookup_fine")
+
+
+def track_720p(kernels, dev, config):
+    """A main path: ``WOFTTracker`` at 1280x720 through ``configs/<config>``
+    (``WOFT.py``: dense pyramid, float32; ``WOFT_fast.py``: block-local
+    volume, bf16). Returns the launch counts of the run and its steady
+    frame times."""
     from woft_tpu_torch.config import load_config
     from woft_tpu_torch.ops.warp import warp_perspective
     from woft_tpu_torch.tracker import TrackerParams, WOFTTracker
@@ -253,19 +549,22 @@ def track_720p(kernels, dev):
         f = warp_perspective(tmpl_dev, H)[0].round().clamp(0, 255)
         frames.append(f.to(torch.uint8).cpu().numpy())
     conf = load_config(os.path.join(ROOT, "woft_tpu_torch", "configs",
-                                    "WOFT.py"))
+                                    config))
+    fast = conf.flow_config.corr_impl == "local"
+    log(f"--- {config}: corr_impl {conf.flow_config.corr_impl or 'dense'}, "
+        f"precision {conf.flow_config.precision}")
     tracker = WOFTTracker(conf)
     torch.cuda.synchronize()
 
-    kernels.warp_perspective_bilinear.launches = 0
-    kernels.corr_pyramid_lookup.launches = 0
+    for name in COUNTED:
+        getattr(kernels, name).launches = 0
     torch.cuda.reset_peak_memory_stats()
     n_flows = 0
     t0 = time.perf_counter()
     tracker.init(template, mask)
     torch.cuda.synchronize()
     log(f"tracker init: {(time.perf_counter() - t0) * 1e3:.1f} ms")
-    hs = []
+    hs, frame_ms = [], []
     for i, f in enumerate(frames):
         t0 = time.perf_counter()
         H, meta = tracker.track(f)
@@ -273,6 +572,7 @@ def track_720p(kernels, dev):
         fell_back = not meta.global_H_success
         n_flows += 1 + fell_back
         hs.append(H)
+        frame_ms.append(ms)
         log(f"frame {i + 1}: {ms:.1f} ms, check passed {meta.global_H_success}"
             f", inlier_frac {float(meta.inlier_frac):.3f}, fallback "
             f"{fell_back}")
@@ -289,21 +589,118 @@ def track_720p(kernels, dev):
         hs.append(H)
         log(f"fallback frame {i + 1}: {ms:.1f} ms, N_lost {meta.N_lost}")
     torch.cuda.synchronize()
-    launches = {"warp": kernels.warp_perspective_bilinear.launches,
-                "corr_lookup": kernels.corr_pyramid_lookup.launches}
+    launches = {name: getattr(kernels, name).launches for name in COUNTED}
     n_frames = len(frames) + 3
-    log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-        f" GiB; launches {launches} over {n_frames} frames and {n_flows} "
-        f"flows")
+    steady = frame_ms[1:]
+    log(f"{config}: first frame {frame_ms[0]:.1f} ms, steady frames "
+        f"{min(steady):.1f}-{max(steady):.1f} ms (mean "
+        f"{sum(steady) / len(steady):.1f}); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{launches} over {n_frames} frames and {n_flows} flows")
     if not all(np.isfinite(h).all() for h in hs):
         raise AssertionError("non-finite homography")
-    if launches["warp"] < n_frames:
-        raise AssertionError(f"kernel A launched {launches['warp']} times "
-                             f"for {n_frames} frames")
-    if launches["corr_lookup"] < 13 * n_flows:
-        raise AssertionError(f"kernel B launched {launches['corr_lookup']} "
-                             f"times for {n_flows} flows")
-    return launches
+    # per flow: 12 iterations and one more lookup for the weight head; the
+    # block-local path builds 4 levels, and kernel E follows each launch of
+    # D once a level (the guard)
+    want = {"warp_perspective_bilinear": n_frames}
+    if fast:
+        want.update(local_corr_build=4 * n_flows,
+                    local_lookup_fine_multi=13 * n_flows,
+                    local_lookup_exact=4 * 13 * n_flows)
+    else:
+        want.update(corr_pyramid_lookup=13 * n_flows)
+    for name, n in want.items():
+        if launches[name] < n:
+            raise AssertionError(f"{config}: {name} launched "
+                                 f"{launches[name]} times, expected at least "
+                                 f"{n} ({n_frames} frames, {n_flows} flows)")
+    off_path = ("corr_pyramid_lookup",) if fast else (
+        "local_corr_build", "local_lookup_fine_multi", "local_lookup_exact")
+    if any(launches[name] for name in off_path + ("local_lookup_fine",)):
+        raise AssertionError(f"{config}: a kernel off this path was launched")
+    return launches, steady
+
+
+def check_guard_on_a_path(kernels, corr, dev):
+    """Kernel E doing work on a path: a 720p block-local forward whose
+    ``flow_init`` (rotation-like, with jitter on some blocks) makes blocks
+    violate their fine windows. The guarded lookup at those coordinates must
+    equal the CPU path's (plain versions, ``check=True``) on the same
+    volume, and differ from the unguarded fine lookup."""
+    from woft_tpu_torch.models.raft import (RaftConfig, init_raft_params,
+                                            weighted_raft_forward)
+
+    cfg = RaftConfig(corr_impl="local", precision="bf16")
+    model = init_raft_params(cfg, seed=0, device=dev)
+    img1 = torch.tensor(textured_frame(H_IMG, W_IMG, seed=8),
+                        dtype=torch.float32, device=dev)[None]
+    img2 = torch.roll(img1, shifts=(3, -5), dims=(1, 2))
+    coords = _local_coords(dev, "violating")
+    flow_init = coords - _grid_720p(dev)
+
+    for name in COUNTED:
+        getattr(kernels, name).launches = 0
+    out = weighted_raft_forward(model, cfg, img1, img2, flow_init=flow_init)
+    torch.cuda.synchronize()
+    counts = {name: getattr(kernels, name).launches for name in COUNTED}
+    if not torch.isfinite(out["flow_up"]).all():
+        raise AssertionError("non-finite flow on the flow_init path")
+    if counts["local_lookup_exact"] < 4 * 13:
+        raise AssertionError(f"kernel E launched "
+                             f"{counts['local_lookup_exact']} times")
+
+    # the first iteration's lookup, rebuilt from the same features
+    from woft_tpu_torch.models.raft import encode_template
+    f1 = encode_template(model, cfg, img1)[0]
+    f2 = encode_template(model, cfg, img2)[0]
+    local = corr.build_local_corr(f1.contiguous(), f2.contiguous(), 4, 4, 16,
+                                  out_dtype=torch.bfloat16)
+    starts, _ = corr._local_level_coords(local, coords)
+    n_bad = int((~corr._fine_anchor_starts(local, starts)[2]).sum().item())
+    guarded = corr.corr_lookup_local_blocked(local, coords, 4).data
+    unguarded = corr.corr_lookup_local_blocked(local, coords, 4,
+                                               check=False).data
+    cpu = corr.LocalCorrVolumes([v.cpu() for v in local.volumes], local.meta)
+    want = corr.corr_lookup_local_blocked(cpu, coords.cpu(), 4).data
+    torch.cuda.synchronize()
+    err = (guarded.float().cpu() - want.float()).abs().max().item()
+    moved = (guarded.float() - unguarded.float()).abs().max().item()
+    log(f"flow_init path: {n_bad} of {guarded.shape[0]} blocks violate at the "
+        f"first lookup; launches {counts}; guarded lookup vs the CPU path "
+        f"(check=True) max_abs_err {err:.3g} (tol {LOCAL_LOOKUP_TOL}); "
+        f"kernel E moved the violating blocks' rows by up to {moved:.3g}")
+    if n_bad <= local.meta["nbw"] or moved == 0.0:
+        raise AssertionError("no full block violated on the flow_init path")
+    if err > LOCAL_LOOKUP_TOL:
+        raise AssertionError("guarded lookup disagrees with the CPU path")
+
+
+def check_local_equals_dense_720p(dev):
+    """The block-local path against the dense path at 1280x720, float32,
+    full width, on the card: while the flow stays within the margin the two
+    read the same correlation values, so the flows agree to the tolerance of
+    two float32 summation orders over 12 iterations."""
+    from woft_tpu_torch.models.raft import (RaftConfig, init_raft_params,
+                                            weighted_raft_forward)
+
+    img1 = torch.tensor(textured_frame(H_IMG, W_IMG, seed=9),
+                        dtype=torch.float32, device=dev)[None]
+    img2 = torch.roll(img1, shifts=(3, -5), dims=(1, 2))
+    model = init_raft_params(RaftConfig(), seed=0, device=dev)
+    dense = weighted_raft_forward(model, RaftConfig(), img1, img2)
+    local = weighted_raft_forward(model, RaftConfig(corr_impl="local"), img1,
+                                  img2)
+    torch.cuda.synchronize()
+    reach = dense["flow"].abs().max().item()          # 1/8-resolution cells
+    ferr = (dense["flow_up"] - local["flow_up"]).abs().max().item()
+    werr = (dense["weights_up"] - local["weights_up"]).abs().max().item()
+    log(f"720p float32 forward, block-local vs dense: flow {ferr:.3g} px "
+        f"(tol {FLOW_TOL_PX}), weights {werr:.3g}; largest flow {reach:.3g} "
+        f"cells of a margin of 16")
+    if reach >= 16:
+        raise AssertionError("the test flow left the block-local margin")
+    if not ferr <= FLOW_TOL_PX:
+        raise AssertionError("block-local and dense forwards disagree")
 
 
 def check_small_references(dev):
@@ -347,22 +744,31 @@ def check_small_references(dev):
     if not (err < CORNER_TOL_PX and meta["global_H_success"]):
         raise AssertionError("oracle-flow tracker missed the homography")
 
-    cfg = RaftConfig(iters=12)
     img1 = torch.tensor(rng.uniform(0, 255, (1, 64, 96, 3)),
                         dtype=torch.float32)
     img2 = torch.roll(img1, shifts=(2, 3), dims=(1, 2))
-    outs = {}
-    for d in ("cpu", dev):
-        model = init_raft_params(cfg, seed=0, device=d)
-        o = weighted_raft_forward(model, cfg, img1.to(d), img2.to(d))
-        outs[str(d)] = {k: o[k].cpu() for k in ("flow_up", "weights_up")}
-    ferr = (outs["cpu"]["flow_up"] - outs[str(dev)]["flow_up"]).abs().max()
-    werr = (outs["cpu"]["weights_up"]
-            - outs[str(dev)]["weights_up"]).abs().max()
-    log(f"RAFT forward 64x96, 12 iters, card vs CPU: flow {ferr.item():.3g} "
-        f"px (tol {FLOW_TOL_PX}), weights {werr.item():.3g}")
-    if not ferr.item() <= FLOW_TOL_PX:
-        raise AssertionError("RAFT forward on the card disagrees with CPU")
+    for what, cfg, tol in (
+            ("dense, float32", RaftConfig(iters=12), FLOW_TOL_PX),
+            ("block-local, float32",
+             RaftConfig(iters=12, corr_impl="local", local_margin=8),
+             FLOW_TOL_PX),
+            ("block-local, bf16",
+             RaftConfig(iters=12, corr_impl="local", local_margin=8,
+                        precision="bf16"), BF16_FLOW_TOL_PX)):
+        outs = {}
+        for d in ("cpu", dev):
+            model = init_raft_params(cfg, seed=0, device=d)
+            o = weighted_raft_forward(model, cfg, img1.to(d), img2.to(d))
+            outs[str(d)] = {k: o[k].cpu() for k in ("flow_up", "weights_up")}
+        ferr = (outs["cpu"]["flow_up"]
+                - outs[str(dev)]["flow_up"]).abs().max().item()
+        werr = (outs["cpu"]["weights_up"]
+                - outs[str(dev)]["weights_up"]).abs().max().item()
+        log(f"RAFT forward 64x96, 12 iters ({what}), card vs CPU: flow "
+            f"{ferr:.3g} px (tol {tol}), weights {werr:.3g}")
+        if not ferr <= tol:
+            raise AssertionError(f"RAFT forward ({what}) on the card "
+                                 f"disagrees with CPU")
 
 
 def main():
@@ -400,18 +806,49 @@ def main():
                          dtype=torch.float32, device=dev)[None]
     a = check_warp(kernels, warp, frame, dev)
     b = check_lookup(kernels, corr, dev)
-    launches = track_720p(kernels, dev)
+    c = check_local_corr(kernels, corr, dev)
+    lookups = check_local_lookups(kernels, corr, dev)
+    torch.cuda.empty_cache()
+    canon, canon_ms = track_720p(kernels, dev, "WOFT.py")
+    torch.cuda.empty_cache()
+    fast, fast_ms = track_720p(kernels, dev, "WOFT_fast.py")
+    log(f"steady 720p frame: WOFT.py {sum(canon_ms) / len(canon_ms):.1f} ms, "
+        f"WOFT_fast.py {sum(fast_ms) / len(fast_ms):.1f} ms (host clock, "
+        f"{len(fast_ms)} frames each)")
+    check_guard_on_a_path(kernels, corr, dev)
+    check_local_equals_dense_720p(dev)
     check_small_references(dev)
 
+    # launches: A and B on the WOFT.py path, C, D, E on the WOFT_fast.py
+    # path (which launches A too); F has no caller on a tracker path, as in
+    # the JAX package, and is launched in the kernel phase only
+    local_lookup = "woft_tpu_torch/csrc/local_lookup.cu"
     rows = [
         dict(name="warp_perspective_bilinear", route="cuda",
              source="woft_tpu_torch/csrc/warp.cu",
              replaces="woft_tpu/ops/pallas/warp.py:216",
-             launches=launches["warp"], **a),
+             launches=canon["warp_perspective_bilinear"], **a),
         dict(name="corr_pyramid_lookup", route="cuda",
              source="woft_tpu_torch/csrc/corr_lookup.cu",
              replaces="woft_tpu/ops/pallas/corr_lookup.py:142",
-             launches=launches["corr_lookup"], **b),
+             launches=canon["corr_pyramid_lookup"], **b),
+        dict(name="local_corr_build", route="cuda",
+             source="woft_tpu_torch/csrc/local_corr.cu",
+             replaces="woft_tpu/ops/pallas/local_corr.py:108",
+             launches=fast["local_corr_build"], **c),
+        dict(name="local_lookup_fine_multi", route="cuda",
+             source=local_lookup,
+             replaces="woft_tpu/ops/pallas/local_lookup.py:338",
+             launches=fast["local_lookup_fine_multi"], **lookups["D"]),
+        dict(name="local_lookup_exact", route="cuda", source=local_lookup,
+             replaces="woft_tpu/ops/pallas/local_lookup.py:393",
+             launches=fast["local_lookup_exact"], **lookups["E"]),
+        dict(name="local_lookup_fine", route="cuda", source=local_lookup,
+             replaces="woft_tpu/ops/pallas/local_lookup.py:143",
+             launches=fast["local_lookup_fine"],
+             note="no caller on a tracker path, as in the JAX package; "
+                  "launched and checked in the kernel phase only",
+             **lookups["F"]),
     ]
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -39,10 +39,12 @@ def test_port_imports_no_jax_woft_tpu_or_cv2(path):
     assert not bad, f"{path}: imports {bad}"
 
 
+@pytest.mark.parametrize("config", ["WOFT.py", "WOFT_fast.py"])
 @pytest.mark.parametrize("entry", ["tracker", "flow"])
-def test_entry_points_need_a_card_unless_asked_for_cpu(entry, monkeypatch):
+def test_entry_points_need_a_card_unless_asked_for_cpu(entry, config,
+                                                       monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    conf = load_config(ROOT / "woft_tpu_torch" / "configs" / "WOFT.py")
+    conf = load_config(ROOT / "woft_tpu_torch" / "configs" / config)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         if entry == "tracker":
             WOFTTracker(conf)
@@ -51,7 +53,12 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(entry, monkeypatch):
 
 
 _WRAPPERS = [kernels.warp_perspective_bilinear, kernels.corr_pyramid_lookup,
-             warp.warp_perspective_fast, corr.corr_lookup]
+             kernels.local_corr_build, kernels.local_lookup_fine_multi,
+             kernels.local_lookup_fine, kernels.local_lookup_exact,
+             warp.warp_perspective_fast, corr.corr_lookup,
+             corr.block_local_corr, corr.block_local_lookup_fine_multi,
+             corr.block_local_lookup_fine, corr.block_local_lookup,
+             corr.corr_lookup_local_blocked]
 
 
 @pytest.mark.parametrize("fn", _WRAPPERS, ids=lambda f: f.__name__)
@@ -67,15 +74,50 @@ def test_launch_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         kernels.corr_pyramid_lookup([torch.zeros(4, 2, 2)],
                                     torch.zeros(4, 2), 4)
+    vol = torch.zeros(1, 12, 12, 128)
+    starts = torch.zeros(2, 1, 128, dtype=torch.int32)
+    frac = torch.zeros(2, 1, 128)
+    rcs = torch.zeros(1, 1, 2, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        kernels.local_corr_build(torch.zeros(1, 128, 32),
+                                 torch.zeros(4, 4, 32), 13, 8, 16, 34, 48, 1,
+                                 1, torch.float32)
+    with pytest.raises(ValueError):
+        kernels.local_lookup_fine_multi(rcs, [vol], starts[None], frac[None],
+                                        9)
+    with pytest.raises(ValueError):
+        kernels.local_lookup_fine(rcs[:, 0], vol, starts, frac, 9)
+    with pytest.raises(ValueError):
+        kernels.local_lookup_exact(vol, starts, frac, 9)
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
-    before = (kernels.warp_perspective_bilinear.launches,
-              kernels.corr_pyramid_lookup.launches)
+    counted = (kernels.warp_perspective_bilinear, kernels.corr_pyramid_lookup,
+               kernels.local_corr_build, kernels.local_lookup_fine_multi,
+               kernels.local_lookup_fine, kernels.local_lookup_exact)
+    before = [fn.launches for fn in counted]
     warp.warp_perspective_fast(torch.rand(1, 16, 16, 3), torch.eye(3))
     corr.corr_lookup([torch.rand(4, 4, 4)], torch.rand(1, 2, 2, 2), 1)
-    assert before == (kernels.warp_perspective_bilinear.launches,
-                      kernels.corr_pyramid_lookup.launches)
+    local = corr.build_local_corr(torch.rand(1, 8, 16, 32),
+                                  torch.rand(1, 8, 16, 32), 4, 2, 8)
+    coords = torch.rand(1, 8, 16, 2) * 8
+    corr.corr_lookup_local_blocked(local, coords, 4)
+    corr.corr_lookup_local_blocked(local, coords, 4, fine=False)
+    starts, frac = corr._local_level_coords(local, coords)
+    rcs, rel, _ = corr._fine_anchor_starts(local, starts)
+    corr.block_local_lookup_fine(rcs[:, 0].contiguous(), local.volumes[0],
+                                 rel[0], frac[0], 9)
+    assert before == [fn.launches for fn in counted]
+
+
+def test_every_kernel_source_has_its_entries():
+    """Each ``csrc`` source is listed for the build with its C entries."""
+    assert set(kernels.SOURCES) == set(kernels._ENTRIES) == {
+        p.stem for p in kernels.CSRC.glob("*.cu")}
+    for name, entries in kernels._ENTRIES.items():
+        src = (kernels.CSRC / f"{name}.cu").read_text()
+        for symbol in entries:
+            assert f'extern "C" int {symbol}(' in src
 
 
 def test_kernel_sources_are_named_for_sm90a():

@@ -5,9 +5,12 @@ file imports neither JAX nor OpenCV, so it runs on the card's machine:
 
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 
-Tolerances: kernel and plain version do the same float32 operations in the
-same order (the kernels are built without FMA contraction), so they agree
-to 1e-4 on [0, 255] images and 1e-5 on correlation values; 0 is expected.
+Tolerances: kernels A, B, D, E, F and their plain versions do the same
+float32 operations in the same order (the kernels are built without FMA
+contraction), so they agree to 1e-4 on [0, 255] images and 1e-5 (1e-6 for
+the block-local lookups) on correlation values; 0 is expected. Kernel C
+sums its products in another order than the plain einsum; its tests state
+the bound.
 """
 
 import math
@@ -115,3 +118,158 @@ def test_lookup_wrapper_checks_inputs(dev, pyramid):
         kernels.corr_pyramid_lookup(pyr, coords, 4,
                                     rows=torch.zeros(23 * 37, device=dev,
                                                      dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# block-local kernels C, D, E, F
+# ---------------------------------------------------------------------------
+
+def _features(dev, H1, W1, D, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(1, H1, W1, D, device=dev, generator=g),
+            torch.randn(1, H1, W1, D, device=dev, generator=g))
+
+
+def _grid(dev, H1, W1):
+    ys, xs = torch.meshgrid(torch.arange(H1, device=dev, dtype=torch.float32),
+                            torch.arange(W1, device=dev, dtype=torch.float32),
+                            indexing="ij")
+    return torch.stack([xs, ys], -1)[None]
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2.0 ** -7)],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("hw", [(16, 32), (21, 50)], ids=["16x32", "21x50"])
+def test_local_corr_kernel_matches_plain(dev, dtype, rtol, hw):
+    """Kernel C sums the D products in another order than the plain
+    einsum: float32 agrees to accumulation error; bf16 volumes to one bf16
+    ulp (2^-8 relative; 2^-7 bounds it for any mantissa)."""
+    f1, f2 = _features(dev, *hw, 64, seed=2)
+    meta = corr._local_layout(*hw, 4, 3, 8)
+    nbh, nbw = meta["nbh"], meta["nbw"]
+    f1b = corr._to_blocked(f1.reshape(-1, 64), meta).reshape(
+        nbh * nbw, 128, 64).to(dtype).contiguous()
+    lv = f2
+    for d in meta["levels"]:
+        n0 = kernels.local_corr_build.launches
+        f2l = lv[0].to(dtype).contiguous()
+        got = corr.block_local_corr(f1b, f2l, d, nbh, nbw, dtype)
+        want = corr.block_local_corr_plain(f1b, f2l, d, nbh, nbw, dtype)
+        torch.cuda.synchronize()
+        assert kernels.local_corr_build.launches == n0 + 1
+        assert got.shape == want.shape and got.dtype == dtype
+        got, want = got.float(), want.float()
+        assert ((got - want).abs() <= 2e-5 + rtol * want.abs()).all()
+        lv = warp.avg_pool2d(lv)
+
+
+@pytest.fixture(scope="module", params=[torch.float32, torch.bfloat16],
+                ids=["fp32", "bf16"])
+def local_volume(dev, request):
+    f1, f2 = _features(dev, 40, 64, 64, seed=3)
+    out_dtype = None if request.param == torch.float32 else request.param
+    return corr.build_local_corr(f1, f2, 4, 3, 8, out_dtype=out_dtype)
+
+
+def _coords(dev, kind):
+    grid = _grid(dev, 40, 64)
+    g = torch.Generator(device=dev).manual_seed(4)
+    if kind == "smooth":
+        xs, ys = grid[..., 0], grid[..., 1]
+        res = torch.stack([0.15 * ys - 0.1 * xs + 2.3,
+                           0.12 * xs + 0.05 * ys - 3.1], -1)
+    else:          # independent jitter: blocks violate their fine windows
+        res = (torch.rand(grid.shape, device=dev, generator=g) - 0.5) * 30
+    coords = grid + res
+    coords[0, :8] += 400.0                   # a saturated block row
+    return coords.contiguous()
+
+
+@pytest.mark.parametrize("kind", ["smooth", "jitter"])
+def test_local_lookup_kernels_match_plain(dev, local_volume, kind):
+    """Kernels D, E, F do the plain versions' float32 operations in the
+    same order (no FMA contraction): 0 expected, 1e-6 allowed."""
+    local = local_volume
+    coords = _coords(dev, kind)
+    k = 9
+    vols = local.volumes
+    od = vols[0].dtype
+    starts, frac = corr._local_level_coords(local, coords)
+    rcs, rel, ok = corr._fine_anchor_starts(local, starts)
+    assert bool(ok.all()) == (kind == "smooth")
+
+    n0 = kernels.local_lookup_fine_multi.launches
+    got = corr.block_local_lookup_fine_multi(rcs, vols, rel, frac, k, od)
+    want = corr.block_local_lookup_fine_multi_plain(rcs, vols, rel, frac, k,
+                                                    od)
+    torch.cuda.synchronize()
+    assert kernels.local_lookup_fine_multi.launches == n0 + 1
+    assert (got.float() - want.float()).abs().max().item() <= 1e-6
+
+    n0 = kernels.local_lookup_fine.launches
+    rc0 = rcs[:, 1].contiguous()
+    got_f = corr.block_local_lookup_fine(rc0, vols[1], rel[1], frac[1], k)
+    want_f = corr.block_local_lookup_fine_plain(rc0, vols[1], rel[1],
+                                                frac[1], k)
+    assert kernels.local_lookup_fine.launches == n0 + 1
+    assert (got_f - want_f).abs().max().item() <= 1e-6
+
+    n0 = kernels.local_lookup_exact.launches
+    got_e = corr.block_local_lookup(vols[0], starts[0], frac[0], k)
+    want_e = corr.block_local_lookup_plain(vols[0], starts[0], frac[0], k)
+    assert kernels.local_lookup_exact.launches == n0 + 1
+    assert got_e.dtype == torch.float32
+    assert (got_e - want_e).abs().max().item() <= 1e-6
+
+    # the guard: flagged blocks are rewritten in place, the rest kept
+    flag = (~ok).to(torch.uint8)
+    flag[3] = 1
+    out_k, out_p = got.clone(), want.clone()
+    corr.block_local_lookup(vols[0], starts[0], frac[0], k, flag=flag,
+                            out=out_k, channel=0)
+    corr.block_local_lookup_plain(vols[0], starts[0], frac[0], k, flag=flag,
+                                  out=out_p, channel=0)
+    torch.cuda.synchronize()
+    assert (out_k.float() - out_p.float()).abs().max().item() <= 1e-6
+    keep = flag == 0
+    assert torch.equal(out_k[keep], got[keep])
+    assert torch.equal(out_k[:, 81:], got[:, 81:])
+
+
+def test_local_blocked_lookup_on_card_matches_cpu(dev, local_volume):
+    """The whole guarded lookup on the card equals the CPU path on the same
+    volume (the kernels equal their plain versions, so only the volume's
+    construction could differ; the volume is shared here)."""
+    local = local_volume
+    cpu = corr.LocalCorrVolumes([v.cpu() for v in local.volumes], local.meta)
+    for kind in ("smooth", "jitter"):
+        coords = _coords(dev, kind)
+        got = corr.corr_lookup_local_blocked(local, coords, 4)
+        want = corr.corr_lookup_local_blocked(cpu, coords.cpu(), 4)
+        exact = corr.corr_lookup_local_blocked(local, coords, 4, fine=False)
+        assert (got.data.float().cpu() - want.data.float()).abs().max() <= 1e-6
+        # guarded fine lookup == exact lookup (up to the output's rounding)
+        assert (got.data.float()
+                - exact.data.to(got.data.dtype).float()).abs().max() <= 1e-6
+
+
+def test_local_wrappers_check_inputs(dev, local_volume):
+    local = local_volume
+    coords = _coords(dev, "smooth")
+    starts, frac = corr._local_level_coords(local, coords)
+    vol = local.volumes[0]
+    with pytest.raises(TypeError):
+        kernels.local_lookup_exact(vol, starts[0].long(), frac[0], 9)
+    with pytest.raises(ValueError):
+        kernels.local_lookup_exact(vol, starts[0, :, :3].contiguous(),
+                                   frac[0], 9)
+    with pytest.raises(ValueError):          # a flag needs an output
+        kernels.local_lookup_exact(vol, starts[0], frac[0], 9,
+                                   flag=torch.zeros(vol.shape[0],
+                                                    dtype=torch.uint8,
+                                                    device=dev))
+    with pytest.raises(ValueError):
+        kernels.local_corr_build(torch.zeros(2, 64, 64, device=dev),
+                                 torch.zeros(8, 8, 64, device=dev), 13, 8, 16,
+                                 34, 48, 1, 2, torch.float32)

@@ -3,7 +3,10 @@ set of seeded ``init_raft_params`` weights carried across by the bridge.
 
 Tolerances: flow 1e-3 px (float32 convolutions in two libraries over a few
 GRU iterations); weight logits and sigmoided weights 1e-4; template
-features 1e-4 relative; the bridge round trip exact.
+features 1e-4 relative; the bridge round trip exact. The block-local
+correlation (``corr_impl='local'``) is held to the same float32 tolerances
+against the JAX package's Pallas path in interpret mode. bf16 mode has its
+own bound, stated at its test.
 """
 
 from pathlib import Path
@@ -13,9 +16,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from test_corr_impls import _interpret_pallas
 
 from woft_tpu.models import raft as jraft
 from woft_tpu.models.convert import params_to_torch_statedict
+from woft_tpu.ops.pallas import local_corr as plc
+from woft_tpu.ops.pallas import local_lookup as pll
 from woft_tpu_torch.models import raft as traft
 from woft_tpu_torch.models.convert import (params_from_jax_numpy,
                                            params_to_jax_numpy)
@@ -24,6 +30,28 @@ ROOT = Path(__file__).resolve().parent.parent
 ITERS = 3
 FLOW_TOL = 1e-3
 W_TOL = 1e-4
+# bf16 mode: both packages round at the same places, but their convolutions
+# sum in different orders before each rounding, so the two bf16 results are
+# two independent perturbations of the float32 result. Each lies about
+# d = |JAX bf16 - JAX float32| from it, so they lie within about 2 d of each
+# other; 3 d leaves headroom for the few values that round the other way.
+BF16_MULTIPLE = 3.0
+
+
+def interpret_pallas():
+    """The block-local Pallas kernels in interpret mode (CPU)."""
+    return _interpret_pallas(plc, pll)
+
+
+def local_cfgs(precision="highest"):
+    """The two packages' configs of the block-local path (margin 8 for the
+    small test frames)."""
+    jcfg = jraft.RaftConfig(variant="weighted", iters=ITERS,
+                            corr_impl="local", local_margin=8,
+                            local_pallas=True, precision=precision)
+    tcfg = traft.RaftConfig(iters=ITERS, corr_impl="local", local_margin=8,
+                            precision=precision)
+    return jcfg, tcfg
 
 
 @pytest.fixture(scope="module")
@@ -140,6 +168,151 @@ def test_sparse_weight_head(models, frames):
         flow_init=torch.from_numpy(flow_init), template_feats=tf)
     np.testing.assert_allclose(
         got, dense["weights"].reshape(-1)[cells].numpy(), atol=1e-6, rtol=0)
+
+
+def jax_local_forward(models, frames, precision):
+    """The JAX package's block-local forward (Pallas path, interpret mode)
+    as float32 numpy arrays."""
+    jp = models[1]
+    img1, img2, flow_init = frames
+    jcfg, _ = local_cfgs(precision)
+    with interpret_pallas():
+        oj = jraft.weighted_raft_forward(jp, jcfg, jnp.asarray(img1),
+                                         jnp.asarray(img2),
+                                         flow_init=jnp.asarray(flow_init))
+        return {k: np.asarray(v, np.float32) for k, v in oj.items()}
+
+
+@pytest.fixture(scope="module")
+def jax_local_highest(models, frames):
+    return jax_local_forward(models, frames, "highest")
+
+
+def test_local_dense_forward(models, frames, jax_local_highest):
+    """``corr_impl='local'`` in float32: build (C), guarded blocked lookups
+    (D, E), blocked convc1, the dense head on ``to_natural()``."""
+    model = models[4]
+    img1, img2, flow_init = frames
+    _, tcfg = local_cfgs()
+    oj = jax_local_highest
+    ot = traft.weighted_raft_forward(model, tcfg, torch.from_numpy(img1),
+                                     torch.from_numpy(img2),
+                                     flow_init=torch.from_numpy(flow_init))
+    for key, tol in (("flow", FLOW_TOL), ("flow_up", FLOW_TOL),
+                     ("weights", W_TOL), ("weights_up", W_TOL),
+                     ("mean_response", 1e-4)):
+        assert ot[key].shape == oj[key].shape, key
+        np.testing.assert_allclose(ot[key].numpy(), oj[key], atol=tol,
+                                   rtol=0, err_msg=key)
+    assert np.abs(oj["flow"]).max() > 1.0
+    # within the margin the local path is the dense path
+    dense = traft.weighted_raft_forward(
+        model, models[3], torch.from_numpy(img1), torch.from_numpy(img2),
+        flow_init=torch.from_numpy(flow_init))
+    np.testing.assert_allclose(ot["flow_up"].numpy(),
+                               dense["flow_up"].numpy(), atol=FLOW_TOL,
+                               rtol=0)
+
+
+def test_local_sparse_weight_head(models, frames):
+    """``corr_impl='local'`` with template features and the sparse head:
+    one more dense lookup at the final coordinates, then a row select."""
+    _, jp, _, _, model = models
+    img1, img2, flow_init = frames
+    jcfg, tcfg = local_cfgs()
+    cells = np.array([0, 11, 95, 40, 40, 57, 3], np.int64)
+    with interpret_pallas():
+        jf = jraft.encode_template(jp, jcfg, jnp.asarray(img1))
+        oj = jraft.weighted_raft_forward(jp, jcfg, None, jnp.asarray(img2),
+                                         flow_init=jnp.asarray(flow_init),
+                                         template_feats=jf,
+                                         sparse_weight_head=True)
+        want = np.asarray(oj["weight_head_at"](jnp.asarray(cells, jnp.int32)))
+    tf = traft.encode_template(model, tcfg, torch.from_numpy(img1))
+    ot = traft.weighted_raft_forward(model, tcfg, None,
+                                     torch.from_numpy(img2),
+                                     flow_init=torch.from_numpy(flow_init),
+                                     template_feats=tf,
+                                     sparse_weight_head=True)
+    np.testing.assert_allclose(ot["flow_up"].numpy(),
+                               np.asarray(oj["flow_up"]), atol=FLOW_TOL,
+                               rtol=0)
+    np.testing.assert_allclose(ot["up_mask"].numpy(),
+                               np.asarray(oj["up_mask"]), atol=W_TOL, rtol=0)
+    got = ot["weight_head_at"](torch.from_numpy(cells)).numpy()
+    np.testing.assert_allclose(got, want, atol=W_TOL, rtol=0)
+    dense = traft.weighted_raft_forward(
+        model, tcfg, None, torch.from_numpy(img2),
+        flow_init=torch.from_numpy(flow_init), template_feats=tf)
+    np.testing.assert_allclose(
+        got, dense["weights"].reshape(-1)[cells].numpy(), atol=1e-6, rtol=0)
+
+
+def test_local_falls_back_to_dense_for_a_batch(models, frames):
+    """B > 1 with ``corr_impl='local'`` takes the dense pyramid."""
+    _, _, _, tcfg0, model = models
+    img1, img2, _ = frames
+    _, tcfg = local_cfgs()
+    pair = [torch.from_numpy(np.concatenate([a, a[:, ::-1]]))
+            for a in (img1, img2)]
+    got = traft.weighted_raft_forward(model, tcfg, *pair)
+    want = traft.weighted_raft_forward(model, tcfg0, *pair)
+    np.testing.assert_array_equal(got["flow_up"].numpy(),
+                                  want["flow_up"].numpy())
+
+
+def test_bf16_mode_within_bound_of_jax(models, frames, jax_local_highest):
+    """``precision='bf16'`` on the block-local path (the ``WOFT_fast``
+    flow): the port's result lies within BF16_MULTIPLE times the distance
+    between the JAX package's own bf16 and float32 results of the JAX bf16
+    result. The parameters stay float32 (casts happen at use)."""
+    _, _, tree, _, model = models
+    img1, img2, flow_init = frames
+    outs = {"highest": jax_local_highest,
+            "bf16": jax_local_forward(models, frames, "bf16")}
+    _, tcfg = local_cfgs("bf16")
+    ot = traft.weighted_raft_forward(model, tcfg, torch.from_numpy(img1),
+                                     torch.from_numpy(img2),
+                                     flow_init=torch.from_numpy(flow_init))
+    for key in ("flow", "flow_up", "weights", "weights_up"):
+        assert ot[key].dtype == torch.float32, key
+        d = np.abs(outs["bf16"][key] - outs["highest"][key]).max()
+        assert d > 0, key
+        err = np.abs(ot[key].numpy() - outs["bf16"][key]).max()
+        assert err <= BF16_MULTIPLE * d, (key, err, d)
+    # mean_response is float32 arithmetic on bf16-mode features
+    d = np.abs(outs["bf16"]["mean_response"]
+               - outs["highest"]["mean_response"]).max()
+    err = np.abs(ot["mean_response"].numpy()
+                 - outs["bf16"]["mean_response"]).max()
+    assert err <= BF16_MULTIPLE * d, (err, d)
+    # the same float32 parameters serve both modes
+    back = params_to_jax_numpy(model.state_dict())
+    jax.tree_util.tree_map(np.testing.assert_array_equal, back, tree)
+    assert all(v.dtype == torch.float32 for k, v in model.state_dict().items()
+               if not k.endswith("num_batches_tracked"))
+
+
+def test_bf16_mode_dense_corr_runs(models, frames):
+    """``precision='bf16'`` with the dense pyramid (kept float32): finite,
+    and close to the float32 flow."""
+    _, _, _, tcfg0, model = models
+    img1, img2, flow_init = frames
+    tcfg = traft.RaftConfig(iters=ITERS, precision="bf16")
+    args = (torch.from_numpy(img1), torch.from_numpy(img2))
+    got = traft.weighted_raft_forward(model, tcfg, *args,
+                                      flow_init=torch.from_numpy(flow_init))
+    want = traft.weighted_raft_forward(model, tcfg0, *args,
+                                       flow_init=torch.from_numpy(flow_init))
+    assert torch.isfinite(got["flow_up"]).all()
+    assert (got["flow_up"] - want["flow_up"]).abs().max() < 0.05
+
+
+def test_raft_config_rejects_unknown_modes():
+    with pytest.raises(ValueError):
+        traft.RaftConfig(corr_impl="onehot")
+    with pytest.raises(ValueError):
+        traft.RaftConfig(precision="default")
 
 
 def test_convex_upsample_matches():

@@ -7,7 +7,9 @@ controlled flow. Tolerance: projected template corners within 0.05 px of
 the JAX tracker's and of the truth (float32 QR fits of 500 points in two
 libraries). One test runs the real WeightedRAFT (sparse head on the main
 flow, dense head on the fallback flow) in both packages with the same
-weights.
+weights, and one walks both packages' ``WOFT_fast`` trackers (block-local
+correlation; the JAX side's Pallas kernels in interpret mode) over a
+homography walk, in float32 and in bf16.
 """
 
 from pathlib import Path
@@ -236,6 +238,72 @@ def test_weighted_raft_step_matches_jax():
     assert corner_err(mt["H_global_cur2init"].numpy(),
                       mj["H_global_cur2init"]) < CORNER_TOL
     assert corner_err(Ht.numpy(), Hj) < CORNER_TOL
+
+
+# bf16 mode: the two packages' flows differ by bf16 rounding noise (about
+# 2e-3 px at this size, see tests/test_torch_raft.py), and the 500-point fit
+# passes it on at that size: 2.6e-3 px measured at the template corners
+# (6e-5 px in float32). The float32 tolerance holds with 20x headroom.
+BF16_CORNER_TOL = 0.05
+
+
+@pytest.mark.parametrize("precision,tol", [("highest", CORNER_TOL),
+                                           ("bf16", BF16_CORNER_TOL)])
+def test_woft_fast_walk_matches_jax(precision, tol):
+    """The slice as a whole: ``WOFTTracker`` under the port's
+    ``configs/WOFT_fast.py`` against the JAX step under
+    ``woft_tpu/configs/WOFT_fast.py`` (Pallas path, interpret mode), the
+    same seeded weights, per-frame H over a homography walk."""
+    from test_corr_impls import _interpret_pallas
+    from woft_tpu.config import load_config as jload_config
+    from woft_tpu.ops.pallas import local_corr as plc
+    from woft_tpu.ops.pallas import local_lookup as pll
+
+    jconf = jload_config(ROOT / "woft_tpu" / "configs" / "WOFT_fast.py")
+    tconf = load_config(ROOT / "woft_tpu_torch" / "configs" / "WOFT_fast.py")
+    for key in ("corr_impl", "local_margin", "precision"):
+        assert getattr(tconf.flow_config, key) == getattr(jconf.flow_config,
+                                                          key)
+    assert tconf.flow_config.precision == "bf16"
+    tconf.flow_config.iters = 2
+    tconf.flow_config.precision = precision
+    tracker = tw.WOFTTracker(tconf, device="cpu")
+    assert tracker.flower.cfg.corr_impl == "local"
+
+    jcfg = jraft.RaftConfig(
+        variant="weighted", iters=2, corr_impl=str(jconf.flow_config.corr_impl),
+        local_margin=int(jconf.flow_config.local_margin), local_pallas=True,
+        precision=precision)
+    jp = jax.tree_util.tree_map(
+        jnp.asarray, params_to_jax_numpy(tracker.flower.model.state_dict()))
+
+    template = template_frame().round().astype(np.uint8)         # BGR
+    frames = []
+    for t in range(1, 3):
+        c, s = np.cos(0.01 * t) * (1 + 0.01 * t), np.sin(0.01 * t)
+        h = np.array([[c, -s, 1.5 * t], [s, c, -1.0 * t], [1e-5 * t, 0, 1]],
+                     np.float32)
+        f = warp_perspective(torch.from_numpy(template.astype(np.float32))[None],
+                             torch.from_numpy(np.linalg.inv(h)))[0]
+        frames.append(f.round().clamp(0, 255).numpy().astype(np.uint8))
+
+    def rgb(bgr):
+        return jnp.asarray(bgr[..., ::-1].astype(np.float32))[None]
+
+    tracker.init(template, target_mask())
+    with _interpret_pallas(plc, pll):
+        jstep = jw.build_track_step(jcfg, jconf.tracker_params)
+        jstate = jw.tracker_init_state(jp, jcfg, jconf.tracker_params,
+                                       rgb(template),
+                                       jnp.asarray(target_mask()))
+        for f in frames:
+            jstate, Hj, mj = jstep(jp, jstate, rgb(f))
+            Ht, mt = tracker.track(f)
+            assert np.isfinite(Ht).all()
+            assert bool(mt.global_H_success) == bool(mj["global_H_success"])
+            assert corner_err(mt.H_global_cur2init,
+                              mj["H_global_cur2init"]) < tol
+            assert corner_err(Ht, Hj) < tol
 
 
 def test_woft_tracker_shell_cpu():

@@ -3,18 +3,26 @@
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
-    python3 tools/torch_profile_720p.py [--frames 4] [--warmup 2]
+    python3 tools/torch_profile_720p.py [--config WOFT.py] [--frames 4]
+                                        [--warmup 2] [--host]
 
-Tracks a synthetic homography walk with the canonical ``configs/WOFT.py``
-(full-width RAFT-large, seeded weights) and profiles ``--frames`` steady
-frames with ``torch.profiler``. Prints the card, the per-frame wall time,
+Tracks a synthetic homography walk with ``woft_tpu_torch/configs/<config>``
+(``WOFT.py``, the canonical tracker, or ``WOFT_fast.py``, block-local
+correlation in bf16; full-width RAFT-large, seeded weights) and profiles
+``--frames`` steady frames with ``torch.profiler``. Prints the card, the per-frame wall time,
 the device busy share of the profiled window, the device time by kernel
-category and the top kernels by device time. Imports no JAX.
+category and the top kernels by device time. ``--host`` then runs the same
+frames again under ``cProfile`` and prints the Python functions by
+cumulative host time (``cProfile`` inflates every Python call, so read the
+proportions, not the totals). Imports no JAX.
 """
 
 import argparse
+import cProfile
+import io
 import math
 import os
+import pstats
 import subprocess
 import sys
 import time
@@ -29,6 +37,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # substrings of device kernel names -> category, first match wins
 CATEGORIES = (
     ("kernel B (corr lookup)", ("corr_lookup_kernel",)),
+    ("kernel C (local volume)", ("local_corr_",)),
+    ("kernels D/E/F (local lookup)", ("local_lookup_kernel",)),
     ("kernel A (pre-warp)", ("warp_bilinear_kernel",)),
     ("convolution", ("fprop", "conv", "cudnn", "winograd", "fft", "cf32",
                      "nchwtonhwc", "nhwctonchw")),
@@ -51,8 +61,12 @@ def category(name):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", default="WOFT.py",
+                    help="file under woft_tpu_torch/configs/")
     ap.add_argument("--frames", type=int, default=4)
     ap.add_argument("--warmup", type=int, default=2)
+    ap.add_argument("--host", action="store_true",
+                    help="also profile the host side with cProfile")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile_720p: no CUDA device", file=sys.stderr)
@@ -65,8 +79,9 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0])
+    print(f"config {args.config}")
     tracker = WOFTTracker(load_config(os.path.join(
-        ROOT, "woft_tpu_torch", "configs", "WOFT.py")))
+        ROOT, "woft_tpu_torch", "configs", args.config)))
     dev = tracker.device
     g = torch.Generator().manual_seed(2)
     h, w = 720, 1280
@@ -130,6 +145,23 @@ def main():
     for name, (ms, cnt) in sorted(by_name.items(),
                                   key=lambda kv: -kv[1][0])[:15]:
         print(f"  {ms / n:9.3f} ms {cnt / n:7.1f}  {name[:110]}")
+    if args.host:
+        t0 = time.perf_counter()
+        for f in frames[args.warmup:]:
+            tracker.track(f)
+        plain_ms = (time.perf_counter() - t0) * 1e3 / n
+        host_prof = cProfile.Profile()
+        host_prof.enable()
+        for f in frames[args.warmup:]:
+            tracker.track(f)
+        host_prof.disable()
+        out = io.StringIO()
+        stats = pstats.Stats(host_prof, stream=out).sort_stats("cumulative")
+        stats.print_stats(40)
+        print(f"host: frame {plain_ms:.2f} ms unprofiled; under cProfile "
+              f"{stats.total_tt * 1e3 / n:.2f} ms; functions by cumulative "
+              f"time over {n} frames:")
+        print(out.getvalue()[out.getvalue().index("ncalls"):])
     return 0
 
 

@@ -7,6 +7,9 @@ PyTorch twin of ``woft_tpu/flow/wrapper.py``:
 - ``mode='TC'``   -> (src_coords (2, HW), dst_coords (2, HW), weights
   (1, HW)), full-field; subsampling and masking happen downstream.
 
+``config.corr_impl`` ('dense' or 'local'), ``config.local_margin`` and
+``config.precision`` ('highest' or 'bf16') pass through to ``RaftConfig``.
+
 Weights: ``config.model`` names a torch-readable state dict (``torch.save``
 of ``WeightedRAFT.state_dict()``, or ``params_from_jax_numpy`` output);
 without one the network gets seeded random weights and a warning.
@@ -45,12 +48,14 @@ class RaftFlow:
         if config.class_params.small or config.class_params.alternate_corr:
             raise NotImplementedError("only RAFT-large with the full "
                                       "correlation volume is ported")
-        if config.precision and config.precision != "highest":
-            raise NotImplementedError("only float32 ('highest') is ported")
         whs = config.class_params.weight_head_structure or ()
         self.cfg = RaftConfig(
             iters=int(config.iters or 12),
-            weight_head_structure=tuple(tuple(s) for s in whs))
+            weight_head_structure=tuple(tuple(s) for s in whs),
+            corr_impl=str(config.corr_impl) if config.corr_impl else "dense",
+            local_margin=int(config.local_margin or 16),
+            precision=str(config.precision) if config.precision
+            else "highest")
         self.padding_mode = config.padding_mode or "nopad"
         self.model = self._load_model(config.model)
 

@@ -11,6 +11,10 @@ them from the JAX package; this package never reads orbax):
   bottleneck blocks) emitted under both names;
 - ``params_to_jax_numpy(state_dict)`` -> the nested numpy tree, dropping the
   aliases and step counters and a ``module.`` prefix.
+
+The parameters are float32 in every precision mode: bf16 mode rounds them
+where they are used (``models/layers.py``), as the reference does, so one
+state dict serves ``WOFT.py`` and ``WOFT_fast.py``.
 """
 
 import numpy as np

@@ -1,6 +1,7 @@
-"""All-pairs correlation pyramid and its window lookup.
+"""Correlation volumes and their window lookups: the all-pairs pyramid and
+the block-local volume.
 
-PyTorch twin of the dense path of ``woft_tpu/models/corr.py``:
+PyTorch twin of ``woft_tpu/models/corr.py``. The dense path:
 
 - ``corr_pyramid_fused``: each level is ONE matmul of fmap1 against the
   2x2-average-pooled fmap2 (correlation is linear in fmap2, so pooling the
@@ -15,12 +16,39 @@ PyTorch twin of the dense path of ``woft_tpu/models/corr.py``:
   (the semantics of ``woft_tpu``'s 'onehot'/'gather' lookups); CUDA tensors
   launch kernel B (``csrc/corr_lookup.cu``). The port keeps this one lookup.
 
+The block-local path (``corr_impl='local'``, the ``WOFT_fast`` tier):
+
+- ``build_local_corr``: the 1/8-resolution queries are grouped into (8, 16)
+  blocks; each block shares one source window of fmap2 per level and the
+  stored volume is ``vol[b, py, px, q] = <f1[b, q], window_b[py, px]> /
+  sqrt(D)``, queries minor (the reference's p layout, the only one the port
+  keeps). CPU tensors take ``block_local_corr_plain``; CUDA tensors launch
+  kernel C (``csrc/local_corr.cu``), which computes the product itself.
+- ``corr_lookup_local_blocked``: a 9x9 bilinear window per query inside
+  its block's stored window, centroids clamped to it. All levels go through
+  one launch of kernel D (``block_local_lookup_fine_multi``), which reads
+  each block's fine sub-window at a per-block anchor and saturates at that
+  sub-window's edge; blocks whose slab starts spread beyond the sub-window
+  are rewritten by kernel E (``block_local_lookup``, exact over the whole
+  stored window) under a per-block flag, with no host sync. Kernel F
+  (``block_local_lookup_fine``) is D's single-level form. The reference's
+  two-hot weight arrays exist only to avoid gathers on the TPU; here a
+  lookup takes each query's integer slab start and fraction per axis and
+  reads its four taps. Output channels are level-major and **y-major**
+  within a level (``c = l*81 + j*9 + i``, j offsets y);
+  ``BlockedCorr.to_natural`` swaps to the dense lookup's ``i*9 + j``.
+- The layout arithmetic (``_local_layout``, the x-origin quantised to
+  ``(bx*sw)//8*8``, ``_fine_extents``, the ``- 1.001`` clamp) is copied
+  number for number: it decides where a far-off centroid saturates.
+
 Feature maps are NHWC (B, H, W, D), as in the JAX package.
 """
 
+import functools
 import math
 
 import torch
+import torch.nn.functional as F
 
 from ..ops import kernels
 from ..ops.warp import avg_pool2d
@@ -119,3 +147,394 @@ def corr_lookup(pyramid, coords, radius=4, rows=None):
         return corr_lookup_plain(pyramid, coords, radius, rows)
     out = kernels.corr_pyramid_lookup(pyramid, coords, radius, rows)
     return out.reshape(*coords.shape[:-1], -1)
+
+
+# ---------------------------------------------------------------------------
+# block-local correlation volume (corr_impl='local')
+# ---------------------------------------------------------------------------
+
+LOCAL_BLOCK = (8, 16)
+
+
+def _local_layout(H1, W1, radius, num_levels, margin, block=LOCAL_BLOCK):
+    """Static geometry of the block-local volume (python ints): the block
+    grid and, per level, the margin ``m``, the one-sided pad, the block
+    stride (sh, sw), the stored window (wh, ww), the padded level size
+    (hp, wp) and the level size (hl, wl). ``ww`` is rounded up to 8 with 7
+    of headroom when ``sw % 8``: block x-origins are quantised to
+    ``(bx*sw)//8*8``."""
+    bh, bw = block
+    nbh = -(-H1 // bh)
+    nbw = -(-W1 // bw)
+    levels = []
+    hl, wl = H1, W1
+    for lvl in range(num_levels):
+        m_l = max(margin >> lvl, radius + 1)
+        pad_l = m_l + radius + 1
+        sh, sw = bh >> lvl, bw >> lvl
+        wh = sh + 2 * pad_l
+        ww = -8 * (-(sw + 2 * pad_l + (7 if sw % 8 else 0)) // 8)
+        hp = max(hl + 2 * pad_l, (nbh - 1) * sh + wh)
+        wp = max(wl + 2 * pad_l, (nbw - 1) * sw + ww)
+        levels.append(dict(m=m_l, pad=pad_l, sh=sh, sw=sw, wh=wh, ww=ww,
+                           hp=hp, wp=wp, hl=hl, wl=wl))
+        hl, wl = hl // 2, wl // 2
+    return dict(H1=H1, W1=W1, bh=bh, bw=bw, nbh=nbh, nbw=nbw, radius=radius,
+                margin=margin, levels=tuple(levels))
+
+
+def _to_blocked(x, meta):
+    """(H1*W1, C) natural raster -> (NB*BQ, C) block-major (zero pad)."""
+    H1, W1, bh, bw = meta["H1"], meta["W1"], meta["bh"], meta["bw"]
+    nbh, nbw = meta["nbh"], meta["nbw"]
+    C = x.shape[-1]
+    x = F.pad(x.reshape(H1, W1, C), (0, 0, 0, nbw * bw - W1, 0, nbh * bh - H1))
+    x = x.reshape(nbh, bh, nbw, bw, C).permute(0, 2, 1, 3, 4)
+    return x.reshape(nbh * nbw * bh * bw, C)
+
+
+def _from_blocked(x, meta):
+    """Inverse of ``_to_blocked``: (NB*BQ, C) -> (H1*W1, C)."""
+    H1, W1, bh, bw = meta["H1"], meta["W1"], meta["bh"], meta["bw"]
+    nbh, nbw = meta["nbh"], meta["nbw"]
+    C = x.shape[-1]
+    x = x.reshape(nbh, nbw, bh, bw, C).permute(0, 2, 1, 3, 4)
+    return x.reshape(nbh * bh, nbw * bw, C)[:H1, :W1].reshape(H1 * W1, C)
+
+
+def _fine_extents(d, k):
+    """Fine sub-window (rows, columns) of one level: the block's query span
+    plus the k-wide window plus 8 of slack; columns get 7 more for the
+    8-aligned anchor and are rounded up to 8."""
+    fr = min(d["wh"], d["sh"] + k - 1 + 8)
+    fc = min(d["ww"], -8 * (-(d["sw"] + k - 1 + 8 + 7) // 8))
+    return fr, fc
+
+
+class LocalCorrVolumes:
+    """Block-local correlation pyramid (``build_local_corr``).
+
+    volumes: list of (NB, wh_l, ww_l, BQ) levels, queries minor.
+    meta: the ``_local_layout`` dict.
+    consts: per-level lookup constants on the volumes' device, each shaped
+        to broadcast against (L, 2, NB, BQ) coordinates, axis 0 = y, 1 = x.
+    """
+
+    def __init__(self, volumes, meta):
+        self.volumes = volumes
+        self.meta = meta
+        self.consts = _lookup_constants(
+            meta["H1"], meta["W1"], meta["radius"], len(meta["levels"]),
+            meta["margin"], volumes[0].device)
+
+
+@functools.lru_cache(maxsize=8)
+def _lookup_constants(H1, W1, radius, num_levels, margin, device):
+    """Read-only constant tensors of one layout on one device. Cached: a
+    tracker builds the same layout every frame, and each tensor made from
+    host numbers is a blocking copy to the card."""
+    meta = _local_layout(H1, W1, radius, num_levels, margin)
+    r = meta["radius"]
+    k = 2 * r + 1
+    nbh, nbw = meta["nbh"], meta["nbw"]
+    L = len(meta["levels"])
+    f32 = dict(dtype=torch.float32, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    by = torch.arange(nbh, device=device).repeat_interleave(nbw)
+    bx = torch.arange(nbw, device=device).repeat(nbh)
+    origin, hi, size, fine = [], [], [], []
+    for d in meta["levels"]:
+        # window origin in the padded level; x quantised to a multiple of 8
+        origin.append(torch.stack([by * d["sh"], bx * d["sw"] // 8 * 8]))
+        hi.append([d["wh"] - r - 1.001, d["ww"] - r - 1.001])
+        size.append([d["wh"], d["ww"]])
+        fine.append(list(_fine_extents(d, k)))
+    size = torch.tensor(size, **i32)
+    fine = torch.tensor(fine, **i32)
+    return dict(
+        div=torch.tensor([2.0 ** lvl for lvl in range(L)],
+                         **f32).reshape(L, 1, 1, 1),
+        pad=torch.tensor([float(d["pad"]) for d in meta["levels"]],
+                         **f32).reshape(L, 1, 1, 1),
+        origin=torch.stack(origin).to(torch.float32)[..., None],  # (L,2,NB,1)
+        lo=torch.tensor(float(r), **f32),
+        hi=torch.tensor(hi, **f32).reshape(L, 2, 1, 1),
+        # anchor & mask rounds a non-negative anchor down to a multiple of
+        # 1 (rows) or 8 (columns)
+        align_mask=torch.tensor([-1, -8], **i32).reshape(1, 2, 1),
+        zero=torch.zeros((), **i32),
+        anchor_max=(size - fine).clamp(min=0).reshape(L, 2, 1),
+        rel_max=(fine - 2 * r - 2).reshape(L, 2, 1, 1),
+        exts=tuple(_fine_extents(d, k) for d in meta["levels"]))
+
+
+def block_local_corr_plain(f1b, f2, d, nbh, nbw, out_dtype):
+    """Plain PyTorch version of kernel C (same arguments as
+    ``block_local_corr``): zero-pad the level, cut each block's window with
+    strided slices, one einsum. Operands are widened to float32 first, so
+    products of bf16 values are exact and the sum is float32."""
+    pad, wh, ww, sh, sw = d["pad"], d["wh"], d["ww"], d["sh"], d["sw"]
+    hl, wl, D = f2.shape
+    fp = F.pad(f2, (0, 0, pad, d["wp"] - wl - pad, pad, d["hp"] - hl - pad))
+    bands = torch.stack([fp[by * sh:by * sh + wh] for by in range(nbh)])
+    patches = torch.stack([bands[:, :, bx * sw // 8 * 8:bx * sw // 8 * 8 + ww]
+                           for bx in range(nbw)], dim=1)  # (nbh,nbw,wh,ww,D)
+    patches = patches.reshape(nbh * nbw, wh * ww, D)
+    corr = torch.einsum("bpd,bqd->bpq", patches.to(torch.float32),
+                        f1b.to(torch.float32))
+    corr = corr * (1.0 / math.sqrt(D))
+    return corr.to(out_dtype).reshape(nbh * nbw, wh, ww, f1b.shape[1])
+
+
+def block_local_corr(f1b, f2, d, nbh, nbw, out_dtype):
+    """One level of the block-local volume.
+
+    f1b: (NB, BQ, D) blocked query features; f2: (hl, wl, D) the level's
+    unpadded target features, same dtype (float32 or bfloat16); d: the
+    level's ``_local_layout`` entry. Returns (NB, wh, ww, BQ) ``out_dtype``:
+    ``<f1b[b, q], window_b[py, px]> / sqrt(D)``, float32 accumulation,
+    rounded once; window_b starts at (by*sh, (bx*sw)//8*8) of the level
+    zero-padded by ``pad``."""
+    if f1b.device.type == "cpu":
+        return block_local_corr_plain(f1b, f2, d, nbh, nbw, out_dtype)
+    return kernels.local_corr_build(f1b, f2, d["pad"], d["sh"], d["sw"],
+                                    d["wh"], d["ww"], nbh, nbw, out_dtype)
+
+
+def build_local_corr(fmap1, fmap2, radius=4, num_levels=4, margin=16,
+                     out_dtype=None):
+    """Block-local recentred correlation pyramid (p layout).
+
+    Equal to the all-pairs pyramid's lookups (zero borders included) for
+    every centroid within +-margin level-0 cells of its query; centroids
+    beyond saturate at the stored window's edge.
+
+    fmap1, fmap2: (1, H1, W1, D) float32. ``out_dtype=torch.bfloat16``
+    rounds the features entering each level's product and the stored
+    volume to bf16 (float32 accumulation); levels are pooled from float32
+    features. Returns ``LocalCorrVolumes``."""
+    B, H1, W1, D = fmap1.shape
+    if B != 1:
+        raise ValueError("the block-local volume takes one frame pair")
+    meta = _local_layout(H1, W1, radius, num_levels, margin)
+    nbh, nbw = meta["nbh"], meta["nbw"]
+    vol_dtype = out_dtype or torch.float32
+    f1b = _to_blocked(fmap1.reshape(H1 * W1, D), meta)
+    f1b = f1b.reshape(nbh * nbw, -1, D).to(vol_dtype).contiguous()
+    volumes = []
+    lv = fmap2
+    for lvl, d in enumerate(meta["levels"]):
+        volumes.append(block_local_corr(
+            f1b, lv[0].to(vol_dtype).contiguous(), d, nbh, nbw, vol_dtype))
+        if lvl + 1 < num_levels:
+            lv = avg_pool2d(lv)
+    return LocalCorrVolumes(volumes, meta)
+
+
+# ---------------------------------------------------------------------------
+# block-local lookups
+# ---------------------------------------------------------------------------
+
+def _slab_blend_plain(vol, ys, xs, fy, fx, k, out_dtype):
+    """One level: gather each output's four taps, blend y, then x.
+
+    vol: (NB, wh, ww, BQ); ys, xs: (NB, BQ) integer slab starts in the
+    stored window (clamped to [0, size-k-1], which valid starts satisfy);
+    fy, fx: (NB, BQ) float32 fractions. Returns (NB, k*k, BQ), c = j*k + i."""
+    nb, wh, ww, bq = vol.shape
+    dev = vol.device
+    ys = ys.long().clamp(0, wh - k - 1)
+    xs = xs.long().clamp(0, ww - k - 1)
+    off = torch.arange(k, device=dev)
+    b = torch.arange(nb, device=dev)[:, None, None, None]
+    q = torch.arange(bq, device=dev)[None, None, None, :]
+    y0 = ys[:, None, None, :] + off[None, :, None, None]    # (NB, k, 1, BQ)
+    x0 = xs[:, None, None, :] + off[None, None, :, None]    # (NB, 1, k, BQ)
+    fy, fx = fy[:, None, None, :], fx[:, None, None, :]
+    gy, gx = 1.0 - fy, 1.0 - fx
+    a0 = (vol[b, y0, x0, q].to(torch.float32) * gy
+          + vol[b, y0 + 1, x0, q].to(torch.float32) * fy)
+    a1 = (vol[b, y0, x0 + 1, q].to(torch.float32) * gy
+          + vol[b, y0 + 1, x0 + 1, q].to(torch.float32) * fy)
+    return (a0 * gx + a1 * fx).to(out_dtype).reshape(nb, k * k, bq)
+
+
+def block_local_lookup_fine_multi_plain(rcs, vols, rel, frac, k,
+                                        out_dtype=torch.float32):
+    """Plain PyTorch version of kernel D (same arguments as
+    ``block_local_lookup_fine_multi``)."""
+    outs = [_slab_blend_plain(vol, rcs[:, lvl, 0:1] + rel[lvl, 0],
+                              rcs[:, lvl, 1:2] + rel[lvl, 1],
+                              frac[lvl, 0], frac[lvl, 1], k, out_dtype)
+            for lvl, vol in enumerate(vols)]
+    return torch.cat(outs, dim=1)
+
+
+def block_local_lookup_fine_multi(rcs, vols, rel, frac, k,
+                                  out_dtype=torch.float32):
+    """All levels' fine-window lookups in one launch.
+
+    rcs: (NB, L, 2) int32 per-block fine-window anchors [r0, c0]; vols: L
+    (NB, wh_l, ww_l, BQ) volumes of one dtype (float32 or bfloat16); rel:
+    (L, 2, NB, BQ) int32 slab starts relative to the anchor, [l, 0] rows and
+    [l, 1] columns, already clamped to the fine window; frac: (L, 2, NB,
+    BQ) float32 fractions. Returns (NB, L*k*k, BQ) ``out_dtype``,
+    level-major, c = j*k + i within a level: ``(1-fy)(1-fx) v[y, x] + ...``
+    over the four taps at rows r0+rel+j(+1), columns c0+rel+i(+1), blended
+    in float32, y first."""
+    if rcs.device.type == "cpu":
+        return block_local_lookup_fine_multi_plain(rcs, vols, rel, frac, k,
+                                                   out_dtype)
+    return kernels.local_lookup_fine_multi(rcs, vols, rel, frac, k, out_dtype)
+
+
+def block_local_lookup_fine_plain(rc0, vol, rel, frac, k,
+                                  out_dtype=torch.float32):
+    """Plain PyTorch version of kernel F."""
+    return block_local_lookup_fine_multi_plain(rc0[:, None], [vol],
+                                               rel[None], frac[None], k,
+                                               out_dtype)
+
+
+def block_local_lookup_fine(rc0, vol, rel, frac, k, out_dtype=torch.float32):
+    """Kernel D for one level: rc0 (NB, 2) int32, vol (NB, wh, ww, BQ), rel
+    and frac (2, NB, BQ). Returns (NB, k*k, BQ). No path of the tracker
+    calls it, as none does in the JAX package."""
+    if rc0.device.type == "cpu":
+        return block_local_lookup_fine_plain(rc0, vol, rel, frac, k,
+                                             out_dtype)
+    return kernels.local_lookup_fine(rc0, vol, rel, frac, k, out_dtype)
+
+
+def block_local_lookup_plain(vol, starts, frac, k, flag=None, out=None,
+                             channel=0):
+    """Plain PyTorch version of kernel E (same arguments as
+    ``block_local_lookup``)."""
+    res = _slab_blend_plain(vol, starts[0], starts[1], frac[0], frac[1], k,
+                            torch.float32 if out is None else out.dtype)
+    if out is None:
+        return res
+    rows = out[:, channel:channel + k * k]
+    rows.copy_(res if flag is None
+               else torch.where(flag.bool()[:, None, None], res, rows))
+    return out
+
+
+def block_local_lookup(vol, starts, frac, k, flag=None, out=None, channel=0):
+    """One level, the whole stored window: exact for any coordinates.
+
+    vol: (NB, wh, ww, BQ); starts: (2, NB, BQ) int32 absolute slab starts
+    (rows, columns) in the stored window; frac: (2, NB, BQ) float32.
+    Without ``out`` returns (NB, k*k, BQ) float32. With ``out`` (NB, C, BQ)
+    it writes channels ``channel .. channel + k*k`` in place, and with
+    ``flag`` (NB,) uint8 only the blocks whose flag is non-zero: the others
+    return at once and keep their rows."""
+    if vol.device.type == "cpu":
+        return block_local_lookup_plain(vol, starts, frac, k, flag, out,
+                                        channel)
+    return kernels.local_lookup_exact(vol, starts, frac, k, flag, out,
+                                      channel)
+
+
+class BlockedCorr:
+    """Lookup output in blocked channel-major form: ``data`` (NB, L*k*k,
+    BQ), channel ``l*k*k + j*k + i`` (y-major within a level, the transpose
+    of the dense lookup's order). The motion encoder folds the (j, i) swap
+    into its weights (``models/raft.py:_corr_conv1``); ``to_natural`` pays
+    the transpose for consumers that need the dense layout."""
+
+    def __init__(self, data, meta, levels, k):
+        self.data = data
+        self.meta = meta
+        self.levels = levels
+        self.k = k
+
+    def to_natural(self):
+        """-> (1, H1, W1, L*k*k) in the dense lookup's order c = i*k + j."""
+        meta = self.meta
+        nb, _, bq = self.data.shape
+        L, k = self.levels, self.k
+        x = self.data.reshape(nb, L, k, k, bq)              # (b, l, j, i, q)
+        x = x.permute(0, 4, 1, 3, 2)                        # (b, q, l, i, j)
+        x = x.reshape(nb * bq, L * k * k)
+        return _from_blocked(x, meta).reshape(1, meta["H1"], meta["W1"],
+                                              L * k * k)
+
+
+def _local_level_coords(local, coords):
+    """Window-local clamped coordinates of every level.
+
+    coords: (1, H1, W1, 2) level-0 (x, y) centroids. Returns (starts (L, 2,
+    NB, BQ) int32 absolute slab starts, frac (L, 2, NB, BQ) float32), axis
+    0 = rows (y), 1 = columns (x): level coordinate + pad - block origin,
+    clamped to [r, size - r - 1.001] so the whole k-window and its +1 tap
+    stay inside the stored window."""
+    meta, c = local.meta, local.consts
+    r = meta["radius"]
+    nb = meta["nbh"] * meta["nbw"]
+    cb = _to_blocked(coords.reshape(meta["H1"] * meta["W1"], 2), meta)
+    # (2, NB, BQ): y, x; contiguous, so everything derived from it is too
+    cb = cb.reshape(nb, -1, 2).flip(-1).permute(2, 0, 1).contiguous()
+    w = cb[None] / c["div"] + c["pad"] - c["origin"]
+    w = torch.clamp(w, c["lo"], c["hi"])
+    # w >= r > 0: truncation is the floor and frac(w) = w - floor(w)
+    return w.to(torch.int32) - r, torch.frac(w)
+
+
+def _fine_anchor_starts(local, starts):
+    """Per-block fine-window anchors and the starts relative to them.
+
+    Returns (rcs (NB, L, 2) int32 [r0, c0], rel (L, 2, NB, BQ) int32 clamped
+    to the fine window, ok (NB,) bool: every start of the block lies inside
+    its fine window on every level, so the fine lookup is exact there).
+    The anchor is the block's least start, rounded down to 8 on columns,
+    clamped to [0, size - fine]; only the upper end of the fine window can
+    be exceeded, and starts beyond it saturate at its edge."""
+    c = local.consts
+    anchor = starts.amin(dim=3) & c["align_mask"]           # (L, 2, NB)
+    anchor = torch.clamp(anchor, c["zero"], c["anchor_max"])
+    rel = starts - anchor[..., None]
+    ok = (rel <= c["rel_max"]).all(dim=(0, 1, 3))
+    rel = torch.clamp(rel, c["zero"], c["rel_max"])
+    return anchor.permute(2, 0, 1).contiguous(), rel, ok
+
+
+def corr_lookup_local_blocked(local, coords, radius=4, fine=True, check=True):
+    """9x9 windows of every level around ``coords`` -> ``BlockedCorr``.
+
+    coords: (1, H1, W1, 2) level-0 centroids in natural raster order.
+    ``fine``: kernel D on each block's fine sub-window, exact while the
+    block's slab starts fit it. ``check`` (fine only): blocks that do not
+    fit are rewritten by kernel E, launched once a level over all blocks
+    with the per-block flag ``~ok`` and writing into D's output, so the
+    result equals the exact lookup everywhere with no host sync and no
+    branch. ``fine=False``: kernel E on every block, float32 output.
+    bfloat16 volumes give bfloat16 fine lookups (float32 arithmetic)."""
+    meta = local.meta
+    if radius != meta["radius"]:
+        raise ValueError(f"volume built for radius {meta['radius']}, "
+                         f"lookup asked for {radius}")
+    k = 2 * radius + 1
+    vols = local.volumes
+    L = len(vols)
+    starts, frac = _local_level_coords(local, coords)
+    if not fine:
+        data = torch.cat([block_local_lookup(vol, starts[lvl], frac[lvl], k)
+                          for lvl, vol in enumerate(vols)], dim=1)
+        return BlockedCorr(data, meta, L, k)
+    rcs, rel, ok = _fine_anchor_starts(local, starts)
+    od = torch.bfloat16 if vols[0].dtype == torch.bfloat16 else torch.float32
+    data = block_local_lookup_fine_multi(rcs, vols, rel, frac, k, od)
+    if check:
+        flag = (~ok).view(torch.uint8)
+        for lvl, vol in enumerate(vols):
+            block_local_lookup(vol, starts[lvl], frac[lvl], k, flag=flag,
+                               out=data, channel=lvl * k * k)
+    return BlockedCorr(data, meta, L, k)
+
+
+def corr_lookup_local(local, coords, radius=4, fine=True):
+    """Window lookup against ``LocalCorrVolumes`` in the dense lookup's
+    layout: (1, H1, W1, L*(2r+1)^2)."""
+    return corr_lookup_local_blocked(local, coords, radius,
+                                     fine=fine).to_natural()

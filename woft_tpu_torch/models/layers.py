@@ -9,15 +9,90 @@ parameter tree's paths (``fnet.layer1.0.conv1.weight``). Norm semantics:
 - eval batch norm: always the running statistics and the affine;
 - group norm: ``nn.GroupNorm`` (affine).
 
+Precision: ``precision_scope('bf16')`` switches the convolutions below to
+the reference's bf16 mode for the duration of one forward pass, with the
+casts written out where the reference has them: inputs and weights rounded
+to bf16, float32 accumulation, the result stored in bf16 where the caller
+asks for it (``out_dtype``) and in float32 otherwise. Norm statistics are
+float32 and the result goes back to the input's type. ``torch.autocast``
+is not used: it rounds elsewhere and would reach the geometry.
+
 Initialisation mirrors the JAX package's distributions, drawn from an
 explicit ``torch.Generator``.
 """
 
+import contextlib
 import math
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+
+PRECISIONS = ("highest", "bf16")
+_COMPUTE_DTYPE = None      # torch.bfloat16 inside a bf16 precision_scope
+_ROUNDED = {}              # (id(parameter), dtype) -> its rounded copy
+
+
+@contextlib.contextmanager
+def precision_scope(precision):
+    """Run the enclosed forward pass in ``precision`` ('highest': float32
+    throughout; 'bf16': see the module docstring). Parameters rounded to
+    bf16 are cached for the scope, so each is cast once per pass."""
+    global _COMPUTE_DTYPE, _ROUNDED
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got "
+                         f"{precision!r}")
+    prev = (_COMPUTE_DTYPE, _ROUNDED)
+    _COMPUTE_DTYPE = torch.bfloat16 if precision == "bf16" else None
+    _ROUNDED = {}
+    try:
+        yield
+    finally:
+        _COMPUTE_DTYPE, _ROUNDED = prev
+
+
+def get_compute_dtype():
+    """torch.bfloat16 in bf16 mode, else None."""
+    return _COMPUTE_DTYPE
+
+
+def _rounded(t, widen=False):
+    """``t`` rounded to the compute dtype (``widen``: and back to float32,
+    for a convolution whose result stays float32)."""
+    if t is None:
+        return None
+    dtype = torch.float32 if widen else _COMPUTE_DTYPE
+    if not isinstance(t, nn.Parameter):
+        return t.to(_COMPUTE_DTYPE).to(dtype)
+    key = (id(t), dtype)
+    if key not in _ROUNDED:
+        _ROUNDED[key] = t.detach().to(_COMPUTE_DTYPE).to(dtype)
+    return _ROUNDED[key]
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, out_dtype=None):
+    """Convolution under the current precision scope.
+
+    float32 mode: ``F.conv2d``. bf16 mode: input and weight are rounded to
+    bf16 and accumulated in float32. ``out_dtype=torch.bfloat16`` stores
+    the result in bf16 (one bf16 convolution; the bias is rounded to bf16
+    first, where the reference adds it in float32: below one bf16 ulp of
+    the result). Otherwise the result stays float32, as the reference's
+    does: the rounded operands are widened again and convolved in float32,
+    which is the same sum, since products of bf16 values are exact there."""
+    if _COMPUTE_DTYPE is None:
+        return F.conv2d(x, weight, bias, stride, padding)
+    if out_dtype == _COMPUTE_DTYPE:
+        return F.conv2d(x.to(_COMPUTE_DTYPE), _rounded(weight),
+                        _rounded(bias), stride, padding)
+    return F.conv2d(x.to(_COMPUTE_DTYPE).to(torch.float32),
+                    _rounded(weight, widen=True), bias, stride, padding)
+
+
+def conv(mod, x, out_dtype=None):
+    """``conv2d`` with an ``nn.Conv2d``'s parameters and geometry."""
+    return conv2d(x, mod.weight, mod.bias, mod.stride, mod.padding, out_dtype)
 
 
 class EvalBatchNorm2d(nn.BatchNorm2d):

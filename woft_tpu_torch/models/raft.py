@@ -7,9 +7,12 @@ a plain function over the module, as in the JAX package:
 
 - the template's features are encoded once per sequence
   (``encode_template``); per frame only the current frame is encoded,
-- the correlation pyramid is built from pooled features
-  (``models/corr.py:corr_pyramid_fused``) and looked up 12x per flow by
-  kernel B,
+- ``corr_impl='dense'``: the correlation pyramid is built from pooled
+  features (``models/corr.py:corr_pyramid_fused``) and looked up 12x per
+  flow by kernel B; ``corr_impl='local'`` (one frame pair): the block-local
+  volume is built by kernel C and looked up by kernels D and E in blocked
+  form, which the motion encoder's 1x1 ``convc1`` consumes directly
+  (``_corr_conv1``),
 - the loop-invariant context (``inp``) contribution to the SepConvGRU convs
   is computed once per frame (``precompute_gru_context``; exact by conv
   linearity), and the convex-upsample mask is computed after the loop from
@@ -18,8 +21,14 @@ a plain function over the module, as in the JAX package:
   ``weight_head_at(cells)`` that evaluates the same logits at M cells only,
   reading their pyramid rows in place.
 
-Images are NHWC float RGB in [0, 255]; inside, everything runs NCHW in
-float32 (TF32 off, see ``device.resolve_device``).
+Images are NHWC float RGB in [0, 255]; inside, everything runs NCHW.
+``precision='highest'`` is float32 throughout (TF32 off, see
+``device.resolve_device``). ``precision='bf16'`` rounds where the reference
+does (``models/layers.py``): convolution inputs, weights and stored
+activations are bf16 with float32 accumulation; the GRU state ``net``, the
+coordinates, the flow deltas, ``mean_response``, the feature maps entering
+the correlation, the upsampling mask and the weight logits stay float32.
+The dense pyramid and kernel B stay float32 in both modes.
 """
 
 from dataclasses import dataclass
@@ -30,21 +39,46 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.warp import coords_grid
-from .corr import corr_lookup, corr_pyramid_fused
-from .layers import init_conv_, norm_layer
+from . import layers
+from .corr import (BlockedCorr, build_local_corr, corr_lookup,
+                   corr_lookup_local, corr_lookup_local_blocked,
+                   corr_mean_response, corr_pyramid_fused)
+from .layers import conv, conv2d, init_conv_, norm_layer
 
 
 @dataclass(frozen=True)
 class RaftConfig:
-    """WeightedRAFT-large configuration (the canonical ``WOFT.py`` flow)."""
+    """WeightedRAFT-large configuration. The defaults are the canonical
+    ``WOFT.py`` flow; ``WOFT_fast.py`` sets ``corr_impl='local'`` and
+    ``precision='bf16'``.
+
+    corr_impl: 'dense' (all-pairs pyramid, kernel B) or 'local'
+        (block-local volume within +-``local_margin`` 1/8-resolution cells,
+        kernels C, D, E; a batch of more than one pair takes 'dense').
+    fine_check: under 'local', rewrite blocks whose lookups do not fit the
+        fine sub-window with the exact lookup (kernel E).
+    precision: 'highest' (float32) or 'bf16' (see the module docstring).
+    """
     iters: int = 12
     corr_levels: int = 4
     radius: int = 4
     weight_head_structure: Tuple = ((128, 3), (128, 3), (128, 3))
+    corr_impl: str = "dense"
+    local_margin: int = 16
+    fine_check: bool = True
+    precision: str = "highest"
 
     hidden_dim = 128
     context_dim = 128
     fnet_dim = 256
+
+    def __post_init__(self):
+        if self.corr_impl not in ("dense", "local"):
+            raise ValueError(f"corr_impl must be 'dense' or 'local', got "
+                             f"{self.corr_impl!r}")
+        if self.precision not in layers.PRECISIONS:
+            raise ValueError(f"precision must be one of {layers.PRECISIONS}, "
+                             f"got {self.precision!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -69,10 +103,11 @@ class ResidualBlock(nn.Module):
                 nn.Conv2d(in_planes, planes, 1, stride=stride), self.norm3)
 
     def forward(self, x):
-        y = F.relu(self.norm1(self.conv1(x)))
-        y = F.relu(self.norm2(self.conv2(y)))
+        sd = layers.get_compute_dtype()    # bf16 mode stores activations bf16
+        y = F.relu(self.norm1(conv(self.conv1, x, sd)))
+        y = F.relu(self.norm2(conv(self.conv2, y, sd)))
         if self.downsample is not None:
-            x = self.downsample(x)
+            x = self.downsample[1](conv(self.downsample[0], x, sd))
         return F.relu(x + y)
 
 
@@ -94,9 +129,9 @@ class BasicEncoder(nn.Module):
         self.conv2 = nn.Conv2d(cin, output_dim, 1)
 
     def forward(self, x):
-        x = F.relu(self.norm1(self.conv1(x)))
+        x = F.relu(self.norm1(conv(self.conv1, x, layers.get_compute_dtype())))
         x = self.layer3(self.layer2(self.layer1(x)))
-        return self.conv2(x)
+        return conv(self.conv2, x)              # features stay float32
 
 
 # ---------------------------------------------------------------------------
@@ -113,12 +148,41 @@ class BasicMotionEncoder(nn.Module):
         self.conv = nn.Conv2d(64 + 192, 128 - 2, 3, padding=1)
 
     def forward(self, flow, corr):
-        cor = F.relu(self.convc1(corr))
-        cor = F.relu(self.convc2(cor))
-        flo = F.relu(self.convf1(flow))
-        flo = F.relu(self.convf2(flo))
-        out = F.relu(self.conv(torch.cat([cor, flo], dim=1)))
-        return torch.cat([out, flow], dim=1)
+        sd = layers.get_compute_dtype()
+        cor = _corr_conv1(self.convc1, corr)
+        cor = F.relu(conv(self.convc2, cor, sd))
+        flo = F.relu(conv(self.convf1, flow, sd))
+        flo = F.relu(conv(self.convf2, flo, sd))
+        out = F.relu(conv(self.conv, torch.cat([cor, flo], dim=1), sd))
+        return torch.cat([out, flow.to(out.dtype)], dim=1)
+
+
+def _corr_conv1(convc1, corr):
+    """relu(convc1(corr)) for a natural (B, L*k*k, H1, W1) lookup or a
+    ``BlockedCorr``.
+
+    convc1 is 1x1 and the only consumer of the raw lookup channels, so for
+    a blocked lookup (NB, L*k*k, BQ), channels in (level, j, i) order, both
+    the relayout and the (j, i) -> (i, j) swap fold into one matmul: the
+    weight's input channels are permuted (exact: every output channel is
+    its own sum) and only the 256-channel result is laid out spatially."""
+    sd = layers.get_compute_dtype()
+    if not isinstance(corr, BlockedCorr):
+        return F.relu(conv(convc1, corr))
+    L, k = corr.levels, corr.k
+    co = convc1.weight.shape[0]
+    wv = (convc1.weight.reshape(co, L, k, k).permute(0, 1, 3, 2)  # (l, i, j)
+          .reshape(co, L * k * k))                               # -> (l, j, i)
+    data, bias = corr.data, convc1.bias
+    if sd is not None:
+        data, wv, bias = data.to(sd), wv.to(sd), bias.to(sd)
+    nb, C, bq = data.shape
+    out = torch.baddbmm(bias.reshape(1, co, 1), wv.expand(nb, co, C), data)
+    meta = corr.meta
+    out = out.reshape(meta["nbh"], meta["nbw"], co, meta["bh"], meta["bw"])
+    out = out.permute(2, 0, 3, 1, 4).reshape(
+        co, meta["nbh"] * meta["bh"], meta["nbw"] * meta["bw"])
+    return F.relu(out[None, :, :meta["H1"], :meta["W1"]])
 
 
 _GRU_DIRS = (("convz1", "convr1", "convq1", (0, 2)),
@@ -148,7 +212,12 @@ def precompute_gru_context(gru, inp, hd):
     b_zr, w_q, b_q, padding) — the context terms plus the recurrent
     weights with the ``inp`` rows dropped and z, r fused into one conv."""
     ci = inp.shape[1]
+    sd = layers.get_compute_dtype()
     out = []
+
+    def cast(t):        # bf16 mode: round the derived weights once a frame
+        return t if sd is None else t.to(sd)
+
     for kz, kr, kq, pad in _GRU_DIRS:
         wz, wr, wq = (getattr(gru, n).weight for n in (kz, kr, kq))
         bz, br, bq = (getattr(gru, n).bias for n in (kz, kr, kq))
@@ -159,23 +228,29 @@ def precompute_gru_context(gru, inp, hd):
         def hm(w):
             return torch.cat([w[:, :hd], w[:, hd + ci:]], dim=1)
 
-        zr_pre = F.conv2d(inp, torch.cat([ctx(wz), ctx(wr)]), padding=pad)
-        q_pre = F.conv2d(inp, ctx(wq), padding=pad)
-        out.append((zr_pre, q_pre, torch.cat([hm(wz), hm(wr)]),
-                    torch.cat([bz, br]), hm(wq), bq, pad))
+        zr_pre = conv2d(inp, cast(torch.cat([ctx(wz), ctx(wr)])),
+                        padding=pad, out_dtype=sd)
+        q_pre = conv2d(inp, cast(ctx(wq)), padding=pad, out_dtype=sd)
+        out.append((zr_pre, q_pre, cast(torch.cat([hm(wz), hm(wr)])),
+                    cast(torch.cat([bz, br])), cast(hm(wq)), cast(bq), pad))
     return out
 
 
 def _sep_conv_gru(h, x, pre):
     """One SepConvGRU update of hidden state ``h`` by motion features ``x``
-    with the hoisted context ``pre`` (``precompute_gru_context``)."""
+    with the hoisted context ``pre`` (``precompute_gru_context``). In bf16
+    mode the gates are bf16 and the state ``h`` stays float32: ``r * h``
+    and the convex blend are taken at the state's precision."""
+    sd = layers.get_compute_dtype()
     for zr_pre, q_pre, w_zr, b_zr, w_q, b_q, pad in pre:
-        zr = F.conv2d(torch.cat([h, x], dim=1), w_zr, b_zr, padding=pad)
+        zr = conv2d(torch.cat([h.to(x.dtype), x], dim=1), w_zr, b_zr,
+                    padding=pad, out_dtype=sd)
         zr = zr + zr_pre
         C = h.shape[1]
         z = torch.sigmoid(zr[:, :C])
         r = torch.sigmoid(zr[:, C:])
-        q = F.conv2d(torch.cat([r * h, x], dim=1), w_q, b_q, padding=pad)
+        q = conv2d(torch.cat([(r * h).to(x.dtype), x], dim=1), w_q, b_q,
+                   padding=pad, out_dtype=sd)
         q = torch.tanh(q + q_pre)
         h = (1 - z) * h + z * q
     return h
@@ -188,7 +263,8 @@ class FlowHead(nn.Module):
         self.conv2 = nn.Conv2d(hidden_dim, 2, 3, padding=1)
 
     def forward(self, x):
-        return self.conv2(F.relu(self.conv1(x)))
+        h = F.relu(conv(self.conv1, x, layers.get_compute_dtype()))
+        return conv(self.conv2, h)                # the delta stays float32
 
 
 class BasicUpdateBlock(nn.Module):
@@ -204,7 +280,8 @@ class BasicUpdateBlock(nn.Module):
 
 def update_block_apply(block, net, corr, flow, pre):
     """One refinement step -> (net, delta_flow). ``corr``: (B, L*k*k, H1,
-    W1) lookup; ``pre``: ``precompute_gru_context`` of this frame. The
+    W1) lookup or a ``BlockedCorr``; ``pre``: ``precompute_gru_context`` of
+    this frame. The
     convex-upsample mask is not computed here (``mask_from_net``: only the
     last iteration's mask is consumed)."""
     motion = block.encoder(flow, corr)
@@ -214,7 +291,7 @@ def update_block_apply(block, net, corr, flow, pre):
 
 def mask_from_net(block, net):
     """Convex-upsample mask logits from a GRU state (0.25-scaled)."""
-    return 0.25 * block.mask(net)
+    return 0.25 * conv(block.mask[2], F.relu(conv(block.mask[0], net)))
 
 
 def convex_upsample(flow, mask, mul=8.0):
@@ -261,7 +338,9 @@ def weight_head_apply(head, corr_sample, mean_response):
     x = corr_sample.reshape(n, Kp, Kp, L)
     mean = mean_response.reshape(n, 1, 1, 1).expand(n, Kp, Kp, 1)
     x = torch.cat([x, mean], dim=-1).permute(0, 3, 1, 2)    # (n, L+1, Kp, Kp)
-    w = head.net(x).mean(dim=(2, 3))                        # (n, 1)
+    for mod in head.net:
+        x = conv(mod, x) if isinstance(mod, nn.Conv2d) else F.relu(x)
+    w = x.mean(dim=(2, 3))                                  # (n, 1)
     return w.reshape(B, H1, W1, 1)
 
 
@@ -316,8 +395,9 @@ def encode_template(model, cfg: RaftConfig, image1):
     """Frame-1 features for the forward pass: (fmap1, net0, inp), each
     NHWC. image1: (B, H, W, 3) float RGB in [0, 255]."""
     x1 = _nchw(2.0 * (image1 / 255.0) - 1.0)
-    fmap1 = model.fnet(x1)
-    net, inp = _context(cfg, model.cnet(x1))
+    with layers.precision_scope(cfg.precision):
+        fmap1 = model.fnet(x1)
+        net, inp = _context(cfg, model.cnet(x1))
     return _nhwc(fmap1), _nhwc(net), _nhwc(inp)
 
 
@@ -344,6 +424,13 @@ def weighted_raft_forward(model, cfg: RaftConfig, image1, image2,
         'weights_up' (B,H,W,1), or 'up_mask' (B,H/8,W/8,576) and
         'weight_head_at'.
     """
+    with layers.precision_scope(cfg.precision):
+        return _raft_forward(model, cfg, image1, image2, flow_init, iters,
+                             template_feats, sparse_weight_head)
+
+
+def _raft_forward(model, cfg, image1, image2, flow_init, iters,
+                  template_feats, sparse_weight_head):
     iters = cfg.iters if iters is None else iters
     radius = cfg.radius
     x2 = _nchw(2.0 * (image2 / 255.0) - 1.0)
@@ -358,17 +445,38 @@ def weighted_raft_forward(model, cfg: RaftConfig, image1, image2,
         net, inp = _context(cfg, model.cnet(x1))
     H1, W1 = fmap2.shape[2:]
 
-    pyramid, mean_response = corr_pyramid_fused(
-        _nhwc(fmap1).contiguous(), _nhwc(fmap2).contiguous(), cfg.corr_levels)
+    f1, f2 = _nhwc(fmap1).contiguous(), _nhwc(fmap2).contiguous()
+    local = None
+    if cfg.corr_impl == "local" and B == 1:
+        # exact within +-local_margin cells of residual flow, saturated
+        # beyond; bf16 mode stores the volume (and the lookups) in bf16
+        local = build_local_corr(
+            f1, f2, radius, cfg.corr_levels, margin=cfg.local_margin,
+            out_dtype=layers.get_compute_dtype())
+        mean_response = corr_mean_response(f1, f2)
+
+        def lookup(coords):        # blocked: convc1 absorbs the layout
+            return corr_lookup_local_blocked(local, coords, radius,
+                                             check=cfg.fine_check)
+
+        def lookup_natural(coords):
+            return corr_lookup_local(local, coords, radius)
+    else:
+        pyramid, mean_response = corr_pyramid_fused(f1, f2, cfg.corr_levels)
+
+        def lookup(coords):
+            return _nchw(corr_lookup(pyramid, coords, radius))
+
+        def lookup_natural(coords):
+            return corr_lookup(pyramid, coords, radius)
 
     ub = model.update_block
     coords0 = _nchw(coords_grid(B, H1, W1, x2.device))     # (B, 2, H1, W1)
     coords1 = coords0 if flow_init is None else coords0 + _nchw(flow_init)
     pre = precompute_gru_context(ub.gru, inp, cfg.hidden_dim)
-    for _ in range(iters):
-        corr = corr_lookup(pyramid, _nhwc(coords1).contiguous(), radius)
-        net, delta = update_block_apply(ub, net, _nchw(corr), coords1 - coords0,
-                                        pre)
+    for _ in range(iters):         # no host sync inside this loop
+        corr = lookup(_nhwc(coords1).contiguous())
+        net, delta = update_block_apply(ub, net, corr, coords1 - coords0, pre)
         coords1 = coords1 + delta
 
     up_mask = mask_from_net(ub, net)
@@ -383,21 +491,30 @@ def weighted_raft_forward(model, cfg: RaftConfig, image1, image2,
             raise ValueError("the sparse weight head needs B == 1")
         coords1_flat = coords1.reshape(H1 * W1, 2)
         mr_flat = mean_response.reshape(H1 * W1)
+        if local is not None:
+            # queries are minor in the block-local volume, so per-cell reads
+            # would be strided: one more dense lookup at the final
+            # coordinates, then a row select
+            corr_dense_flat = lookup_natural(coords1).reshape(H1 * W1, -1)
 
         @torch.no_grad()
         def weight_head_at(cells):
             M = cells.shape[0]
-            corr_f = corr_lookup(pyramid, coords1_flat[cells][None, None],
-                                 radius, rows=cells)        # (1, 1, M, L*k*k)
+            if local is not None:
+                corr_f = corr_dense_flat[cells]
+            else:
+                corr_f = corr_lookup(pyramid, coords1_flat[cells][None, None],
+                                     radius, rows=cells)    # (1, 1, M, L*k*k)
             corr_s = corr_f.reshape(1, 1, M, k, k, cfg.corr_levels)
-            w = weight_head_apply(model.weight_head, corr_s,
-                                  mr_flat[cells].reshape(1, 1, M))
+            with layers.precision_scope(cfg.precision):
+                w = weight_head_apply(model.weight_head, corr_s,
+                                      mr_flat[cells].reshape(1, 1, M))
             return w.reshape(M)
 
         out.update(up_mask=_nhwc(up_mask), weight_head_at=weight_head_at)
         return out
 
-    corr_final = corr_lookup(pyramid, coords1, radius)      # (B,H1,W1,L*k*k)
+    corr_final = lookup_natural(coords1)                    # (B,H1,W1,L*k*k)
     corr_sample = corr_final.reshape(B, H1, W1, k, k, cfg.corr_levels)
     weights = weight_head_apply(model.weight_head, corr_sample, mean_response)
     weights_up = convex_upsample(_nchw(weights), up_mask) / 8.0

@@ -15,3 +15,11 @@ from .sampling import (  # noqa: F401
     featuremap_coords,
     masked_sobol_gather,
 )
+from .kernels import (  # noqa: F401  (the six CUDA launch wrappers)
+    warp_perspective_bilinear,
+    corr_pyramid_lookup,
+    local_corr_build,
+    local_lookup_fine_multi,
+    local_lookup_exact,
+    local_lookup_fine,
+)

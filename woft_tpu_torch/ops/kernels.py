@@ -9,18 +9,25 @@ The launch wrappers below take CUDA tensors only: they check device, dtype,
 shape and contiguity, allocate the output with ``torch.empty``, launch on
 the current stream, raise if the C entry reports a CUDA error, and count
 their launches in a plain integer attribute (``<wrapper>.launches``). The
-callers (``ops/warp.py:warp_perspective_fast``,
-``models/corr.py:corr_lookup``) take the plain PyTorch version for CPU
-tensors; a CUDA tensor always goes to the kernel.
+callers (``ops/warp.py:warp_perspective_fast``, ``models/corr.py``:
+``corr_lookup``, ``block_local_corr``, ``block_local_lookup*``) take the
+plain PyTorch version for CPU tensors; a CUDA tensor always goes to the
+kernel.
 
 | kernel | source | TPU kernel it replaces |
 |---|---|---|
 | A ``warp_perspective_bilinear`` | ``csrc/warp.cu`` | ``ops/pallas/warp.py:block_warp`` |
 | B ``corr_pyramid_lookup`` | ``csrc/corr_lookup.cu`` | ``ops/pallas/corr_lookup.py:fused_corr_lookup`` |
+| C ``local_corr_build`` | ``csrc/local_corr.cu`` | ``ops/pallas/local_corr.py:block_local_corr`` |
+| D ``local_lookup_fine_multi`` | ``csrc/local_lookup.cu`` | ``ops/pallas/local_lookup.py:block_local_lookup_fine_multi`` |
+| E ``local_lookup_exact`` | ``csrc/local_lookup.cu`` | ``ops/pallas/local_lookup.py:block_local_lookup`` |
+| F ``local_lookup_fine`` | ``csrc/local_lookup.cu`` | ``ops/pallas/local_lookup.py:block_local_lookup_fine`` |
 """
 
+import contextlib
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -30,7 +37,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("warp", "corr_lookup")
+SOURCES = ("warp", "corr_lookup", "local_corr", "local_lookup")
 # --fmad=false: no FMA contraction, so the kernels round like their plain
 # PyTorch versions (see the notes at the top of each source)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -39,10 +46,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# source -> {C symbol: argument types}
 _ENTRIES = {
-    "warp": ("woft_warp_bilinear", [_P, _I, _I, _I, _I, _P, _P, _I, _I, _P]),
-    "corr_lookup": ("woft_corr_lookup",
-                    [_P, _P, _P, _I, _P, _P, ctypes.c_longlong, _I, _P, _P]),
+    "warp": {"woft_warp_bilinear": [_P, _I, _I, _I, _I, _P, _P, _I, _I, _P]},
+    "corr_lookup": {"woft_corr_lookup": [_P, _P, _P, _I, _P, _P,
+                                         ctypes.c_longlong, _I, _P, _P]},
+    "local_corr": {"woft_local_corr": [_P, _P, _P] + [_I] * 11
+                   + [ctypes.c_float, _I, _P]},
+    "local_lookup": {
+        "woft_local_lookup_fine_multi": [_P, _P, _P, _I, _P, _P, _P, _I, _I,
+                                         _I, _I, _P, _I, _P],
+        "woft_local_lookup_fine": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
+                                   _P, _I, _P],
+        "woft_local_lookup_exact": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
+                                    _P, _I, _I, _I, _P],
+    },
 }
 _entries = {}
 
@@ -90,15 +108,20 @@ def build(names=SOURCES):
     return reports
 
 
-def _entry(name):
-    fn = _entries.get(name)
+def _entry(name, symbol=None):
+    """The C entry ``symbol`` of ``csrc/<name>.cu`` (its only one when
+    ``symbol`` is None), building and loading the library at first use."""
+    symbol = symbol or next(iter(_ENTRIES[name]))
+    fn = _entries.get(symbol)
     if fn is None:
         build((name,))
-        symbol, argtypes = _ENTRIES[name]
-        fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _entries[name] = fn
+        lib = ctypes.CDLL(str(library_path(name)))
+        for sym, argtypes in _ENTRIES[name].items():
+            f = getattr(lib, sym)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+            _entries[sym] = f
+        fn = _entries[symbol]
     return fn
 
 
@@ -109,6 +132,26 @@ def _check_tensor(t, what, dtype, device):
         raise TypeError(f"{what} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{what} must be contiguous")
+
+
+_ALREADY_CURRENT = contextlib.nullcontext()
+
+
+def _current(device):
+    """Context that makes ``device`` the current CUDA device for a launch;
+    free when it already is (the wrappers run ~80 times a frame)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return _ALREADY_CURRENT
+    return torch.cuda.device(device)
+
+
+def _stream():
+    """Handle of the current device's current stream. The raw getter skips
+    building a ``torch.cuda.Stream`` object per launch."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(torch.cuda.current_device())
+    return torch.cuda.current_stream().cuda_stream
 
 
 def _raise_on_error(rc, name):
@@ -138,9 +181,9 @@ def warp_perspective_bilinear(img, hinv, out_h, out_w):
     out = torch.empty((N, out_h, out_w, C), dtype=torch.float32,
                       device=img.device)
     fn = _entry("warp")
-    with torch.cuda.device(img.device):
+    with _current(img.device):
         rc = fn(img.data_ptr(), N, H, W, C, hinv.data_ptr(), out.data_ptr(),
-                out_h, out_w, torch.cuda.current_stream().cuda_stream)
+                out_h, out_w, _stream())
     _raise_on_error(rc, "warp")
     warp_perspective_bilinear.launches += 1
     return out
@@ -187,14 +230,194 @@ def corr_pyramid_lookup(pyramid, coords, radius, rows=None):
     hs = (ctypes.c_int * L)(*[p.shape[1] for p in pyramid])
     ws = (ctypes.c_int * L)(*[p.shape[2] for p in pyramid])
     fn = _entry("corr_lookup")
-    with torch.cuda.device(device):
+    with _current(device):
         rc = fn(ctypes.addressof(ptrs), ctypes.addressof(hs),
                 ctypes.addressof(ws), L, coords.data_ptr(),
                 None if rows is None else rows.data_ptr(), Q, radius,
-                out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                out.data_ptr(), _stream())
     _raise_on_error(rc, "corr_lookup")
     corr_pyramid_lookup.launches += 1
     return out
 
 
 corr_pyramid_lookup.launches = 0
+
+
+_VOLUME_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def local_corr_build(f1b, f2, pad, sh, sw, wh, ww, nbh, nbw, out_dtype):
+    """Kernel C: one level of the block-local correlation volume.
+
+    f1b: (nbh*nbw, 128, D) blocked query features; f2: (hl, wl, D) the
+    level's unpadded target features; both CUDA, contiguous, of
+    ``out_dtype`` (float32 or bfloat16), D a multiple of 32. Returns
+    (nbh*nbw, wh, ww, 128): ``<f1b[b, q], win_b[py, px]> / sqrt(D)`` with
+    win_b the (wh, ww) window at (by*sh - pad, (bx*sw)//8*8 - pad) of the
+    level, zero outside it; float32 accumulation, rounded once."""
+    if f1b.device.type != "cuda":
+        raise ValueError("local_corr_build takes CUDA tensors")
+    if out_dtype not in _VOLUME_DTYPES:
+        raise TypeError(f"volume dtype must be float32 or bfloat16, got "
+                        f"{out_dtype}")
+    device = f1b.device
+    _check_tensor(f1b, "f1b", out_dtype, device)
+    _check_tensor(f2, "f2", out_dtype, device)
+    nb = nbh * nbw
+    if f1b.dim() != 3 or f1b.shape[0] != nb or f1b.shape[1] != 128:
+        raise ValueError(f"f1b must be ({nb}, 128, D), got "
+                         f"{tuple(f1b.shape)}")
+    D = f1b.shape[2]
+    if D % 32 or f2.dim() != 3 or f2.shape[2] != D or min(f2.shape) == 0:
+        raise ValueError(f"f2 must be a non-empty (hl, wl, {D}) with D a "
+                         f"multiple of 32, got {tuple(f2.shape)}")
+    if min(nbh, nbw, wh, ww) < 1 or min(pad, sh, sw) < 0:
+        raise ValueError("bad block-local geometry")
+    if f1b.data_ptr() % 16 or f2.data_ptr() % 16:
+        raise ValueError("f1b and f2 must be 16-byte aligned")
+    out = torch.empty((nb, wh, ww, 128), dtype=out_dtype, device=device)
+    fn = _entry("local_corr")
+    with _current(device):
+        rc = fn(f1b.data_ptr(), f2.data_ptr(), out.data_ptr(), nb, 128, D,
+                f2.shape[0], f2.shape[1], pad, sh, sw, wh, ww, nbw,
+                1.0 / math.sqrt(D), int(out_dtype == torch.bfloat16),
+                _stream())
+    _raise_on_error(rc, "local_corr")
+    local_corr_build.launches += 1
+    return out
+
+
+local_corr_build.launches = 0
+
+
+def _check_volumes(vols, k):
+    """Shared checks of the lookup wrappers -> (device, dtype, nb, bq)."""
+    device, dtype = vols[0].device, vols[0].dtype
+    if device.type != "cuda":
+        raise ValueError("the block-local lookups take CUDA tensors")
+    if dtype not in _VOLUME_DTYPES:
+        raise TypeError(f"volumes must be float32 or bfloat16, got {dtype}")
+    nb, bq = vols[0].shape[0], vols[0].shape[-1]
+    for lvl, v in enumerate(vols):
+        _check_tensor(v, f"vols[{lvl}]", dtype, device)
+        if (v.dim() != 4 or v.shape[0] != nb or v.shape[3] != bq
+                or min(v.shape) == 0 or min(v.shape[1:3]) < k + 1):
+            raise ValueError(f"vols[{lvl}] must be ({nb}, wh > {k}, ww > "
+                             f"{k}, {bq}), got {tuple(v.shape)}")
+    return device, dtype, nb, bq
+
+
+def _check_starts(starts, frac, shape, device):
+    _check_tensor(starts, "starts", torch.int32, device)
+    _check_tensor(frac, "frac", torch.float32, device)
+    if tuple(starts.shape) != shape or tuple(frac.shape) != shape:
+        raise ValueError(f"starts and frac must be {shape}, got "
+                         f"{tuple(starts.shape)} and {tuple(frac.shape)}")
+
+
+def local_lookup_fine_multi(rcs, vols, rel, frac, k, out_dtype=torch.float32):
+    """Kernel D: every level's fine-window lookup in one launch.
+
+    rcs: (NB, L, 2) int32 anchors [r0, c0]; vols: L (NB, wh, ww, BQ) CUDA
+    volumes of one dtype; rel: (L, 2, NB, BQ) int32 starts relative to the
+    anchors ([l, 0] rows, [l, 1] columns); frac: (L, 2, NB, BQ) float32.
+    Returns (NB, L*k*k, BQ) ``out_dtype``, channel l*k*k + j*k + i."""
+    device, dtype, nb, bq = _check_volumes(vols, k)
+    L = len(vols)
+    if not 1 <= L <= 8:
+        raise ValueError(f"1 to 8 levels, got {L}")
+    if out_dtype not in _VOLUME_DTYPES:
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got "
+                        f"{out_dtype}")
+    _check_tensor(rcs, "rcs", torch.int32, device)
+    if tuple(rcs.shape) != (nb, L, 2):
+        raise ValueError(f"rcs must be ({nb}, {L}, 2), got "
+                         f"{tuple(rcs.shape)}")
+    _check_starts(rel, frac, (L, 2, nb, bq), device)
+    out = torch.empty((nb, L * k * k, bq), dtype=out_dtype, device=device)
+    ptrs = (ctypes.c_void_p * L)(*[v.data_ptr() for v in vols])
+    whs = (ctypes.c_int * L)(*[v.shape[1] for v in vols])
+    wws = (ctypes.c_int * L)(*[v.shape[2] for v in vols])
+    fn = _entry("local_lookup", "woft_local_lookup_fine_multi")
+    with _current(device):
+        rc = fn(ctypes.addressof(ptrs), ctypes.addressof(whs),
+                ctypes.addressof(wws), L, rcs.data_ptr(), rel.data_ptr(),
+                frac.data_ptr(), nb, bq, k, int(dtype == torch.bfloat16),
+                out.data_ptr(), int(out_dtype == torch.bfloat16),
+                _stream())
+    _raise_on_error(rc, "local_lookup_fine_multi")
+    local_lookup_fine_multi.launches += 1
+    return out
+
+
+local_lookup_fine_multi.launches = 0
+
+
+def local_lookup_fine(rc0, vol, rel, frac, k, out_dtype=torch.float32):
+    """Kernel F: kernel D for one level. rc0: (NB, 2) int32; vol: (NB, wh,
+    ww, BQ); rel, frac: (2, NB, BQ). Returns (NB, k*k, BQ)."""
+    device, dtype, nb, bq = _check_volumes([vol], k)
+    if out_dtype not in _VOLUME_DTYPES:
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got "
+                        f"{out_dtype}")
+    _check_tensor(rc0, "rc0", torch.int32, device)
+    if tuple(rc0.shape) != (nb, 2):
+        raise ValueError(f"rc0 must be ({nb}, 2), got {tuple(rc0.shape)}")
+    _check_starts(rel, frac, (2, nb, bq), device)
+    out = torch.empty((nb, k * k, bq), dtype=out_dtype, device=device)
+    fn = _entry("local_lookup", "woft_local_lookup_fine")
+    with _current(device):
+        rc = fn(vol.data_ptr(), vol.shape[1], vol.shape[2], rc0.data_ptr(),
+                rel.data_ptr(), frac.data_ptr(), nb, bq, k,
+                int(dtype == torch.bfloat16), out.data_ptr(),
+                int(out_dtype == torch.bfloat16),
+                _stream())
+    _raise_on_error(rc, "local_lookup_fine")
+    local_lookup_fine.launches += 1
+    return out
+
+
+local_lookup_fine.launches = 0
+
+
+def local_lookup_exact(vol, starts, frac, k, flag=None, out=None, channel=0):
+    """Kernel E: one level over the whole stored window.
+
+    vol: (NB, wh, ww, BQ) CUDA; starts: (2, NB, BQ) int32 absolute slab
+    starts (rows, columns); frac: (2, NB, BQ) float32. Without ``out``
+    returns a new (NB, k*k, BQ) float32. With ``out`` (NB, C, BQ) float32
+    or bfloat16 it writes channels ``channel .. channel + k*k`` in place
+    and returns ``out``; with ``flag`` (NB,) uint8 only the blocks whose
+    flag is non-zero are written."""
+    device, dtype, nb, bq = _check_volumes([vol], k)
+    _check_starts(starts, frac, (2, nb, bq), device)
+    if out is None:
+        if flag is not None:
+            raise ValueError("a flag needs an output to leave rows in")
+        out = torch.empty((nb, k * k, bq), dtype=torch.float32, device=device)
+    else:
+        if out.dtype not in _VOLUME_DTYPES:
+            raise TypeError(f"out must be float32 or bfloat16, got "
+                            f"{out.dtype}")
+        _check_tensor(out, "out", out.dtype, device)
+        if (out.dim() != 3 or out.shape[0] != nb or out.shape[2] != bq
+                or not 0 <= channel <= out.shape[1] - k * k):
+            raise ValueError(f"out must be ({nb}, >= {channel + k * k}, "
+                             f"{bq}), got {tuple(out.shape)}")
+    if flag is not None:
+        _check_tensor(flag, "flag", torch.uint8, device)
+        if tuple(flag.shape) != (nb,):
+            raise ValueError(f"flag must be ({nb},), got {tuple(flag.shape)}")
+    fn = _entry("local_lookup", "woft_local_lookup_exact")
+    with _current(device):
+        rc = fn(vol.data_ptr(), vol.shape[1], vol.shape[2], starts.data_ptr(),
+                frac.data_ptr(), None if flag is None else flag.data_ptr(),
+                nb, bq, k, int(dtype == torch.bfloat16), out.data_ptr(),
+                out.shape[1], channel, int(out.dtype == torch.bfloat16),
+                _stream())
+    _raise_on_error(rc, "local_lookup_exact")
+    local_lookup_exact.launches += 1
+    return out
+
+
+local_lookup_exact.launches = 0

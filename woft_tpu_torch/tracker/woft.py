@@ -4,7 +4,9 @@ PyTorch twin of ``woft_tpu/tracker/woft.py`` (the full-frame tracker):
 
 - ``TrackerState``: template features, homography history, lost counters;
 - ``build_track_step``: ``(model, state, frame) -> (state, H_cur2init,
-  meta)`` — pre-warp by the last good H (kernel A on the card), WeightedRAFT
+  meta)`` — pre-warp by the last good H (kernel A on the card; exact
+  float32 in every precision mode, where the reference relaxes its
+  pre-warp in bf16 mode), WeightedRAFT
   flow against the cached template features with the sparse weight head,
   mask-as-weights TC selection (TC: a template<->current point pair from
   the dense flow), Sobol-500 gather, weighted-QR fit, the 5 px / 20 %
