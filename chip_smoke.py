@@ -12,21 +12,26 @@ Phases; any failure ends the script with a non-zero exit:
 1. the card's name and power limit (``nvidia-smi``), the TF32 flags;
 2. build the kernels from ``woft_tpu_torch/csrc/*.cu`` with ``nvcc``;
 3. hold each kernel (A pre-warp, B pyramid lookup, C block-local volume,
-   D, E, F block-local lookups) against its plain PyTorch version on the
-   card at the 1280x720 main-path shapes, and time kernel, plain version, a
-   PyTorch library yardstick the port never calls, and the memory/compute
-   bound;
+   D, E, F block-local lookups, G fused GRU direction, H motion-encoder
+   tail, I flow head) against its plain PyTorch version on the card at the
+   1280x720 main-path shapes, and time kernel, plain version, a PyTorch
+   library yardstick the port never calls (for G, H, I: the port's own
+   unfused cuDNN path for the same function, several calls), and the
+   memory/compute bound;
 4. track 1280x720 frames through ``WOFTTracker`` with the canonical
-   ``configs/WOFT.py`` and then with ``configs/WOFT_fast.py`` (block-local
-   correlation, bf16; both full-width RAFT-large, seeded weights), each
-   with the launch counters zeroed before and read after, and each followed
-   by the local-flow fallback (``redetection='never'``); then one
-   block-local forward whose ``flow_init`` makes blocks violate their fine
-   windows, so that kernel E rewrites them;
+   ``configs/WOFT.py``, with ``configs/WOFT_fast.py`` (block-local
+   correlation, bf16), and with ``WOFT_fast.py`` plus the fused refinement
+   loop (``gru_fused``, ``tail_fused``: kernels G and I); all full-width
+   RAFT-large, seeded weights, each with the launch counters zeroed before
+   and read after, and each followed by the local-flow fallback
+   (``redetection='never'``); then one block-local forward whose
+   ``flow_init`` makes blocks violate their fine windows, so that kernel E
+   rewrites them;
 5. references: the block-local forward must equal the dense one at
-   1280x720 in float32; on small inputs an oracle-flow tracker must recover
-   a known homography, and the RAFT forward on the card (dense and
-   block-local) must match the CPU path;
+   1280x720 in float32, and the fused bf16 forward the unfused one to bf16
+   rounding noise; on small inputs an oracle-flow tracker must recover a
+   known homography, and the RAFT forward on the card (dense, block-local,
+   fused) must match the CPU path;
 6. a ``kernels`` JSON line, then the device JSON as the last line.
 """
 
@@ -55,6 +60,17 @@ BF16_FLOW_TOL_PX = 0.05          # the same in bf16 mode: each rounding of a
 CORR_ATOL, CORR_RTOL_FP32, CORR_RTOL_BF16 = 2e-5, 1e-5, 2.0 ** -7
 LOCAL_LOOKUP_TOL = 1e-6          # same float32 ops in the same order: 0 expected
 CORNER_TOL_PX = 0.05             # oracle-flow homography recovery
+# kernels G, H, I round to bf16 inside and sum in another order than their
+# plain versions, so a rounding may fall the other way on a small share of
+# entries. Stated in bf16 ulps (2^-8 relative) of the rounded quantity:
+BF16_ULP = 2.0 ** -8
+GRU_TOL_ULPS = 4         # G, float32 result: a flipped z, 1 - z, q or z * q
+#                          moves it by one ulp of max(1, |h|); a few coincide
+TAIL_TOL_ULPS = 2        # H, bf16 result: one ulp (2 bounds any mantissa),
+#                          plus one ulp of the map's scale from flipped
+#                          first-stage activations
+HEAD_TOL_ULPS = 1        # I, float32 delta: one ulp of the map's scale
+UPDATE_DIFF_SHARE = 0.02         # G, H: at most this share of entries differs
 H_IMG, W_IMG = 720, 1280
 
 
@@ -524,16 +540,138 @@ def check_local_lookups(kernels, corr, dev):
     return rows
 
 
+def check_update_kernels(kernels, dev):
+    """Kernels G (both directions), H and I against their plain versions at
+    the 720p loop shape (90 x 160 cells), with the update block's seeded
+    weights. The yardstick of each is the port's own unfused path for the
+    same function: several cuDNN and elementwise calls, not one."""
+    from woft_tpu_torch.models import layers, update
+    from woft_tpu_torch.models import raft as traft
+
+    H1, W1 = H_IMG // 8, W_IMG // 8
+    px = H1 * W1
+    cfg = traft.RaftConfig(precision="bf16")
+    ub = traft.init_raft_params(cfg, seed=0, device=dev).update_block
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def randn(c):
+        return torch.randn(1, c, H1, W1, device=dev, generator=g)
+
+    # NCHW as the unfused path holds them; the kernels read channels-minor
+    net = torch.tanh(randn(128))
+    inp = torch.relu(randn(128))
+    motion = torch.relu(randn(128)).bfloat16()
+    cor1 = torch.relu(randn(256)).bfloat16()
+    flo1 = torch.relu(randn(128)).bfloat16()
+    flow = 3.0 * randn(2)
+    rows = {}
+
+    def n_bytes(*tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    def report(name, diff, allowed, kernel_fn, plain_fn, unfused_fn, bnd, by,
+               label, max_share=UPDATE_DIFF_SHARE):
+        torch.cuda.synchronize()
+        share = (diff > 0).float().mean().item()
+        worst = (diff / allowed).max().item()
+        log(f"kernel {name}: max_abs_err {diff.max().item():.3g}, entries "
+            f"that differ {100 * share:.3f} % (tol {100 * max_share:g} %), "
+            f"largest difference {worst:.3g} of the tolerance")
+        if not (worst <= 1.0 and share <= max_share):
+            raise AssertionError(f"kernel {name} disagrees with its plain "
+                                 f"version")
+        with layers.precision_scope("bf16"), torch.no_grad():
+            ms = time_ms(kernel_fn)
+            plain_ms = time_ms(plain_fn, iters=5, warmup=1)
+            library_ms = time_ms(unfused_fn)
+        log(f"kernel {name} timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, {label} {library_ms:.4f} ms, bound {bnd:.4f} ms ({by})")
+        return dict(max_abs_err=diff.max().item(), ms=ms, plain_ms=plain_ms,
+                    bound_ms=bnd, bound_by=by, library_ms=library_ms,
+                    library_is=label)
+
+    with layers.precision_scope("bf16"), torch.no_grad():
+        fused = traft.precompute_gru_context(ub.gru, inp, 128, fused=True)
+        unfused = traft.precompute_gru_context(ub.gru, inp, 128)
+    h, x = update.nhwc(net), update.nhwc(motion)
+    # G, one launch: 5 taps x 256 channels into z|r (256) and q (128)
+    g_flops = 2 * px * 5 * 256 * (256 + 128)
+    per_dir = []
+    for d, args in enumerate(fused):
+        axis = args[-1]
+        got = kernels.fused_gru_update(h, x, *args)
+        want = update.gru_update_plain(h, x, *args)
+        allowed = GRU_TOL_ULPS * BF16_ULP * h.abs().clamp(min=1.0)
+        bnd, by = bound_ms(n_bytes(h, x, *args[:-1]) + n_bytes(got), g_flops,
+                           BF16_FLOPS)
+        per_dir.append(report(
+            f"G [{axis}]", (got - want).abs(), allowed,
+            lambda: kernels.fused_gru_update(h, x, *args),
+            lambda: update.gru_update_plain(h, x, *args),
+            lambda: traft._sep_conv_gru(net, motion, unfused[d:d + 1]),
+            bnd, by, "one unfused _sep_conv_gru direction (~20 calls)"))
+    # the main path launches each direction once an iteration: one row with
+    # the mean of the two
+    rows["G"] = dict(per_dir[0],
+                     max_abs_err=max(r["max_abs_err"] for r in per_dir))
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        rows["G"][key] = sum(r[key] for r in per_dir) / len(per_dir)
+
+    enc = ub.encoder
+    me = update.motion_encoder_params(enc)
+    c1, f1, fl = update.nhwc(cor1), update.nhwc(flo1), update.nhwc(flow)
+    got = kernels.motion_encoder_tail(c1, f1, fl, *me)
+    want = update.motion_encoder_tail_plain(c1, f1, fl, *me)
+    if not torch.equal(got[..., 126:], fl.bfloat16()):
+        raise AssertionError("kernel H: lanes 126-127 are not bf16(flow)")
+    wf = want.float()
+    allowed = BF16_ULP * (TAIL_TOL_ULPS * wf.abs() + wf.abs().max())
+
+    def tail_unfused():
+        sd = torch.bfloat16
+        cor = F.relu(layers.conv(enc.convc2, cor1, sd))
+        flo = F.relu(layers.conv(enc.convf2, flo1, sd))
+        out = F.relu(layers.conv(enc.conv, torch.cat([cor, flo], 1), sd))
+        return torch.cat([out, flow.to(sd)], 1)
+
+    bnd, by = bound_ms(
+        n_bytes(c1, f1, fl, *me) + n_bytes(got),
+        2 * px * 9 * (256 * 192 + 128 * 64 + 256 * 126), BF16_FLOPS)
+    rows["H"] = report(
+        "H", (got.float() - wf).abs(), allowed,
+        lambda: kernels.motion_encoder_tail(c1, f1, fl, *me),
+        lambda: update.motion_encoder_tail_plain(c1, f1, fl, *me),
+        tail_unfused, bnd, by, "the three unfused tail convolutions and "
+        "the cat (~12 calls)")
+
+    fh = update.flow_head_params(ub.flow_head)
+    got = kernels.flow_head(h, *fh)
+    want = update.flow_head_plain(h, *fh)
+    allowed = (HEAD_TOL_ULPS * BF16_ULP * want.abs().max()).expand_as(want)
+    bnd, by = bound_ms(n_bytes(h, *fh) + n_bytes(got),
+                       2 * px * 9 * (128 * 256 + 256 * 2), BF16_FLOPS)
+    rows["I"] = report(
+        "I", (got - want).abs(), allowed,
+        lambda: kernels.flow_head(h, *fh),
+        lambda: update.flow_head_plain(h, *fh),
+        lambda: ub.flow_head(net), bnd, by, "the unfused FlowHead (~9 calls)",
+        max_share=1.0)      # unrounded float32 sums in another order: most
+    #                         entries differ, in their last bits
+    return rows
+
+
 COUNTED = ("warp_perspective_bilinear", "corr_pyramid_lookup",
            "local_corr_build", "local_lookup_fine_multi",
-           "local_lookup_exact", "local_lookup_fine")
+           "local_lookup_exact", "local_lookup_fine", "fused_gru_update",
+           "motion_encoder_tail", "flow_head")
+FUSED_FLAGS = {"gru_fused": True, "tail_fused": True}
 
 
-def track_720p(kernels, dev, config):
+def track_720p(kernels, dev, config, fused=False):
     """A main path: ``WOFTTracker`` at 1280x720 through ``configs/<config>``
     (``WOFT.py``: dense pyramid, float32; ``WOFT_fast.py``: block-local
-    volume, bf16). Returns the launch counts of the run and its steady
-    frame times."""
+    volume, bf16; ``fused``: with the fused refinement loop, kernels G and
+    I). Returns the launch counts of the run and its steady frame times."""
     from woft_tpu_torch.config import load_config
     from woft_tpu_torch.ops.warp import warp_perspective
     from woft_tpu_torch.tracker import TrackerParams, WOFTTracker
@@ -551,9 +689,10 @@ def track_720p(kernels, dev, config):
     conf = load_config(os.path.join(ROOT, "woft_tpu_torch", "configs",
                                     config))
     fast = conf.flow_config.corr_impl == "local"
+    flags = FUSED_FLAGS if fused else None
     log(f"--- {config}: corr_impl {conf.flow_config.corr_impl or 'dense'}, "
-        f"precision {conf.flow_config.precision}")
-    tracker = WOFTTracker(conf)
+        f"precision {conf.flow_config.precision}, raft_flags {flags}")
+    tracker = WOFTTracker(conf, raft_flags=flags)
     torch.cuda.synchronize()
 
     for name in COUNTED:
@@ -579,7 +718,7 @@ def track_720p(kernels, dev, config):
     # the local-flow fallback with the lost-counter ladder on every frame
     conf.tracker_params = TrackerParams(redetection="never",
                                         no_prewarp_after_n=1)
-    never = WOFTTracker(conf)
+    never = WOFTTracker(conf, raft_flags=flags)
     never.init(template, mask)
     for i, f in enumerate(frames[:3]):
         t0 = time.perf_counter()
@@ -601,23 +740,24 @@ def track_720p(kernels, dev, config):
         raise AssertionError("non-finite homography")
     # per flow: 12 iterations and one more lookup for the weight head; the
     # block-local path builds 4 levels, and kernel E follows each launch of
-    # D once a level (the guard)
-    want = {"warp_perspective_bilinear": n_frames}
+    # D once a level (the guard); the fused loop launches G once a direction
+    # and I once, every iteration
+    want = dict.fromkeys(COUNTED, 0)
+    want["warp_perspective_bilinear"] = n_frames
     if fast:
         want.update(local_corr_build=4 * n_flows,
                     local_lookup_fine_multi=13 * n_flows,
                     local_lookup_exact=4 * 13 * n_flows)
     else:
         want.update(corr_pyramid_lookup=13 * n_flows)
+    if fused:
+        want.update(fused_gru_update=2 * 12 * n_flows, flow_head=12 * n_flows)
     for name, n in want.items():
-        if launches[name] < n:
+        if launches[name] < n or (n == 0 and launches[name]):
             raise AssertionError(f"{config}: {name} launched "
-                                 f"{launches[name]} times, expected at least "
-                                 f"{n} ({n_frames} frames, {n_flows} flows)")
-    off_path = ("corr_pyramid_lookup",) if fast else (
-        "local_corr_build", "local_lookup_fine_multi", "local_lookup_exact")
-    if any(launches[name] for name in off_path + ("local_lookup_fine",)):
-        raise AssertionError(f"{config}: a kernel off this path was launched")
+                                 f"{launches[name]} times, expected "
+                                 f"{'at least ' if n else ''}{n} ({n_frames} "
+                                 f"frames, {n_flows} flows)")
     return launches, steady
 
 
@@ -703,6 +843,35 @@ def check_local_equals_dense_720p(dev):
         raise AssertionError("block-local and dense forwards disagree")
 
 
+def check_fused_equals_unfused_720p(dev):
+    """The fused refinement loop against the unfused one at 1280x720 in
+    bf16, full width, on the card. Both round at bf16 but not at the very
+    same places (the unfused path rounds a bias before its bf16
+    convolution, and cuDNN sums in its own order), so they agree to bf16
+    rounding noise over 12 iterations."""
+    from woft_tpu_torch.models.raft import (RaftConfig, init_raft_params,
+                                            weighted_raft_forward)
+
+    img1 = torch.tensor(textured_frame(H_IMG, W_IMG, seed=9),
+                        dtype=torch.float32, device=dev)[None]
+    img2 = torch.roll(img1, shifts=(3, -5), dims=(1, 2))
+    base = RaftConfig(corr_impl="local", precision="bf16")
+    model = init_raft_params(base, seed=0, device=dev)
+    unfused = weighted_raft_forward(model, base, img1, img2)
+    fused = weighted_raft_forward(
+        model, RaftConfig(corr_impl="local", precision="bf16", **FUSED_FLAGS),
+        img1, img2)
+    torch.cuda.synchronize()
+    ferr = (fused["flow_up"] - unfused["flow_up"]).abs().max().item()
+    werr = (fused["weights_up"] - unfused["weights_up"]).abs().max().item()
+    log(f"720p bf16 forward, fused loop vs unfused: flow {ferr:.3g} px (tol "
+        f"{BF16_FLOW_TOL_PX}), weights {werr:.3g}; largest flow "
+        f"{unfused['flow'].abs().max().item():.3g} cells")
+    if not (torch.isfinite(fused["flow_up"]).all()
+            and ferr <= BF16_FLOW_TOL_PX):
+        raise AssertionError("fused and unfused forwards disagree")
+
+
 def check_small_references(dev):
     """Oracle-flow tracker on the card, and the RAFT forward card vs CPU."""
     from woft_tpu_torch.models.raft import (RaftConfig, init_raft_params,
@@ -754,7 +923,10 @@ def check_small_references(dev):
              FLOW_TOL_PX),
             ("block-local, bf16",
              RaftConfig(iters=12, corr_impl="local", local_margin=8,
-                        precision="bf16"), BF16_FLOW_TOL_PX)):
+                        precision="bf16"), BF16_FLOW_TOL_PX),
+            ("block-local, bf16, fused loop",
+             RaftConfig(iters=12, corr_impl="local", local_margin=8,
+                        precision="bf16", **FUSED_FLAGS), BF16_FLOW_TOL_PX)):
         outs = {}
         for d in ("cpu", dev):
             model = init_raft_params(cfg, seed=0, device=d)
@@ -808,21 +980,28 @@ def main():
     b = check_lookup(kernels, corr, dev)
     c = check_local_corr(kernels, corr, dev)
     lookups = check_local_lookups(kernels, corr, dev)
+    upd = check_update_kernels(kernels, dev)
     torch.cuda.empty_cache()
     canon, canon_ms = track_720p(kernels, dev, "WOFT.py")
     torch.cuda.empty_cache()
     fast, fast_ms = track_720p(kernels, dev, "WOFT_fast.py")
+    torch.cuda.empty_cache()
+    fused, fused_ms = track_720p(kernels, dev, "WOFT_fast.py", fused=True)
     log(f"steady 720p frame: WOFT.py {sum(canon_ms) / len(canon_ms):.1f} ms, "
-        f"WOFT_fast.py {sum(fast_ms) / len(fast_ms):.1f} ms (host clock, "
-        f"{len(fast_ms)} frames each)")
+        f"WOFT_fast.py {sum(fast_ms) / len(fast_ms):.1f} ms, WOFT_fast.py "
+        f"with the fused loop {sum(fused_ms) / len(fused_ms):.1f} ms (host "
+        f"clock, {len(fast_ms)} frames each)")
     check_guard_on_a_path(kernels, corr, dev)
     check_local_equals_dense_720p(dev)
+    check_fused_equals_unfused_720p(dev)
     check_small_references(dev)
 
     # launches: A and B on the WOFT.py path, C, D, E on the WOFT_fast.py
-    # path (which launches A too); F has no caller on a tracker path, as in
-    # the JAX package, and is launched in the kernel phase only
+    # path (which launches A too), G and I on the fused WOFT_fast.py path;
+    # F and H have no caller on a tracker path, as in the JAX package, and
+    # are launched in the kernel phase only
     local_lookup = "woft_tpu_torch/csrc/local_lookup.cu"
+    update_tail = "woft_tpu_torch/csrc/update_tail.cu"
     rows = [
         dict(name="warp_perspective_bilinear", route="cuda",
              source="woft_tpu_torch/csrc/warp.cu",
@@ -849,6 +1028,20 @@ def main():
              note="no caller on a tracker path, as in the JAX package; "
                   "launched and checked in the kernel phase only",
              **lookups["F"]),
+        dict(name="fused_gru_update", route="cuda",
+             source="woft_tpu_torch/csrc/gru.cu",
+             replaces="woft_tpu/ops/pallas/gru.py:133",
+             launches=fused["fused_gru_update"],
+             note="times are the mean of the two directions", **upd["G"]),
+        dict(name="motion_encoder_tail", route="cuda", source=update_tail,
+             replaces="woft_tpu/ops/pallas/update_tail.py:184",
+             launches=fused["motion_encoder_tail"],
+             note="no caller on a forward path, as in the JAX package; "
+                  "launched and checked in the kernel phase only",
+             **upd["H"]),
+        dict(name="flow_head", route="cuda", source=update_tail,
+             replaces="woft_tpu/ops/pallas/update_tail.py:283",
+             launches=fused["flow_head"], **upd["I"]),
     ]
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -10,7 +10,10 @@ float32 operations in the same order (the kernels are built without FMA
 contraction), so they agree to 1e-4 on [0, 255] images and 1e-5 (1e-6 for
 the block-local lookups) on correlation values; 0 is expected. Kernel C
 sums its products in another order than the plain einsum; its tests state
-the bound.
+the bound. Kernels G, H and I round to bf16 inside (gates, activations), and
+they too sum in another order than their plain versions, so a rounding may
+fall the other way on a small share of entries; their tests state the bound
+in bf16 ulps of the rounded quantity.
 """
 
 import math
@@ -19,7 +22,8 @@ import pytest
 import torch
 
 from woft_tpu_torch.device import resolve_device
-from woft_tpu_torch.models import corr
+from woft_tpu_torch.models import corr, layers, update
+from woft_tpu_torch.models import raft as traft
 from woft_tpu_torch.ops import kernels, warp
 
 pytestmark = pytest.mark.cuda
@@ -273,3 +277,211 @@ def test_local_wrappers_check_inputs(dev, local_volume):
         kernels.local_corr_build(torch.zeros(2, 64, 64, device=dev),
                                  torch.zeros(8, 8, 64, device=dev), 13, 8, 16,
                                  34, 48, 1, 2, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# fused update-block kernels G, H, I
+# ---------------------------------------------------------------------------
+
+ULP = 2.0 ** -8            # one bf16 ulp relative to a value's binade top
+UPDATE_SHAPES = [(16, 32), (19, 28), (8, 16), (90, 160), (5, 3)]
+UPDATE_IDS = ["16x32", "19x28", "8x16", "90x160", "5x3"]
+
+
+@pytest.fixture(scope="module")
+def update_block(dev):
+    cfg = traft.RaftConfig(precision="bf16")
+    return traft.init_raft_params(cfg, seed=1, device=dev).update_block
+
+
+def _maps(dev, hw, seed, *channels, dtype=torch.bfloat16, scale=1.0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [(scale * torch.randn(1, *hw, c, device=dev, generator=g)).to(dtype)
+            for c in channels]
+
+
+def _gru_args(dev, ub, hw, seed, w_scale=1.0):
+    (h,) = _maps(dev, hw, seed, 128, dtype=torch.float32)
+    x, pre_zr, pre_q = _maps(dev, hw, seed + 1, 128, 256, 128)
+    dirs = []
+    for names in (("convz1", "convr1", "convq1"),
+                  ("convz2", "convr2", "convq2")):
+        wzr, bzr = update.gru_taps(ub.gru, names[:2], 128, 128)
+        wq, bq = update.gru_taps(ub.gru, names[2:], 128, 128)
+        dirs.append(((w_scale * wzr.float()).bfloat16(),
+                     (w_scale * wq.float()).bfloat16(), bzr, bq))
+    return h, x, pre_zr, pre_q, dirs
+
+
+@pytest.mark.parametrize("hw", UPDATE_SHAPES, ids=UPDATE_IDS)
+@pytest.mark.parametrize("axis", ["w", "h"])
+def test_gru_kernel_matches_plain(dev, update_block, hw, axis):
+    """Kernel G against its plain version. A flip of one bf16 rounding (z,
+    1 - z, q, z * q; gates and q are at most 1) moves the float32 result by
+    at most one bf16 ulp of max(1, |h|); a few may coincide, and a flipped
+    r * h shifts q's sum slightly. Bound: 4 ulps; at most 2 % of the
+    entries differ at all."""
+    h, x, pre_zr, pre_q, dirs = _gru_args(dev, update_block, hw, 10,
+                                          w_scale=4.0)
+    wzr, wq, bzr, bq = dirs[0 if axis == "w" else 1]
+    n0 = kernels.fused_gru_update.launches
+    got = update.gru_update(h, x, pre_zr, pre_q, wzr, wq, bzr, bq, axis)
+    want = update.gru_update_plain(h, x, pre_zr, pre_q, wzr, wq, bzr, bq, axis)
+    torch.cuda.synchronize()
+    assert kernels.fused_gru_update.launches == n0 + 1
+    assert got.shape == want.shape == h.shape and got.dtype == torch.float32
+    diff = (got - want).abs()
+    assert (diff <= 4 * ULP * h.abs().clamp(min=1.0)).all(), diff.max().item()
+    assert (diff > 1e-6).float().mean().item() <= 0.02
+
+
+def test_gru_kernel_border(dev, update_block):
+    """Zero padding at the border: impulses at opposite corners, constant
+    context. ``r * h`` outside the image is zero, not ``sigmoid(bias) * 0``
+    read from a neighbouring line."""
+    hw = (8, 16)
+    h = torch.zeros(1, *hw, 128, device=dev)
+    h[0, 0, 0] = 1.0
+    x = torch.zeros(1, *hw, 128, device=dev, dtype=torch.bfloat16)
+    x[0, -1, -1] = 1.0
+    pre_zr = torch.ones(1, *hw, 256, device=dev, dtype=torch.bfloat16)
+    pre_q = torch.ones(1, *hw, 128, device=dev, dtype=torch.bfloat16)
+    _, _, _, _, dirs = _gru_args(dev, update_block, hw, 11, w_scale=4.0)
+    for axis, (wzr, wq, bzr, bq) in zip("wh", dirs):
+        got = update.gru_update(h, x, pre_zr, pre_q, wzr, wq, bzr, bq, axis)
+        want = update.gru_update_plain(h, x, pre_zr, pre_q, wzr, wq, bzr, bq,
+                                       axis)
+        assert (got - want).abs().max().item() <= 4 * ULP
+
+
+@pytest.mark.parametrize("hw", UPDATE_SHAPES, ids=UPDATE_IDS)
+def test_motion_encoder_kernel_matches_plain(dev, update_block, hw):
+    """Kernel H against its plain version: bf16 output, one ulp (2^-7
+    relative bounds it for any mantissa) plus what flipped first-stage
+    activations move the second sum by (2^-8 of the output's scale); lanes
+    126-127 are bf16(flow) exactly."""
+    cor1, flo1 = _maps(dev, hw, 12, 256, 128)
+    cor1, flo1 = cor1.relu(), flo1.relu()
+    (flow,) = _maps(dev, hw, 13, 2, dtype=torch.float32, scale=3.0)
+    params = [p * 4 if p.dtype == torch.bfloat16 else p
+              for p in update.motion_encoder_params(update_block.encoder)]
+    n0 = kernels.motion_encoder_tail.launches
+    got = update.motion_encoder_tail(cor1, flo1, flow, *params)
+    want = update.motion_encoder_tail_plain(cor1, flo1, flow, *params)
+    torch.cuda.synchronize()
+    assert kernels.motion_encoder_tail.launches == n0 + 1
+    assert got.shape == want.shape == (1, *hw, 128)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got[..., 126:], flow.bfloat16())
+    got, want = got.float(), want.float()
+    scale = want.abs().max().item()
+    assert scale > 0.5
+    diff = (got - want).abs()
+    assert (diff <= 2 * ULP * want.abs() + ULP * scale).all()
+    assert (diff > 0).float().mean().item() <= 0.02
+
+
+@pytest.mark.parametrize("hw", UPDATE_SHAPES, ids=UPDATE_IDS)
+def test_flow_head_kernel_matches_plain(dev, update_block, hw):
+    """Kernel I against its plain version: the float32 delta differs by
+    accumulation order and by the few hidden activations whose bf16 rounding
+    flipped, each weighted by one tap: 2^-8 of the delta's scale bounds it."""
+    (net,) = _maps(dev, hw, 14, 128, dtype=torch.float32)
+    w1, b1, w2, b2 = update.flow_head_params(update_block.flow_head)
+    w1, w2 = w1 * 4, w2 * 4
+    n0 = kernels.flow_head.launches
+    got = update.flow_head(net, w1, b1, w2, b2)
+    want = update.flow_head_plain(net, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert kernels.flow_head.launches == n0 + 1
+    assert got.shape == want.shape == (1, *hw, 2)
+    assert got.dtype == torch.float32
+    scale = want.abs().max().item()
+    assert scale > 0.1
+    assert (got - want).abs().max().item() <= ULP * scale
+
+
+def test_update_border_zero_padding(dev, update_block):
+    """First-stage activations outside the image are zero before the second
+    convolution (not relu(bias)): zero inputs make every first-stage value
+    relu(bias), and the border pixels then differ from the interior."""
+    hw = (16, 32)
+    cor1 = torch.zeros(1, *hw, 256, device=dev, dtype=torch.bfloat16)
+    flo1 = torch.zeros(1, *hw, 128, device=dev, dtype=torch.bfloat16)
+    flow = torch.zeros(1, *hw, 2, device=dev)
+    params = update.motion_encoder_params(update_block.encoder)
+    got = update.motion_encoder_tail(cor1, flo1, flow, *params).float()
+    want = update.motion_encoder_tail_plain(cor1, flo1, flow, *params).float()
+    assert (got - want).abs().max().item() <= 2 * ULP * want.abs().max().item()
+    assert not torch.equal(want[0, 0, 0], want[0, 8, 16])
+    net = torch.zeros(1, *hw, 128, device=dev)
+    fh = update.flow_head_params(update_block.flow_head)
+    got = update.flow_head(net, *fh)
+    want = update.flow_head_plain(net, *fh)
+    assert (got - want).abs().max().item() <= ULP * want.abs().max().item()
+    assert not torch.equal(want[0, 0, 0], want[0, 8, 16])
+
+
+def test_update_wrappers_check_inputs(dev, update_block):
+    hw = (8, 16)
+    h, x, pre_zr, pre_q, dirs = _gru_args(dev, update_block, hw, 15)
+    wzr, wq, bzr, bq = dirs[0]
+    with pytest.raises(TypeError):           # the state is float32
+        kernels.fused_gru_update(h.bfloat16(), x, pre_zr, pre_q, wzr, wq, bzr,
+                                 bq, "w")
+    with pytest.raises(ValueError):          # channels-minor and contiguous
+        kernels.fused_gru_update(h.permute(0, 2, 1, 3), x, pre_zr, pre_q, wzr,
+                                 wq, bzr, bq, "w")
+    with pytest.raises(ValueError):
+        kernels.fused_gru_update(h, x, pre_zr, pre_q, wzr, wq, bzr, bq, "x")
+    with pytest.raises(ValueError):          # taps of the other convolution
+        kernels.fused_gru_update(h, x, pre_zr, pre_q, wq, wzr, bzr, bq, "w")
+    with pytest.raises(TypeError):
+        kernels.flow_head(h.bfloat16(),
+                          *update.flow_head_params(update_block.flow_head))
+    with pytest.raises(ValueError):          # a CPU tensor never launches
+        kernels.flow_head(h.cpu(),
+                          *update.flow_head_params(update_block.flow_head))
+
+
+@pytest.mark.parametrize("flags", [dict(gru_fused=True),
+                                   dict(tail_fused=True),
+                                   dict(gru_fused=True, tail_fused=True)],
+                         ids=["gru", "tail", "both"])
+def test_fused_forward_on_card_matches_cpu(dev, flags):
+    """The fused forward on the card (kernels G, I) against the CPU path
+    (their plain versions), 64x96, bf16: 0.05 px, the bound the unfused
+    bf16 forward is held to between card and CPU."""
+    g = torch.Generator().manual_seed(5)
+    img1 = torch.rand(1, 64, 96, 3, generator=g) * 255
+    img2 = torch.roll(img1, shifts=(2, 3), dims=(1, 2))
+    cfg = traft.RaftConfig(iters=4, corr_impl="local", local_margin=8,
+                           precision="bf16", **flags)
+    outs = []
+    for d in ("cpu", dev):
+        model = traft.init_raft_params(cfg, seed=0, device=d)
+        n_g, n_i = kernels.fused_gru_update.launches, kernels.flow_head.launches
+        outs.append(traft.weighted_raft_forward(
+            model, cfg, img1.to(d), img2.to(d))["flow_up"].cpu())
+    assert kernels.fused_gru_update.launches - n_g == (
+        8 if cfg.gru_fused else 0)
+    assert kernels.flow_head.launches - n_i == (4 if cfg.tail_fused else 0)
+    assert (outs[0] - outs[1]).abs().max().item() <= 0.05
+
+
+def test_fused_motion_encoder_module(dev, update_block):
+    """``BasicMotionEncoder.forward(fused=True)`` reaches kernel H and
+    agrees with the unfused module to bf16 rounding."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    corr_feat = torch.randn(1, 324, 24, 40, device=dev, generator=g)
+    flow = 3 * torch.randn(1, 2, 24, 40, device=dev, generator=g)
+    n0 = kernels.motion_encoder_tail.launches
+    with layers.precision_scope("bf16"), torch.no_grad():
+        got = update_block.encoder(flow, corr_feat, fused=True)
+        want = update_block.encoder(flow, corr_feat)
+    assert kernels.motion_encoder_tail.launches == n0 + 1
+    assert got.shape == want.shape and got.dtype == want.dtype
+    diff = (got.float() - want.float()).abs()
+    assert diff.max().item() <= 4 * ULP * want.float().abs().max().item()
+    with pytest.raises(ValueError), torch.no_grad():
+        update_block.encoder(flow, corr_feat, fused=True)   # float32 mode

@@ -20,8 +20,10 @@ from test_corr_impls import _interpret_pallas
 
 from woft_tpu.models import raft as jraft
 from woft_tpu.models.convert import params_to_torch_statedict
+from woft_tpu.ops.pallas import gru as pgru
 from woft_tpu.ops.pallas import local_corr as plc
 from woft_tpu.ops.pallas import local_lookup as pll
+from woft_tpu.ops.pallas import update_tail as ptail
 from woft_tpu_torch.models import raft as traft
 from woft_tpu_torch.models.convert import (params_from_jax_numpy,
                                            params_to_jax_numpy)
@@ -39,18 +41,21 @@ BF16_MULTIPLE = 3.0
 
 
 def interpret_pallas():
-    """The block-local Pallas kernels in interpret mode (CPU)."""
-    return _interpret_pallas(plc, pll)
+    """The block-local and fused-loop Pallas kernels in interpret mode
+    (CPU)."""
+    return _interpret_pallas(plc, pll, pgru, ptail)
 
 
-def local_cfgs(precision="highest"):
+def local_cfgs(precision="highest", fused=False):
     """The two packages' configs of the block-local path (margin 8 for the
-    small test frames)."""
+    small test frames); ``fused``: with the fused refinement loop."""
     jcfg = jraft.RaftConfig(variant="weighted", iters=ITERS,
                             corr_impl="local", local_margin=8,
-                            local_pallas=True, precision=precision)
+                            local_pallas=True, precision=precision,
+                            gru_pallas=fused, tail_pallas=fused)
     tcfg = traft.RaftConfig(iters=ITERS, corr_impl="local", local_margin=8,
-                            precision=precision)
+                            precision=precision, gru_fused=fused,
+                            tail_fused=fused)
     return jcfg, tcfg
 
 
@@ -170,12 +175,12 @@ def test_sparse_weight_head(models, frames):
         got, dense["weights"].reshape(-1)[cells].numpy(), atol=1e-6, rtol=0)
 
 
-def jax_local_forward(models, frames, precision):
+def jax_local_forward(models, frames, precision, fused=False):
     """The JAX package's block-local forward (Pallas path, interpret mode)
     as float32 numpy arrays."""
     jp = models[1]
     img1, img2, flow_init = frames
-    jcfg, _ = local_cfgs(precision)
+    jcfg, _ = local_cfgs(precision, fused)
     with interpret_pallas():
         oj = jraft.weighted_raft_forward(jp, jcfg, jnp.asarray(img1),
                                          jnp.asarray(img2),
@@ -291,6 +296,34 @@ def test_bf16_mode_within_bound_of_jax(models, frames, jax_local_highest):
     jax.tree_util.tree_map(np.testing.assert_array_equal, back, tree)
     assert all(v.dtype == torch.float32 for k, v in model.state_dict().items()
                if not k.endswith("num_batches_tracked"))
+
+
+def test_fused_loop_within_bound_of_jax(models, frames, jax_local_highest):
+    """The slice as a whole: the block-local bf16 forward with the fused
+    refinement loop (``gru_fused``, ``tail_fused``: kernels G and I, here
+    their plain versions) against the JAX package's forward with
+    ``gru_pallas`` and ``tail_pallas`` in interpret mode, held to the bound
+    of ``test_bf16_mode_within_bound_of_jax``."""
+    model = models[4]
+    img1, img2, flow_init = frames
+    oj = jax_local_forward(models, frames, "bf16", fused=True)
+    _, tcfg = local_cfgs("bf16", fused=True)
+    assert tcfg.gru_fused and tcfg.tail_fused
+    ot = traft.weighted_raft_forward(model, tcfg, torch.from_numpy(img1),
+                                     torch.from_numpy(img2),
+                                     flow_init=torch.from_numpy(flow_init))
+    for key in ("flow", "flow_up", "weights", "weights_up"):
+        assert ot[key].dtype == torch.float32, key
+        d = np.abs(oj[key] - jax_local_highest[key]).max()
+        assert d > 0, key
+        err = np.abs(ot[key].numpy() - oj[key]).max()
+        assert err <= BF16_MULTIPLE * d, (key, err, d)
+    # the fused loop is another path than the unfused one, not a no-op
+    _, unfused = local_cfgs("bf16")
+    ou = traft.weighted_raft_forward(model, unfused, torch.from_numpy(img1),
+                                     torch.from_numpy(img2),
+                                     flow_init=torch.from_numpy(flow_init))
+    assert not torch.equal(ot["flow"], ou["flow"])
 
 
 def test_bf16_mode_dense_corr_runs(models, frames):

@@ -306,6 +306,62 @@ def test_woft_fast_walk_matches_jax(precision, tol):
             assert corner_err(Ht, Hj) < tol
 
 
+def test_woft_fast_fused_walk_matches_jax():
+    """The fused slice as a whole: ``build_track_step`` with ``WOFT_fast``'s
+    ``RaftConfig`` plus ``gru_fused`` and ``tail_fused`` against the JAX
+    step with ``gru_pallas`` and ``tail_pallas`` (all Pallas kernels in
+    interpret mode), the same seeded weights, over the homography walk. The
+    main flow (template features, sparse head) passes the check on these
+    frames; ``redetection='never'`` then sends every frame through the
+    local-flow fallback (dense head) as well."""
+    from test_corr_impls import _interpret_pallas
+    from woft_tpu.ops.pallas import gru as pgru
+    from woft_tpu.ops.pallas import local_corr as plc
+    from woft_tpu.ops.pallas import local_lookup as pll
+    from woft_tpu.ops.pallas import update_tail as ptail
+
+    tcfg = traft.RaftConfig(iters=2, corr_impl="local", precision="bf16",
+                            gru_fused=True, tail_fused=True)
+    jcfg = jraft.RaftConfig(variant="weighted", iters=2, corr_impl="local",
+                            local_margin=tcfg.local_margin, local_pallas=True,
+                            precision="bf16", gru_pallas=True,
+                            tail_pallas=True)
+    model = traft.init_raft_params(tcfg, seed=0)
+    jp = jax.tree_util.tree_map(jnp.asarray,
+                                params_to_jax_numpy(model.state_dict()))
+    template = template_frame().round()
+    frames = []
+    for t in range(1, 3):
+        c, s = np.cos(0.01 * t) * (1 + 0.01 * t), np.sin(0.01 * t)
+        h = np.array([[c, -s, 1.5 * t], [s, c, -1.0 * t], [1e-5 * t, 0, 1]],
+                     np.float32)
+        f = warp_perspective(torch.from_numpy(template)[None],
+                             torch.from_numpy(np.linalg.inv(h)))
+        frames.append(f.round().clamp(0, 255))
+    mask = target_mask()
+    for mode in ("inliers", "never"):
+        ttp = tw.TrackerParams(redetection=mode)
+        jtp = jw.TrackerParams(redetection=mode)
+        tstep = tw.build_track_step(tcfg, ttp)
+        tstate = tw.tracker_init_state(model, tcfg, ttp,
+                                       torch.from_numpy(template)[None],
+                                       torch.from_numpy(mask))
+        with _interpret_pallas(plc, pll, pgru, ptail):
+            jstep = jw.build_track_step(jcfg, jtp)
+            jstate = jw.tracker_init_state(jp, jcfg, jtp,
+                                           jnp.asarray(template)[None],
+                                           jnp.asarray(mask))
+            for f in frames[:2 if mode == "inliers" else 1]:
+                jstate, Hj, mj = jstep(jp, jstate, jnp.asarray(f.numpy()))
+                tstate, Ht, mt = tstep(model, tstate, f)
+                assert np.isfinite(Ht.numpy()).all()
+                assert bool(mt["global_H_success"]) == \
+                    bool(mj["global_H_success"]) == (mode == "inliers")
+                assert corner_err(mt["H_global_cur2init"].numpy(),
+                                  mj["H_global_cur2init"]) < BF16_CORNER_TOL
+                assert corner_err(Ht.numpy(), Hj) < BF16_CORNER_TOL
+
+
 def test_woft_tracker_shell_cpu():
     conf = load_config(ROOT / "woft_tpu_torch" / "configs" / "WOFT.py")
     conf.flow_config.iters = 2

@@ -5,16 +5,24 @@ Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 tools/torch_profile_720p.py [--config WOFT.py] [--frames 4]
                                         [--warmup 2] [--host]
+                                        [--gru-fused] [--tail-fused]
+                                        [--compare ROUNDS]
 
 Tracks a synthetic homography walk with ``woft_tpu_torch/configs/<config>``
 (``WOFT.py``, the canonical tracker, or ``WOFT_fast.py``, block-local
 correlation in bf16; full-width RAFT-large, seeded weights) and profiles
-``--frames`` steady frames with ``torch.profiler``. Prints the card, the per-frame wall time,
+``--frames`` steady frames with ``torch.profiler``. ``--gru-fused`` and
+``--tail-fused`` switch on the fused refinement loop (``RaftConfig``'s
+``gru_fused`` / ``tail_fused``: kernels G and I; bf16 configs only). Prints the card, the per-frame wall time,
 the device busy share of the profiled window, the device time by kernel
 category and the top kernels by device time. ``--host`` then runs the same
 frames again under ``cProfile`` and prints the Python functions by
 cumulative host time (``cProfile`` inflates every Python call, so read the
-proportions, not the totals). Imports no JAX.
+proportions, not the totals). ``--compare ROUNDS`` first times the frames
+with and without the fused-loop flags in turns in this one process (two
+trackers on the same frames, the order swapped every round), because frame
+times on a shared host differ more between two runs than between the two
+paths. Imports no JAX.
 """
 
 import argparse
@@ -36,6 +44,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # substrings of device kernel names -> category, first match wins
 CATEGORIES = (
+    ("kernel G (fused GRU)", ("gru_update_kernel",)),
+    ("kernel I (flow head)", ("flow_head_kernel",)),
+    ("kernel H (motion tail)", ("motion_encoder_tail_kernel",)),
     ("kernel B (corr lookup)", ("corr_lookup_kernel",)),
     ("kernel C (local volume)", ("local_corr_",)),
     ("kernels D/E/F (local lookup)", ("local_lookup_kernel",)),
@@ -59,6 +70,29 @@ def category(name):
     return "elementwise / other"
 
 
+def compare(flagged, plain, template, mask, frames, args):
+    """Frame times of two trackers on the same frames, in turns."""
+    plain.init(template, mask)
+    for f in frames[:args.warmup]:
+        plain.track(f)
+    times = {"with the flags": [], "without": []}
+    pair = [("with the flags", flagged), ("without", plain)]
+    for _ in range(args.compare):
+        for f in frames[args.warmup:]:
+            for name, tr in pair:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr.track(f)
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+        pair.reverse()
+    for name, ms in times.items():
+        ms = sorted(ms)
+        print(f"compare, {name}: {len(ms)} frames, min {ms[0]:.2f} median "
+              f"{ms[len(ms) // 2]:.2f} mean {sum(ms) / len(ms):.2f} max "
+              f"{ms[-1]:.2f} ms")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="WOFT.py",
@@ -67,6 +101,13 @@ def main():
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--host", action="store_true",
                     help="also profile the host side with cProfile")
+    ap.add_argument("--gru-fused", action="store_true",
+                    help="RaftConfig.gru_fused: kernel G in the loop")
+    ap.add_argument("--tail-fused", action="store_true",
+                    help="RaftConfig.tail_fused: kernel I in the loop")
+    ap.add_argument("--compare", type=int, default=0, metavar="ROUNDS",
+                    help="time the flagged and the unflagged tracker in "
+                         "turns over ROUNDS passes of the frames")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile_720p: no CUDA device", file=sys.stderr)
@@ -79,9 +120,10 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0])
-    print(f"config {args.config}")
+    flags = {"gru_fused": args.gru_fused, "tail_fused": args.tail_fused}
+    print(f"config {args.config}, raft_flags {flags}")
     tracker = WOFTTracker(load_config(os.path.join(
-        ROOT, "woft_tpu_torch", "configs", args.config)))
+        ROOT, "woft_tpu_torch", "configs", args.config)), raft_flags=flags)
     dev = tracker.device
     g = torch.Generator().manual_seed(2)
     h, w = 720, 1280
@@ -106,6 +148,9 @@ def main():
     for f in frames[:args.warmup]:
         tracker.track(f)
     torch.cuda.synchronize()
+    if args.compare:
+        compare(tracker, WOFTTracker(tracker.C), template.numpy(), mask,
+                frames, args)
 
     walls = []
     with profile(activities=[ProfilerActivity.CPU,

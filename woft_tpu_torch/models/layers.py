@@ -31,7 +31,8 @@ import torch.nn.functional as F
 
 PRECISIONS = ("highest", "bf16")
 _COMPUTE_DTYPE = None      # torch.bfloat16 inside a bf16 precision_scope
-_ROUNDED = {}              # (id(parameter), dtype) -> its rounded copy
+_ROUNDED = {}              # per-scope cache: (id(parameter), dtype) -> its
+#                            rounded copy; once_per_pass keys
 
 
 @contextlib.contextmanager
@@ -68,6 +69,14 @@ def _rounded(t, widen=False):
     key = (id(t), dtype)
     if key not in _ROUNDED:
         _ROUNDED[key] = t.detach().to(_COMPUTE_DTYPE).to(dtype)
+    return _ROUNDED[key]
+
+
+def once_per_pass(key, make):
+    """``make()``, evaluated once per precision scope and kept under ``key``
+    until the scope ends (derived weight layouts of the fused kernels)."""
+    if key not in _ROUNDED:
+        _ROUNDED[key] = make()
     return _ROUNDED[key]
 
 

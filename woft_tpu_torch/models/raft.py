@@ -29,6 +29,11 @@ activations are bf16 with float32 accumulation; the GRU state ``net``, the
 coordinates, the flow deltas, ``mean_response``, the feature maps entering
 the correlation, the upsampling mask and the weight logits stay float32.
 The dense pyramid and kernel B stay float32 in both modes.
+
+``gru_fused`` / ``tail_fused`` (bf16 mode, one frame pair) run the
+refinement loop's SepConvGRU and flow head as one kernel launch each
+(``models/update.py``: kernels G and I); the GRU state then lives
+channels-minor across the loop.
 """
 
 from dataclasses import dataclass
@@ -44,6 +49,7 @@ from .corr import (BlockedCorr, build_local_corr, corr_lookup,
                    corr_lookup_local, corr_lookup_local_blocked,
                    corr_mean_response, corr_pyramid_fused)
 from .layers import conv, conv2d, init_conv_, norm_layer
+from . import update
 
 
 @dataclass(frozen=True)
@@ -58,6 +64,14 @@ class RaftConfig:
     fine_check: under 'local', rewrite blocks whose lookups do not fit the
         fine sub-window with the exact lookup (kernel E).
     precision: 'highest' (float32) or 'bf16' (see the module docstring).
+    gru_fused: each direction of the SepConvGRU as one fused kernel (G) in
+        the refinement loop; the counterpart of the JAX package's
+        ``gru_pallas``. In effect only in bf16 mode and for one frame pair;
+        otherwise the unfused path runs.
+    tail_fused: the flow head as one fused kernel (I) in the loop; the
+        counterpart of ``tail_pallas``, with the same gating. As there, the
+        motion encoder stays unfused on the forward path (kernel H is
+        reached through ``BasicMotionEncoder.forward(fused=True)``).
     """
     iters: int = 12
     corr_levels: int = 4
@@ -67,6 +81,8 @@ class RaftConfig:
     local_margin: int = 16
     fine_check: bool = True
     precision: str = "highest"
+    gru_fused: bool = False
+    tail_fused: bool = False
 
     hidden_dim = 128
     context_dim = 128
@@ -147,11 +163,21 @@ class BasicMotionEncoder(nn.Module):
         self.convf2 = nn.Conv2d(128, 64, 3, padding=1)
         self.conv = nn.Conv2d(64 + 192, 128 - 2, 3, padding=1)
 
-    def forward(self, flow, corr):
+    def forward(self, flow, corr, fused=False):
+        """``fused``: the 3x3 stack and the final ``cat`` as one kernel (H;
+        bf16 mode, one frame pair); ``convc1`` and the 7x7 two-channel
+        ``convf1`` stay as they are."""
         sd = layers.get_compute_dtype()
         cor = _corr_conv1(self.convc1, corr)
-        cor = F.relu(conv(self.convc2, cor, sd))
         flo = F.relu(conv(self.convf1, flow, sd))
+        if fused:
+            update.require_bf16_mode("the fused motion encoder")
+            params = layers.once_per_pass(
+                (id(self), "taps"), lambda: update.motion_encoder_params(self))
+            return _nchw(update.motion_encoder_tail(
+                update.nhwc(cor.to(sd)), update.nhwc(flo), update.nhwc(flow),
+                *params))
+        cor = F.relu(conv(self.convc2, cor, sd))
         flo = F.relu(conv(self.convf2, flo, sd))
         out = F.relu(conv(self.conv, torch.cat([cor, flo], dim=1), sd))
         return torch.cat([out, flow.to(out.dtype)], dim=1)
@@ -203,14 +229,21 @@ class SepConvGRU(nn.Module):
                                               padding=pad))
 
 
-def precompute_gru_context(gru, inp, hd):
+def precompute_gru_context(gru, inp, hd, fused=False):
     """Per-frame loop-invariant context terms of the SepConvGRU.
 
     A convolution is linear in its input channels, so conv([h, inp, m]) =
     conv_hm([h, m]) + conv_inp(inp): the ``inp`` rows are convolved once per
     frame here (bias-free). Returns, per direction, (zr_pre, q_pre, w_zr,
     b_zr, w_q, b_q, padding) — the context terms plus the recurrent
-    weights with the ``inp`` rows dropped and z, r fused into one conv."""
+    weights with the ``inp`` rows dropped and z, r fused into one conv.
+
+    ``fused`` (bf16 mode): the arguments of ``update.gru_update`` instead,
+    per direction (pre_zr, pre_q, wzr, wq, bzr, bq, axis): the same context
+    terms laid out channels-minor, the taps stacked tap-major (5, C_out,
+    256) and the biases in float32, all prepared here once per forward."""
+    if fused:
+        update.require_bf16_mode("the fused SepConvGRU")
     ci = inp.shape[1]
     sd = layers.get_compute_dtype()
     out = []
@@ -231,16 +264,32 @@ def precompute_gru_context(gru, inp, hd):
         zr_pre = conv2d(inp, cast(torch.cat([ctx(wz), ctx(wr)])),
                         padding=pad, out_dtype=sd)
         q_pre = conv2d(inp, cast(ctx(wq)), padding=pad, out_dtype=sd)
+        if fused:
+            w_zr, b_zr = update.gru_taps(gru, (kz, kr), hd, ci)
+            w_q, b_q = update.gru_taps(gru, (kq,), hd, ci)
+            out.append((update.nhwc(zr_pre), update.nhwc(q_pre), w_zr, w_q,
+                        b_zr, b_q, "w" if pad == (0, 2) else "h"))
+            continue
         out.append((zr_pre, q_pre, cast(torch.cat([hm(wz), hm(wr)])),
                     cast(torch.cat([bz, br])), cast(hm(wq)), cast(bq), pad))
     return out
 
 
-def _sep_conv_gru(h, x, pre):
+def _sep_conv_gru(h, x, pre, fused=False):
     """One SepConvGRU update of hidden state ``h`` by motion features ``x``
     with the hoisted context ``pre`` (``precompute_gru_context``). In bf16
     mode the gates are bf16 and the state ``h`` stays float32: ``r * h``
-    and the convex blend are taken at the state's precision."""
+    and the convex blend are taken at the state's precision.
+
+    ``fused`` (``pre`` made with ``fused=True``): one ``update.gru_update``
+    per direction. The state it returns is channels-minor in memory under
+    its (B, C, H, W) shape, so handing it back here costs no copy; ``x`` is
+    re-laid once per call."""
+    if fused:
+        h, x = update.nhwc(h), update.nhwc(x)
+        for args in pre:
+            h = update.gru_update(h, x, *args)
+        return _nchw(h)
     sd = layers.get_compute_dtype()
     for zr_pre, q_pre, w_zr, b_zr, w_q, b_q, pad in pre:
         zr = conv2d(torch.cat([h.to(x.dtype), x], dim=1), w_zr, b_zr,
@@ -262,7 +311,14 @@ class FlowHead(nn.Module):
         self.conv1 = nn.Conv2d(input_dim, hidden_dim, 3, padding=1)
         self.conv2 = nn.Conv2d(hidden_dim, 2, 3, padding=1)
 
-    def forward(self, x):
+    def forward(self, x, fused=False):
+        """``fused``: both convolutions as one kernel (I; bf16 mode, one
+        frame pair)."""
+        if fused:
+            update.require_bf16_mode("the fused flow head")
+            params = layers.once_per_pass(
+                (id(self), "taps"), lambda: update.flow_head_params(self))
+            return _nchw(update.flow_head(update.nhwc(x), *params))
         h = F.relu(conv(self.conv1, x, layers.get_compute_dtype()))
         return conv(self.conv2, h)                # the delta stays float32
 
@@ -278,15 +334,17 @@ class BasicUpdateBlock(nn.Module):
                                   nn.Conv2d(256, 64 * 9, 1))
 
 
-def update_block_apply(block, net, corr, flow, pre):
+def update_block_apply(block, net, corr, flow, pre, gru_fused=False,
+                       tail_fused=False):
     """One refinement step -> (net, delta_flow). ``corr``: (B, L*k*k, H1,
     W1) lookup or a ``BlockedCorr``; ``pre``: ``precompute_gru_context`` of
-    this frame. The
+    this frame (made with ``fused=gru_fused``). The
     convex-upsample mask is not computed here (``mask_from_net``: only the
-    last iteration's mask is consumed)."""
-    motion = block.encoder(flow, corr)
-    net = _sep_conv_gru(net, motion, pre)
-    return net, block.flow_head(net)
+    last iteration's mask is consumed). The motion encoder stays unfused
+    under ``tail_fused``, as in the JAX package."""
+    motion = block.encoder(flow, corr, fused=False)
+    net = _sep_conv_gru(net, motion, pre, fused=gru_fused)
+    return net, block.flow_head(net, fused=tail_fused)
 
 
 def mask_from_net(block, net):
@@ -473,10 +531,15 @@ def _raft_forward(model, cfg, image1, image2, flow_init, iters,
     ub = model.update_block
     coords0 = _nchw(coords_grid(B, H1, W1, x2.device))     # (B, 2, H1, W1)
     coords1 = coords0 if flow_init is None else coords0 + _nchw(flow_init)
-    pre = precompute_gru_context(ub.gru, inp, cfg.hidden_dim)
+    # the fused kernels are bf16-mode kernels for one frame pair
+    fusable = B == 1 and layers.get_compute_dtype() == torch.bfloat16
+    gru_fused = cfg.gru_fused and fusable
+    tail_fused = cfg.tail_fused and fusable
+    pre = precompute_gru_context(ub.gru, inp, cfg.hidden_dim, fused=gru_fused)
     for _ in range(iters):         # no host sync inside this loop
         corr = lookup(_nhwc(coords1).contiguous())
-        net, delta = update_block_apply(ub, net, corr, coords1 - coords0, pre)
+        net, delta = update_block_apply(ub, net, corr, coords1 - coords0, pre,
+                                        gru_fused, tail_fused)
         coords1 = coords1 + delta
 
     up_mask = mask_from_net(ub, net)

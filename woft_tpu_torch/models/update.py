@@ -1,0 +1,169 @@
+"""The fused refinement loop: the update block's bf16 convolution chains as
+single kernels, their plain PyTorch versions, and the weight layouts both
+read.
+
+PyTorch twin of ``woft_tpu/ops/pallas/gru.py`` (``sep_conv_gru_pallas``) and
+``woft_tpu/ops/pallas/update_tail.py`` (``motion_encoder_pallas``,
+``flow_head_pallas``). Three functions, each one launch on the card:
+
+- ``gru_update`` (kernel G): one direction of the SepConvGRU: the z|r
+  convolution, the gates, ``r * h``, the q convolution, ``tanh`` and the
+  convex blend;
+- ``motion_encoder_tail`` (kernel H): ``convc2``, ``convf2`` and ``conv`` of
+  the motion encoder and the final ``cat`` with the flow;
+- ``flow_head`` (kernel I): ``conv2(relu(conv1(net)))``.
+
+They are bf16-mode functions for one frame pair. Maps are channels-minor,
+(1, H, W, C); taps are stacked tap-major with the input channels minor,
+(taps, C_out, C_in), which is how a tensor-core product reads them. On a
+CUDA tensor each launches its kernel (``ops/kernels.py``); on a CPU tensor it
+takes the plain version below, written at the kernel's rounding points,
+which are the JAX kernels': bf16 operands, float32 accumulation, the bias
+added in float32, one rounding to bf16, the hoisted context added in bf16,
+sigmoid and tanh taken in float32 and rounded, ``r * h``, ``1 - z`` and
+``z * q`` rounded, the blend summed in float32 against the float32 state;
+first-stage activations are zero outside the image before a second
+convolution; the flow delta is never rounded. The unfused path
+(``layers.conv2d``) rounds a bias to bf16 before a bf16 convolution, so the
+two paths agree to bf16 rounding noise, not bit for bit.
+"""
+
+import torch
+import torch.nn.functional as F
+
+from . import layers
+from ..ops import kernels
+
+_BF16 = torch.bfloat16
+
+
+def nhwc(x):
+    """(B, C, H, W) -> contiguous channels-minor (B, H, W, C); free when the
+    tensor already has that memory layout."""
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+def require_bf16_mode(what):
+    if layers.get_compute_dtype() != _BF16:
+        raise ValueError(f"{what} is a bf16-mode path: call it inside "
+                         f"layers.precision_scope('bf16')")
+
+
+def taps(weight):
+    """Conv weight (C_out, C_in, kh, kw) -> bf16 (kh * kw, C_out, C_in)."""
+    co, ci, kh, kw = weight.shape
+    return (weight.detach().permute(2, 3, 0, 1).reshape(kh * kw, co, ci)
+            .to(_BF16).contiguous())
+
+
+def gru_taps(gru, names, hd, ci):
+    """The recurrent taps of the convolutions ``names`` of a ``SepConvGRU``
+    (the z and r pair, or q): the ``inp`` rows ``[hd, hd + ci)`` dropped,
+    the outputs of a pair fused -> ((5, C_out, hd + motion) bf16 taps,
+    (C_out,) float32 bias)."""
+    ws = [getattr(gru, n).weight for n in names]
+    w = torch.cat([torch.cat([w[:, :hd], w[:, hd + ci:]], dim=1) for w in ws])
+    b = torch.cat([getattr(gru, n).bias for n in names])
+    return taps(w), b.detach().float().contiguous()
+
+
+def _conv_taps(x, w, kh, kw):
+    """Zero-padded (kh x kw) convolution as a sum of per-tap products.
+
+    x: (1, H, W, C_in) bf16; w: (kh * kw, C_out, C_in) bf16. Returns (1, H,
+    W, C_out) float32: bf16 products (exact in float32) summed in float32."""
+    H, W = x.shape[1:3]
+    xp = F.pad(x.float(), (0, 0, kw // 2, kw // 2, kh // 2, kh // 2))
+    wf = w.float()
+    acc = None
+    for t in range(kh * kw):
+        ky, kx = divmod(t, kw)
+        part = xp[:, ky:ky + H, kx:kx + W] @ wf[t].T
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def gru_update_plain(h, x, pre_zr, pre_q, wzr, wq, bzr, bq, axis):
+    """Plain version of kernel G (arguments as ``gru_update``)."""
+    kh, kw = (1, 5) if axis == "w" else (5, 1)
+    C = h.shape[-1]
+    zr = (_conv_taps(torch.cat([h.to(_BF16), x], -1), wzr, kh, kw)
+          + bzr).to(_BF16) + pre_zr
+    z = torch.sigmoid(zr[..., :C].float()).to(_BF16)
+    r = torch.sigmoid(zr[..., C:].float()).to(_BF16)
+    rh = (r.float() * h).to(_BF16)
+    q = (_conv_taps(torch.cat([rh, x], -1), wq, kh, kw) + bq).to(_BF16) + pre_q
+    q = torch.tanh(q.float()).to(_BF16)
+    return (1 - z).float() * h + (z * q).float()
+
+
+def gru_update(h, x, pre_zr, pre_q, wzr, wq, bzr, bq, axis):
+    """One direction of the SepConvGRU (``axis`` 'w': 1x5, 'h': 5x1).
+
+    h: (1, H, W, 128) float32 state; x: (1, H, W, 128) bf16 motion features;
+    pre_zr (1, H, W, 256), pre_q (1, H, W, 128): bf16 context terms; wzr (5,
+    256, 256), wq (5, 128, 256): ``gru_taps``; bzr, bq: float32 biases.
+    Returns the new float32 state."""
+    if h.device.type == "cuda":
+        return kernels.fused_gru_update(h, x, pre_zr, pre_q, wzr, wq, bzr, bq,
+                                        axis)
+    return gru_update_plain(h, x, pre_zr, pre_q, wzr, wq, bzr, bq, axis)
+
+
+def motion_encoder_tail_plain(cor1, flo1, flow, wc2, bc2, wf2, bf2, wcv, bcv):
+    """Plain version of kernel H (arguments as ``motion_encoder_tail``)."""
+    cor2 = F.relu((_conv_taps(cor1, wc2, 3, 3) + bc2).to(_BF16))
+    flo2 = F.relu((_conv_taps(flo1, wf2, 3, 3) + bf2).to(_BF16))
+    out = F.relu((_conv_taps(torch.cat([cor2, flo2], -1), wcv, 3, 3)
+                  + bcv).to(_BF16))
+    return torch.cat([out[..., :-2], flow.to(_BF16)], -1)
+
+
+def motion_encoder_tail(cor1, flo1, flow, wc2, bc2, wf2, bf2, wcv, bcv):
+    """The motion encoder after its first convolutions.
+
+    cor1 (1, H, W, 256), flo1 (1, H, W, 128): bf16 ``relu(convc1(corr))``
+    and ``relu(convf1(flow))``; flow (1, H, W, 2) float32; taps and float32
+    biases from ``motion_encoder_params``. Returns (1, H, W, 128) bf16,
+    ``cat(out126, bf16(flow))``."""
+    if cor1.device.type == "cuda":
+        return kernels.motion_encoder_tail(cor1, flo1, flow, wc2, bc2, wf2,
+                                           bf2, wcv, bcv)
+    return motion_encoder_tail_plain(cor1, flo1, flow, wc2, bc2, wf2, bf2,
+                                     wcv, bcv)
+
+
+def motion_encoder_params(enc):
+    """(wc2, bc2, wf2, bf2, wcv, bcv) of a ``BasicMotionEncoder`` for
+    ``motion_encoder_tail``; ``conv``'s 126 outputs are padded to 128 with
+    zero taps (the kernel's tile is a multiple of 32 channels wide; it
+    writes the flow into those two lanes)."""
+    def bias(mod, n=0):
+        return F.pad(mod.bias.detach().float(), (0, n)).contiguous()
+
+    wcv = F.pad(taps(enc.conv.weight), (0, 0, 0, 2))
+    return (taps(enc.convc2.weight), bias(enc.convc2),
+            taps(enc.convf2.weight), bias(enc.convf2), wcv, bias(enc.conv, 2))
+
+
+def flow_head_plain(net, w1, b1, w2, b2):
+    """Plain version of kernel I (arguments as ``flow_head``)."""
+    hid = F.relu((_conv_taps(net.to(_BF16), w1, 3, 3) + b1).to(_BF16))
+    return _conv_taps(hid, w2, 3, 3) + b2
+
+
+def flow_head(net, w1, b1, w2, b2):
+    """``conv2(relu(conv1(net)))``: net (1, H, W, 128) float32 -> (1, H, W,
+    2) float32 delta. w1 (9, 256, 128), w2 (9, 2, 256): ``taps``; b1, b2:
+    float32 biases."""
+    if net.device.type == "cuda":
+        return kernels.flow_head(net, w1, b1, w2, b2)
+    return flow_head_plain(net, w1, b1, w2, b2)
+
+
+def flow_head_params(head):
+    """(w1, b1, w2, b2) of a ``FlowHead`` for ``flow_head``."""
+    return (taps(head.conv1.weight),
+            head.conv1.bias.detach().float().contiguous(),
+            taps(head.conv2.weight),
+            head.conv2.bias.detach().float().contiguous())

@@ -10,9 +10,10 @@ shape and contiguity, allocate the output with ``torch.empty``, launch on
 the current stream, raise if the C entry reports a CUDA error, and count
 their launches in a plain integer attribute (``<wrapper>.launches``). The
 callers (``ops/warp.py:warp_perspective_fast``, ``models/corr.py``:
-``corr_lookup``, ``block_local_corr``, ``block_local_lookup*``) take the
-plain PyTorch version for CPU tensors; a CUDA tensor always goes to the
-kernel.
+``corr_lookup``, ``block_local_corr``, ``block_local_lookup*``;
+``models/update.py``: ``gru_update``, ``motion_encoder_tail``, ``flow_head``)
+take the plain PyTorch version for CPU tensors; a CUDA tensor always goes to
+the kernel.
 
 | kernel | source | TPU kernel it replaces |
 |---|---|---|
@@ -22,6 +23,12 @@ kernel.
 | D ``local_lookup_fine_multi`` | ``csrc/local_lookup.cu`` | ``ops/pallas/local_lookup.py:block_local_lookup_fine_multi`` |
 | E ``local_lookup_exact`` | ``csrc/local_lookup.cu`` | ``ops/pallas/local_lookup.py:block_local_lookup`` |
 | F ``local_lookup_fine`` | ``csrc/local_lookup.cu`` | ``ops/pallas/local_lookup.py:block_local_lookup_fine`` |
+| G ``fused_gru_update`` | ``csrc/gru.cu`` | ``ops/pallas/gru.py:fused_gru_update`` |
+| H ``motion_encoder_tail`` | ``csrc/update_tail.cu`` | ``ops/pallas/update_tail.py:motion_encoder_pallas`` |
+| I ``flow_head`` | ``csrc/update_tail.cu`` | ``ops/pallas/update_tail.py:flow_head_pallas`` |
+
+G, H and I share ``csrc/conv_mma.cuh`` (a convolution as per-tap tensor-core
+products); every ``csrc/*.cuh`` enters each library's content hash.
 """
 
 import contextlib
@@ -37,7 +44,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("warp", "corr_lookup", "local_corr", "local_lookup")
+SOURCES = ("warp", "corr_lookup", "local_corr", "local_lookup", "gru",
+           "update_tail")
 # --fmad=false: no FMA contraction, so the kernels round like their plain
 # PyTorch versions (see the notes at the top of each source)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -61,6 +69,11 @@ _ENTRIES = {
         "woft_local_lookup_exact": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
                                     _P, _I, _I, _I, _P],
     },
+    "gru": {"woft_gru_update": [_P] * 9 + [_I] * 5 + [_P]},
+    "update_tail": {
+        "woft_motion_encoder_tail": [_P] * 10 + [_I, _I, _P],
+        "woft_flow_head": [_P] * 6 + [_I, _I, _P],
+    },
 }
 _entries = {}
 
@@ -75,7 +88,8 @@ def _nvcc():
 
 def library_path(name):
     """Content-hashed shared-library path of ``csrc/<name>.cu``."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
@@ -421,3 +435,131 @@ def local_lookup_exact(vol, starts, frac, k, flag=None, out=None, channel=0):
 
 
 local_lookup_exact.launches = 0
+
+
+def _check_operand(t, what, dtype, device, shape):
+    """An operand of the update-block kernels: exact shape, contiguous,
+    16-byte aligned (the kernels read 16 bytes a thread)."""
+    _check_tensor(t, what, dtype, device)
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{what} must be {shape}, got {tuple(t.shape)}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what} must be 16-byte aligned")
+
+
+def fused_gru_update(h, x, pre_zr, pre_q, wzr, wq, bzr, bq, axis):
+    """Kernel G: one direction of the SepConvGRU's gated update.
+
+    All maps channels-minor, CUDA, contiguous: h (1, H, W, 128) float32
+    state; x (1, H, W, 128) bf16 motion features; pre_zr (1, H, W, 256) and
+    pre_q (1, H, W, 128) bf16 hoisted context terms; wzr (5, 256, 256) and
+    wq (5, 128, 256) bf16 taps over cat(h, x) and cat(r * h, x), input
+    channels minor; bzr (256,), bq (128,) float32. ``axis``: 'w' (the 1x5
+    update) or 'h' (5x1). Returns the new (1, H, W, 128) float32 state; the
+    rounding points are ``models/update.py:gru_update_plain``'s."""
+    if h.device.type != "cuda":
+        raise ValueError("fused_gru_update takes CUDA tensors")
+    if axis not in ("w", "h"):
+        raise ValueError(f"axis must be 'w' or 'h', got {axis!r}")
+    if h.dim() != 4 or h.shape[0] != 1 or min(h.shape) == 0:
+        raise ValueError(f"h must be a non-empty (1, H, W, 128), got "
+                         f"{tuple(h.shape)}")
+    device, hw = h.device, tuple(h.shape[1:3])
+    bf16 = torch.bfloat16
+    _check_operand(h, "h", torch.float32, device, (1, *hw, 128))
+    _check_operand(x, "x", bf16, device, (1, *hw, 128))
+    _check_operand(pre_zr, "pre_zr", bf16, device, (1, *hw, 256))
+    _check_operand(pre_q, "pre_q", bf16, device, (1, *hw, 128))
+    _check_operand(wzr, "wzr", bf16, device, (5, 256, 256))
+    _check_operand(wq, "wq", bf16, device, (5, 128, 256))
+    _check_operand(bzr, "bzr", torch.float32, device, (256,))
+    _check_operand(bq, "bq", torch.float32, device, (128,))
+    H, W = hw
+    # lines, positions along the convolution, and their pixel strides
+    geom = (H, W, W, 1) if axis == "w" else (W, H, 1, W)
+    out = torch.empty_like(h)
+    fn = _entry("gru")
+    with _current(device):
+        rc = fn(h.data_ptr(), x.data_ptr(), pre_zr.data_ptr(),
+                pre_q.data_ptr(), wzr.data_ptr(), wq.data_ptr(),
+                bzr.data_ptr(), bq.data_ptr(), out.data_ptr(), 128, *geom,
+                _stream())
+    _raise_on_error(rc, "gru_update")
+    fused_gru_update.launches += 1
+    return out
+
+
+fused_gru_update.launches = 0
+
+
+def motion_encoder_tail(cor1, flo1, flow, wc2, bc2, wf2, bf2, wcv, bcv):
+    """Kernel H: the motion encoder's 3x3 stack.
+
+    Channels-minor CUDA maps: cor1 (1, H, W, 256) and flo1 (1, H, W, 128)
+    bf16 (relu of convc1 and convf1), flow (1, H, W, 2) float32; taps wc2
+    (9, 192, 256), wf2 (9, 64, 128), wcv (9, 128, 256) bf16 with input
+    channels minor (wcv's output rows 126 and 127 are padding); biases bc2
+    (192,), bf2 (64,), bcv (128,) float32. Returns (1, H, W, 128) bf16:
+    ``cat(out126, bf16(flow))``; the rounding points are
+    ``models/update.py:motion_encoder_tail_plain``'s."""
+    if cor1.device.type != "cuda":
+        raise ValueError("motion_encoder_tail takes CUDA tensors")
+    if cor1.dim() != 4 or cor1.shape[0] != 1 or min(cor1.shape) == 0:
+        raise ValueError(f"cor1 must be a non-empty (1, H, W, 256), got "
+                         f"{tuple(cor1.shape)}")
+    device, hw = cor1.device, tuple(cor1.shape[1:3])
+    bf16 = torch.bfloat16
+    _check_operand(cor1, "cor1", bf16, device, (1, *hw, 256))
+    _check_operand(flo1, "flo1", bf16, device, (1, *hw, 128))
+    _check_operand(flow, "flow", torch.float32, device, (1, *hw, 2))
+    _check_operand(wc2, "wc2", bf16, device, (9, 192, 256))
+    _check_operand(wf2, "wf2", bf16, device, (9, 64, 128))
+    _check_operand(wcv, "wcv", bf16, device, (9, 128, 256))
+    _check_operand(bc2, "bc2", torch.float32, device, (192,))
+    _check_operand(bf2, "bf2", torch.float32, device, (64,))
+    _check_operand(bcv, "bcv", torch.float32, device, (128,))
+    out = torch.empty((1, *hw, 128), dtype=bf16, device=device)
+    fn = _entry("update_tail", "woft_motion_encoder_tail")
+    with _current(device):
+        rc = fn(cor1.data_ptr(), flo1.data_ptr(), flow.data_ptr(),
+                wc2.data_ptr(), bc2.data_ptr(), wf2.data_ptr(),
+                bf2.data_ptr(), wcv.data_ptr(), bcv.data_ptr(),
+                out.data_ptr(), *hw, _stream())
+    _raise_on_error(rc, "motion_encoder_tail")
+    motion_encoder_tail.launches += 1
+    return out
+
+
+motion_encoder_tail.launches = 0
+
+
+def flow_head(net, w1, b1, w2, b2):
+    """Kernel I: the flow head, ``conv2(relu(conv1(net)))``.
+
+    net (1, H, W, 128) float32 CUDA, channels minor (rounded to bf16 as it
+    is read); taps w1 (9, 256, 128), w2 (9, 2, 256) bf16 with input channels
+    minor; b1 (256,), b2 (2,) float32. Returns the (1, H, W, 2) float32
+    delta, never rounded; the rounding points are
+    ``models/update.py:flow_head_plain``'s."""
+    if net.device.type != "cuda":
+        raise ValueError("flow_head takes CUDA tensors")
+    if net.dim() != 4 or net.shape[0] != 1 or min(net.shape) == 0:
+        raise ValueError(f"net must be a non-empty (1, H, W, 128), got "
+                         f"{tuple(net.shape)}")
+    device, hw = net.device, tuple(net.shape[1:3])
+    _check_operand(net, "net", torch.float32, device, (1, *hw, 128))
+    _check_operand(w1, "w1", torch.bfloat16, device, (9, 256, 128))
+    _check_operand(w2, "w2", torch.bfloat16, device, (9, 2, 256))
+    _check_operand(b1, "b1", torch.float32, device, (256,))
+    _check_operand(b2, "b2", torch.float32, device, (2,))
+    out = torch.empty((1, *hw, 2), dtype=torch.float32, device=device)
+    fn = _entry("update_tail", "woft_flow_head")
+    with _current(device):
+        rc = fn(net.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                b2.data_ptr(), out.data_ptr(), *hw, _stream())
+    _raise_on_error(rc, "flow_head")
+    flow_head.launches += 1
+    return out
+
+
+flow_head.launches = 0

@@ -22,7 +22,7 @@ validity masks and zero weights, Sobol-500 is a fixed 500-slot gather, and
 the inlier fraction divides by the count of valid points.
 """
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from types import SimpleNamespace
 
 import numpy as np
@@ -303,9 +303,13 @@ class WOFTTracker:
 
     ``config`` is a Config with ``flow_config`` (a ``RaftFlow`` config) and
     ``tracker_params`` (TrackerParams, or falsy for the canonical ones).
-    Runs on ``device`` (default ``cuda``; raises without a card)."""
+    Runs on ``device`` (default ``cuda``; raises without a card).
+    ``raft_flags``: fields of ``RaftConfig`` that no config file carries,
+    set on top of the flow config's, e.g. ``{"gru_fused": True,
+    "tail_fused": True}`` for the fused refinement loop (the JAX package's
+    ``bench.py`` sets its counterparts the same way, outside the configs)."""
 
-    def __init__(self, config, device=None):
+    def __init__(self, config, device=None, raft_flags=None):
         self.C = config
         self.device = resolve_device(device)
         if config.downscale_inputs:
@@ -318,7 +322,8 @@ class WOFTTracker:
                    else TrackerParams(padding_mode=str(
                        config.flow_config.padding_mode or "nopad")))
         self.flower = RaftFlow(config.flow_config, device=self.device)
-        self._step = build_track_step(self.flower.cfg, self.tp)
+        self.raft_cfg = replace(self.flower.cfg, **(raft_flags or {}))
+        self._step = build_track_step(self.raft_cfg, self.tp)
         self.state = None
 
     def init(self, img, mask, img_identifier=None):
@@ -328,7 +333,7 @@ class WOFTTracker:
         if n_blobs != 1:
             raise ValueError(f"template mask must be one blob, got {n_blobs}")
         self.state = tracker_init_state(
-            self.flower.model, self.flower.cfg, self.tp,
+            self.flower.model, self.raft_cfg, self.tp,
             upload_bgr(img, self.device),
             torch.from_numpy(mask).to(self.device))
 
