@@ -17,7 +17,9 @@ Phases; any failure ends the script with a non-zero exit:
    1280x720 main-path shapes, and time kernel, plain version, a PyTorch
    library yardstick the port never calls (for G, H, I: the port's own
    unfused cuDNN path for the same function, several calls), and the
-   memory/compute bound;
+   memory/compute bound; A at three poses, B dense and indexed, both beside
+   their times before the redesign, B's reads also counted in the 32-byte
+   sectors device memory moves;
 4. track 1280x720 frames through ``WOFTTracker`` with the canonical
    ``configs/WOFT.py``, with ``configs/WOFT_fast.py`` (block-local
    correlation, bf16), and with ``WOFT_fast.py`` plus the fused refinement
@@ -72,6 +74,12 @@ TAIL_TOL_ULPS = 2        # H, bf16 result: one ulp (2 bounds any mantissa),
 HEAD_TOL_ULPS = 1        # I, float32 delta: one ulp of the map's scale
 UPDATE_DIFF_SHARE = 0.02         # G, H: at most this share of entries differs
 H_IMG, W_IMG = 720, 1280
+# Kernels A and B before their redesign (A: one thread a pixel over 256 x 1
+# strips; B: one thread an output element), ms at the same shapes, measured
+# with time_ms on an NVIDIA H100 80GB HBM3, power limit 700.00 W
+PARENT_WARP_MS = {"near identity": 0.0150, "30 deg, 1.5x scale": 0.0154,
+                  "partly off-image": 0.0106}
+PARENT_LOOKUP_MS = {"dense": 0.2095, "indexed": 0.0670}
 
 
 def log(*args):
@@ -128,14 +136,24 @@ def pose(theta=0.0, scale=1.0, tx=0.0, ty=0.0, persp=(0.0, 0.0),
     return torch.tensor(H, dtype=torch.float32)
 
 
-def check_warp(kernels, warp, frame, dev):
-    """Kernel A against the plain warp at three 720p poses."""
-    poses = {
+def warp_poses():
+    """The three 720p poses kernel A is checked and timed at."""
+    return {
         "near identity": pose(0.002, 1.003, 1.5, -0.7),
         "30 deg, 1.5x scale": pose(math.radians(30), 1.5, 20.0, -10.0),
         "partly off-image": pose(0.05, 0.9, 600.0, 300.0, (2e-5, -1e-5)),
     }
+
+
+def check_warp(kernels, warp, frame, dev):
+    """Kernel A against the plain warp at three 720p poses, each timed; the
+    ``kernels`` row is the near-identity pose, the tracker's steady case."""
+    poses = warp_poses()
     img_nchw = frame.permute(0, 3, 1, 2).contiguous()
+    px = H_IMG * W_IMG
+    # per pixel: 3 back-projection rows (2 mul + 2 add), 2 div,
+    # floor/fraction (4), 3 channels x 4 corners x (2 mul + 1 add)
+    bnd, by = bound_ms(2 * px * 3 * 4 + 36, px * (12 + 2 + 4 + 36))
     result = None
     for name, H in poses.items():
         H = H.to(dev)
@@ -147,63 +165,83 @@ def check_warp(kernels, warp, frame, dev):
         log(f"kernel A [{name}]: max_abs_err {err:.3g} (tol {WARP_TOL})")
         if not err <= WARP_TOL:
             raise AssertionError(f"kernel A disagrees at '{name}': {err}")
+        coords = warp.perspective_coords(H[None], (H_IMG, W_IMG))
+        grid = torch.stack([2 * coords[..., 0] / (W_IMG - 1) - 1,
+                            2 * coords[..., 1] / (H_IMG - 1) - 1], -1)
+        ms = time_ms(lambda: kernels.warp_perspective_bilinear(
+            frame, hinv, H_IMG, W_IMG))
+        library_ms = time_ms(lambda: F.grid_sample(
+            img_nchw, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=True))
+        log(f"kernel A timing ({name}): kernel {ms:.4f} ms (before the "
+            f"redesign {PARENT_WARP_MS[name]:.4f} ms), F.grid_sample "
+            f"{library_ms:.4f} ms, bound {bnd:.4f} ms ({by})")
         if result is None:
-            coords = warp.perspective_coords(H[None], (H_IMG, W_IMG))
-            grid = torch.stack([2 * coords[..., 0] / (W_IMG - 1) - 1,
-                                2 * coords[..., 1] / (H_IMG - 1) - 1], -1)
-            ms = time_ms(lambda: kernels.warp_perspective_bilinear(
-                frame, hinv, H_IMG, W_IMG))
             plain_ms = time_ms(lambda: warp.warp_perspective(frame, H))
-            library_ms = time_ms(lambda: F.grid_sample(
-                img_nchw, grid, mode="bilinear", padding_mode="zeros",
-                align_corners=True))
-            px = H_IMG * W_IMG
-            # per pixel: 3 back-projection rows (2 mul + 2 add), 2 div,
-            # floor/fraction (4), 3 channels x 4 corners x (2 mul + 1 add)
-            bnd, by = bound_ms(2 * px * 3 * 4 + 36, px * (12 + 2 + 4 + 36))
+            log(f"kernel A timing ({name}): plain {plain_ms:.4f} ms")
             result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bnd, bound_by=by, library_ms=library_ms)
         result["max_abs_err"] = max(result["max_abs_err"], err)
-    log(f"kernel A timing (near identity): kernel {result['ms']:.4f} ms, "
-        f"plain {result['plain_ms']:.4f} ms, F.grid_sample "
-        f"{result['library_ms']:.4f} ms, bound {result['bound_ms']:.4f} ms "
-        f"({result['bound_by']})")
     return result
 
 
-def _window_bytes(levels, coords, rows, radius):
+def _window_bytes(levels, coords, rows, radius, sector=None):
     """Bytes of the in-bounds (2r+2)^2 windows this lookup needs, each
-    (pyramid row, level) window counted once."""
-    if rows is not None:
-        rows, first = np.unique(rows.cpu().numpy(), return_index=True)
+    (pyramid row, level) window counted once. With ``sector`` every row
+    segment of a window is widened to the edges of the sectors of that many
+    bytes it touches: what device memory moves for it (the levels start
+    sector-aligned)."""
+    if rows is None:
+        rows = torch.arange(coords.shape[0], device=coords.device)
+    else:
+        uniq, first = np.unique(rows.cpu().numpy(), return_index=True)
+        rows = torch.as_tensor(uniq, device=coords.device)
         coords = coords[torch.as_tensor(first, device=coords.device)]
     total = 0
     for lvl, p in enumerate(levels):
         hl, wl = p.shape[1:]
-        c = torch.floor(coords / 2 ** lvl)
-        nx = ((c[:, 0] + radius + 1).clamp(max=wl - 1)
-              - (c[:, 0] - radius).clamp(min=0) + 1).clamp(min=0)
-        ny = ((c[:, 1] + radius + 1).clamp(max=hl - 1)
-              - (c[:, 1] - radius).clamp(min=0) + 1).clamp(min=0)
-        total += int((nx * ny).sum().item()) * 4
+        c = torch.floor(coords / 2 ** lvl).long()
+        xa = (c[:, 0] - radius).clamp(min=0)
+        ya = (c[:, 1] - radius).clamp(min=0)
+        nx = ((c[:, 0] + radius + 1).clamp(max=wl - 1) - xa + 1).clamp(min=0)
+        ny = ((c[:, 1] + radius + 1).clamp(max=hl - 1) - ya + 1).clamp(min=0)
+        if sector is None:
+            total += int((nx * ny).sum().item()) * 4
+            continue
+        dy = torch.arange(2 * radius + 2, device=coords.device)
+        live = (dy[None, :] < ny[:, None]) & (nx[:, None] > 0)
+        start = ((rows[:, None] * hl + ya[:, None] + dy) * wl
+                 + xa[:, None]) * 4
+        end = start + nx[:, None] * 4
+        n_sec = (end - 1) // sector - start // sector + 1
+        total += int((n_sec * live).sum().item()) * sector
     return total
+
+
+def lookup_case(corr, dev):
+    """Kernel B's 720p inputs: the 4-level pyramid of seeded features
+    (1.1 GB), Q = 90 * 160 coordinates up to 20 cells off their own cell
+    with a few far outside, and M = 4,500 cells (with duplicates) with
+    their coordinates for the indexed form."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    H1, W1, D = H_IMG // 8, W_IMG // 8, 256
+    f1 = torch.randn(1, H1, W1, D, device=dev, generator=g)
+    f2 = torch.randn(1, H1, W1, D, device=dev, generator=g)
+    pyramid, _ = corr.corr_pyramid_fused(f1, f2, 4)
+    flow = (torch.rand(1, H1, W1, 2, device=dev, generator=g) - 0.5) * 40
+    coords = (_grid_720p(dev) + flow).contiguous()
+    coords[0, :4] = torch.tensor([-300.0, 1e4], device=dev)   # far outside
+    cells = torch.randint(0, H1 * W1, (4500,), device=dev, generator=g)
+    cells[1::7] = cells[0::7][:cells[1::7].shape[0]]              # duplicates
+    return pyramid, coords, cells, coords.reshape(-1, 2)[cells].contiguous()
 
 
 def check_lookup(kernels, corr, dev):
     """Kernel B against the plain lookup on the 720p pyramid, dense
     (Q = 90 * 160) and indexed (M = 4,500 cells, with duplicates)."""
-    g = torch.Generator(device=dev).manual_seed(1)
-    H1, W1, D, radius = H_IMG // 8, W_IMG // 8, 256, 4
-    f1 = torch.randn(1, H1, W1, D, device=dev, generator=g)
-    f2 = torch.randn(1, H1, W1, D, device=dev, generator=g)
-    pyramid, _ = corr.corr_pyramid_fused(f1, f2, 4)
-    Q = H1 * W1
-    ys, xs = torch.meshgrid(torch.arange(H1, device=dev, dtype=torch.float32),
-                            torch.arange(W1, device=dev, dtype=torch.float32),
-                            indexing="ij")
-    flow = (torch.rand(1, H1, W1, 2, device=dev, generator=g) - 0.5) * 40
-    coords = (torch.stack([xs, ys], -1)[None] + flow).contiguous()
-    coords[0, :4] = torch.tensor([-300.0, 1e4], device=dev)   # far outside
+    radius = 4
+    pyramid, coords, cells, c_cells = lookup_case(corr, dev)
+    Q, M = coords.numel() // 2, cells.numel()
 
     want = corr.corr_lookup_plain(pyramid, coords, radius)
     got = kernels.corr_pyramid_lookup(pyramid, coords, radius)
@@ -216,10 +254,6 @@ def check_lookup(kernels, corr, dev):
     if got[0, :4].abs().max().item() != 0.0:
         raise AssertionError("kernel B: far out-of-bounds windows not zero")
 
-    M = 4500
-    cells = torch.randint(0, Q, (M,), device=dev, generator=g)
-    cells[1::7] = cells[0::7][:cells[1::7].shape[0]]              # duplicates
-    c_cells = coords.reshape(Q, 2)[cells].contiguous()
     want_i = corr.corr_lookup_plain([p[cells] for p in pyramid], c_cells,
                                     radius)
     got_i = kernels.corr_pyramid_lookup(pyramid, c_cells, radius, rows=cells)
@@ -229,6 +263,8 @@ def check_lookup(kernels, corr, dev):
     if not err_i <= LOOKUP_TOL:
         raise AssertionError(f"kernel B (indexed) disagrees: {err_i}")
 
+    # library yardstick: one F.grid_sample a level; the indexed form first
+    # gathers the cells' rows of each level, inside the timed call
     k = 2 * radius + 1
     d = torch.arange(k, device=dev, dtype=torch.float32) - radius
     grids = []
@@ -240,32 +276,72 @@ def check_lookup(kernels, corr, dev):
         gx, gy = torch.broadcast_tensors(gx, gy)
         grids.append(torch.stack([2 * gx / (wl - 1) - 1,
                                   2 * gy / (hl - 1) - 1], -1))
+    grids_i = [gr[cells] for gr in grids]
     levels_nchw = [p[:, None] for p in pyramid]
 
-    def library():
-        return [F.grid_sample(lv, gr, mode="bilinear", padding_mode="zeros",
+    def library(index=None):
+        return [F.grid_sample(lv if index is None else lv[index], gr,
+                              mode="bilinear", padding_mode="zeros",
                               align_corners=True)
-                for lv, gr in zip(levels_nchw, grids)]
+                for lv, gr in zip(levels_nchw,
+                                  grids if index is None else grids_i)]
 
     lib = torch.cat([o.reshape(Q, k * k) for o in library()], -1)
+    lib_i = torch.cat([o.reshape(M, k * k) for o in library(cells)], -1)
     log(f"kernel B: F.grid_sample per level vs plain: max_abs_err "
-        f"{(lib - want.reshape(Q, -1)).abs().max().item():.3g} (yardstick)")
+        f"{(lib - want.reshape(Q, -1)).abs().max().item():.3g} dense, "
+        f"{(lib_i - want_i).abs().max().item():.3g} indexed (yardstick)")
+    del lib, lib_i
     ms = time_ms(lambda: kernels.corr_pyramid_lookup(pyramid, coords, radius))
     plain_ms = time_ms(lambda: corr.corr_lookup_plain(pyramid, coords,
                                                        radius))
     library_ms = time_ms(library)
     ms_i = time_ms(lambda: kernels.corr_pyramid_lookup(pyramid, c_cells,
                                                        radius, rows=cells))
+    library_ms_i = time_ms(lambda: library(cells), iters=5, warmup=1)
     n_out = Q * 4 * k * k
+    flat = coords.reshape(Q, 2)
     # per output: 4 corners x (2 mul + 1 add), fraction/weights ~6
-    bnd, by = bound_ms(_window_bytes(pyramid, coords.reshape(Q, 2), None,
-                                     radius) + Q * 8 + n_out * 4, n_out * 18)
+    bnd, by = bound_ms(_window_bytes(pyramid, flat, None, radius) + Q * 8
+                       + n_out * 4, n_out * 18)
     bnd_i, _ = bound_ms(_window_bytes(pyramid, c_cells, cells, radius)
                         + M * 16 + M * 4 * k * k * 4, M * 4 * k * k * 18)
-    log(f"kernel B timing (dense): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-        f"ms, F.grid_sample x4 levels {library_ms:.4f} ms, bound {bnd:.4f} "
-        f"ms ({by}); indexed M={M}: kernel {ms_i:.4f} ms, bound "
-        f"{bnd_i:.4f} ms")
+    # the same reads in the 32-byte sectors device memory moves: no kernel
+    # gets under this figure, the table's bound counts exact bytes
+    sec = _window_bytes(pyramid, flat, None, radius, sector=32)
+    sec_i = _window_bytes(pyramid, c_cells, cells, radius, sector=32)
+    sec_ms, _ = bound_ms(sec + Q * 8 + n_out * 4, 0)
+    sec_ms_i, _ = bound_ms(sec_i + M * 16 + M * 4 * k * k * 4, 0)
+    log(f"kernel B timing (dense): kernel {ms:.4f} ms (before the redesign "
+        f"{PARENT_LOOKUP_MS['dense']:.4f} ms), plain {plain_ms:.4f} ms, "
+        f"F.grid_sample x4 levels {library_ms:.4f} ms, bound {bnd:.4f} ms "
+        f"({by}); in 32-byte sectors the windows are {sec / 1e6:.1f} MB, "
+        f"{sec_ms:.4f} ms with the output")
+    log(f"kernel B timing (indexed M={M}): kernel {ms_i:.4f} ms (before the "
+        f"redesign {PARENT_LOOKUP_MS['indexed']:.4f} ms), gather + "
+        f"F.grid_sample x4 levels {library_ms_i:.4f} ms, bound {bnd_i:.4f} "
+        f"ms; in 32-byte sectors {sec_i / 1e6:.1f} MB, {sec_ms_i:.4f} ms "
+        f"with the output")
+    # host side: the wrapper keeps the checked level table of the pyramid it
+    # saw last (12 of a flow's 13 lookups reuse it)
+    def host_us(fn, calls=200):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    def rebuilt():
+        kernels._level_table[0] = None
+        kernels.corr_pyramid_lookup(pyramid, coords, radius)
+
+    reused_us = host_us(lambda: kernels.corr_pyramid_lookup(pyramid, coords,
+                                                            radius))
+    log(f"kernel B wrapper, host time a call: {reused_us:.1f} us with the "
+        f"pyramid's level table reused, {host_us(rebuilt):.1f} us with it "
+        f"rebuilt every call")
     return dict(max_abs_err=max(err, err_i), ms=ms, plain_ms=plain_ms,
                 bound_ms=bnd, bound_by=by, library_ms=library_ms)
 

@@ -116,3 +116,72 @@ def test_channel_order_quirk():
     ch = int(out.reshape(-1).argmax())
     i, j = divmod(ch, 9)
     assert (7 + i - 4, 4 + j - 4) == (9, 5)
+
+
+def _odd_pyramid(levels, seed):
+    """A pyramid over an 11 x 13 level-0 map (143 queries): the deeper
+    levels are 5 x 6, 2 x 3 and 1 x 1, none a multiple of a kernel tile."""
+    rng = np.random.default_rng(seed)
+    lv = rng.normal(size=(11 * 13, 11, 13)).astype(np.float32)
+    pyr = [lv]
+    for _ in range(levels - 1):
+        h, w = lv.shape[1] // 2, lv.shape[2] // 2
+        lv = lv[:, :2 * h, :2 * w].reshape(-1, h, 2, w, 2).mean(axis=(2, 4))
+        pyr.append(lv)
+    return pyr
+
+
+def _border_coords(seed):
+    """(1, 11, 13, 2) coordinates on the 11 x 13 map: exact integers, each
+    of the four borders straddled, 1e4 outside, the rest random around and
+    beyond the map."""
+    rng = np.random.default_rng(seed)
+    coords = np.stack([rng.uniform(-8, 21, (11, 13)),
+                       rng.uniform(-8, 19, (11, 13))], -1).astype(np.float32)
+    coords[0, :11] = [[3.0, 4.0], [0.0, 0.0], [12.0, 10.0],      # integers
+                      [-0.5, 5.25], [12.5, 5.25],                # left, right
+                      [6.75, -0.5], [6.75, 10.5],                # top, bottom
+                      [-0.25, -0.75], [12.25, 10.75],            # corners
+                      [1e4, 3.0], [-1e4, -1e4]]                  # far outside
+    return coords[None]
+
+
+@pytest.mark.parametrize("levels", [1, 4])
+@pytest.mark.parametrize("radius", [1, 3, 4])
+def test_lookup_plain_odd_sizes_and_borders(radius, levels):
+    """``corr_lookup_plain`` (what the card holds kernel B against) equals
+    the JAX lookup to 1e-5 absolute at the shapes that cut the kernel's
+    tiles: every template radius, one and four levels, odd level sizes down
+    to 1 x 1, integer, border-straddling and far-out coordinates."""
+    pyr = _odd_pyramid(levels, seed=10 + levels)
+    coords = _border_coords(seed=20 + radius)
+    got = tcorr.corr_lookup_plain([torch.from_numpy(p) for p in pyr],
+                                  torch.from_numpy(coords), radius).numpy()
+    want = np.asarray(jcorr.corr_lookup([jnp.asarray(p) for p in pyr],
+                                        jnp.asarray(coords), radius,
+                                        impl="onehot"))
+    k = 2 * radius + 1
+    assert got.shape == want.shape == (1, 11, 13, levels * k * k)
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
+    assert np.abs(got[0, 0, 9:11]).max() == 0.0       # the far-out queries
+    assert np.abs(got[0, 0, :9]).max() > 0.0
+
+
+@pytest.mark.parametrize("levels", [1, 4])
+@pytest.mark.parametrize("radius", [1, 3, 4])
+def test_indexed_lookup_plain_equals_dense_at_cells(radius, levels):
+    """The ``rows=`` form with duplicate cells equals the dense lookup's
+    rows at those cells (same arithmetic: exact)."""
+    pyr = [torch.from_numpy(p) for p in _odd_pyramid(levels, seed=30)]
+    coords = torch.from_numpy(_border_coords(seed=31))
+    rng = np.random.default_rng(32)
+    cells = rng.integers(0, 143, 50)
+    cells[:11] = np.arange(11)                 # the border cases
+    cells[20:30] = cells[3]                    # duplicates
+    cells_t = torch.from_numpy(cells)
+    dense = tcorr.corr_lookup_plain(pyr, coords, radius).reshape(143, -1)
+    got = tcorr.corr_lookup_plain(pyr, coords.reshape(143, 2)[cells_t],
+                                  radius, rows=cells_t)
+    assert got.shape == (50, dense.shape[1])
+    np.testing.assert_allclose(got.numpy(), dense[cells_t].numpy(), atol=TOL,
+                               rtol=0)

@@ -41,6 +41,7 @@ def _h(theta, scale, tx, ty, persp=(0.0, 0.0)):
     return torch.tensor([[c, -s, tx], [s, c, ty], [persp[0], persp[1], 1.0]])
 
 
+@pytest.mark.parametrize("channels", [1, 3, 4])
 @pytest.mark.parametrize("H", [
     _h(0.0, 1.0, 0.5, -0.25),
     _h(math.radians(30), 1.5, 20.0, -10.0),            # outside the TPU envelope
@@ -48,9 +49,11 @@ def _h(theta, scale, tx, ty, persp=(0.0, 0.0)):
     _h(0.05, 0.9, 90.0, 40.0, (2e-4, -1e-4)),          # partly off-image
     _h(0.0, 1.0, 1e4, -3e3),                           # fully off-image
 ], ids=["subpixel", "rot30x1.5", "rot90x2", "perspective", "off-image"])
-def test_warp_kernel_matches_plain(dev, H):
+def test_warp_kernel_matches_plain(dev, H, channels):
+    """97 x 203 cuts the 32 x 8 tiles on both axes; 1, 3 and 4 channels are
+    the kernel's templates."""
     g = torch.Generator(device=dev).manual_seed(0)
-    img = torch.rand(1, 97, 203, 3, device=dev, generator=g) * 255
+    img = torch.rand(1, 97, 203, channels, device=dev, generator=g) * 255
     H = H.to(dev)
     n0 = kernels.warp_perspective_bilinear.launches
     got = warp.warp_perspective_fast(img, H)
@@ -60,11 +63,18 @@ def test_warp_kernel_matches_plain(dev, H):
     assert (got - want).abs().max().item() <= 1e-4
 
 
-def test_warp_kernel_batch_and_output_size(dev):
-    img = torch.rand(2, 40, 56, 3, device=dev) * 255
+@pytest.mark.parametrize("channels", [1, 3, 4, 5])
+@pytest.mark.parametrize("out_hw", [(32, 48), (37, 45), (7, 5)],
+                         ids=["32x48", "37x45", "7x5"])
+def test_warp_kernel_batch_and_output_size(dev, channels, out_hw):
+    """A batch of two, an output size other than the source's and not a
+    multiple of the tile, and a channel count without a template (5)."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    img = torch.rand(2, 40, 56, channels, device=dev, generator=g) * 255
     H = torch.stack([_h(0.1, 1.1, 3.0, 2.0), _h(-0.2, 0.8, -5.0, 7.0)]).to(dev)
-    got = kernels.warp_perspective_bilinear(img, warp.inverse_h(H), 32, 48)
-    want = warp.warp_perspective(img, H, out_shape=(32, 48))
+    got = kernels.warp_perspective_bilinear(img, warp.inverse_h(H), *out_hw)
+    want = warp.warp_perspective(img, H, out_shape=out_hw)
+    assert got.shape == want.shape == (2, *out_hw, channels)
     assert (got - want).abs().max().item() <= 1e-4
 
 
@@ -91,27 +101,62 @@ def pyramid(dev):
     return pyr, coords
 
 
-def test_lookup_kernel_matches_plain(dev, pyramid):
-    pyr, coords = pyramid
+# radius 1, 3, 4: templates; 6: the run-time path. 37 and 13 columns: rows
+# of 148 and 52 bytes, not multiples of 16. 851 and 143 queries fill
+# neither the last block of two (four levels) nor of eight (one level).
+LOOKUP_GRID = [(r, lv, hw) for r in (1, 3, 4, 6) for lv in (1, 4)
+               for hw in ((23, 37), (11, 13))]
+LOOKUP_IDS = [f"r{r}-L{lv}-{hw[0]}x{hw[1]}" for r, lv, hw in LOOKUP_GRID]
+
+
+def _lookup_case(dev, levels, hw):
+    """A pyramid over an odd-sized map, and coordinates around and beyond
+    it: far outside first, then exact integers and all four borders
+    straddled."""
+    H1, W1 = hw
+    g = torch.Generator(device=dev).manual_seed(1)
+    f1 = torch.randn(1, H1, W1, 64, device=dev, generator=g)
+    f2 = torch.randn(1, H1, W1, 64, device=dev, generator=g)
+    pyr, _ = corr.corr_pyramid_fused(f1, f2, levels)
+    coords = torch.rand(1, H1, W1, 2, device=dev, generator=g)
+    coords = coords * torch.tensor([W1 + 16.0, H1 + 16.0], device=dev) - 8
+    coords[0, 0, :11] = torch.tensor(
+        [[-300.0, 5.0], [1e4, -1e4], [-5.5, -5.5], [3.0, 4.0], [0.0, 0.0],
+         [W1 - 1.0, H1 - 1.0], [-0.5, 5.25], [W1 - 0.5, 5.25],
+         [6.75, -0.5], [6.75, H1 - 0.5], [W1 - 0.75, H1 - 0.25]], device=dev)
+    return pyr, coords
+
+
+@pytest.mark.parametrize("radius,levels,hw", LOOKUP_GRID, ids=LOOKUP_IDS)
+def test_lookup_kernel_matches_plain(dev, radius, levels, hw):
+    pyr, coords = _lookup_case(dev, levels, hw)
     n0 = kernels.corr_pyramid_lookup.launches
-    got = corr.corr_lookup(pyr, coords, 4)
-    want = corr.corr_lookup_plain(pyr, coords, 4)
+    got = corr.corr_lookup(pyr, coords, radius)
+    want = corr.corr_lookup_plain(pyr, coords, radius)
     torch.cuda.synchronize()
     assert kernels.corr_pyramid_lookup.launches == n0 + 1
-    assert got.shape == want.shape == (1, 23, 37, 324)
+    assert got.shape == want.shape == (1, *hw,
+                                       levels * (2 * radius + 1) ** 2)
     assert (got - want).abs().max().item() <= 1e-5
     assert got[0, 0, :2].abs().max().item() == 0.0
+    assert got[0, 0, 3:11].abs().amax(-1).min().item() > 0.0
 
 
-def test_indexed_lookup_kernel(dev, pyramid):
-    pyr, coords = pyramid
-    Q = 23 * 37
-    cells = torch.randint(0, Q, (300,), device=dev)
-    cells[100:150] = cells[0]
+@pytest.mark.parametrize("radius,levels,hw", LOOKUP_GRID, ids=LOOKUP_IDS)
+def test_indexed_lookup_kernel(dev, radius, levels, hw):
+    pyr, coords = _lookup_case(dev, levels, hw)
+    Q = hw[0] * hw[1]
+    g = torch.Generator(device=dev).manual_seed(2)
+    cells = torch.randint(0, Q, (301,), device=dev, generator=g)
+    cells[:11] = torch.arange(11, device=dev)          # the border cases
+    cells[100:150] = cells[3]                          # duplicates
     c = coords.reshape(Q, 2)[cells][None, None]
-    got = corr.corr_lookup(pyr, c, 4, rows=cells)
-    want = corr.corr_lookup_plain([p[cells] for p in pyr], c, 4)
+    got = corr.corr_lookup(pyr, c, radius, rows=cells)
+    want = corr.corr_lookup_plain([p[cells] for p in pyr], c, radius)
+    dense = corr.corr_lookup(pyr, coords, radius).reshape(Q, -1)
     assert (got - want).abs().max().item() <= 1e-5
+    assert torch.equal(got.reshape(301, -1), dense[cells])
+    assert got[0, 0, :2].abs().max().item() == 0.0
 
 
 def test_lookup_wrapper_checks_inputs(dev, pyramid):
@@ -122,6 +167,8 @@ def test_lookup_wrapper_checks_inputs(dev, pyramid):
         kernels.corr_pyramid_lookup(pyr, coords, 4,
                                     rows=torch.zeros(23 * 37, device=dev,
                                                      dtype=torch.int32))
+    with pytest.raises(ValueError):          # beyond the run-time path
+        kernels.corr_pyramid_lookup(pyr, coords, 9)
 
 
 # ---------------------------------------------------------------------------

@@ -221,3 +221,34 @@ def test_resampling_ops():
         _np(jwarp.avg_pool2d(jnp.asarray(x))), atol=1e-4, rtol=1e-6)
     np.testing.assert_array_equal(twarp.coords_grid(2, 5, 7).numpy(),
                                   _np(jwarp.coords_grid(2, 5, 7)))
+
+
+@pytest.mark.parametrize("channels", [1, 3, 4])
+def test_warp_perspective_tile_cutting_shapes(channels):
+    """``warp_perspective`` (what the card holds kernel A against) equals
+    the JAX warp at the shapes that cut the kernel's 32 x 8 tiles and its
+    channel templates: 1, 3 and 4 channels, a 37 x 45 output from a 41 x 53
+    source, a batch of two, one pose general and one that puts part of the
+    output outside the source. Tolerance as for general poses above: 1e-5
+    plus the coordinate difference of the two inverses times the image's
+    largest step."""
+    img = _img(5, (2, 41, 53, channels))
+    H = np.array([[[1.05, -0.12, 2.5], [0.10, 0.97, -1.75],
+                   [2e-4, -1e-4, 1.0]],
+                  [[0.80, 0.30, 24.0], [-0.25, 0.90, -14.0],
+                   [-3e-4, 5e-4, 1.0]]], np.float32)
+    got = twarp.warp_perspective(_t(img), _t(H), out_shape=(37, 45)).numpy()
+    want = _np(jwarp.warp_perspective(jnp.asarray(img), jnp.asarray(H),
+                                      out_shape=(37, 45)))
+    ct = twarp.perspective_coords(_t(H), (37, 45)).numpy()
+    cj = _np(jwarp.perspective_coords(jnp.asarray(H), (37, 45)))
+    delta = np.abs(ct - cj).max()
+    assert delta <= 1e-4
+    assert got.shape == want.shape == (2, 37, 45, channels)
+    assert np.abs(got - want).max() <= 1e-5 + 2 * delta * _max_step(img)
+    # the second pose leaves part of the output without a source pixel
+    outside = (ct[1, ..., 0] <= -1) | (ct[1, ..., 0] >= 53) | (
+        ct[1, ..., 1] <= -1) | (ct[1, ..., 1] >= 41)
+    assert 0.05 < outside.mean() < 0.95
+    assert np.abs(got[1][outside]).max() == 0.0
+    assert (np.abs(got).max(-1) > 0).mean(axis=(1, 2)).min() > 0.05

@@ -1,0 +1,161 @@
+#!/usr/bin/env python3
+"""What bounds kernels A (pre-warp) and B (pyramid lookup) on the card.
+
+Run from the repository root on a machine with an NVIDIA GPU and ``nvcc``:
+
+    python3 tools/torch_kernel_ablate.py
+
+For each variant below the tool copies ``woft_tpu_torch/csrc/warp.cu`` or
+``corr_lookup.cu`` into ``build/torch_kernels/ablate/``, applies the
+variant's textual replacements (it stops if a piece of text is no longer in
+the source, so the variants stay in step with the kernels), builds the copy
+with the port's ``nvcc`` flags, and times it with ``chip_smoke.py``'s
+``time_ms`` at the 1280x720 main-path shapes: kernel A at its three poses,
+kernel B dense (Q = 14,400) and indexed (M = 4,500). The sources in
+``csrc/`` are not touched and no variant is used by the port.
+
+Two kinds of variant. Ablations compile a part of the work out (the loads
+become arithmetic on the address, the stores a branch that is never taken):
+their results are wrong by design and are not compared; the time that is
+left says what the removed part costs. Layouts change which pixels a warp
+owns: they must still equal the plain version (max abs error 0). Imports no
+JAX.
+"""
+
+import ctypes
+import os
+import subprocess
+import sys
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_B_LOAD = ("v[n] = valid ? __ldg(base + (gy * wl + gx)) : 0.f;",
+           "v[n] = valid ? (float)(gy * wl + gx) : 0.f;")
+_B_STORE = ("      o[c] = acc;\n", "      if (acc == 12345.678f) o[c] = acc;\n")
+_A_LOADS = tuple(
+    (f"v{c}[ch] = __ldg(p{c} + ch);", f"v{c}[ch] = (float)(c{o} + ch);")
+    for c, o in (("00", "x0"), ("10", "x1"), ("01", "y0"), ("11", "y1")))
+_A_STORE = ("      o[ch] = acc;\n    }\n  } else {",
+            "      if (acc == 12345.678f) o[ch] = acc;\n    }\n  } else {")
+_A_PIXEL = (
+    "  const int px = blockIdx.x * kTileW + (threadIdx.x & (kTileW - 1));\n"
+    "  const int py = blockIdx.y * kTileH + threadIdx.x / kTileW;\n")
+
+
+def _a_warp_shape(ww):
+    """A warp owns ww x (32 / ww) pixels of the 32 x 8 tile, not 32 x 1."""
+    per_row = 32 // ww
+    return (_A_PIXEL,
+            f"  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;\n"
+            f"  const int px = blockIdx.x * kTileW + (wid % {per_row}) * {ww}"
+            f" + lane % {ww};\n"
+            f"  const int py = blockIdx.y * kTileH + (wid / {per_row}) * "
+            f"{per_row} + lane / {ww};\n")
+
+
+# name -> (source, replacements, results must equal the plain version)
+VARIANTS = {
+    "A as built": ("warp", (), True),
+    "A without the loads": ("warp", _A_LOADS, False),
+    "A without the stores": ("warp", (_A_STORE,), False),
+    "A, a warp owns 16 x 2 pixels": ("warp", (_a_warp_shape(16),), True),
+    "A, a warp owns 8 x 4 pixels": ("warp", (_a_warp_shape(8),), True),
+    "A, tiles of 32 x 1 pixels": (
+        "warp", (("constexpr int kTileH = 8;", "constexpr int kTileH = 1;"),),
+        True),
+    "B as built": ("corr_lookup", (), True),
+    "B without the loads": ("corr_lookup", (_B_LOAD,), False),
+    "B without the stores": ("corr_lookup", (_B_STORE,), False),
+    "B without either": ("corr_lookup", (_B_LOAD, _B_STORE), False),
+}
+
+
+def build_variants(kernels):
+    """One ``nvcc`` per variant, all started together -> {name: C entry}."""
+    out_dir = kernels.BUILD_DIR / "ablate"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for i, (name, (source, replacements, _)) in enumerate(VARIANTS.items()):
+        text = (kernels.CSRC / f"{source}.cu").read_text()
+        for old, new in replacements:
+            if text.count(old) != 1:
+                raise SystemExit(f"variant '{name}': {old!r} occurs "
+                                 f"{text.count(old)} times in {source}.cu")
+            text = text.replace(old, new)
+        cu, so = out_dir / f"v{i}_{source}.cu", out_dir / f"libv{i}.so"
+        cu.write_text(text)
+        jobs[name] = (so, subprocess.Popen(
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(so), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    entries = {}
+    for name, (so, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"variant '{name}' does not build:\n{log}")
+        symbol, argtypes = next(iter(
+            kernels._ENTRIES[VARIANTS[name][0]].items()))
+        fn = getattr(ctypes.CDLL(str(so)), symbol)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        entries[name] = (symbol, fn)
+    return entries
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("torch_kernel_ablate: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from woft_tpu_torch.device import resolve_device
+    from woft_tpu_torch.models import corr
+    from woft_tpu_torch.ops import kernels, warp
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0])
+    dev = resolve_device("cuda")
+    entries = build_variants(kernels)
+    frame = torch.tensor(cs.textured_frame(cs.H_IMG, cs.W_IMG, seed=3),
+                         dtype=torch.float32, device=dev)[None]
+    poses = {k: H.to(dev) for k, H in cs.warp_poses().items()}
+    pyramid, coords, cells, c_cells = cs.lookup_case(corr, dev)
+    want_b = corr.corr_lookup_plain(pyramid, coords, 4).reshape(
+        coords.numel() // 2, -1)
+    for name, (symbol, fn) in entries.items():
+        kernels._entries[symbol] = fn        # the wrappers launch this build
+        exact = VARIANTS[name][2]
+        if symbol == "woft_warp_bilinear":
+            cells_ms, err = [], 0.0
+            for H in poses.values():
+                hinv = warp.inverse_h(H[None])
+                got = kernels.warp_perspective_bilinear(frame, hinv, cs.H_IMG,
+                                                        cs.W_IMG)
+                if exact:
+                    err = max(err, (got - warp.warp_perspective(
+                        frame, H)).abs().max().item())
+                cells_ms.append(cs.time_ms(
+                    lambda: kernels.warp_perspective_bilinear(
+                        frame, hinv, cs.H_IMG, cs.W_IMG)))
+            times = ", ".join(f"{k} {ms:.4f} ms"
+                              for k, ms in zip(poses, cells_ms))
+        else:
+            got = kernels.corr_pyramid_lookup(pyramid, coords, 4)
+            err = (got - want_b).abs().max().item() if exact else 0.0
+            dense = cs.time_ms(lambda: kernels.corr_pyramid_lookup(
+                pyramid, coords, 4))
+            indexed = cs.time_ms(lambda: kernels.corr_pyramid_lookup(
+                pyramid, c_cells, 4, rows=cells))
+            times = f"dense {dense:.4f} ms, indexed {indexed:.4f} ms"
+        checked = f"max_abs_err {err:.3g}" if exact else "result not compared"
+        print(f"{name}: {times} ({checked})", flush=True)
+        if exact and err != 0.0:
+            print(f"torch_kernel_ablate: '{name}' disagrees with the plain "
+                  f"version", file=sys.stderr)
+            return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -192,6 +192,9 @@ def warp_perspective_bilinear(img, hinv, out_h, out_w):
         raise ValueError(f"hinv must be ({N}, 3, 3), got {tuple(hinv.shape)}")
     if out_h <= 0 or out_w <= 0:
         raise ValueError(f"bad output size {out_h}x{out_w}")
+    if max(img.numel(), N * out_h * out_w * C) >= 2 ** 31:
+        raise ValueError("the kernel indexes with 32 bits: source and "
+                         "output must each hold fewer than 2^31 elements")
     out = torch.empty((N, out_h, out_w, C), dtype=torch.float32,
                       device=img.device)
     fn = _entry("warp")
@@ -206,31 +209,56 @@ def warp_perspective_bilinear(img, hinv, out_h, out_w):
 warp_perspective_bilinear.launches = 0
 
 
+_level_table = [None, None]     # key and table of the pyramid last looked up
+
+
+def _levels(pyramid, device):
+    """The checked level table of a pyramid: ``ctypes`` arrays of pointers,
+    heights and widths, and the row count R. It is built once a pyramid and
+    serves the 13 lookups of a flow; the key holds everything the checks
+    read, so a hit repeats none of them."""
+    key = tuple((p.data_ptr(), p.shape, p.stride(), p.dtype, p.device)
+                for p in pyramid)
+    if _level_table[0] != key:
+        L = len(pyramid)
+        if not 1 <= L <= 8:
+            raise ValueError(f"1 to 8 pyramid levels, got {L}")
+        R = pyramid[0].shape[0]
+        for lvl, p in enumerate(pyramid):
+            _check_tensor(p, f"pyramid[{lvl}]", torch.float32, device)
+            if p.dim() != 3 or p.shape[0] != R or min(p.shape) == 0:
+                raise ValueError(f"pyramid[{lvl}] must be a non-empty ({R}, "
+                                 f"Hl, Wl), got {tuple(p.shape)}")
+        _level_table[:] = key, (
+            (ctypes.c_void_p * L)(*[p.data_ptr() for p in pyramid]),
+            (ctypes.c_int * L)(*[p.shape[1] for p in pyramid]),
+            (ctypes.c_int * L)(*[p.shape[2] for p in pyramid]), R)
+    elif pyramid[0].device != device:
+        raise ValueError(f"pyramid is on {pyramid[0].device}, expected "
+                         f"{device}")
+    return _level_table[1]
+
+
 def corr_pyramid_lookup(pyramid, coords, radius, rows=None):
     """Kernel B: bilinear (2r+1)^2 window lookup in every pyramid level.
 
     pyramid: list of (R, Hl, Wl) float32 CUDA levels; coords: (..., 2)
-    float32 level-0 (x, y), Q points; rows: None (query q reads row q, so
-    R == Q) or (Q,) int64 pyramid rows in [0, R). Returns (Q, L*(2r+1)^2)
-    float32, channel l*(2r+1)^2 + i*(2r+1) + j sampling level l at
-    (x/2^l + i - r, y/2^l + j - r)."""
+    float32 level-0 (x, y), Q points; radius 0 to 8; rows: None (query q
+    reads row q, so R == Q) or (Q,) int64 pyramid rows in [0, R). Returns
+    (Q, L*(2r+1)^2) float32, channel l*(2r+1)^2 + i*(2r+1) + j sampling
+    level l at (x/2^l + i - r, y/2^l + j - r)."""
     if coords.device.type != "cuda":
         raise ValueError("corr_pyramid_lookup takes CUDA tensors")
     device = coords.device
     _check_tensor(coords, "coords", torch.float32, device)
-    L = len(pyramid)
-    if not 1 <= L <= 8:
-        raise ValueError(f"1 to 8 pyramid levels, got {L}")
+    if not 0 <= radius <= 8:
+        raise ValueError(f"radius 0 to 8, got {radius}")
     if coords.shape[-1] != 2 or coords.numel() == 0:
         raise ValueError(f"coords must be a non-empty (..., 2), got "
                          f"{tuple(coords.shape)}")
     Q = coords.numel() // 2
-    R = pyramid[0].shape[0]
-    for lvl, p in enumerate(pyramid):
-        _check_tensor(p, f"pyramid[{lvl}]", torch.float32, device)
-        if p.dim() != 3 or p.shape[0] != R or min(p.shape) == 0:
-            raise ValueError(f"pyramid[{lvl}] must be a non-empty ({R}, Hl, "
-                             f"Wl), got {tuple(p.shape)}")
+    ptrs, hs, ws, R = _levels(pyramid, device)
+    L = len(pyramid)
     if rows is None:
         if R != Q:
             raise ValueError(f"{Q} queries need {Q} pyramid rows, got {R}")
@@ -240,9 +268,6 @@ def corr_pyramid_lookup(pyramid, coords, radius, rows=None):
             raise ValueError(f"rows must be ({Q},), got {tuple(rows.shape)}")
     k = 2 * radius + 1
     out = torch.empty((Q, L * k * k), dtype=torch.float32, device=device)
-    ptrs = (ctypes.c_void_p * L)(*[p.data_ptr() for p in pyramid])
-    hs = (ctypes.c_int * L)(*[p.shape[1] for p in pyramid])
-    ws = (ctypes.c_int * L)(*[p.shape[2] for p in pyramid])
     fn = _entry("corr_lookup")
     with _current(device):
         rc = fn(ctypes.addressof(ptrs), ctypes.addressof(hs),
