@@ -17,16 +17,19 @@ Phases; any failure ends the script with a non-zero exit:
    1280x720 main-path shapes, and time kernel, plain version, a PyTorch
    library yardstick the port never calls (for G, H, I: the port's own
    unfused cuDNN path for the same function, several calls), and the
-   memory/compute bound; A at three poses, B dense and indexed, both beside
-   their times before the redesign, B's reads also counted in the 32-byte
-   sectors device memory moves;
+   memory/compute bound; A at three poses, B dense and indexed, C (all four
+   levels in one launch) and E (every level of a lookup in one launch, with
+   the guard's flagged blocks and with none), each beside its time before
+   the redesign, B's reads also counted in the 32-byte sectors device
+   memory moves, E's bound counting the flagged blocks only;
 4. track 1280x720 frames through ``WOFTTracker`` with the canonical
    ``configs/WOFT.py``, with ``configs/WOFT_fast.py`` (block-local
    correlation, bf16), and with ``WOFT_fast.py`` plus the fused refinement
    loop (``gru_fused``, ``tail_fused``: kernels G and I); all full-width
    RAFT-large, seeded weights, each with the launch counters zeroed before
    and read after, and each followed by the local-flow fallback
-   (``redetection='never'``); then one block-local forward whose
+   (``redetection='never'``), C expected once a flow and E 13 times (once
+   a lookup); then one block-local forward whose
    ``flow_init`` makes blocks violate their fine windows, so that kernel E
    rewrites them;
 5. references: the block-local forward must equal the dense one at
@@ -80,6 +83,12 @@ H_IMG, W_IMG = 720, 1280
 PARENT_WARP_MS = {"near identity": 0.0150, "30 deg, 1.5x scale": 0.0154,
                   "partly off-image": 0.0106}
 PARENT_LOOKUP_MS = {"dense": 0.2095, "indexed": 0.0670}
+# Kernels C and E before their redesign (C: four launches a flow, mma.sync;
+# E: four launches a lookup), ms at the 720p shapes, the mean of two runs
+# of tools/torch_local_times.py --root <parent checkout> in one call on an
+# NVIDIA H100 80GB HBM3, power limit 700.00 W
+PARENT_LOCAL_CORR_MS = {"bfloat16": 0.2734, "float32": 1.2105}
+PARENT_LOCAL_EXACT_MS = {"flagged": 0.0157, "none": 0.0103}
 
 
 def log(*args):
@@ -324,15 +333,6 @@ def check_lookup(kernels, corr, dev):
         f"with the output")
     # host side: the wrapper keeps the checked level table of the pyramid it
     # saw last (12 of a flow's 13 lookups reuse it)
-    def host_us(fn, calls=200):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        us = (time.perf_counter() - t0) / calls * 1e6
-        torch.cuda.synchronize()
-        return us
-
     def rebuilt():
         kernels._level_table[0] = None
         kernels.corr_pyramid_lookup(pyramid, coords, radius)
@@ -385,7 +385,9 @@ def _local_coords(dev, kind, seed=5):
 
 def check_local_corr(kernels, corr, dev):
     """Kernel C against the plain construction at the four 720p level
-    shapes (120 blocks of 128 queries, D = 256), bf16 and float32."""
+    shapes (120 blocks of 128 queries, D = 256), bf16 and float32: all four
+    levels in one launch, each level compared; timed beside the parent's
+    four launches, ``torch.bmm`` on pre-gathered windows and the bound."""
     from woft_tpu_torch.ops.warp import avg_pool2d
 
     g = torch.Generator(device=dev).manual_seed(6)
@@ -395,6 +397,8 @@ def check_local_corr(kernels, corr, dev):
     meta = corr._local_layout(H1, W1, 4, 4, 16)
     nbh, nbw = meta["nbh"], meta["nbw"]
     nb = nbh * nbw
+    geoms = [(d["pad"], d["sh"], d["sw"], d["wh"], d["ww"])
+             for d in meta["levels"]]
     levels = [f2]
     for _ in meta["levels"][1:]:
         levels.append(avg_pool2d(levels[-1]))
@@ -405,14 +409,15 @@ def check_local_corr(kernels, corr, dev):
         f1b = corr._to_blocked(f1.reshape(H1 * W1, D), meta).reshape(
             nb, -1, D).to(dtype).contiguous()
         lvs = [lv[0].to(dtype).contiguous() for lv in levels]
+        n0 = kernels.local_corr_build.launches
+        got_all = kernels.local_corr_build(f1b, lvs, geoms, nbh, nbw, dtype)
+        torch.cuda.synchronize()
+        if kernels.local_corr_build.launches != n0 + 1:
+            raise AssertionError("kernel C took more than one launch")
         err, n_bytes, n_flops = 0.0, f1b.numel() * f1b.element_size(), 0
         patches = []
-        for d, lv in zip(meta["levels"], lvs):
+        for d, lv, got in zip(meta["levels"], lvs, got_all):
             want = corr.block_local_corr_plain(f1b, lv, d, nbh, nbw, dtype)
-            got = kernels.local_corr_build(f1b, lv, d["pad"], d["sh"],
-                                           d["sw"], d["wh"], d["ww"], nbh,
-                                           nbw, dtype)
-            torch.cuda.synchronize()
             diff = (got.float() - want.float()).abs()
             bad = int((diff > CORR_ATOL + rtol * want.float().abs()).sum())
             share = (diff > 0).float().mean().item()
@@ -434,30 +439,55 @@ def check_local_corr(kernels, corr, dev):
                 fp[by * d["sh"]:by * d["sh"] + d["wh"],
                    bx * d["sw"] // 8 * 8:bx * d["sw"] // 8 * 8 + d["ww"]]
                 for by in range(nbh) for bx in range(nbw)]).reshape(nb, -1, D))
-            del want, got, diff
-
-        def build_all():
-            return [kernels.local_corr_build(
-                f1b, lv, d["pad"], d["sh"], d["sw"], d["wh"], d["ww"], nbh,
-                nbw, dtype) for d, lv in zip(meta["levels"], lvs)]
+            del want, diff
+        del got_all
 
         f1t = f1b.transpose(1, 2)
-        ms = time_ms(build_all, iters=10)
+        ms = time_ms(lambda: kernels.local_corr_build(f1b, lvs, geoms, nbh,
+                                                      nbw, dtype), iters=10)
         plain_ms = time_ms(lambda: [corr.block_local_corr_plain(
             f1b, lv, d, nbh, nbw, dtype)
             for d, lv in zip(meta["levels"], lvs)], iters=3, warmup=1)
         library_ms = time_ms(lambda: [torch.bmm(p, f1t) for p in patches],
                              iters=10)
         bnd, by = bound_ms(n_bytes, n_flops, rate)
-        log(f"kernel C timing ({name}, 4 levels = one flow): kernel {ms:.4f} "
-            f"ms ({n_flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
-            f"torch.bmm on gathered windows {library_ms:.4f} ms, bound "
-            f"{bnd:.4f} ms ({by}; {n_flops / 1e9:.1f} GFLOP, "
-            f"{n_bytes / 1e6:.1f} MB)")
+        log(f"kernel C timing ({name}, 4 levels = one flow, one launch): "
+            f"kernel {ms:.4f} ms ({n_flops / ms / 1e9:.1f} TFLOP/s; the "
+            f"parent's four launches {PARENT_LOCAL_CORR_MS[name]:.4f} ms), "
+            f"plain {plain_ms:.4f} ms, torch.bmm on gathered windows "
+            f"{library_ms:.4f} ms, bound {bnd:.4f} ms ({by}; "
+            f"{n_flops / 1e9:.1f} GFLOP, {n_bytes / 1e6:.1f} MB)")
         result[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             bound_ms=bnd, bound_by=by, library_ms=library_ms)
         del patches
+    # the parameter block (tensor maps) is kept for the last pointer set:
+    # host time of a call with it reused and with it rebuilt
+    f1b = corr._to_blocked(f1.reshape(H1 * W1, D), meta).reshape(
+        nb, -1, D).bfloat16().contiguous()
+    lvs = [lv[0].bfloat16().contiguous() for lv in levels]
+
+    def rebuilt():
+        kernels._corr_plan[0] = None
+        kernels.local_corr_build(f1b, lvs, geoms, nbh, nbw, torch.bfloat16)
+
+    reused_us = host_us(lambda: kernels.local_corr_build(
+        f1b, lvs, geoms, nbh, nbw, torch.bfloat16))
+    log(f"kernel C wrapper, host time a call: {reused_us:.1f} us with the "
+        f"parameter block reused, {host_us(rebuilt):.1f} us with it rebuilt "
+        f"(tensor maps encoded) every call")
     return result["bfloat16"]        # the WOFT_fast path builds bf16 volumes
+
+
+def host_us(fn, calls=200):
+    """Host time of one call of ``fn``, the device drained before and
+    after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def _grid_sample_lookup(vol_q, starts, frac, k):
@@ -521,26 +551,36 @@ def check_local_lookups(kernels, corr, dev):
         if not torch.equal(got_f, got[:, :k * k]):
             raise AssertionError("kernel F is not kernel D's level 0")
 
-        got_e = kernels.local_lookup_exact(vols[0], starts[0], frac[0], k)
+        # E, one level (its one-level call) and every level in one launch
+        got_e = corr.block_local_lookup(vols[0], starts[0], frac[0], k)
         want_e = corr.block_local_lookup_plain(vols[0], starts[0], frac[0], k)
         e = (got_e - want_e).abs().max().item()
         errs["E"] = max(errs["E"], e)
         log(f"kernel E [{kind}, level 0, all blocks]: max_abs_err {e:.3g}")
+        n0 = kernels.local_lookup_exact.launches
+        got_e = kernels.local_lookup_exact(vols, starts, frac, k)
+        want_e = corr.block_local_lookup_levels_plain(vols, starts, frac, k)
+        e = (got_e - want_e).abs().max().item()
+        errs["E"] = max(errs["E"], e)
+        log(f"kernel E [{kind}, {L} levels in one launch, all blocks]: "
+            f"max_abs_err {e:.3g}")
         # with the flag: flagged blocks rewritten in D's output, rest kept
         flag = (~ok).to(torch.uint8)
         flag[::17] = 1
         out_k, out_p = got.clone(), want.clone()
-        kernels.local_lookup_exact(vols[0], starts[0], frac[0], k, flag=flag,
-                                   out=out_k, channel=0)
-        corr.block_local_lookup_plain(vols[0], starts[0], frac[0], k,
-                                      flag=flag, out=out_p, channel=0)
+        kernels.local_lookup_exact(vols, starts, frac, k, flag=flag,
+                                   out=out_k)
+        corr.block_local_lookup_levels_plain(vols, starts, frac, k,
+                                             flag=flag, out=out_p)
         torch.cuda.synchronize()
+        if kernels.local_lookup_exact.launches != n0 + 2:
+            raise AssertionError("kernel E took more than one launch a "
+                                 "lookup")
         e = (out_k.float() - out_p.float()).abs().max().item()
         errs["E"] = max(errs["E"], e)
-        kept = torch.equal(out_k[flag == 0], got[flag == 0]) and torch.equal(
-            out_k[:, k * k:], got[:, k * k:])
-        log(f"kernel E [{kind}, level 0, flag on {int(flag.sum())} blocks]: "
-            f"max_abs_err {e:.3g}, other rows kept {kept}")
+        kept = torch.equal(out_k[flag == 0], got[flag == 0])
+        log(f"kernel E [{kind}, {L} levels, flag on {int(flag.sum())} "
+            f"blocks]: max_abs_err {e:.3g}, other blocks' rows kept {kept}")
         if not kept:
             raise AssertionError("kernel E wrote rows it was not flagged for")
 
@@ -573,8 +613,6 @@ def check_local_lookups(kernels, corr, dev):
     log(f"kernels D, E, F: F.grid_sample on level 0 vs plain: max_abs_err "
         f"{lib_err.item():.3g} (yardstick)")
     rc0 = rcs[:, 0].contiguous()
-    flag0 = torch.zeros(nb, dtype=torch.uint8, device=dev)
-    scratch = torch.empty((nb, L * k * k, bq), dtype=od, device=dev)
     rows = {}
     timings = {
         "D": (L, rcs.numel() * 4,
@@ -584,12 +622,6 @@ def check_local_lookups(kernels, corr, dev):
                   rcs, vols, rel, frac, k, od),
               lambda: [_grid_sample_lookup(vq[l], starts[l], frac[l], k)
                        for l in range(L)]),
-        "E": (1, 0,
-              lambda: kernels.local_lookup_exact(vols[0], starts[0], frac[0],
-                                                 k, out=scratch, channel=0),
-              lambda: corr.block_local_lookup_plain(vols[0], starts[0],
-                                                    frac[0], k),
-              lambda: _grid_sample_lookup(vq[0], starts[0], frac[0], k)),
         "F": (1, rc0.numel() * 4,
               lambda: kernels.local_lookup_fine(rc0, vols[0], rel[0], frac[0],
                                                 k, od),
@@ -609,10 +641,47 @@ def check_local_lookups(kernels, corr, dev):
             f"({by})")
         rows[name] = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
                           bound_ms=bnd, bound_by=by, library_ms=library_ms)
-    ms_idle = time_ms(lambda: kernels.local_lookup_exact(
-        vols[0], starts[0], frac[0], k, flag=flag0, out=scratch, channel=0))
-    log(f"kernel E with no block flagged (the steady path's launch): "
-        f"{ms_idle:.4f} ms")
+
+    # E as the guard runs it: one launch a lookup, every level, into D's
+    # output, on the blocks the smooth 720p field flags (the last block
+    # row's padding queries) and with no block flagged. The bound counts
+    # the flagged blocks' work only; the yardstick samples the flagged
+    # blocks' queries with F.grid_sample, one call a level.
+    flag = (~ok).view(torch.uint8)
+    none = torch.zeros_like(flag)
+    nf = int(flag.sum().item())
+    sel = flag.bool()
+    vq_f = [v[sel].permute(0, 3, 1, 2).reshape(nf * bq, 1, *v.shape[1:3])
+            .float() for v in vols]
+    s_f, fr_f = starts[:, :, sel].contiguous(), frac[:, :, sel].contiguous()
+    scratch = kernels.local_lookup_fine_multi(rcs, vols, rel, frac, k, od)
+    scratch_p = scratch.clone()
+    ms = time_ms(lambda: kernels.local_lookup_exact(vols, starts, frac, k,
+                                                    flag=flag, out=scratch))
+    ms_none = time_ms(lambda: kernels.local_lookup_exact(
+        vols, starts, frac, k, flag=none, out=scratch))
+    one_level = time_ms(lambda: [corr.block_local_lookup(
+        vol, starts[l], frac[l], k, flag=flag, out=scratch, channel=l * k * k)
+        for l, vol in enumerate(vols)])
+    plain_ms = time_ms(lambda: corr.block_local_lookup_levels_plain(
+        vols, starts, frac, k, flag=flag, out=scratch_p), iters=5, warmup=1)
+    library_ms = time_ms(lambda: [_grid_sample_lookup(vq_f[l], s_f[l],
+                                                      fr_f[l], k)
+                                  for l in range(L)], iters=5, warmup=1)
+    n_qf = nf * bq
+    bnd, by = bound_ms(L * n_qf * (taps * esz + 2 * (4 + 4) + k * k * 2)
+                       + nb, L * n_qf * k * (3 * (k + 1) + 3 * k))
+    log(f"kernel E timing (one lookup, {L} levels in one launch, the guard's "
+        f"{nf} flagged blocks): kernel {ms:.4f} ms (the parent's four "
+        f"launches {PARENT_LOCAL_EXACT_MS['flagged']:.4f} ms; this kernel as "
+        f"four one-level calls {one_level:.4f} ms), plain {plain_ms:.4f} ms, "
+        f"F.grid_sample x{L} on the flagged blocks' queries {library_ms:.4f} "
+        f"ms, bound {bnd:.4f} ms ({by}, flagged blocks only)")
+    log(f"kernel E with no block flagged (one lookup, one launch): "
+        f"{ms_none:.4f} ms (the parent's four launches "
+        f"{PARENT_LOCAL_EXACT_MS['none']:.4f} ms)")
+    rows["E"] = dict(max_abs_err=errs["E"], ms=ms, plain_ms=plain_ms,
+                     bound_ms=bnd, bound_by=by, library_ms=library_ms)
     return rows
 
 
@@ -815,24 +884,28 @@ def track_720p(kernels, dev, config, fused=False):
     if not all(np.isfinite(h).all() for h in hs):
         raise AssertionError("non-finite homography")
     # per flow: 12 iterations and one more lookup for the weight head; the
-    # block-local path builds 4 levels, and kernel E follows each launch of
-    # D once a level (the guard); the fused loop launches G once a direction
-    # and I once, every iteration
+    # block-local path builds its 4 levels in one launch of C, and one
+    # launch of E (every level, the guard) follows each launch of D; the
+    # fused loop launches G once a direction and I once, every iteration
     want = dict.fromkeys(COUNTED, 0)
     want["warp_perspective_bilinear"] = n_frames
     if fast:
-        want.update(local_corr_build=4 * n_flows,
+        want.update(local_corr_build=n_flows,
                     local_lookup_fine_multi=13 * n_flows,
-                    local_lookup_exact=4 * 13 * n_flows)
+                    local_lookup_exact=13 * n_flows)
     else:
         want.update(corr_pyramid_lookup=13 * n_flows)
     if fused:
         want.update(fused_gru_update=2 * 12 * n_flows, flow_head=12 * n_flows)
+    # C and E: exactly one launch a flow and a lookup
+    exact = ("local_corr_build", "local_lookup_exact") if fast else ()
     for name, n in want.items():
-        if launches[name] < n or (n == 0 and launches[name]):
+        if (launches[name] < n or (n == 0 and launches[name])
+                or (name in exact and launches[name] != n)):
+            least = "at least " if n and name not in exact else ""
             raise AssertionError(f"{config}: {name} launched "
                                  f"{launches[name]} times, expected "
-                                 f"{'at least ' if n else ''}{n} ({n_frames} "
+                                 f"{least}{n} ({n_frames} "
                                  f"frames, {n_flows} flows)")
     return launches, steady
 
@@ -861,7 +934,7 @@ def check_guard_on_a_path(kernels, corr, dev):
     counts = {name: getattr(kernels, name).launches for name in COUNTED}
     if not torch.isfinite(out["flow_up"]).all():
         raise AssertionError("non-finite flow on the flow_init path")
-    if counts["local_lookup_exact"] < 4 * 13:
+    if counts["local_lookup_exact"] < 13:
         raise AssertionError(f"kernel E launched "
                              f"{counts['local_lookup_exact']} times")
 

@@ -56,9 +56,10 @@ _WRAPPERS = [kernels.warp_perspective_bilinear, kernels.corr_pyramid_lookup,
              kernels.local_corr_build, kernels.local_lookup_fine_multi,
              kernels.local_lookup_fine, kernels.local_lookup_exact,
              warp.warp_perspective_fast, corr.corr_lookup,
-             corr.block_local_corr, corr.block_local_lookup_fine_multi,
+             corr.block_local_corr, corr.block_local_corr_levels,
+             corr.block_local_lookup_fine_multi,
              corr.block_local_lookup_fine, corr.block_local_lookup,
-             corr.corr_lookup_local_blocked]
+             corr.block_local_lookup_levels, corr.corr_lookup_local_blocked]
 
 
 @pytest.mark.parametrize("fn", _WRAPPERS, ids=lambda f: f.__name__)
@@ -80,15 +81,15 @@ def test_launch_wrappers_refuse_cpu_tensors():
     rcs = torch.zeros(1, 1, 2, dtype=torch.int32)
     with pytest.raises(ValueError):
         kernels.local_corr_build(torch.zeros(1, 128, 32),
-                                 torch.zeros(4, 4, 32), 13, 8, 16, 34, 48, 1,
-                                 1, torch.float32)
+                                 [torch.zeros(4, 4, 32)],
+                                 [(13, 8, 16, 34, 48)], 1, 1, torch.float32)
     with pytest.raises(ValueError):
         kernels.local_lookup_fine_multi(rcs, [vol], starts[None], frac[None],
                                         9)
     with pytest.raises(ValueError):
         kernels.local_lookup_fine(rcs[:, 0], vol, starts, frac, 9)
     with pytest.raises(ValueError):
-        kernels.local_lookup_exact(vol, starts, frac, 9)
+        kernels.local_lookup_exact([vol], starts[None], frac[None], 9)
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():

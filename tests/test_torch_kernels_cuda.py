@@ -215,6 +215,47 @@ def test_local_corr_kernel_matches_plain(dev, dtype, rtol, hw):
         lv = warp.avg_pool2d(lv)
 
 
+# (H1, W1, margin): the 720p grid, and odd sizes whose windows reach past
+# every border of every level (TMA's zero fill in bf16)
+LOCAL_SHAPES = [(90, 160, 16), (37, 53, 8), (13, 21, 16)]
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2.0 ** -7)],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", LOCAL_SHAPES,
+                         ids=["90x160m16", "37x53m8", "13x21m16"])
+def test_local_corr_levels_in_one_launch(dev, dtype, rtol, shape):
+    """Kernel C builds all four levels in one launch, each equal to the
+    plain version to the tolerance of two summation orders."""
+    H1, W1, margin = shape
+    D = 256 if H1 == 90 else 64
+    f1, f2 = _features(dev, H1, W1, D, seed=5)
+    meta = corr._local_layout(H1, W1, 4, 4, margin)
+    nbh, nbw = meta["nbh"], meta["nbw"]
+    f1b = corr._to_blocked(f1.reshape(-1, D), meta).reshape(
+        nbh * nbw, 128, D).to(dtype).contiguous()
+    levels = [f2]
+    while len(levels) < 4:
+        levels.append(warp.avg_pool2d(levels[-1]))
+    levels = [lv[0].to(dtype).contiguous() for lv in levels]
+    n0 = kernels.local_corr_build.launches
+    got = corr.block_local_corr_levels(f1b, levels, meta["levels"], nbh, nbw,
+                                       dtype)
+    torch.cuda.synchronize()
+    assert kernels.local_corr_build.launches == n0 + 1
+    for g, lv, d in zip(got, levels, meta["levels"]):
+        want = corr.block_local_corr_plain(f1b, lv, d, nbh, nbw, dtype)
+        assert g.shape == want.shape and g.dtype == dtype
+        g, want = g.float(), want.float()
+        assert ((g - want).abs() <= 2e-5 + rtol * want.abs()).all()
+    # the cached parameter block serves a second call on the same tensors
+    again = kernels.local_corr_build(
+        f1b, levels, [(d["pad"], d["sh"], d["sw"], d["wh"], d["ww"])
+                      for d in meta["levels"]], nbh, nbw, dtype)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
 @pytest.fixture(scope="module", params=[torch.float32, torch.bfloat16],
                 ids=["fp32", "bf16"])
 def local_volume(dev, request):
@@ -288,6 +329,45 @@ def test_local_lookup_kernels_match_plain(dev, local_volume, kind):
     assert torch.equal(out_k[:, 81:], got[:, 81:])
 
 
+@pytest.mark.parametrize("flagged", ["none", "some", "all"])
+def test_exact_lookup_levels_in_one_launch(dev, local_volume, flagged):
+    """Kernel E covers every level in one launch: equal to the plain
+    version on the flagged blocks, and the other blocks' rows (and channels
+    before ``channel``) kept bit for bit."""
+    local = local_volume
+    vols = local.volumes
+    L, k = len(vols), 9
+    nb, bq = vols[0].shape[0], vols[0].shape[3]
+    starts, frac = corr._local_level_coords(local, _coords(dev, "jitter"))
+    flag = torch.zeros(nb, dtype=torch.uint8, device=dev)
+    if flagged == "some":
+        flag[1::3] = 1
+    elif flagged == "all":
+        flag[:] = 1
+    g = torch.Generator(device=dev).manual_seed(6)
+    for od in (torch.float32, torch.bfloat16):
+        base = torch.randn(nb, 5 + L * k * k, bq, device=dev,
+                           generator=g).to(od)
+        out_k, out_p = base.clone(), base.clone()
+        n0 = kernels.local_lookup_exact.launches
+        kernels.local_lookup_exact(vols, starts, frac, k, flag=flag,
+                                   out=out_k, channel=5)
+        assert kernels.local_lookup_exact.launches == n0 + 1
+        for lvl, vol in enumerate(vols):
+            corr.block_local_lookup_plain(vol, starts[lvl], frac[lvl], k,
+                                          flag=flag, out=out_p,
+                                          channel=5 + lvl * k * k)
+        torch.cuda.synchronize()
+        assert torch.equal(out_k, out_p)
+        keep = flag == 0
+        assert torch.equal(out_k[keep], base[keep])
+        assert torch.equal(out_k[:, :5], base[:, :5])
+    # no flag, no output: a new float32 (NB, L*k*k, BQ), as the plain path
+    got = corr.block_local_lookup_levels(vols, starts, frac, k)
+    want = corr.block_local_lookup_levels_plain(vols, starts, frac, k)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
 def test_local_blocked_lookup_on_card_matches_cpu(dev, local_volume):
     """The whole guarded lookup on the card equals the CPU path on the same
     volume (the kernels equal their plain versions, so only the volume's
@@ -309,21 +389,33 @@ def test_local_wrappers_check_inputs(dev, local_volume):
     local = local_volume
     coords = _coords(dev, "smooth")
     starts, frac = corr._local_level_coords(local, coords)
-    vol = local.volumes[0]
+    vols = local.volumes
     with pytest.raises(TypeError):
-        kernels.local_lookup_exact(vol, starts[0].long(), frac[0], 9)
+        kernels.local_lookup_exact(vols, starts.long(), frac, 9)
     with pytest.raises(ValueError):
-        kernels.local_lookup_exact(vol, starts[0, :, :3].contiguous(),
-                                   frac[0], 9)
+        kernels.local_lookup_exact(vols, starts[..., :3].contiguous(),
+                                   frac, 9)
+    with pytest.raises(ValueError):          # one start set a level
+        kernels.local_lookup_exact(vols[:2], starts, frac, 9)
     with pytest.raises(ValueError):          # a flag needs an output
-        kernels.local_lookup_exact(vol, starts[0], frac[0], 9,
-                                   flag=torch.zeros(vol.shape[0],
+        kernels.local_lookup_exact(vols, starts, frac, 9,
+                                   flag=torch.zeros(vols[0].shape[0],
                                                     dtype=torch.uint8,
                                                     device=dev))
     with pytest.raises(ValueError):
         kernels.local_corr_build(torch.zeros(2, 64, 64, device=dev),
-                                 torch.zeros(8, 8, 64, device=dev), 13, 8, 16,
-                                 34, 48, 1, 2, torch.float32)
+                                 [torch.zeros(8, 8, 64, device=dev)],
+                                 [(13, 8, 16, 34, 48)], 1, 2, torch.float32)
+    with pytest.raises(ValueError):          # bf16 needs D % 64 == 0
+        kernels.local_corr_build(
+            torch.zeros(1, 128, 96, device=dev, dtype=torch.bfloat16),
+            [torch.zeros(8, 8, 96, device=dev, dtype=torch.bfloat16)],
+            [(13, 8, 16, 34, 48)], 1, 1, torch.bfloat16)
+    with pytest.raises(ValueError):          # tiles are whole window rows
+        kernels.local_corr_build(
+            torch.zeros(1, 128, 64, device=dev, dtype=torch.bfloat16),
+            [torch.zeros(8, 8, 64, device=dev, dtype=torch.bfloat16)],
+            [(13, 8, 16, 34, 136)], 1, 1, torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------

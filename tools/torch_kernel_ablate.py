@@ -1,25 +1,29 @@
 #!/usr/bin/env python3
-"""What bounds kernels A (pre-warp) and B (pyramid lookup) on the card.
+"""What bounds kernels A (pre-warp), B (pyramid lookup) and C (block-local
+volume) on the card.
 
 Run from the repository root on a machine with an NVIDIA GPU and ``nvcc``:
 
     python3 tools/torch_kernel_ablate.py
 
-For each variant below the tool copies ``woft_tpu_torch/csrc/warp.cu`` or
-``corr_lookup.cu`` into ``build/torch_kernels/ablate/``, applies the
-variant's textual replacements (it stops if a piece of text is no longer in
-the source, so the variants stay in step with the kernels), builds the copy
-with the port's ``nvcc`` flags, and times it with ``chip_smoke.py``'s
-``time_ms`` at the 1280x720 main-path shapes: kernel A at its three poses,
-kernel B dense (Q = 14,400) and indexed (M = 4,500). The sources in
-``csrc/`` are not touched and no variant is used by the port.
+For each variant below the tool copies ``woft_tpu_torch/csrc/warp.cu``,
+``corr_lookup.cu`` or ``local_corr.cu`` into ``build/torch_kernels/ablate/``,
+applies the variant's textual replacements (it stops if a piece of text is
+no longer in the source, so the variants stay in step with the kernels),
+builds the copy with the port's ``nvcc`` flags, and times it with
+``chip_smoke.py``'s ``time_ms`` at the 1280x720 main-path shapes: kernel A
+at its three poses, kernel B dense (Q = 14,400) and indexed (M = 4,500),
+kernel C in bf16 for the four levels of a flow in its one launch. The
+sources in ``csrc/`` are not touched and no variant is used by the port.
 
-Two kinds of variant. Ablations compile a part of the work out (the loads
-become arithmetic on the address, the stores a branch that is never taken):
-their results are wrong by design and are not compared; the time that is
-left says what the removed part costs. Layouts change which pixels a warp
-owns: they must still equal the plain version (max abs error 0). Imports no
-JAX.
+Two kinds of variant. Ablations compile a part of the work out (A, B: the
+loads become arithmetic on the address, the stores a branch that is never
+taken; C: the producer arrives without loading the window slices, the
+``wgmma`` products or the TMA stores are left out): their results are wrong
+by design and are not compared; the time that is left says what the
+removed part costs. Layouts change which pixels a warp owns: they must
+still equal the plain version (A, B: max abs error 0; C as built: within
+``chip_smoke.py``'s tolerance). Imports no JAX.
 """
 
 import ctypes
@@ -39,6 +43,13 @@ _A_LOADS = tuple(
     for c, o in (("00", "x0"), ("10", "x1"), ("01", "y0"), ("11", "y1")))
 _A_STORE = ("      o[ch] = acc;\n    }\n  } else {",
             "      if (acc == 12345.678f) o[ch] = acc;\n    }\n  } else {")
+_C_LOAD = ("mbar_expect_tx(full(s), bytes); tma_load_3d(ring + s * kSlice, "
+           "&P.maps.win[l], kc * 64, x0, y0 + t * lv.rows, full(s));",
+           "mbar_arrive(full(s));")
+_C_PRODUCT = ("wgmma_m64n128k16(acc, sw128_desc(a + 32 * k), "
+              "sw128_desc(bq + 32 * k), (kc | k) != 0);", ";")
+_C_STORE = ("tma_store_3d(&P.maps.out[l], sb + h * kSlice, h * 64, t * m, b);",
+            ";")
 _A_PIXEL = (
     "  const int px = blockIdx.x * kTileW + (threadIdx.x & (kTileW - 1));\n"
     "  const int py = blockIdx.y * kTileH + threadIdx.x / kTileW;\n")
@@ -69,11 +80,19 @@ VARIANTS = {
     "B without the loads": ("corr_lookup", (_B_LOAD,), False),
     "B without the stores": ("corr_lookup", (_B_STORE,), False),
     "B without either": ("corr_lookup", (_B_LOAD, _B_STORE), False),
+    "C as built": ("local_corr", (), True),
+    "C without the window loads": ("local_corr", (_C_LOAD,), False),
+    "C without the products": ("local_corr", (_C_PRODUCT,), False),
+    "C without the stores": ("local_corr", (_C_STORE,), False),
+    "C without loads and stores": ("local_corr", (_C_LOAD, _C_STORE), False),
+    "C with none of the three": ("local_corr",
+                                 (_C_LOAD, _C_PRODUCT, _C_STORE), False),
 }
 
 
 def build_variants(kernels):
-    """One ``nvcc`` per variant, all started together -> {name: C entry}."""
+    """One ``nvcc`` per variant, all started together -> {name: {C symbol:
+    entry}}."""
     out_dir = kernels.BUILD_DIR / "ablate"
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
@@ -94,12 +113,36 @@ def build_variants(kernels):
         log, _ = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"variant '{name}' does not build:\n{log}")
-        symbol, argtypes = next(iter(
-            kernels._ENTRIES[VARIANTS[name][0]].items()))
-        fn = getattr(ctypes.CDLL(str(so)), symbol)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        entries[name] = (symbol, fn)
+        lib = ctypes.CDLL(str(so))
+        entries[name] = {}
+        for symbol, argtypes in kernels._ENTRIES[VARIANTS[name][0]].items():
+            fn = getattr(lib, symbol)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            entries[name][symbol] = fn
     return entries
+
+
+def local_corr_case(corr, dev):
+    """Kernel C's 720p inputs in bf16: blocked queries, the four levels,
+    their geometries, the plain volumes."""
+    from woft_tpu_torch.ops.warp import avg_pool2d
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    f1 = torch.randn(1, 90, 160, 256, device=dev, generator=g)
+    f2 = torch.randn(1, 90, 160, 256, device=dev, generator=g)
+    meta = corr._local_layout(90, 160, 4, 4, 16)
+    nbh, nbw = meta["nbh"], meta["nbw"]
+    f1b = corr._to_blocked(f1.reshape(-1, 256), meta).reshape(
+        nbh * nbw, 128, 256).bfloat16().contiguous()
+    levels = [f2]
+    while len(levels) < 4:
+        levels.append(avg_pool2d(levels[-1]))
+    levels = [lv[0].bfloat16().contiguous() for lv in levels]
+    geoms = [(d["pad"], d["sh"], d["sw"], d["wh"], d["ww"])
+             for d in meta["levels"]]
+    want = [corr.block_local_corr_plain(f1b, lv, d, nbh, nbw, torch.bfloat16)
+            for lv, d in zip(levels, meta["levels"])]
+    return (f1b, levels, geoms, nbh, nbw), want
 
 
 def main():
@@ -123,10 +166,12 @@ def main():
     pyramid, coords, cells, c_cells = cs.lookup_case(corr, dev)
     want_b = corr.corr_lookup_plain(pyramid, coords, 4).reshape(
         coords.numel() // 2, -1)
-    for name, (symbol, fn) in entries.items():
-        kernels._entries[symbol] = fn        # the wrappers launch this build
+    c_args, c_want = local_corr_case(corr, dev)
+    for name, fns in entries.items():
+        kernels._entries.update(fns)        # the wrappers launch this build
         exact = VARIANTS[name][2]
-        if symbol == "woft_warp_bilinear":
+        source = VARIANTS[name][0]
+        if source == "warp":
             cells_ms, err = [], 0.0
             for H in poses.values():
                 hinv = warp.inverse_h(H[None])
@@ -140,7 +185,7 @@ def main():
                         frame, hinv, cs.H_IMG, cs.W_IMG)))
             times = ", ".join(f"{k} {ms:.4f} ms"
                               for k, ms in zip(poses, cells_ms))
-        else:
+        elif source == "corr_lookup":
             got = kernels.corr_pyramid_lookup(pyramid, coords, 4)
             err = (got - want_b).abs().max().item() if exact else 0.0
             dense = cs.time_ms(lambda: kernels.corr_pyramid_lookup(
@@ -148,7 +193,22 @@ def main():
             indexed = cs.time_ms(lambda: kernels.corr_pyramid_lookup(
                 pyramid, c_cells, 4, rows=cells))
             times = f"dense {dense:.4f} ms, indexed {indexed:.4f} ms"
+        else:
+            got = kernels.local_corr_build(*c_args, torch.bfloat16)
+            err = 0.0
+            if exact:
+                for g, w in zip(got, c_want):
+                    g, w = g.float(), w.float()
+                    excess = (g - w).abs() - cs.CORR_RTOL_BF16 * w.abs()
+                    if excess.max().item() > cs.CORR_ATOL:
+                        err = (g - w).abs().max().item()
+            ms = cs.time_ms(lambda: kernels.local_corr_build(
+                *c_args, torch.bfloat16), iters=10)
+            times = f"bf16, 4 levels, one launch {ms:.4f} ms"
         checked = f"max_abs_err {err:.3g}" if exact else "result not compared"
+        if exact and source == "local_corr":
+            checked = ("within tolerance" if err == 0.0 else
+                       f"beyond tolerance, max_abs_err {err:.3g}")
         print(f"{name}: {times} ({checked})", flush=True)
         if exact and err != 0.0:
             print(f"torch_kernel_ablate: '{name}' disagrees with the plain "

@@ -49,7 +49,8 @@ CATEGORIES = (
     ("kernel H (motion tail)", ("motion_encoder_tail_kernel",)),
     ("kernel B (corr lookup)", ("corr_lookup_kernel",)),
     ("kernel C (local volume)", ("local_corr_",)),
-    ("kernels D/E/F (local lookup)", ("local_lookup_kernel",)),
+    ("kernel E (exact local lookup)", ("local_lookup_exact_kernel",)),
+    ("kernels D/F (fine local lookup)", ("local_lookup_fine_kernel",)),
     ("kernel A (pre-warp)", ("warp_bilinear_kernel",)),
     ("convolution", ("fprop", "conv", "cudnn", "winograd", "fft", "cf32",
                      "nchwtonhwc", "nhwctonchw")),

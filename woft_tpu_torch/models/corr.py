@@ -23,14 +23,16 @@ The block-local path (``corr_impl='local'``, the ``WOFT_fast`` tier):
   stored volume is ``vol[b, py, px, q] = <f1[b, q], window_b[py, px]> /
   sqrt(D)``, queries minor (the reference's p layout, the only one the port
   keeps). CPU tensors take ``block_local_corr_plain``; CUDA tensors launch
-  kernel C (``csrc/local_corr.cu``), which computes the product itself.
+  kernel C (``csrc/local_corr.cu``) once for all levels, which computes the
+  products itself.
 - ``corr_lookup_local_blocked``: a 9x9 bilinear window per query inside
   its block's stored window, centroids clamped to it. All levels go through
   one launch of kernel D (``block_local_lookup_fine_multi``), which reads
   each block's fine sub-window at a per-block anchor and saturates at that
   sub-window's edge; blocks whose slab starts spread beyond the sub-window
-  are rewritten by kernel E (``block_local_lookup``, exact over the whole
-  stored window) under a per-block flag, with no host sync. Kernel F
+  are rewritten by one launch of kernel E (``block_local_lookup_levels``,
+  exact over the whole stored windows) under a per-block flag, with no host
+  sync. Kernel F
   (``block_local_lookup_fine``) is D's single-level form. The reference's
   two-hot weight arrays exist only to avoid gathers on the TPU; here a
   lookup takes each query's integer slab start and fraction per axis and
@@ -286,19 +288,28 @@ def block_local_corr_plain(f1b, f2, d, nbh, nbw, out_dtype):
     return corr.to(out_dtype).reshape(nbh * nbw, wh, ww, f1b.shape[1])
 
 
-def block_local_corr(f1b, f2, d, nbh, nbw, out_dtype):
-    """One level of the block-local volume.
+def block_local_corr_levels(f1b, levels, ds, nbh, nbw, out_dtype):
+    """Every level of the block-local volume, one launch of kernel C on a
+    CUDA tensor.
 
-    f1b: (NB, BQ, D) blocked query features; f2: (hl, wl, D) the level's
-    unpadded target features, same dtype (float32 or bfloat16); d: the
-    level's ``_local_layout`` entry. Returns (NB, wh, ww, BQ) ``out_dtype``:
-    ``<f1b[b, q], window_b[py, px]> / sqrt(D)``, float32 accumulation,
-    rounded once; window_b starts at (by*sh, (bx*sw)//8*8) of the level
-    zero-padded by ``pad``."""
+    f1b: (NB, BQ, D) blocked query features; levels: L (hl, wl, D) unpadded
+    target features, same dtype (float32 or bfloat16); ds: the levels'
+    ``_local_layout`` entries. Returns L (NB, wh, ww, BQ) ``out_dtype``
+    volumes: ``<f1b[b, q], window_b[py, px]> / sqrt(D)``, float32
+    accumulation, rounded once; window_b starts at (by*sh, (bx*sw)//8*8) of
+    the level zero-padded by ``pad``."""
     if f1b.device.type == "cpu":
-        return block_local_corr_plain(f1b, f2, d, nbh, nbw, out_dtype)
-    return kernels.local_corr_build(f1b, f2, d["pad"], d["sh"], d["sw"],
-                                    d["wh"], d["ww"], nbh, nbw, out_dtype)
+        return [block_local_corr_plain(f1b, f2, d, nbh, nbw, out_dtype)
+                for f2, d in zip(levels, ds)]
+    return kernels.local_corr_build(
+        f1b, levels, [(d["pad"], d["sh"], d["sw"], d["wh"], d["ww"])
+                      for d in ds], nbh, nbw, out_dtype)
+
+
+def block_local_corr(f1b, f2, d, nbh, nbw, out_dtype):
+    """One level of the block-local volume (``block_local_corr_levels`` for
+    one level: f2 (hl, wl, D), d its layout entry)."""
+    return block_local_corr_levels(f1b, [f2], [d], nbh, nbw, out_dtype)[0]
 
 
 def build_local_corr(fmap1, fmap2, radius=4, num_levels=4, margin=16,
@@ -312,7 +323,8 @@ def build_local_corr(fmap1, fmap2, radius=4, num_levels=4, margin=16,
     fmap1, fmap2: (1, H1, W1, D) float32. ``out_dtype=torch.bfloat16``
     rounds the features entering each level's product and the stored
     volume to bf16 (float32 accumulation); levels are pooled from float32
-    features. Returns ``LocalCorrVolumes``."""
+    features. All levels are pooled and cast first, then built by one call
+    (one launch on the card). Returns ``LocalCorrVolumes``."""
     B, H1, W1, D = fmap1.shape
     if B != 1:
         raise ValueError("the block-local volume takes one frame pair")
@@ -321,14 +333,12 @@ def build_local_corr(fmap1, fmap2, radius=4, num_levels=4, margin=16,
     vol_dtype = out_dtype or torch.float32
     f1b = _to_blocked(fmap1.reshape(H1 * W1, D), meta)
     f1b = f1b.reshape(nbh * nbw, -1, D).to(vol_dtype).contiguous()
-    volumes = []
-    lv = fmap2
-    for lvl, d in enumerate(meta["levels"]):
-        volumes.append(block_local_corr(
-            f1b, lv[0].to(vol_dtype).contiguous(), d, nbh, nbw, vol_dtype))
-        if lvl + 1 < num_levels:
-            lv = avg_pool2d(lv)
-    return LocalCorrVolumes(volumes, meta)
+    levels = [fmap2]
+    while len(levels) < num_levels:
+        levels.append(avg_pool2d(levels[-1]))
+    levels = [lv[0].to(vol_dtype).contiguous() for lv in levels]
+    return LocalCorrVolumes(block_local_corr_levels(
+        f1b, levels, meta["levels"], nbh, nbw, vol_dtype), meta)
 
 
 # ---------------------------------------------------------------------------
@@ -420,6 +430,36 @@ def block_local_lookup_plain(vol, starts, frac, k, flag=None, out=None,
     return out
 
 
+def block_local_lookup_levels_plain(vols, starts, frac, k, flag=None,
+                                    out=None):
+    """Plain PyTorch version of kernel E over every level (same arguments
+    as ``block_local_lookup_levels``)."""
+    if out is None:
+        return torch.cat([block_local_lookup_plain(vol, starts[lvl],
+                                                   frac[lvl], k)
+                          for lvl, vol in enumerate(vols)], dim=1)
+    for lvl, vol in enumerate(vols):
+        block_local_lookup_plain(vol, starts[lvl], frac[lvl], k, flag, out,
+                                 lvl * k * k)
+    return out
+
+
+def block_local_lookup_levels(vols, starts, frac, k, flag=None, out=None):
+    """Every level, the whole stored windows: exact for any coordinates;
+    one launch of kernel E on a CUDA tensor.
+
+    vols: L (NB, wh_l, ww_l, BQ) volumes; starts: (L, 2, NB, BQ) int32
+    absolute slab starts ([l, 0] rows, [l, 1] columns) in the stored
+    windows; frac: (L, 2, NB, BQ) float32. Without ``out`` returns (NB,
+    L*k*k, BQ) float32, level-major. With ``out`` (NB, L*k*k, BQ) it writes
+    in place, and with ``flag`` (NB,) uint8 only the blocks whose flag is
+    non-zero: the others keep their rows."""
+    if vols[0].device.type == "cpu":
+        return block_local_lookup_levels_plain(vols, starts, frac, k, flag,
+                                               out)
+    return kernels.local_lookup_exact(vols, starts, frac, k, flag, out)
+
+
 def block_local_lookup(vol, starts, frac, k, flag=None, out=None, channel=0):
     """One level, the whole stored window: exact for any coordinates.
 
@@ -428,12 +468,13 @@ def block_local_lookup(vol, starts, frac, k, flag=None, out=None, channel=0):
     Without ``out`` returns (NB, k*k, BQ) float32. With ``out`` (NB, C, BQ)
     it writes channels ``channel .. channel + k*k`` in place, and with
     ``flag`` (NB,) uint8 only the blocks whose flag is non-zero: the others
-    return at once and keep their rows."""
+    return at once and keep their rows. On a CUDA tensor: kernel E for one
+    level."""
     if vol.device.type == "cpu":
         return block_local_lookup_plain(vol, starts, frac, k, flag, out,
                                         channel)
-    return kernels.local_lookup_exact(vol, starts, frac, k, flag, out,
-                                      channel)
+    return kernels.local_lookup_exact([vol], starts[None], frac[None], k,
+                                      flag, out, channel)
 
 
 class BlockedCorr:
@@ -505,10 +546,10 @@ def corr_lookup_local_blocked(local, coords, radius=4, fine=True, check=True):
     coords: (1, H1, W1, 2) level-0 centroids in natural raster order.
     ``fine``: kernel D on each block's fine sub-window, exact while the
     block's slab starts fit it. ``check`` (fine only): blocks that do not
-    fit are rewritten by kernel E, launched once a level over all blocks
-    with the per-block flag ``~ok`` and writing into D's output, so the
-    result equals the exact lookup everywhere with no host sync and no
-    branch. ``fine=False``: kernel E on every block, float32 output.
+    fit are rewritten by kernel E, launched once for all levels with the
+    per-block flag ``~ok`` and writing into D's output, so the result
+    equals the exact lookup everywhere with no host sync and no branch.
+    ``fine=False``: kernel E on every block, one launch, float32 output.
     bfloat16 volumes give bfloat16 fine lookups (float32 arithmetic)."""
     meta = local.meta
     if radius != meta["radius"]:
@@ -519,17 +560,14 @@ def corr_lookup_local_blocked(local, coords, radius=4, fine=True, check=True):
     L = len(vols)
     starts, frac = _local_level_coords(local, coords)
     if not fine:
-        data = torch.cat([block_local_lookup(vol, starts[lvl], frac[lvl], k)
-                          for lvl, vol in enumerate(vols)], dim=1)
-        return BlockedCorr(data, meta, L, k)
+        return BlockedCorr(block_local_lookup_levels(vols, starts, frac, k),
+                           meta, L, k)
     rcs, rel, ok = _fine_anchor_starts(local, starts)
     od = torch.bfloat16 if vols[0].dtype == torch.bfloat16 else torch.float32
     data = block_local_lookup_fine_multi(rcs, vols, rel, frac, k, od)
     if check:
-        flag = (~ok).view(torch.uint8)
-        for lvl, vol in enumerate(vols):
-            block_local_lookup(vol, starts[lvl], frac[lvl], k, flag=flag,
-                               out=data, channel=lvl * k * k)
+        block_local_lookup_levels(vols, starts, frac, k,
+                                  flag=(~ok).view(torch.uint8), out=data)
     return BlockedCorr(data, meta, L, k)
 
 

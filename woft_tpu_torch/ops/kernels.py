@@ -59,15 +59,19 @@ _ENTRIES = {
     "warp": {"woft_warp_bilinear": [_P, _I, _I, _I, _I, _P, _P, _I, _I, _P]},
     "corr_lookup": {"woft_corr_lookup": [_P, _P, _P, _I, _P, _P,
                                          ctypes.c_longlong, _I, _P, _P]},
-    "local_corr": {"woft_local_corr": [_P, _P, _P] + [_I] * 11
-                   + [ctypes.c_float, _I, _P]},
+    "local_corr": {
+        "woft_local_corr_plan": [_P, _P, _P, _P, _I, _I, _I, _I,
+                                 ctypes.c_float, _I, _P],
+        "woft_local_corr_launch": [_P, _P],
+        "woft_local_corr_params_size": [],
+    },
     "local_lookup": {
         "woft_local_lookup_fine_multi": [_P, _P, _P, _I, _P, _P, _P, _I, _I,
                                          _I, _I, _P, _I, _P],
         "woft_local_lookup_fine": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
                                    _P, _I, _P],
-        "woft_local_lookup_exact": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
-                                    _P, _I, _I, _I, _P],
+        "woft_local_lookup_exact": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
+                                    _I, _P, _I, _I, _I, _P],
     },
     "gru": {"woft_gru_update": [_P] * 9 + [_I] * 5 + [_P]},
     "update_tail": {
@@ -169,6 +173,12 @@ def _stream():
 
 
 def _raise_on_error(rc, name):
+    if rc >= 20000:
+        raise RuntimeError(f"CUDA kernel '{name}': the driver has no "
+                           f"cuTensorMapEncodeTiled")
+    if rc >= 10000:
+        raise RuntimeError(f"CUDA kernel '{name}': cuTensorMapEncodeTiled "
+                           f"failed with CUresult {rc - 10000}")
     if rc != 0:
         raise RuntimeError(f"CUDA kernel '{name}' failed to launch: "
                            f"cudaError {rc}")
@@ -285,45 +295,93 @@ corr_pyramid_lookup.launches = 0
 _VOLUME_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def local_corr_build(f1b, f2, pad, sh, sw, wh, ww, nbh, nbw, out_dtype):
-    """Kernel C: one level of the block-local correlation volume.
+def local_corr_table(level_shapes, geoms):
+    """Kernel C's level table, one row a level as the launch takes it: (hl,
+    wl, pad, sh, sw, wh, ww, rows a tile, tiles). The bf16 kernel tiles a
+    window in whole rows, at most 128 positions: tile t holds positions
+    ``t*rows*ww .. (t+1)*rows*ww - 1`` (the last tile's rows beyond ``wh``
+    are computed, not stored). The CTA of query block b = by*nbw + bx reads
+    tile t of level l as the TMA box of ``rows`` window rows from level row
+    ``by*sh - pad + t*rows`` and column ``(bx*sw)//8*8 - pad``, all ``ww``
+    columns, zero outside the level."""
+    table = []
+    for (hl, wl), (pad, sh, sw, wh, ww) in zip(level_shapes, geoms):
+        if not 1 <= ww <= 128 or wh < 1:
+            raise ValueError(f"kernel C tiles windows of 1 to 128 columns, "
+                             f"got {wh}x{ww}")
+        rows = 128 // ww
+        table.append((hl, wl, pad, sh, sw, wh, ww, rows, -(-wh // rows)))
+    return table
 
-    f1b: (nbh*nbw, 128, D) blocked query features; f2: (hl, wl, D) the
-    level's unpadded target features; both CUDA, contiguous, of
-    ``out_dtype`` (float32 or bfloat16), D a multiple of 32. Returns
-    (nbh*nbw, wh, ww, 128): ``<f1b[b, q], win_b[py, px]> / sqrt(D)`` with
-    win_b the (wh, ww) window at (by*sh - pad, (bx*sw)//8*8 - pad) of the
-    level, zero outside it; float32 accumulation, rounded once."""
+
+_corr_plan = [None, None]       # key and parameter block of the last launch
+
+
+def local_corr_build(f1b, levels, geoms, nbh, nbw, out_dtype):
+    """Kernel C: every level of the block-local correlation volume in one
+    launch.
+
+    f1b: (nbh*nbw, 128, D) blocked query features; levels: L (hl, wl, D)
+    unpadded target features; all CUDA, contiguous, of ``out_dtype``
+    (float32 or bfloat16); D a multiple of 64 up to 256 in bfloat16, of 32
+    in float32. geoms: per level (pad, sh, sw, wh, ww), the ``_local_layout``
+    entries; ww at most 128. Returns L (nbh*nbw, wh, ww, 128) volumes:
+    ``<f1b[b, q], win_b[py, px]> / sqrt(D)`` with win_b the (wh, ww) window
+    at (by*sh - pad, (bx*sw)//8*8 - pad) of the level, zero outside it;
+    float32 accumulation, rounded once. The parameter block (tensor maps in
+    bfloat16) is kept for the pointers and shapes of the last call."""
     if f1b.device.type != "cuda":
         raise ValueError("local_corr_build takes CUDA tensors")
     if out_dtype not in _VOLUME_DTYPES:
         raise TypeError(f"volume dtype must be float32 or bfloat16, got "
                         f"{out_dtype}")
     device = f1b.device
+    bf16 = out_dtype == torch.bfloat16
     _check_tensor(f1b, "f1b", out_dtype, device)
-    _check_tensor(f2, "f2", out_dtype, device)
     nb = nbh * nbw
+    L = len(levels)
+    if not 1 <= L <= 8 or len(geoms) != L:
+        raise ValueError(f"1 to 8 levels with one geometry each, got {L} "
+                         f"and {len(geoms)}")
     if f1b.dim() != 3 or f1b.shape[0] != nb or f1b.shape[1] != 128:
         raise ValueError(f"f1b must be ({nb}, 128, D), got "
                          f"{tuple(f1b.shape)}")
     D = f1b.shape[2]
-    if D % 32 or f2.dim() != 3 or f2.shape[2] != D or min(f2.shape) == 0:
-        raise ValueError(f"f2 must be a non-empty (hl, wl, {D}) with D a "
-                         f"multiple of 32, got {tuple(f2.shape)}")
-    if min(nbh, nbw, wh, ww) < 1 or min(pad, sh, sw) < 0:
-        raise ValueError("bad block-local geometry")
-    if f1b.data_ptr() % 16 or f2.data_ptr() % 16:
-        raise ValueError("f1b and f2 must be 16-byte aligned")
-    out = torch.empty((nb, wh, ww, 128), dtype=out_dtype, device=device)
-    fn = _entry("local_corr")
+    if (D % 64 or D > 256) if bf16 else D % 32:
+        raise ValueError(f"D must be a multiple of {64 if bf16 else 32}"
+                         f"{' up to 256' if bf16 else ''}, got {D}")
+    for lvl, (lv, (pad, sh, sw, wh, ww)) in enumerate(zip(levels, geoms)):
+        _check_tensor(lv, f"levels[{lvl}]", out_dtype, device)
+        if lv.dim() != 3 or lv.shape[2] != D or min(lv.shape) == 0:
+            raise ValueError(f"levels[{lvl}] must be a non-empty (hl, wl, "
+                             f"{D}), got {tuple(lv.shape)}")
+        if min(nbh, nbw, wh) < 1 or min(pad, sh, sw) < 0:
+            raise ValueError("bad block-local geometry")
+    table = local_corr_table([lv.shape[:2] for lv in levels], geoms)
+    if f1b.data_ptr() % 16 or any(lv.data_ptr() % 16 for lv in levels):
+        raise ValueError("f1b and the levels must be 16-byte aligned")
+    outs = [torch.empty((nb, g[5], g[6], 128), dtype=out_dtype, device=device)
+            for g in table]
+    key = (f1b.data_ptr(), D, tuple(lv.data_ptr() for lv in levels),
+           tuple(o.data_ptr() for o in outs), tuple(table), nbw, bf16)
+    if _corr_plan[0] != key:
+        size = _entry("local_corr", "woft_local_corr_params_size")()
+        params = ctypes.create_string_buffer(size)
+        lv_ptrs = (ctypes.c_void_p * L)(*[lv.data_ptr() for lv in levels])
+        out_ptrs = (ctypes.c_void_p * L)(*[o.data_ptr() for o in outs])
+        geo = (ctypes.c_int * (9 * L))(*[v for g in table for v in g])
+        rc = _entry("local_corr", "woft_local_corr_plan")(
+            f1b.data_ptr(), ctypes.addressof(lv_ptrs),
+            ctypes.addressof(out_ptrs), ctypes.addressof(geo), L, nb, nbw, D,
+            1.0 / math.sqrt(D), int(bf16), ctypes.addressof(params))
+        _raise_on_error(rc, "local_corr")
+        _corr_plan[:] = key, params
+    fn = _entry("local_corr", "woft_local_corr_launch")
     with _current(device):
-        rc = fn(f1b.data_ptr(), f2.data_ptr(), out.data_ptr(), nb, 128, D,
-                f2.shape[0], f2.shape[1], pad, sh, sw, wh, ww, nbw,
-                1.0 / math.sqrt(D), int(out_dtype == torch.bfloat16),
-                _stream())
+        rc = fn(ctypes.addressof(_corr_plan[1]), _stream())
     _raise_on_error(rc, "local_corr")
     local_corr_build.launches += 1
-    return out
+    return outs
 
 
 local_corr_build.launches = 0
@@ -419,41 +477,51 @@ def local_lookup_fine(rc0, vol, rel, frac, k, out_dtype=torch.float32):
 local_lookup_fine.launches = 0
 
 
-def local_lookup_exact(vol, starts, frac, k, flag=None, out=None, channel=0):
-    """Kernel E: one level over the whole stored window.
+def local_lookup_exact(vols, starts, frac, k, flag=None, out=None,
+                       channel=0):
+    """Kernel E: every level of a lookup over the whole stored windows, in
+    one launch.
 
-    vol: (NB, wh, ww, BQ) CUDA; starts: (2, NB, BQ) int32 absolute slab
-    starts (rows, columns); frac: (2, NB, BQ) float32. Without ``out``
-    returns a new (NB, k*k, BQ) float32. With ``out`` (NB, C, BQ) float32
-    or bfloat16 it writes channels ``channel .. channel + k*k`` in place
-    and returns ``out``; with ``flag`` (NB,) uint8 only the blocks whose
-    flag is non-zero are written."""
-    device, dtype, nb, bq = _check_volumes([vol], k)
-    _check_starts(starts, frac, (2, nb, bq), device)
+    vols: L (NB, wh, ww, BQ) CUDA volumes of one dtype; starts: (L, 2, NB,
+    BQ) int32 absolute slab starts ([l, 0] rows, [l, 1] columns); frac:
+    (L, 2, NB, BQ) float32. Without ``out`` returns a new (NB, L*k*k, BQ)
+    float32. With ``out`` (NB, C, BQ) float32 or bfloat16 it writes level
+    l into channels ``channel + l*k*k .. channel + (l+1)*k*k`` in place and
+    returns ``out``; with ``flag`` (NB,) uint8 only the blocks whose flag
+    is non-zero are written."""
+    device, dtype, nb, bq = _check_volumes(vols, k)
+    L = len(vols)
+    if not 1 <= L <= 8:
+        raise ValueError(f"1 to 8 levels, got {L}")
+    _check_starts(starts, frac, (L, 2, nb, bq), device)
     if out is None:
         if flag is not None:
             raise ValueError("a flag needs an output to leave rows in")
-        out = torch.empty((nb, k * k, bq), dtype=torch.float32, device=device)
+        out = torch.empty((nb, L * k * k, bq), dtype=torch.float32,
+                          device=device)
     else:
         if out.dtype not in _VOLUME_DTYPES:
             raise TypeError(f"out must be float32 or bfloat16, got "
                             f"{out.dtype}")
         _check_tensor(out, "out", out.dtype, device)
         if (out.dim() != 3 or out.shape[0] != nb or out.shape[2] != bq
-                or not 0 <= channel <= out.shape[1] - k * k):
-            raise ValueError(f"out must be ({nb}, >= {channel + k * k}, "
+                or not 0 <= channel <= out.shape[1] - L * k * k):
+            raise ValueError(f"out must be ({nb}, >= {channel + L * k * k}, "
                              f"{bq}), got {tuple(out.shape)}")
     if flag is not None:
         _check_tensor(flag, "flag", torch.uint8, device)
         if tuple(flag.shape) != (nb,):
             raise ValueError(f"flag must be ({nb},), got {tuple(flag.shape)}")
+    ptrs = (ctypes.c_void_p * L)(*[v.data_ptr() for v in vols])
+    whs = (ctypes.c_int * L)(*[v.shape[1] for v in vols])
+    wws = (ctypes.c_int * L)(*[v.shape[2] for v in vols])
     fn = _entry("local_lookup", "woft_local_lookup_exact")
     with _current(device):
-        rc = fn(vol.data_ptr(), vol.shape[1], vol.shape[2], starts.data_ptr(),
-                frac.data_ptr(), None if flag is None else flag.data_ptr(),
-                nb, bq, k, int(dtype == torch.bfloat16), out.data_ptr(),
-                out.shape[1], channel, int(out.dtype == torch.bfloat16),
-                _stream())
+        rc = fn(ctypes.addressof(ptrs), ctypes.addressof(whs),
+                ctypes.addressof(wws), L, starts.data_ptr(), frac.data_ptr(),
+                None if flag is None else flag.data_ptr(), nb, bq, k,
+                int(dtype == torch.bfloat16), out.data_ptr(), out.shape[1],
+                channel, int(out.dtype == torch.bfloat16), _stream())
     _raise_on_error(rc, "local_lookup_exact")
     local_lookup_exact.launches += 1
     return out
