@@ -12,24 +12,29 @@ Phases; any failure ends the script with a non-zero exit:
 1. the card's name and power limit (``nvidia-smi``), the TF32 flags;
 2. build the kernels from ``woft_tpu_torch/csrc/*.cu`` with ``nvcc``;
 3. hold each kernel (A pre-warp, B pyramid lookup, C block-local volume,
-   D, E, F block-local lookups, G fused GRU direction, H motion-encoder
-   tail, I flow head) against its plain PyTorch version on the card at the
-   1280x720 main-path shapes, and time kernel, plain version, a PyTorch
+   D, E, F block-local lookups, D and E both from the coordinates, as the
+   main path calls them, and from explicit operands, G fused GRU
+   direction, H motion-encoder tail, I flow head) against its plain
+   PyTorch version on the card at the 1280x720 main-path shapes (D and E
+   from coordinates also at an odd shape, bf16 and float32), and time
+   kernel, plain version, a PyTorch
    library yardstick the port never calls (for G, H, I: the port's own
    unfused cuDNN path for the same function, several calls), and the
    memory/compute bound; A at three poses, B dense and indexed, C (all four
    levels in one launch) and E (every level of a lookup in one launch, with
    the guard's flagged blocks and with none), each beside its time before
    the redesign, B's reads also counted in the 32-byte sectors device
-   memory moves, E's bound counting the flagged blocks only;
+   memory moves, as are D's (the union of each 16-query row's patches),
+   E's bound counting the flagged blocks only; one guarded block-local
+   lookup traced with ``torch.profiler``: two kernel launches;
 4. track 1280x720 frames through ``WOFTTracker`` with the canonical
    ``configs/WOFT.py``, with ``configs/WOFT_fast.py`` (block-local
    correlation, bf16), and with ``WOFT_fast.py`` plus the fused refinement
    loop (``gru_fused``, ``tail_fused``: kernels G and I); all full-width
    RAFT-large, seeded weights, each with the launch counters zeroed before
    and read after, and each followed by the local-flow fallback
-   (``redetection='never'``), C expected once a flow and E 13 times (once
-   a lookup); then one block-local forward whose
+   (``redetection='never'``), C expected once a flow and D and E 13 times
+   (once a lookup); then one block-local forward whose
    ``flow_init`` makes blocks violate their fine windows, so that kernel E
    rewrites them;
 5. references: the block-local forward must equal the dense one at
@@ -89,6 +94,11 @@ PARENT_LOOKUP_MS = {"dense": 0.2095, "indexed": 0.0670}
 # NVIDIA H100 80GB HBM3, power limit 700.00 W
 PARENT_LOCAL_CORR_MS = {"bfloat16": 0.2734, "float32": 1.2105}
 PARENT_LOCAL_EXACT_MS = {"flagged": 0.0157, "none": 0.0103}
+# Kernel D before its redesign (one CTA a window row, explicit operands
+# computed by some 20 tensor ops a lookup), ms at the 720p shapes, measured
+# by this script on the tree before the redesign on an NVIDIA H100 80GB
+# HBM3, power limit 700.00 W
+PARENT_LOCAL_FINE_MS = 0.0195
 
 
 def log(*args):
@@ -505,19 +515,139 @@ def _grid_sample_lookup(vol_q, starts, frac, k):
                          align_corners=True)
 
 
+def _row_sector_bytes(local, corr, coords, k):
+    """Bytes of the 32-byte sectors kernel D must read at these coordinates:
+    at one (y, x) the 16 queries of a query row are one bf16 sector, so it
+    is the union of each query row's (k+1) x (k+1) patches, counted in
+    positions, times 16 queries' bytes."""
+    starts, _ = corr._local_level_coords(local, coords)
+    rcs, rel, _ = corr._fine_anchor_flags(local, starts)
+    dev = coords.device
+    total = 0
+    for lvl, vol in enumerate(local.volumes):
+        nb, wh, ww, bq = vol.shape
+        ys = (rcs[:, lvl, 0:1] + rel[lvl, 0]).long().clamp(0, wh - k - 1)
+        xs = (rcs[:, lvl, 1:2] + rel[lvl, 1]).long().clamp(0, ww - k - 1)
+        d = torch.arange(k + 1, device=dev)
+        row = (torch.arange(nb, device=dev)[:, None] * (bq // 16)
+               + torch.arange(bq, device=dev)[None] // 16)     # (nb, bq)
+        y = ys[..., None, None] + d[:, None]
+        x = xs[..., None, None] + d[None, :]
+        ids = (row[..., None, None] * wh + y) * ww + x
+        total += torch.unique(ids).numel() * 16 * vol.element_size()
+    return total
+
+
+def check_coord_lookups(kernels, corr, dev):
+    """Kernels D and E from coordinates (the main path's lookup) against
+    their plain versions, bf16 and float32, at the 720p layout (volume from
+    kernel C) and at a layout whose grid cuts the blocks on both axes:
+    data and flags equal, E rewriting exactly the flagged blocks; then one
+    guarded lookup traced: two kernel launches. Returns the worst error of
+    D and of E."""
+    from torch.profiler import ProfilerActivity, profile
+
+    k = 9
+    errs = {"D": 0.0, "E": 0.0}
+    for (H1, W1, L, margin) in ((H_IMG // 8, W_IMG // 8, 4, 16),
+                                (37, 83, 3, 8)):
+        g = torch.Generator(device=dev).manual_seed(12)
+        f1 = torch.randn(1, H1, W1, 256, device=dev, generator=g)
+        f2 = torch.randn(1, H1, W1, 256, device=dev, generator=g)
+        grid = torch.stack(torch.meshgrid(
+            torch.arange(W1, device=dev, dtype=torch.float32),
+            torch.arange(H1, device=dev, dtype=torch.float32),
+            indexing="xy"), -1)[None]
+        fields = {"smooth": grid + torch.tensor([2.3, -3.1], device=dev),
+                  "violating": grid + (torch.rand(grid.shape, device=dev,
+                                                  generator=g) - 0.5) * 30,
+                  "saturated": grid + torch.tensor([40.0, -35.0],
+                                                   device=dev)}
+        if H1 == H_IMG // 8:
+            fields = {kind: _local_coords(dev, kind)
+                      for kind in ("smooth", "violating")}
+        for dtype in (torch.bfloat16, torch.float32):
+            local = corr.build_local_corr(
+                f1, f2, 4, L, margin,
+                out_dtype=dtype if dtype == torch.bfloat16 else None)
+            for kind, coords in fields.items():
+                coords = coords.contiguous()
+                got, bad = kernels.local_lookup_coords(
+                    coords, local.volumes, local.consts["table"], k, dtype)
+                want, bad_p = corr.block_local_lookup_coords_plain(
+                    local, coords, k, dtype)
+                torch.cuda.synchronize()
+                e = (got.float() - want.float()).abs().max().item()
+                errs["D"] = max(errs["D"], e)
+                if not torch.equal(bad, bad_p):
+                    raise AssertionError(f"kernel D's flags differ ({kind})")
+                out_k, out_p = got.clone(), got.clone()
+                kernels.local_lookup_exact_coords(
+                    coords, local.volumes, local.consts["table"], k, bad=bad,
+                    out=out_k)
+                corr.block_local_lookup_exact_coords_plain(
+                    local, coords, k, bad=bad, out=out_p)
+                torch.cuda.synchronize()
+                e_e = (out_k.float() - out_p.float()).abs().max().item()
+                errs["E"] = max(errs["E"], e_e)
+                keep = ~bad.bool().any(1)
+                kept = torch.equal(out_k[keep], got[keep])
+                log(f"kernels D, E from coordinates [{H1}x{W1}, {L} levels, "
+                    f"{str(dtype)[6:]}, {kind}]: D max_abs_err {e:.3g}, "
+                    f"flags equal, {int((~keep).sum())} of {keep.numel()} "
+                    f"blocks flagged; E max_abs_err {e_e:.3g}, other "
+                    f"blocks' rows kept {kept}")
+                if not kept:
+                    raise AssertionError("kernel E wrote rows it was not "
+                                         "flagged for")
+    if max(errs.values()) > 0.0:
+        raise AssertionError(f"kernels D, E from coordinates differ from "
+                             f"their plain versions: {errs}")
+
+    # one guarded lookup on the card: D then E, nothing else
+    for fine, names in ((True, ["local_lookup_fine_kernel",
+                                "local_lookup_exact_kernel"]),
+                        (False, ["local_lookup_exact_kernel"])):
+        corr.corr_lookup_local_blocked(local, coords, 4, fine=fine)
+        torch.cuda.synchronize()
+        # the trace may miss the first kernels of its window: two spins
+        # lead, and are not counted
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda._sleep(1000)
+            corr.corr_lookup_local_blocked(local, coords, 4, fine=fine)
+            torch.cuda.synchronize()
+        seen = [e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "spin" not in e.name]
+        log(f"corr_lookup_local_blocked (fine={fine}) on the card: "
+            f"{len(seen)} kernel launches: {[n[:40] for n in seen]}")
+        if len(seen) != len(names) or not all(
+                n in e for n, e in zip(names, seen)):
+            raise AssertionError(f"the lookup launched {seen}, expected "
+                                 f"{names}")
+    return errs
+
+
 def check_local_lookups(kernels, corr, dev):
     """Kernels D, E, F against their plain versions on a 720p bf16 volume
     (built by kernel C), on a smooth field and on one with violating
-    blocks."""
+    blocks: D and E as the main path calls them (from coordinates) and from
+    explicit operands (D's and E's own arguments in the JAX package), F (D
+    for one level). Times D from coordinates beside its byte and sector
+    bounds, its plain version and ``F.grid_sample`` x4, and E under the
+    guard's flags."""
+    coord_errs = check_coord_lookups(kernels, corr, dev)
     g = torch.Generator(device=dev).manual_seed(7)
     H1, W1, D, k = H_IMG // 8, W_IMG // 8, 256, 9
     f1 = torch.randn(1, H1, W1, D, device=dev, generator=g)
     f2 = torch.randn(1, H1, W1, D, device=dev, generator=g)
     local = corr.build_local_corr(f1, f2, 4, 4, 16, out_dtype=torch.bfloat16)
     vols = local.volumes
+    table = local.consts["table"]
     nb, bq, L = vols[0].shape[0], vols[0].shape[3], len(vols)
     od = torch.bfloat16
-    errs = {"D": 0.0, "E": 0.0, "F": 0.0}
+    errs = {"D": coord_errs["D"], "E": coord_errs["E"], "F": 0.0}
     fields = {}
     for kind in ("smooth", "violating"):
         coords = _local_coords(dev, kind)
@@ -525,7 +655,7 @@ def check_local_lookups(kernels, corr, dev):
         rcs, rel, ok = corr._fine_anchor_starts(local, starts)
         n_bad = int((~ok).sum().item())
         n_full = int((~ok[:nb - local.meta["nbw"]]).sum().item())
-        fields[kind] = (starts, frac, rcs, rel, ok)
+        fields[kind] = (coords, starts, frac, rcs, rel, ok)
         # the last block row's padding queries always violate (see
         # _local_coords); the full blocks only on the violating field
         if (n_full > 0) != (kind == "violating"):
@@ -538,8 +668,12 @@ def check_local_lookups(kernels, corr, dev):
         torch.cuda.synchronize()
         e = (got.float() - want.float()).abs().max().item()
         errs["D"] = max(errs["D"], e)
-        log(f"kernel D [{kind}, {n_bad} of {nb} blocks violate]: max_abs_err "
-            f"{e:.3g} (tol {LOCAL_LOOKUP_TOL})")
+        log(f"kernel D from explicit operands [{kind}, {n_bad} of {nb} "
+            f"blocks violate]: max_abs_err {e:.3g} (tol {LOCAL_LOOKUP_TOL})")
+        got_c, _ = kernels.local_lookup_coords(coords, vols, table, k, od)
+        if not torch.equal(got_c, got):
+            raise AssertionError("kernel D from coordinates differs from "
+                                 "kernel D from its explicit operands")
 
         rc0 = rcs[:, 0].contiguous()
         got_f = kernels.local_lookup_fine(rc0, vols[0], rel[0], frac[0], k, od)
@@ -551,19 +685,21 @@ def check_local_lookups(kernels, corr, dev):
         if not torch.equal(got_f, got[:, :k * k]):
             raise AssertionError("kernel F is not kernel D's level 0")
 
-        # E, one level (its one-level call) and every level in one launch
+        # E from explicit starts: one level (its one-level call) and every
+        # level in one launch
         got_e = corr.block_local_lookup(vols[0], starts[0], frac[0], k)
         want_e = corr.block_local_lookup_plain(vols[0], starts[0], frac[0], k)
         e = (got_e - want_e).abs().max().item()
         errs["E"] = max(errs["E"], e)
-        log(f"kernel E [{kind}, level 0, all blocks]: max_abs_err {e:.3g}")
+        log(f"kernel E from explicit starts [{kind}, level 0, all blocks]: "
+            f"max_abs_err {e:.3g}")
         n0 = kernels.local_lookup_exact.launches
         got_e = kernels.local_lookup_exact(vols, starts, frac, k)
         want_e = corr.block_local_lookup_levels_plain(vols, starts, frac, k)
         e = (got_e - want_e).abs().max().item()
         errs["E"] = max(errs["E"], e)
-        log(f"kernel E [{kind}, {L} levels in one launch, all blocks]: "
-            f"max_abs_err {e:.3g}")
+        log(f"kernel E from explicit starts [{kind}, {L} levels in one "
+            f"launch, all blocks]: max_abs_err {e:.3g}")
         # with the flag: flagged blocks rewritten in D's output, rest kept
         flag = (~ok).to(torch.uint8)
         flag[::17] = 1
@@ -579,8 +715,9 @@ def check_local_lookups(kernels, corr, dev):
         e = (out_k.float() - out_p.float()).abs().max().item()
         errs["E"] = max(errs["E"], e)
         kept = torch.equal(out_k[flag == 0], got[flag == 0])
-        log(f"kernel E [{kind}, {L} levels, flag on {int(flag.sum())} "
-            f"blocks]: max_abs_err {e:.3g}, other blocks' rows kept {kept}")
+        log(f"kernel E from explicit starts [{kind}, {L} levels, flag on "
+            f"{int(flag.sum())} blocks]: max_abs_err {e:.3g}, other blocks' "
+            f"rows kept {kept}")
         if not kept:
             raise AssertionError("kernel E wrote rows it was not flagged for")
 
@@ -589,7 +726,7 @@ def check_local_lookups(kernels, corr, dev):
         exact = corr.corr_lookup_local_blocked(local, coords, 4,
                                                fine=False).data
         e = (guarded.float() - exact.to(od).float()).abs().max().item()
-        log(f"guarded lookup (D then E under ~ok) vs exact [{kind}]: "
+        log(f"guarded lookup (D then E under the flags) vs exact [{kind}]: "
             f"max_abs_err {e:.3g}")
         if e > LOCAL_LOOKUP_TOL:
             raise AssertionError("the guarded lookup is not exact")
@@ -597,7 +734,7 @@ def check_local_lookups(kernels, corr, dev):
         if not e <= LOCAL_LOOKUP_TOL:
             raise AssertionError(f"kernel {name} disagrees: {e}")
 
-    starts, frac, rcs, rel, ok = fields["smooth"]
+    coords, starts, frac, rcs, rel, ok = fields["smooth"]
     esz = vols[0].element_size()
     n_q = nb * bq
     taps = (k + 1) ** 2                       # each query's own 10 x 10 patch
@@ -612,74 +749,89 @@ def check_local_lookups(kernels, corr, dev):
                                                    frac[0], k)).abs().max()
     log(f"kernels D, E, F: F.grid_sample on level 0 vs plain: max_abs_err "
         f"{lib_err.item():.3g} (yardstick)")
-    rc0 = rcs[:, 0].contiguous()
     rows = {}
-    timings = {
-        "D": (L, rcs.numel() * 4,
-              lambda: kernels.local_lookup_fine_multi(rcs, vols, rel, frac, k,
-                                                      od),
-              lambda: corr.block_local_lookup_fine_multi_plain(
-                  rcs, vols, rel, frac, k, od),
-              lambda: [_grid_sample_lookup(vq[l], starts[l], frac[l], k)
-                       for l in range(L)]),
-        "F": (1, rc0.numel() * 4,
-              lambda: kernels.local_lookup_fine(rc0, vols[0], rel[0], frac[0],
-                                                k, od),
-              lambda: corr.block_local_lookup_fine_plain(rc0, vols[0], rel[0],
-                                                         frac[0], k, od),
-              lambda: _grid_sample_lookup(vq[0], starts[0], frac[0], k)),
-    }
-    for name, (n_lv, extra, kern, plain, library) in timings.items():
-        ms = time_ms(kern)
-        plain_ms = time_ms(plain, iters=5, warmup=1)
-        library_ms = time_ms(library, iters=5, warmup=1)
-        bnd, by = bound_ms(n_lv * (n_q * taps * esz + idx_bytes + out_bytes)
-                           + extra, n_lv * flops)
-        log(f"kernel {name} timing ({n_lv} level(s), smooth field): kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, F.grid_sample on the "
-            f"query-major volume {library_ms:.4f} ms, bound {bnd:.4f} ms "
-            f"({by})")
-        rows[name] = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
-                          bound_ms=bnd, bound_by=by, library_ms=library_ms)
+    # D from coordinates, the main path's form: it reads the coordinates
+    # (8 bytes a pixel) and writes the flags; its yardstick samples the four
+    # levels with F.grid_sample at the starts the plain version computes
+    coord_bytes = H1 * W1 * 8 + nb * L
+    ms = time_ms(lambda: kernels.local_lookup_coords(coords, vols, table, k,
+                                                     od))
+    plain_ms = time_ms(lambda: corr.block_local_lookup_coords_plain(
+        local, coords, k, od), iters=5, warmup=1)
+    library_ms = time_ms(lambda: [_grid_sample_lookup(vq[l], starts[l],
+                                                      frac[l], k)
+                                  for l in range(L)], iters=5, warmup=1)
+    bnd, by = bound_ms(L * (n_q * taps * esz + out_bytes) + coord_bytes,
+                       L * flops)
+    sec = _row_sector_bytes(local, corr, coords, k)
+    sec_ms, _ = bound_ms(sec + L * out_bytes + coord_bytes, 0)
+    explicit_ms = time_ms(lambda: kernels.local_lookup_fine_multi(
+        rcs, vols, rel, frac, k, od))
+    lookup_ms = time_ms(lambda: corr.corr_lookup_local_blocked(local, coords,
+                                                               4))
+    log(f"kernel D timing (from coordinates, {L} levels, smooth field): "
+        f"kernel {ms:.4f} ms (before the redesign {PARENT_LOCAL_FINE_MS:.4f} "
+        f"ms from explicit operands, after some 20 launches of coordinate "
+        f"arithmetic), plain {plain_ms:.4f} ms, F.grid_sample x{L} on the "
+        f"query-major volume {library_ms:.4f} ms, bound {bnd:.4f} ms ({by}); "
+        f"the query rows' patches in 32-byte sectors {sec / 1e6:.2f} MB, "
+        f"sector bound {sec_ms:.4f} ms with the output and the coordinates")
+    log(f"kernel D from explicit operands: {explicit_ms:.4f} ms; the whole "
+        f"guarded lookup (D and E, two launches): {lookup_ms:.4f} ms")
+    rows["D"] = dict(max_abs_err=errs["D"], ms=ms, plain_ms=plain_ms,
+                     bound_ms=bnd, bound_by=by, library_ms=library_ms,
+                     sector_bound_ms=sec_ms)
+    rc0 = rcs[:, 0].contiguous()
+    ms = time_ms(lambda: kernels.local_lookup_fine(rc0, vols[0], rel[0],
+                                                   frac[0], k, od))
+    plain_ms = time_ms(lambda: corr.block_local_lookup_fine_plain(
+        rc0, vols[0], rel[0], frac[0], k, od), iters=5, warmup=1)
+    library_ms = time_ms(lambda: _grid_sample_lookup(vq[0], starts[0],
+                                                     frac[0], k),
+                         iters=5, warmup=1)
+    bnd, by = bound_ms(n_q * taps * esz + idx_bytes + out_bytes
+                       + rc0.numel() * 4, flops)
+    log(f"kernel F timing (1 level, smooth field): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, F.grid_sample on the query-major volume "
+        f"{library_ms:.4f} ms, bound {bnd:.4f} ms ({by})")
+    rows["F"] = dict(max_abs_err=errs["F"], ms=ms, plain_ms=plain_ms,
+                     bound_ms=bnd, bound_by=by, library_ms=library_ms)
 
-    # E as the guard runs it: one launch a lookup, every level, into D's
-    # output, on the blocks the smooth 720p field flags (the last block
-    # row's padding queries) and with no block flagged. The bound counts
-    # the flagged blocks' work only; the yardstick samples the flagged
-    # blocks' queries with F.grid_sample, one call a level.
-    flag = (~ok).view(torch.uint8)
-    none = torch.zeros_like(flag)
-    nf = int(flag.sum().item())
-    sel = flag.bool()
+    # E as the guard runs it: one launch a lookup, every level, from the
+    # coordinates into D's output, on the blocks the smooth 720p field flags
+    # (the last block row's padding queries) and with no block flagged. The
+    # bound counts the flagged blocks' work only; the yardstick samples the
+    # flagged blocks' queries with F.grid_sample, one call a level.
+    scratch, bad = kernels.local_lookup_coords(coords, vols, table, k, od)
+    none = torch.zeros_like(bad)
+    sel = bad.bool().any(1)
+    nf = int(sel.sum().item())
     vq_f = [v[sel].permute(0, 3, 1, 2).reshape(nf * bq, 1, *v.shape[1:3])
             .float() for v in vols]
     s_f, fr_f = starts[:, :, sel].contiguous(), frac[:, :, sel].contiguous()
-    scratch = kernels.local_lookup_fine_multi(rcs, vols, rel, frac, k, od)
     scratch_p = scratch.clone()
-    ms = time_ms(lambda: kernels.local_lookup_exact(vols, starts, frac, k,
-                                                    flag=flag, out=scratch))
-    ms_none = time_ms(lambda: kernels.local_lookup_exact(
-        vols, starts, frac, k, flag=none, out=scratch))
-    one_level = time_ms(lambda: [corr.block_local_lookup(
-        vol, starts[l], frac[l], k, flag=flag, out=scratch, channel=l * k * k)
-        for l, vol in enumerate(vols)])
-    plain_ms = time_ms(lambda: corr.block_local_lookup_levels_plain(
-        vols, starts, frac, k, flag=flag, out=scratch_p), iters=5, warmup=1)
+    ms = time_ms(lambda: kernels.local_lookup_exact_coords(
+        coords, vols, table, k, bad=bad, out=scratch))
+    ms_none = time_ms(lambda: kernels.local_lookup_exact_coords(
+        coords, vols, table, k, bad=none, out=scratch))
+    explicit_ms = time_ms(lambda: kernels.local_lookup_exact(
+        vols, starts, frac, k, flag=sel.to(torch.uint8), out=scratch))
+    plain_ms = time_ms(lambda: corr.block_local_lookup_exact_coords_plain(
+        local, coords, k, bad=bad, out=scratch_p), iters=5, warmup=1)
     library_ms = time_ms(lambda: [_grid_sample_lookup(vq_f[l], s_f[l],
                                                       fr_f[l], k)
                                   for l in range(L)], iters=5, warmup=1)
     n_qf = nf * bq
-    bnd, by = bound_ms(L * n_qf * (taps * esz + 2 * (4 + 4) + k * k * 2)
-                       + nb, L * n_qf * k * (3 * (k + 1) + 3 * k))
-    log(f"kernel E timing (one lookup, {L} levels in one launch, the guard's "
-        f"{nf} flagged blocks): kernel {ms:.4f} ms (the parent's four "
-        f"launches {PARENT_LOCAL_EXACT_MS['flagged']:.4f} ms; this kernel as "
-        f"four one-level calls {one_level:.4f} ms), plain {plain_ms:.4f} ms, "
-        f"F.grid_sample x{L} on the flagged blocks' queries {library_ms:.4f} "
-        f"ms, bound {bnd:.4f} ms ({by}, flagged blocks only)")
-    log(f"kernel E with no block flagged (one lookup, one launch): "
-        f"{ms_none:.4f} ms (the parent's four launches "
-        f"{PARENT_LOCAL_EXACT_MS['none']:.4f} ms)")
+    bnd, by = bound_ms(L * n_qf * (taps * esz + k * k * 2) + nf * 128 * 8
+                       + nb * L, L * n_qf * k * (3 * (k + 1) + 3 * k))
+    log(f"kernel E timing (from coordinates, one lookup, {L} levels in one "
+        f"launch, the guard's {nf} flagged blocks): kernel {ms:.4f} ms "
+        f"(from explicit starts {explicit_ms:.4f} ms; before its "
+        f"redesign, in four launches, {PARENT_LOCAL_EXACT_MS['flagged']:.4f} "
+        f"ms), plain {plain_ms:.4f} ms, F.grid_sample x{L} "
+        f"on the flagged blocks' queries {library_ms:.4f} ms, bound "
+        f"{bnd:.4f} ms ({by}, flagged blocks only)")
+    log(f"kernel E from coordinates with no block flagged: {ms_none:.4f} ms")
     rows["E"] = dict(max_abs_err=errs["E"], ms=ms, plain_ms=plain_ms,
                      bound_ms=bnd, bound_by=by, library_ms=library_ms)
     return rows
@@ -806,7 +958,8 @@ def check_update_kernels(kernels, dev):
 
 
 COUNTED = ("warp_perspective_bilinear", "corr_pyramid_lookup",
-           "local_corr_build", "local_lookup_fine_multi",
+           "local_corr_build", "local_lookup_coords",
+           "local_lookup_exact_coords", "local_lookup_fine_multi",
            "local_lookup_exact", "local_lookup_fine", "fused_gru_update",
            "motion_encoder_tail", "flow_head")
 FUSED_FLAGS = {"gru_fused": True, "tail_fused": True}
@@ -884,21 +1037,23 @@ def track_720p(kernels, dev, config, fused=False):
     if not all(np.isfinite(h).all() for h in hs):
         raise AssertionError("non-finite homography")
     # per flow: 12 iterations and one more lookup for the weight head; the
-    # block-local path builds its 4 levels in one launch of C, and one
-    # launch of E (every level, the guard) follows each launch of D; the
-    # fused loop launches G once a direction and I once, every iteration
+    # block-local path builds its 4 levels in one launch of C, and each
+    # lookup is one launch of D and one of E (every level, the guard), both
+    # from the coordinates; the explicit-operand forms stay idle; the fused
+    # loop launches G once a direction and I once, every iteration
     want = dict.fromkeys(COUNTED, 0)
     want["warp_perspective_bilinear"] = n_frames
     if fast:
         want.update(local_corr_build=n_flows,
-                    local_lookup_fine_multi=13 * n_flows,
-                    local_lookup_exact=13 * n_flows)
+                    local_lookup_coords=13 * n_flows,
+                    local_lookup_exact_coords=13 * n_flows)
     else:
         want.update(corr_pyramid_lookup=13 * n_flows)
     if fused:
         want.update(fused_gru_update=2 * 12 * n_flows, flow_head=12 * n_flows)
-    # C and E: exactly one launch a flow and a lookup
-    exact = ("local_corr_build", "local_lookup_exact") if fast else ()
+    # C, D and E: exactly one launch a flow and a lookup
+    exact = (("local_corr_build", "local_lookup_coords",
+              "local_lookup_exact_coords") if fast else ())
     for name, n in want.items():
         if (launches[name] < n or (n == 0 and launches[name])
                 or (name in exact and launches[name] != n)):
@@ -934,9 +1089,9 @@ def check_guard_on_a_path(kernels, corr, dev):
     counts = {name: getattr(kernels, name).launches for name in COUNTED}
     if not torch.isfinite(out["flow_up"]).all():
         raise AssertionError("non-finite flow on the flow_init path")
-    if counts["local_lookup_exact"] < 13:
+    if counts["local_lookup_exact_coords"] < 13:
         raise AssertionError(f"kernel E launched "
-                             f"{counts['local_lookup_exact']} times")
+                             f"{counts['local_lookup_exact_coords']} times")
 
     # the first iteration's lookup, rebuilt from the same features
     from woft_tpu_torch.models.raft import encode_template
@@ -1145,7 +1300,8 @@ def main():
     check_fused_equals_unfused_720p(dev)
     check_small_references(dev)
 
-    # launches: A and B on the WOFT.py path, C, D, E on the WOFT_fast.py
+    # launches: A and B on the WOFT.py path, C, D, E (the last two from
+    # coordinates) on the WOFT_fast.py
     # path (which launches A too), G and I on the fused WOFT_fast.py path;
     # F and H have no caller on a tracker path, as in the JAX package, and
     # are launched in the kernel phase only
@@ -1164,13 +1320,20 @@ def main():
              source="woft_tpu_torch/csrc/local_corr.cu",
              replaces="woft_tpu/ops/pallas/local_corr.py:108",
              launches=fast["local_corr_build"], **c),
-        dict(name="local_lookup_fine_multi", route="cuda",
+        dict(name="local_lookup_coords", route="cuda",
              source=local_lookup,
              replaces="woft_tpu/ops/pallas/local_lookup.py:338",
-             launches=fast["local_lookup_fine_multi"], **lookups["D"]),
-        dict(name="local_lookup_exact", route="cuda", source=local_lookup,
+             launches=fast["local_lookup_coords"],
+             note="kernel D from coordinates; its explicit-operand entry "
+                  "local_lookup_fine_multi shares the body and is checked "
+                  "in the kernel phase", **lookups["D"]),
+        dict(name="local_lookup_exact_coords", route="cuda",
+             source=local_lookup,
              replaces="woft_tpu/ops/pallas/local_lookup.py:393",
-             launches=fast["local_lookup_exact"], **lookups["E"]),
+             launches=fast["local_lookup_exact_coords"],
+             note="kernel E from coordinates; its explicit-start entry "
+                  "local_lookup_exact is checked in the kernel phase",
+             **lookups["E"]),
         dict(name="local_lookup_fine", route="cuda", source=local_lookup,
              replaces="woft_tpu/ops/pallas/local_lookup.py:143",
              launches=fast["local_lookup_fine"],

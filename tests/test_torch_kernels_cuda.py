@@ -385,6 +385,101 @@ def test_local_blocked_lookup_on_card_matches_cpu(dev, local_volume):
                 - exact.data.to(got.data.dtype).float()).abs().max() <= 1e-6
 
 
+def _field(dev, H1, W1, kind):
+    """Lookup centroids on an H1 x W1 grid: 'smooth' (an affine residual
+    and a saturated block row), 'jitter' (+-15 cells: blocks violate their
+    fine windows) or 'saturated' (the whole field 40 cells off)."""
+    grid = _grid(dev, H1, W1)
+    g = torch.Generator(device=dev).manual_seed(8)
+    xs, ys = grid[..., 0], grid[..., 1]
+    if kind == "smooth":
+        res = torch.stack([0.02 * ys - 0.015 * xs + 2.3,
+                           0.012 * xs + 0.01 * ys - 3.1], -1)
+        coords = grid + res
+        coords[0, :8] += 400.0
+    elif kind == "jitter":
+        coords = grid + (torch.rand(grid.shape, device=dev, generator=g)
+                         - 0.5) * 30
+    else:
+        coords = grid + torch.tensor([40.0, -35.0], device=dev)
+    return coords.contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(90, 160, 4, 16), (37, 83, 3, 8)],
+                         ids=["720p", "37x83"])
+def test_coord_lookup_kernels_match_plain(dev, dtype, shape):
+    """Kernels D and E from coordinates against their plain versions (the
+    coordinate arithmetic as tensor ops, then the explicit lookups) at the
+    720p layout and at one whose grid cuts the blocks on both axes (padding
+    queries in rows and columns): data and flags equal bit for bit; E
+    rewrites exactly the flagged blocks and keeps the others' rows."""
+    H1, W1, L, margin = shape
+    f1, f2 = _features(dev, H1, W1, 64, seed=9)
+    local = corr.build_local_corr(
+        f1, f2, 4, L, margin,
+        out_dtype=None if dtype == torch.float32 else dtype)
+    k = 9
+    for kind in ("smooth", "jitter", "saturated"):
+        coords = _field(dev, H1, W1, kind)
+        n0 = kernels.local_lookup_coords.launches
+        got, bad = corr.block_local_lookup_coords(local, coords, k, dtype)
+        want, bad_p = corr.block_local_lookup_coords_plain(local, coords, k,
+                                                           dtype)
+        torch.cuda.synchronize()
+        assert kernels.local_lookup_coords.launches == n0 + 1
+        assert got.dtype == dtype and got.shape == want.shape
+        assert torch.equal(got, want), kind
+        assert bad.dtype == torch.uint8 and torch.equal(bad, bad_p), kind
+        if kind == "jitter" or margin == 16:     # 720p: padding queries
+            assert bool(bad.any())
+        for flags in (bad, torch.zeros_like(bad),
+                      (torch.arange(bad.numel(), device=dev) % 3 == 0)
+                      .to(torch.uint8).reshape(bad.shape)):
+            out_k, out_p = got.clone(), got.clone()
+            n0 = kernels.local_lookup_exact_coords.launches
+            corr.block_local_lookup_exact_coords(local, coords, k, bad=flags,
+                                                 out=out_k)
+            corr.block_local_lookup_exact_coords_plain(local, coords, k,
+                                                       bad=flags, out=out_p)
+            torch.cuda.synchronize()
+            assert kernels.local_lookup_exact_coords.launches == n0 + 1
+            assert torch.equal(out_k, out_p), kind
+            keep = ~flags.bool().any(1)
+            assert torch.equal(out_k[keep], got[keep])
+        exact = corr.block_local_lookup_exact_coords(local, coords, k)
+        assert torch.equal(exact, corr.block_local_lookup_exact_coords_plain(
+            local, coords, k))
+
+
+def test_guarded_lookup_is_two_launches(dev, local_volume):
+    """One guarded ``corr_lookup_local_blocked`` on the card is two kernel
+    launches, D then E, and nothing else on the device; ``fine=False`` is
+    one, E."""
+    from torch.profiler import ProfilerActivity, profile
+
+    local = local_volume
+    coords = _coords(dev, "jitter")
+    for fine, names in ((True, ["local_lookup_fine_kernel",
+                                "local_lookup_exact_kernel"]),
+                        (False, ["local_lookup_exact_kernel"])):
+        corr.corr_lookup_local_blocked(local, coords, 4, fine=fine)
+        torch.cuda.synchronize()
+        # the trace may miss the first kernels of its window: two spins
+        # lead, and are not counted
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda._sleep(1000)
+            corr.corr_lookup_local_blocked(local, coords, 4, fine=fine)
+            torch.cuda.synchronize()
+        seen = [e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "spin" not in e.name]
+        assert len(seen) == len(names), seen
+        assert all(n in e for n, e in zip(names, seen)), seen
+
+
 def test_local_wrappers_check_inputs(dev, local_volume):
     local = local_volume
     coords = _coords(dev, "smooth")
@@ -397,6 +492,18 @@ def test_local_wrappers_check_inputs(dev, local_volume):
                                    frac, 9)
     with pytest.raises(ValueError):          # one start set a level
         kernels.local_lookup_exact(vols[:2], starts, frac, 9)
+    table = local.consts["table"]
+    with pytest.raises(ValueError):          # the table's layout
+        kernels.local_lookup_coords(coords, vols[:2], table, 9,
+                                    torch.float32)
+    with pytest.raises(ValueError):
+        kernels.local_lookup_coords(coords[:, :-1].contiguous(), vols, table,
+                                    9, torch.float32)
+    with pytest.raises(ValueError):          # flags need an output
+        kernels.local_lookup_exact_coords(
+            coords, vols, table, 9,
+            bad=torch.zeros(vols[0].shape[0], len(vols), dtype=torch.uint8,
+                            device=dev))
     with pytest.raises(ValueError):          # a flag needs an output
         kernels.local_lookup_exact(vols, starts, frac, 9,
                                    flag=torch.zeros(vols[0].shape[0],

@@ -17,6 +17,7 @@ outputs.
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -377,6 +378,116 @@ def test_guard_with_padding_queries():
                                                RADIUS).to_natural()
     np.testing.assert_allclose(got.to_natural().numpy(), np.asarray(want),
                                atol=2e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the coordinate-driven pair (kernel D computing its starts, anchors and
+# flags, kernel E its starts) through its plain composition
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def padded_volumes():
+    """H1 % 8 != 0 (20 rows): the last block row holds padding queries at
+    coordinate (0, 0). 2 levels, margin 16, D = 32."""
+    rng = np.random.default_rng(22)
+    f1 = rng.normal(size=(1, 20, 32, 32)).astype(np.float32)
+    f2 = rng.normal(size=(1, 20, 32, 32)).astype(np.float32)
+    with interpret_pallas():
+        vj = jcorr.build_local_corr(jnp.asarray(f1), jnp.asarray(f2),
+                                    radius=RADIUS, num_levels=2, margin=16,
+                                    use_pallas=True, layout="p")
+    vt = tcorr.build_local_corr(torch.from_numpy(f1), torch.from_numpy(f2),
+                                RADIUS, 2, 16)
+    return vj, vt
+
+
+def field(kind, volumes, padded_volumes):
+    """(vj, vt, coords) of one field: 'smooth' (every block fits),
+    'saturated' (the whole field beyond the margin), 'violating' (jitter
+    beyond the fine windows), 'padding' (H1 % 8 != 0)."""
+    if kind == "padding":
+        vj, vt = padded_volumes
+        rng = np.random.default_rng(23)
+        coords = grid_coords(20, 32) + rng.uniform(
+            -1.5, 1.5, (1, 20, 32, 2)).astype(np.float32)
+        return vj, vt, coords
+    vj, vt = volumes
+    if kind == "smooth":
+        return vj, vt, smooth_coords(16, 32)
+    if kind == "violating":
+        return vj, vt, jitter_coords(16, 32)
+    rng = np.random.default_rng(24)
+    coords = grid_coords(16, 32) + np.float32([40.0, -35.0])
+    coords += rng.uniform(-3.0, 3.0, coords.shape).astype(np.float32)
+    return vj, vt, coords.astype(np.float32)
+
+
+_JAX_LOOKUPS = {}
+
+
+@pytest.mark.parametrize("mode", ["guarded", "unchecked", "exact"])
+@pytest.mark.parametrize("kind", ["smooth", "saturated", "violating",
+                                  "padding"])
+def test_coord_lookup_matches_jax(volumes, padded_volumes, kind, mode):
+    """The plain composition of kernels D and E from coordinates (what a
+    CPU tensor takes) equals JAX ``corr_lookup_local_blocked`` with
+    ``fine=True, check=True``, ``check=False`` and ``fine=False``."""
+    vj, vt, coords = field(kind, volumes, padded_volumes)
+    kw = {"guarded": {}, "unchecked": {"check": False},
+          "exact": {"fine": False}}[mode]
+    got = tcorr.corr_lookup_local_blocked(vt, torch.from_numpy(coords),
+                                          RADIUS, **kw).data
+    key = (id(vj), mode)
+    if key not in _JAX_LOOKUPS:     # one trace a volume and mode
+        _JAX_LOOKUPS[key] = jax.jit(
+            lambda c: jcorr.corr_lookup_local_blocked(vj, c, RADIUS,
+                                                      **kw).data)
+    with interpret_pallas():
+        want = _JAX_LOOKUPS[key](jnp.asarray(coords))
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["smooth", "saturated", "violating",
+                                  "padding"])
+def test_coord_lookup_flags_match_jax(volumes, padded_volumes, kind):
+    """The (NB, L) flags of kernel D's plain version are the per-level
+    negation of JAX ``_fine_anchor_weights``' ``ok``; its data equals the
+    explicit-operand lookup, and kernel E's plain version from coordinates
+    equals the one from explicit starts."""
+    vj, vt, coords = field(kind, volumes, padded_volumes)
+    ct = torch.from_numpy(coords)
+    data, bad = tcorr.block_local_lookup_coords(vt, ct, K, torch.float32)
+    meta = vj.meta
+    nb = meta["nbh"] * meta["nbw"]
+    cb = jcorr._to_blocked(jnp.asarray(coords).reshape(
+        meta["H1"] * meta["W1"], 2), meta).reshape(nb, 128, 2)
+    want = []
+    for d, c in jcorr._local_level_coords(vj, cb, RADIUS):
+        fr, fc = jcorr._fine_extents(d, K)
+        oy = jcorr._fine_anchor_weights(c[..., 1], d["wh"], RADIUS, fr)[2]
+        ox = jcorr._fine_anchor_weights(c[..., 0], d["ww"], RADIUS, fc,
+                                        align=8)[2]
+        want.append(~(np.asarray(oy) & np.asarray(ox)))
+    assert bad.dtype == torch.uint8
+    np.testing.assert_array_equal(bad.numpy(), np.stack(want, 1))
+    assert bool(bad.any()) == (kind in ("violating", "padding"))
+
+    starts, frac = tcorr._local_level_coords(vt, ct)
+    rcs, rel, ok = tcorr._fine_anchor_starts(vt, starts)
+    np.testing.assert_array_equal(ok.numpy(), ~bad.bool().any(1).numpy())
+    assert torch.equal(data, tcorr.block_local_lookup_fine_multi(
+        rcs, vt.volumes, rel, frac, K))
+    flag = bad.bool().any(1).to(torch.uint8)
+    out_c, out_s = data.clone(), data.clone()
+    tcorr.block_local_lookup_exact_coords(vt, ct, K, bad=bad, out=out_c)
+    tcorr.block_local_lookup_levels(vt.volumes, starts, frac, K, flag=flag,
+                                    out=out_s)
+    assert torch.equal(out_c, out_s)
+    assert torch.equal(tcorr.block_local_lookup_exact_coords(vt, ct, K),
+                       tcorr.block_local_lookup_levels(vt.volumes, starts,
+                                                       frac, K))
 
 
 # ---------------------------------------------------------------------------

@@ -78,14 +78,16 @@ def garbage_flow(xp):
             xp.ones((1, H_IMG, W_IMG, 1)))
 
 
-def run_both(tp_kwargs, flow_of, frames, params_of=None, state_hp=None):
+def run_both(tp_kwargs, flow_of, frames, params_of=None, state_hp=None,
+             jax_tp_kwargs=None):
     """Drive the JAX and the port step on the same frames.
 
     ``flow_of(xp, params)`` is the oracle (flow, weights); ``params_of(t,
     state)`` gives frame t's numpy oracle parameters from the state the
     step starts from (they travel as the step's ``params``, so the jitted
-    JAX step sees them anew each frame). Returns per-package lists of
-    (H, meta)."""
+    JAX step sees them anew each frame). ``jax_tp_kwargs``: further
+    ``TrackerParams`` fields of the JAX step only. Returns per-package
+    lists of (H, meta)."""
     template = template_frame()
     mask = target_mask()
     out = {}
@@ -96,7 +98,7 @@ def run_both(tp_kwargs, flow_of, frames, params_of=None, state_hp=None):
             return flow_of(xp, params)
 
         if pkg == "jax":
-            tp = jw.TrackerParams(**tp_kwargs)
+            tp = jw.TrackerParams(**tp_kwargs, **(jax_tp_kwargs or {}))
             step = jw.build_track_step(jraft.RaftConfig(iters=2), tp,
                                        flow_fn=flow_fn)
             state = jw.tracker_init_state({}, None, tp,
@@ -180,6 +182,46 @@ def test_lost_counter_and_fallback_match_jax():
         np.testing.assert_allclose(mt["last_good_H2init"],
                                    mj["last_good_H2init"], atol=1e-6)
     np.testing.assert_array_equal(tres[-1][1]["last_good_H2init"], np.eye(3))
+
+
+def test_local_h_in_meta_matches_host_fallback():
+    """On the frames whose check fails, ``meta`` carries the fallback's H
+    as ``H_local_cur2init``, as the JAX step's ``host_fallback`` path (the
+    one its ``WOFTTracker`` takes at 1280x720) does; on the others the key
+    is absent in both. A homography walk whose flow is garbage on frames 1
+    and 3."""
+    truths = []
+    for t in range(1, 6):
+        c, s = np.cos(0.01 * t) * (1 + 0.01 * t), np.sin(0.01 * t)
+        truths.append(np.array([[c, -s, 1.5 * t], [s, c, -1.0 * t],
+                                [1e-5 * t, 0, 1]], np.float32))
+    template = torch.from_numpy(template_frame())[None]
+    frames = [warp_perspective(template, torch.from_numpy(
+        np.linalg.inv(h).astype(np.float32)))[0].numpy() for h in truths]
+    failing = {1, 3}
+
+    def params_of(t, state):
+        h = _last_good(state, 10) @ np.linalg.inv(truths[t])
+        return {"h": h.astype(np.float32),
+                "garbage": np.array(t in failing, np.float32)}
+
+    def flow_of(xp, params):
+        flow, weights = homography_flow(params["h"], xp)
+        bad, _ = garbage_flow(xp)
+        return xp.where(params["garbage"] > 0, bad, flow), weights
+
+    jres, tres = run_both({}, flow_of, frames, params_of,
+                          jax_tp_kwargs={"host_fallback": True})
+    for t, ((Hj, mj), (Ht, mt)) in enumerate(zip(jres, tres)):
+        assert bool(mt["global_H_success"]) == bool(mj["global_H_success"]) \
+            == (t not in failing)
+        assert ("H_local_cur2init" in mt) == ("H_local_cur2init" in mj) \
+            == (t in failing)
+        if t in failing:
+            assert corner_err(mt["H_local_cur2init"],
+                              mj["H_local_cur2init"]) < CORNER_TOL
+            np.testing.assert_array_equal(mt["H_local_cur2init"], Ht)
+        assert corner_err(Ht, Hj) < CORNER_TOL
 
 
 @pytest.mark.parametrize("mode,expect_lost", [("never", True),

@@ -1,31 +1,38 @@
 #!/usr/bin/env python3
-"""What bounds kernels A (pre-warp), B (pyramid lookup) and C (block-local
-volume) on the card.
+"""What bounds kernels A (pre-warp), B (pyramid lookup), C (block-local
+volume) and D (block-local fine lookup from coordinates) on the card.
 
 Run from the repository root on a machine with an NVIDIA GPU and ``nvcc``:
 
-    python3 tools/torch_kernel_ablate.py
+    python3 tools/torch_kernel_ablate.py [--kernels ABCD]
 
-For each variant below the tool copies ``woft_tpu_torch/csrc/warp.cu``,
-``corr_lookup.cu`` or ``local_corr.cu`` into ``build/torch_kernels/ablate/``,
+For each variant below of the kernels named by ``--kernels`` (default all)
+the tool copies ``woft_tpu_torch/csrc/warp.cu``, ``corr_lookup.cu``,
+``local_corr.cu`` or ``local_lookup.cu`` into
+``build/torch_kernels/ablate/``,
 applies the variant's textual replacements (it stops if a piece of text is
 no longer in the source, so the variants stay in step with the kernels),
 builds the copy with the port's ``nvcc`` flags, and times it with
 ``chip_smoke.py``'s ``time_ms`` at the 1280x720 main-path shapes: kernel A
 at its three poses, kernel B dense (Q = 14,400) and indexed (M = 4,500),
-kernel C in bf16 for the four levels of a flow in its one launch. The
+kernel C in bf16 for the four levels of a flow in its one launch, kernel D
+from coordinates in bf16 for the four levels of a lookup on ``chip_smoke.py``'s
+smooth 720p field. The
 sources in ``csrc/`` are not touched and no variant is used by the port.
 
 Two kinds of variant. Ablations compile a part of the work out (A, B: the
 loads become arithmetic on the address, the stores a branch that is never
 taken; C: the producer arrives without loading the window slices, the
-``wgmma`` products or the TMA stores are left out): their results are wrong
+``wgmma`` products or the TMA stores are left out; D: no staging copies, no
+stores): their results are wrong
 by design and are not compared; the time that is left says what the
-removed part costs. Layouts change which pixels a warp owns: they must
-still equal the plain version (A, B: max abs error 0; C as built: within
+removed part costs. Layouts change which pixels a warp owns, or (D) how
+many positions a CTA stages and how many CTAs share an SM: they must still
+equal the plain version (A, B, D: max abs error 0; C as built: within
 ``chip_smoke.py``'s tolerance). Imports no JAX.
 """
 
+import argparse
 import ctypes
 import os
 import subprocess
@@ -50,6 +57,20 @@ _C_PRODUCT = ("wgmma_m64n128k16(acc, sw128_desc(a + 32 * k), "
               "sw128_desc(bq + 32 * k), (kc | k) != 0);", ";")
 _C_STORE = ("tma_store_3d(&P.maps.out[l], sb + h * kSlice, h * 64, t * m, b);",
             ";")
+_D_STAGE = ("constexpr int kStagePositions = 320;",
+            "constexpr int kStagePositions = {};")
+_D_WARPS = ("constexpr int kWarps = 8;", "constexpr int kWarps = {};")
+_D_EMPTY = ("  extern __shared__ __align__(16) unsigned char stage_raw[];\n",
+            "  extern __shared__ __align__(16) unsigned char stage_raw[];\n"
+            "  if (P.k > 0) return;\n")
+_D_PROLOGUE = ("    if (staged) {\n      constexpr int kPerChunk",
+               "    if (P.k > 0) {\n      if (nr * stride == 12345) "
+               "P.bad_out[0] = 1;\n      continue;\n    }\n"
+               "    if (staged) {\n      constexpr int kPerChunk")
+_D_COPY = ("          cp_async16(dst", "          if (n < 0) cp_async16(dst")
+_D_STORE = ("store(o + ((size_t)j * K + i - 1) * out_step, "
+            "prev * gx + col * fx);",
+            "if (col == 12345.678f) store(o + j * out_step, prev);")
 _A_PIXEL = (
     "  const int px = blockIdx.x * kTileW + (threadIdx.x & (kTileW - 1));\n"
     "  const int py = blockIdx.y * kTileH + threadIdx.x / kTileW;\n")
@@ -87,16 +108,32 @@ VARIANTS = {
     "C without loads and stores": ("local_corr", (_C_LOAD, _C_STORE), False),
     "C with none of the three": ("local_corr",
                                  (_C_LOAD, _C_PRODUCT, _C_STORE), False),
+    "D as built": ("local_lookup", (), True),
+    "D staging 288 positions a warp": (
+        "local_lookup", ((_D_STAGE[0], _D_STAGE[1].format(288)),), True),
+    "D staging 448 positions a warp": (
+        "local_lookup", ((_D_STAGE[0], _D_STAGE[1].format(448)),), True),
+    "D, 2 warps a CTA": (
+        "local_lookup", ((_D_WARPS[0], _D_WARPS[1].format(2)),), True),
+    "D, 4 warps a CTA": (
+        "local_lookup", ((_D_WARPS[0], _D_WARPS[1].format(4)),), True),
+    "D without the staging copies": ("local_lookup", (_D_COPY,), False),
+    "D without the stores": ("local_lookup", (_D_STORE,), False),
+    "D without either": ("local_lookup", (_D_COPY, _D_STORE), False),
+    "D, its anchors and boxes only": ("local_lookup", (_D_PROLOGUE,), False),
+    "D, an empty launch of its grid": ("local_lookup", (_D_EMPTY,), False),
 }
 
 
-def build_variants(kernels):
-    """One ``nvcc`` per variant, all started together -> {name: {C symbol:
-    entry}}."""
+def build_variants(kernels, letters):
+    """One ``nvcc`` per variant of the kernels ``letters``, all started
+    together -> {name: {C symbol: entry}}."""
     out_dir = kernels.BUILD_DIR / "ablate"
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for i, (name, (source, replacements, _)) in enumerate(VARIANTS.items()):
+        if name[0] not in letters:
+            continue
         text = (kernels.CSRC / f"{source}.cu").read_text()
         for old, new in replacements:
             if text.count(old) != 1:
@@ -146,6 +183,10 @@ def local_corr_case(corr, dev):
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels", default="ABCD",
+                    help="letters of the kernels whose variants run")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_ablate: no CUDA device", file=sys.stderr)
         return 1
@@ -159,7 +200,7 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0])
     dev = resolve_device("cuda")
-    entries = build_variants(kernels)
+    entries = build_variants(kernels, args.kernels)
     frame = torch.tensor(cs.textured_frame(cs.H_IMG, cs.W_IMG, seed=3),
                          dtype=torch.float32, device=dev)[None]
     poses = {k: H.to(dev) for k, H in cs.warp_poses().items()}
@@ -167,6 +208,14 @@ def main():
     want_b = corr.corr_lookup_plain(pyramid, coords, 4).reshape(
         coords.numel() // 2, -1)
     c_args, c_want = local_corr_case(corr, dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    local = corr.build_local_corr(
+        torch.randn(1, 90, 160, 256, device=dev, generator=g),
+        torch.randn(1, 90, 160, 256, device=dev, generator=g), 4, 4, 16,
+        out_dtype=torch.bfloat16)
+    d_coords = cs._local_coords(dev, "smooth")
+    d_want = corr.block_local_lookup_coords_plain(local, d_coords, 9,
+                                                  torch.bfloat16)[0]
     for name, fns in entries.items():
         kernels._entries.update(fns)        # the wrappers launch this build
         exact = VARIANTS[name][2]
@@ -193,6 +242,16 @@ def main():
             indexed = cs.time_ms(lambda: kernels.corr_pyramid_lookup(
                 pyramid, c_cells, 4, rows=cells))
             times = f"dense {dense:.4f} ms, indexed {indexed:.4f} ms"
+        elif source == "local_lookup":
+            def lookup():
+                return kernels.local_lookup_coords(
+                    d_coords, local.volumes, local.consts["table"], 9,
+                    torch.bfloat16)[0]
+            got = lookup()
+            err = (got.float() - d_want.float()).abs().max().item() \
+                if exact else 0.0
+            ms = cs.time_ms(lookup)
+            times = f"bf16, 4 levels, one lookup {ms:.4f} ms"
         else:
             got = kernels.local_corr_build(*c_args, torch.bfloat16)
             err = 0.0

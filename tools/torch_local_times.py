@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Kernels C and E of a ``woft_tpu_torch`` tree, timed level by level.
+"""Kernels C, D and E of a ``woft_tpu_torch`` tree, timed level by level.
 
 Run from the repository root on a machine with an NVIDIA GPU and ``nvcc``:
 
@@ -15,7 +15,10 @@ times the block-local volume as four one-level ``block_local_corr`` calls
 (bf16 and float32), and kernel E over one lookup as four one-level
 ``block_local_lookup`` calls into kernel D's bf16 output, once with the
 exactness guard's flags of the smooth 720p field (the last block row's 10
-blocks) and once with no block flagged. Times are ``chip_smoke.time_ms``
+blocks) and once with no block flagged; kernel D over one lookup from its
+explicit operands (anchors, relative starts, fractions), and the whole
+guarded lookup ``corr_lookup_local_blocked`` (the coordinate arithmetic's
+small launches, D and E) on the smooth field. Times are ``chip_smoke.time_ms``
 (CUDA events, launches queued behind a device-side spin). Prints the card
 and one JSON line. Imports no JAX.
 """
@@ -80,6 +83,12 @@ def main():
     rcs, rel, ok = corr._fine_anchor_starts(local, starts)
     data = corr.block_local_lookup_fine_multi(rcs, local.volumes, rel, frac,
                                               k, torch.bfloat16)
+    out["D, explicit operands, one launch"] = cs.time_ms(
+        lambda: corr.block_local_lookup_fine_multi(
+            rcs, local.volumes, rel, frac, k, torch.bfloat16))
+    coords = cs._local_coords(dev, "smooth")
+    out["the guarded lookup corr_lookup_local_blocked, all its launches"] = \
+        cs.time_ms(lambda: corr.corr_lookup_local_blocked(local, coords, 4))
     for name, flag in (("the guard's flags", (~ok).view(torch.uint8)),
                        ("no block flagged", torch.zeros_like(ok).view(
                            torch.uint8))):

@@ -7,6 +7,7 @@ Run from the repository root on a machine with an NVIDIA GPU:
                                         [--warmup 2] [--host]
                                         [--gru-fused] [--tail-fused]
                                         [--compare ROUNDS]
+                                        [--compare-root DIR]
 
 Tracks a synthetic homography walk with ``woft_tpu_torch/configs/<config>``
 (``WOFT.py``, the canonical tracker, or ``WOFT_fast.py``, block-local
@@ -22,11 +23,16 @@ proportions, not the totals). ``--compare ROUNDS`` first times the frames
 with and without the fused-loop flags in turns in this one process (two
 trackers on the same frames, the order swapped every round), because frame
 times on a shared host differ more between two runs than between the two
-paths. Imports no JAX.
+paths. ``--compare-root DIR`` compares this tree's tracker instead with the
+one of the ``woft_tpu_torch`` tree under ``DIR`` (an older commit unpacked
+by ``git archive``, imported here under another package name), both with
+the same flags, in turns in this one process. Imports no JAX.
 """
 
 import argparse
 import cProfile
+import importlib
+import importlib.util
 import io
 import math
 import os
@@ -71,13 +77,33 @@ def category(name):
     return "elementwise / other"
 
 
-def compare(flagged, plain, template, mask, frames, args):
-    """Frame times of two trackers on the same frames, in turns."""
-    plain.init(template, mask)
+def other_tree(root):
+    """The ``woft_tpu_torch`` package of the tree at ``root``, imported as
+    ``woft_tpu_torch_other``: (its tracker module, its flow wrapper
+    module). Its config files import ``woft_tpu_torch`` itself, so the
+    caller loads the config with this tree's loader and points its flow
+    class at the other tree's."""
+    name = "woft_tpu_torch_other"
+    pkg = os.path.join(os.path.abspath(root), "woft_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return (importlib.import_module(f"{name}.tracker"),
+            importlib.import_module(f"{name}.flow.wrapper"))
+
+
+def compare(first, second, template, mask, frames, args,
+            labels=("with the flags", "without")):
+    """Frame times of two trackers on the same frames, in turns; the first
+    is initialised and warmed up already."""
+    second.init(template, mask)
     for f in frames[:args.warmup]:
-        plain.track(f)
-    times = {"with the flags": [], "without": []}
-    pair = [("with the flags", flagged), ("without", plain)]
+        second.track(f)
+    times = {labels[0]: [], labels[1]: []}
+    pair = [(labels[0], first), (labels[1], second)]
     for _ in range(args.compare):
         for f in frames[args.warmup:]:
             for name, tr in pair:
@@ -109,6 +135,9 @@ def main():
     ap.add_argument("--compare", type=int, default=0, metavar="ROUNDS",
                     help="time the flagged and the unflagged tracker in "
                          "turns over ROUNDS passes of the frames")
+    ap.add_argument("--compare-root", metavar="DIR",
+                    help="with --compare: time this tree's tracker against "
+                         "the one of the tree under DIR instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile_720p: no CUDA device", file=sys.stderr)
@@ -149,7 +178,15 @@ def main():
     for f in frames[:args.warmup]:
         tracker.track(f)
     torch.cuda.synchronize()
-    if args.compare:
+    if args.compare and args.compare_root:
+        tracker_mod, wrapper_mod = other_tree(args.compare_root)
+        conf = load_config(os.path.join(ROOT, "woft_tpu_torch", "configs",
+                                        args.config))
+        conf.flow_config.of_class = wrapper_mod.RaftFlow
+        other = tracker_mod.WOFTTracker(conf, raft_flags=flags)
+        compare(tracker, other, template.numpy(), mask, frames, args,
+                labels=("this tree", f"the tree under {args.compare_root}"))
+    elif args.compare:
         compare(tracker, WOFTTracker(tracker.C), template.numpy(), mask,
                 frames, args)
 

@@ -26,19 +26,25 @@ The block-local path (``corr_impl='local'``, the ``WOFT_fast`` tier):
   kernel C (``csrc/local_corr.cu``) once for all levels, which computes the
   products itself.
 - ``corr_lookup_local_blocked``: a 9x9 bilinear window per query inside
-  its block's stored window, centroids clamped to it. All levels go through
-  one launch of kernel D (``block_local_lookup_fine_multi``), which reads
-  each block's fine sub-window at a per-block anchor and saturates at that
-  sub-window's edge; blocks whose slab starts spread beyond the sub-window
-  are rewritten by one launch of kernel E (``block_local_lookup_levels``,
-  exact over the whole stored windows) under a per-block flag, with no host
-  sync. Kernel F
-  (``block_local_lookup_fine``) is D's single-level form. The reference's
-  two-hot weight arrays exist only to avoid gathers on the TPU; here a
-  lookup takes each query's integer slab start and fraction per axis and
-  reads its four taps. Output channels are level-major and **y-major**
-  within a level (``c = l*81 + j*9 + i``, j offsets y);
-  ``BlockedCorr.to_natural`` swaps to the dense lookup's ``i*9 + j``.
+  its block's stored window, centroids clamped to it. On the card it is two
+  launches: kernel D from the (1, H1, W1, 2) coordinates and the layout's
+  level table (``block_local_lookup_coords``) computes every query's slab
+  start and fraction, each block's fine sub-window anchor and per-level
+  flags, and looks up all levels, saturating at the sub-window's edge; then
+  kernel E from the same coordinates (``block_local_lookup_exact_coords``,
+  exact over the whole stored windows) rewrites the blocks with a flag set,
+  with no host sync. CPU tensors take the plain composition
+  (``_local_level_coords``, ``_fine_anchor_flags``, the explicit-operand
+  lookups). D and E keep their explicit-operand forms
+  (``block_local_lookup_fine_multi``: anchors, relative starts and
+  fractions, the JAX kernel's own arguments; ``block_local_lookup_levels``:
+  absolute starts), and kernel F (``block_local_lookup_fine``) is D's
+  single-level form. The reference's two-hot weight arrays exist only to
+  avoid gathers on the TPU; here a lookup takes each query's integer slab
+  start and fraction per axis and reads its four taps. Output channels are
+  level-major and **y-major** within a level (``c = l*81 + j*9 + i``, j
+  offsets y); ``BlockedCorr.to_natural`` swaps to the dense lookup's
+  ``i*9 + j``.
 - The layout arithmetic (``_local_layout``, the x-origin quantised to
   ``(bx*sw)//8*8``, ``_fine_extents``, the ``- 1.001`` clamp) is copied
   number for number: it decides where a far-off centroid saturates.
@@ -219,7 +225,10 @@ class LocalCorrVolumes:
     volumes: list of (NB, wh_l, ww_l, BQ) levels, queries minor.
     meta: the ``_local_layout`` dict.
     consts: per-level lookup constants on the volumes' device, each shaped
-        to broadcast against (L, 2, NB, BQ) coordinates, axis 0 = y, 1 = x.
+        to broadcast against (L, 2, NB, BQ) coordinates, axis 0 = y, 1 = x,
+        and ``table``, the same numbers as the level table kernels D and E
+        take from coordinates (python ints and floats, built once a
+        layout).
     """
 
     def __init__(self, volumes, meta):
@@ -251,9 +260,19 @@ def _lookup_constants(H1, W1, radius, num_levels, margin, device):
         hi.append([d["wh"] - r - 1.001, d["ww"] - r - 1.001])
         size.append([d["wh"], d["ww"]])
         fine.append(list(_fine_extents(d, k)))
+    # the level table of kernels D and E from coordinates (the same
+    # numbers as the tensors below; csrc/local_lookup.cu reads it)
+    ints = [H1, W1, nbw, meta["bh"], meta["bw"], r]
+    floats = []
+    for lvl, (d, (fr, fc)) in enumerate(zip(meta["levels"], fine)):
+        ints += [d["wh"], d["ww"], d["sh"], d["sw"], fr, fc,
+                 fr - 2 * r - 2, fc - 2 * r - 2, max(d["wh"] - fr, 0),
+                 max(d["ww"] - fc, 0)]
+        floats += [2.0 ** lvl, float(d["pad"]), *hi[lvl]]
     size = torch.tensor(size, **i32)
     fine = torch.tensor(fine, **i32)
     return dict(
+        table=(tuple(ints), tuple(floats)),
         div=torch.tensor([2.0 ** lvl for lvl in range(L)],
                          **f32).reshape(L, 1, 1, 1),
         pad=torch.tensor([float(d["pad"]) for d in meta["levels"]],
@@ -522,22 +541,82 @@ def _local_level_coords(local, coords):
     return w.to(torch.int32) - r, torch.frac(w)
 
 
-def _fine_anchor_starts(local, starts):
-    """Per-block fine-window anchors and the starts relative to them.
+def _fine_anchor_flags(local, starts):
+    """Per-block fine-window anchors, the starts relative to them and the
+    per-level flags.
 
     Returns (rcs (NB, L, 2) int32 [r0, c0], rel (L, 2, NB, BQ) int32 clamped
-    to the fine window, ok (NB,) bool: every start of the block lies inside
-    its fine window on every level, so the fine lookup is exact there).
-    The anchor is the block's least start, rounded down to 8 on columns,
-    clamped to [0, size - fine]; only the upper end of the fine window can
-    be exceeded, and starts beyond it saturate at its edge."""
+    to the fine window, bad (NB, L) bool: some start of the block lies
+    beyond its fine window at that level, so the fine lookup is not exact
+    there). The anchor is the block's least start, rounded down to 8 on
+    columns, clamped to [0, size - fine]; only the upper end of the fine
+    window can be exceeded, and starts beyond it saturate at its edge."""
     c = local.consts
     anchor = starts.amin(dim=3) & c["align_mask"]           # (L, 2, NB)
     anchor = torch.clamp(anchor, c["zero"], c["anchor_max"])
     rel = starts - anchor[..., None]
-    ok = (rel <= c["rel_max"]).all(dim=(0, 1, 3))
+    bad = (rel > c["rel_max"]).any(dim=3).any(dim=1).T.contiguous()
     rel = torch.clamp(rel, c["zero"], c["rel_max"])
-    return anchor.permute(2, 0, 1).contiguous(), rel, ok
+    return anchor.permute(2, 0, 1).contiguous(), rel, bad
+
+
+def _fine_anchor_starts(local, starts):
+    """``_fine_anchor_flags`` with one verdict a block: (rcs, rel, ok (NB,)
+    bool, every start of the block inside its fine window on every
+    level)."""
+    rcs, rel, bad = _fine_anchor_flags(local, starts)
+    return rcs, rel, ~bad.any(dim=1)
+
+
+def block_local_lookup_coords_plain(local, coords, k, out_dtype):
+    """Plain PyTorch version of kernel D from coordinates (same arguments
+    as ``block_local_lookup_coords``): the coordinate arithmetic as tensor
+    ops, then the explicit-operand lookup."""
+    starts, frac = _local_level_coords(local, coords)
+    rcs, rel, bad = _fine_anchor_flags(local, starts)
+    data = block_local_lookup_fine_multi_plain(rcs, local.volumes, rel, frac,
+                                               k, out_dtype)
+    return data, bad.to(torch.uint8)
+
+
+def block_local_lookup_coords(local, coords, k, out_dtype):
+    """Every level's fine-window lookup straight from the coordinates: one
+    launch of kernel D on a CUDA tensor, which computes each query's start
+    and fraction, its block's anchor and the flags itself.
+
+    coords: (1, H1, W1, 2) float32 level-0 (x, y), natural raster order.
+    Returns (data (NB, L*k*k, BQ) ``out_dtype``, bad (NB, L) uint8: 1 where
+    a start of the block left its fine window at that level, and the fine
+    lookup saturated it)."""
+    if coords.device.type == "cpu":
+        return block_local_lookup_coords_plain(local, coords, k, out_dtype)
+    return kernels.local_lookup_coords(coords, local.volumes,
+                                       local.consts["table"], k, out_dtype)
+
+
+def block_local_lookup_exact_coords_plain(local, coords, k, bad=None,
+                                          out=None):
+    """Plain PyTorch version of kernel E from coordinates (same arguments
+    as ``block_local_lookup_exact_coords``)."""
+    starts, frac = _local_level_coords(local, coords)
+    flag = None if bad is None else bad.bool().any(dim=1).to(torch.uint8)
+    return block_local_lookup_levels_plain(local.volumes, starts, frac, k,
+                                           flag, out)
+
+
+def block_local_lookup_exact_coords(local, coords, k, bad=None, out=None):
+    """The exact lookup over the whole stored windows, every level, straight
+    from the coordinates: one launch of kernel E on a CUDA tensor.
+
+    Without ``out`` returns a new (NB, L*k*k, BQ) float32. With ``out`` it
+    writes in place, and with ``bad`` (NB, L) uint8 only the blocks with a
+    flag set at some level: the others keep their rows."""
+    if coords.device.type == "cpu":
+        return block_local_lookup_exact_coords_plain(local, coords, k, bad,
+                                                     out)
+    return kernels.local_lookup_exact_coords(coords, local.volumes,
+                                             local.consts["table"], k, bad,
+                                             out)
 
 
 def corr_lookup_local_blocked(local, coords, radius=4, fine=True, check=True):
@@ -545,12 +624,14 @@ def corr_lookup_local_blocked(local, coords, radius=4, fine=True, check=True):
 
     coords: (1, H1, W1, 2) level-0 centroids in natural raster order.
     ``fine``: kernel D on each block's fine sub-window, exact while the
-    block's slab starts fit it. ``check`` (fine only): blocks that do not
-    fit are rewritten by kernel E, launched once for all levels with the
-    per-block flag ``~ok`` and writing into D's output, so the result
-    equals the exact lookup everywhere with no host sync and no branch.
-    ``fine=False``: kernel E on every block, one launch, float32 output.
-    bfloat16 volumes give bfloat16 fine lookups (float32 arithmetic)."""
+    block's slab starts fit it; D computes the starts, anchors and per-level
+    flags from the coordinates itself. ``check`` (fine only): blocks with a
+    flag set are rewritten by kernel E, launched once for all levels and
+    writing into D's output, so the result equals the exact lookup
+    everywhere with no host sync and no branch: two launches a lookup on the
+    card. ``fine=False``: kernel E on every block, one launch, float32
+    output. bfloat16 volumes give bfloat16 fine lookups (float32
+    arithmetic). CPU tensors take the plain versions of the same steps."""
     meta = local.meta
     if radius != meta["radius"]:
         raise ValueError(f"volume built for radius {meta['radius']}, "
@@ -558,16 +639,13 @@ def corr_lookup_local_blocked(local, coords, radius=4, fine=True, check=True):
     k = 2 * radius + 1
     vols = local.volumes
     L = len(vols)
-    starts, frac = _local_level_coords(local, coords)
     if not fine:
-        return BlockedCorr(block_local_lookup_levels(vols, starts, frac, k),
+        return BlockedCorr(block_local_lookup_exact_coords(local, coords, k),
                            meta, L, k)
-    rcs, rel, ok = _fine_anchor_starts(local, starts)
     od = torch.bfloat16 if vols[0].dtype == torch.bfloat16 else torch.float32
-    data = block_local_lookup_fine_multi(rcs, vols, rel, frac, k, od)
+    data, bad = block_local_lookup_coords(local, coords, k, od)
     if check:
-        block_local_lookup_levels(vols, starts, frac, k,
-                                  flag=(~ok).view(torch.uint8), out=data)
+        block_local_lookup_exact_coords(local, coords, k, bad=bad, out=data)
     return BlockedCorr(data, meta, L, k)
 
 

@@ -20,8 +20,8 @@ the kernel.
 | A ``warp_perspective_bilinear`` | ``csrc/warp.cu`` | ``ops/pallas/warp.py:block_warp`` |
 | B ``corr_pyramid_lookup`` | ``csrc/corr_lookup.cu`` | ``ops/pallas/corr_lookup.py:fused_corr_lookup`` |
 | C ``local_corr_build`` | ``csrc/local_corr.cu`` | ``ops/pallas/local_corr.py:block_local_corr`` |
-| D ``local_lookup_fine_multi`` | ``csrc/local_lookup.cu`` | ``ops/pallas/local_lookup.py:block_local_lookup_fine_multi`` |
-| E ``local_lookup_exact`` | ``csrc/local_lookup.cu`` | ``ops/pallas/local_lookup.py:block_local_lookup`` |
+| D ``local_lookup_coords`` (from coordinates), ``local_lookup_fine_multi`` (explicit operands) | ``csrc/local_lookup.cu`` | ``ops/pallas/local_lookup.py:block_local_lookup_fine_multi`` |
+| E ``local_lookup_exact_coords`` (from coordinates), ``local_lookup_exact`` (explicit starts) | ``csrc/local_lookup.cu`` | ``ops/pallas/local_lookup.py:block_local_lookup`` |
 | F ``local_lookup_fine`` | ``csrc/local_lookup.cu`` | ``ops/pallas/local_lookup.py:block_local_lookup_fine`` |
 | G ``fused_gru_update`` | ``csrc/gru.cu`` | ``ops/pallas/gru.py:fused_gru_update`` |
 | H ``motion_encoder_tail`` | ``csrc/update_tail.cu`` | ``ops/pallas/update_tail.py:motion_encoder_pallas`` |
@@ -66,6 +66,10 @@ _ENTRIES = {
         "woft_local_corr_params_size": [],
     },
     "local_lookup": {
+        "woft_local_lookup_coords": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P,
+                                     _I, _P, _P],
+        "woft_local_lookup_exact_coords": [_P, _P, _I, _P, _P, _P, _I, _I,
+                                           _I, _I, _P, _I, _P],
         "woft_local_lookup_fine_multi": [_P, _P, _P, _I, _P, _P, _P, _I, _I,
                                          _I, _I, _P, _I, _P],
         "woft_local_lookup_fine": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
@@ -404,6 +408,16 @@ def _check_volumes(vols, k):
     return device, dtype, nb, bq
 
 
+def _check_staged(vols):
+    """Kernels D and F stage 16 queries (32 or 64 bytes) of each window
+    position with 16-byte copies."""
+    if vols[0].shape[3] % 16:
+        raise ValueError(f"kernels D and F take a multiple of 16 queries a "
+                         f"block, got {vols[0].shape[3]}")
+    if any(v.data_ptr() % 16 for v in vols):
+        raise ValueError("the volumes must be 16-byte aligned")
+
+
 def _check_starts(starts, frac, shape, device):
     _check_tensor(starts, "starts", torch.int32, device)
     _check_tensor(frac, "frac", torch.float32, device)
@@ -431,6 +445,7 @@ def local_lookup_fine_multi(rcs, vols, rel, frac, k, out_dtype=torch.float32):
         raise ValueError(f"rcs must be ({nb}, {L}, 2), got "
                          f"{tuple(rcs.shape)}")
     _check_starts(rel, frac, (L, 2, nb, bq), device)
+    _check_staged(vols)
     out = torch.empty((nb, L * k * k, bq), dtype=out_dtype, device=device)
     ptrs = (ctypes.c_void_p * L)(*[v.data_ptr() for v in vols])
     whs = (ctypes.c_int * L)(*[v.shape[1] for v in vols])
@@ -461,6 +476,7 @@ def local_lookup_fine(rc0, vol, rel, frac, k, out_dtype=torch.float32):
     if tuple(rc0.shape) != (nb, 2):
         raise ValueError(f"rc0 must be ({nb}, 2), got {tuple(rc0.shape)}")
     _check_starts(rel, frac, (2, nb, bq), device)
+    _check_staged([vol])
     out = torch.empty((nb, k * k, bq), dtype=out_dtype, device=device)
     fn = _entry("local_lookup", "woft_local_lookup_fine")
     with _current(device):
@@ -528,6 +544,119 @@ def local_lookup_exact(vols, starts, frac, k, flag=None, out=None,
 
 
 local_lookup_exact.launches = 0
+
+
+_lookup_table = [None, None]    # key and ctypes arrays of the last layout
+
+
+def _coord_operands(coords, vols, table, k):
+    """Shared checks of kernels D and E from coordinates -> (device, dtype,
+    nb, bq, ctypes int table, ctypes float table, ctypes volume pointers).
+    ``table``: (ints, floats), ``models/corr.py:_lookup_constants``'s
+    ``table``; its ctypes arrays are kept for the last layout."""
+    device, dtype, nb, bq = _check_volumes(vols, k)
+    if _lookup_table[0] != table:
+        ints, floats = table
+        _lookup_table[:] = table, ((ctypes.c_int * len(ints))(*ints),
+                                   (ctypes.c_float * len(floats))(*floats))
+    ints, floats = table
+    L = len(vols)
+    H1, W1, nbw, bh, bw, r = ints[:6]
+    if not 1 <= L <= 8 or len(ints) != 6 + 10 * L or len(floats) != 4 * L:
+        raise ValueError(f"a level table of {L} levels (1 to 8) expected")
+    if k != 2 * r + 1 or bq != bh * bw or nb != -(-H1 // bh) * nbw:
+        raise ValueError(f"volumes ({nb}, .., {bq}) and k = {k} do not "
+                         f"match the level table's layout")
+    for lvl, v in enumerate(vols):
+        window = tuple(ints[6 + 10 * lvl:8 + 10 * lvl])
+        if tuple(v.shape[1:3]) != window:
+            raise ValueError(f"vols[{lvl}] is {tuple(v.shape)}, the level "
+                             f"table's window is {window}")
+    _check_tensor(coords, "coords", torch.float32, device)
+    if tuple(coords.shape) != (1, H1, W1, 2) or coords.data_ptr() % 8:
+        raise ValueError(f"coords must be an 8-byte aligned (1, {H1}, {W1}, "
+                         f"2), got {tuple(coords.shape)}")
+    ptrs = (ctypes.c_void_p * L)(*[v.data_ptr() for v in vols])
+    return (device, dtype, nb, bq) + _lookup_table[1] + (ptrs,)
+
+
+def local_lookup_coords(coords, vols, table, k, out_dtype):
+    """Kernel D from coordinates: every level's fine-window lookup in one
+    launch, each query's start, fraction and its block's anchor and flags
+    computed in the kernel.
+
+    coords: (1, H1, W1, 2) float32 CUDA level-0 (x, y); vols: L (NB, wh,
+    ww, BQ) CUDA volumes of one dtype, 16-byte aligned, BQ a multiple of 16;
+    table: the layout's level table (``models/corr.py:_lookup_constants``).
+    Returns (out (NB, L*k*k, BQ) ``out_dtype``, channel l*k*k + j*k + i;
+    bad (NB, L) uint8, 1 where a start of the block left its fine window at
+    that level)."""
+    device, dtype, nb, bq, ints, floats, ptrs = _coord_operands(
+        coords, vols, table, k)
+    if out_dtype not in _VOLUME_DTYPES:
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got "
+                        f"{out_dtype}")
+    _check_staged(vols)
+    L = len(vols)
+    out = torch.empty((nb, L * k * k, bq), dtype=out_dtype, device=device)
+    bad = torch.empty((nb, L), dtype=torch.uint8, device=device)
+    fn = _entry("local_lookup", "woft_local_lookup_coords")
+    with _current(device):
+        rc = fn(coords.data_ptr(), ctypes.addressof(ptrs), L,
+                ctypes.addressof(ints), ctypes.addressof(floats), nb, bq, k,
+                int(dtype == torch.bfloat16), out.data_ptr(),
+                int(out_dtype == torch.bfloat16), bad.data_ptr(), _stream())
+    _raise_on_error(rc, "local_lookup_coords")
+    local_lookup_coords.launches += 1
+    return out, bad
+
+
+local_lookup_coords.launches = 0
+
+
+def local_lookup_exact_coords(coords, vols, table, k, bad=None, out=None):
+    """Kernel E from coordinates: every level of a lookup over the whole
+    stored windows in one launch, each query's start and fraction computed
+    in the kernel.
+
+    coords, vols, table as for ``local_lookup_coords``. Without ``out``
+    returns a new (NB, L*k*k, BQ) float32. With ``out`` (NB, L*k*k, BQ)
+    float32 or bfloat16 it writes in place and returns ``out``; with
+    ``bad`` (NB, L) uint8 only the blocks with a flag set at some level."""
+    device, dtype, nb, bq, ints, floats, ptrs = _coord_operands(
+        coords, vols, table, k)
+    L = len(vols)
+    if out is None:
+        if bad is not None:
+            raise ValueError("flags need an output to leave rows in")
+        out = torch.empty((nb, L * k * k, bq), dtype=torch.float32,
+                          device=device)
+    else:
+        if out.dtype not in _VOLUME_DTYPES:
+            raise TypeError(f"out must be float32 or bfloat16, got "
+                            f"{out.dtype}")
+        _check_tensor(out, "out", out.dtype, device)
+        if tuple(out.shape) != (nb, L * k * k, bq):
+            raise ValueError(f"out must be ({nb}, {L * k * k}, {bq}), got "
+                             f"{tuple(out.shape)}")
+    if bad is not None:
+        _check_tensor(bad, "bad", torch.uint8, device)
+        if tuple(bad.shape) != (nb, L):
+            raise ValueError(f"bad must be ({nb}, {L}), got "
+                             f"{tuple(bad.shape)}")
+    fn = _entry("local_lookup", "woft_local_lookup_exact_coords")
+    with _current(device):
+        rc = fn(coords.data_ptr(), ctypes.addressof(ptrs), L,
+                ctypes.addressof(ints), ctypes.addressof(floats),
+                None if bad is None else bad.data_ptr(), nb, bq, k,
+                int(dtype == torch.bfloat16), out.data_ptr(),
+                int(out.dtype == torch.bfloat16), _stream())
+    _raise_on_error(rc, "local_lookup_exact_coords")
+    local_lookup_exact_coords.launches += 1
+    return out
+
+
+local_lookup_exact_coords.launches = 0
 
 
 def _check_operand(t, what, dtype, device, shape):

@@ -172,7 +172,13 @@ def build_track_step(raft_cfg: RaftConfig, tp: TrackerParams, flow_fn=None):
     network (the tests inject oracle flow here). Without it the main flow
     runs WeightedRAFT against the cached template features with the sparse
     weight head (the head and the convex upsample evaluated only at the
-    cells the solver consumes), the fallback flow with the dense head."""
+    cells the solver consumes), the fallback flow with the dense head.
+
+    The step branches on the host: when the inlier check fails it runs the
+    local fallback flow and adds its H to ``meta`` as ``H_local_cur2init``.
+    That key follows the reference's ``host_fallback`` path, the one
+    ``woft_tpu``'s ``WOFTTracker`` takes for frames of 400k pixels or more
+    (1280x720 among them); the port has no other path."""
 
     def dense_flow(model, img1, img2):
         padder = make_padder(tp.padding_mode, img2.shape)
@@ -272,6 +278,8 @@ def build_track_step(raft_cfg: RaftConfig, tp: TrackerParams, flow_fn=None):
             "lost": not ok,
             "N_lost": n_lost,
         }
+        if not (tp.redetection == "always" or ok):
+            meta["H_local_cur2init"] = H_cur2init
         return new_state, H_cur2init, meta
 
     return torch.no_grad()(step)
