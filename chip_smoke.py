@@ -17,14 +17,14 @@ Phases; any failure ends the script with a non-zero exit:
    direction, H motion-encoder tail, I flow head) against its plain
    PyTorch version on the card at the 1280x720 main-path shapes (D and E
    from coordinates also at an odd shape, bf16 and float32), and time
-   kernel, plain version, a PyTorch
-   library yardstick the port never calls (for G, H, I: the port's own
-   unfused cuDNN path for the same function, several calls), and the
-   memory/compute bound; A at three poses, B dense and indexed, C (all four
-   levels in one launch) and E (every level of a lookup in one launch, with
-   the guard's flagged blocks and with none), each beside its time before
-   the redesign, B's reads also counted in the 32-byte sectors device
-   memory moves, as are D's (the union of each 16-query row's patches),
+   kernel, plain version, a PyTorch library yardstick the port never calls
+   (G, H, I have none, ``library_ms`` null: beside them the port's own
+   unfused cuDNN path for the same function, several calls,
+   ``unfused_ms``), and the memory/compute bound; A at three poses, B dense and indexed, C (all four
+   levels in one launch), E (every level of a lookup in one launch, with
+   the guard's flagged blocks and with none), D, G (each direction) and I,
+   each beside its time before the redesign, B's reads also counted in the
+   32-byte sectors device memory moves, as are D's (the union of each 16-query row's patches),
    E's bound counting the flagged blocks only; one guarded block-local
    lookup traced with ``torch.profiler``: two kernel launches;
 4. track 1280x720 frames through ``WOFTTracker`` with the canonical
@@ -99,6 +99,12 @@ PARENT_LOCAL_EXACT_MS = {"flagged": 0.0157, "none": 0.0103}
 # by this script on the tree before the redesign on an NVIDIA H100 80GB
 # HBM3, power limit 700.00 W
 PARENT_LOCAL_FINE_MS = 0.0195
+# Kernels G and I before their redesign (mma.sync fed by a two-stage
+# cp.async ring of taps; G: blocks of 2 lines x 36 positions, I: 6 x 6
+# output tiles), ms at the 720p shapes, measured by this script on the tree
+# before the redesign on an NVIDIA H100 80GB HBM3, power limit 700.00 W
+PARENT_GRU_MS = {"w": 0.1105, "h": 0.1134}
+PARENT_HEAD_MS = 0.0974
 
 
 def log(*args):
@@ -837,16 +843,17 @@ def check_local_lookups(kernels, corr, dev):
     return rows
 
 
-def check_update_kernels(kernels, dev):
-    """Kernels G (both directions), H and I against their plain versions at
-    the 720p loop shape (90 x 160 cells), with the update block's seeded
-    weights. The yardstick of each is the port's own unfused path for the
-    same function: several cuDNN and elementwise calls, not one."""
+def update_case(dev):
+    """The 720p loop shape (90 x 160 cells) of kernels G, H and I, with the
+    update block's seeded weights: NCHW maps as the unfused path holds them
+    (``net``, ``motion``, ``cor1``, ``flo1``, ``flow``), the block ``ub``,
+    G's per-direction operands ``gru`` (``fused``: for the kernel, ending in
+    the axis; ``unfused``: the unfused path's), channels-minor ``h`` and
+    ``x``, and I's taps ``head``."""
     from woft_tpu_torch.models import layers, update
     from woft_tpu_torch.models import raft as traft
 
     H1, W1 = H_IMG // 8, W_IMG // 8
-    px = H1 * W1
     cfg = traft.RaftConfig(precision="bf16")
     ub = traft.init_raft_params(cfg, seed=0, device=dev).update_block
     g = torch.Generator(device=dev).manual_seed(11)
@@ -854,20 +861,41 @@ def check_update_kernels(kernels, dev):
     def randn(c):
         return torch.randn(1, c, H1, W1, device=dev, generator=g)
 
-    # NCHW as the unfused path holds them; the kernels read channels-minor
     net = torch.tanh(randn(128))
     inp = torch.relu(randn(128))
-    motion = torch.relu(randn(128)).bfloat16()
-    cor1 = torch.relu(randn(256)).bfloat16()
-    flo1 = torch.relu(randn(128)).bfloat16()
-    flow = 3.0 * randn(2)
+    case = dict(net=net, motion=torch.relu(randn(128)).bfloat16(),
+                cor1=torch.relu(randn(256)).bfloat16(),
+                flo1=torch.relu(randn(128)).bfloat16(), flow=3.0 * randn(2),
+                ub=ub)
+    with layers.precision_scope("bf16"), torch.no_grad():
+        case["fused"] = traft.precompute_gru_context(ub.gru, inp, 128,
+                                                     fused=True)
+        case["unfused"] = traft.precompute_gru_context(ub.gru, inp, 128)
+    case["h"], case["x"] = update.nhwc(net), update.nhwc(case["motion"])
+    case["head"] = update.flow_head_params(ub.flow_head)
+    return case
+
+
+def check_update_kernels(kernels, dev):
+    """Kernels G (both directions), H and I against their plain versions at
+    the 720p loop shape (90 x 160 cells), with the update block's seeded
+    weights. The yardstick of each is the port's own unfused path for the
+    same function: several cuDNN and elementwise calls, not one. G and I
+    are also printed beside their times before the redesign."""
+    from woft_tpu_torch.models import layers, update
+    from woft_tpu_torch.models import raft as traft
+
+    case = update_case(dev)
+    px = (H_IMG // 8) * (W_IMG // 8)
+    net, motion, ub = case["net"], case["motion"], case["ub"]
+    cor1, flo1, flow = case["cor1"], case["flo1"], case["flow"]
     rows = {}
 
     def n_bytes(*tensors):
         return sum(t.numel() * t.element_size() for t in tensors)
 
     def report(name, diff, allowed, kernel_fn, plain_fn, unfused_fn, bnd, by,
-               label, max_share=UPDATE_DIFF_SHARE):
+               label, max_share=UPDATE_DIFF_SHARE, parent_ms=None):
         torch.cuda.synchronize()
         share = (diff > 0).float().mean().item()
         worst = (diff / allowed).max().item()
@@ -880,17 +908,20 @@ def check_update_kernels(kernels, dev):
         with layers.precision_scope("bf16"), torch.no_grad():
             ms = time_ms(kernel_fn)
             plain_ms = time_ms(plain_fn, iters=5, warmup=1)
-            library_ms = time_ms(unfused_fn)
-        log(f"kernel {name} timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-            f"ms, {label} {library_ms:.4f} ms, bound {bnd:.4f} ms ({by})")
+            unfused_ms = time_ms(unfused_fn)
+        before = ("" if parent_ms is None else
+                  f" (before the redesign {parent_ms:.4f} ms)")
+        log(f"kernel {name} timing: kernel {ms:.4f} ms{before}, plain "
+            f"{plain_ms:.4f} ms, {label} {unfused_ms:.4f} ms, bound "
+            f"{bnd:.4f} ms ({by})")
+        # no single PyTorch call computes these functions: library_ms is
+        # null, and the unfused chain is reported beside it
         return dict(max_abs_err=diff.max().item(), ms=ms, plain_ms=plain_ms,
-                    bound_ms=bnd, bound_by=by, library_ms=library_ms,
-                    library_is=label)
+                    bound_ms=bnd, bound_by=by, library_ms=None,
+                    unfused_ms=unfused_ms, unfused_is=label)
 
-    with layers.precision_scope("bf16"), torch.no_grad():
-        fused = traft.precompute_gru_context(ub.gru, inp, 128, fused=True)
-        unfused = traft.precompute_gru_context(ub.gru, inp, 128)
-    h, x = update.nhwc(net), update.nhwc(motion)
+    fused, unfused = case["fused"], case["unfused"]
+    h, x = case["h"], case["x"]
     # G, one launch: 5 taps x 256 channels into z|r (256) and q (128)
     g_flops = 2 * px * 5 * 256 * (256 + 128)
     per_dir = []
@@ -906,12 +937,13 @@ def check_update_kernels(kernels, dev):
             lambda: kernels.fused_gru_update(h, x, *args),
             lambda: update.gru_update_plain(h, x, *args),
             lambda: traft._sep_conv_gru(net, motion, unfused[d:d + 1]),
-            bnd, by, "one unfused _sep_conv_gru direction (~20 calls)"))
+            bnd, by, "one unfused _sep_conv_gru direction (~20 calls)",
+            parent_ms=PARENT_GRU_MS[axis]))
     # the main path launches each direction once an iteration: one row with
     # the mean of the two
     rows["G"] = dict(per_dir[0],
                      max_abs_err=max(r["max_abs_err"] for r in per_dir))
-    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+    for key in ("ms", "plain_ms", "unfused_ms", "bound_ms"):
         rows["G"][key] = sum(r[key] for r in per_dir) / len(per_dir)
 
     enc = ub.encoder
@@ -941,7 +973,7 @@ def check_update_kernels(kernels, dev):
         tail_unfused, bnd, by, "the three unfused tail convolutions and "
         "the cat (~12 calls)")
 
-    fh = update.flow_head_params(ub.flow_head)
+    fh = case["head"]
     got = kernels.flow_head(h, *fh)
     want = update.flow_head_plain(h, *fh)
     allowed = (HEAD_TOL_ULPS * BF16_ULP * want.abs().max()).expand_as(want)
@@ -952,8 +984,8 @@ def check_update_kernels(kernels, dev):
         lambda: kernels.flow_head(h, *fh),
         lambda: update.flow_head_plain(h, *fh),
         lambda: ub.flow_head(net), bnd, by, "the unfused FlowHead (~9 calls)",
-        max_share=1.0)      # unrounded float32 sums in another order: most
-    #                         entries differ, in their last bits
+        max_share=1.0,      # unrounded float32 sums in another order: most
+        parent_ms=PARENT_HEAD_MS)  # entries differ, in their last bits
     return rows
 
 
@@ -1275,7 +1307,8 @@ def main():
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
     for name, report in reports.items():
         for line in report.splitlines():
-            if "registers" in line or "error" in line.lower():
+            if ("registers" in line or "error" in line.lower()
+                    or "warning" in line.lower()):
                 log(f"  {name}: {line.strip()}")
 
     frame = torch.tensor(textured_frame(H_IMG, W_IMG, seed=3),
@@ -1351,7 +1384,8 @@ def main():
              note="no caller on a forward path, as in the JAX package; "
                   "launched and checked in the kernel phase only",
              **upd["H"]),
-        dict(name="flow_head", route="cuda", source=update_tail,
+        dict(name="flow_head", route="cuda",
+             source="woft_tpu_torch/csrc/flow_head.cu",
              replaces="woft_tpu/ops/pallas/update_tail.py:283",
              launches=fused["flow_head"], **upd["I"]),
     ]

@@ -20,7 +20,7 @@ FORBIDDEN = ("jax", "jaxlib", "woft_tpu", "cv2")
 
 def _port_files():
     return sorted((ROOT / "woft_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tools" / "torch_profile_720p.py"]
+        ROOT / "chip_smoke.py", *sorted((ROOT / "tools").glob("torch_*.py"))]
 
 
 def _imported_modules(path):

@@ -530,8 +530,14 @@ def test_local_wrappers_check_inputs(dev, local_volume):
 # ---------------------------------------------------------------------------
 
 ULP = 2.0 ** -8            # one bf16 ulp relative to a value's binade top
-UPDATE_SHAPES = [(16, 32), (19, 28), (8, 16), (90, 160), (5, 3)]
-UPDATE_IDS = ["16x32", "19x28", "8x16", "90x160", "5x3"]
+# the last nine sit one pixel below, at and above the kernels' tiles: G lays
+# a map's lines end to end with two zero positions after each and gives a
+# CTA 124 output positions (one line of 122 pixels is exactly one tile,
+# along W for 1 x W, along H for H x 1); I gives a CTA 10 x 14 pixels
+UPDATE_SHAPES = [(16, 32), (19, 28), (8, 16), (90, 160), (5, 3),
+                 (1, 121), (1, 122), (1, 123), (121, 1), (122, 1), (123, 1),
+                 (9, 13), (10, 14), (11, 15)]
+UPDATE_IDS = [f"{h}x{w}" for h, w in UPDATE_SHAPES]
 
 
 @pytest.fixture(scope="module")

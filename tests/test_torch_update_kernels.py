@@ -117,7 +117,7 @@ def _gru_three_ways(tree, h, x, inp):
     return oracle, xla, pallas, _nhwc_np(port)
 
 
-@pytest.mark.parametrize("H,W", [(16, 32), (19, 28)])
+@pytest.mark.parametrize("H,W", [(16, 32), (19, 28), (2, 61), (11, 15)])
 def test_gru_plain_matches_pallas(H, W):
     """Both directions through ``_sep_conv_gru(fused=True)``. Observed:
     e_xla 4.2e-3, e_port 3.9e-3, mean|port - pallas| 7.5e-4, largest single
@@ -224,7 +224,8 @@ def test_motion_encoder_plain_border_zero_padding():
 # I: the flow head
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("H,W", [(16, 32), (19, 40)])
+@pytest.mark.parametrize("H,W", [(16, 32), (19, 40), (9, 13), (10, 14),
+                                 (11, 15)])
 def test_flow_head_plain_matches_pallas(H, W):
     """The delta is float32 and never rounded. Observed, deltas up to 189:
     e_xla 0.12, mean|port - pallas| 6.7e-5, largest single difference

@@ -1,35 +1,44 @@
 #!/usr/bin/env python3
 """What bounds kernels A (pre-warp), B (pyramid lookup), C (block-local
-volume) and D (block-local fine lookup from coordinates) on the card.
+volume), D (block-local fine lookup from coordinates), G (SepConvGRU
+direction) and I (flow head) on the card.
 
 Run from the repository root on a machine with an NVIDIA GPU and ``nvcc``:
 
-    python3 tools/torch_kernel_ablate.py [--kernels ABCD]
+    python3 tools/torch_kernel_ablate.py [--kernels ABCDGI]
 
-For each variant below of the kernels named by ``--kernels`` (default all)
-the tool copies ``woft_tpu_torch/csrc/warp.cu``, ``corr_lookup.cu``,
-``local_corr.cu`` or ``local_lookup.cu`` into
-``build/torch_kernels/ablate/``,
-applies the variant's textual replacements (it stops if a piece of text is
-no longer in the source, so the variants stay in step with the kernels),
-builds the copy with the port's ``nvcc`` flags, and times it with
-``chip_smoke.py``'s ``time_ms`` at the 1280x720 main-path shapes: kernel A
-at its three poses, kernel B dense (Q = 14,400) and indexed (M = 4,500),
-kernel C in bf16 for the four levels of a flow in its one launch, kernel D
-from coordinates in bf16 for the four levels of a lookup on ``chip_smoke.py``'s
-smooth 720p field. The
-sources in ``csrc/`` are not touched and no variant is used by the port.
+For each variant below of the kernels named by ``--kernels`` (default
+ABCD) the tool copies the kernel's source from ``woft_tpu_torch/csrc/``
+(``warp.cu``, ``corr_lookup.cu``, ``local_corr.cu``, ``local_lookup.cu``,
+``gru.cu``, ``flow_head.cu``) into a directory of its own under
+``build/torch_kernels/ablate/``, applies the variant's textual
+replacements to the source or to a copy of a header beside it (it stops
+if a piece of text is not in exactly one of them, so the variants stay in
+step with the kernels), builds the copy with the port's ``nvcc`` flags, and
+times it with ``chip_smoke.py``'s ``time_ms`` at the 1280x720 main-path
+shapes: kernel A at its three poses, kernel B dense (Q = 14,400) and
+indexed (M = 4,500), kernel C in bf16 for the four levels of a flow in its
+one launch, kernel D from coordinates in bf16 for the four levels of a
+lookup on ``chip_smoke.py``'s smooth 720p field, kernel G along W and
+along H and kernel I on ``chip_smoke.update_case``'s 90 x 160 loop
+inputs. The sources in ``csrc/`` are not touched and no variant is used by
+the port.
 
 Two kinds of variant. Ablations compile a part of the work out (A, B: the
 loads become arithmetic on the address, the stores a branch that is never
 taken; C: the producer arrives without loading the window slices, the
 ``wgmma`` products or the TMA stores are left out; D: no staging copies, no
-stores): their results are wrong
-by design and are not compared; the time that is left says what the
-removed part costs. Layouts change which pixels a warp owns, or (D) how
-many positions a CTA stages and how many CTAs share an SM: they must still
-equal the plain version (A, B, D: max abs error 0; C as built: within
-``chip_smoke.py``'s tolerance). Imports no JAX.
+stores; G, I: the producer arrives without the TMA tap loads, or the
+``wgmma`` products, the output stores, the tile loads, G's epilogue loads
+or I's second-stage products are left out, or the grid returns at once):
+their results are wrong by design and are not compared; the time that is
+left says what the removed part costs. Layouts change which pixels a warp
+owns, or (D) how many positions a CTA stages and how many CTAs share an
+SM, or (G) the depth of the tap ring or the gates evaluated one by one
+instead of read from their tables, or (G, I) a lone producer warp instead
+of a producer warpgroup: they must still equal the plain
+version (A, B, D: max abs error 0; C, G, I: within ``chip_smoke.py``'s
+tolerances). Imports no JAX.
 """
 
 import argparse
@@ -71,6 +80,54 @@ _D_COPY = ("          cp_async16(dst", "          if (n < 0) cp_async16(dst")
 _D_STORE = ("store(o + ((size_t)j * K + i - 1) * out_step, "
             "prev * gx + col * fx);",
             "if (col == 12345.678f) store(o + j * out_step, prev);")
+# G and I: the shared pass is in conv_wgmma.cuh
+_W_LOAD = ("mbar_expect_tx(full(s), bytes); tma_load_2d(stage(s), map, c0, "
+           "c1, full(s));", "mbar_arrive(full(s));")
+_W_PRODUCT = ("for (int k = 0; k < 4; ++k) wgmma_rs(acc, a[S][k], "
+              "sw128_desc(b + 32 * k), (i | k) != 0);", ";")
+_G_STORE = ("*reinterpret_cast<float2*>(out + 8 * (j0 + j)) = o[j];",
+            "if (o[j].x == 12345.678f) out[0] = o[j].y;")
+_G_RING = ("constexpr int kRing = 4;", "constexpr int kRing = {};")
+_G_EMPTY = ("  extern __shared__ uint8_t smem_raw[];\n",
+            "  extern __shared__ uint8_t smem_raw[];\n"
+            "  if (P.len > 0) return;\n")
+_I_STORE = ("P.out[((size_t)y * P.W + x) * 2 + ch] = sum + P.b2[ch];",
+            "if (sum == 12345.678f) P.out[0] = sum;")
+_I_EMPTY = ("  extern __shared__ uint8_t smem_raw[];\n",
+            "  extern __shared__ uint8_t smem_raw[];\n"
+            "  if (P.H > 0) return;\n")
+_I_STAGE2 = ("      mma_bf16(c[0], af, bn0);\n      mma_bf16(c[1], af, bn1);\n"
+             "      mma_bf16(c[2], af, bb);\n", "")
+_G_TILE = (("load_quads_as_bf16<9>(", "if (P.len < 0) load_quads_as_bf16<9>("),
+           ("    cp_async_16_zfill(As", "    if (P.len < 0) cp_async_16_zfill(As"))
+_I_TILE = ("load_quads_as_bf16<11>(", "if (P.H < 0) load_quads_as_bf16<11>(")
+# an epilogue left out still reads one accumulator, so that ptxas keeps the
+# pass's wgmma (it drops instructions whose results nothing reads)
+_G_NO_EPILOGUES = tuple(
+    (head + "#pragma unroll\n  for (int hh = 0; hh < 2; ++hh) {",
+     head + "if (acc[0] == 12345.678f) P.out[0] = acc[1];\n"
+     "#pragma unroll\n  for (int hh = 0; hh < 0; ++hh) {")
+    for head in (
+        "kSlicesPerTap, ring, 0);\n",
+        "// every warp's reads of h are done\n",
+        "kSlicesPerTap, ring, 2 * kSlices);\n"))
+_G_IDENTITY = (("  return v != v ? v : r;\n}", "  return v;\n}"),
+               ("  return e < kTanhLo || v != v ? v", "  return true ? v"))
+_G_DIRECT = (("  return make_float2(sigmoid_of(tab, v.x), sigmoid_of(tab, v.y));",
+              "  return make_float2(sigmoid_direct(v.x), sigmoid_direct(v.y));"),
+             ("  const float2 q = make_float2(tanh_of(tab, v.x), tanh_of(tab, v.y));",
+              "  const float2 q = make_float2(tanh_direct(v.x), tanh_direct(v.y));"))
+_G_EPI_LOADS = (
+    ("  const unsigned int v = __ldg(reinterpret_cast<const unsigned int*>(p));",
+     "  const unsigned int v = (unsigned int)(size_t)p;"),
+    ("  return __ldg(reinterpret_cast<const float2*>(p));",
+     "  return make_float2((float)(size_t)p, 0.f);"))
+_G_WARP = (("constexpr int kBlock = kConsumers + 128;",
+            "constexpr int kBlock = kConsumers + 32;"),
+           ("    regs_down<40>();\n    if (warp == kConsumers / 32 && lane == 0) {",
+            "    if (lane == 0) {"),
+           ("  regs_up<232>();\n", ""))
+_I_WARP = (_G_WARP[0], _G_WARP[1], ("  regs_up<152>();\n", ""))
 _A_PIXEL = (
     "  const int px = blockIdx.x * kTileW + (threadIdx.x & (kTileW - 1));\n"
     "  const int py = blockIdx.y * kTileH + threadIdx.x / kTileW;\n")
@@ -122,28 +179,71 @@ VARIANTS = {
     "D without either": ("local_lookup", (_D_COPY, _D_STORE), False),
     "D, its anchors and boxes only": ("local_lookup", (_D_PROLOGUE,), False),
     "D, an empty launch of its grid": ("local_lookup", (_D_EMPTY,), False),
+    "G as built": ("gru", (), True),
+    "G, a ring of 3 stages": ("gru", ((_G_RING[0], _G_RING[1].format(3)),),
+                              True),
+
+    "G, a producer warp instead of a warpgroup": ("gru", _G_WARP, True),
+    "G without the TMA tap loads": ("gru", (_W_LOAD,), False),
+    "G without the wgmma products": ("gru", (_W_PRODUCT,), False),
+    "G without the output stores": ("gru", (_G_STORE,), False),
+    "G without the tile loads": ("gru", _G_TILE, False),
+    "G evaluating each gate's expf and tanhf (no tables)": (
+        "gru", _G_DIRECT, True),
+    "G without the epilogue loads": ("gru", _G_EPI_LOADS, False),
+    "G without loads and products": ("gru", (_W_LOAD, _W_PRODUCT), False),
+    "G without its three epilogues": ("gru", _G_NO_EPILOGUES, False),
+    "G without the z epilogue": ("gru", _G_NO_EPILOGUES[:1], False),
+    "G without the r epilogue": ("gru", _G_NO_EPILOGUES[1:2], False),
+    "G without the q epilogue": ("gru", _G_NO_EPILOGUES[2:], False),
+    "G with the gates' lookups left out": ("gru", _G_IDENTITY, False),
+    "G without epilogues, loads and products": (
+        "gru", _G_NO_EPILOGUES + (_W_LOAD, _W_PRODUCT), False),
+    "G, an empty launch of its grid": ("gru", (_G_EMPTY,), False),
+    "I as built": ("flow_head", (), True),
+    "I, a producer warp instead of a warpgroup": ("flow_head", _I_WARP,
+                                                   True),
+    "I without the TMA tap loads": ("flow_head", (_W_LOAD,), False),
+    "I without the wgmma products": ("flow_head", (_W_PRODUCT,), False),
+    "I without the output stores": ("flow_head", (_I_STORE,), False),
+    "I without its second stage's products": ("flow_head", (_I_STAGE2,),
+                                              False),
+    "I without the tile loads": ("flow_head", (_I_TILE,), False),
+    "I without loads and products": ("flow_head", (_W_LOAD, _W_PRODUCT),
+                                     False),
+    "I, an empty launch of its grid": ("flow_head", (_I_EMPTY,), False),
 }
 
 
 def build_variants(kernels, letters):
     """One ``nvcc`` per variant of the kernels ``letters``, all started
     together -> {name: {C symbol: entry}}."""
-    out_dir = kernels.BUILD_DIR / "ablate"
-    out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for i, (name, (source, replacements, _)) in enumerate(VARIANTS.items()):
         if name[0] not in letters:
             continue
-        text = (kernels.CSRC / f"{source}.cu").read_text()
+        out_dir = kernels.BUILD_DIR / "ablate" / f"v{i}"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        # the source and every header: a header that a replacement changes
+        # is written beside the source, which its #include then finds first
+        files = {f"{source}.cu": (kernels.CSRC / f"{source}.cu").read_text()}
+        files.update((h.name, h.read_text())
+                     for h in sorted(kernels.CSRC.glob("*.cuh")))
+        changed = {f"{source}.cu"}
         for old, new in replacements:
-            if text.count(old) != 1:
-                raise SystemExit(f"variant '{name}': {old!r} occurs "
-                                 f"{text.count(old)} times in {source}.cu")
-            text = text.replace(old, new)
-        cu, so = out_dir / f"v{i}_{source}.cu", out_dir / f"libv{i}.so"
-        cu.write_text(text)
+            hits = [f for f, text in files.items() if text.count(old)]
+            if len(hits) != 1 or files[hits[0]].count(old) != 1:
+                raise SystemExit(f"variant '{name}': {old!r} is not in "
+                                 f"exactly one place of {source}.cu and the "
+                                 f"headers")
+            files[hits[0]] = files[hits[0]].replace(old, new)
+            changed.add(hits[0])
+        for f in changed:
+            (out_dir / f).write_text(files[f])
+        cu, so = out_dir / f"{source}.cu", out_dir / f"lib{source}.so"
         jobs[name] = (so, subprocess.Popen(
-            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(so), str(cu)],
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC),
+             "-o", str(so), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     entries = {}
     for name, (so, proc) in jobs.items():
@@ -182,6 +282,38 @@ def local_corr_case(corr, dev):
     return (f1b, levels, geoms, nbh, nbw), want
 
 
+def update_variant(kernels, cs, case, source, exact):
+    """Kernel G along W and along H, or kernel I, of the build the wrappers
+    launch -> (largest difference beyond ``chip_smoke.py``'s tolerance, 0.0
+    when within it or not compared; the times)."""
+    from woft_tpu_torch.models import update
+
+    h, x = case["h"], case["x"]
+    err, times = 0.0, []
+    if source == "gru":
+        allowed = cs.GRU_TOL_ULPS * cs.BF16_ULP * h.abs().clamp(min=1.0)
+        for args in case["fused"]:
+            got = kernels.fused_gru_update(h, x, *args)
+            if exact:
+                diff = (got - update.gru_update_plain(h, x, *args)).abs()
+                if ((diff > allowed).any() or (diff > 0).float().mean()
+                        > cs.UPDATE_DIFF_SHARE):
+                    err = max(err, diff.max().item())
+            ms = cs.time_ms(lambda: kernels.fused_gru_update(h, x, *args))
+            times.append(f"along {args[-1]} {ms:.4f} ms")
+    else:
+        fh = case["head"]
+        got = kernels.flow_head(h, *fh)
+        if exact:
+            want = update.flow_head_plain(h, *fh)
+            diff = (got - want).abs()
+            if diff.max() > cs.HEAD_TOL_ULPS * cs.BF16_ULP * want.abs().max():
+                err = diff.max().item()
+        ms = cs.time_ms(lambda: kernels.flow_head(h, *fh))
+        times.append(f"{ms:.4f} ms")
+    return err, ", ".join(times)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", default="ABCD",
@@ -201,21 +333,28 @@ def main():
                          text=True, check=True).stdout.strip().splitlines()[0])
     dev = resolve_device("cuda")
     entries = build_variants(kernels, args.kernels)
-    frame = torch.tensor(cs.textured_frame(cs.H_IMG, cs.W_IMG, seed=3),
-                         dtype=torch.float32, device=dev)[None]
-    poses = {k: H.to(dev) for k, H in cs.warp_poses().items()}
-    pyramid, coords, cells, c_cells = cs.lookup_case(corr, dev)
-    want_b = corr.corr_lookup_plain(pyramid, coords, 4).reshape(
-        coords.numel() // 2, -1)
-    c_args, c_want = local_corr_case(corr, dev)
-    g = torch.Generator(device=dev).manual_seed(7)
-    local = corr.build_local_corr(
-        torch.randn(1, 90, 160, 256, device=dev, generator=g),
-        torch.randn(1, 90, 160, 256, device=dev, generator=g), 4, 4, 16,
-        out_dtype=torch.bfloat16)
-    d_coords = cs._local_coords(dev, "smooth")
-    d_want = corr.block_local_lookup_coords_plain(local, d_coords, 9,
-                                                  torch.bfloat16)[0]
+    letters = args.kernels
+    if "A" in letters:
+        frame = torch.tensor(cs.textured_frame(cs.H_IMG, cs.W_IMG, seed=3),
+                             dtype=torch.float32, device=dev)[None]
+        poses = {k: H.to(dev) for k, H in cs.warp_poses().items()}
+    if "B" in letters:
+        pyramid, coords, cells, c_cells = cs.lookup_case(corr, dev)
+        want_b = corr.corr_lookup_plain(pyramid, coords, 4).reshape(
+            coords.numel() // 2, -1)
+    if "C" in letters:
+        c_args, c_want = local_corr_case(corr, dev)
+    if "D" in letters:
+        g = torch.Generator(device=dev).manual_seed(7)
+        local = corr.build_local_corr(
+            torch.randn(1, 90, 160, 256, device=dev, generator=g),
+            torch.randn(1, 90, 160, 256, device=dev, generator=g), 4, 4, 16,
+            out_dtype=torch.bfloat16)
+        d_coords = cs._local_coords(dev, "smooth")
+        d_want = corr.block_local_lookup_coords_plain(local, d_coords, 9,
+                                                      torch.bfloat16)[0]
+    if "G" in letters or "I" in letters:
+        upd = cs.update_case(dev)
     for name, fns in entries.items():
         kernels._entries.update(fns)        # the wrappers launch this build
         exact = VARIANTS[name][2]
@@ -252,6 +391,8 @@ def main():
                 if exact else 0.0
             ms = cs.time_ms(lookup)
             times = f"bf16, 4 levels, one lookup {ms:.4f} ms"
+        elif source in ("gru", "flow_head"):
+            err, times = update_variant(kernels, cs, upd, source, exact)
         else:
             got = kernels.local_corr_build(*c_args, torch.bfloat16)
             err = 0.0
@@ -265,7 +406,7 @@ def main():
                 *c_args, torch.bfloat16), iters=10)
             times = f"bf16, 4 levels, one launch {ms:.4f} ms"
         checked = f"max_abs_err {err:.3g}" if exact else "result not compared"
-        if exact and source == "local_corr":
+        if exact and source in ("local_corr", "gru", "flow_head"):
             checked = ("within tolerance" if err == 0.0 else
                        f"beyond tolerance, max_abs_err {err:.3g}")
         print(f"{name}: {times} ({checked})", flush=True)

@@ -79,13 +79,13 @@
 // (models/corr.py:block_local_corr_plain), so the two agree to float32
 // accumulation error (about 1e-5 relative) and, after rounding to bf16, to
 // one bf16 ulp on a small share of entries.
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
 #include <string.h>
 
+#include "conv_wgmma.cuh"   // mbarrier, TMA and descriptor helpers
+
 namespace {
+
+using namespace woft;
 
 constexpr int kMaxLevels = 8;
 constexpr int kBQ = 128;               // queries a block
@@ -125,49 +125,6 @@ constexpr int kStages = 6;             // ring of K-slices
 constexpr int kSlice = 128 * 128;      // 128 rows of 64 bf16 channels
 constexpr int kStage = 2 * kSlice;     // staged output tile: 128 x 128 bf16
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// Waits for the phase of the given parity to complete. A wait that never
-// ends (a broken pipeline) traps after ~2^26 polls, seconds, instead of
-// hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done, polls = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (!done && ++polls == (1u << 26)) __trap();
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
-                                            int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-      "r"(bar) : "memory");
-}
-
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
                                             int c0, int c1, int c2,
                                             uint32_t bar) {
@@ -186,15 +143,6 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
       " [%0, {%2, %3, %4}], [%1];"
       ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
       "r"(c2) : "memory");
-}
-
-// wgmma descriptor of a K-major operand in 128-byte-swizzled rows of 64
-// bf16: 8-row groups 1,024 bytes apart (SBO); the leading offset is unused
-// for swizzled K-major layouts. Every base is 1,024-byte aligned, so the
-// base offset is 0; a K-step of 16 advances the start by 32 bytes.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
 #define ACC8(i)                                                          \
@@ -219,16 +167,6 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
       : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48),
         ACC8(56)
       : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// keeps the compiler from moving accumulator reads across the async wgmma
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
 __global__ void __launch_bounds__(kThreadsBf16, 1)
@@ -317,7 +255,7 @@ local_corr_bf16_kernel(const __grid_constant__ Params P) {
         prev = s;
       }
       asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-      fence_acc(acc);
+      keep_acc(acc);
       if (lane == 0) mbar_arrive(empty(prev));
 
       // epilogue: stage buffer tile_no % 2 was last read by the TMA store
@@ -461,38 +399,6 @@ local_corr_f32_kernel(const Geom G) {
 
 // ---------------------------------------------------------------- host ----
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-constexpr int kErrEntryPoint = 20000;   // no cuTensorMapEncodeTiled
-constexpr int kErrEncode = 10000;       // + the CUresult of the encode
-
-int encoder(EncodeTiled* fn) {
-  static EncodeTiled cached = nullptr;
-  if (cached == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t rc = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (rc != cudaSuccess || found != cudaDriverEntryPointSuccess ||
-        p == nullptr) {
-      return kErrEntryPoint;
-    }
-    cached = reinterpret_cast<EncodeTiled>(p);
-  }
-  *fn = cached;
-  return 0;
-}
-
 // A bf16 tensor map with 128-byte swizzle: dims and box innermost first,
 // strides in bytes of dims 1 .. rank-1.
 int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int rank,
@@ -555,7 +461,7 @@ extern "C" int woft_local_corr_plan(const void* f1b, const void* const* f2s,
   G.f32_tiles = f32_tiles;
   if (is_bf16) {
     EncodeTiled fn;
-    int rc = encoder(&fn);
+    int rc = tap_encoder(&fn);
     if (rc) return rc;
     const cuuint64_t qd[2] = {(cuuint64_t)D, (cuuint64_t)nb * kBQ};
     const cuuint64_t qs[1] = {(cuuint64_t)D * 2};

@@ -1,43 +1,37 @@
-// Kernels H and I: the update block's chains of 3x3 convolutions, fused.
+// Kernel H: the motion encoder's chain of 3x3 convolutions, fused.
 //
-// Replaces the TPU kernel woft_tpu/ops/pallas/update_tail.py in its two
-// forms:
-//   H  motion_encoder_pallas (pallas_call at :228):
-//        cor2 = relu(bf16(conv3(cor1, wc2) + bc2))      256 -> 192
-//        flo2 = relu(bf16(conv3(flo1, wf2) + bf2))      128 -> 64
-//        out  = relu(bf16(conv3(cat(cor2, flo2), wcv) + bcv))  256 -> 126
-//        result = cat(out, bf16(flow))                  128 channels, bf16
-//   I  flow_head_pallas (pallas_call at :310):
-//        hid   = relu(bf16(conv3(bf16(net), w1) + b1))  128 -> 256
-//        delta = conv3(hid, w2) + b2                    256 -> 2, float32
+// Replaces the TPU kernel woft_tpu/ops/pallas/update_tail.py:
+// motion_encoder_pallas (pallas_call at :228):
+//   cor2 = relu(bf16(conv3(cor1, wc2) + bc2))             256 -> 192
+//   flo2 = relu(bf16(conv3(flo1, wf2) + bf2))             128 -> 64
+//   out  = relu(bf16(conv3(cat(cor2, flo2), wcv) + bcv))  256 -> 126
+//   result = cat(out, bf16(flow))                         128 channels, bf16
 // conv3 is the 3x3 convolution with zero padding, bf16 operands, float32
 // accumulation, float32 bias. The second convolution's zero padding applies
-// to the first stage's ACTIVATIONS: outside the image cor2, flo2 and hid are
-// zero, not relu(bias). The delta is never rounded. There a grid step owns a
-// band of rows, copies it with a 2-row halo by DMA from zero-padded inputs,
-// keeps all taps in fast memory and pads the 126- and 2-channel results to
-// 128 lanes. None of that is carried over.
+// to the first stage's ACTIVATIONS: outside the image cor2 and flo2 are
+// zero, not relu(bias). There a grid step owns a band of rows, copies it
+// with a 2-row halo by DMA from zero-padded inputs, keeps all taps in fast
+// memory and pads the 126-channel result to 128 lanes. None of that is
+// carried over. (The same file's second form, flow_head_pallas, is kernel
+// I in flow_head.cu.)
 //
-// Bound on the H100 at 720p (90 x 160 pixels). H: 2 * 14,400 * 9 * (256 *
-// 192 + 128 * 64 + 256 * 126) = 23.2 GFLOP, 0.024 ms at 989 TFLOP/s,
-// against 16 MB (0.005 ms). I: 2 * 14,400 * 9 * (128 * 256 + 256 * 2) = 8.6
-// GFLOP, 0.009 ms, against 8.7 MB (0.003 ms). Both operations-bound.
+// Bound on the H100 at 720p (90 x 160 pixels): 2 * 14,400 * 9 * (256 * 192
+// + 128 * 64 + 256 * 126) = 23.2 GFLOP, 0.024 ms at 989 TFLOP/s, against
+// 16 MB (0.005 ms): operations-bound.
 //
 // Design: a CUDA block owns a 6 x 6 tile of output pixels. The first stage
 // is computed on the 8 x 8 region around it (64 rows, the tile of conv_pass)
 // from a 10 x 10 input tile read with bounds checks (zeros outside the
-// image, no padded copy); one device function, stage1(), serves the three
+// image, no padded copy); one device function, stage1(), serves both
 // first-stage convolutions: product, float32 bias, one rounding to bf16,
-// relu, zero outside the image, into a shared-memory tile. H's second stage
+// relu, zero outside the image, into a shared-memory tile. The second stage
 // is one more conv_pass over that tile (its rows 36..63 are dropped) and
-// writes the 126 channels and bf16(flow) into lanes 126-127 itself; I's
-// second stage has two output channels and runs on the CUDA cores, a warp a
-// pixel, float32 sums of exact bf16 products. 44 % of the first stage's rows
-// are halo recomputed by a neighbouring block: the price of a tile small
-// enough for H's two input tiles and stage-1 tile to share an SM's shared
-// memory. The plain versions (models/update.py) sum the products in another
-// order, so a rounding to bf16 may fall the other way on a small share of
-// entries, and I's float32 delta agrees to accumulation error.
+// writes the 126 channels and bf16(flow) into lanes 126-127 itself. 44 % of
+// the first stage's rows are halo recomputed by a neighbouring block: the
+// price of a tile small enough for the two input tiles and the stage-1 tile
+// to share an SM's shared memory. The plain version (models/update.py) sums
+// the products in another order, so a rounding to bf16 may fall the other
+// way on a small share of entries.
 #include "conv_mma.cuh"
 
 namespace {
@@ -188,90 +182,6 @@ motion_encoder_tail_kernel(const MotionArgs a) {
   }
 }
 
-// ------------------------------------------------------------ kernel I ----
-
-constexpr int kNet = 128, kHid = 256;
-constexpr int kLdNet = kNet + kPad;
-constexpr int kSmemElemsI = kInT * kInT * kLdNet + kTileM * kLdS +
-                            kStages * kHid * kLdB + 9 * 2 * kHid;
-
-struct FlowHeadArgs {
-  const float* net;
-  const __nv_bfloat16* w1;    // [9][256][128]
-  const __nv_bfloat16* w2;    // [9][2][256]
-  const float* b1;
-  const float* b2;
-  float* out;                 // (H, W, 2)
-  int H, W;
-};
-
-__global__ void __launch_bounds__(kThreads)
-flow_head_kernel(const FlowHeadArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* S1 = tile + kInT * kInT * kLdNet;
-  __nv_bfloat16* Bs = S1 + kTileM * kLdS;
-  __nv_bfloat16* W2 = Bs + kStages * kHid * kLdB;
-
-  const int t = threadIdx.x;
-  const int y0 = blockIdx.y * kOutT, x0 = blockIdx.x * kOutT;
-  for (int idx = t; idx < kInT * kInT * (kNet / 4); idx += kThreads) {
-    const int p = idx / (kNet / 4), c = (idx % (kNet / 4)) * 4;
-    const int y = y0 - 2 + p / kInT, x = x0 - 2 + p % kInT;
-    const bool inside = y >= 0 && y < a.H && x >= 0 && x < a.W;
-    *reinterpret_cast<uint2*>(tile + p * kLdNet + c) = load_f32x4_as_bf16(
-        inside ? a.net + ((size_t)y * a.W + x) * kNet + c : a.net, inside);
-  }
-  for (int idx = t; idx < 9 * 2 * kHid / 8; idx += kThreads) {
-    *reinterpret_cast<uint4*>(W2 + idx * 8) =
-        *reinterpret_cast<const uint4*>(a.w2 + idx * 8);
-  }
-
-  stage1<kHid>(tile, kLdNet, kNet, a.w1, a.b1, Bs, S1, 0, y0, x0, a.H, a.W);
-  __syncthreads();
-
-  // second stage on the CUDA cores: a warp a pixel, a lane 8 of the 256
-  // hidden channels, both output channels at once
-  const int warp = t >> 5, lane = t & 31;
-  for (int r = warp; r < kOutT * kOutT; r += kThreads / 32) {
-    const int oy = r / kOutT, ox = r % kOutT;
-    const int y = y0 + oy, x = x0 + ox;
-    float sum[2] = {0.f, 0.f};
-    for (int tap = 0; tap < 9; ++tap) {
-      const int pos = (oy + tap / 3) * kReg + ox + tap % 3;
-      const uint4 hv =
-          *reinterpret_cast<const uint4*>(S1 + pos * kLdS + lane * 8);
-      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&hv);
-#pragma unroll
-      for (int o = 0; o < 2; ++o) {
-        const uint4 wv = *reinterpret_cast<const uint4*>(
-            W2 + (tap * 2 + o) * kHid + lane * 8);
-        const __nv_bfloat162* w2 =
-            reinterpret_cast<const __nv_bfloat162*>(&wv);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float2 hf = __bfloat1622float2(h2[i]);
-          const float2 wf = __bfloat1622float2(w2[i]);
-          sum[o] += hf.x * wf.x;
-          sum[o] += hf.y * wf.y;
-        }
-      }
-    }
-#pragma unroll
-    for (int o = 0; o < 2; ++o) {
-#pragma unroll
-      for (int d = 16; d > 0; d >>= 1) {
-        sum[o] += __shfl_xor_sync(0xffffffffu, sum[o], d);
-      }
-    }
-    if (lane == 0 && y < a.H && x < a.W) {
-      const size_t pix = (size_t)y * a.W + x;
-      *reinterpret_cast<float2*>(a.out + pix * 2) =
-          make_float2(sum[0] + a.b2[0], sum[1] + a.b2[1]);
-    }
-  }
-}
-
 }  // namespace
 
 // Kernel H. cor1 (H, W, 256), flo1 (H, W, 128) bf16 and flow (H, W, 2)
@@ -303,29 +213,5 @@ extern "C" int woft_motion_encoder_tail(
                   (unsigned)((H + kOutT - 1) / kOutT));
   motion_encoder_tail_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       a);
-  return (int)cudaGetLastError();
-}
-
-// Kernel I. net (H, W, 128) float32, channels minor; w1 [9][256][128], w2
-// [9][2][256] bf16, input channels minor; b1 (256), b2 (2) float32; out (H,
-// W, 2) float32. All contiguous and 16-byte aligned. Returns
-// cudaGetLastError().
-extern "C" int woft_flow_head(const void* net, const void* w1, const void* b1,
-                              const void* w2, const void* b2, void* out,
-                              int H, int W, void* stream) {
-  if (H < 1 || W < 1) return (int)cudaErrorInvalidValue;
-  const FlowHeadArgs a = {static_cast<const float*>(net),
-                          static_cast<const __nv_bfloat16*>(w1),
-                          static_cast<const __nv_bfloat16*>(w2),
-                          static_cast<const float*>(b1),
-                          static_cast<const float*>(b2),
-                          static_cast<float*>(out), H, W};
-  constexpr int smem = kSmemElemsI * (int)sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(
-      flow_head_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((W + kOutT - 1) / kOutT),
-                  (unsigned)((H + kOutT - 1) / kOutT));
-  flow_head_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

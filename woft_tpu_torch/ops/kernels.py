@@ -25,10 +25,13 @@ the kernel.
 | F ``local_lookup_fine`` | ``csrc/local_lookup.cu`` | ``ops/pallas/local_lookup.py:block_local_lookup_fine`` |
 | G ``fused_gru_update`` | ``csrc/gru.cu`` | ``ops/pallas/gru.py:fused_gru_update`` |
 | H ``motion_encoder_tail`` | ``csrc/update_tail.cu`` | ``ops/pallas/update_tail.py:motion_encoder_pallas`` |
-| I ``flow_head`` | ``csrc/update_tail.cu`` | ``ops/pallas/update_tail.py:flow_head_pallas`` |
+| I ``flow_head`` | ``csrc/flow_head.cu`` | ``ops/pallas/update_tail.py:flow_head_pallas`` |
 
-G, H and I share ``csrc/conv_mma.cuh`` (a convolution as per-tap tensor-core
-products); every ``csrc/*.cuh`` enters each library's content hash.
+G and I share ``csrc/conv_wgmma.cuh`` (a convolution as per-tap ``wgmma``
+products, the taps brought in by TMA; the C entries encode the taps' tensor
+maps at the first call with a pointer and keep them), H
+``csrc/conv_mma.cuh`` (the same with ``mma.sync``); every ``csrc/*.cuh``
+enters each library's content hash.
 """
 
 import contextlib
@@ -45,7 +48,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("warp", "corr_lookup", "local_corr", "local_lookup", "gru",
-           "update_tail")
+           "update_tail", "flow_head")
 # --fmad=false: no FMA contraction, so the kernels round like their plain
 # PyTorch versions (see the notes at the top of each source)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -78,10 +81,8 @@ _ENTRIES = {
                                     _I, _P, _I, _I, _I, _P],
     },
     "gru": {"woft_gru_update": [_P] * 9 + [_I] * 5 + [_P]},
-    "update_tail": {
-        "woft_motion_encoder_tail": [_P] * 10 + [_I, _I, _P],
-        "woft_flow_head": [_P] * 6 + [_I, _I, _P],
-    },
+    "update_tail": {"woft_motion_encoder_tail": [_P] * 10 + [_I, _I, _P]},
+    "flow_head": {"woft_flow_head": [_P] * 6 + [_I, _I, _P]},
 }
 _entries = {}
 
@@ -775,7 +776,7 @@ def flow_head(net, w1, b1, w2, b2):
     _check_operand(b1, "b1", torch.float32, device, (256,))
     _check_operand(b2, "b2", torch.float32, device, (2,))
     out = torch.empty((1, *hw, 2), dtype=torch.float32, device=device)
-    fn = _entry("update_tail", "woft_flow_head")
+    fn = _entry("flow_head")
     with _current(device):
         rc = fn(net.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
                 b2.data_ptr(), out.data_ptr(), *hw, _stream())
