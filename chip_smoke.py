@@ -22,10 +22,10 @@ Phases; any failure ends the script with a non-zero exit:
    unfused cuDNN path for the same function, several calls,
    ``unfused_ms``), and the memory/compute bound; A at three poses, B dense and indexed, C (all four
    levels in one launch), E (every level of a lookup in one launch, with
-   the guard's flagged blocks and with none), D, G (each direction) and I,
-   each beside its time before the redesign, B's reads also counted in the
-   32-byte sectors device memory moves, as are D's (the union of each 16-query row's patches),
-   E's bound counting the flagged blocks only; one guarded block-local
+   the guard's flagged blocks and with none), D, G (each direction), H
+   (its two launches) and I, each beside its time before the redesign,
+   B's reads also counted in the 32-byte sectors device memory moves, as
+   are D's (the union of each 16-query row's patches), E's bound counting the flagged blocks only; one guarded block-local
    lookup traced with ``torch.profiler``: two kernel launches;
 4. track 1280x720 frames through ``WOFTTracker`` with the canonical
    ``configs/WOFT.py``, with ``configs/WOFT_fast.py`` (block-local
@@ -105,6 +105,11 @@ PARENT_LOCAL_FINE_MS = 0.0195
 # before the redesign on an NVIDIA H100 80GB HBM3, power limit 700.00 W
 PARENT_GRU_MS = {"w": 0.1105, "h": 0.1134}
 PARENT_HEAD_MS = 0.0974
+# Kernel H before its redesign (one launch on the mma.sync pass, 6 x 6
+# output tiles recomputing 44 % of the first stage as halo), ms at the 720p
+# shape, measured by this script on the tree before the redesign on an
+# NVIDIA H100 80GB HBM3, power limit 700.00 W
+PARENT_TAIL_MS = 0.3174
 
 
 def log(*args):
@@ -880,8 +885,8 @@ def check_update_kernels(kernels, dev):
     """Kernels G (both directions), H and I against their plain versions at
     the 720p loop shape (90 x 160 cells), with the update block's seeded
     weights. The yardstick of each is the port's own unfused path for the
-    same function: several cuDNN and elementwise calls, not one. G and I
-    are also printed beside their times before the redesign."""
+    same function: several cuDNN and elementwise calls, not one. Each is
+    also printed beside its time before the redesign."""
     from woft_tpu_torch.models import layers, update
     from woft_tpu_torch.models import raft as traft
 
@@ -971,7 +976,7 @@ def check_update_kernels(kernels, dev):
         lambda: kernels.motion_encoder_tail(c1, f1, fl, *me),
         lambda: update.motion_encoder_tail_plain(c1, f1, fl, *me),
         tail_unfused, bnd, by, "the three unfused tail convolutions and "
-        "the cat (~12 calls)")
+        "the cat (~12 calls)", parent_ms=PARENT_TAIL_MS)
 
     fh = case["head"]
     got = kernels.flow_head(h, *fh)
@@ -1307,7 +1312,8 @@ def main():
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
     for name, report in reports.items():
         for line in report.splitlines():
-            if ("registers" in line or "error" in line.lower()
+            if ("registers" in line or "spill" in line
+                    or "error" in line.lower()
                     or "warning" in line.lower()):
                 log(f"  {name}: {line.strip()}")
 

@@ -20,6 +20,7 @@ import math
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from woft_tpu_torch.device import resolve_device
 from woft_tpu_torch.models import corr, layers, update
@@ -631,6 +632,92 @@ def test_motion_encoder_kernel_matches_plain(dev, update_block, hw):
     diff = (got - want).abs()
     assert (diff <= 2 * ULP * want.abs() + ULP * scale).all()
     assert (diff > 0).float().mean().item() <= 0.02
+
+
+def _tail_case(dev, ub, hw, seed):
+    cor1, flo1 = _maps(dev, hw, seed, 256, 128)
+    (flow,) = _maps(dev, hw, seed + 1, 2, dtype=torch.float32, scale=3.0)
+    params = [p * 4 if p.dtype == torch.bfloat16 else p
+              for p in update.motion_encoder_params(ub.encoder)]
+    return cor1.relu(), flo1.relu(), flow, params
+
+
+def _check_tail(got, want, mid, want_mid):
+    """Kernel H's result and its first launch's map against their plain
+    versions: each bf16 value within one ulp (2^-7 relative bounds it for
+    any mantissa) plus one ulp of the map's scale (2^-8 of its largest
+    value), which covers a sum near zero whose sign the order of the
+    float32 sums decides (relu then keeps one value and zeroes the other)
+    and, in the result, flipped first-stage activations; at most 2 % of
+    the entries differ."""
+    for g, w, what in ((mid, want_mid, "stage 1"), (got, want, "result")):
+        g, w = g.float(), w.float()
+        scale = w.abs().max().item()
+        assert scale > 0.5, what
+        diff = (g - w).abs()
+        assert (diff <= 2 * ULP * w.abs() + ULP * scale).all(), (
+            what, diff.max().item(), scale)
+        assert (diff > 0).float().mean().item() <= 0.02, what
+
+
+# kernel H gives a CTA 8 x 16 output pixels in both launches: one row or
+# column short of a tile, exactly one, one over, and the 720p loop shape
+# with a ragged last tile row (90 = 11 * 8 + 2)
+TAIL_SHAPES = [(7, 16), (8, 15), (8, 16), (9, 17), (1, 1), (3, 200),
+               (17, 33), (90, 160), (89, 159)]
+
+
+@pytest.mark.parametrize("hw", TAIL_SHAPES,
+                         ids=[f"{h}x{w}" for h, w in TAIL_SHAPES])
+def test_motion_encoder_kernel_stages(dev, update_block, hw):
+    """Kernel H's two launches at the edges of its tiles: the first
+    launch's map ``cat(cor2, flo2)`` (read back through ``mid``) against
+    ``motion_encoder_stage1_plain``, the result against
+    ``motion_encoder_stage2_plain`` of the plain map."""
+    cor1, flo1, flow, params = _tail_case(dev, update_block, hw, 17)
+    wc2, bc2, wf2, bf2, wcv, bcv = params
+    mid = torch.full((1, *hw, 256), float("nan"), device=dev,
+                     dtype=torch.bfloat16)
+    n0 = kernels.motion_encoder_tail.launches
+    got = kernels.motion_encoder_tail(cor1, flo1, flow, *params, mid=mid)
+    want_mid = update.motion_encoder_stage1_plain(cor1, flo1, wc2, bc2, wf2,
+                                                  bf2)
+    want = update.motion_encoder_stage2_plain(want_mid, flow, wcv, bcv)
+    torch.cuda.synchronize()
+    assert kernels.motion_encoder_tail.launches == n0 + 1
+    assert torch.equal(got[..., 126:], flow.bfloat16())
+    _check_tail(got, want, mid, want_mid)
+
+
+def test_motion_encoder_kernel_positive_bias_border(dev, update_block):
+    """Every first-stage bias positive, so relu(bias) > 0 wherever the
+    first stage has no signal: outside the image the second launch must
+    still read zeros, and the border pixels must match the plain version's
+    zero padding of the activations."""
+    hw = (13, 21)
+    cor1, flo1, flow, params = _tail_case(dev, update_block, hw, 19)
+    wc2, bc2, wf2, bf2, wcv, bcv = params
+    bc2, bf2 = bc2.abs() + 0.5, bf2.abs() + 0.5
+    cor1[:, :, :4], flo1[:, 4:] = 0, 0      # no signal: relu(bias) alone
+    mid = torch.empty((1, *hw, 256), device=dev, dtype=torch.bfloat16)
+    got = kernels.motion_encoder_tail(cor1, flo1, flow, wc2, bc2, wf2, bf2,
+                                      wcv, bcv, mid=mid)
+    want_mid = update.motion_encoder_stage1_plain(cor1, flo1, wc2, bc2, wf2,
+                                                  bf2)
+    want = update.motion_encoder_stage2_plain(want_mid, flow, wcv, bcv)
+    assert (want_mid[0, 5:, :, 192:] > 0).all()
+    _check_tail(got, want, mid, want_mid)
+    # the same map padded with relu(bias) = bf16(bias) instead of zeros
+    # gives border pixels beyond the tolerance
+    rb = torch.cat([bc2, bf2]).to(torch.bfloat16)
+    padded = F.pad(want_mid, (0, 0, 1, 1, 1, 1))
+    padded[:, 0] = padded[:, -1] = rb
+    padded[:, :, 0] = padded[:, :, -1] = rb
+    wrong = update.motion_encoder_stage2_plain(
+        padded, F.pad(flow, (0, 0, 1, 1, 1, 1)), wcv, bcv)[:, 1:-1, 1:-1]
+    w = want.float()
+    assert ((wrong.float() - w).abs()
+            > 2 * ULP * w.abs() + ULP * w.abs().max()).any()
 
 
 @pytest.mark.parametrize("hw", UPDATE_SHAPES, ids=UPDATE_IDS)

@@ -1,16 +1,16 @@
 #!/usr/bin/env python3
 """What bounds kernels A (pre-warp), B (pyramid lookup), C (block-local
 volume), D (block-local fine lookup from coordinates), G (SepConvGRU
-direction) and I (flow head) on the card.
+direction), H (motion-encoder tail) and I (flow head) on the card.
 
 Run from the repository root on a machine with an NVIDIA GPU and ``nvcc``:
 
-    python3 tools/torch_kernel_ablate.py [--kernels ABCDGI]
+    python3 tools/torch_kernel_ablate.py [--kernels ABCDGHI]
 
 For each variant below of the kernels named by ``--kernels`` (default
 ABCD) the tool copies the kernel's source from ``woft_tpu_torch/csrc/``
 (``warp.cu``, ``corr_lookup.cu``, ``local_corr.cu``, ``local_lookup.cu``,
-``gru.cu``, ``flow_head.cu``) into a directory of its own under
+``gru.cu``, ``update_tail.cu``, ``flow_head.cu``) into a directory of its own under
 ``build/torch_kernels/ablate/``, applies the variant's textual
 replacements to the source or to a copy of a header beside it (it stops
 if a piece of text is not in exactly one of them, so the variants stay in
@@ -20,7 +20,7 @@ shapes: kernel A at its three poses, kernel B dense (Q = 14,400) and
 indexed (M = 4,500), kernel C in bf16 for the four levels of a flow in its
 one launch, kernel D from coordinates in bf16 for the four levels of a
 lookup on ``chip_smoke.py``'s smooth 720p field, kernel G along W and
-along H and kernel I on ``chip_smoke.update_case``'s 90 x 160 loop
+along H and kernels H and I on ``chip_smoke.update_case``'s 90 x 160 loop
 inputs. The sources in ``csrc/`` are not touched and no variant is used by
 the port.
 
@@ -28,17 +28,20 @@ Two kinds of variant. Ablations compile a part of the work out (A, B: the
 loads become arithmetic on the address, the stores a branch that is never
 taken; C: the producer arrives without loading the window slices, the
 ``wgmma`` products or the TMA stores are left out; D: no staging copies, no
-stores; G, I: the producer arrives without the TMA tap loads, or the
-``wgmma`` products, the output stores, the tile loads, G's epilogue loads
-or I's second-stage products are left out, or the grid returns at once):
+stores; G, H, I: the producer arrives without the TMA tap loads, or the
+``wgmma`` products, the output stores, the tile loads, G's epilogue loads,
+H's epilogues or I's second-stage products are left out, or the grid
+returns at once; H also with one of its two launches left out, alone and
+combined with the others, which splits its time by stage):
 their results are wrong by design and are not compared; the time that is
 left says what the removed part costs. Layouts change which pixels a warp
 owns, or (D) how many positions a CTA stages and how many CTAs share an
 SM, or (G) the depth of the tap ring or the gates evaluated one by one
 instead of read from their tables, or (G, I) a lone producer warp instead
-of a producer warpgroup: they must still equal the plain
-version (A, B, D: max abs error 0; C, G, I: within ``chip_smoke.py``'s
-tolerances). Imports no JAX.
+of a producer warpgroup, or (H) its second launch issued after the first
+ends instead of by programmatic dependent launch: they must still equal
+the plain version (A, B, D: max abs error 0; C, G, H, I: within
+``chip_smoke.py``'s tolerances). Imports no JAX.
 """
 
 import argparse
@@ -128,6 +131,33 @@ _G_WARP = (("constexpr int kBlock = kConsumers + 128;",
             "    if (lane == 0) {"),
            ("  regs_up<232>();\n", ""))
 _I_WARP = (_G_WARP[0], _G_WARP[1], ("  regs_up<152>();\n", ""))
+# H: the C entry issues stage 1, then stage 2
+_H_NO_STAGE2 = ("  return (int)cudaLaunchKernelEx(&cfg, motion_stage2_kernel, P2);",
+                "  return (int)cudaGetLastError();")
+_H_NO_PDL = ("  return (int)cudaLaunchKernelEx(&cfg, motion_stage2_kernel, P2);",
+             "  motion_stage2_kernel<<<grid, kBlock, kSmem2, s>>>(P2);\n"
+             "  return (int)cudaGetLastError();")
+_H_NO_STAGE1 = ("  motion_stage1_kernel<<<grid, kBlock, kSmem1, s>>>(P1);\n"
+                "  if ((err = cudaGetLastError()) != cudaSuccess) "
+                "return (int)err;\n", "")
+_H1_EPILOGUES = tuple(
+    (f"    stage_rows(acc, {args}, row, cq);\n    named_sync(1, kConsumers);\n"
+     f"    copy_out<",
+     "    if (acc[0] == 12345.678f) P.mid[0] = __float2bfloat16(acc[1]);\n"
+     "    if (P.H < 0) copy_out<")
+    for args in ("bias + kCor2, flo", "bias, cor"))
+_H2_EPILOGUE = (("  stage_rows(acc, bias, tile, row, cq);\n  if (cq == ",
+                 "  if (acc[0] == 12345.678f) P.out[0] = __float2bfloat16(acc[1]);\n"
+                 "  if (P.H < 0 && cq == "),
+                ("  copy_out<kMotion, kMotion>(", "  if (P.H < 0) copy_out<kMotion, kMotion>("))
+_H1_TILES = tuple((f"load_tile<{c}>(", f"if (P.H < 0) load_tile<{c}>(")
+                  for c in ("kFlo", "kCor"))
+_H2_TILE = (("load_tile<kMid>(", "if (P.H < 0) load_tile<kMid>("),)
+_H_EMPTY = tuple((f"motion_stage{i}_kernel(const __grid_constant__ "
+                  f"Stage{i}Params P) {{\n",
+                  f"motion_stage{i}_kernel(const __grid_constant__ "
+                  f"Stage{i}Params P) {{\n  if (P.H > 0) return;\n")
+                 for i in (1, 2))
 _A_PIXEL = (
     "  const int px = blockIdx.x * kTileW + (threadIdx.x & (kTileW - 1));\n"
     "  const int py = blockIdx.y * kTileH + threadIdx.x / kTileW;\n")
@@ -200,6 +230,33 @@ VARIANTS = {
     "G without epilogues, loads and products": (
         "gru", _G_NO_EPILOGUES + (_W_LOAD, _W_PRODUCT), False),
     "G, an empty launch of its grid": ("gru", (_G_EMPTY,), False),
+    "H as built": ("update_tail", (), True),
+    "H, stage 2 launched after stage 1 ends (no programmatic dependent "
+    "launch)": ("update_tail", (_H_NO_PDL,), True),
+    "H without the TMA tap loads": ("update_tail", (_W_LOAD,), False),
+    "H without the wgmma products": ("update_tail", (_W_PRODUCT,), False),
+    "H without its epilogues": ("update_tail", _H1_EPILOGUES + _H2_EPILOGUE,
+                                False),
+    "H without the tile loads": ("update_tail", _H1_TILES + _H2_TILE, False),
+    "H, empty launches of both grids": ("update_tail", _H_EMPTY, False),
+    "H, stage 1 only": ("update_tail", (_H_NO_STAGE2,), False),
+    "H, stage 1 only, without the TMA tap loads": (
+        "update_tail", (_H_NO_STAGE2, _W_LOAD), False),
+    "H, stage 1 only, without the wgmma products": (
+        "update_tail", (_H_NO_STAGE2, _W_PRODUCT), False),
+    "H, stage 1 only, without its epilogues": (
+        "update_tail", (_H_NO_STAGE2,) + _H1_EPILOGUES, False),
+    "H, stage 1 only, without the tile loads": (
+        "update_tail", (_H_NO_STAGE2,) + _H1_TILES, False),
+    "H, stage 2 only": ("update_tail", (_H_NO_STAGE1,), False),
+    "H, stage 2 only, without the TMA tap loads": (
+        "update_tail", (_H_NO_STAGE1, _W_LOAD), False),
+    "H, stage 2 only, without the wgmma products": (
+        "update_tail", (_H_NO_STAGE1, _W_PRODUCT), False),
+    "H, stage 2 only, without its epilogue": (
+        "update_tail", (_H_NO_STAGE1,) + _H2_EPILOGUE, False),
+    "H, stage 2 only, without the tile load": (
+        "update_tail", (_H_NO_STAGE1,) + _H2_TILE, False),
     "I as built": ("flow_head", (), True),
     "I, a producer warp instead of a warpgroup": ("flow_head", _I_WARP,
                                                    True),
@@ -283,8 +340,8 @@ def local_corr_case(corr, dev):
 
 
 def update_variant(kernels, cs, case, source, exact):
-    """Kernel G along W and along H, or kernel I, of the build the wrappers
-    launch -> (largest difference beyond ``chip_smoke.py``'s tolerance, 0.0
+    """Kernel G along W and along H, or kernel H, or kernel I, of the build
+    the wrappers launch -> (largest difference beyond ``chip_smoke.py``'s tolerance, 0.0
     when within it or not compared; the times)."""
     from woft_tpu_torch.models import update
 
@@ -301,6 +358,19 @@ def update_variant(kernels, cs, case, source, exact):
                     err = max(err, diff.max().item())
             ms = cs.time_ms(lambda: kernels.fused_gru_update(h, x, *args))
             times.append(f"along {args[-1]} {ms:.4f} ms")
+    elif source == "update_tail":
+        me = update.motion_encoder_params(case["ub"].encoder)
+        c1, f1, fl = (update.nhwc(case[k]) for k in ("cor1", "flo1", "flow"))
+        got = kernels.motion_encoder_tail(c1, f1, fl, *me).float()
+        if exact:
+            want = update.motion_encoder_tail_plain(c1, f1, fl, *me).float()
+            diff = (got - want).abs()
+            if ((diff > cs.BF16_ULP * (cs.TAIL_TOL_ULPS * want.abs()
+                                       + want.abs().max())).any()
+                    or (diff > 0).float().mean() > cs.UPDATE_DIFF_SHARE):
+                err = diff.max().item()
+        ms = cs.time_ms(lambda: kernels.motion_encoder_tail(c1, f1, fl, *me))
+        times.append(f"{ms:.4f} ms")
     else:
         fh = case["head"]
         got = kernels.flow_head(h, *fh)
@@ -353,7 +423,7 @@ def main():
         d_coords = cs._local_coords(dev, "smooth")
         d_want = corr.block_local_lookup_coords_plain(local, d_coords, 9,
                                                       torch.bfloat16)[0]
-    if "G" in letters or "I" in letters:
+    if set(letters) & set("GHI"):
         upd = cs.update_case(dev)
     for name, fns in entries.items():
         kernels._entries.update(fns)        # the wrappers launch this build
@@ -391,7 +461,7 @@ def main():
                 if exact else 0.0
             ms = cs.time_ms(lookup)
             times = f"bf16, 4 levels, one lookup {ms:.4f} ms"
-        elif source in ("gru", "flow_head"):
+        elif source in ("gru", "update_tail", "flow_head"):
             err, times = update_variant(kernels, cs, upd, source, exact)
         else:
             got = kernels.local_corr_build(*c_args, torch.bfloat16)
@@ -406,7 +476,8 @@ def main():
                 *c_args, torch.bfloat16), iters=10)
             times = f"bf16, 4 levels, one launch {ms:.4f} ms"
         checked = f"max_abs_err {err:.3g}" if exact else "result not compared"
-        if exact and source in ("local_corr", "gru", "flow_head"):
+        if exact and source in ("local_corr", "gru", "update_tail",
+                                "flow_head"):
             checked = ("within tolerance" if err == 0.0 else
                        f"beyond tolerance, max_abs_err {err:.3g}")
         print(f"{name}: {times} ({checked})", flush=True)

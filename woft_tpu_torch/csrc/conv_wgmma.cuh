@@ -1,9 +1,10 @@
-// Shared code of kernels G (gru.cu) and I (flow_head.cu): one pass of a
-// small convolution as a sum of per-tap matrix products on Hopper's
-// warpgroup tensor-core instruction, with the taps brought in by TMA.
+// Shared code of kernels G (gru.cu), H (update_tail.cu) and I
+// (flow_head.cu): one pass of a small convolution as a sum of per-tap matrix
+// products on Hopper's warpgroup tensor-core instruction, with the taps
+// brought in by TMA.
 //
-// A pass computes, for 64 rows (pixels) a consumer warpgroup and 128 output
-// channels,
+// A pass computes, for 64 rows (pixels) a consumer warpgroup and N = 64,
+// 128 or 192 output channels,
 //     acc[row][n] = sum_tap sum_k A[pos(row) + off(tap)][k] * W[tap][n][k]
 // with A a tile of bf16 activations in shared memory (one row of `lda`
 // elements a tile position, zero-filled outside the image by whoever loaded
@@ -11,18 +12,19 @@
 // shifts the tile position a row reads, so the 1x5, 5x1 and 3x3
 // convolutions run through the one function.
 //
-// - Products: wgmma.mma_async m64n128k16, bf16 operands, float32
-//   accumulators in registers (64 a thread: with a 64 x 256 accumulator a
-//   block of three warpgroups, capped at 168 registers a thread, spills and
-//   ptxas serialises the wgmma, C7512). A comes from registers: each warp loads its
-//   16 rows with ldmatrix at the tap's row offset (the m16k16 fragment that
-//   ldmatrix.x4 yields for mma.sync is the one wgmma takes). Taking A from
-//   shared memory through a descriptor would need the 128-byte swizzle's
-//   8-row phase to survive a shift of one row, which it does not; the rows
-//   keep a 16-byte pad instead, so eight consecutive rows cover all 32
-//   banks and ldmatrix is conflict-free. Two register sets of A alternate,
-//   so a slice's products run while the next slice's fragments load.
-// - Taps (B): K-major boxes of 128 rows x 64 input channels (128 bytes a
+// - Products: wgmma.mma_async m64nNk16, bf16 operands, float32
+//   accumulators in registers (N / 2 a thread: with a 64 x 256 accumulator
+//   a block of three warpgroups, capped at 168 registers a thread, spills
+//   and ptxas serialises the wgmma, C7512). A comes from registers: each
+//   warp loads its 16 rows with ldmatrix at the tap's row offset (the
+//   m16k16 fragment that ldmatrix.x4 yields for mma.sync is the one wgmma
+//   takes). Taking A from shared memory through a descriptor would need the
+//   128-byte swizzle's 8-row phase to survive a shift of one row, which it
+//   does not; the rows keep a 16-byte pad instead, so eight consecutive
+//   rows cover all 32 banks and ldmatrix is conflict-free. Two register
+//   sets of A alternate, so a slice's products run while the next slice's
+//   fragments load.
+// - Taps (B): K-major boxes of N rows x 64 input channels (128 bytes a
 //   row, 128-byte swizzle), one box a (tap, 64-channel slice), loaded by
 //   TMA into a ring of stages with a full and an empty mbarrier each. One
 //   thread of a producer warpgroup keeps the ring full (the warpgroup gives
@@ -35,18 +37,49 @@
 //   small as one wave allows.
 // - Every wgmma of a pass is issued from uniform control flow (ptxas
 //   serialises wgmma in divergent code, C7518).
-//
-// Helpers (round_bf16, ldmatrix_x4, mma_bf16, the guarded loads, kPad)
-// come from conv_mma.cuh, whose mma.sync pass kernel H still uses.
 #pragma once
 #include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
 #include <type_traits>
-
-#include "conv_mma.cuh"
 
 namespace woft {
 
+constexpr int kPad = 8;       // elements appended to every activation row
 constexpr int kSliceK = 64;   // input channels of a tap slice: 128 bytes
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ void store_bf16x2(__nv_bfloat16* dst, float a,
+                                             float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+
+// m16n8k16 on the tensor cores, bf16 operands, float32 accumulators (the
+// small products beside a pass: kernel I's second stage)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Four 8x8 bf16 matrices from shared memory: lane l gives the address of
+// row l % 8 of matrix l / 8 (16 bytes, 16-byte aligned); register i of a
+// thread then holds elements [lane / 4][2 * (lane % 4) .. + 1] of matrix i.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const __nv_bfloat16* row) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(row);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -99,6 +132,15 @@ __device__ __forceinline__ void cp_async_16_zfill(void* dst, const void* src,
                ::"r"(smem_addr(dst)), "l"(src), "r"(inside ? 16 : 0)
                : "memory");
 }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// Waits until at most kPending of this thread's cp.async groups are in
+// flight; a barrier after it makes every thread's copies visible.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
 
 // `count` float32 quads, rounded to bf16 pairs: quad i is read from src(i)
 // (nullptr: zeros) and written to dst(i). `threads` threads, thread t, each
@@ -143,7 +185,23 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
-// d (64 x 128, float32) (+)= A (64 x 16, registers) * B (128 x 16)^T
+// d (64 x N, float32) (+)= A (64 x 16, registers) * B (N x 16)^T, for N =
+// 64, 128 and 192: N / 2 accumulators a thread
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
 __device__ __forceinline__ void wgmma_rs(float (&d)[64],
                                          const uint32_t (&a)[4], uint64_t db,
                                          int accumulate) {
@@ -164,14 +222,40 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
+__device__ __forceinline__ void wgmma_rs(float (&d)[96],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 0;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24),
+        ACC8(32), ACC8(40), ACC8(48), ACC8(56),
+        ACC8(64), ACC8(72), ACC8(80), ACC8(88)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
 #undef ACC8
 
 // Keeps the compiler from moving a register across the asynchronous wgmma:
 // accumulators after the last wait, A fragments until their products are
 // known to be done.
-__device__ __forceinline__ void keep_acc(float (&r)[64]) {
+template <int M>
+__device__ __forceinline__ void keep_acc(float (&r)[M]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(r[i])::"memory");
+  for (int i = 0; i < M; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 __device__ __forceinline__ void keep_a(uint32_t (&a)[4][4]) {
 #pragma unroll
@@ -228,16 +312,17 @@ struct Ring {
   }
 };
 
-// One pass, called by every thread of the consumer warpgroups: 128 output
-// channels for the warpgroup's 64 rows. Row `a_row` of this lane's
-// ldmatrix (its warp's 16 rows, lane & 15) reads tile position
-// a_row + (tap / tap_w) * tap_pitch + tap % tap_w for tap `tap`. The pass
-// takes slices it0 .. it0 + n_taps * slices_per_tap - 1 of the ring, tap
-// major (an even count), each a [128][64] box of input channels
+// One pass, called by every thread of the consumer warpgroups: N = 2 * M
+// output channels (64, 128 or 192) for the warpgroup's 64 rows. Row `a_row`
+// of this lane's ldmatrix (its warp's 16 rows, lane & 15) reads tile
+// position a_row + (tap / tap_w) * tap_pitch + tap % tap_w for tap `tap`.
+// The pass takes slices it0 .. it0 + n_taps * slices_per_tap - 1 of the
+// ring, tap major (an even count), each an [N][64] box of input channels
 // 64 * (slice % slices_per_tap) onwards. Accumulator acc[4 j + 2 h + e] is
 // row 16 * warp + lane / 4 + 8 h of the warpgroup's 64, channel
 // 8 j + 2 (lane % 4) + e.
-__device__ __forceinline__ void wgmma_pass(float (&acc)[64],
+template <int M>
+__device__ __forceinline__ void wgmma_pass(float (&acc)[M],
                                            const __nv_bfloat16* As, int lda,
                                            int a_row, int tap_w, int tap_pitch,
                                            int n_taps, int slices_per_tap,
@@ -247,7 +332,7 @@ __device__ __forceinline__ void wgmma_pass(float (&acc)[64],
   const int n = n_taps * slices_per_tap;
   uint32_t a[2][4][4];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < M; ++i) acc[i] = 0.f;
 
   auto step = [&](auto set, int i) {
     constexpr int S = decltype(set)::value;

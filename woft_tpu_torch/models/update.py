@@ -4,13 +4,14 @@ read.
 
 PyTorch twin of ``woft_tpu/ops/pallas/gru.py`` (``sep_conv_gru_pallas``) and
 ``woft_tpu/ops/pallas/update_tail.py`` (``motion_encoder_pallas``,
-``flow_head_pallas``). Three functions, each one launch on the card:
+``flow_head_pallas``). Three functions, one kernel each on the card:
 
 - ``gru_update`` (kernel G): one direction of the SepConvGRU: the z|r
   convolution, the gates, ``r * h``, the q convolution, ``tanh`` and the
   convex blend;
-- ``motion_encoder_tail`` (kernel H): ``convc2``, ``convf2`` and ``conv`` of
-  the motion encoder and the final ``cat`` with the flow;
+- ``motion_encoder_tail`` (kernel H, two launches through L2: ``convc2``
+  and ``convf2``, then ``conv``): the motion encoder's 3x3 stack and the
+  final ``cat`` with the flow;
 - ``flow_head`` (kernel I): ``conv2(relu(conv1(net)))``.
 
 They are bf16-mode functions for one frame pair. Maps are channels-minor,
@@ -110,13 +111,26 @@ def gru_update(h, x, pre_zr, pre_q, wzr, wq, bzr, bq, axis):
     return gru_update_plain(h, x, pre_zr, pre_q, wzr, wq, bzr, bq, axis)
 
 
-def motion_encoder_tail_plain(cor1, flo1, flow, wc2, bc2, wf2, bf2, wcv, bcv):
-    """Plain version of kernel H (arguments as ``motion_encoder_tail``)."""
+def motion_encoder_stage1_plain(cor1, flo1, wc2, bc2, wf2, bf2):
+    """Plain version of kernel H's first launch: ``cat(cor2, flo2)``, the
+    (1, H, W, 256) bf16 map of first-stage activations."""
     cor2 = F.relu((_conv_taps(cor1, wc2, 3, 3) + bc2).to(_BF16))
     flo2 = F.relu((_conv_taps(flo1, wf2, 3, 3) + bf2).to(_BF16))
-    out = F.relu((_conv_taps(torch.cat([cor2, flo2], -1), wcv, 3, 3)
-                  + bcv).to(_BF16))
+    return torch.cat([cor2, flo2], -1)
+
+
+def motion_encoder_stage2_plain(mid, flow, wcv, bcv):
+    """Plain version of kernel H's second launch: the 256 -> 126
+    convolution of the first stage's map, zero outside the image, and
+    ``bf16(flow)`` in lanes 126-127."""
+    out = F.relu((_conv_taps(mid, wcv, 3, 3) + bcv).to(_BF16))
     return torch.cat([out[..., :-2], flow.to(_BF16)], -1)
+
+
+def motion_encoder_tail_plain(cor1, flo1, flow, wc2, bc2, wf2, bf2, wcv, bcv):
+    """Plain version of kernel H (arguments as ``motion_encoder_tail``)."""
+    mid = motion_encoder_stage1_plain(cor1, flo1, wc2, bc2, wf2, bf2)
+    return motion_encoder_stage2_plain(mid, flow, wcv, bcv)
 
 
 def motion_encoder_tail(cor1, flo1, flow, wc2, bc2, wf2, bf2, wcv, bcv):

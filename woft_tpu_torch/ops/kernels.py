@@ -27,11 +27,10 @@ the kernel.
 | H ``motion_encoder_tail`` | ``csrc/update_tail.cu`` | ``ops/pallas/update_tail.py:motion_encoder_pallas`` |
 | I ``flow_head`` | ``csrc/flow_head.cu`` | ``ops/pallas/update_tail.py:flow_head_pallas`` |
 
-G and I share ``csrc/conv_wgmma.cuh`` (a convolution as per-tap ``wgmma``
-products, the taps brought in by TMA; the C entries encode the taps' tensor
-maps at the first call with a pointer and keep them), H
-``csrc/conv_mma.cuh`` (the same with ``mma.sync``); every ``csrc/*.cuh``
-enters each library's content hash.
+G, H and I share ``csrc/conv_wgmma.cuh`` (a convolution as per-tap
+``wgmma`` products, the taps brought in by TMA; the C entries encode the
+taps' tensor maps at the first call with a pointer and keep them); every
+``csrc/*.cuh`` enters each library's content hash.
 """
 
 import contextlib
@@ -81,7 +80,7 @@ _ENTRIES = {
                                     _I, _P, _I, _I, _I, _P],
     },
     "gru": {"woft_gru_update": [_P] * 9 + [_I] * 5 + [_P]},
-    "update_tail": {"woft_motion_encoder_tail": [_P] * 10 + [_I, _I, _P]},
+    "update_tail": {"woft_motion_encoder_tail": [_P] * 11 + [_I, _I, _P]},
     "flow_head": {"woft_flow_head": [_P] * 6 + [_I, _I, _P]},
 }
 _entries = {}
@@ -715,8 +714,9 @@ def fused_gru_update(h, x, pre_zr, pre_q, wzr, wq, bzr, bq, axis):
 fused_gru_update.launches = 0
 
 
-def motion_encoder_tail(cor1, flo1, flow, wc2, bc2, wf2, bf2, wcv, bcv):
-    """Kernel H: the motion encoder's 3x3 stack.
+def motion_encoder_tail(cor1, flo1, flow, wc2, bc2, wf2, bf2, wcv, bcv,
+                        mid=None):
+    """Kernel H: the motion encoder's 3x3 stack, two launches.
 
     Channels-minor CUDA maps: cor1 (1, H, W, 256) and flo1 (1, H, W, 128)
     bf16 (relu of convc1 and convf1), flow (1, H, W, 2) float32; taps wc2
@@ -724,7 +724,10 @@ def motion_encoder_tail(cor1, flo1, flow, wc2, bc2, wf2, bf2, wcv, bcv):
     channels minor (wcv's output rows 126 and 127 are padding); biases bc2
     (192,), bf2 (64,), bcv (128,) float32. Returns (1, H, W, 128) bf16:
     ``cat(out126, bf16(flow))``; the rounding points are
-    ``models/update.py:motion_encoder_tail_plain``'s."""
+    ``models/update.py:motion_encoder_tail_plain``'s. The first launch
+    writes ``cat(cor2, flo2)`` into ``mid``, a (1, H, W, 256) bf16 map
+    (allocated here when None), which the second convolves: a caller that
+    passes it can hold it against ``motion_encoder_stage1_plain``."""
     if cor1.device.type != "cuda":
         raise ValueError("motion_encoder_tail takes CUDA tensors")
     if cor1.dim() != 4 or cor1.shape[0] != 1 or min(cor1.shape) == 0:
@@ -741,13 +744,16 @@ def motion_encoder_tail(cor1, flo1, flow, wc2, bc2, wf2, bf2, wcv, bcv):
     _check_operand(bc2, "bc2", torch.float32, device, (192,))
     _check_operand(bf2, "bf2", torch.float32, device, (64,))
     _check_operand(bcv, "bcv", torch.float32, device, (128,))
+    if mid is None:
+        mid = torch.empty((1, *hw, 256), dtype=bf16, device=device)
+    _check_operand(mid, "mid", bf16, device, (1, *hw, 256))
     out = torch.empty((1, *hw, 128), dtype=bf16, device=device)
     fn = _entry("update_tail", "woft_motion_encoder_tail")
     with _current(device):
         rc = fn(cor1.data_ptr(), flo1.data_ptr(), flow.data_ptr(),
                 wc2.data_ptr(), bc2.data_ptr(), wf2.data_ptr(),
                 bf2.data_ptr(), wcv.data_ptr(), bcv.data_ptr(),
-                out.data_ptr(), *hw, _stream())
+                mid.data_ptr(), out.data_ptr(), *hw, _stream())
     _raise_on_error(rc, "motion_encoder_tail")
     motion_encoder_tail.launches += 1
     return out
