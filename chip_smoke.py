@@ -16,7 +16,9 @@ Phases; any failure ends the script with a non-zero exit:
    main path calls them, and from explicit operands, G fused GRU
    direction, H motion-encoder tail, I flow head) against its plain
    PyTorch version on the card at the 1280x720 main-path shapes (D and E
-   from coordinates also at an odd shape, bf16 and float32), and time
+   from coordinates also at an odd shape, bf16 and float32; A also at the
+   window tracker's crop, 1920x1080 into 192x344 at scale 0.3, partly off
+   the image), and time
    kernel, plain version, a PyTorch library yardstick the port never calls
    (G, H, I have none, ``library_ms`` null: beside them the port's own
    unfused cuDNN path for the same function, several calls,
@@ -31,15 +33,30 @@ Phases; any failure ends the script with a non-zero exit:
    ``configs/WOFT.py``, with ``configs/WOFT_fast.py`` (block-local
    correlation, bf16), and with ``WOFT_fast.py`` plus the fused refinement
    loop (``gru_fused``, ``tail_fused``: kernels G and I); all full-width
-   RAFT-large, seeded weights, each with the launch counters zeroed before
-   and read after, and each followed by the local-flow fallback
-   (``redetection='never'``), C expected once a flow and D and E 13 times
-   (once a lookup); then one block-local forward whose
+   RAFT-large on the trained full-frame weights
+   (``weights/wraft_tpu_v4_torch.pt``), each with the launch counters
+   zeroed before and read after, and each followed by the local-flow
+   fallback (``redetection='never'``), C expected once a flow and D and E
+   13 times (once a lookup), each printing its fallback rate and its
+   per-frame corner error against the walk it tracks; then the window
+   paths on the trained window-mode weights
+   (``weights/wraft_tpu_v5_torch.pt``), each counted from 0 the same way:
+   ``WOFTWindowTracker`` under ``configs/WOFT_window.py`` at 1280x720 and
+   1920x1080 and under ``configs/WOFT_window_native.py`` at 1280x720
+   (kernel A twice a frame, B 13 times a flow), and ``bench.py``'s
+   device-resident window step (``build_window_track_step``, block-local
+   bf16, the 192x344 window at 1920x1080: A twice a frame, C once, D and E
+   13 times a flow), each printing frame times, peak device memory,
+   fallback rate, corner error against the walk (held to the CPU path's
+   bound, ``WINDOW_CORNER_BOUND_PX``) and launches a frame; then one
+   block-local forward whose
    ``flow_init`` makes blocks violate their fine windows, so that kernel E
    rewrites them;
 5. references: the block-local forward must equal the dense one at
-   1280x720 in float32, and the fused bf16 forward the unfused one to bf16
-   rounding noise; on small inputs an oracle-flow tracker must recover a
+   1280x720 and at the 192x344 window in float32, and the fused bf16
+   forward the unfused one to bf16 rounding noise; the window tracker on
+   the card must match its CPU path on 3 frames at a 128 window; on small
+   inputs an oracle-flow tracker must recover a
    known homography, and the RAFT forward on the card (dense, block-local,
    fused) must match the CPU path;
 6. a ``kernels`` JSON line, then the device JSON as the last line.
@@ -82,6 +99,11 @@ TAIL_TOL_ULPS = 2        # H, bf16 result: one ulp (2 bounds any mantissa),
 HEAD_TOL_ULPS = 1        # I, float32 delta: one ulp of the map's scale
 UPDATE_DIFF_SHARE = 0.02         # G, H: at most this share of entries differs
 H_IMG, W_IMG = 720, 1280
+# the window paths' feature grids (1/8 of the window): the 192x344 window of
+# bench.py's step and of WOFT_window.py at 720p and 1080p, and the 320x512
+# window of WOFT_window_native.py at 720p. The block-local step's is the
+# first: 43 columns are not a multiple of the 16-column block
+WINDOW_GRIDS = ((24, 43), (40, 64))
 # Kernels A and B before their redesign (A: one thread a pixel over 256 x 1
 # strips; B: one thread an output element), ms at the same shapes, measured
 # with time_ms on an NVIDIA H100 80GB HBM3, power limit 700.00 W
@@ -212,7 +234,47 @@ def check_warp(kernels, warp, frame, dev):
             result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bnd, bound_by=by, library_ms=library_ms)
         result["max_abs_err"] = max(result["max_abs_err"], err)
+    result["max_abs_err"] = max(result["max_abs_err"],
+                                check_window_crop(kernels, warp, dev))
     return result
+
+
+def check_window_crop(kernels, warp, dev):
+    """Kernel A at the window tracker's crop: a 1920x1080x3 frame into the
+    192x344 window of ``bench.py``'s 256 budget at scale 0.3, partly off
+    the image. One warp's 32 pixels span about 107 source columns; the
+    kernel must stay exact there. Timed beside ``F.grid_sample``; its time
+    is the crop's, not a bound's. Returns its max abs error."""
+    src = torch.tensor(textured_frame(1080, 1920, seed=4),
+                       dtype=torch.float32, device=dev)[None]
+    out_hw = (192, 344)
+    s = 0.3
+    H = torch.tensor([[s, 0.0, -s * 1500.0], [0.0, s, -s * 520.0],
+                      [0.0, 0.0, 1.0]], device=dev)     # x 1500..2647 of 1919
+    hinv = warp.inverse_h(H[None])
+    want = warp.warp_perspective(src, H, out_hw)
+    got = kernels.warp_perspective_bilinear(src, hinv, *out_hw)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    off = (want[0].abs().sum(-1) == 0).float().mean().item()
+    log(f"kernel A [window crop 1920x1080 -> 192x344, scale {s}, "
+        f"{off:.0%} of the window off the image]: max_abs_err {err:.3g} "
+        f"(tol {WARP_TOL})")
+    if not err <= WARP_TOL or not 0.2 < off < 0.8:
+        raise AssertionError(f"kernel A disagrees at the window crop: {err}")
+    coords = warp.perspective_coords(H[None], out_hw)
+    grid = torch.stack([2 * coords[..., 0] / (1920 - 1) - 1,
+                        2 * coords[..., 1] / (1080 - 1) - 1], -1)
+    src_nchw = src.permute(0, 3, 1, 2).contiguous()
+    ms = time_ms(lambda: kernels.warp_perspective_bilinear(src, hinv,
+                                                           *out_hw))
+    plain_ms = time_ms(lambda: warp.warp_perspective(src, H, out_hw))
+    library_ms = time_ms(lambda: F.grid_sample(
+        src_nchw, grid, mode="bilinear", padding_mode="zeros",
+        align_corners=True))
+    log(f"kernel A timing (window crop): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, F.grid_sample {library_ms:.4f} ms")
+    return err
 
 
 def _window_bytes(levels, coords, rows, radius, sector=None):
@@ -248,18 +310,18 @@ def _window_bytes(levels, coords, rows, radius, sector=None):
     return total
 
 
-def lookup_case(corr, dev):
-    """Kernel B's 720p inputs: the 4-level pyramid of seeded features
-    (1.1 GB), Q = 90 * 160 coordinates up to 20 cells off their own cell
-    with a few far outside, and M = 4,500 cells (with duplicates) with
-    their coordinates for the indexed form."""
+def lookup_case(corr, dev, H1=H_IMG // 8, W1=W_IMG // 8):
+    """Kernel B's inputs, by default at 720p: the 4-level pyramid of seeded
+    features (1.1 GB at 720p), Q = H1 * W1 coordinates up to 20 cells off
+    their own cell with a few far outside, and M = 4,500 cells (with
+    duplicates) with their coordinates for the indexed form."""
     g = torch.Generator(device=dev).manual_seed(1)
-    H1, W1, D = H_IMG // 8, W_IMG // 8, 256
+    D = 256
     f1 = torch.randn(1, H1, W1, D, device=dev, generator=g)
     f2 = torch.randn(1, H1, W1, D, device=dev, generator=g)
     pyramid, _ = corr.corr_pyramid_fused(f1, f2, 4)
     flow = (torch.rand(1, H1, W1, 2, device=dev, generator=g) - 0.5) * 40
-    coords = (_grid_720p(dev) + flow).contiguous()
+    coords = (_cell_grid(dev, H1, W1) + flow).contiguous()
     coords[0, :4] = torch.tensor([-300.0, 1e4], device=dev)   # far outside
     cells = torch.randint(0, H1 * W1, (4500,), device=dev, generator=g)
     cells[1::7] = cells[0::7][:cells[1::7].shape[0]]              # duplicates
@@ -268,7 +330,8 @@ def lookup_case(corr, dev):
 
 def check_lookup(kernels, corr, dev):
     """Kernel B against the plain lookup on the 720p pyramid, dense
-    (Q = 90 * 160) and indexed (M = 4,500 cells, with duplicates)."""
+    (Q = 90 * 160) and indexed (M = 4,500 cells, with duplicates), and
+    dense on the pyramids of the window paths' grids (``WINDOW_GRIDS``)."""
     radius = 4
     pyramid, coords, cells, c_cells = lookup_case(corr, dev)
     Q, M = coords.numel() // 2, cells.numel()
@@ -292,6 +355,19 @@ def check_lookup(kernels, corr, dev):
     log(f"kernel B [indexed M={M}]: max_abs_err {err_i:.3g} (tol {LOOKUP_TOL})")
     if not err_i <= LOOKUP_TOL:
         raise AssertionError(f"kernel B (indexed) disagrees: {err_i}")
+    for h1, w1 in WINDOW_GRIDS:
+        pyr_w, coords_w, _, _ = lookup_case(corr, dev, h1, w1)
+        want_w = corr.corr_lookup_plain(pyr_w, coords_w, radius)
+        got_w = kernels.corr_pyramid_lookup(pyr_w, coords_w, radius)
+        torch.cuda.synchronize()
+        err_w = (got_w.reshape(want_w.shape) - want_w).abs().max().item()
+        log(f"kernel B [dense, window grid {h1}x{w1}, Q={h1 * w1}]: "
+            f"max_abs_err {err_w:.3g} (tol {LOOKUP_TOL})")
+        if not err_w <= LOOKUP_TOL:
+            raise AssertionError(f"kernel B (dense, {h1}x{w1}) disagrees: "
+                                 f"{err_w}")
+        err = max(err, err_w)
+        del pyr_w, want_w, got_w
 
     # library yardstick: one F.grid_sample a level; the indexed form first
     # gathers the cells' rows of each level, inside the timed call
@@ -367,11 +443,12 @@ def check_lookup(kernels, corr, dev):
                 bound_ms=bnd, bound_by=by, library_ms=library_ms)
 
 
-def _grid_720p(dev):
-    """(1, 90, 160, 2) (x, y) cell coordinates of the 1/8-resolution grid."""
+def _cell_grid(dev, H1=H_IMG // 8, W1=W_IMG // 8):
+    """(1, H1, W1, 2) (x, y) cell coordinates of a 1/8-resolution grid,
+    by default 720p's 90 x 160."""
     ys, xs = torch.meshgrid(
-        torch.arange(H_IMG // 8, device=dev, dtype=torch.float32),
-        torch.arange(W_IMG // 8, device=dev, dtype=torch.float32),
+        torch.arange(H1, device=dev, dtype=torch.float32),
+        torch.arange(W1, device=dev, dtype=torch.float32),
         indexing="ij")
     return torch.stack([xs, ys], -1)[None]
 
@@ -387,7 +464,7 @@ def _local_coords(dev, kind, seed=5):
     starts lie far from the real queries' and those 10 blocks violate their
     fine windows on every field."""
     H1, W1 = H_IMG // 8, W_IMG // 8
-    grid = _grid_720p(dev)
+    grid = _cell_grid(dev)
     xs, ys = grid[0, ..., 0], grid[0, ..., 1]
     if kind == "smooth":
         res = torch.stack([0.02 * ys - 0.015 * xs + 2.3,
@@ -404,54 +481,87 @@ def _local_coords(dev, kind, seed=5):
     return coords.contiguous()
 
 
-def check_local_corr(kernels, corr, dev):
-    """Kernel C against the plain construction at the four 720p level
-    shapes (120 blocks of 128 queries, D = 256), bf16 and float32: all four
-    levels in one launch, each level compared; timed beside the parent's
-    four launches, ``torch.bmm`` on pre-gathered windows and the bound."""
+def _local_corr_case(corr, dev, H1, W1, dtype):
+    """Kernel C's operands at an H1 x W1 grid of seeded D = 256 features,
+    4 levels, margin 16: (layout meta, f1 blocked (NB, 128, D), the
+    levels, their geometries), in ``dtype``."""
     from woft_tpu_torch.ops.warp import avg_pool2d
 
     g = torch.Generator(device=dev).manual_seed(6)
-    H1, W1, D = H_IMG // 8, W_IMG // 8, 256
+    D = 256
     f1 = torch.randn(1, H1, W1, D, device=dev, generator=g)
     f2 = torch.randn(1, H1, W1, D, device=dev, generator=g)
     meta = corr._local_layout(H1, W1, 4, 4, 16)
-    nbh, nbw = meta["nbh"], meta["nbw"]
-    nb = nbh * nbw
-    geoms = [(d["pad"], d["sh"], d["sw"], d["wh"], d["ww"])
-             for d in meta["levels"]]
     levels = [f2]
     for _ in meta["levels"][1:]:
         levels.append(avg_pool2d(levels[-1]))
+    nb = meta["nbh"] * meta["nbw"]
+    f1b = corr._to_blocked(f1.reshape(H1 * W1, D), meta).reshape(
+        nb, -1, D).to(dtype).contiguous()
+    lvs = [lv[0].to(dtype).contiguous() for lv in levels]
+    geoms = [(d["pad"], d["sh"], d["sw"], d["wh"], d["ww"])
+             for d in meta["levels"]]
+    return meta, f1b, lvs, geoms
+
+
+def _compare_local_corr(kernels, corr, case, dtype, rtol, grid):
+    """Kernel C on ``case`` (``_local_corr_case``), all levels in one
+    launch, against the plain construction level by level; raises on an
+    entry beyond ``CORR_ATOL`` + ``rtol``. Returns the largest error."""
+    meta, f1b, lvs, geoms = case
+    nbh, nbw = meta["nbh"], meta["nbw"]
+    name = str(dtype).split(".")[-1]
+    n0 = kernels.local_corr_build.launches
+    got_all = kernels.local_corr_build(f1b, lvs, geoms, nbh, nbw, dtype)
+    torch.cuda.synchronize()
+    if kernels.local_corr_build.launches != n0 + 1:
+        raise AssertionError("kernel C took more than one launch")
+    err = 0.0
+    for d, lv, got in zip(meta["levels"], lvs, got_all):
+        want = corr.block_local_corr_plain(f1b, lv, d, nbh, nbw, dtype)
+        diff = (got.float() - want.float()).abs()
+        bad = int((diff > CORR_ATOL + rtol * want.float().abs()).sum())
+        share = (diff > 0).float().mean().item()
+        err = max(err, diff.max().item())
+        log(f"kernel C [{grid}, {name}, window {d['wh']}x{d['ww']}]: "
+            f"max_abs_err {diff.max().item():.3g}, entries that differ "
+            f"{100 * share:.3f} %, beyond atol {CORR_ATOL} + rtol "
+            f"{rtol:.3g}: {bad}")
+        if bad:
+            raise AssertionError(f"kernel C ({grid}, {name}) disagrees on "
+                                 f"{bad} entries at window "
+                                 f"{d['wh']}x{d['ww']}")
+    return err
+
+
+def check_local_corr(kernels, corr, dev):
+    """Kernel C against the plain construction at the four 720p level
+    shapes (120 blocks of 128 queries, D = 256) and at the window step's
+    (24 x 43 cells: padding columns as well as rows), bf16 and float32:
+    all four levels in one launch, each level compared; timed at 720p
+    beside the parent's four launches, ``torch.bmm`` on pre-gathered
+    windows and the bound."""
+    H1, W1 = H_IMG // 8, W_IMG // 8
     result = {}
     for dtype, rtol, rate in ((torch.bfloat16, CORR_RTOL_BF16, BF16_FLOPS),
                               (torch.float32, CORR_RTOL_FP32, FP32_FLOPS)):
         name = str(dtype).split(".")[-1]
-        f1b = corr._to_blocked(f1.reshape(H1 * W1, D), meta).reshape(
-            nb, -1, D).to(dtype).contiguous()
-        lvs = [lv[0].to(dtype).contiguous() for lv in levels]
-        n0 = kernels.local_corr_build.launches
-        got_all = kernels.local_corr_build(f1b, lvs, geoms, nbh, nbw, dtype)
-        torch.cuda.synchronize()
-        if kernels.local_corr_build.launches != n0 + 1:
-            raise AssertionError("kernel C took more than one launch")
-        err, n_bytes, n_flops = 0.0, f1b.numel() * f1b.element_size(), 0
+        err = _compare_local_corr(
+            kernels, corr, _local_corr_case(corr, dev, *WINDOW_GRIDS[0],
+                                            dtype),
+            dtype, rtol, "%dx%d" % WINDOW_GRIDS[0])
+        case = _local_corr_case(corr, dev, H1, W1, dtype)
+        meta, f1b, lvs, geoms = case
+        nbh, nbw = meta["nbh"], meta["nbw"]
+        nb = nbh * nbw
+        err = max(err, _compare_local_corr(kernels, corr, case, dtype, rtol,
+                                           f"{H1}x{W1}"))
+        n_bytes, n_flops = f1b.numel() * f1b.element_size(), 0
         patches = []
-        for d, lv, got in zip(meta["levels"], lvs, got_all):
-            want = corr.block_local_corr_plain(f1b, lv, d, nbh, nbw, dtype)
-            diff = (got.float() - want.float()).abs()
-            bad = int((diff > CORR_ATOL + rtol * want.float().abs()).sum())
-            share = (diff > 0).float().mean().item()
-            err = max(err, diff.max().item())
-            log(f"kernel C [{name}, window {d['wh']}x{d['ww']}]: max_abs_err "
-                f"{diff.max().item():.3g}, entries that differ "
-                f"{100 * share:.3f} %, beyond atol {CORR_ATOL} + rtol "
-                f"{rtol:.3g}: {bad}")
-            if bad:
-                raise AssertionError(f"kernel C ({name}) disagrees on {bad} "
-                                     f"entries at window {d['wh']}x{d['ww']}")
-            n_bytes += (lv.numel() + got.numel()) * got.element_size()
-            n_flops += 2 * nb * 128 * D * d["wh"] * d["ww"]
+        for d, lv in zip(meta["levels"], lvs):
+            n_out = nb * f1b.shape[1] * d["wh"] * d["ww"]
+            n_bytes += (lv.numel() + n_out) * lv.element_size()
+            n_flops += 2 * n_out * f1b.shape[2]
             # the library yardstick's operand: the windows gathered as the
             # plain version gathers them (not timed)
             fp = F.pad(lv, (0, 0, d["pad"], d["wp"] - lv.shape[1] - d["pad"],
@@ -459,9 +569,8 @@ def check_local_corr(kernels, corr, dev):
             patches.append(torch.stack([
                 fp[by * d["sh"]:by * d["sh"] + d["wh"],
                    bx * d["sw"] // 8 * 8:bx * d["sw"] // 8 * 8 + d["ww"]]
-                for by in range(nbh) for bx in range(nbw)]).reshape(nb, -1, D))
-            del want, diff
-        del got_all
+                for by in range(nbh) for bx in range(nbw)]).reshape(
+                    nb, -1, f1b.shape[2]))
 
         f1t = f1b.transpose(1, 2)
         ms = time_ms(lambda: kernels.local_corr_build(f1b, lvs, geoms, nbh,
@@ -483,9 +592,9 @@ def check_local_corr(kernels, corr, dev):
         del patches
     # the parameter block (tensor maps) is kept for the last pointer set:
     # host time of a call with it reused and with it rebuilt
-    f1b = corr._to_blocked(f1.reshape(H1 * W1, D), meta).reshape(
-        nb, -1, D).bfloat16().contiguous()
-    lvs = [lv[0].bfloat16().contiguous() for lv in levels]
+    meta, f1b, lvs, geoms = _local_corr_case(corr, dev, H1, W1,
+                                             torch.bfloat16)
+    nbh, nbw = meta["nbh"], meta["nbw"]
 
     def rebuilt():
         kernels._corr_plan[0] = None
@@ -552,7 +661,9 @@ def _row_sector_bytes(local, corr, coords, k):
 def check_coord_lookups(kernels, corr, dev):
     """Kernels D and E from coordinates (the main path's lookup) against
     their plain versions, bf16 and float32, at the 720p layout (volume from
-    kernel C) and at a layout whose grid cuts the blocks on both axes:
+    kernel C), at the window step's (24 x 43 cells, 4 levels, margin 16)
+    and at a layout of 3 levels and margin 8, both of whose grids cut the
+    blocks on both axes:
     data and flags equal, E rewriting exactly the flagged blocks; then one
     guarded lookup traced: two kernel launches. Returns the worst error of
     D and of E."""
@@ -561,6 +672,7 @@ def check_coord_lookups(kernels, corr, dev):
     k = 9
     errs = {"D": 0.0, "E": 0.0}
     for (H1, W1, L, margin) in ((H_IMG // 8, W_IMG // 8, 4, 16),
+                                (*WINDOW_GRIDS[0], 4, 16),
                                 (37, 83, 3, 8)):
         g = torch.Generator(device=dev).manual_seed(12)
         f1 = torch.randn(1, H1, W1, 256, device=dev, generator=g)
@@ -1002,48 +1114,110 @@ COUNTED = ("warp_perspective_bilinear", "corr_pyramid_lookup",
 FUSED_FLAGS = {"gru_fused": True, "tail_fused": True}
 
 
+def walk(h, w, dev, seed=2, n=8):
+    """The homography walk every track follows: a textured (h, w) template
+    and ``n`` frames, frame t the template warped by the t-th pose about
+    the frame's centre (small rotation, scale, translation and a
+    perspective row), rendered with the plain warp on ``dev``. Returns
+    (template, frames) as BGR uint8 numpy and the poses (template ->
+    frame, float64)."""
+    from woft_tpu_torch.ops.warp import warp_perspective
+
+    template = textured_frame(h, w, seed=seed)
+    tmpl_dev = torch.from_numpy(template).to(dev).to(torch.float32)[None]
+    frames, poses = [], []
+    for t in range(1, n + 1):
+        H = pose(0.004 * t, 1 + 0.004 * t, 2.0 * t, -1.5 * t,
+                 (2e-7 * t, -1e-7 * t), center=(w / 2, h / 2))
+        f = warp_perspective(tmpl_dev, H.to(dev))[0].round().clamp(0, 255)
+        frames.append(f.to(torch.uint8).cpu().numpy())
+        poses.append(H.double().numpy())
+    return template, frames, poses
+
+
+def centred_mask(h, w, frac):
+    """(h, w) bool mask of the centred box of ``frac`` of each side, and
+    its corners (2, 4) as the tracker's box has them (inclusive)."""
+    mask = np.zeros((h, w), bool)
+    y0, y1 = int(h * (1 - frac) / 2), int(h * (1 + frac) / 2)
+    x0, x1 = int(w * (1 - frac) / 2), int(w * (1 + frac) / 2)
+    mask[y0:y1, x0:x1] = True
+    corners = np.array([[x0, x1 - 1, x1 - 1, x0], [y0, y0, y1 - 1, y1 - 1]],
+                       np.float64)
+    return mask, corners
+
+
+def corner_errors(hs, poses, corners):
+    """Per frame: the largest distance (template pixels) between a target
+    corner and its image under the pose, mapped back by the tracker's
+    current -> template H."""
+    def proj(H, pts):
+        p = H @ np.vstack([pts, np.ones(pts.shape[1])])
+        return p[:2] / p[2:]
+
+    return [float(np.linalg.norm(proj(np.asarray(H, np.float64),
+                                      proj(P, corners)) - corners,
+                                 axis=0).max())
+            for H, P in zip(hs, poses)]
+
+
+def zero_counts(kernels):
+    for name in COUNTED:
+        getattr(kernels, name).launches = 0
+
+
+def read_counts(kernels):
+    return {name: getattr(kernels, name).launches for name in COUNTED}
+
+
+def check_counts(what, launches, want, exact=(), n_frames=0, n_flows=0):
+    """``want``: launches expected of each counted wrapper (others 0); at
+    least that many, or exactly for the names in ``exact``."""
+    want = {**dict.fromkeys(COUNTED, 0), **want}
+    for name, n in want.items():
+        if (launches[name] < n or (n == 0 and launches[name])
+                or (name in exact and launches[name] != n)):
+            least = "at least " if n and name not in exact else ""
+            raise AssertionError(f"{what}: {name} launched {launches[name]} "
+                                 f"times, expected {least}{n} ({n_frames} "
+                                 f"frames, {n_flows} flows)")
+
+
 def track_720p(kernels, dev, config, fused=False):
     """A main path: ``WOFTTracker`` at 1280x720 through ``configs/<config>``
     (``WOFT.py``: dense pyramid, float32; ``WOFT_fast.py``: block-local
     volume, bf16; ``fused``: with the fused refinement loop, kernels G and
-    I). Returns the launch counts of the run and its steady frame times."""
+    I), on the trained full-frame weights the configs load. Returns the
+    launch counts of the run and its steady frame times."""
     from woft_tpu_torch.config import load_config
-    from woft_tpu_torch.ops.warp import warp_perspective
     from woft_tpu_torch.tracker import TrackerParams, WOFTTracker
 
-    template = textured_frame(H_IMG, W_IMG, seed=2)
-    mask = np.zeros((H_IMG, W_IMG), bool)
-    mask[H_IMG // 4:3 * H_IMG // 4, W_IMG // 4:3 * W_IMG // 4] = True
-    tmpl_dev = torch.from_numpy(template).to(dev).to(torch.float32)[None]
-    frames = []
-    for t in range(1, 9):          # a small homography walk, rendered with
-        H = pose(0.004 * t, 1 + 0.004 * t, 2.0 * t, -1.5 * t,   # the plain
-                 (2e-7 * t, -1e-7 * t)).to(dev)                  # warp
-        f = warp_perspective(tmpl_dev, H)[0].round().clamp(0, 255)
-        frames.append(f.to(torch.uint8).cpu().numpy())
+    template, frames, poses = walk(H_IMG, W_IMG, dev)
+    mask, corners = centred_mask(H_IMG, W_IMG, 0.5)
     conf = load_config(os.path.join(ROOT, "woft_tpu_torch", "configs",
                                     config))
     fast = conf.flow_config.corr_impl == "local"
     flags = FUSED_FLAGS if fused else None
     log(f"--- {config}: corr_impl {conf.flow_config.corr_impl or 'dense'}, "
-        f"precision {conf.flow_config.precision}, raft_flags {flags}")
+        f"precision {conf.flow_config.precision}, raft_flags {flags}, "
+        f"weights {os.path.relpath(str(conf.flow_config.model), ROOT)}")
     tracker = WOFTTracker(conf, raft_flags=flags)
     torch.cuda.synchronize()
 
-    for name in COUNTED:
-        getattr(kernels, name).launches = 0
+    zero_counts(kernels)
     torch.cuda.reset_peak_memory_stats()
     n_flows = 0
     t0 = time.perf_counter()
     tracker.init(template, mask)
     torch.cuda.synchronize()
     log(f"tracker init: {(time.perf_counter() - t0) * 1e3:.1f} ms")
-    hs, frame_ms = [], []
+    hs, frame_ms, fallbacks = [], [], 0
     for i, f in enumerate(frames):
         t0 = time.perf_counter()
         H, meta = tracker.track(f)
         ms = (time.perf_counter() - t0) * 1e3
         fell_back = not meta.global_H_success
+        fallbacks += fell_back
         n_flows += 1 + fell_back
         hs.append(H)
         frame_ms.append(ms)
@@ -1063,14 +1237,19 @@ def track_720p(kernels, dev, config, fused=False):
         hs.append(H)
         log(f"fallback frame {i + 1}: {ms:.1f} ms, N_lost {meta.N_lost}")
     torch.cuda.synchronize()
-    launches = {name: getattr(kernels, name).launches for name in COUNTED}
+    launches = read_counts(kernels)
     n_frames = len(frames) + 3
     steady = frame_ms[1:]
+    errs = corner_errors(hs, poses + poses[:3], corners)
     log(f"{config}: first frame {frame_ms[0]:.1f} ms, steady frames "
         f"{min(steady):.1f}-{max(steady):.1f} ms (mean "
         f"{sum(steady) / len(steady):.1f}); peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
         f"{launches} over {n_frames} frames and {n_flows} flows")
+    log(f"{config}: fallback rate {fallbacks}/{len(frames)}; corner error "
+        f"against the walk (px) "
+        f"{', '.join(f'{e:.3f}' for e in errs[:len(frames)])}; on the "
+        f"fallback frames {', '.join(f'{e:.3f}' for e in errs[len(frames):])}")
     if not all(np.isfinite(h).all() for h in hs):
         raise AssertionError("non-finite homography")
     # per flow: 12 iterations and one more lookup for the weight head; the
@@ -1078,8 +1257,7 @@ def track_720p(kernels, dev, config, fused=False):
     # lookup is one launch of D and one of E (every level, the guard), both
     # from the coordinates; the explicit-operand forms stay idle; the fused
     # loop launches G once a direction and I once, every iteration
-    want = dict.fromkeys(COUNTED, 0)
-    want["warp_perspective_bilinear"] = n_frames
+    want = {"warp_perspective_bilinear": n_frames}
     if fast:
         want.update(local_corr_build=n_flows,
                     local_lookup_coords=13 * n_flows,
@@ -1091,15 +1269,213 @@ def track_720p(kernels, dev, config, fused=False):
     # C, D and E: exactly one launch a flow and a lookup
     exact = (("local_corr_build", "local_lookup_coords",
               "local_lookup_exact_coords") if fast else ())
-    for name, n in want.items():
-        if (launches[name] < n or (n == 0 and launches[name])
-                or (name in exact and launches[name] != n)):
-            least = "at least " if n and name not in exact else ""
-            raise AssertionError(f"{config}: {name} launched "
-                                 f"{launches[name]} times, expected "
-                                 f"{least}{n} ({n_frames} "
-                                 f"frames, {n_flows} flows)")
+    check_counts(config, launches, want, exact, n_frames, n_flows)
     return launches, steady
+
+
+# The window tracks' bounds on the corner error against the walk (template
+# pixels, the largest over the 8 frames of the walk, then over the 3
+# fallback frames): the CPU path's own largest errors on the same walk
+# (tools/torch_window_walks.py runs these tracks on the CPU), plus
+# headroom for the card's other summation orders (about half the CPU's
+# error on the walk, an eighth on the float32 fallback frames). The
+# fallback's first frame flows from the template window to a search window
+# whose box carries the margins twice (the reference's window shell and
+# step do the same), 1.5x the scale of the template's, and the later
+# fallback frames chain onto it: hence errors of 11-22 px there in the
+# fixed-area modes and about 1 px at native scale, where both boxes have
+# one source size. That flow is ill-conditioned: in float32 the card
+# matches the CPU to 0.001 px, but in bf16 the order of the roundings moves
+# it by pixels (12.264 px on one CPU, 11.704 on another, 14.103 on the
+# card; tools/torch_window_walks.py --precisions). The bf16 step's
+# fallback bound, a quarter of the CPU's error as headroom, was set after
+# the card read 14.103 px: like the other fallback bounds it is a sanity
+# check only. check_window_step_card_vs_cpu holds that step tightly.
+WINDOW_CORNER_BOUND_PX = {
+    # (what, frame): (walk: CPU 8 frames -> bound, fallback: CPU -> bound)
+    ("WOFT_window.py", "1280x720"): (1.5, 25.0),          # 0.886, 22.233
+    ("WOFT_window.py", "1920x1080"): (1.5, 13.0),         # 0.931, 11.251
+    ("WOFT_window_native.py", "1280x720"): (1.0, 2.0),    # 0.550, 1.189
+    ("window_step", "1920x1080"): (1.5, 15.5),            # 0.930, 12.264
+}
+
+
+def window_runner(dev, what, template, frames, mask, cfg=None):
+    """``runner(tp=None) -> (track, (Sh, Sw))`` for one window path on
+    ``dev``: ``track(i) -> (H_cur2init float64, check passed)`` tracks
+    ``frames[i]`` after an init on ``template`` and ``mask``, under
+    TrackerParams ``tp`` (by default the path's own: its config's, or the
+    defaults for the step).
+    ``what``: a config of ``woft_tpu_torch/configs``
+    (``WOFTWindowTracker``, upload and crop included), or
+    ``"window_step"``: ``build_window_track_step`` with ``bench.py``'s
+    settings (block-local correlation, bf16, 12 iterations, the
+    aspect-matched 256 window of ``window_params_for_mask``, frames staged
+    on the device as float32 RGB; ``cfg``, a ``RaftConfig``, replaces
+    those settings); both on the trained window-mode weights
+    (``weights/wraft_tpu_v5_torch.pt``)."""
+    from woft_tpu_torch.config import load_config
+    from woft_tpu_torch.flow import RaftFlow
+    from woft_tpu_torch.models.raft import RaftConfig
+    from woft_tpu_torch.tracker import (TrackerParams, WOFTWindowTracker,
+                                        build_window_track_step,
+                                        window_init_state,
+                                        window_params_for_mask)
+
+    conf = load_config(os.path.join(ROOT, "woft_tpu_torch", "configs",
+                                    "WOFT_window.py" if what == "window_step"
+                                    else what))
+    if what != "window_step":
+        canonical = conf.tracker_params
+
+        def runner(tp=None):
+            conf.tracker_params = tp or canonical
+            tracker = WOFTWindowTracker(conf, device=dev)
+            tracker.init(template, mask)
+
+            def track(i):
+                H, meta = tracker.track(frames[i])
+                return H, bool(meta.global_H_success)
+            return track, tracker.win_hw
+        return runner
+
+    cfg = cfg or RaftConfig(corr_impl="local", precision="bf16", iters=12)
+    model = RaftFlow(conf.flow_config, device=dev).model
+    wp = window_params_for_mask(mask, size=256)
+
+    def rgb(bgr):
+        return torch.from_numpy(np.ascontiguousarray(
+            bgr[..., ::-1])).to(dev).to(torch.float32)[None]
+
+    staged = [rgb(f) for f in frames]
+
+    def runner(tp=None):
+        tp = tp or TrackerParams()
+        step = build_window_track_step(cfg, tp, wp)
+        state = window_init_state(model, cfg, tp, wp, rgb(template), mask)
+
+        def track(i):
+            nonlocal state
+            state, H, meta = step(model, state, staged[i])
+            return (H.cpu().numpy().astype(np.float64),
+                    meta["global_H_success"])
+        return track, wp.shape
+    return runner
+
+
+def window_walk(dev, what, h, w, kernels=None):
+    """One window track (``window_runner``) on ``dev``: 8 frames of the
+    walk at h x w under the config's tracker parameters (the canonical ones
+    for the step), then 3 with ``redetection='never'`` (the local-flow
+    fallback on every frame, the pre-warp reset after one lost frame); the
+    target is the centred third of each side (``bench.py``'s mask).
+    Returns a dict of the track's numbers; ``kernels``' counters are zeroed
+    first and read after."""
+    from woft_tpu_torch.tracker import TrackerParams
+
+    template, frames, poses = walk(h, w, dev)
+    mask, corners = centred_mask(h, w, 1 / 3)
+    runner = window_runner(dev, what, template, frames, mask)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    sync()
+    if kernels is not None:
+        zero_counts(kernels)
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    track, shape = runner()
+    sync()
+    init_ms = (time.perf_counter() - t0) * 1e3
+    hs, frame_ms, fallbacks, n_flows = [], [], 0, 0
+    for i in range(len(frames)):
+        t0 = time.perf_counter()
+        H, ok = track(i)
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        fallbacks += not ok
+        n_flows += 2 - ok
+        hs.append(H)
+    track, _ = runner(TrackerParams(redetection="never",
+                                    no_prewarp_after_n=1))
+    for i in range(3):
+        H, _ = track(i)
+        n_flows += 2
+        hs.append(H)
+    sync()
+    n_frames = len(frames) + 3
+    errs = corner_errors(hs, poses + poses[:3], corners)
+    res = dict(what=what, frame=f"{w}x{h}", window=shape, init_ms=init_ms,
+               frame_ms=frame_ms, fallbacks=fallbacks, n_frames=n_frames,
+               n_flows=n_flows, n_inits=2, errs=errs, hs=hs)
+    if kernels is not None:
+        res["launches"] = read_counts(kernels)
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return res
+
+
+def report_window_walk(res):
+    steady = res["frame_ms"][1:]
+    n = len(res["frame_ms"])
+    log(f"{res['what']} at {res['frame']}: window {res['window'][0]}x"
+        f"{res['window'][1]}; init {res['init_ms']:.1f} ms; first frame "
+        f"{res['frame_ms'][0]:.1f} ms, steady frames {min(steady):.1f}-"
+        f"{max(steady):.1f} ms (mean {sum(steady) / len(steady):.1f}); "
+        f"fallback rate {res['fallbacks']}/{n}; corner error against the "
+        f"walk (px) {', '.join(f'{e:.3f}' for e in res['errs'][:n])}; on "
+        f"the fallback frames "
+        f"{', '.join(f'{e:.3f}' for e in res['errs'][n:])}")
+    if "launches" in res:
+        per_frame = {k: round(v / res["n_frames"], 2)
+                     for k, v in res["launches"].items() if v}
+        log(f"{res['what']} at {res['frame']}: peak device memory "
+            f"{res['peak_gib']:.2f} GiB; launches {res['launches']} over "
+            f"{res['n_frames']} frames, {res['n_flows']} flows and "
+            f"{res['n_inits']} inits; per frame {per_frame}")
+
+
+def track_window(kernels, dev, what, h, w):
+    """A window path on the card (``window_walk``), its launches held to
+    the path's kernels: A twice a frame (the crop and the pre-warp) and
+    once an init (the template crop); the dense configs B 13 times a flow;
+    the block-local step C once, D and E 13 times a flow; nothing else.
+    Its corner error against the walk is held to the CPU path's bound."""
+    res = window_walk(dev, what, h, w, kernels)
+    report_window_walk(res)
+    if not all(np.isfinite(H).all() for H in res["hs"]):
+        raise AssertionError("non-finite homography")
+    n_frames, n_flows = res["n_frames"], res["n_flows"]
+    want = {"warp_perspective_bilinear": 2 * n_frames + res["n_inits"]}
+    exact = ["warp_perspective_bilinear"]
+    if what == "window_step":
+        want.update(local_corr_build=n_flows,
+                    local_lookup_coords=13 * n_flows,
+                    local_lookup_exact_coords=13 * n_flows)
+        exact += ["local_corr_build", "local_lookup_coords",
+                  "local_lookup_exact_coords"]
+    else:
+        want.update(corr_pyramid_lookup=13 * n_flows)
+        exact += ["corr_pyramid_lookup"]
+    check_counts(f"{what} at {res['frame']}", res["launches"], want, exact,
+                 n_frames, n_flows)
+    n = len(res["frame_ms"])
+    for errs, bound, which in zip(
+            (res["errs"][:n], res["errs"][n:]),
+            WINDOW_CORNER_BOUND_PX[(what, res["frame"])],
+            ("the walk", "the fallback frames")):
+        if not (np.isfinite(errs).all() and max(errs) <= bound):
+            raise AssertionError(f"{what} at {res['frame']}: corner error "
+                                 f"{max(errs):.3f} px on {which}, bound "
+                                 f"{bound} px")
+    return res
+
+
+WINDOW_TRACKS = (("WOFT_window.py", 720, 1280),
+                 ("WOFT_window.py", 1080, 1920),
+                 ("WOFT_window_native.py", 720, 1280),
+                 ("window_step", 1080, 1920))
 
 
 def check_guard_on_a_path(kernels, corr, dev):
@@ -1117,7 +1493,7 @@ def check_guard_on_a_path(kernels, corr, dev):
                         dtype=torch.float32, device=dev)[None]
     img2 = torch.roll(img1, shifts=(3, -5), dims=(1, 2))
     coords = _local_coords(dev, "violating")
-    flow_init = coords - _grid_720p(dev)
+    flow_init = coords - _cell_grid(dev)
 
     for name in COUNTED:
         getattr(kernels, name).launches = 0
@@ -1211,6 +1587,108 @@ def check_fused_equals_unfused_720p(dev):
     if not (torch.isfinite(fused["flow_up"]).all()
             and ferr <= BF16_FLOW_TOL_PX):
         raise AssertionError("fused and unfused forwards disagree")
+
+
+def check_window_card_vs_cpu(dev):
+    """``WOFTWindowTracker`` under ``configs/WOFT_window.py`` with a
+    128-pixel window on the card against the same tracker on the CPU path
+    (the kernels' plain versions), 3 frames of the walk at 640x360: the
+    per-frame H within ``CORNER_TOL_PX`` at the target's corners (float32
+    both, the convolutions summed in other orders)."""
+    from woft_tpu_torch.config import load_config
+    from woft_tpu_torch.tracker import WOFTWindowTracker
+
+    h, w = 360, 640
+    template, frames, poses = walk(h, w, dev, n=3)
+    mask, corners = centred_mask(h, w, 1 / 3)
+    hs = {}
+    for d in (dev, torch.device("cpu")):
+        conf = load_config(os.path.join(ROOT, "woft_tpu_torch", "configs",
+                                        "WOFT_window.py"))
+        conf.window_size = 128
+        tracker = WOFTWindowTracker(conf, device=d)
+        tracker.init(template, mask)
+        hs[d.type] = [tracker.track(f)[0] for f in frames]
+    shape = tracker.win_hw
+    diff = [corner_errors([a], [np.linalg.inv(b)], corners)[0]
+            for a, b in zip(hs["cuda"], hs["cpu"])]
+    errs = corner_errors(hs["cuda"], poses, corners)
+    log(f"window tracker {shape[0]}x{shape[1]} at {w}x{h}, card vs CPU: "
+        f"{', '.join(f'{e:.3g}' for e in diff)} px (tol {CORNER_TOL_PX}); "
+        f"against the walk {', '.join(f'{e:.3f}' for e in errs)} px")
+    if not max(diff) <= CORNER_TOL_PX:
+        raise AssertionError("the window tracker on the card disagrees with "
+                             "its CPU path")
+
+
+def check_window_local_equals_dense(dev):
+    """The block-local forward against the dense one at ``bench.py``'s
+    192x344 window (24 x 43 cells: padding columns in the last block
+    column), float32, the trained window-mode weights, on the card: while
+    the flow stays within the margin both read the same correlation
+    values."""
+    from woft_tpu_torch.config import load_config
+    from woft_tpu_torch.flow import RaftFlow
+    from woft_tpu_torch.models.raft import RaftConfig, weighted_raft_forward
+
+    conf = load_config(os.path.join(ROOT, "woft_tpu_torch", "configs",
+                                    "WOFT_window.py"))
+    model = RaftFlow(conf.flow_config, device=dev).model
+    img1 = torch.tensor(textured_frame(192, 344, seed=9),
+                        dtype=torch.float32, device=dev)[None]
+    img2 = torch.roll(img1, shifts=(3, -5), dims=(1, 2))
+    dense = weighted_raft_forward(model, RaftConfig(), img1, img2)
+    local = weighted_raft_forward(model, RaftConfig(corr_impl="local"), img1,
+                                  img2)
+    torch.cuda.synchronize()
+    reach = dense["flow"].abs().max().item()
+    ferr = (dense["flow_up"] - local["flow_up"]).abs().max().item()
+    werr = (dense["weights_up"] - local["weights_up"]).abs().max().item()
+    log(f"192x344 float32 forward, block-local vs dense: flow {ferr:.3g} px "
+        f"(tol {FLOW_TOL_PX}), weights {werr:.3g}; largest flow {reach:.3g} "
+        f"cells of a margin of 16")
+    if reach >= 16:
+        raise AssertionError("the test flow left the block-local margin")
+    if not ferr <= FLOW_TOL_PX:
+        raise AssertionError("block-local and dense window forwards disagree")
+
+
+# bench.py's bf16 block-local step on the card against the same step on
+# the CPU path, at the target's corners on the first 3 frames of the 1080p
+# walk (well conditioned, unlike the fallback frames). Both round at bf16
+# in their own orders. On these frames a CPU's bf16 track lies at most
+# 0.0553 px from its float32 track (0.0276, 0.0308, 0.0251 px on one CPU;
+# 0.0206, 0.0267, 0.0553 on another, whose bf16 track lies 0.0448 px from
+# the first's at most; tools/torch_window_walks.py --precisions --save).
+# Card vs CPU is at most the card's distance from float32 plus the CPU's;
+# the card's is allowed twice the CPUs' largest: 3 x 0.0553 px
+WINDOW_STEP_BF16_TOL_PX = 0.17
+
+
+def check_window_step_card_vs_cpu(dev):
+    """``bench.py``'s window step (``window_runner``'s ``"window_step"``:
+    block-local, bf16, 12 iterations, the 192x344 window, the trained
+    window-mode weights) on the card against the same step on the CPU path
+    (the kernels' plain versions), on the first 3 frames of the 1080p walk:
+    the per-frame H within ``WINDOW_STEP_BF16_TOL_PX`` at the target's
+    corners."""
+    h, w = 1080, 1920
+    template, frames, poses = walk(h, w, torch.device("cpu"), n=3)
+    mask, corners = centred_mask(h, w, 1 / 3)
+    hs = {}
+    for d in (dev, torch.device("cpu")):
+        track, _ = window_runner(d, "window_step", template, frames, mask)()
+        hs[d.type] = [track(i)[0] for i in range(3)]
+    diff = [corner_errors([a], [np.linalg.inv(b)], corners)[0]
+            for a, b in zip(hs["cuda"], hs["cpu"])]
+    errs = corner_errors(hs["cuda"], poses, corners)
+    log(f"window step 192x344 at {w}x{h}, block-local bf16, card vs CPU: "
+        f"{', '.join(f'{e:.4f}' for e in diff)} px (tol "
+        f"{WINDOW_STEP_BF16_TOL_PX}); against the walk "
+        f"{', '.join(f'{e:.3f}' for e in errs)} px")
+    if not max(diff) <= WINDOW_STEP_BF16_TOL_PX:
+        raise AssertionError("the bf16 window step on the card disagrees "
+                             "with its CPU path")
 
 
 def check_small_references(dev):
@@ -1334,9 +1812,16 @@ def main():
         f"WOFT_fast.py {sum(fast_ms) / len(fast_ms):.1f} ms, WOFT_fast.py "
         f"with the fused loop {sum(fused_ms) / len(fused_ms):.1f} ms (host "
         f"clock, {len(fast_ms)} frames each)")
+    windows = {}
+    for what, h, w in WINDOW_TRACKS:
+        torch.cuda.empty_cache()
+        windows[(what, h)] = track_window(kernels, dev, what, h, w)
     check_guard_on_a_path(kernels, corr, dev)
     check_local_equals_dense_720p(dev)
     check_fused_equals_unfused_720p(dev)
+    check_window_local_equals_dense(dev)
+    check_window_card_vs_cpu(dev)
+    check_window_step_card_vs_cpu(dev)
     check_small_references(dev)
 
     # launches: A and B on the WOFT.py path, C, D, E (the last two from
@@ -1395,6 +1880,12 @@ def main():
              replaces="woft_tpu/ops/pallas/update_tail.py:283",
              launches=fused["flow_head"], **upd["I"]),
     ]
+    # the window paths' own runs, each counted from 0 (kernels A-E)
+    for row in rows:
+        counts = {f"{res['what']} {res['frame']}": res["launches"][row["name"]]
+                  for res in windows.values()}
+        if any(counts.values()):
+            row["window_launches"] = counts
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,7 @@ from woft_tpu_torch.config import load_config
 from woft_tpu_torch.flow.wrapper import RaftFlow
 from woft_tpu_torch.models import corr
 from woft_tpu_torch.ops import kernels, warp
-from woft_tpu_torch.tracker import WOFTTracker
+from woft_tpu_torch.tracker import WOFTTracker, WOFTWindowTracker
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "woft_tpu", "cv2")
@@ -39,15 +39,20 @@ def test_port_imports_no_jax_woft_tpu_or_cv2(path):
     assert not bad, f"{path}: imports {bad}"
 
 
-@pytest.mark.parametrize("config", ["WOFT.py", "WOFT_fast.py"])
+@pytest.mark.parametrize("config", ["WOFT.py", "WOFT_fast.py",
+                                    "WOFT_window.py", "WOFT_window_384.py",
+                                    "WOFT_window_native.py"])
 @pytest.mark.parametrize("entry", ["tracker", "flow"])
 def test_entry_points_need_a_card_unless_asked_for_cpu(entry, config,
                                                        monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     conf = load_config(ROOT / "woft_tpu_torch" / "configs" / config)
+    tracker_class = (WOFTWindowTracker if config.startswith("WOFT_window")
+                     else WOFTTracker)
+    assert conf.tracker_class is tracker_class
     with pytest.raises(RuntimeError, match="device='cpu'"):
         if entry == "tracker":
-            WOFTTracker(conf)
+            tracker_class(conf)
         else:
             RaftFlow(conf.flow_config)
 
@@ -55,7 +60,8 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(entry, config,
 _WRAPPERS = [kernels.warp_perspective_bilinear, kernels.corr_pyramid_lookup,
              kernels.local_corr_build, kernels.local_lookup_fine_multi,
              kernels.local_lookup_fine, kernels.local_lookup_exact,
-             warp.warp_perspective_fast, corr.corr_lookup,
+             warp.warp_perspective_fast, warp.warp_axis_aligned,
+             corr.corr_lookup,
              corr.block_local_corr, corr.block_local_corr_levels,
              corr.block_local_lookup_fine_multi,
              corr.block_local_lookup_fine, corr.block_local_lookup,
@@ -98,6 +104,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
                kernels.local_lookup_fine, kernels.local_lookup_exact)
     before = [fn.launches for fn in counted]
     warp.warp_perspective_fast(torch.rand(1, 16, 16, 3), torch.eye(3))
+    warp.warp_axis_aligned(torch.rand(1, 16, 16, 3),
+                           torch.diag(torch.tensor([0.5, 0.5, 1.0])), (8, 8))
     corr.corr_lookup([torch.rand(4, 4, 4)], torch.rand(1, 2, 2, 2), 1)
     local = corr.build_local_corr(torch.rand(1, 8, 16, 32),
                                   torch.rand(1, 8, 16, 32), 4, 2, 8)

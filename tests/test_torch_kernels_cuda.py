@@ -79,6 +79,34 @@ def test_warp_kernel_batch_and_output_size(dev, channels, out_hw):
     assert (got - want).abs().max().item() <= 1e-4
 
 
+@pytest.mark.parametrize("src_hw,out_hw,scale,t", [
+    ((1080, 1920), (192, 344), 0.3, (-450.0, -156.0)),     # partly off
+    ((1080, 1920), (192, 344), 0.2688, (-93.0, -96.0)),    # bench.py's crop
+    ((720, 1280), (192, 344), 0.4033, (-86.0, -96.8)),     # WOFT_window 720p
+    ((720, 1280), (320, 512), 0.6, (-128.0, -86.0)),       # native, 720p
+], ids=["1080p-partly-off", "1080p", "720p", "720p-native"])
+def test_warp_kernel_window_crop(dev, src_hw, out_hw, scale, t):
+    """The window tracker's crop (``warp_axis_aligned``): a full frame into
+    a window of another size by scale-and-translate, so a warp's 32 pixels
+    span up to ~120 source columns; then the window's pre-warp by a pose
+    near identity. Both exact against the plain version."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    img = torch.rand(1, *src_hw, 3, device=dev, generator=g) * 255
+    H = torch.tensor([[scale, 0.0, t[0]], [0.0, scale, t[1]],
+                      [0.0, 0.0, 1.0]], device=dev)
+    n0 = kernels.warp_perspective_bilinear.launches
+    got = warp.warp_axis_aligned(img, H, out_hw)
+    want = warp.warp_perspective(img, H, out_hw)
+    torch.cuda.synchronize()
+    assert kernels.warp_perspective_bilinear.launches == n0 + 1
+    assert got.shape == want.shape == (1, *out_hw, 3)
+    assert (got - want).abs().max().item() <= 1e-4
+    prior = _h(0.003, 1.002, 0.7, -1.2, (1e-5, -2e-5)).to(dev)
+    got = warp.warp_perspective_fast(want, prior)
+    assert (got - warp.warp_perspective(want, prior)).abs().max().item() \
+        <= 1e-4
+
+
 def test_warp_wrapper_checks_inputs(dev):
     img = torch.rand(1, 16, 16, 3, device=dev)
     hinv = torch.eye(3, device=dev)[None]
@@ -216,21 +244,22 @@ def test_local_corr_kernel_matches_plain(dev, dtype, rtol, hw):
         lv = warp.avg_pool2d(lv)
 
 
-# (H1, W1, margin): the 720p grid, and odd sizes whose windows reach past
-# every border of every level (TMA's zero fill in bf16)
-LOCAL_SHAPES = [(90, 160, 16), (37, 53, 8), (13, 21, 16)]
+# (H1, W1, margin): the 720p grid, the 192x344 window's grid (padding
+# columns), and odd sizes whose windows reach past every border of every
+# level (TMA's zero fill in bf16)
+LOCAL_SHAPES = [(90, 160, 16), (24, 43, 16), (37, 53, 8), (13, 21, 16)]
 
 
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
                                         (torch.bfloat16, 2.0 ** -7)],
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("shape", LOCAL_SHAPES,
-                         ids=["90x160m16", "37x53m8", "13x21m16"])
+                         ids=["90x160m16", "24x43m16", "37x53m8", "13x21m16"])
 def test_local_corr_levels_in_one_launch(dev, dtype, rtol, shape):
     """Kernel C builds all four levels in one launch, each equal to the
     plain version to the tolerance of two summation orders."""
     H1, W1, margin = shape
-    D = 256 if H1 == 90 else 64
+    D = 256 if H1 in (90, 24) else 64      # the main path's feature width
     f1, f2 = _features(dev, H1, W1, D, seed=5)
     meta = corr._local_layout(H1, W1, 4, 4, margin)
     nbh, nbw = meta["nbh"], meta["nbw"]
@@ -408,13 +437,15 @@ def _field(dev, H1, W1, kind):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("shape", [(90, 160, 4, 16), (37, 83, 3, 8)],
-                         ids=["720p", "37x83"])
+@pytest.mark.parametrize("shape", [(90, 160, 4, 16), (24, 43, 4, 16),
+                                   (37, 83, 3, 8)],
+                         ids=["720p", "24x43", "37x83"])
 def test_coord_lookup_kernels_match_plain(dev, dtype, shape):
     """Kernels D and E from coordinates against their plain versions (the
     coordinate arithmetic as tensor ops, then the explicit lookups) at the
-    720p layout and at one whose grid cuts the blocks on both axes (padding
-    queries in rows and columns): data and flags equal bit for bit; E
+    720p layout, at the 192x344 window's (padding columns) and at one
+    whose grid cuts the blocks on both axes (padding queries in rows and
+    columns): data and flags equal bit for bit; E
     rewrites exactly the flagged blocks and keeps the others' rows."""
     H1, W1, L, margin = shape
     f1, f2 = _features(dev, H1, W1, 64, seed=9)
@@ -433,8 +464,8 @@ def test_coord_lookup_kernels_match_plain(dev, dtype, shape):
         assert got.dtype == dtype and got.shape == want.shape
         assert torch.equal(got, want), kind
         assert bad.dtype == torch.uint8 and torch.equal(bad, bad_p), kind
-        if kind == "jitter" or margin == 16:     # 720p: padding queries
-            assert bool(bad.any())
+        if kind == "jitter" or (H1, W1) == (90, 160):  # 720p: padding
+            assert bool(bad.any())                     # queries
         for flags in (bad, torch.zeros_like(bad),
                       (torch.arange(bad.numel(), device=dev) % 3 == 0)
                       .to(torch.uint8).reshape(bad.shape)):

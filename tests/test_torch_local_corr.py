@@ -63,7 +63,8 @@ def two_hot(start, frac, n):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("margin", [8, 16])
-@pytest.mark.parametrize("hw", [(16, 32), (90, 160), (135, 240), (21, 50)])
+@pytest.mark.parametrize("hw", [(16, 32), (90, 160), (135, 240), (21, 50),
+                                (24, 43)])
 def test_layout_matches_jax(hw, margin):
     want = jcorr._local_layout(*hw, RADIUS, 4, margin, (8, 16))
     got = tcorr._local_layout(*hw, RADIUS, 4, margin)

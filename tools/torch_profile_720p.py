@@ -7,11 +7,12 @@ Run from the repository root on a machine with an NVIDIA GPU:
                                         [--warmup 2] [--host]
                                         [--gru-fused] [--tail-fused]
                                         [--compare ROUNDS]
-                                        [--compare-root DIR]
+                                        [--compare-root DIR] [--windows]
 
 Tracks a synthetic homography walk with ``woft_tpu_torch/configs/<config>``
 (``WOFT.py``, the canonical tracker, or ``WOFT_fast.py``, block-local
-correlation in bf16; full-width RAFT-large, seeded weights) and profiles
+correlation in bf16; full-width RAFT-large on the weights the config
+loads, the trained ``weights/wraft_tpu_v4_torch.pt``) and profiles
 ``--frames`` steady frames with ``torch.profiler``. ``--gru-fused`` and
 ``--tail-fused`` switch on the fused refinement loop (``RaftConfig``'s
 ``gru_fused`` / ``tail_fused``: kernels G and I; bf16 configs only). Prints the card, the per-frame wall time,
@@ -26,7 +27,11 @@ times on a shared host differ more between two runs than between the two
 paths. ``--compare-root DIR`` compares this tree's tracker instead with the
 one of the ``woft_tpu_torch`` tree under ``DIR`` (an older commit unpacked
 by ``git archive``, imported here under another package name), both with
-the same flags, in turns in this one process. Imports no JAX.
+the same flags, in turns in this one process. ``--windows`` profiles
+instead each window path that ``chip_smoke.py`` drives (``WINDOW_TRACKS``:
+``WOFT_window.py`` at 1280x720 and 1920x1080, ``WOFT_window_native.py`` at
+1280x720, ``bench.py``'s block-local bf16 window step at 1920x1080; the
+trained window-mode weights) on that script's walk. Imports no JAX.
 """
 
 import argparse
@@ -120,6 +125,77 @@ def compare(first, second, template, mask, frames, args,
               f"{ms[-1]:.2f} ms")
 
 
+def profile_frames(track, n, label):
+    """Profile ``track(i)`` for i in 0..n-1 (each ends in a host sync) with
+    ``torch.profiler``; print the wall time a frame, the device busy and
+    idle shares of the profiled window, the device time by category and
+    the top kernels. Returns 1 when the profiler saw no device event."""
+    walls = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t_start = time.perf_counter()
+        for i in range(n):
+            t0 = time.perf_counter()
+            track(i)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        window_ms = (time.perf_counter() - t_start) * 1e3
+    print(f"{label}: frame wall ms:", " ".join(f"{x:.2f}" for x in walls))
+
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            stat = by_name[e.name]
+            stat[0] += e.time_range.elapsed_us() / 1e3
+            stat[1] += 1
+    busy_ms = sum(v[0] for v in by_name.values())
+    if busy_ms == 0:
+        print("the profiler recorded no device events")
+        return 1
+    launches = sum(v[1] for v in by_name.values())
+    print(f"{label}: profiled window {window_ms:.2f} ms over {n} frames; "
+          f"device busy {busy_ms:.2f} ms ({100 * busy_ms / window_ms:.1f}%), "
+          f"idle share {100 * (1 - busy_ms / window_ms):.1f}%; "
+          f"{busy_ms / n:.3f} ms and {launches / n:.1f} launches a frame")
+    cats = defaultdict(lambda: [0.0, 0])
+    for name, (ms, cnt) in by_name.items():
+        cats[category(name)][0] += ms
+        cats[category(name)][1] += cnt
+    print("device ms per frame by category:")
+    for cat, (ms, cnt) in sorted(cats.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {cat:26s} {ms / n:9.3f} ms  {100 * ms / busy_ms:5.1f}%  "
+              f"{cnt / n:7.1f} launches")
+    print("top kernels (device ms per frame, launches per frame):")
+    for name, (ms, cnt) in sorted(by_name.items(),
+                                  key=lambda kv: -kv[1][0])[:15]:
+        print(f"  {ms / n:9.3f} ms {cnt / n:7.1f}  {name[:110]}")
+    return 0
+
+
+def profile_windows(args):
+    """``--windows``: each window path of ``chip_smoke.py``
+    (``WINDOW_TRACKS``) on its walk, ``--warmup`` frames, then ``--frames``
+    profiled."""
+    import chip_smoke
+
+    dev = torch.device("cuda")
+    for what, h, w in chip_smoke.WINDOW_TRACKS:
+        template, frames, _ = chip_smoke.walk(h, w, dev,
+                                              n=args.warmup + args.frames)
+        mask, _ = chip_smoke.centred_mask(h, w, 1 / 3)
+        runner = chip_smoke.window_runner(dev, what, template, frames, mask)
+        track, shape = runner()
+        for i in range(args.warmup):
+            track(i)
+        torch.cuda.synchronize()
+        label = f"{what} at {w}x{h}, window {shape[0]}x{shape[1]}"
+        if profile_frames(lambda i: track(args.warmup + i), args.frames,
+                          label):
+            return 1
+        torch.cuda.empty_cache()
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="WOFT.py",
@@ -135,6 +211,9 @@ def main():
     ap.add_argument("--compare", type=int, default=0, metavar="ROUNDS",
                     help="time the flagged and the unflagged tracker in "
                          "turns over ROUNDS passes of the frames")
+    ap.add_argument("--windows", action="store_true",
+                    help="profile the window paths of chip_smoke.py "
+                         "instead of the 720p tracker")
     ap.add_argument("--compare-root", metavar="DIR",
                     help="with --compare: time this tree's tracker against "
                          "the one of the tree under DIR instead")
@@ -144,12 +223,16 @@ def main():
         return 1
     sys.path.insert(0, ROOT)
     from woft_tpu_torch.config import load_config
+    from woft_tpu_torch.device import resolve_device
     from woft_tpu_torch.ops.warp import warp_perspective
     from woft_tpu_torch.tracker import WOFTTracker
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0])
+    if args.windows:
+        resolve_device("cuda")
+        return profile_windows(args)
     flags = {"gru_fused": args.gru_fused, "tail_fused": args.tail_fused}
     print(f"config {args.config}, raft_flags {flags}")
     tracker = WOFTTracker(load_config(os.path.join(
@@ -190,44 +273,11 @@ def main():
         compare(tracker, WOFTTracker(tracker.C), template.numpy(), mask,
                 frames, args)
 
-    walls = []
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t_start = time.perf_counter()
-        for f in frames[args.warmup:]:
-            t0 = time.perf_counter()
-            tracker.track(f)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        window_ms = (time.perf_counter() - t_start) * 1e3
-    print("frame wall ms:", " ".join(f"{x:.2f}" for x in walls))
-
-    by_name = defaultdict(lambda: [0.0, 0])
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            stat = by_name[e.name]
-            stat[0] += e.time_range.elapsed_us() / 1e3
-            stat[1] += 1
-    busy_ms = sum(v[0] for v in by_name.values())
-    if busy_ms == 0:
-        print("the profiler recorded no device events")
-        return 1
-    n = len(walls)
-    print(f"profiled window {window_ms:.2f} ms over {n} frames; device busy "
-          f"{busy_ms:.2f} ms ({100 * busy_ms / window_ms:.1f}%), idle share "
-          f"{100 * (1 - busy_ms / window_ms):.1f}%")
-    cats = defaultdict(lambda: [0.0, 0])
-    for name, (ms, cnt) in by_name.items():
-        cats[category(name)][0] += ms
-        cats[category(name)][1] += cnt
-    print("device ms per frame by category:")
-    for cat, (ms, cnt) in sorted(cats.items(), key=lambda kv: -kv[1][0]):
-        print(f"  {cat:26s} {ms / n:9.3f} ms  {100 * ms / busy_ms:5.1f}%  "
-              f"{cnt / n:7.1f} launches")
-    print("top kernels (device ms per frame, launches per frame):")
-    for name, (ms, cnt) in sorted(by_name.items(),
-                                  key=lambda kv: -kv[1][0])[:15]:
-        print(f"  {ms / n:9.3f} ms {cnt / n:7.1f}  {name[:110]}")
+    rc = profile_frames(lambda i: tracker.track(frames[args.warmup + i]),
+                        args.frames, f"{args.config} at 1280x720")
+    if rc:
+        return rc
+    n = args.frames
     if args.host:
         t0 = time.perf_counter()
         for f in frames[args.warmup:]:

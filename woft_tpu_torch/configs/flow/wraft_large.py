@@ -2,14 +2,20 @@
 
 Twin of ``woft_tpu/configs/flow/wraft_large.py``: weighted RAFT, large
 backbone, 12 GRU iterations, no padding, float32. ``model`` is a
-torch-readable state dict named by ``WOFT_WRAFT_TORCH_CKPT``; without one
-``RaftFlow`` falls back to seeded random weights with a logged warning.
+torch-readable state dict, in the reference's order of preference: the
+file named by ``WOFT_WRAFT_TORCH_CKPT``, then the trained full-frame
+checkpoint ``weights/wraft_tpu_v4_torch.pt`` (the export of the JAX
+package's ``weights/wraft_tpu_v4``, made by
+``tools/export_torch_weights.py``); when none exists ``RaftFlow`` falls
+back to seeded random weights with a logged warning.
 """
 
 import os
 from pathlib import Path
 
 from woft_tpu_torch.config import Config
+
+WEIGHTS = Path(__file__).resolve().parents[3] / "weights"
 
 
 def get_config():
@@ -24,7 +30,10 @@ def get_config():
     conf.class_params.alternate_corr = False
     conf.class_params.weight_head_structure = [(128, 3), (128, 3), (128, 3)]
 
-    conf.model = os.environ.get("WOFT_WRAFT_TORCH_CKPT")
+    env_ckpt = os.environ.get("WOFT_WRAFT_TORCH_CKPT")
+    candidates = ([Path(env_ckpt)] if env_ckpt else []) + [
+        WEIGHTS / "wraft_tpu_v4_torch.pt"]
+    conf.model = next((c for c in candidates if c.exists()), candidates[-1])
 
     conf.iters = 12
     conf.padding_mode = "nopad"

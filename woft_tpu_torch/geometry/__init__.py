@@ -6,4 +6,9 @@ from .homography import (  # noqa: F401
     normalize_points,
     find_homography_wls_qr,
     proj_errors,
+    np_e2p,
+    np_p2e,
+    np_h_proj,
+    np_compose_h,
 )
+from .bbox import Bbox, h_bbox2bbox, project_bbox  # noqa: F401

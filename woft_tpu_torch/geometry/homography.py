@@ -6,12 +6,14 @@ and a triangular solve in float32. Zero weights remove points exactly, which
 turns the reference's dynamic point filtering into static-shape weighting.
 
 Shapes follow the JAX package: points (B, N, 2), homographies (B, 3, 3),
-projective helpers on (B, 2|3, N).
+projective helpers on (B, 2|3, N). The ``np_*`` helpers are the host-side
+float64 numpy twins the window tracker's shell composes its crops with.
 """
 
 import functools
 import math
 
+import numpy as np
 import torch
 
 _EPS = 1e-8
@@ -147,3 +149,32 @@ def proj_errors(H, pts_a, pts_b):
     """L2 distance between ``H @ pts_a`` and ``pts_b``.
     H: (B,3,3); pts_a, pts_b: (B,2,N). Returns (B, N)."""
     return torch.linalg.norm(h_proj(H, pts_a) - pts_b, dim=-2)
+
+
+# ---------------------------------------------------------------------------
+# numpy twins (host-side glue: the window tracker's crop bookkeeping)
+# ---------------------------------------------------------------------------
+
+def np_e2p(xs):
+    """(D, N) -> (D+1, N) homogeneous (ref:geom_utils.py:234-236)."""
+    return np.vstack((xs, np.ones(xs.shape[1])))
+
+
+def np_p2e(xs):
+    """(D+1, N) -> (D, N) euclidean (ref:geom_utils.py:239-242)."""
+    return xs[:-1, :] / np.reshape(xs[-1, :], (1, xs.shape[1]))
+
+
+def np_h_proj(H, points):
+    """Project (D, N) points by a homography (ref:geom_utils.py:200-210)."""
+    return np_p2e(np.matmul(H, np_e2p(points)))
+
+
+def np_compose_h(*Hs):
+    """Compose homographies right-to-left, None-propagating, H33-normalised
+    (ref:geom_utils.py:365-373)."""
+    for H in Hs:
+        if H is None:
+            return None
+    result = functools.reduce(np.dot, reversed(Hs))
+    return result / result[2, 2]

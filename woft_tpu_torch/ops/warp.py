@@ -8,6 +8,9 @@ PyTorch twin of ``woft_tpu/ops/warp.py``:
                             INTER_NEAREST, constant 0 border)
 - ``warp_perspective_fast`` — the tracker's pre-warp: the plain bilinear
                             warp on CPU tensors, CUDA kernel A on the card
+- ``warp_axis_aligned``   — the window tracker's crop by a scale-and-
+                            translate H, into another output size: the same
+                            function, kernel A on the card
 - ``upsample2d_align_corners`` / ``upflow8``, ``avg_pool2d``,
   ``warp_validity_at``, ``coords_grid``.
 
@@ -130,6 +133,19 @@ def warp_perspective_fast(img, H, out_shape=None):
     if img.device.type == "cpu":
         return warp_perspective(img, H, (out_h, out_w))
     return kernels.warp_perspective_bilinear(img, inverse_h(H), out_h, out_w)
+
+
+def warp_axis_aligned(img, H, out_shape=None):
+    """Bilinear warp by an axis-aligned (scale-and-translate) ``H`` with
+    zeros outside the source: the window tracker's crops, typically from a
+    full frame into a window of another size.
+
+    Twin of ``woft_tpu/ops/warp.py:warp_axis_aligned``, which resamples with
+    two one-hot matmuls, a trick for the TPU's matrix unit. Here it is
+    ``warp_perspective_fast``: the plain ``warp_perspective`` on a CPU
+    tensor, kernel A on a CUDA tensor, which computes this function for any
+    pose, an axis-aligned one included."""
+    return warp_perspective_fast(img, H, out_shape)
 
 
 def warp_validity_at(H, src_hw, pts):

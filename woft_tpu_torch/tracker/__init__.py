@@ -5,3 +5,10 @@ from .woft import (  # noqa: F401
     build_track_step,
     tracker_init_state,
 )
+from .window import WOFTWindowTracker  # noqa: F401
+from .window_step import (  # noqa: F401
+    WindowParams,
+    build_window_track_step,
+    window_init_state,
+    window_params_for_mask,
+)
