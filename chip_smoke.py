@@ -59,7 +59,24 @@ Phases; any failure ends the script with a non-zero exit:
    inputs an oracle-flow tracker must recover a
    known homography, and the RAFT forward on the card (dense, block-local,
    fused) must match the CPU path;
-6. a ``kernels`` JSON line, then the device JSON as the last line.
+6. multi-target tracking at 1920x1080: kernels A-E at its shapes against
+   their plain versions, timed beside their bounds (A cropping 8 windows
+   of 256x256 from one frame in one launch, B on the pyramid of 8 windows
+   of 32 x 32 cells and indexed at 36,000 rows, C, D, E on the 135 x 240
+   grid); then, counted from 0 each, ``SharedMultiTracker`` under
+   ``configs/WOFT_fast.py`` with 8 targets (``bench.py``'s layout, 8
+   frames of the walk: every check passes, corners within
+   ``MULTI_CORNER_BOUND_PX`` of the walk, two chunks of 4 equal to the
+   per-frame run with no synchronizing operation in a chunk, fits in
+   groups of 3 equal to one batch) and with 64 (one chunk of 4 frames;
+   the launches a frame must not grow with the targets), and
+   ``MultiTargetTracker`` under ``configs/WOFT_window.py`` with 8 windows
+   of 256 (the same checks, and each target against the single-target
+   window step); each prints frame ms, targets·frames/s, launches and
+   device busy a frame (``torch.profiler``) and peak device memory;
+7. a ``kernels`` JSON line (A-E with their launches on the multi-target
+   paths and their times at its shapes), then the device JSON as the last
+   line.
 """
 
 import json
@@ -68,6 +85,7 @@ import os
 import subprocess
 import sys
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -104,6 +122,23 @@ H_IMG, W_IMG = 720, 1280
 # window of WOFT_window_native.py at 720p. The block-local step's is the
 # first: 43 columns are not a multiple of the 16-column block
 WINDOW_GRIDS = ((24, 43), (40, 64))
+# the multi-target paths' frame, and its feature grid (the shared-flow
+# path's block-local volume: 17 x 15 = 255 query blocks)
+MULTI_H, MULTI_W = 1080, 1920
+MULTI_GRID = (MULTI_H // 8, MULTI_W // 8)
+# The bound on each target's corner error against the walk on the multi-
+# target paths (template pixels), set before their first card run: the
+# window paths' bound at 1080p (CPU window track 0.931 px on the walk,
+# tools/torch_window_walks.py), where the full-frame tracks read 0.17-0.26
+# px at 720p on the card
+MULTI_CORNER_BOUND_PX = 1.5
+CHUNK_TOL_PX = 1e-3     # a chunk queues the same steps without host syncs
+# a batch of N windows, or fits in groups, through other convolution
+# algorithms than one window or one group: other summation orders, passed
+# on through 8 frames of crops chosen from the last estimate (5e-5 px over
+# 3 frames on a CPU, tests/test_torch_pipeline.py); held to the bound the
+# CPU tests hold the two packages to
+BATCH_TOL_PX = CORNER_TOL_PX
 # Kernels A and B before their redesign (A: one thread a pixel over 256 x 1
 # strips; B: one thread an output element), ms at the same shapes, measured
 # with time_ms on an NVIDIA H100 80GB HBM3, power limit 700.00 W
@@ -534,6 +569,52 @@ def _compare_local_corr(kernels, corr, case, dtype, rtol, grid):
     return err
 
 
+def _time_local_corr(kernels, corr, case, dtype, rate, grid):
+    """Times kernel C on ``case`` (all levels, one launch) beside its plain
+    version, ``torch.bmm`` on pre-gathered windows and its bound; logs them
+    and returns the row's numbers (``max_abs_err`` left to the caller)."""
+    meta, f1b, lvs, geoms = case
+    nbh, nbw = meta["nbh"], meta["nbw"]
+    nb = nbh * nbw
+    name = str(dtype).split(".")[-1]
+    n_bytes, n_flops = f1b.numel() * f1b.element_size(), 0
+    patches = []
+    for d, lv in zip(meta["levels"], lvs):
+        n_out = nb * f1b.shape[1] * d["wh"] * d["ww"]
+        n_bytes += (lv.numel() + n_out) * lv.element_size()
+        n_flops += 2 * n_out * f1b.shape[2]
+        # the library yardstick's operand: the windows gathered as the
+        # plain version gathers them (not timed)
+        fp = F.pad(lv, (0, 0, d["pad"], d["wp"] - lv.shape[1] - d["pad"],
+                        d["pad"], d["hp"] - lv.shape[0] - d["pad"]))
+        patches.append(torch.stack([
+            fp[by * d["sh"]:by * d["sh"] + d["wh"],
+               bx * d["sw"] // 8 * 8:bx * d["sw"] // 8 * 8 + d["ww"]]
+            for by in range(nbh) for bx in range(nbw)]).reshape(
+                nb, -1, f1b.shape[2]))
+
+    f1t = f1b.transpose(1, 2)
+    ms = time_ms(lambda: kernels.local_corr_build(f1b, lvs, geoms, nbh,
+                                                  nbw, dtype), iters=10)
+    plain_ms = time_ms(lambda: [corr.block_local_corr_plain(
+        f1b, lv, d, nbh, nbw, dtype)
+        for d, lv in zip(meta["levels"], lvs)], iters=3, warmup=1)
+    library_ms = time_ms(lambda: [torch.bmm(p, f1t) for p in patches],
+                         iters=10)
+    bnd, by = bound_ms(n_bytes, n_flops, rate)
+    parent = (f" (the parent's four launches "
+              f"{PARENT_LOCAL_CORR_MS[name]:.4f} ms)" if grid == "720p"
+              else "")
+    log(f"kernel C timing ({grid}, {nb} blocks, {name}, 4 levels = one "
+        f"flow, one launch): kernel {ms:.4f} ms "
+        f"({n_flops / ms / 1e9:.1f} TFLOP/s){parent}, plain "
+        f"{plain_ms:.4f} ms, torch.bmm on gathered windows "
+        f"{library_ms:.4f} ms, bound {bnd:.4f} ms ({by}; "
+        f"{n_flops / 1e9:.1f} GFLOP, {n_bytes / 1e6:.1f} MB)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                library_ms=library_ms)
+
+
 def check_local_corr(kernels, corr, dev):
     """Kernel C against the plain construction at the four 720p level
     shapes (120 blocks of 128 queries, D = 256) and at the window step's
@@ -551,45 +632,10 @@ def check_local_corr(kernels, corr, dev):
                                             dtype),
             dtype, rtol, "%dx%d" % WINDOW_GRIDS[0])
         case = _local_corr_case(corr, dev, H1, W1, dtype)
-        meta, f1b, lvs, geoms = case
-        nbh, nbw = meta["nbh"], meta["nbw"]
-        nb = nbh * nbw
         err = max(err, _compare_local_corr(kernels, corr, case, dtype, rtol,
                                            f"{H1}x{W1}"))
-        n_bytes, n_flops = f1b.numel() * f1b.element_size(), 0
-        patches = []
-        for d, lv in zip(meta["levels"], lvs):
-            n_out = nb * f1b.shape[1] * d["wh"] * d["ww"]
-            n_bytes += (lv.numel() + n_out) * lv.element_size()
-            n_flops += 2 * n_out * f1b.shape[2]
-            # the library yardstick's operand: the windows gathered as the
-            # plain version gathers them (not timed)
-            fp = F.pad(lv, (0, 0, d["pad"], d["wp"] - lv.shape[1] - d["pad"],
-                            d["pad"], d["hp"] - lv.shape[0] - d["pad"]))
-            patches.append(torch.stack([
-                fp[by * d["sh"]:by * d["sh"] + d["wh"],
-                   bx * d["sw"] // 8 * 8:bx * d["sw"] // 8 * 8 + d["ww"]]
-                for by in range(nbh) for bx in range(nbw)]).reshape(
-                    nb, -1, f1b.shape[2]))
-
-        f1t = f1b.transpose(1, 2)
-        ms = time_ms(lambda: kernels.local_corr_build(f1b, lvs, geoms, nbh,
-                                                      nbw, dtype), iters=10)
-        plain_ms = time_ms(lambda: [corr.block_local_corr_plain(
-            f1b, lv, d, nbh, nbw, dtype)
-            for d, lv in zip(meta["levels"], lvs)], iters=3, warmup=1)
-        library_ms = time_ms(lambda: [torch.bmm(p, f1t) for p in patches],
-                             iters=10)
-        bnd, by = bound_ms(n_bytes, n_flops, rate)
-        log(f"kernel C timing ({name}, 4 levels = one flow, one launch): "
-            f"kernel {ms:.4f} ms ({n_flops / ms / 1e9:.1f} TFLOP/s; the "
-            f"parent's four launches {PARENT_LOCAL_CORR_MS[name]:.4f} ms), "
-            f"plain {plain_ms:.4f} ms, torch.bmm on gathered windows "
-            f"{library_ms:.4f} ms, bound {bnd:.4f} ms ({by}; "
-            f"{n_flops / 1e9:.1f} GFLOP, {n_bytes / 1e6:.1f} MB)")
-        result[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=bnd, bound_by=by, library_ms=library_ms)
-        del patches
+        result[name] = dict(max_abs_err=err, **_time_local_corr(
+            kernels, corr, case, dtype, rate, "720p"))
     # the parameter block (tensor maps) is kept for the last pointer set:
     # host time of a call with it reused and with it rebuilt
     meta, f1b, lvs, geoms = _local_corr_case(corr, dev, H1, W1,
@@ -661,9 +707,10 @@ def _row_sector_bytes(local, corr, coords, k):
 def check_coord_lookups(kernels, corr, dev):
     """Kernels D and E from coordinates (the main path's lookup) against
     their plain versions, bf16 and float32, at the 720p layout (volume from
-    kernel C), at the window step's (24 x 43 cells, 4 levels, margin 16)
-    and at a layout of 3 levels and margin 8, both of whose grids cut the
-    blocks on both axes:
+    kernel C), at the window step's (24 x 43 cells, 4 levels, margin 16),
+    at the 1080p shared-flow path's (135 x 240 cells: 255 blocks, the last
+    block row half padding) and at a layout of 3 levels and margin 8, the
+    last three of whose grids cut the blocks on both axes:
     data and flags equal, E rewriting exactly the flagged blocks; then one
     guarded lookup traced: two kernel launches. Returns the worst error of
     D and of E."""
@@ -673,6 +720,7 @@ def check_coord_lookups(kernels, corr, dev):
     errs = {"D": 0.0, "E": 0.0}
     for (H1, W1, L, margin) in ((H_IMG // 8, W_IMG // 8, 4, 16),
                                 (*WINDOW_GRIDS[0], 4, 16),
+                                (*MULTI_GRID, 4, 16),
                                 (37, 83, 3, 8)):
         g = torch.Generator(device=dev).manual_seed(12)
         f1 = torch.randn(1, H1, W1, 256, device=dev, generator=g)
@@ -858,11 +906,67 @@ def check_local_lookups(kernels, corr, dev):
             raise AssertionError(f"kernel {name} disagrees: {e}")
 
     coords, starts, frac, rcs, rel, ok = fields["smooth"]
+    rows = _time_coord_lookups(kernels, corr, local, coords, "720p")
+    rows["D"]["max_abs_err"] = errs["D"]
+    rows["E"]["max_abs_err"] = errs["E"]
+    explicit_ms = time_ms(lambda: kernels.local_lookup_fine_multi(
+        rcs, vols, rel, frac, k, od))
+    lookup_ms = time_ms(lambda: corr.corr_lookup_local_blocked(local, coords,
+                                                               4))
+    log(f"kernel D before the redesign {PARENT_LOCAL_FINE_MS:.4f} ms from "
+        f"explicit operands, after some 20 launches of coordinate "
+        f"arithmetic; now from explicit operands {explicit_ms:.4f} ms; the "
+        f"whole guarded lookup (D and E, two launches): {lookup_ms:.4f} ms")
+    sel = (~ok).to(torch.uint8)
+    scratch = torch.empty_like(kernels.local_lookup_coords(
+        coords, vols, table, k, od)[0])
+    explicit_ms = time_ms(lambda: kernels.local_lookup_exact(
+        vols, starts, frac, k, flag=sel, out=scratch))
+    log(f"kernel E from explicit starts on the same blocks: "
+        f"{explicit_ms:.4f} ms; before its redesign, in four launches, "
+        f"{PARENT_LOCAL_EXACT_MS['flagged']:.4f} ms")
+
+    vq0 = vols[0].permute(0, 3, 1, 2).reshape(nb * bq, 1,
+                                               *vols[0].shape[1:3]).float()
+    taps = (k + 1) ** 2
+    esz = vols[0].element_size()
+    n_q = nb * bq
+    rc0 = rcs[:, 0].contiguous()
+    ms = time_ms(lambda: kernels.local_lookup_fine(rc0, vols[0], rel[0],
+                                                   frac[0], k, od))
+    plain_ms = time_ms(lambda: corr.block_local_lookup_fine_plain(
+        rc0, vols[0], rel[0], frac[0], k, od), iters=5, warmup=1)
+    library_ms = time_ms(lambda: _grid_sample_lookup(vq0, starts[0],
+                                                     frac[0], k),
+                         iters=5, warmup=1)
+    bnd, by = bound_ms(n_q * taps * esz + n_q * 2 * (4 + 4) + n_q * k * k * 2
+                       + rc0.numel() * 4, n_q * k * (3 * (k + 1) + 3 * k))
+    log(f"kernel F timing (1 level, smooth field): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, F.grid_sample on the query-major volume "
+        f"{library_ms:.4f} ms, bound {bnd:.4f} ms ({by})")
+    rows["F"] = dict(max_abs_err=errs["F"], ms=ms, plain_ms=plain_ms,
+                     bound_ms=bnd, bound_by=by, library_ms=library_ms)
+    return rows
+
+
+def _time_coord_lookups(kernels, corr, local, coords, grid):
+    """Times kernels D and E from coordinates, as a guarded lookup runs
+    them, on ``local`` (bf16) at ``coords``: D over every block beside its
+    byte and sector bounds, its plain version and ``F.grid_sample`` x L on
+    the query-major volume; E on the blocks D flags (and with none flagged)
+    beside its bound over the flagged blocks' work and ``F.grid_sample`` on
+    those blocks' queries. Logs them; returns {"D": row, "E": row} without
+    ``max_abs_err``."""
+    k = 9
+    vols, table = local.volumes, local.consts["table"]
+    od = torch.bfloat16
+    nb, bq, L = vols[0].shape[0], vols[0].shape[3], len(vols)
+    H1, W1 = coords.shape[1:3]
+    starts, frac = corr._local_level_coords(local, coords)
     esz = vols[0].element_size()
     n_q = nb * bq
     taps = (k + 1) ** 2                       # each query's own 10 x 10 patch
     out_bytes = n_q * k * k * 2               # per level, bf16
-    idx_bytes = n_q * 2 * (4 + 4)             # per level: starts and fractions
     flops = n_q * k * (3 * (k + 1) + 3 * k)   # per level: column and x blends
     vq = [v.permute(0, 3, 1, 2).reshape(n_q, 1, *v.shape[1:3]).float()
           for v in vols]
@@ -870,8 +974,8 @@ def check_local_lookups(kernels, corr, dev):
         nb, bq, k * k).permute(0, 2, 1)
     lib_err = (lib - corr.block_local_lookup_plain(vols[0], starts[0],
                                                    frac[0], k)).abs().max()
-    log(f"kernels D, E, F: F.grid_sample on level 0 vs plain: max_abs_err "
-        f"{lib_err.item():.3g} (yardstick)")
+    log(f"kernels D, E [{grid}]: F.grid_sample on level 0 vs plain: "
+        f"max_abs_err {lib_err.item():.3g} (yardstick)")
     rows = {}
     # D from coordinates, the main path's form: it reads the coordinates
     # (8 bytes a pixel) and writes the flags; its yardstick samples the four
@@ -888,43 +992,18 @@ def check_local_lookups(kernels, corr, dev):
                        L * flops)
     sec = _row_sector_bytes(local, corr, coords, k)
     sec_ms, _ = bound_ms(sec + L * out_bytes + coord_bytes, 0)
-    explicit_ms = time_ms(lambda: kernels.local_lookup_fine_multi(
-        rcs, vols, rel, frac, k, od))
-    lookup_ms = time_ms(lambda: corr.corr_lookup_local_blocked(local, coords,
-                                                               4))
-    log(f"kernel D timing (from coordinates, {L} levels, smooth field): "
-        f"kernel {ms:.4f} ms (before the redesign {PARENT_LOCAL_FINE_MS:.4f} "
-        f"ms from explicit operands, after some 20 launches of coordinate "
-        f"arithmetic), plain {plain_ms:.4f} ms, F.grid_sample x{L} on the "
-        f"query-major volume {library_ms:.4f} ms, bound {bnd:.4f} ms ({by}); "
-        f"the query rows' patches in 32-byte sectors {sec / 1e6:.2f} MB, "
-        f"sector bound {sec_ms:.4f} ms with the output and the coordinates")
-    log(f"kernel D from explicit operands: {explicit_ms:.4f} ms; the whole "
-        f"guarded lookup (D and E, two launches): {lookup_ms:.4f} ms")
-    rows["D"] = dict(max_abs_err=errs["D"], ms=ms, plain_ms=plain_ms,
-                     bound_ms=bnd, bound_by=by, library_ms=library_ms,
-                     sector_bound_ms=sec_ms)
-    rc0 = rcs[:, 0].contiguous()
-    ms = time_ms(lambda: kernels.local_lookup_fine(rc0, vols[0], rel[0],
-                                                   frac[0], k, od))
-    plain_ms = time_ms(lambda: corr.block_local_lookup_fine_plain(
-        rc0, vols[0], rel[0], frac[0], k, od), iters=5, warmup=1)
-    library_ms = time_ms(lambda: _grid_sample_lookup(vq[0], starts[0],
-                                                     frac[0], k),
-                         iters=5, warmup=1)
-    bnd, by = bound_ms(n_q * taps * esz + idx_bytes + out_bytes
-                       + rc0.numel() * 4, flops)
-    log(f"kernel F timing (1 level, smooth field): kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, F.grid_sample on the query-major volume "
-        f"{library_ms:.4f} ms, bound {bnd:.4f} ms ({by})")
-    rows["F"] = dict(max_abs_err=errs["F"], ms=ms, plain_ms=plain_ms,
-                     bound_ms=bnd, bound_by=by, library_ms=library_ms)
+    log(f"kernel D timing [{grid}, {nb} blocks, from coordinates, {L} "
+        f"levels, smooth field]: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, F.grid_sample x{L} on the query-major volume {library_ms:.4f} "
+        f"ms, bound {bnd:.4f} ms ({by}); the query rows' patches in 32-byte "
+        f"sectors {sec / 1e6:.2f} MB, sector bound {sec_ms:.4f} ms with the "
+        f"output and the coordinates")
+    rows["D"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                     library_ms=library_ms, sector_bound_ms=sec_ms)
 
     # E as the guard runs it: one launch a lookup, every level, from the
-    # coordinates into D's output, on the blocks the smooth 720p field flags
-    # (the last block row's padding queries) and with no block flagged. The
-    # bound counts the flagged blocks' work only; the yardstick samples the
-    # flagged blocks' queries with F.grid_sample, one call a level.
+    # coordinates into D's output, on the blocks the field flags and with
+    # no block flagged. The bound counts the flagged blocks' work only.
     scratch, bad = kernels.local_lookup_coords(coords, vols, table, k, od)
     none = torch.zeros_like(bad)
     sel = bad.bool().any(1)
@@ -937,8 +1016,6 @@ def check_local_lookups(kernels, corr, dev):
         coords, vols, table, k, bad=bad, out=scratch))
     ms_none = time_ms(lambda: kernels.local_lookup_exact_coords(
         coords, vols, table, k, bad=none, out=scratch))
-    explicit_ms = time_ms(lambda: kernels.local_lookup_exact(
-        vols, starts, frac, k, flag=sel.to(torch.uint8), out=scratch))
     plain_ms = time_ms(lambda: corr.block_local_lookup_exact_coords_plain(
         local, coords, k, bad=bad, out=scratch_p), iters=5, warmup=1)
     library_ms = time_ms(lambda: [_grid_sample_lookup(vq_f[l], s_f[l],
@@ -947,16 +1024,14 @@ def check_local_lookups(kernels, corr, dev):
     n_qf = nf * bq
     bnd, by = bound_ms(L * n_qf * (taps * esz + k * k * 2) + nf * 128 * 8
                        + nb * L, L * n_qf * k * (3 * (k + 1) + 3 * k))
-    log(f"kernel E timing (from coordinates, one lookup, {L} levels in one "
-        f"launch, the guard's {nf} flagged blocks): kernel {ms:.4f} ms "
-        f"(from explicit starts {explicit_ms:.4f} ms; before its "
-        f"redesign, in four launches, {PARENT_LOCAL_EXACT_MS['flagged']:.4f} "
-        f"ms), plain {plain_ms:.4f} ms, F.grid_sample x{L} "
-        f"on the flagged blocks' queries {library_ms:.4f} ms, bound "
-        f"{bnd:.4f} ms ({by}, flagged blocks only)")
-    log(f"kernel E from coordinates with no block flagged: {ms_none:.4f} ms")
-    rows["E"] = dict(max_abs_err=errs["E"], ms=ms, plain_ms=plain_ms,
-                     bound_ms=bnd, bound_by=by, library_ms=library_ms)
+    log(f"kernel E timing [{grid}, from coordinates, one lookup, {L} levels "
+        f"in one launch, the {nf} flagged of {nb} blocks]: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, F.grid_sample x{L} on the "
+        f"flagged blocks' queries {library_ms:.4f} ms, bound {bnd:.4f} ms "
+        f"({by}, flagged blocks only); with no block flagged {ms_none:.4f} "
+        f"ms")
+    rows["E"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                     library_ms=library_ms, ms_none_flagged=ms_none)
     return rows
 
 
@@ -1762,6 +1837,514 @@ def check_small_references(dev):
                                  f"disagrees with CPU")
 
 
+# ---------------------------------------------------------------------------
+# multi-target tracking at 1920x1080: kernels at its shapes, then the paths
+# ---------------------------------------------------------------------------
+
+def shared_masks(n, h=MULTI_H, w=MULTI_W):
+    """``bench.py``'s shared-flow layout (bench_multi, shared mode): a grid
+    of 4 columns and ceil(n / 4) rows, each target the middle half of its
+    cell's height and an eighth of the frame's width."""
+    rows = max(1, (n + 3) // 4)
+    ch = h // rows
+    masks = np.zeros((n, h, w), bool)
+    for t in range(n):
+        y, x = (t // 4) * ch, (t % 4) * (w // 4)
+        masks[t, y + ch // 4:y + 3 * ch // 4, x + w // 16:x + 3 * w // 16] = 1
+    return masks
+
+
+def window_masks(n, h=MULTI_H, w=MULTI_W):
+    """``bench.py``'s per-window layout (bench_multi): two rows of four
+    targets, each a quarter of the frame's height and an eighth of its
+    width."""
+    masks = np.zeros((n, h, w), bool)
+    for t in range(n):
+        y, x = (t // 4) * (h // 2), (t % 4) * (w // 4)
+        masks[t, y + h // 8:y + 3 * h // 8, x + w // 16:x + 3 * w // 16] = 1
+    return masks
+
+
+def mask_corners(mask):
+    """(2, 4) corners of a box mask, inclusive, as ``centred_mask``'s."""
+    ys, xs = np.where(mask)
+    x0, x1, y0, y1 = xs.min(), xs.max(), ys.min(), ys.max()
+    return np.array([[x0, x1, x1, x0], [y0, y0, y1, y1]], np.float64)
+
+
+def h_diff_px(Ha, Hb, corners):
+    """Largest distance between the corners mapped by two homographies."""
+    def proj(H):
+        p = np.asarray(H, np.float64) @ np.vstack([corners, np.ones(4)])
+        return p[:2] / p[2:]
+    return float(np.linalg.norm(proj(Ha) - proj(Hb), axis=0).max())
+
+
+def crop_homographies(masks, size=256, margin=0.5):
+    """The template crops of ``window_init_state`` for box masks at
+    ``WindowParams(size)``: each target's box with the margins, squared,
+    scaled into size x size. (N, 3, 3) float32."""
+    hs = []
+    for m in masks:
+        c = mask_corners(m)
+        w, h = c[0, 1] - c[0, 0] + 1, c[1, 2] - c[1, 0] + 1
+        side = max(w, h) * (1 + 2 * margin)
+        x0 = c[0, 0] + w / 2 - side / 2
+        y0 = c[1, 0] + h / 2 - side / 2
+        s = size / side
+        hs.append([[s, 0.0, -s * x0], [0.0, s, -s * y0], [0.0, 0.0, 1.0]])
+    return torch.tensor(hs, dtype=torch.float32)
+
+
+def _grid_sample_levels(pyramid, flat, radius, rows=None):
+    """Library yardstick of kernel B: one ``F.grid_sample`` a level, the
+    indexed form gathering the rows' levels inside the call."""
+    k = 2 * radius + 1
+    d = torch.arange(k, device=flat.device, dtype=torch.float32) - radius
+    outs = []
+    for lvl, p in enumerate(pyramid):
+        hl, wl = p.shape[1:]
+        c = flat.reshape(-1, 1, 1, 2) / 2 ** lvl
+        gx, gy = torch.broadcast_tensors(c[..., 0] + d[:, None],
+                                         c[..., 1] + d[None, :])
+        grid = torch.stack([2 * gx / (wl - 1) - 1, 2 * gy / (hl - 1) - 1], -1)
+        lv = p[:, None] if rows is None else p[rows][:, None]
+        outs.append(F.grid_sample(lv, grid, mode="bilinear",
+                                  padding_mode="zeros", align_corners=True))
+    return outs
+
+
+def check_multi_shapes(kernels, corr, warp, dev):
+    """Kernels A-E at the shapes the multi-target paths give them, each
+    against its plain version and timed beside its bound, its plain
+    version and a PyTorch call: A cropping 8 windows of 256 x 256 from one
+    1920x1080 frame in one launch; B dense over the pyramid of 8 windows of
+    32 x 32 cells (Q = 8,192) and indexed at the sparse weight head's
+    M = 8 x 4,500 rows; C, D and E on the 1080p grid (135 x 240 cells; D
+    and E in bf16 and float32 on three fields in ``check_coord_lookups``).
+    Returns {kernel: row}."""
+    out = {}
+    # A: one source, 8 homographies (the per-window path's crops)
+    src = torch.tensor(textured_frame(MULTI_H, MULTI_W, seed=4),
+                       dtype=torch.float32, device=dev)[None]
+    H = crop_homographies(window_masks(8)).to(dev)
+    hinv = warp.inverse_h(H)
+    want = warp.warp_perspective(src, H, (256, 256))
+    n0 = kernels.warp_perspective_bilinear.launches
+    got = kernels.warp_perspective_bilinear(src, hinv, 256, 256)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    if kernels.warp_perspective_bilinear.launches != n0 + 1:
+        raise AssertionError("kernel A took more than one launch")
+    coords = warp.perspective_coords(H, (256, 256))
+    x0, y0 = torch.floor(coords[..., 0]).long(), torch.floor(
+        coords[..., 1]).long()
+    read = torch.cat([(y0 + dy).clamp(0, MULTI_H - 1) * MULTI_W
+                      + (x0 + dx).clamp(0, MULTI_W - 1)
+                      for dy in (0, 1) for dx in (0, 1)]).unique().numel()
+    px = got.numel() // 3
+    bnd, by = bound_ms(read * 12 + got.numel() * 4 + hinv.numel() * 4,
+                       px * (12 + 2 + 4 + 36))
+    grid = torch.stack([2 * coords[..., 0] / (MULTI_W - 1) - 1,
+                        2 * coords[..., 1] / (MULTI_H - 1) - 1], -1)
+    src8 = src.permute(0, 3, 1, 2).contiguous().expand(8, -1, -1, -1)
+    ms = time_ms(lambda: kernels.warp_perspective_bilinear(src, hinv, 256,
+                                                           256))
+    plain_ms = time_ms(lambda: warp.warp_perspective(src, H, (256, 256)),
+                       iters=5, warmup=1)
+    library_ms = time_ms(lambda: F.grid_sample(
+        src8, grid, mode="bilinear", padding_mode="zeros",
+        align_corners=True))
+    log(f"kernel A [one 1920x1080 source, 8 homographies -> 8 x 256x256, "
+        f"one launch]: max_abs_err {err:.3g} (tol {WARP_TOL}); kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, F.grid_sample on the "
+        f"expanded source {library_ms:.4f} ms, bound {bnd:.4f} ms ({by}; "
+        f"{read} source pixels read)")
+    if not err <= WARP_TOL:
+        raise AssertionError(f"kernel A (one source, 8 homographies) "
+                             f"disagrees: {err}")
+    out["A"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+                    bound_by=by, library_ms=library_ms)
+
+    # B: the batched window forward's pyramid, dense and indexed
+    radius, k = 4, 9
+    g = torch.Generator(device=dev).manual_seed(11)
+    f1 = torch.randn(8, 32, 32, 256, device=dev, generator=g)
+    f2 = torch.randn(8, 32, 32, 256, device=dev, generator=g)
+    pyramid, _ = corr.corr_pyramid_fused(f1, f2, 4)
+    coords = (_cell_grid(dev, 32, 32) + (torch.rand(
+        8, 32, 32, 2, device=dev, generator=g) - 0.5) * 40).contiguous()
+    flat = coords.reshape(-1, 2)
+    Q, M = flat.shape[0], 8 * 4500
+    rows = torch.randint(0, Q, (M,), device=dev, generator=g)
+    c_rows = flat[rows].contiguous()
+    got = kernels.corr_pyramid_lookup(pyramid, coords, radius)
+    want = corr.corr_lookup_plain(pyramid, coords, radius).reshape(Q, -1)
+    got_i = kernels.corr_pyramid_lookup(pyramid, c_rows, radius, rows=rows)
+    want_i = corr.corr_lookup_plain([p[rows] for p in pyramid], c_rows,
+                                    radius)
+    torch.cuda.synchronize()
+    err, err_i = ((a - b).abs().max().item()
+                  for a, b in ((got, want), (got_i, want_i)))
+    ms = time_ms(lambda: kernels.corr_pyramid_lookup(pyramid, coords,
+                                                     radius))
+    plain_ms = time_ms(lambda: corr.corr_lookup_plain(pyramid, coords,
+                                                       radius), iters=3)
+    library_ms = time_ms(lambda: _grid_sample_levels(pyramid, flat, radius))
+    ms_i = time_ms(lambda: kernels.corr_pyramid_lookup(pyramid, c_rows,
+                                                       radius, rows=rows))
+    plain_ms_i = time_ms(lambda: corr.corr_lookup_plain(
+        [p[rows] for p in pyramid], c_rows, radius), iters=3)
+    library_ms_i = time_ms(lambda: _grid_sample_levels(pyramid, c_rows,
+                                                       radius, rows),
+                           iters=5, warmup=1)
+    n_out, n_out_i = Q * 4 * k * k, M * 4 * k * k
+    bnd, by = bound_ms(_window_bytes(pyramid, flat, None, radius) + Q * 8
+                       + n_out * 4, n_out * 18)
+    bnd_i, by_i = bound_ms(_window_bytes(pyramid, c_rows, rows, radius)
+                           + M * 16 + n_out_i * 4, n_out_i * 18)
+    log(f"kernel B [dense, pyramid of 8 windows x 32x32 cells, Q={Q}]: "
+        f"max_abs_err {err:.3g} (tol {LOOKUP_TOL}); kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, F.grid_sample x4 levels "
+        f"{library_ms:.4f} ms, bound {bnd:.4f} ms ({by})")
+    log(f"kernel B [indexed M={M}, the weight head's rows of 8 windows]: "
+        f"max_abs_err {err_i:.3g}; kernel {ms_i:.4f} ms, plain "
+        f"{plain_ms_i:.4f} ms, gather + F.grid_sample x4 {library_ms_i:.4f} "
+        f"ms, bound {bnd_i:.4f} ms ({by_i})")
+    if not max(err, err_i) <= LOOKUP_TOL:
+        raise AssertionError(f"kernel B disagrees on the batched pyramid: "
+                             f"{err}, {err_i}")
+    out["B"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+                    bound_by=by, library_ms=library_ms)
+    out["B indexed"] = dict(max_abs_err=err_i, ms=ms_i, plain_ms=plain_ms_i,
+                            bound_ms=bnd_i, bound_by=by_i,
+                            library_ms=library_ms_i)
+    del pyramid, got, want, got_i, want_i
+
+    # C on the 1080p grid, bf16 (the path's) and float32
+    grid_name = "%dx%d" % MULTI_GRID
+    for dtype, rtol, rate in ((torch.bfloat16, CORR_RTOL_BF16, BF16_FLOPS),
+                              (torch.float32, CORR_RTOL_FP32, FP32_FLOPS)):
+        case = _local_corr_case(corr, dev, *MULTI_GRID, dtype)
+        err = _compare_local_corr(kernels, corr, case, dtype, rtol,
+                                  grid_name)
+        if dtype == torch.bfloat16:
+            out["C"] = dict(max_abs_err=err, **_time_local_corr(
+                kernels, corr, case, dtype, rate, grid_name))
+        del case
+
+    # D and E timed on a bf16 1080p volume at a smooth field (checked in
+    # check_coord_lookups at this grid on three fields, both dtypes)
+    g = torch.Generator(device=dev).manual_seed(13)
+    f1 = torch.randn(1, *MULTI_GRID, 256, device=dev, generator=g)
+    f2 = torch.randn(1, *MULTI_GRID, 256, device=dev, generator=g)
+    local = corr.build_local_corr(f1, f2, 4, 4, 16, out_dtype=torch.bfloat16)
+    coords = (_cell_grid(dev, *MULTI_GRID)
+              + torch.tensor([2.3, -3.1], device=dev)).contiguous()
+    out.update(_time_coord_lookups(kernels, corr, local, coords, grid_name))
+    return out
+
+
+def profile_launches(fn):
+    """Device kernel launches and busy ms of one call of ``fn`` (ending in
+    a host read), traced by ``torch.profiler``; a spin leads the window (not
+    counted), so the call's kernels run after the trace has started."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(20_000_000)
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and "spin" not in e.name and not e.name.startswith("Mem")]
+    if not ev:
+        raise AssertionError("the profiler recorded no kernel")
+    return len(ev), sum(e.time_range.elapsed_us() for e in ev) / 1e3
+
+
+def assert_no_host_sync(what, fn):
+    """Run ``fn`` under ``torch.cuda.set_sync_debug_mode('warn')``: a chunk
+    loop must queue its frames without one synchronizing operation."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message)[:200] for w in caught
+             if "called a synchronizing" in str(w.message)]
+    log(f"{what}: {len(syncs)} synchronizing operations "
+        f"(torch.cuda.set_sync_debug_mode)")
+    if syncs:
+        raise AssertionError(f"{what} synced to the host: {syncs[:3]}")
+    torch.cuda.synchronize()
+    return out
+
+
+def _frames_on(frames, dev):
+    """BGR uint8 frames as a (T, 1, H, W, 3) chunk on the card."""
+    return torch.from_numpy(np.stack(frames)).to(dev)[:, None]
+
+
+def _report_multi(what, n, frame_ms, hs, poses, masks, oks, bound=None):
+    """Logs a multi-target track: steady frame ms, targets·frames/s, check
+    passes, each target's worst corner error against the walk; holds them
+    to ``bound`` and every check to pass when ``bound`` is given. hs: (T,
+    N, 3, 3) numpy; oks: (T, N) bool. Returns the worst corner errors."""
+    steady = frame_ms[1:] or frame_ms
+    mean = sum(steady) / len(steady)
+    errs = [max(corner_errors(hs[:, t], poses, mask_corners(masks[t])))
+            for t in range(n)]
+    log(f"{what}: first frame {frame_ms[0]:.1f} ms, steady frames "
+        f"{min(steady):.1f}-{max(steady):.1f} ms (mean {mean:.1f}), "
+        f"{n * 1e3 / mean:.1f} targets·frames/s; checks passed "
+        f"{int(oks.sum())}/{oks.size}; worst corner error against the walk "
+        f"a target (px) {', '.join(f'{e:.3f}' for e in errs)}")
+    if not np.isfinite(hs).all():
+        raise AssertionError(f"{what}: non-finite homography")
+    if bound is not None:
+        if not oks.all():
+            raise AssertionError(f"{what}: a target failed its check")
+        if not max(errs) <= bound:
+            raise AssertionError(f"{what}: corner error {max(errs):.3f} px, "
+                                 f"bound {bound} px")
+    return errs
+
+
+def track_shared(kernels, dev, model, cfg, tp):
+    """Shared-flow multi-target tracking at 1920x1080 on ``WOFT_fast.py``
+    (``SharedMultiTracker``: one block-local bf16 flow a frame, 8 fits):
+    8 frames of the walk per frame, counted from 0 (A, C once, D and E 13
+    times a frame); every target passes its check on every frame, its
+    corners within ``MULTI_CORNER_BOUND_PX`` of the walk; the same frames
+    in two chunks of 4 equal the per-frame run, with no host sync in a
+    chunk; fits in groups of 3 equal the ungrouped ones; launches and
+    device busy a frame. Returns the path's numbers."""
+    from woft_tpu_torch.pipeline import SharedMultiTracker
+
+    template, frames, poses = walk(MULTI_H, MULTI_W, dev)
+    masks = shared_masks(8)
+    n = len(masks)
+    log(f"--- shared flow x{n} at {MULTI_W}x{MULTI_H}: WOFT_fast.py "
+        f"(corr_impl {cfg.corr_impl}, precision {cfg.precision})")
+    torch.cuda.synchronize()
+    zero_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    tracker = SharedMultiTracker(model, cfg, tp, device=dev)
+    tracker.init(template, masks)
+    hs, oks, frame_ms = [], [], []
+    for f in frames:
+        t0 = time.perf_counter()
+        h, meta = tracker.track(f)
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        hs.append(h)
+        oks.append(meta["global_H_success"])
+    launches = read_counts(kernels)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    hs, oks = np.stack(hs), np.stack(oks)
+    T = len(frames)
+    check_counts(f"shared x{n}", launches, {
+        "warp_perspective_bilinear": T, "local_corr_build": T,
+        "local_lookup_coords": 13 * T, "local_lookup_exact_coords": 13 * T},
+        ("warp_perspective_bilinear", "local_corr_build",
+         "local_lookup_coords", "local_lookup_exact_coords"), T, T)
+    errs = _report_multi(f"shared x{n}", n, frame_ms, hs, poses, masks, oks,
+                         MULTI_CORNER_BOUND_PX)
+
+    chunked = SharedMultiTracker(model, cfg, tp, device=dev)
+    chunked.init(template, masks)
+    hs_c = np.concatenate([chunked.track_chunk(np.stack(frames[i:i + 4]))[0]
+                           for i in (0, 4)])
+    diff = max(h_diff_px(a, b, mask_corners(masks[t]))
+               for a_t, b_t in zip(hs, hs_c)
+               for t, (a, b) in enumerate(zip(a_t, b_t)))
+    log(f"shared x{n}: two chunks of 4 frames vs per-frame: {diff:.3g} px "
+        f"(tol {CHUNK_TOL_PX})")
+    if not diff <= CHUNK_TOL_PX:
+        raise AssertionError("the shared chunk disagrees with per-frame")
+    staged = _frames_on(frames[:4], dev)
+    assert_no_host_sync(f"shared x{n}, a chunk of 4 frames", lambda: (
+        chunked._chunk_step(model, chunked.state, chunked.masks,
+                            chunked.h_last, staged)))
+
+    grouped = SharedMultiTracker(model, cfg, replace(tp, multi_fit_chunk=3),
+                                 device=dev)
+    grouped.init(template, masks)
+    hs_g = np.stack([grouped.track(f)[0] for f in frames[:3]])
+    gdiff = max(h_diff_px(a, b, mask_corners(masks[t]))
+                for a_t, b_t in zip(hs[:3], hs_g)
+                for t, (a, b) in enumerate(zip(a_t, b_t)))
+    log(f"shared x{n}: fits in 3 groups of 3 (the last padded) vs one "
+        f"batch: {gdiff:.3g} px (tol {BATCH_TOL_PX})")
+    if not gdiff <= BATCH_TOL_PX:
+        raise AssertionError("grouped fits disagree with the ungrouped ones")
+
+    n_launch, busy = profile_launches(lambda: tracker.track(frames[-1]))
+    n_grouped, _ = profile_launches(lambda: grouped.track(frames[-1]))
+    mean = sum(frame_ms[1:]) / (T - 1)
+    log(f"shared x{n}: {n_launch} launches a frame ({n_grouped} with fits "
+        f"in 3 groups); device busy {busy:.2f} ms a frame, "
+        f"{100 * busy / mean:.1f} % of the steady frame; peak device memory "
+        f"{peak:.2f} GiB")
+    return dict(launches=launches, frame_ms=mean, per_frame_launches=n_launch,
+                grouped_launches=n_grouped, busy_ms=busy, peak_gib=peak,
+                errs=errs)
+
+
+def track_shared_x64(kernels, dev, model, cfg, tp, x8):
+    """Shared flow, 64 targets at 1920x1080 (``bench.py``'s grid of 16 rows
+    of 4), one group of fits: one chunk of 4 frames after a warm-up chunk,
+    counted from 0; the launches a frame must not grow with the targets
+    (fewer than one more launch a target than ``x8``'s)."""
+    from woft_tpu_torch.pipeline import SharedMultiTracker
+
+    template, frames, poses = walk(MULTI_H, MULTI_W, dev)
+    masks = shared_masks(64)
+    n = len(masks)
+    log(f"--- shared flow x{n} at {MULTI_W}x{MULTI_H}: WOFT_fast.py, fits "
+        f"in one group of {tp.multi_fit_chunk}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tracker = SharedMultiTracker(model, cfg, tp, device=dev)
+    tracker.init(template, masks)
+    tracker.track_chunk(np.stack(frames[:4]))
+    torch.cuda.synchronize()
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    hs, meta = tracker.track_chunk(np.stack(frames[4:8]))
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = read_counts(kernels)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_counts(f"shared x{n}", launches, {
+        "warp_perspective_bilinear": 4, "local_corr_build": 4,
+        "local_lookup_coords": 52, "local_lookup_exact_coords": 52},
+        ("warp_perspective_bilinear", "local_corr_build",
+         "local_lookup_coords", "local_lookup_exact_coords"), 4, 4)
+    errs = _report_multi(f"shared x{n}, frames 5-8 in one chunk", n,
+                         [wall / 4] * 4, hs, poses[4:8], masks,
+                         meta["global_H_success"])
+    # the pre-warp follows target 0, here a strip at the top left edge
+    # that the walk carries off the frame; with the target nearest the
+    # frame's centre as the control instead:
+    centre = np.array([MULTI_W / 2, MULTI_H / 2])
+    c = int(np.argmin([np.linalg.norm(mask_corners(m).mean(1) - centre)
+                       for m in masks]))
+    order = [c] + [t for t in range(n) if t != c]
+    ctl = SharedMultiTracker(model, cfg, tp, device=dev)
+    ctl.init(template, masks[order])
+    ctl.track_chunk(np.stack(frames[:4]))
+    hs_c2, meta_c2 = ctl.track_chunk(np.stack(frames[4:8]))
+    _report_multi(f"shared x{n}, target {c} (the centre) as the control, "
+                  f"frames 5-8", n, [wall / 4] * 4, hs_c2, poses[4:8],
+                  masks[order], meta_c2["global_H_success"])
+    n_launch, busy = profile_launches(lambda: tracker.track(frames[-1]))
+    log(f"shared x{n}: chunk of 4 frames {wall:.1f} ms, "
+        f"{n * 4e3 / wall:.1f} targets·frames/s; {n_launch} launches a "
+        f"frame (x{8}: {x8['per_frame_launches']}); device busy {busy:.2f} "
+        f"ms a frame; peak device memory {peak:.2f} GiB")
+    if n_launch - x8["per_frame_launches"] >= n - 8:
+        raise AssertionError("the shared step's launches grow with the "
+                             "targets")
+    return dict(launches=launches, chunk_ms=wall, per_frame_launches=n_launch,
+                busy_ms=busy, peak_gib=peak, worst_err=max(errs))
+
+
+def track_window_batch(kernels, dev):
+    """Per-window batched tracking, 8 targets at 1920x1080 on
+    ``WOFT_window.py`` (dense float32, the v5 export), ``WindowParams(
+    size=256)`` as ``bench.py``: ``MultiTargetTracker`` over 8 frames of the
+    walk, counted from 0 (A twice a frame and once an init, B 13 times a
+    frame: one forward of the 8 windows); checks and corners as the shared
+    path; each target against the single-target ``no_local_h`` window step
+    (``BATCH_TOL_PX``); two chunks of 4 against the per-frame run, with no
+    host sync in a chunk; launches and device busy a frame."""
+    from woft_tpu_torch.config import load_config
+    from woft_tpu_torch.flow import RaftFlow
+    from woft_tpu_torch.pipeline import MultiTargetTracker
+    from woft_tpu_torch.tracker import (WindowParams, build_window_track_step,
+                                        window_init_state)
+
+    conf = load_config(os.path.join(ROOT, "woft_tpu_torch", "configs",
+                                    "WOFT_window.py"))
+    flower = RaftFlow(conf.flow_config, device=dev)
+    model, cfg, tp = flower.model, flower.cfg, conf.tracker_params
+    wp = WindowParams(size=256)
+    template, frames, poses = walk(MULTI_H, MULTI_W, dev)
+    masks = window_masks(8)
+    n = len(masks)
+    log(f"--- per-window batch x{n} at {MULTI_W}x{MULTI_H}: WOFT_window.py "
+        f"(corr_impl {cfg.corr_impl}, precision {cfg.precision}), window "
+        f"{wp.shape[0]}x{wp.shape[1]}, weights "
+        f"{os.path.relpath(str(conf.flow_config.model), ROOT)}")
+    torch.cuda.synchronize()
+    zero_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    tracker = MultiTargetTracker(model, cfg, tp, wp, device=dev)
+    tracker.init(template, masks)
+    hs, oks, frame_ms = [], [], []
+    for f in frames:
+        t0 = time.perf_counter()
+        h, meta = tracker.track(f)
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        hs.append(h)
+        oks.append(meta["global_H_success"])
+    launches = read_counts(kernels)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    hs, oks = np.stack(hs), np.stack(oks)
+    T = len(frames)
+    check_counts(f"window batch x{n}", launches, {
+        "warp_perspective_bilinear": 2 * T + n, "corr_pyramid_lookup": 13 * T},
+        ("warp_perspective_bilinear", "corr_pyramid_lookup"), T, T)
+    errs = _report_multi(f"window batch x{n}", n, frame_ms, hs, poses, masks,
+                         oks, MULTI_CORNER_BOUND_PX)
+
+    # each target through the single-target step on the same frames
+    tp1 = replace(tp, no_local_h=True)
+    step = build_window_track_step(cfg, tp1, wp)
+    rgb = [torch.from_numpy(np.ascontiguousarray(f[..., ::-1])).to(dev)
+           .to(torch.float32)[None] for f in [template] + frames]
+    single = 0.0
+    for t, m in enumerate(masks):
+        state = window_init_state(model, cfg, tp1, wp, rgb[0], m)
+        for i, f in enumerate(rgb[1:]):
+            state, h, _ = step(model, state, f)
+            single = max(single, h_diff_px(h.cpu().numpy(), hs[i, t],
+                                           mask_corners(m)))
+    log(f"window batch x{n} vs the single-target step, target by target: "
+        f"{single:.3g} px (tol {BATCH_TOL_PX})")
+    if not single <= BATCH_TOL_PX:
+        raise AssertionError("the window batch disagrees with single steps")
+
+    chunked = MultiTargetTracker(model, cfg, tp, wp, device=dev)
+    chunked.init(template, masks)
+    hs_c = np.concatenate([chunked.track_chunk(np.stack(frames[i:i + 4]))[0]
+                           for i in (0, 4)])
+    diff = max(h_diff_px(a, b, mask_corners(masks[t]))
+               for a_t, b_t in zip(hs, hs_c)
+               for t, (a, b) in enumerate(zip(a_t, b_t)))
+    log(f"window batch x{n}: two chunks of 4 frames vs per-frame: "
+        f"{diff:.3g} px (tol {CHUNK_TOL_PX})")
+    if not diff <= CHUNK_TOL_PX:
+        raise AssertionError("the window chunk disagrees with per-frame")
+    staged = _frames_on(frames[:4], dev)
+    assert_no_host_sync(f"window batch x{n}, a chunk of 4 frames", lambda: (
+        chunked._chunk_step(model, chunked.states, staged)))
+
+    n_launch, busy = profile_launches(lambda: tracker.track(frames[-1]))
+    mean = sum(frame_ms[1:]) / (T - 1)
+    log(f"window batch x{n}: {n_launch} launches a frame; device busy "
+        f"{busy:.2f} ms a frame, {100 * busy / mean:.1f} % of the steady "
+        f"frame; peak device memory {peak:.2f} GiB")
+    return dict(launches=launches, frame_ms=mean, per_frame_launches=n_launch,
+                busy_ms=busy, peak_gib=peak, errs=errs)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1824,6 +2407,26 @@ def main():
     check_window_step_card_vs_cpu(dev)
     check_small_references(dev)
 
+    # multi-target tracking at 1920x1080: A-E at its shapes, then its paths
+    torch.cuda.empty_cache()
+    multi = check_multi_shapes(kernels, corr, warp, dev)
+    torch.cuda.empty_cache()
+    from woft_tpu_torch.config import load_config
+    from woft_tpu_torch.flow import RaftFlow
+    conf = load_config(os.path.join(ROOT, "woft_tpu_torch", "configs",
+                                    "WOFT_fast.py"))
+    flower = RaftFlow(conf.flow_config, device=dev)
+    paths = {}
+    paths["shared x8 1920x1080"] = track_shared(
+        kernels, dev, flower.model, flower.cfg, conf.tracker_params)
+    torch.cuda.empty_cache()
+    paths["shared x64 1920x1080"] = track_shared_x64(
+        kernels, dev, flower.model, flower.cfg, conf.tracker_params,
+        paths["shared x8 1920x1080"])
+    del flower
+    torch.cuda.empty_cache()
+    paths["window batch x8 1920x1080"] = track_window_batch(kernels, dev)
+
     # launches: A and B on the WOFT.py path, C, D, E (the last two from
     # coordinates) on the WOFT_fast.py
     # path (which launches A too), G and I on the fused WOFT_fast.py path;
@@ -1880,12 +2483,23 @@ def main():
              replaces="woft_tpu/ops/pallas/update_tail.py:283",
              launches=fused["flow_head"], **upd["I"]),
     ]
-    # the window paths' own runs, each counted from 0 (kernels A-E)
+    # the window paths' and the multi-target paths' own runs, each counted
+    # from 0 (kernels A-E), and A-E timed at the multi-target shapes
+    shapes = {"warp_perspective_bilinear": ("A",),
+              "corr_pyramid_lookup": ("B", "B indexed"),
+              "local_corr_build": ("C",), "local_lookup_coords": ("D",),
+              "local_lookup_exact_coords": ("E",)}
     for row in rows:
         counts = {f"{res['what']} {res['frame']}": res["launches"][row["name"]]
                   for res in windows.values()}
         if any(counts.values()):
             row["window_launches"] = counts
+        counts = {what: res["launches"][row["name"]]
+                  for what, res in paths.items()}
+        if any(counts.values()):
+            row["multi_launches"] = counts
+        if row["name"] in shapes:
+            row["multi_shapes"] = {k: multi[k] for k in shapes[row["name"]]}
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -107,6 +107,33 @@ def test_warp_kernel_window_crop(dev, src_hw, out_hw, scale, t):
         <= 1e-4
 
 
+@pytest.mark.parametrize("n", [2, 8])
+def test_warp_kernel_one_source_n_homographies(dev, n):
+    """One source warped by N homographies in one launch: the multi-target
+    tracker's N search crops from one frame (a 1080p frame, N crops of
+    256 x 256 at the multi-target layout), each equal to the plain warp."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    img = torch.rand(1, 1080, 1920, 3, device=dev, generator=g) * 255
+    hs = []
+    for t in range(n):
+        x0, y0 = (t % 4) * 480 + 60, (t // 4) * 540 + 100
+        s = 256.0 / (300.0 + 20 * t)
+        hs.append(torch.tensor([[s, 0.0, -s * x0], [0.0, s, -s * y0],
+                                [0.0, 0.0, 1.0]]))
+    H = torch.stack(hs).to(dev)
+    n0 = kernels.warp_perspective_bilinear.launches
+    got = warp.warp_axis_aligned(img, H, (256, 256))
+    want = warp.warp_perspective(img, H, (256, 256))
+    torch.cuda.synchronize()
+    assert kernels.warp_perspective_bilinear.launches == n0 + 1
+    assert got.shape == want.shape == (n, 256, 256, 3)
+    assert (got - want).abs().max().item() <= 1e-4
+    for t in range(n):
+        one = kernels.warp_perspective_bilinear(img, warp.inverse_h(H[t:t + 1]),
+                                                256, 256)
+        assert torch.equal(one[0], got[t])
+
+
 def test_warp_wrapper_checks_inputs(dev):
     img = torch.rand(1, 16, 16, 3, device=dev)
     hinv = torch.eye(3, device=dev)[None]
@@ -116,6 +143,9 @@ def test_warp_wrapper_checks_inputs(dev):
         kernels.warp_perspective_bilinear(img.transpose(1, 2), hinv, 16, 16)
     with pytest.raises(ValueError):
         kernels.warp_perspective_bilinear(img, hinv.cpu(), 16, 16)
+    with pytest.raises(ValueError):          # a source batch of 1 or N
+        kernels.warp_perspective_bilinear(img.repeat(2, 1, 1, 1),
+                                          hinv.repeat(3, 1, 1), 16, 16)
 
 
 @pytest.fixture(scope="module")
@@ -188,6 +218,29 @@ def test_indexed_lookup_kernel(dev, radius, levels, hw):
     assert got[0, 0, :2].abs().max().item() == 0.0
 
 
+def test_lookup_kernel_batched_windows(dev):
+    """Kernel B over the pyramid of a batch of 8 windows of 32 x 32 cells
+    (the per-window multi-target forward, B = 8: rows ``b*1024 + cell``),
+    dense (Q = 8,192) and indexed at the sparse weight head's M = 8 x 4,500
+    rows, each equal to the plain lookup."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    f1 = torch.randn(8, 32, 32, 256, device=dev, generator=g)
+    f2 = torch.randn(8, 32, 32, 256, device=dev, generator=g)
+    pyr, _ = corr.corr_pyramid_fused(f1, f2, 4)
+    coords = _grid(dev, 32, 32).expand(8, -1, -1, -1) + (torch.rand(
+        8, 32, 32, 2, device=dev, generator=g) - 0.5) * 24
+    coords = coords.contiguous()
+    got = corr.corr_lookup(pyr, coords, 4)
+    assert (got - corr.corr_lookup_plain(pyr, coords, 4)).abs().max() <= 1e-5
+    rows = torch.randint(0, 8 * 1024, (36000,), device=dev, generator=g)
+    c = coords.reshape(-1, 2)[rows][None, None].contiguous()
+    got_i = corr.corr_lookup(pyr, c, 4, rows=rows)
+    want_i = corr.corr_lookup_plain([p[rows] for p in pyr], c, 4)
+    assert (got_i - want_i).abs().max().item() <= 1e-5
+    assert torch.equal(got_i.reshape(36000, -1),
+                       got.reshape(8 * 1024, -1)[rows])
+
+
 def test_lookup_wrapper_checks_inputs(dev, pyramid):
     pyr, coords = pyramid
     with pytest.raises(ValueError):          # rows must match the queries
@@ -247,19 +300,21 @@ def test_local_corr_kernel_matches_plain(dev, dtype, rtol, hw):
 # (H1, W1, margin): the 720p grid, the 192x344 window's grid (padding
 # columns), and odd sizes whose windows reach past every border of every
 # level (TMA's zero fill in bf16)
-LOCAL_SHAPES = [(90, 160, 16), (24, 43, 16), (37, 53, 8), (13, 21, 16)]
+LOCAL_SHAPES = [(90, 160, 16), (24, 43, 16), (135, 240, 16), (37, 53, 8),
+                (13, 21, 16)]
 
 
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
                                         (torch.bfloat16, 2.0 ** -7)],
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("shape", LOCAL_SHAPES,
-                         ids=["90x160m16", "24x43m16", "37x53m8", "13x21m16"])
+                         ids=["90x160m16", "24x43m16", "135x240m16",
+                              "37x53m8", "13x21m16"])
 def test_local_corr_levels_in_one_launch(dev, dtype, rtol, shape):
     """Kernel C builds all four levels in one launch, each equal to the
     plain version to the tolerance of two summation orders."""
     H1, W1, margin = shape
-    D = 256 if H1 in (90, 24) else 64      # the main path's feature width
+    D = 256 if H1 in (90, 24, 135) else 64   # the main path's feature width
     f1, f2 = _features(dev, H1, W1, D, seed=5)
     meta = corr._local_layout(H1, W1, 4, 4, margin)
     nbh, nbw = meta["nbh"], meta["nbw"]
@@ -438,8 +493,8 @@ def _field(dev, H1, W1, kind):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("shape", [(90, 160, 4, 16), (24, 43, 4, 16),
-                                   (37, 83, 3, 8)],
-                         ids=["720p", "24x43", "37x83"])
+                                   (135, 240, 4, 16), (37, 83, 3, 8)],
+                         ids=["720p", "24x43", "1080p", "37x83"])
 def test_coord_lookup_kernels_match_plain(dev, dtype, shape):
     """Kernels D and E from coordinates against their plain versions (the
     coordinate arithmetic as tensor ops, then the explicit lookups) at the
@@ -493,16 +548,20 @@ def test_guarded_lookup_is_two_launches(dev, local_volume):
 
     local = local_volume
     coords = _coords(dev, "jitter")
+    # a first trace starts the tracer, which can miss kernels of the
+    # window it is started in
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
     for fine, names in ((True, ["local_lookup_fine_kernel",
                                 "local_lookup_exact_kernel"]),
                         (False, ["local_lookup_exact_kernel"])):
         corr.corr_lookup_local_blocked(local, coords, 4, fine=fine)
         torch.cuda.synchronize()
-        # the trace may miss the first kernels of its window: two spins
-        # lead, and are not counted
+        # the lookup's kernels queue behind a spin of ~10 ms, so they run
+        # well after the trace has started; the spin is not counted
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(1000)
-            torch.cuda._sleep(1000)
+            torch.cuda._sleep(20_000_000)
             corr.corr_lookup_local_blocked(local, coords, 4, fine=fine)
             torch.cuda.synchronize()
         seen = [e.name for e in prof.events()

@@ -8,6 +8,7 @@ Run from the repository root on a machine with an NVIDIA GPU:
                                         [--gru-fused] [--tail-fused]
                                         [--compare ROUNDS]
                                         [--compare-root DIR] [--windows]
+                                        [--multi]
 
 Tracks a synthetic homography walk with ``woft_tpu_torch/configs/<config>``
 (``WOFT.py``, the canonical tracker, or ``WOFT_fast.py``, block-local
@@ -31,7 +32,10 @@ the same flags, in turns in this one process. ``--windows`` profiles
 instead each window path that ``chip_smoke.py`` drives (``WINDOW_TRACKS``:
 ``WOFT_window.py`` at 1280x720 and 1920x1080, ``WOFT_window_native.py`` at
 1280x720, ``bench.py``'s block-local bf16 window step at 1920x1080; the
-trained window-mode weights) on that script's walk. Imports no JAX.
+trained window-mode weights) on that script's walk. ``--multi`` profiles
+instead its multi-target paths at 1920x1080: the shared-flow tracker with
+8 and 64 targets on ``WOFT_fast.py`` and the per-window batch of 8 on
+``WOFT_window.py``. Imports no JAX.
 """
 
 import argparse
@@ -196,6 +200,47 @@ def profile_windows(args):
     return 0
 
 
+def profile_multi(args):
+    """``--multi``: the multi-target paths of ``chip_smoke.py`` at
+    1920x1080 on its walk: ``SharedMultiTracker`` on ``WOFT_fast.py`` with
+    8 and 64 targets, ``MultiTargetTracker`` on ``WOFT_window.py`` with 8
+    windows of 256; ``--warmup`` frames, then ``--frames`` profiled."""
+    import chip_smoke as cs
+    from woft_tpu_torch.config import load_config
+    from woft_tpu_torch.flow import RaftFlow
+    from woft_tpu_torch.pipeline import MultiTargetTracker, SharedMultiTracker
+    from woft_tpu_torch.tracker import WindowParams
+
+    dev = torch.device("cuda")
+    n = args.warmup + args.frames
+    template, frames, _ = cs.walk(cs.MULTI_H, cs.MULTI_W, dev, n=n)
+    paths = []
+    for config in ("WOFT_fast.py", "WOFT_window.py"):
+        conf = load_config(os.path.join(ROOT, "woft_tpu_torch", "configs",
+                                        config))
+        flower = RaftFlow(conf.flow_config, device=dev)
+        if config == "WOFT_fast.py":
+            for k in (8, 64):
+                paths.append((f"shared x{k}", SharedMultiTracker(
+                    flower.model, flower.cfg, conf.tracker_params,
+                    device=dev), cs.shared_masks(k)))
+        else:
+            paths.append(("window batch x8", MultiTargetTracker(
+                flower.model, flower.cfg, conf.tracker_params,
+                WindowParams(size=256), device=dev), cs.window_masks(8)))
+    for label, tracker, masks in paths:
+        tracker.init(template, masks)
+        for i in range(args.warmup):
+            tracker.track(frames[i])
+        torch.cuda.synchronize()
+        if profile_frames(lambda i: tracker.track(frames[args.warmup + i]),
+                          args.frames, f"{label} at 1920x1080"):
+            return 1
+        del tracker
+        torch.cuda.empty_cache()
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="WOFT.py",
@@ -214,6 +259,9 @@ def main():
     ap.add_argument("--windows", action="store_true",
                     help="profile the window paths of chip_smoke.py "
                          "instead of the 720p tracker")
+    ap.add_argument("--multi", action="store_true",
+                    help="profile the multi-target paths of chip_smoke.py "
+                         "instead of the 720p tracker")
     ap.add_argument("--compare-root", metavar="DIR",
                     help="with --compare: time this tree's tracker against "
                          "the one of the tree under DIR instead")
@@ -230,9 +278,9 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0])
-    if args.windows:
+    if args.windows or args.multi:
         resolve_device("cuda")
-        return profile_windows(args)
+        return profile_windows(args) if args.windows else profile_multi(args)
     flags = {"gru_fused": args.gru_fused, "tail_fused": args.tail_fused}
     print(f"config {args.config}, raft_flags {flags}")
     tracker = WOFTTracker(load_config(os.path.join(

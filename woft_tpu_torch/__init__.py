@@ -12,7 +12,10 @@ see ``ops/kernels.py``).
 - ``woft_tpu_torch.ops``      — warps, sampling, padding, CUDA kernels.
 - ``woft_tpu_torch.models``   — WeightedRAFT, the correlation pyramid and
   lookup, and the weight bridge to ``woft_tpu`` parameter trees.
-- ``woft_tpu_torch.tracker``  — the WOFT tracker step and its host shell.
+- ``woft_tpu_torch.tracker``  — the WOFT tracker steps (full frame, window,
+  shared-flow multi-target, batched windows) and their host shells.
+- ``woft_tpu_torch.pipeline`` — multi-target trackers and the chunk loops
+  that step T frames without a host sync (exported here).
 - ``woft_tpu_torch.flow``     — the ``compute_flow`` wrapper protocol.
 
 Public functions keep ``woft_tpu``'s layouts (NHWC images, ``(x, y)``
@@ -22,3 +25,11 @@ plain PyTorch version.
 """
 
 __version__ = "0.1.0"
+
+from .pipeline import (  # noqa: E402,F401
+    MultiTargetTracker,
+    SharedMultiTracker,
+    build_full_track_chunk,
+    build_multi_track_chunk,
+    build_shared_multi_chunk,
+)

@@ -38,6 +38,10 @@
 // (ops/warp.py:_back_project and grid_sample), so the two agree bit for
 // bit.
 //
+// The source batch is 1 or n: with 1 (source stride 0), the n homographies
+// warp one source into n outputs in one launch, as the multi-target
+// tracker crops its n search windows from one frame.
+//
 // Measured on an NVIDIA H100 80GB HBM3 (700 W), 1280x720x3 (chip_smoke.py):
 // 0.0078 ms near identity, 0.0123 ms at 30 degrees and 1.5x scale (a warp's
 // 32 pixels then cross ~11 source rows), 0.0064 ms partly off-image; the
@@ -56,8 +60,8 @@ constexpr int kThreads = kTileW * kTileH;
 
 template <int CT>
 __global__ void __launch_bounds__(kThreads)
-    warp_bilinear_kernel(const float* __restrict__ src, int h, int w,
-                         int c_arg, const float* __restrict__ hinv,
+    warp_bilinear_kernel(const float* __restrict__ src, int src_n, int h,
+                         int w, int c_arg, const float* __restrict__ hinv,
                          float* __restrict__ out, int out_h, int out_w) {
   const int c = CT > 0 ? CT : c_arg;
   const int n = blockIdx.z;
@@ -99,8 +103,9 @@ __global__ void __launch_bounds__(kThreads)
   const float w11 = vy1 && vx1 ? fx * fy : 0.f;
   const int cx0 = (vx0 ? x0 : 0) * c;
   const int cx1 = (vx1 ? x0 + 1 : 0) * c;
-  const int cy0 = (n * h + (vy0 ? y0 : 0)) * w * c;
-  const int cy1 = (n * h + (vy1 ? y0 + 1 : 0)) * w * c;
+  const int ns = src_n == 1 ? 0 : n;
+  const int cy0 = (ns * h + (vy0 ? y0 : 0)) * w * c;
+  const int cy1 = (ns * h + (vy1 ? y0 + 1 : 0)) * w * c;
   const float* p00 = src + (cy0 + cx0);
   const float* p10 = src + (cy0 + cx1);
   const float* p01 = src + (cy1 + cx0);
@@ -134,33 +139,36 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int CT>
-void launch(const float* src, int n, int h, int w, int c, const float* hinv,
-            float* out, int out_h, int out_w, cudaStream_t stream) {
+void launch(const float* src, int src_n, int n, int h, int w, int c,
+            const float* hinv, float* out, int out_h, int out_w,
+            cudaStream_t stream) {
   const dim3 grid((unsigned)((out_w + kTileW - 1) / kTileW),
                   (unsigned)((out_h + kTileH - 1) / kTileH), (unsigned)n);
   warp_bilinear_kernel<CT><<<grid, kThreads, 0, stream>>>(
-      src, h, w, c, hinv, out, out_h, out_w);
+      src, src_n, h, w, c, hinv, out, out_h, out_w);
 }
 
 }  // namespace
 
-// src (n, h, w, c) and out (n, out_h, out_w, c) float32 NHWC, each under
-// 2^31 elements, hinv (n, 3, 3) float32, all contiguous on the device.
-// Returns cudaGetLastError().
-extern "C" int woft_warp_bilinear(const float* src, int n, int h, int w,
-                                  int c, const float* hinv, float* out,
-                                  int out_h, int out_w, void* stream) {
+// src (src_n, h, w, c) with src_n 1 or n, and out (n, out_h, out_w, c)
+// float32 NHWC, each under 2^31 elements, hinv (n, 3, 3) float32, all
+// contiguous on the device. Returns cudaGetLastError().
+extern "C" int woft_warp_bilinear(const float* src, int src_n, int n, int h,
+                                  int w, int c, const float* hinv,
+                                  float* out, int out_h, int out_w,
+                                  void* stream) {
   const long long lim = 0x7fffffffLL;
-  if (c < 1 || n < 1 || n > 65535 || (long long)n * h * w * c > lim ||
+  if (c < 1 || n < 1 || n > 65535 || (src_n != 1 && src_n != n) ||
+      (long long)src_n * h * w * c > lim ||
       (long long)n * out_h * out_w * c > lim) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = (cudaStream_t)stream;
   switch (c) {
-    case 1: launch<1>(src, n, h, w, c, hinv, out, out_h, out_w, s); break;
-    case 3: launch<3>(src, n, h, w, c, hinv, out, out_h, out_w, s); break;
-    case 4: launch<4>(src, n, h, w, c, hinv, out, out_h, out_w, s); break;
-    default: launch<0>(src, n, h, w, c, hinv, out, out_h, out_w, s);
+    case 1: launch<1>(src, src_n, n, h, w, c, hinv, out, out_h, out_w, s); break;
+    case 3: launch<3>(src, src_n, n, h, w, c, hinv, out, out_h, out_w, s); break;
+    case 4: launch<4>(src, src_n, n, h, w, c, hinv, out, out_h, out_w, s); break;
+    default: launch<0>(src, src_n, n, h, w, c, hinv, out, out_h, out_w, s);
   }
   return (int)cudaGetLastError();
 }

@@ -15,6 +15,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 _EPS = 1e-8
 
@@ -139,10 +140,34 @@ def find_homography_wls_qr(points1, points2, weights=None, *,
     p1n, t1 = normalize_points(points1, norm_w)
     p2n, t2 = normalize_points(points2, norm_w)
     A, b = _build_nonhomogeneous_system(p1n, p2n, weights)
-    q, r = torch.linalg.qr(A)                          # (B,2N,8), (B,8,8)
-    rhs = q.transpose(-1, -2) @ b                      # (B,8,1)
-    solution = torch.linalg.solve_triangular(r, rhs, upper=True)
-    return _solution_to_h(solution, t1, t2)
+    return _solution_to_h(_lstsq_qr(A, b), t1, t2)
+
+
+_TSQR_ROWS = 256
+
+
+def _lstsq_qr(A, b):
+    """argmin_x ||A x - b|| by QR, each of the B systems on its own.
+
+    A: (B, M, n); b: (B, M, 1). One system takes Q explicitly. A batch
+    takes only the R of the augmented [A | b], whose last column is Q^T b
+    (the Householder reflectors of A's columns applied to b), by a
+    two-level tall-skinny QR: the R of each block of at most 256 rows,
+    then the R of the stacked blocks' Rs. The same least-squares solution,
+    and on the card a fixed number of launches for any B (the library
+    solver factors a tall matrix one system after another)."""
+    if A.shape[0] == 1:
+        q, r = torch.linalg.qr(A)                      # (1,M,n), (1,n,n)
+        return torch.linalg.solve_triangular(r, q.transpose(-1, -2) @ b,
+                                             upper=True)
+    B, M, n = A.shape
+    blocks = -(-M // _TSQR_ROWS)
+    ab = F.pad(torch.cat([A, b], dim=-1), (0, 0, 0, blocks * _TSQR_ROWS - M))
+    r = torch.linalg.qr(ab.reshape(B * blocks, _TSQR_ROWS, n + 1),
+                        mode="r")[1]
+    r = torch.linalg.qr(r.reshape(B, blocks * (n + 1), n + 1), mode="r")[1]
+    return torch.linalg.solve_triangular(r[:, :n, :n], r[:, :n, n:],
+                                         upper=True)
 
 
 def proj_errors(H, pts_a, pts_b):

@@ -473,9 +473,12 @@ def weighted_raft_forward(model, cfg: RaftConfig, image1, image2,
         flow_init: optional (B, H/8, W/8, 2) initial flow.
         iters: GRU iterations (defaults to cfg.iters).
         template_feats: optional (fmap1, net0, inp) from ``encode_template``.
-        sparse_weight_head: return ``weight_head_at(cells)`` — (M,) int64
-            flat 1/8-grid cells -> (M,) logits equal to the dense head's —
-            and 'up_mask' instead of the dense weights. B must be 1.
+        sparse_weight_head: return ``weight_head_at(rows)`` — (M,) int64
+            rows ``b*H1*W1 + cell`` of flat 1/8-grid cells of batch
+            element b -> (M,) logits equal to the dense head's — and
+            'up_mask' instead of the dense weights. A batch of B frames
+            gives each element's logits as B separate calls would (the
+            block-local volume takes B = 1).
     Returns:
         dict with 'flow' (B,H/8,W/8,2), 'flow_up' (B,H,W,2),
         'mean_response' (B,H/8,W/8), and either 'weights' (B,H/8,W/8,1) and
@@ -550,10 +553,9 @@ def _raft_forward(model, cfg, image1, image2, flow_init, iters,
     k = 2 * radius + 1
     coords1 = _nhwc(coords1).contiguous()
     if sparse_weight_head:
-        if B != 1:
-            raise ValueError("the sparse weight head needs B == 1")
-        coords1_flat = coords1.reshape(H1 * W1, 2)
-        mr_flat = mean_response.reshape(H1 * W1)
+        # pyramid row b*H1*W1 + cell holds batch element b's cell
+        coords1_flat = coords1.reshape(B * H1 * W1, 2)
+        mr_flat = mean_response.reshape(B * H1 * W1)
         if local is not None:
             # queries are minor in the block-local volume, so per-cell reads
             # would be strided: one more dense lookup at the final

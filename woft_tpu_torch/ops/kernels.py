@@ -58,7 +58,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # source -> {C symbol: argument types}
 _ENTRIES = {
-    "warp": {"woft_warp_bilinear": [_P, _I, _I, _I, _I, _P, _P, _I, _I, _P]},
+    "warp": {"woft_warp_bilinear": [_P, _I, _I, _I, _I, _I, _P, _P, _I, _I,
+                                    _P]},
     "corr_lookup": {"woft_corr_lookup": [_P, _P, _P, _I, _P, _P,
                                          ctypes.c_longlong, _I, _P, _P]},
     "local_corr": {
@@ -191,9 +192,11 @@ def _raise_on_error(rc, name):
 def warp_perspective_bilinear(img, hinv, out_h, out_w):
     """Kernel A: bilinear perspective warp with zero padding.
 
-    img: (N, H, W, C) float32 CUDA; hinv: (N, 3, 3) float32 inverse
+    img: (N, H, W, C) float32 CUDA, or (1, H, W, C): one source warped by
+    each of the N homographies; hinv: (N, 3, 3) float32 inverse
     homographies (dst -> src). Returns (N, out_h, out_w, C) float32 with
-    out(x, y) = img(hinv (x, y)), the pixel centre back-projected."""
+    out[n](x, y) = img[n or 0](hinv[n] (x, y)), the pixel centre
+    back-projected."""
     if img.device.type != "cuda":
         raise ValueError("warp_perspective_bilinear takes CUDA tensors")
     _check_tensor(img, "img", torch.float32, img.device)
@@ -201,9 +204,11 @@ def warp_perspective_bilinear(img, hinv, out_h, out_w):
     if img.dim() != 4 or min(img.shape) == 0:
         raise ValueError(f"img must be a non-empty (N, H, W, C), got "
                          f"{tuple(img.shape)}")
-    N, H, W, C = img.shape
-    if hinv.shape != (N, 3, 3):
-        raise ValueError(f"hinv must be ({N}, 3, 3), got {tuple(hinv.shape)}")
+    src_n, H, W, C = img.shape
+    N = hinv.shape[0] if hinv.dim() == 3 else -1
+    if hinv.shape != (N, 3, 3) or src_n not in (1, N):
+        raise ValueError(f"hinv must be (N, 3, 3) for a source batch of 1 "
+                         f"or N, got {tuple(hinv.shape)} for {src_n}")
     if out_h <= 0 or out_w <= 0:
         raise ValueError(f"bad output size {out_h}x{out_w}")
     if max(img.numel(), N * out_h * out_w * C) >= 2 ** 31:
@@ -213,8 +218,8 @@ def warp_perspective_bilinear(img, hinv, out_h, out_w):
                       device=img.device)
     fn = _entry("warp")
     with _current(img.device):
-        rc = fn(img.data_ptr(), N, H, W, C, hinv.data_ptr(), out.data_ptr(),
-                out_h, out_w, _stream())
+        rc = fn(img.data_ptr(), src_n, N, H, W, C, hinv.data_ptr(),
+                out.data_ptr(), out_h, out_w, _stream())
     _raise_on_error(rc, "warp")
     warp_perspective_bilinear.launches += 1
     return out

@@ -7,6 +7,8 @@ the dense flow) to <= 500 points with a 1-D Sobol draw;
 plus per-slot validity, and gives the same indices as the JAX package.
 """
 
+import functools
+
 import numpy as np
 import torch
 
@@ -35,14 +37,24 @@ def featuremap_coords(hw, device=None, dtype=torch.float32):
     return torch.stack([(idx % W).to(dtype), (idx // W).to(dtype)], dim=0)
 
 
+@functools.lru_cache(maxsize=8)
+def _sobol_on(n, device):
+    """``sobol_1d(n)`` as a tensor on ``device``, made once: a tensor from
+    host numbers is a blocking copy to the card, and the tracker steps
+    gather every frame without syncing to the host."""
+    return torch.from_numpy(sobol_1d(n)).to(device)
+
+
 def masked_sobol_gather(valid, n=500):
     """Static-shape Sobol subsampling of the valid entries of a point list.
 
     Args:
-        valid: (P,) bool — validity of each point slot.
+        valid: (P,) or (N, P) bool — validity of each point slot, one row
+            a target (the JAX package gets the batch from ``vmap``).
         n: number of gather slots (the reference's ``to_draw``).
     Returns:
-        (indices (n,) int64 into the P slots, sel_valid (n,) bool).
+        (indices (..., n) int64 into the P slots, sel_valid (..., n) bool),
+        row t of a batch equal to the call on row t alone.
 
     ``n_valid > n``: targets are float32 ``round(n_valid * sobol(n))``
     (half to even) positions in the compacted valid list, sorted, with
@@ -52,15 +64,15 @@ def masked_sobol_gather(valid, n=500):
     """
     device = valid.device
     valid = valid.to(torch.int64)
-    P = valid.shape[0]
-    n_valid = valid.sum()
-    cs = torch.cumsum(valid, dim=0)                           # (P,)
+    P = valid.shape[-1]
+    n_valid = valid.sum(dim=-1, keepdim=True)                 # (..., 1)
+    cs = torch.cumsum(valid, dim=-1)                          # (..., P)
 
-    sobol = torch.from_numpy(sobol_1d(n)).to(device)
+    sobol = _sobol_on(n, device)
     sub_targets = torch.round(n_valid.to(torch.float32) * sobol).to(torch.int64)
-    sub_targets, _ = torch.sort(sub_targets)
-    dup = torch.cat([torch.zeros(1, dtype=torch.bool, device=device),
-                     sub_targets[1:] == sub_targets[:-1]])
+    sub_targets, _ = torch.sort(sub_targets, dim=-1)
+    dup = torch.cat([torch.zeros_like(sub_targets[..., :1], dtype=torch.bool),
+                     sub_targets[..., 1:] == sub_targets[..., :-1]], dim=-1)
     all_targets = torch.arange(n, device=device)
 
     use_sub = n_valid > n

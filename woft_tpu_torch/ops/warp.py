@@ -26,7 +26,10 @@ from . import kernels
 
 
 def _gather_nhwc(img, iy, ix):
-    """img (N,H,W,C), iy/ix (N, ...) int64 -> (N, ..., C)."""
+    """img (N,H,W,C) or (1,H,W,C), iy/ix (N, ...) int64 -> (N, ..., C); a
+    single source serves every row of the indices."""
+    if img.shape[0] == 1:
+        return img[0][iy, ix]
     N = img.shape[0]
     bidx = torch.arange(N, device=img.device).reshape(
         (N,) + (1,) * (iy.dim() - 1)).expand(iy.shape)
@@ -104,8 +107,9 @@ def perspective_coords(H, out_hw):
 def warp_perspective(img, H, out_shape=None, mode="bilinear"):
     """``cv2.warpPerspective`` twin: dst(x, y) = src(H^-1 (x, y)).
 
-    img: (N, H, W, C); H: (N, 3, 3) or (3, 3) forward homography;
-    mode 'bilinear' or 'nearest' (cv2's floor(x + 0.5) rounding)."""
+    img: (N, H, W, C), or (1, H, W, C) warped by each of N homographies;
+    H: (N, 3, 3) or (3, 3) forward homography; mode 'bilinear' or
+    'nearest' (cv2's floor(x + 0.5) rounding)."""
     if H.dim() == 2:
         H = H[None]
     out_h, out_w = out_shape if out_shape is not None else img.shape[1:3]
@@ -126,6 +130,8 @@ def warp_perspective_fast(img, H, out_shape=None):
     On a CPU tensor it is the plain ``warp_perspective``; on a CUDA tensor
     it launches kernel A (``csrc/warp.cu``), which is exact for every pose,
     so the TPU's pose envelope and its gather fallback have no counterpart.
+    A source batch of 1 with N homographies gives N warps of that one
+    source in one launch (the multi-target tracker's N search crops).
     """
     if H.dim() == 2:
         H = H[None]
@@ -151,13 +157,16 @@ def warp_axis_aligned(img, H, out_shape=None):
 def warp_validity_at(H, src_hw, pts):
     """Analytic twin of ``cv2.warpPerspective(ones, H) > 0`` at points.
 
-    H: (3, 3) forward homography; pts: (P, 2) (x, y) destination points.
-    Returns (P,) bool: any bilinear corner of the back-projected sample lies
-    inside the source, i.e. the source point is in (-1, W) x (-1, H)."""
+    H: (3, 3) forward homography and pts (P, 2) (x, y) destination points,
+    or a batch: H (N, 3, 3), pts (N, P, 2). Returns (P,) or (N, P) bool:
+    any bilinear corner of the back-projected sample lies inside the
+    source, i.e. the source point is in (-1, W) x (-1, H)."""
     src_h, src_w = src_hw
     p = pts.to(torch.float32)
-    sx, sy = _back_project(inverse_h(H[None]), p[:, 0], p[:, 1])
-    sx, sy = sx.reshape(-1), sy.reshape(-1)
+    if H.dim() == 2:
+        H, p = H[None], p[None]
+    sx, sy = _back_project(inverse_h(H), p[:, None, :, 0], p[:, None, :, 1])
+    sx, sy = sx.reshape(pts.shape[:-1]), sy.reshape(pts.shape[:-1])
     return (sx > -1.0) & (sx < src_w) & (sy > -1.0) & (sy < src_h)
 
 

@@ -1,0 +1,220 @@
+"""Multi-target tracking and the chunk loops that keep the host out of
+the frame.
+
+PyTorch twin of ``woft_tpu/pipeline.py``:
+
+- ``build_full_track_chunk``, ``build_multi_track_chunk`` and
+  ``build_shared_multi_chunk`` step a chunk of T frames with the
+  device-resident steps (``no_local_h``: no host sync in a step). Where
+  the JAX package runs a ``lax.scan`` in one dispatch, each is a Python
+  loop that queues the T frames' launches back to back and stacks the
+  outputs into (T, ...) tensors; the host reads them once a chunk.
+- ``MultiTargetTracker``: N targets, each with its own search window,
+  stepped as one batch (``tracker/window_step.py:build_window_batch_step``:
+  one crop launch, one WeightedRAFT forward with B = N).
+- ``SharedMultiTracker``: N targets sharing ONE full-frame flow a frame
+  (``tracker/woft.py:build_shared_multi_step``).
+
+``bgr_u8=True`` takes BGR uint8 frames, flipped and cast on the device.
+``track_video`` and its frame source are not ported yet (they decode
+through ``woft_native`` or ``cv2``).
+"""
+
+from dataclasses import replace
+
+import numpy as np
+import torch
+
+from .device import resolve_device
+from .flow.wrapper import upload_bgr
+from .models.raft import RaftConfig
+from .tracker.window_step import (WindowParams, build_window_batch_step,
+                                  stack_window_states, window_init_state)
+from .tracker.woft import (TrackerParams, build_shared_multi_step,
+                           build_track_step, tracker_init_state)
+
+
+def _rgb(frame, bgr_u8):
+    """A frame of a chunk as the steps take it: (1, H, W, 3) float32 RGB."""
+    return frame.flip(-1).to(torch.float32) if bgr_u8 else frame
+
+
+def _stack_meta(metas):
+    return {k: torch.stack([m[k] for m in metas]) for k in metas[0]}
+
+
+def build_multi_track_chunk(raft_cfg: RaftConfig, tp: TrackerParams,
+                            wp: WindowParams, flow_fn=None, bgr_u8=False):
+    """N window trackers over a chunk of frames, never syncing to the host.
+
+    ``(model, states, frames (T, 1, H, W, 3)) -> (states, hs (T, N, 3, 3),
+    meta of (T, N, ...))``: the batched window step (``no_local_h`` forced,
+    as in JAX) on each frame in turn. ``states``: ``stack_window_states``
+    of the targets' ``window_init_state``."""
+    tp = replace(tp, no_local_h=True)
+    step = build_window_batch_step(raft_cfg, tp, wp, flow_fn=flow_fn)
+
+    def chunk(model, states, frames):
+        hs, metas = [], []
+        for f in frames:
+            states, h, meta = step(model, states, _rgb(f, bgr_u8))
+            hs.append(h)
+            metas.append(meta)
+        return states, torch.stack(hs), _stack_meta(metas)
+
+    return chunk
+
+
+def build_full_track_chunk(raft_cfg: RaftConfig, tp: TrackerParams,
+                           flow_fn=None, bgr_u8=False):
+    """The full-frame tracker over a chunk of frames, never syncing to the
+    host: ``(model, state, frames (T, 1, H, W, 3)) -> (state, hs (T, 3, 3),
+    meta of (T, ...))``. ``no_local_h`` is forced (a chunk has no host
+    branch for the fallback); ``state`` from ``tracker_init_state`` under
+    the same parameters."""
+    tp = replace(tp, no_local_h=True)
+    step = build_track_step(raft_cfg, tp, flow_fn=flow_fn)
+
+    def chunk(model, state, frames):
+        hs, metas = [], []
+        for f in frames:
+            state, h, meta = step(model, state, _rgb(f, bgr_u8))
+            hs.append(h)
+            metas.append(meta)
+        return state, torch.stack(hs), _stack_meta(metas)
+
+    return chunk
+
+
+def build_shared_multi_chunk(raft_cfg: RaftConfig, tp: TrackerParams,
+                             flow_fn=None, bgr_u8=False):
+    """The shared-flow multi-target step over a chunk of frames, never
+    syncing to the host: ``(model, state, masks (N, H*W), h_last (N, 3,
+    3), frames (T, 1, H, W, 3)) -> (state, h_last, hs (T, N, 3, 3), meta
+    of (T, N))``; ``no_local_h`` forced."""
+    tp = replace(tp, no_local_h=True)
+    step = build_shared_multi_step(raft_cfg, tp, flow_fn=flow_fn)
+
+    def chunk(model, state, masks, h_last, frames):
+        hs, metas = [], []
+        for f in frames:
+            state, h_last, h, meta = step(model, state, masks, h_last,
+                                          _rgb(f, bgr_u8))
+            hs.append(h)
+            metas.append(meta)
+        return state, h_last, torch.stack(hs), _stack_meta(metas)
+
+    return chunk
+
+
+def _upload_chunk(frames_bgr, device):
+    """(T, H, W, 3) BGR uint8 -> (T, 1, H, W, 3) uint8 on ``device``."""
+    frames = np.ascontiguousarray(np.asarray(frames_bgr, np.uint8))
+    return torch.from_numpy(frames).to(device)[:, None]
+
+
+def _host(hs, meta):
+    return hs.cpu().numpy(), {k: v.cpu().numpy() for k, v in meta.items()}
+
+
+class MultiTargetTracker:
+    """Track N targets (masks in one template frame) as one batched step:
+    each keeps its own search window, template features and ladder; the
+    lost targets re-detect through the pre-warp reset (``no_local_h``).
+
+    ``model``: a ``WeightedRAFT`` (moved to ``device``, default ``cuda``,
+    and put in ``eval()`` mode: a batch equals separate calls only there).
+    ``raft_cfg.corr_impl`` must be 'dense'."""
+
+    def __init__(self, model, raft_cfg: RaftConfig, tp: TrackerParams,
+                 wp: WindowParams, device=None):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.cfg = raft_cfg
+        self.tp = replace(tp, no_local_h=True)
+        self.wp = wp
+        self._step = build_window_batch_step(self.cfg, self.tp, wp)
+        self._chunk_step = None
+        self.states = None
+
+    def init(self, frame_bgr, masks):
+        """frame_bgr: (H, W, 3) uint8; masks: (N, H, W) bool/uint8."""
+        frame = upload_bgr(frame_bgr, self.device)
+        self.states = stack_window_states([
+            window_init_state(self.model, self.cfg, self.tp, self.wp, frame,
+                              np.asarray(m) > 0) for m in masks])
+
+    def track(self, frame_bgr):
+        """-> ((N, 3, 3) homographies, meta dict of (N,) diagnostics)."""
+        self.states, hs, meta = self._step(
+            self.model, self.states, upload_bgr(frame_bgr, self.device))
+        return _host(hs, meta)
+
+    def track_chunk(self, frames_bgr):
+        """Track a chunk of frames with one host read at its end.
+
+        ``frames_bgr``: (T, H, W, 3) uint8 BGR. Returns ((T, N, 3, 3)
+        homographies, meta dict of (T, N, ...) diagnostics). Uploads uint8
+        and converts on the device."""
+        if self._chunk_step is None:
+            self._chunk_step = build_multi_track_chunk(
+                self.cfg, self.tp, self.wp, bgr_u8=True)
+        self.states, hs, meta = self._chunk_step(
+            self.model, self.states, _upload_chunk(frames_bgr, self.device))
+        return _host(hs, meta)
+
+
+class SharedMultiTracker:
+    """Track N targets in one video with ONE shared full-frame flow a frame
+    (``build_shared_multi_step``): WeightedRAFT runs once a frame and every
+    target adds a TC selection and weighted fit over its own mask, batched
+    (grouped beyond ``TrackerParams.multi_fit_chunk``). The pre-warp and
+    its ladder follow target 0; each target keeps its own last good H.
+
+    ``model``: a ``WeightedRAFT`` (moved to ``device``, default ``cuda``).
+    ``flow_fn`` replaces the network as in ``build_track_step``."""
+
+    def __init__(self, model, raft_cfg: RaftConfig, tp: TrackerParams,
+                 flow_fn=None, device=None):
+        self.device = resolve_device(device)
+        self.model = None if model is None else model.to(self.device).eval()
+        self.cfg = raft_cfg
+        self.tp = replace(tp, no_local_h=True)
+        self._flow_fn = flow_fn
+        self._step = build_shared_multi_step(self.cfg, self.tp,
+                                             flow_fn=flow_fn)
+        self._chunk_step = None
+        self.state = None
+        self.masks = None
+        self.h_last = None
+
+    def init(self, frame_bgr, masks):
+        """frame_bgr: (H, W, 3) uint8 BGR; masks: (N, H, W) bool/uint8."""
+        masks = torch.from_numpy(np.asarray(masks) > 0).to(self.device)
+        n = masks.shape[0]
+        # the template features serve the network path only
+        self.state = tracker_init_state(
+            self.model, self.cfg, self.tp, upload_bgr(frame_bgr, self.device),
+            masks[0], encode=self._flow_fn is None)
+        self.masks = masks.reshape(n, -1)
+        self.h_last = torch.eye(3, dtype=torch.float32,
+                                device=self.device).repeat(n, 1, 1)
+
+    def track(self, frame_bgr):
+        """-> ((N, 3, 3) homographies, meta dict of (N,) diagnostics)."""
+        self.state, self.h_last, hs, meta = self._step(
+            self.model, self.state, self.masks, self.h_last,
+            upload_bgr(frame_bgr, self.device))
+        return _host(hs, meta)
+
+    def track_chunk(self, frames_bgr):
+        """Track T frames with one host read at the end: ``frames_bgr``
+        (T, H, W, 3) uint8 BGR -> ((T, N, 3, 3) homographies, meta dict of
+        (T, N) diagnostics). Uploads uint8 and converts on the device."""
+        if self._chunk_step is None:
+            self._chunk_step = build_shared_multi_chunk(
+                self.cfg, self.tp, flow_fn=self._flow_fn, bgr_u8=True)
+        self.state, self.h_last, hs, meta = self._chunk_step(
+            self.model, self.state, self.masks, self.h_last,
+            _upload_chunk(frames_bgr, self.device))
+        return _host(hs, meta)

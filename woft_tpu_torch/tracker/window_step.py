@@ -16,7 +16,9 @@ homography back to the full frame:
 The crop homographies stay float32 on the device, as in the reference.
 Where the JAX step chooses the local fallback inside ``lax.cond``, this
 step syncs the ``ok`` flag to the host and branches in Python, as the
-port's ``build_track_step`` does (one host sync a frame).
+port's ``build_track_step`` does (one host sync a frame); with
+``no_local_h`` it never syncs. ``build_window_batch_step`` steps N targets'
+windows at once (the JAX package's ``vmap`` of this step).
 """
 
 from dataclasses import dataclass
@@ -29,7 +31,7 @@ from ..ops.pad import make_padder
 from ..ops.sampling import featuremap_coords
 from ..ops.warp import (inverse_h, warp_axis_aligned, warp_perspective,
                         warp_perspective_fast, warp_validity_at)
-from .woft import (TrackerParams, _estimate_h, _select_tcs,
+from .woft import (TrackerParams, _device_ladder, _estimate_h, _select_tcs,
                    _select_tcs_sparse, _success_check)
 
 
@@ -75,32 +77,33 @@ def _host_mask(mask):
 
 
 def _bbox_to_window_h(x0, y0, w, h, shape):
-    """The box (x0, y0, w, h) -> (0, 0, Sw, Sh) homography from 0-d tensors
-    (ref:geom_utils.py:142-166)."""
+    """The box (x0, y0, w, h) -> (0, 0, Sw, Sh) homography from tensors of
+    one shape S (0-d for one box) -> (*S, 3, 3) (ref:geom_utils.py:142-166).
+    """
     Sh, Sw = shape
     sx = Sw / w
     sy = Sh / h
     z = torch.zeros_like(sx)
     o = torch.ones_like(sx)
     return torch.stack([
-        torch.stack([sx, z, -sx * x0]),
-        torch.stack([z, sy, -sy * y0]),
-        torch.stack([z, z, o]),
-    ])
+        torch.stack([sx, z, -sx * x0], dim=-1),
+        torch.stack([z, sy, -sy * y0], dim=-1),
+        torch.stack([z, z, o], dim=-1),
+    ], dim=-2)
 
 
 def _search_crop_h(h_last_good, tmpl_corners, frame_hw, wp: WindowParams):
     """The search box's crop homography, on the device: the template
     corners projected through inv(h_last_good), padded, kept in the frame.
-    h_last_good: (3, 3); tmpl_corners: (4, 2) float32."""
+    h_last_good: (3, 3) and tmpl_corners (4, 2) float32, or a batch of
+    targets: (N, 3, 3) and (N, 4, 2) -> (N, 3, 3)."""
     shape = wp.shape
-    inv = inverse_h(h_last_good[None])[0]
-    ones = torch.ones((4, 1), dtype=tmpl_corners.dtype,
-                      device=tmpl_corners.device)
-    proj = torch.cat([tmpl_corners, ones], dim=1) @ inv.T       # (4, 3)
-    proj = proj[:, :2] / proj[:, 2:3]
-    x_min, x_max = proj[:, 0].min(), proj[:, 0].max()
-    y_min, y_max = proj[:, 1].min(), proj[:, 1].max()
+    inv = inverse_h(h_last_good.reshape(-1, 3, 3)).reshape(h_last_good.shape)
+    ones = torch.ones_like(tmpl_corners[..., :1])
+    proj = torch.cat([tmpl_corners, ones], dim=-1) @ inv.transpose(-1, -2)
+    proj = proj[..., :2] / proj[..., 2:3]                      # (..., 4, 2)
+    x_min, x_max = proj[..., 0].amin(-1), proj[..., 0].amax(-1)
+    y_min, y_max = proj[..., 1].amin(-1), proj[..., 1].amax(-1)
     w = x_max - x_min + 1.0
     h = y_max - y_min + 1.0
     H_img, W_img = frame_hw
@@ -231,13 +234,96 @@ def window_init_state(model, raft_cfg: RaftConfig, tp: TrackerParams,
         "h_prev_crop": h_tmpl_crop,
         "h_last_good": eye,                 # full-frame cur2init
         "h_prev_full": eye,
-        "lost": False,
-        "n_lost": 0,
+        "lost": torch.zeros((), dtype=torch.bool, device=dev)
+        if tp.no_local_h else False,
+        "n_lost": torch.zeros((), dtype=torch.int32, device=dev)
+        if tp.no_local_h else 0,
     }
 
 
+def stack_window_states(states):
+    """N per-target states (``window_init_state``, made under
+    ``no_local_h``) as one state of (N, ...) tensors, the layout of JAX's
+    ``jax.tree.map(jnp.stack, *states)``: the batched step's input."""
+    out = {}
+    for key, first in states[0].items():
+        if first is None:
+            out[key] = None
+        elif isinstance(first, tuple):
+            out[key] = tuple(torch.stack(t) for t in zip(
+                *(st[key] for st in states)))
+        else:
+            out[key] = torch.stack([st[key] for st in states])
+    return out
+
+
 def _normalized(H):
-    return H / H[2, 2]
+    return H / H[..., 2:3, 2:3]
+
+
+def _window_estimate(model, raft_cfg, tp, wp, flow_fn, st, frame):
+    """The window-space estimate of N targets at once, before the ladder.
+
+    st: the targets' state pieces, batched: ``h_last_good`` (N, 3, 3)
+    after the reset, ``tmpl_corners`` (N, 4, 2), ``h_tmpl_crop`` (N, 3, 3),
+    ``tmpl_window`` (N, Sh, Sw, 3), ``tmpl_feats`` (N, ...) or None,
+    ``tmpl_mask_window`` (N, Sh, Sw). frame: (1, H, W, 3) float32. Each
+    target's search box is cropped from the one frame (kernel A, one
+    launch for all), pre-warped by its prior (one launch), and all N
+    windows go through one WeightedRAFT forward (B = N). Returns (h_full
+    (N, 3, 3) cur frame -> init, ok (N,), inlier_frac (N,), window (N, Sh,
+    Sw, 3), h_crop (N, 3, 3), h_crop_inv (N, 3, 3))."""
+    Sh, Sw = wp.shape
+    hw = Sh * Sw
+    frame_hw = tuple(frame.shape[1:3])
+    h_last_good = st["h_last_good"]
+    N = h_last_good.shape[0]
+    h_crop = _search_crop_h(h_last_good, st["tmpl_corners"], frame_hw, wp)
+    window = warp_axis_aligned(frame, h_crop, out_shape=(Sh, Sw))
+    # window-space prior: cur window -> template window
+    h_crop_inv = inverse_h(h_crop)
+    h_prior = _normalized(st["h_tmpl_crop"] @ (h_last_good @ h_crop_inv))
+    prewarped = warp_perspective_fast(window, h_prior)
+
+    if flow_fn is None:
+        fo = weighted_raft_forward(model, raft_cfg, None, prewarped,
+                                   template_feats=st["tmpl_feats"],
+                                   sparse_weight_head=True)
+        wflow = fo["flow_up"]
+    else:
+        wflow, wweights = flow_fn(model, st["tmpl_window"], prewarped,
+                                  st["tmpl_feats"])
+
+    dst = (featuremap_coords((Sh, Sw), frame.device).T
+           + wflow.reshape(N, hw, 2))
+    dst_int = torch.round(dst).long()
+    oob = ((dst < 0).any(dim=-1) | (dst_int[..., 0] >= Sw)
+           | (dst_int[..., 1] >= Sh))
+    # pre-warp and in-frame validity evaluated at the destination points
+    pts = torch.stack([dst_int[..., 0].clamp(0, Sw - 1),
+                       dst_int[..., 1].clamp(0, Sh - 1)], dim=-1)
+    in_pw = (~oob & warp_validity_at(h_prior, (Sh, Sw), pts)
+             & warp_validity_at(h_prior @ h_crop, frame_hw, pts))
+    valid = st["tmpl_mask_window"].reshape(N, hw) & in_pw
+
+    if flow_fn is None:
+        src_g, dst_g, w_g, sel = _select_tcs_sparse(wflow, fo, valid,
+                                                    tp.subsample_n)
+    else:
+        src_g, dst_g, w_g, sel, _ = _select_tcs(wflow, wweights, valid,
+                                                tp.subsample_n)
+    h_pw2tmpl = _estimate_h(tp, dst_g, src_g, w_g, sel)
+    ok, inlier_frac = _success_check(tp, h_pw2tmpl, dst_g, src_g, sel)
+
+    # window-space estimate (cur window -> template window), un-cropped
+    # to the full frame (ref:WOFT_window.py:420-427)
+    h_win = _normalized(h_pw2tmpl @ h_prior)
+    h_full = _normalized(inverse_h(st["h_tmpl_crop"]) @ (h_win @ h_crop))
+    return h_full, ok, inlier_frac, window, h_crop, h_crop_inv
+
+
+def _to_float(frame):
+    return frame if frame.dtype == torch.float32 else frame.to(torch.float32)
 
 
 def build_window_track_step(raft_cfg: RaftConfig, tp: TrackerParams,
@@ -250,7 +336,12 @@ def build_window_track_step(raft_cfg: RaftConfig, tp: TrackerParams,
     tests). Without it both flows (template features -> pre-warped window,
     and the fallback's previous window -> window) run WeightedRAFT with the
     sparse weight head: the reference's ``sparse_ok`` branch, which its
-    canonical settings take (``nopad``, the one padding the port has)."""
+    canonical settings take (``nopad``, the one padding the port has).
+
+    With ``tp.no_local_h`` there is no fallback and no host sync: ``ok``,
+    ``lost`` and ``n_lost`` stay device tensors and the ladder is
+    ``torch.where`` (the state must come from ``window_init_state`` under
+    the same parameters)."""
     Sh, Sw = wp.shape
     hw = Sh * Sw
     sparse_ok = flow_fn is None
@@ -282,75 +373,107 @@ def build_window_track_step(raft_cfg: RaftConfig, tp: TrackerParams,
 
     @torch.no_grad()
     def step(model, state, frame):
-        if frame.dtype != torch.float32:
-            frame = frame.to(torch.float32)
-        frame_hw = tuple(frame.shape[1:3])
-        dev = frame.device
+        frame = _to_float(frame)
         # pre-warp reset after too many lost frames (ref:YAOF:78-79)
-        if state["n_lost"] > tp.no_prewarp_after_n:
-            h_last_good = torch.eye(3, dtype=torch.float32, device=dev)
+        if tp.no_local_h:
+            n_lost_in, h_last_good = _device_ladder(
+                state["n_lost"], tp.no_prewarp_after_n, state["h_last_good"])
+        elif state["n_lost"] > tp.no_prewarp_after_n:
+            h_last_good = torch.eye(3, dtype=torch.float32,
+                                    device=frame.device)
         else:
             h_last_good = state["h_last_good"]
 
-        h_crop = _search_crop_h(h_last_good, state["tmpl_corners"], frame_hw,
-                                wp)
-        window = warp_axis_aligned(frame, h_crop, out_shape=(Sh, Sw))
-        # window-space prior: cur window -> template window
-        h_crop_inv = inverse_h(h_crop[None])[0]
-        h_prior = _normalized(state["h_tmpl_crop"]
-                              @ (h_last_good @ h_crop_inv))
-        prewarped = warp_perspective_fast(window, h_prior)
+        st = {k: state[k][None] for k in ("tmpl_corners", "h_tmpl_crop",
+                                          "tmpl_mask_window")}
+        st.update(h_last_good=h_last_good[None],
+                  tmpl_window=state["tmpl_window"],
+                  tmpl_feats=state["tmpl_feats"])
+        h_full, ok, inlier_frac, window, h_crop, h_crop_inv = (
+            _window_estimate(model, raft_cfg, tp, wp, flow_fn, st, frame))
+        h_full, ok, inlier_frac = h_full[0], ok[0], inlier_frac[0]
+        h_crop, h_crop_inv = h_crop[0], h_crop_inv[0]
 
-        if sparse_ok:
-            fo = weighted_raft_forward(model, raft_cfg, None, prewarped,
-                                       template_feats=state["tmpl_feats"],
-                                       sparse_weight_head=True)
-            wflow = fo["flow_up"]
+        if tp.no_local_h:
+            h_out = h_full
+            n_lost = torch.where(ok, torch.zeros_like(n_lost_in),
+                                 n_lost_in + 1)
+            h_last_good = torch.where(ok, h_out, h_last_good)
+            lost = ~ok
         else:
-            wflow, wweights = flow_fn(model, state["tmpl_window"], prewarped,
-                                      state["tmpl_feats"])
-
-        dst = featuremap_coords((Sh, Sw), dev).T + wflow.reshape(hw, 2)
-        dst_int = torch.round(dst).long()
-        oob = ((dst < 0).any(dim=-1) | (dst_int[:, 0] >= Sw)
-               | (dst_int[:, 1] >= Sh))
-        # pre-warp and in-frame validity evaluated at the destination points
-        pts = torch.stack([dst_int[:, 0].clamp(0, Sw - 1),
-                           dst_int[:, 1].clamp(0, Sh - 1)], dim=-1)
-        in_pw = (~oob & warp_validity_at(h_prior, (Sh, Sw), pts)
-                 & warp_validity_at(h_prior @ h_crop, frame_hw, pts))
-        valid = state["tmpl_mask_window"].reshape(hw) & in_pw
-
-        if sparse_ok:
-            src_g, dst_g, w_g, sel = _select_tcs_sparse(wflow, fo, valid,
-                                                        tp.subsample_n)
-        else:
-            src_g, dst_g, w_g, sel, _ = _select_tcs(wflow, wweights, valid,
-                                                    tp.subsample_n)
-        h_pw2tmpl = _estimate_h(tp, dst_g, src_g, w_g, sel)
-        ok, inlier_frac = _success_check(tp, h_pw2tmpl, dst_g, src_g,
-                                         sel[0:1])
-        ok = bool(ok)                   # host sync: the branch below is Python
-
-        # window-space estimate (cur window -> template window), un-cropped
-        # to the full frame (ref:WOFT_window.py:420-427)
-        h_win = _normalized(h_pw2tmpl[0] @ h_prior)
-        h_full = _normalized(inverse_h(state["h_tmpl_crop"][None])[0]
-                             @ (h_win @ h_crop))
-        h_out = h_full if ok else local_branch(model, state, window, h_crop)
-
-        n_lost = 0 if ok else state["n_lost"] + 1
+            ok = bool(ok)               # host sync: the branch below is Python
+            h_out = h_full if ok else local_branch(model, state, window,
+                                                   h_crop)
+            n_lost = 0 if ok else state["n_lost"] + 1
+            h_last_good = h_out if ok else h_last_good
+            lost = not ok
         new_state = dict(
             state,
             prev_window=window,
             h_prev_win2tmplwin=state["h_tmpl_crop"] @ h_out @ h_crop_inv,
             h_prev_crop=h_crop,
-            h_last_good=h_out if ok else h_last_good,
+            h_last_good=h_last_good,
             h_prev_full=h_out,
-            lost=not ok,
+            lost=lost,
             n_lost=n_lost)
         meta = {"global_H_success": ok, "inlier_frac": inlier_frac,
-                "lost": not ok, "N_lost": n_lost, "h_crop": h_crop}
+                "lost": lost, "N_lost": n_lost, "h_crop": h_crop}
         return new_state, h_out, meta
+
+    return step
+
+
+def build_window_batch_step(raft_cfg: RaftConfig, tp: TrackerParams,
+                            wp: WindowParams, flow_fn=None):
+    """N window trackers as one batched step, the counterpart of the JAX
+    package's ``jax.vmap`` of the window step (``woft_tpu/pipeline.py``):
+    ``(model, states, frame (1, H, W, 3)) -> (states, hs (N, 3, 3), meta
+    of (N, ...))``, ``states`` from ``stack_window_states``.
+
+    Each target keeps its own search box, crop, template features and
+    ladder; the N search crops are one launch of kernel A from the one
+    frame, and all N windows go through one WeightedRAFT forward with
+    B = N (the encoders' batch norm runs in ``eval()`` mode, so a batch
+    equals N separate calls). No local fallback (``no_local_h`` is
+    implied, as in JAX, where ``lax.cond`` under ``vmap`` would run the
+    fallback for every target) and no host sync. ``flow_fn`` as for
+    ``build_window_track_step``, called with the N windows at once.
+
+    ``corr_impl='local'`` is refused: the block-local volume takes one
+    frame pair, and the JAX package does not batch it either (its
+    ``bench.py`` pins the one-hot lookup for the batched tracker)."""
+    if flow_fn is None and raft_cfg.corr_impl == "local":
+        raise ValueError("the batched window step runs the dense "
+                         "correlation (corr_impl='dense'): the block-local "
+                         "volume takes one frame pair, and woft_tpu's "
+                         "batched tracker does not run it either")
+
+    @torch.no_grad()
+    def step(model, states, frame):
+        frame = _to_float(frame)
+        n_lost_in, h_last_good = _device_ladder(
+            states["n_lost"], tp.no_prewarp_after_n, states["h_last_good"])
+        feats = states["tmpl_feats"]
+        st = {k: states[k] for k in ("tmpl_corners", "h_tmpl_crop",
+                                     "tmpl_mask_window")}
+        st.update(h_last_good=h_last_good,
+                  tmpl_window=states["tmpl_window"][:, 0],
+                  tmpl_feats=None if feats is None
+                  else tuple(f[:, 0] for f in feats))
+        h_out, ok, inlier_frac, window, h_crop, h_crop_inv = (
+            _window_estimate(model, raft_cfg, tp, wp, flow_fn, st, frame))
+        n_lost = torch.where(ok, torch.zeros_like(n_lost_in), n_lost_in + 1)
+        new_states = dict(
+            states,
+            prev_window=window[:, None],
+            h_prev_win2tmplwin=states["h_tmpl_crop"] @ h_out @ h_crop_inv,
+            h_prev_crop=h_crop,
+            h_last_good=torch.where(ok[:, None, None], h_out, h_last_good),
+            h_prev_full=h_out,
+            lost=~ok,
+            n_lost=n_lost)
+        meta = {"global_H_success": ok, "inlier_frac": inlier_frac,
+                "lost": ~ok, "N_lost": n_lost, "h_crop": h_crop}
+        return new_states, h_out, meta
 
     return step

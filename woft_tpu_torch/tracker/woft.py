@@ -13,7 +13,12 @@ PyTorch twin of ``woft_tpu/tracker/woft.py`` (the full-frame tracker):
   inlier check, and the local-flow fallback with the lost-counter reset.
   Where the JAX step chooses the fallback inside ``lax.cond``, this step
   syncs the ``ok`` flag to the host and branches in Python, as the JAX
-  package's big-frame ``host_fallback`` mode does;
+  package's big-frame ``host_fallback`` mode does. With ``no_local_h`` the
+  step has no fallback and never syncs: the ladder is ``torch.where`` on
+  device tensors, so the chunk loops (``pipeline.py``) queue frame after
+  frame;
+- ``build_shared_multi_step``: N targets from ONE full-frame flow a frame,
+  the TC selection and fit batched over the targets;
 - ``WOFTTracker``: the reference's ``init``/``track`` API (numpy BGR in,
   numpy H out).
 
@@ -47,14 +52,21 @@ class TrackerParams:
 
     ``estimator``: 'wls_qr' (weighted QR) or 'plain_qr' (0/1 validity as
     weights). ``redetection``: 'inliers' | 'never' | 'always'.
-    ``padding_mode``: 'nopad' (the one ported policy)."""
+    ``no_local_h``: skip the local-flow fallback; the steps then keep the
+    ladder on the device and never sync to the host.
+    ``padding_mode``: 'nopad' (the one ported policy).
+    ``multi_fit_chunk``: the shared-flow multi-target step fits at most
+    this many targets at once, in groups beyond it (the sparse weight
+    head's patch activations grow with the targets fitted together)."""
     subsample_n: int = 500
     inlier_px: float = 5.0
     min_inlier_frac: float = 0.2
     no_prewarp_after_n: int = 10
     estimator: str = "wls_qr"
     redetection: str = "inliers"
+    no_local_h: bool = False
     padding_mode: str = "nopad"
+    multi_fit_chunk: int = 64
 
     def __post_init__(self):
         if self.estimator not in _ESTIMATORS:
@@ -74,7 +86,8 @@ class TrackerState:
     template_mask: (H, W) bool target mask.
     prev_img: (1, H, W, 3) float RGB previous frame.
     prev_h2init, last_good_h2init: (3, 3) float32.
-    lost: bool. n_lost: int.
+    lost: bool. n_lost: int. Under ``no_local_h``: 0-d bool and int32
+        device tensors.
     """
     template_img: torch.Tensor
     template_feats: tuple
@@ -87,8 +100,9 @@ class TrackerState:
 
 
 def _estimate_h(tp: TrackerParams, pts_a, pts_b, weights, valid):
-    """Fit H mapping pts_a -> pts_b. pts: (1, N, 2); weights: (1, N)
-    sigmoided reliabilities; valid: (1, N) 0/1 selection."""
+    """Fit H mapping pts_a -> pts_b, one fit a row. pts: (B, N, 2);
+    weights: (B, N) sigmoided reliabilities; valid: (B, N) 0/1 selection.
+    Returns (B, 3, 3)."""
     if tp.estimator == "plain_qr":
         return find_homography_wls_qr(pts_a, pts_b, valid)
     return find_homography_wls_qr(pts_a, pts_b, weights * valid)
@@ -101,41 +115,64 @@ def _sparse_point_weights(weight_head_at, up_mask, idx, W_img, H1, W1):
     combination of its parent cell's neighbours' logits, and the head is
     per-cell independent, so only |idx| * 9 cells are evaluated.
 
-    up_mask: (1, H1, W1, 9*64) pre-softmax; idx: (n,) int64 flat pixels.
-    Returns (n,) float32 weights."""
-    n = idx.shape[0]
+    up_mask: (B, H1, W1, 9*64) pre-softmax, B = 1 (one flow for every
+    target) or N (a flow a target, rows ``b*H1*W1 + cell`` of
+    ``weight_head_at``); idx: (N, n) int64 flat pixels, a row a target.
+    Returns (N, n) float32 weights.
+
+    A batch of targets that asks for more cells than its flows have (at
+    1080p, 8 targets ask for 36,000 of 32,400) has the head evaluated once
+    at every cell and gathered: the same logits, since the head is per
+    cell, at a cost and a memory bounded by the grid (64 targets would ask
+    for 288,000). One target keeps the sparse evaluation."""
+    N, n = idx.shape
     px = idx % W_img
     py = idx // W_img
     cx, sx = px // 8, px % 8
     cy, sy = py // 8, py % 8
+    # the first row of each target's flow
+    base = (torch.arange(N, device=idx.device)[:, None] * (H1 * W1)
+            if up_mask.shape[0] > 1 else torch.zeros_like(idx[:, :1]))
     d = torch.arange(3, device=idx.device) - 1
-    cyn = cy[:, None, None] + d[None, :, None]               # (n, 3, 1)
-    cxn = cx[:, None, None] + d[None, None, :]               # (n, 1, 3)
+    cyn = cy[..., None, None] + d[:, None]                   # (N, n, 3, 1)
+    cxn = cx[..., None, None] + d[None, :]                   # (N, n, 1, 3)
     nb_ok = (cyn >= 0) & (cyn < H1) & (cxn >= 0) & (cxn < W1)
-    cells = (cyn.clamp(0, H1 - 1) * W1 + cxn.clamp(0, W1 - 1)).reshape(n * 9)
-    logits = weight_head_at(cells).reshape(n, 9)
+    cells = cyn.clamp(0, H1 - 1) * W1 + cxn.clamp(0, W1 - 1)
+    rows = (cells + base[..., None, None]).reshape(N * n * 9)
+    n_cells = up_mask.shape[0] * H1 * W1
+    if N > 1 and rows.numel() > n_cells:
+        logits = weight_head_at(torch.arange(n_cells, device=idx.device))
+        logits = logits[rows].reshape(N * n, 9)
+    else:
+        logits = weight_head_at(rows).reshape(N * n, 9)
     # outside-grid neighbours contribute logit 0 (the dense path's zero pad)
-    logits = logits * nb_ok.reshape(n, 9).to(logits.dtype)
+    logits = logits * nb_ok.reshape(N * n, 9).to(logits.dtype)
 
-    m = up_mask.reshape(H1 * W1, 9, 8, 8)[cy * W1 + cx]      # (n, 9, 8, 8)
+    parent = (base + cy * W1 + cx).reshape(N * n)
+    m = up_mask.reshape(-1, 9, 8, 8)[parent]                 # (N*n, 9, 8, 8)
     m = torch.softmax(m, dim=1)
-    msel = m[torch.arange(n, device=idx.device), :, sy, sx]  # (n, 9)
-    return torch.sigmoid(torch.sum(msel * logits, dim=1))
+    msel = m[torch.arange(N * n, device=idx.device), :, sy.reshape(-1),
+             sx.reshape(-1)]                                 # (N*n, 9)
+    return torch.sigmoid(torch.sum(msel * logits, dim=1)).reshape(N, n)
 
 
 def _select_tcs(flow, weights, valid_mask, n):
-    """Dense flow -> fixed-size TC set.
+    """Dense flow -> fixed-size TC sets, one a target.
 
-    flow: (1, H, W, 2); weights: (1, H, W, 1) sigmoided or None;
-    valid_mask: (H*W,) bool. Returns (src (1,n,2), dst (1,n,2), w (1,n) or
-    None, valid (1,n) float, idx (n,))."""
+    flow: (B, H, W, 2) and weights (B, H, W, 1) sigmoided or None, B = 1
+    (one flow for every target) or N; valid_mask: (H*W,) for one target or
+    (N, H*W). Returns (src (N,n,2), dst (N,n,2), w (N,n) or None, valid
+    (N,n) float, idx (N,n))."""
     H, W = flow.shape[1:3]
-    src = featuremap_coords((H, W), flow.device).T
-    dst = src + flow.reshape(H * W, 2)
-    idx, sel_valid = masked_sobol_gather(valid_mask, n)
-    g_w = None if weights is None else weights.reshape(H * W)[idx][None]
-    return (src[idx][None], dst[idx][None], g_w,
-            sel_valid[None].to(torch.float32), idx)
+    valid_mask = valid_mask.reshape(-1, H * W)
+    N = valid_mask.shape[0]
+    src = featuremap_coords((H, W), flow.device).T            # (HW, 2)
+    dst = (src + flow.reshape(-1, H * W, 2)).expand(N, -1, -1)
+    idx, sel_valid = masked_sobol_gather(valid_mask, n)       # (N, n)
+    g_dst = torch.gather(dst, 1, idx[..., None].expand(-1, -1, 2))
+    g_w = None if weights is None else torch.gather(
+        weights.reshape(-1, H * W).expand(N, -1), 1, idx)
+    return src[idx], g_dst, g_w, sel_valid.to(torch.float32), idx
 
 
 def _select_tcs_sparse(flow, forward_out, valid_mask, n):
@@ -144,22 +181,53 @@ def _select_tcs_sparse(flow, forward_out, valid_mask, n):
     src_g, dst_g, _, sel, idx = _select_tcs(flow, None, valid_mask, n)
     w = _sparse_point_weights(forward_out["weight_head_at"],
                               forward_out["up_mask"], idx, W, H // 8, W // 8)
-    return src_g, dst_g, w[None], sel
+    return src_g, dst_g, w, sel
 
 
 def _success_check(tp: TrackerParams, H, pts_a, pts_b, valid):
-    """Inlier-fraction redetection check. pts: (1, N, 2), H maps a -> b;
-    valid: (1, N). Returns (ok bool tensor, inlier fraction)."""
+    """Inlier-fraction redetection check, one a target. pts: (N, n, 2),
+    H (N, 3, 3) maps a -> b; valid: (N, n). The sums run per target over
+    its own points. Returns (ok (N,) bool, inlier fraction (N,))."""
     errs = proj_errors(H, pts_a.transpose(1, 2), pts_b.transpose(1, 2))
     inliers = (errs <= tp.inlier_px).to(torch.float32) * valid
-    frac = inliers.sum() / valid.sum().clamp(min=1.0)
+    frac = inliers.sum(dim=-1) / valid.sum(dim=-1).clamp(min=1.0)
     if tp.redetection == "never":
-        ok = torch.zeros((), dtype=torch.bool, device=H.device)
+        ok = torch.zeros_like(frac, dtype=torch.bool)
     elif tp.redetection == "always":
-        ok = torch.ones((), dtype=torch.bool, device=H.device)
+        ok = torch.ones_like(frac, dtype=torch.bool)
     else:
         ok = frac > tp.min_inlier_frac
-    return ok & torch.isfinite(H).all(), frac
+    return ok & torch.isfinite(H).flatten(1).all(dim=1), frac
+
+
+def _tc_validity(flow, last_good, frame_hw):
+    """(H*W,) bool: the template pixel's destination under ``flow`` (1, H,
+    W, 2) lies in the frame and in the region the pre-warp by
+    ``last_good`` (3, 3) filled. The pre-warp validity mask is a box check
+    on Hinv @ p, so evaluating it at clip(dst_int) equals gathering the
+    mask there."""
+    H_img, W_img = frame_hw
+    dst = (featuremap_coords(frame_hw, flow.device).T
+           + flow.reshape(H_img * W_img, 2))
+    dst_int = torch.round(dst).long()
+    oob = ((dst < 0).any(dim=-1) | (dst_int[:, 0] >= W_img)
+           | (dst_int[:, 1] >= H_img))
+    pts = torch.stack([dst_int[:, 0].clamp(0, W_img - 1),
+                       dst_int[:, 1].clamp(0, H_img - 1)], dim=-1)
+    return ~oob & warp_validity_at(last_good, frame_hw, pts)
+
+
+def _device_ladder(n_lost, no_prewarp_after_n, last_good_h2init):
+    """The pre-warp reset on the device, for one target or a batch:
+    (n_lost as an int32 tensor, the last good H, or the identity once the
+    target was lost more than ``no_prewarp_after_n`` frames in a row). A
+    state made without ``no_local_h`` holds a Python ``0``, copied to the
+    card once."""
+    dev = last_good_h2init.device
+    n_lost = torch.as_tensor(n_lost, dtype=torch.int32, device=dev)
+    eye = torch.eye(3, dtype=torch.float32, device=dev)
+    reset = (n_lost > no_prewarp_after_n)[..., None, None]
+    return n_lost, torch.where(reset, eye, last_good_h2init)
 
 
 def build_track_step(raft_cfg: RaftConfig, tp: TrackerParams, flow_fn=None):
@@ -178,7 +246,10 @@ def build_track_step(raft_cfg: RaftConfig, tp: TrackerParams, flow_fn=None):
     local fallback flow and adds its H to ``meta`` as ``H_local_cur2init``.
     That key follows the reference's ``host_fallback`` path, the one
     ``woft_tpu``'s ``WOFTTracker`` takes for frames of 400k pixels or more
-    (1280x720 among them); the port has no other path."""
+    (1280x720 among them). With ``tp.no_local_h`` there is no fallback and
+    no host sync: ``ok``, ``lost`` and ``n_lost`` stay device tensors (in
+    the state and in ``meta``) and the ladder is ``torch.where``, the JAX
+    step's ``no_local_h`` branch."""
 
     def dense_flow(model, img1, img2):
         padder = make_padder(tp.padding_mode, img2.shape)
@@ -207,53 +278,35 @@ def build_track_step(raft_cfg: RaftConfig, tp: TrackerParams, flow_fn=None):
                            prev_h2init)
 
     def step(model, state: TrackerState, frame):
-        H_img, W_img = frame.shape[1:3]
-        hw = H_img * W_img
-
         # redetection reset
-        if state.n_lost > tp.no_prewarp_after_n:
+        if tp.no_local_h:
+            n_lost_in, last_good = _device_ladder(
+                state.n_lost, tp.no_prewarp_after_n, state.last_good_h2init)
+        elif state.n_lost > tp.no_prewarp_after_n:
             last_good = torch.eye(3, dtype=torch.float32, device=frame.device)
         else:
             last_good = state.last_good_h2init
-
-        prewarped = warp_perspective_fast(frame, last_good)
-
-        # global flow template -> prewarped current
-        if flow_fn is None:
-            fo = weighted_raft_forward(model, raft_cfg, None, prewarped,
-                                       template_feats=state.template_feats,
-                                       sparse_weight_head=True)
-            flow = fo["flow_up"]
-        else:
-            flow, weights = flow_fn(model, state.template_img, prewarped,
-                                    state.template_feats)
-
-        # TC validity: template mask + pre-warp region / image bounds
-        dst = (featuremap_coords((H_img, W_img), frame.device).T
-               + flow.reshape(hw, 2))
-        dst_int = torch.round(dst).long()
-        oob = ((dst < 0).any(dim=-1) | (dst_int[:, 0] >= W_img)
-               | (dst_int[:, 1] >= H_img))
-        # the pre-warp validity mask is a box check on Hinv @ p, so
-        # evaluating it at clip(dst_int) equals gathering the mask there
-        pts = torch.stack([dst_int[:, 0].clamp(0, W_img - 1),
-                           dst_int[:, 1].clamp(0, H_img - 1)], dim=-1)
-        in_pw = ~oob & warp_validity_at(last_good, (H_img, W_img), pts)
-        valid = state.template_mask.reshape(hw) & in_pw
-
-        if flow_fn is None:
-            src_g, dst_g, w_g, sel = _select_tcs_sparse(flow, fo, valid,
-                                                        tp.subsample_n)
-        else:
-            src_g, dst_g, w_g, sel, _ = _select_tcs(flow, weights, valid,
-                                                    tp.subsample_n)
-
+        fits = _flow_fits(model, raft_cfg, tp, flow_fn, state, frame,
+                          last_good)
         # weighted fit: current-prewarped -> template
-        H_pw2init = _estimate_h(tp, dst_g, src_g, w_g, sel)     # (1,3,3)
+        H_pw2init, ok, inlier_frac = fits(state.template_mask[None])
         H_global = compose_h(last_good, H_pw2init[0])
-        ok, inlier_frac = _success_check(tp, H_pw2init, dst_g, src_g, sel)
-        ok = bool(ok)                   # host sync: the branch below is Python
+        ok, inlier_frac = ok[0], inlier_frac[0]
 
+        if tp.no_local_h:
+            n_lost = torch.where(ok, torch.zeros_like(n_lost_in),
+                                 n_lost_in + 1)
+            new_state = replace(
+                state, prev_img=frame, prev_h2init=H_global,
+                last_good_h2init=torch.where(ok, H_global, last_good),
+                lost=~ok, n_lost=n_lost)
+            meta = {"last_good_H2init": last_good,
+                    "H_global_cur2init": H_global, "global_H_success": ok,
+                    "inlier_frac": inlier_frac, "lost": ~ok,
+                    "N_lost": n_lost}
+            return new_state, H_global, meta
+
+        ok = bool(ok)                   # host sync: the branch below is Python
         if tp.redetection == "always" or ok:
             H_cur2init = H_global
         else:
@@ -261,14 +314,9 @@ def build_track_step(raft_cfg: RaftConfig, tp: TrackerParams, flow_fn=None):
                                  state.prev_h2init, state.template_mask)
 
         n_lost = 0 if ok else state.n_lost + 1
-        new_state = TrackerState(
-            template_img=state.template_img,
-            template_feats=state.template_feats,
-            template_mask=state.template_mask,
-            prev_img=frame,
-            prev_h2init=H_cur2init,
-            last_good_h2init=H_cur2init if ok else last_good,
-            lost=not ok,
+        new_state = replace(
+            state, prev_img=frame, prev_h2init=H_cur2init,
+            last_good_h2init=H_cur2init if ok else last_good, lost=not ok,
             n_lost=n_lost)
         meta = {
             "last_good_H2init": last_good,
@@ -285,24 +333,127 @@ def build_track_step(raft_cfg: RaftConfig, tp: TrackerParams, flow_fn=None):
     return torch.no_grad()(step)
 
 
+def _flow_fits(model, raft_cfg, tp, flow_fn, state, frame, last_good):
+    """The global flow of a frame and the fits it feeds: pre-warp ``frame``
+    by ``last_good``, one flow from the template (its cached features, the
+    sparse weight head) to the pre-warped frame, the TC validity.
+
+    Returns ``fits(masks (N, H, W) bool) ->
+    (H_pw2init (N, 3, 3), ok (N,), inlier_frac (N,))``, a TC selection,
+    Sobol-500 gather, weighted fit and inlier check a target, all N in one
+    batch; the targets' sparse weight-head cells come from the one
+    forward."""
+    H_img, W_img = frame.shape[1:3]
+    prewarped = warp_perspective_fast(frame, last_good)
+    if flow_fn is None:
+        fo = weighted_raft_forward(model, raft_cfg, None, prewarped,
+                                   template_feats=state.template_feats,
+                                   sparse_weight_head=True)
+        flow = fo["flow_up"]
+    else:
+        flow, weights = flow_fn(model, state.template_img, prewarped,
+                                state.template_feats)[:2]
+    in_pw = _tc_validity(flow, last_good, (H_img, W_img))
+
+    def fits(masks):
+        valid = masks.reshape(masks.shape[0], -1) & in_pw
+        if flow_fn is None:
+            src_g, dst_g, w_g, sel = _select_tcs_sparse(flow, fo, valid,
+                                                        tp.subsample_n)
+        else:
+            src_g, dst_g, w_g, sel, _ = _select_tcs(flow, weights, valid,
+                                                    tp.subsample_n)
+        H_pw2init = _estimate_h(tp, dst_g, src_g, w_g, sel)
+        ok, frac = _success_check(tp, H_pw2init, dst_g, src_g, sel)
+        return H_pw2init, ok, frac
+
+    return fits
+
+
+def build_shared_multi_step(raft_cfg: RaftConfig, tp: TrackerParams,
+                            flow_fn=None):
+    """N targets from ONE full-frame flow a frame: the shared-correlation
+    twin of ``woft_tpu/tracker/woft.py:build_shared_multi_step``.
+
+    ``(model, state, masks (N, H, W) or (N, H*W) bool, h_last (N, 3, 3),
+    frame (1, H, W, 3)) -> (new_state, new_h_last, hs (N, 3, 3), meta)``.
+    One full-frame step: the pre-warp by the control target's (target 0's)
+    last good H, one WeightedRAFT forward, the sparse weight head evaluated
+    at every target's Sobol-500 cells from that forward; then a TC
+    selection, weighted fit and inlier check a target, batched over the
+    targets, at most ``tp.multi_fit_chunk`` at once (groups beyond it, the
+    last padded with all-False masks whose fits are dropped). Each target
+    keeps its last good H when its fit fails (``h_last``); target 0
+    drives the state's ladder as ``build_track_step`` does. The pre-warp
+    stays exact float32 in bf16 mode, where the JAX package relaxes it.
+
+    ``meta``: ``global_H_success`` and ``inlier_frac``, each (N,). No host
+    sync: the state's ``lost`` and ``n_lost`` are device tensors. Needs
+    ``no_local_h`` or ``redetection='always'`` (no per-target local
+    fallback)."""
+    if not (tp.no_local_h or tp.redetection == "always"):
+        raise ValueError("the shared-flow multi-target step has no "
+                         "per-target local fallback: set no_local_h=True or "
+                         "redetection='always'")
+
+    @torch.no_grad()
+    def step(model, state: TrackerState, masks, h_last, frame):
+        n_lost_in, last_good = _device_ladder(
+            state.n_lost, tp.no_prewarp_after_n, state.last_good_h2init)
+        fits = _flow_fits(model, raft_cfg, tp, flow_fn, state, frame,
+                          last_good)
+        n_t = masks.shape[0]
+        masks = masks.reshape(n_t, -1)
+        chunk = tp.multi_fit_chunk or n_t
+        if n_t <= chunk:
+            h_fit, oks, fracs = fits(masks)
+        else:
+            groups = -(-n_t // chunk)
+            padded = torch.cat([masks, masks.new_zeros(
+                (groups * chunk - n_t, masks.shape[1]))])
+            h_fit, oks, fracs = (torch.cat(r)[:n_t] for r in zip(
+                *(fits(g) for g in padded.split(chunk))))
+        h_fit = compose_h(last_good, h_fit)
+        # per-target ladder: keep the last good H when a fit fails
+        hs = torch.where(oks[:, None, None], h_fit, h_last)
+        ok0 = oks[0]
+        new_state = replace(
+            state, prev_img=frame, prev_h2init=hs[0],
+            last_good_h2init=torch.where(ok0, hs[0], last_good), lost=~ok0,
+            n_lost=torch.where(ok0, torch.zeros_like(n_lost_in),
+                               n_lost_in + 1))
+        return new_state, hs, hs, {"global_H_success": oks,
+                                   "inlier_frac": fracs}
+
+    return step
+
+
 def tracker_init_state(model, raft_cfg: RaftConfig, tp: TrackerParams,
                        template_img, template_mask, encode=True):
     """The initial TrackerState. template_img: (1, H, W, 3) float RGB;
     template_mask: (H, W) bool. ``encode=False`` skips the template
-    features (oracle-flow tests)."""
+    features (oracle-flow tests). Under ``tp.no_local_h`` the lost counters
+    are device tensors, so no step copies them to the card."""
     feats = None
     if encode:
         padder = make_padder(tp.padding_mode, template_img.shape)
         (padded,) = padder.pad(template_img)
         feats = encode_template(model, raft_cfg, padded)
-    eye = torch.eye(3, dtype=torch.float32, device=template_img.device)
+    dev = template_img.device
+    eye = torch.eye(3, dtype=torch.float32, device=dev)
+    lost, n_lost = False, 0
+    if tp.no_local_h:
+        lost = torch.zeros((), dtype=torch.bool, device=dev)
+        n_lost = torch.zeros((), dtype=torch.int32, device=dev)
     return TrackerState(
         template_img=template_img,
         template_feats=feats,
         template_mask=template_mask,
         prev_img=template_img,
         prev_h2init=eye,
-        last_good_h2init=eye)
+        last_good_h2init=eye,
+        lost=lost,
+        n_lost=n_lost)
 
 
 class WOFTTracker:
