@@ -38,7 +38,20 @@ Phases; any failure ends the script with a non-zero exit:
    zeroed before and read after, and each followed by the local-flow
    fallback (``redetection='never'``), C expected once a flow and D and E
    13 times (once a lookup), each printing its fallback rate and its
-   per-frame corner error against the walk it tracks; then the window
+   per-frame corner error against the walk it tracks; then the ablation
+   configs, each counted from 0 the same way: A pre-warping a 427x240
+   frame and B on the four padded grids of the downscale paths against
+   their plain versions, then ``configs/WOFT_downscale_3x.py`` at 1280x720
+   (427x240, not /8) and 1920x1080 (640x360), ``WOFT_downscale_2x.py`` at
+   1920x1080 (960x540), ``WOFT_downscale_4x.py`` at 1280x720 (320x180),
+   ``WOFT_wIRLSq.py`` and ``WOFT.py`` with the dense weight head at
+   1280x720 (8 frames of the walk and 3 fallback frames each: A once a
+   frame and B 13 times a flow, exactly; corner errors in full-resolution
+   pixels after the downscale compensation, held to the CPU path's bound,
+   ``ABLATION_CORNER_BOUND_PX``), the dense head held to the sparse head
+   on the same frames (``DENSE_HEAD_TOL_PX``); then, where ``cv2`` can be
+   imported, ``WOFT_cvransac.py`` and ``WOFT_trs.py`` at 1280x720 (their
+   host fits need it) the same way, else one line says so; then the window
    paths on the trained window-mode weights
    (``weights/wraft_tpu_v5_torch.pt``), each counted from 0 the same way:
    ``WOFTWindowTracker`` under ``configs/WOFT_window.py`` at 1280x720 and
@@ -75,8 +88,10 @@ Phases; any failure ends the script with a non-zero exit:
    window step); each prints frame ms, targets·frames/s, launches and
    device busy a frame (``torch.profiler``) and peak device memory;
 7. a ``kernels`` JSON line (A-E with their launches on the multi-target
-   paths and their times at its shapes), then the device JSON as the last
-   line.
+   paths and their times at its shapes; A and B also with their launches
+   on the ablation paths, ``downscale_launches`` and
+   ``ablation_launches``, and their times at the downscale shapes), then
+   the device JSON as the last line.
 """
 
 import json
@@ -1375,6 +1390,31 @@ WINDOW_CORNER_BOUND_PX = {
 }
 
 
+# The ablation tracks' bounds on the corner error against the walk (full-
+# resolution pixels after the downscale compensation, the largest over the
+# 8 frames of the walk, then over the 3 fallback frames): the CPU path's
+# own largest errors on the same walk (tools/torch_downscale_walks.py runs
+# these tracks on the CPU, 8 threads) plus headroom for the card's other
+# summation orders, about half again on the walk and a third or more on
+# the fallback frames. Sanity bounds: the downscaled frames carry a quarter
+# to a sixteenth of the pixels, and a pixel of theirs is s full ones.
+ABLATION_CORNER_BOUND_PX = {
+    # (label, frame): (walk: CPU 8 frames -> bound, fallback: CPU -> bound)
+    ("WOFT_downscale_3x.py", "1280x720"): (1.5, 2.0),     # 0.896, 1.481
+    ("WOFT_downscale_3x.py", "1920x1080"): (1.2, 2.0),    # 0.720, 1.392
+    ("WOFT_downscale_2x.py", "1920x1080"): (1.0, 2.0),    # 0.570, 1.457
+    ("WOFT_downscale_4x.py", "1280x720"): (1.5, 2.0),     # 1.020, 1.348
+    ("WOFT_wIRLSq.py", "1280x720"): (0.5, 0.6),           # 0.255, 0.403
+    ("WOFT.py dense head", "1280x720"): (0.5, 0.6),       # 0.255, 0.403
+    ("WOFT_cvransac.py", "1280x720"): (0.5, 0.6),         # 0.277, 0.419
+    ("WOFT_trs.py", "1280x720"): (0.7, 0.6),              # 0.406, 0.345
+}
+# the dense weight head against the sparse one on the same frames: the
+# logits are the same per cell, the upsample and the head run through
+# other convolution calls (other cuDNN algorithms, other sums)
+DENSE_HEAD_TOL_PX = 1e-3
+
+
 def window_runner(dev, what, template, frames, mask, cfg=None):
     """``runner(tp=None) -> (track, (Sh, Sw))`` for one window path on
     ``dev``: ``track(i) -> (H_cur2init float64, check passed)`` tracks
@@ -1551,6 +1591,253 @@ WINDOW_TRACKS = (("WOFT_window.py", 720, 1280),
                  ("WOFT_window.py", 1080, 1920),
                  ("WOFT_window_native.py", 720, 1280),
                  ("window_step", 1080, 1920))
+
+
+# The ablation tracks: (config, frame h, w, TrackerParams overrides). The
+# downscale configs resize the walk on the card (1280x720 / 3 = 427x240,
+# not /8: padded 432x240, a 54x30 grid; 1920x1080 / 3 = 640x360, 80x45;
+# 1920x1080 / 2 = 960x540, padded 960x544, 120x68; 1280x720 / 4 = 320x180,
+# padded 320x184, 40x23), replicate-padded, the dense weight head
+ABLATION_TRACKS = (("WOFT_downscale_3x.py", 720, 1280, {}),
+                   ("WOFT_downscale_3x.py", 1080, 1920, {}),
+                   ("WOFT_downscale_2x.py", 1080, 1920, {}),
+                   ("WOFT_downscale_4x.py", 720, 1280, {}),
+                   ("WOFT_wIRLSq.py", 720, 1280, {}),
+                   ("WOFT.py", 720, 1280, {"sparse_weights": False}))
+# the host fits' tracks (OpenCV RANSAC, the similarity fit): run where cv2
+# can be imported
+HOST_FIT_TRACKS = (("WOFT_cvransac.py", 720, 1280, {}),
+                   ("WOFT_trs.py", 720, 1280, {}))
+# (H1, W1) of the downscale paths' padded grids, as kernel B sees them
+DOWNSCALE_GRIDS = {"54x30 (3x of 1280x720)": (30, 54),
+                   "80x45 (3x of 1920x1080)": (45, 80),
+                   "120x68 (2x of 1920x1080)": (68, 120),
+                   "40x23 (4x of 1280x720)": (23, 40)}
+
+
+def ablation_label(config, overrides):
+    return config + (" dense head" if overrides.get("sparse_weights") is False
+                     else "")
+
+
+def ablation_walk(dev, config, h, w, overrides=None, kernels=None):
+    """One full-frame track through ``WOFTTracker`` under
+    ``configs/<config>`` (its tracker parameters with ``overrides``), on
+    ``dev``, on the trained full-frame weights: 8 frames of the walk at
+    h x w, then 3 with ``redetection='never'`` and the pre-warp reset after
+    one lost frame (the local fallback on every frame), the target half of
+    each side (``track_720p``'s). Returns a dict of the track's numbers;
+    ``kernels``' counters are zeroed first and read after."""
+    from woft_tpu_torch.config import load_config
+    from woft_tpu_torch.tracker import WOFTTracker
+
+    overrides = overrides or {}
+    template, frames, poses = walk(h, w, dev)
+    mask, corners = centred_mask(h, w, 0.5)
+    conf = load_config(os.path.join(ROOT, "woft_tpu_torch", "configs",
+                                    config))
+    conf.tracker_params = replace(conf.tracker_params, **overrides)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    tracker = WOFTTracker(conf, device=dev)
+    sync()
+    if kernels is not None:
+        zero_counts(kernels)
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tracker.init(template, mask)
+    sync()
+    init_ms = (time.perf_counter() - t0) * 1e3
+    hs, frame_ms, fallbacks, n_flows = [], [], 0, 0
+    for f in frames:
+        t0 = time.perf_counter()
+        H, meta = tracker.track(f)
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        fallbacks += not meta.global_H_success
+        n_flows += 2 - bool(meta.global_H_success)
+        hs.append(H)
+    conf.tracker_params = replace(tracker.tp, redetection="never",
+                                  no_prewarp_after_n=1)
+    never = WOFTTracker(conf, device=dev)
+    never.init(template, mask)
+    for f in frames[:3]:
+        H, _ = never.track(f)
+        n_flows += 2
+        hs.append(H)
+    sync()
+    label = ablation_label(config, overrides)
+    small = tracker.state.template_img.shape[1:3]
+    res = dict(what=label, frame=f"{w}x{h}", tracked=f"{small[1]}x{small[0]}",
+               padding=tracker.tp.padding_mode, init_ms=init_ms,
+               frame_ms=frame_ms, fallbacks=fallbacks,
+               n_frames=len(frames) + 3, n_flows=n_flows, hs=hs,
+               errs=corner_errors(hs, poses + poses[:3], corners),
+               corners=corners)
+    if kernels is not None:
+        res["launches"] = read_counts(kernels)
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return res
+
+
+def report_ablation_walk(res):
+    steady = res["frame_ms"][1:]
+    n = len(res["frame_ms"])
+    log(f"{res['what']} at {res['frame']} (tracked at {res['tracked']}, "
+        f"{res['padding']}): init {res['init_ms']:.1f} ms; first frame "
+        f"{res['frame_ms'][0]:.1f} ms, steady frames {min(steady):.1f}-"
+        f"{max(steady):.1f} ms (mean {sum(steady) / len(steady):.1f}); "
+        f"fallback rate {res['fallbacks']}/{n}; corner error against the "
+        f"walk (full-resolution px) "
+        f"{', '.join(f'{e:.3f}' for e in res['errs'][:n])}; on the "
+        f"fallback frames {', '.join(f'{e:.3f}' for e in res['errs'][n:])}")
+    if "launches" in res:
+        per_frame = {k: round(v / res["n_frames"], 2)
+                     for k, v in res["launches"].items() if v}
+        log(f"{res['what']} at {res['frame']}: peak device memory "
+            f"{res['peak_gib']:.2f} GiB; launches {res['launches']} over "
+            f"{res['n_frames']} frames and {res['n_flows']} flows; per "
+            f"frame {per_frame}")
+
+
+def check_downscale_shapes(kernels, corr, warp, dev):
+    """Kernels A and B at the shapes the downscale paths give them, against
+    their plain versions and timed beside their bounds, plain versions and
+    PyTorch calls: A pre-warping a 427x240 frame (3x of 720p, not /8: the
+    tracker pre-warps the unpadded frame), B dense on the pyramids of the
+    four padded grids (``DOWNSCALE_GRIDS``; levels of odd sizes such as 23,
+    11, 5). Returns {shape: row}."""
+    out = {}
+    h, w = 240, 427
+    src = torch.tensor(textured_frame(h, w, seed=6), dtype=torch.float32,
+                       device=dev)[None]
+    H = pose(0.004, 1.004, 0.7, -0.5, (6e-7, -3e-7),
+             center=(w / 2, h / 2)).to(dev)
+    hinv = warp.inverse_h(H[None])
+    want = warp.warp_perspective(src, H)
+    got = kernels.warp_perspective_bilinear(src, hinv, h, w)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    px = h * w
+    bnd, by = bound_ms(2 * px * 3 * 4 + 36, px * (12 + 2 + 4 + 36))
+    coords = warp.perspective_coords(H[None], (h, w))
+    grid = torch.stack([2 * coords[..., 0] / (w - 1) - 1,
+                        2 * coords[..., 1] / (h - 1) - 1], -1)
+    src_nchw = src.permute(0, 3, 1, 2).contiguous()
+    ms = time_ms(lambda: kernels.warp_perspective_bilinear(src, hinv, h, w))
+    plain_ms = time_ms(lambda: warp.warp_perspective(src, H))
+    library_ms = time_ms(lambda: F.grid_sample(
+        src_nchw, grid, mode="bilinear", padding_mode="zeros",
+        align_corners=True))
+    log(f"kernel A [pre-warp of a {w}x{h} frame]: max_abs_err {err:.3g} "
+        f"(tol {WARP_TOL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"F.grid_sample {library_ms:.4f} ms, bound {bnd:.4f} ms ({by})")
+    if not err <= WARP_TOL:
+        raise AssertionError(f"kernel A disagrees at {w}x{h}: {err}")
+    out[f"A {w}x{h}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bnd, bound_by=by,
+                             library_ms=library_ms)
+
+    radius, k = 4, 9
+    for name, (h1, w1) in DOWNSCALE_GRIDS.items():
+        pyramid, coords, _, _ = lookup_case(corr, dev, h1, w1)
+        flat = coords.reshape(-1, 2)
+        Q = flat.shape[0]
+        want = corr.corr_lookup_plain(pyramid, coords, radius)
+        got = kernels.corr_pyramid_lookup(pyramid, coords, radius)
+        torch.cuda.synchronize()
+        err = (got.reshape(want.shape) - want).abs().max().item()
+        ms = time_ms(lambda: kernels.corr_pyramid_lookup(pyramid, coords,
+                                                         radius))
+        plain_ms = time_ms(lambda: corr.corr_lookup_plain(pyramid, coords,
+                                                           radius), iters=5)
+        library_ms = time_ms(lambda: _grid_sample_levels(pyramid, flat,
+                                                         radius))
+        n_out = Q * 4 * k * k
+        bnd, by = bound_ms(_window_bytes(pyramid, flat, None, radius)
+                           + Q * 8 + n_out * 4, n_out * 18)
+        levels = ", ".join("%dx%d" % tuple(p.shape[1:]) for p in pyramid)
+        log(f"kernel B [dense, grid {name}, Q={Q}, levels {levels}]: "
+            f"max_abs_err {err:.3g} (tol {LOOKUP_TOL}); kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, F.grid_sample x4 levels "
+            f"{library_ms:.4f} ms, bound {bnd:.4f} ms ({by})")
+        if not err <= LOOKUP_TOL:
+            raise AssertionError(f"kernel B disagrees on grid {name}: {err}")
+        out[f"B {name}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                bound_ms=bnd, bound_by=by,
+                                library_ms=library_ms)
+        del pyramid, want, got
+    return out
+
+
+def dense_vs_sparse_px(dev, dense, config, h, w):
+    """The largest corner distance over a dense-head track's frames
+    (``ablation_walk`` with ``sparse_weights=False``) to the same track
+    with the config's sparse head."""
+    sparse = ablation_walk(dev, config, h, w)
+    return max(h_diff_px(a, b, dense["corners"])
+               for a, b in zip(dense["hs"], sparse["hs"]))
+
+
+def track_ablations(kernels, corr, warp, dev):
+    """The ablation paths on the card: A and B at the downscale shapes
+    (``check_downscale_shapes``), then each of ``ABLATION_TRACKS``
+    (``ablation_walk``) with the counters zeroed before and read after,
+    its launches held to A once a frame and B 13 times a flow, exactly,
+    nothing else, and its corner error to ``ABLATION_CORNER_BOUND_PX``;
+    the dense-head track against the canonical sparse-head track on the
+    same frames within ``DENSE_HEAD_TOL_PX``; then, where ``cv2`` can be
+    imported, the host fits' tracks (``HOST_FIT_TRACKS``) the same way,
+    else one line says they were not run. Returns (the shape rows, {label
+    at frame: the track's numbers})."""
+    import importlib.util
+
+    t_phase = time.perf_counter()
+    shapes = check_downscale_shapes(kernels, corr, warp, dev)
+    tracks = {}
+    has_cv2 = importlib.util.find_spec("cv2") is not None
+    for config, h, w, overrides in ABLATION_TRACKS + (
+            HOST_FIT_TRACKS if has_cv2 else ()):
+        torch.cuda.empty_cache()
+        res = ablation_walk(dev, config, h, w, overrides, kernels)
+        report_ablation_walk(res)
+        key = (res["what"], res["frame"])
+        if not all(np.isfinite(H).all() for H in res["hs"]):
+            raise AssertionError(f"{key}: non-finite homography")
+        check_counts(f"{res['what']} at {res['frame']}", res["launches"],
+                     {"warp_perspective_bilinear": res["n_frames"],
+                      "corr_pyramid_lookup": 13 * res["n_flows"]},
+                     ("warp_perspective_bilinear", "corr_pyramid_lookup"),
+                     res["n_frames"], res["n_flows"])
+        n = len(res["frame_ms"])
+        for errs, bound, which in zip(
+                (res["errs"][:n], res["errs"][n:]),
+                ABLATION_CORNER_BOUND_PX[key],
+                ("the walk", "the fallback frames")):
+            if not (np.isfinite(errs).all() and max(errs) <= bound):
+                raise AssertionError(f"{key}: corner error {max(errs):.3f} "
+                                     f"px on {which}, bound {bound} px")
+        tracks[f"{res['what']} {res['frame']}"] = res
+    # the dense head against the sparse one: the same track with the
+    # config's sparse head, uncounted, on the same frames
+    config, h, w, overrides = next(t for t in ABLATION_TRACKS
+                                   if t[3].get("sparse_weights") is False)
+    dense = tracks[f"{ablation_label(config, overrides)} {w}x{h}"]
+    diff = dense_vs_sparse_px(dev, dense, config, h, w)
+    log(f"{dense['what']} against the sparse head, {w}x{h}, "
+        f"{len(dense['hs'])} frames: largest corner distance {diff:.2e} px "
+        f"(tol {DENSE_HEAD_TOL_PX})")
+    if not diff <= DENSE_HEAD_TOL_PX:
+        raise AssertionError(f"dense head disagrees with the sparse head: "
+                             f"{diff} px")
+    if not has_cv2:
+        log("WOFT_cvransac.py, WOFT_trs.py: not run (their host fits need "
+            "cv2, which this machine cannot import)")
+    log(f"ablation phase: {time.perf_counter() - t_phase:.1f} s")
+    return shapes, tracks
 
 
 def check_guard_on_a_path(kernels, corr, dev):
@@ -2395,6 +2682,10 @@ def main():
         f"WOFT_fast.py {sum(fast_ms) / len(fast_ms):.1f} ms, WOFT_fast.py "
         f"with the fused loop {sum(fused_ms) / len(fused_ms):.1f} ms (host "
         f"clock, {len(fast_ms)} frames each)")
+    # the ablation configs: downscaled inputs (RAFT padding, the dense
+    # head), IRLS-Huber, and the dense head at full frame
+    torch.cuda.empty_cache()
+    ablation_shapes, ablations = track_ablations(kernels, corr, warp, dev)
     windows = {}
     for what, h, w in WINDOW_TRACKS:
         torch.cuda.empty_cache()
@@ -2500,6 +2791,17 @@ def main():
             row["multi_launches"] = counts
         if row["name"] in shapes:
             row["multi_shapes"] = {k: multi[k] for k in shapes[row["name"]]}
+        # the ablation paths' runs: the downscale ones, then the others
+        counts = {what: res["launches"][row["name"]]
+                  for what, res in ablations.items()}
+        if any(counts.values()):
+            row["downscale_launches"] = {
+                k: v for k, v in counts.items() if "downscale" in k}
+            row["ablation_launches"] = {
+                k: v for k, v in counts.items() if "downscale" not in k}
+            row["downscale_shapes"] = {
+                k: v for k, v in ablation_shapes.items()
+                if k[0] == shapes[row["name"]][0]}
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -241,6 +241,28 @@ def test_lookup_kernel_batched_windows(dev):
                        got.reshape(8 * 1024, -1)[rows])
 
 
+@pytest.mark.parametrize("hw", [(30, 54), (45, 80), (68, 120), (23, 40)],
+                         ids=["54x30", "80x45", "120x68", "40x23"])
+def test_lookup_kernel_downscale_grids(dev, hw):
+    """Kernel B dense on the padded grids of the downscale paths (3x of
+    1280x720 and 1920x1080, 2x of 1920x1080, 4x of 1280x720; levels of odd
+    sizes such as 23, 11, 5), at the network's 256 channels and radius 4,
+    equal to the plain lookup."""
+    H1, W1 = hw
+    g = torch.Generator(device=dev).manual_seed(9)
+    f1 = torch.randn(1, H1, W1, 256, device=dev, generator=g)
+    f2 = torch.randn(1, H1, W1, 256, device=dev, generator=g)
+    pyr, _ = corr.corr_pyramid_fused(f1, f2, 4)
+    coords = (_grid(dev, H1, W1) + (torch.rand(
+        1, H1, W1, 2, device=dev, generator=g) - 0.5) * 30).contiguous()
+    n0 = kernels.corr_pyramid_lookup.launches
+    got = corr.corr_lookup(pyr, coords, 4)
+    want = corr.corr_lookup_plain(pyr, coords, 4)
+    torch.cuda.synchronize()
+    assert kernels.corr_pyramid_lookup.launches == n0 + 1
+    assert torch.equal(got, want)
+
+
 def test_lookup_wrapper_checks_inputs(dev, pyramid):
     pyr, coords = pyramid
     with pytest.raises(ValueError):          # rows must match the queries

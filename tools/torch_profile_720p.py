@@ -8,7 +8,7 @@ Run from the repository root on a machine with an NVIDIA GPU:
                                         [--gru-fused] [--tail-fused]
                                         [--compare ROUNDS]
                                         [--compare-root DIR] [--windows]
-                                        [--multi]
+                                        [--multi] [--ablations]
 
 Tracks a synthetic homography walk with ``woft_tpu_torch/configs/<config>``
 (``WOFT.py``, the canonical tracker, or ``WOFT_fast.py``, block-local
@@ -35,7 +35,10 @@ instead each window path that ``chip_smoke.py`` drives (``WINDOW_TRACKS``:
 trained window-mode weights) on that script's walk. ``--multi`` profiles
 instead its multi-target paths at 1920x1080: the shared-flow tracker with
 8 and 64 targets on ``WOFT_fast.py`` and the per-window batch of 8 on
-``WOFT_window.py``. Imports no JAX.
+``WOFT_window.py``. ``--ablations`` profiles instead its ablation tracks
+(``ABLATION_TRACKS``: the downscale configs, ``WOFT_wIRLSq.py`` and
+``WOFT.py`` with the dense weight head; where ``cv2`` can be imported also
+``HOST_FIT_TRACKS``, the host fits). Imports no JAX.
 """
 
 import argparse
@@ -241,6 +244,41 @@ def profile_multi(args):
     return 0
 
 
+def profile_ablations(args):
+    """``--ablations``: each ablation track of ``chip_smoke.py``
+    (``ABLATION_TRACKS``) through ``WOFTTracker`` on its walk, ``--warmup``
+    frames, then ``--frames`` profiled."""
+    from dataclasses import replace
+
+    import chip_smoke
+    from woft_tpu_torch.config import load_config
+    from woft_tpu_torch.tracker import WOFTTracker
+
+    dev = torch.device("cuda")
+    tracks = chip_smoke.ABLATION_TRACKS + (
+        chip_smoke.HOST_FIT_TRACKS if importlib.util.find_spec("cv2")
+        else ())
+    for config, h, w, overrides in tracks:
+        template, frames, _ = chip_smoke.walk(h, w, dev,
+                                              n=args.warmup + args.frames)
+        mask, _ = chip_smoke.centred_mask(h, w, 0.5)
+        conf = load_config(os.path.join(ROOT, "woft_tpu_torch", "configs",
+                                        config))
+        conf.tracker_params = replace(conf.tracker_params, **overrides)
+        tracker = WOFTTracker(conf, device=dev)
+        tracker.init(template, mask)
+        for i in range(args.warmup):
+            tracker.track(frames[i])
+        torch.cuda.synchronize()
+        label = f"{chip_smoke.ablation_label(config, overrides)} at {w}x{h}"
+        if profile_frames(lambda i: tracker.track(frames[args.warmup + i]),
+                          args.frames, label):
+            return 1
+        del tracker
+        torch.cuda.empty_cache()
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="WOFT.py",
@@ -262,6 +300,9 @@ def main():
     ap.add_argument("--multi", action="store_true",
                     help="profile the multi-target paths of chip_smoke.py "
                          "instead of the 720p tracker")
+    ap.add_argument("--ablations", action="store_true",
+                    help="profile the ablation tracks of chip_smoke.py "
+                         "instead of the 720p tracker")
     ap.add_argument("--compare-root", metavar="DIR",
                     help="with --compare: time this tree's tracker against "
                          "the one of the tree under DIR instead")
@@ -278,8 +319,10 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0])
-    if args.windows or args.multi:
+    if args.windows or args.multi or args.ablations:
         resolve_device("cuda")
+        if args.ablations:
+            return profile_ablations(args)
         return profile_windows(args) if args.windows else profile_multi(args)
     flags = {"gru_fused": args.gru_fused, "tail_fused": args.tail_fused}
     print(f"config {args.config}, raft_flags {flags}")

@@ -1,0 +1,9 @@
+"""Ablation config (PyTorch port), the twin of
+``woft_tpu/configs/ablation_05.py``: deviation from canonical WOFT ->
+estimator='plain_qr'."""
+
+from woft_tpu_torch.configs._ablation_base import build_config
+
+
+def get_config():
+    return build_config(estimator='plain_qr')

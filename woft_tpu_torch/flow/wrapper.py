@@ -8,7 +8,9 @@ PyTorch twin of ``woft_tpu/flow/wrapper.py``:
   (1, HW)), full-field; subsampling and masking happen downstream.
 
 ``config.corr_impl`` ('dense' or 'local'), ``config.local_margin`` and
-``config.precision`` ('highest' or 'bf16') pass through to ``RaftConfig``.
+``config.precision`` ('highest' or 'bf16') pass through to ``RaftConfig``;
+``config.weights_postprocessing_fn``, when set, maps the weight logits
+before the optional sigmoid (the reference's hook).
 
 Weights: ``config.model`` names a torch-readable state dict (``torch.save``
 of ``WeightedRAFT.state_dict()``, or ``params_from_jax_numpy`` output);
@@ -24,14 +26,19 @@ import torch
 from ..device import resolve_device
 from ..models.raft import RaftConfig, init_raft_params, weighted_raft_forward
 from ..ops.pad import make_padder
+from ..ops.resize import resize_down
 from ..ops.sampling import featuremap_coords
 
 logger = logging.getLogger(__name__)
 
 
-def upload_bgr(img_bgr, device):
-    """(H, W, 3) BGR uint8 numpy -> (1, H, W, 3) float32 RGB on ``device``."""
+def upload_bgr(img_bgr, device, downscale=0):
+    """(H, W, 3) BGR uint8 numpy -> (1, H, W, 3) float32 RGB on ``device``;
+    with ``downscale`` s, resized there as ``cv2.resize(INTER_LINEAR)``
+    with ``fx = fy = 1/s`` does (``ops/resize.py``)."""
     img = torch.from_numpy(np.ascontiguousarray(img_bgr)).to(device)
+    if downscale:
+        img = resize_down(img, downscale)
     return img.flip(-1).to(torch.float32)[None].contiguous()
 
 
@@ -90,6 +97,8 @@ class RaftFlow:
             raise ValueError("source and destination shapes differ")
         flow, weights = self.compute_flow_device(
             upload_bgr(src_img, self.device), upload_bgr(dst_img, self.device))
+        if self.C.weights_postprocessing_fn:
+            weights = self.C.weights_postprocessing_fn(weights)
         if do_sigmoid:
             weights = torch.sigmoid(weights)
 

@@ -1,9 +1,18 @@
-"""Batched weighted least-squares homography estimation (main-path subset).
+"""Batched homography estimation.
 
-PyTorch twin of ``woft_tpu/geometry/homography.py``: non-homogeneous DLT
-(H33 fixed to 1), Hartley-normalised, weighted rows, solved by reduced QR
-and a triangular solve in float32. Zero weights remove points exactly, which
-turns the reference's dynamic point filtering into static-shape weighting.
+PyTorch twin of ``woft_tpu/geometry/homography.py``, in float32 (TF32 off,
+``device.py``):
+
+- non-homogeneous DLT (H33 fixed to 1), Hartley-normalised, weighted rows,
+  solved by reduced QR and a triangular solve (the canonical WOFT
+  estimator) or by 8x8 normal equations;
+- IRLS re-weighting with L1 / Huber losses, a fixed number of QR solves;
+- homogeneous DLT via SVD of the 9x9 normal matrix;
+- the host fits of the reference's ablations, OpenCV RANSAC and the
+  similarity fit, which need ``cv2``.
+
+Zero weights remove points exactly, which turns the reference's dynamic
+point filtering into static-shape weighting.
 
 Shapes follow the JAX package: points (B, N, 2), homographies (B, 3, 3),
 projective helpers on (B, 2|3, N). The ``np_*`` helpers are the host-side
@@ -170,10 +179,142 @@ def _lstsq_qr(A, b):
                                          upper=True)
 
 
+def find_homography_wls_normal(points1, points2, weights=None, *,
+                               mask_normalization=True, ridge=0.0):
+    """Weighted least-squares homography via the 8x8 normal equations:
+    the QR solver's minimiser (``sum w_i^2 r_i^2``), from ``A^T A``."""
+    norm_w = weights if mask_normalization else None
+    p1n, t1 = normalize_points(points1, norm_w)
+    p2n, t2 = normalize_points(points2, norm_w)
+    A, b = _build_nonhomogeneous_system(p1n, p2n, weights)
+    AtA = A.transpose(-1, -2) @ A
+    Atb = A.transpose(-1, -2) @ b
+    if ridge:
+        AtA = AtA + ridge * torch.eye(8, dtype=AtA.dtype, device=AtA.device)
+    return _solution_to_h(torch.linalg.solve(AtA, Atb), t1, t2)
+
+
+def irls_l1(residuals, eps=_EPS):
+    """IRLS weights for an L1 loss."""
+    return 1.0 / (residuals.abs() + eps)
+
+
+def irls_huber(residuals, k=1.0, eps=_EPS):
+    """IRLS weights for a Huber loss: L2 within +-k, L1 outside."""
+    abs_res = residuals.abs()
+    return torch.where(abs_res < k, torch.ones_like(abs_res),
+                       1.0 / (abs_res + eps))
+
+
+def find_homography_irls_qr(points1, points2, weights=None, *,
+                            reweighting_fn=irls_l1, n_iter=5,
+                            mask_normalization=True):
+    """IRLS m-estimator homography: ``n_iter + 1`` weighted QR solves, each
+    row re-weighted by ``sqrt(reweighting_fn(residual))`` of the previous
+    solve on top of the data weights (all ones for the first). A batch
+    solves through the two-level tall-skinny QR of ``_lstsq_qr``."""
+    norm_w = weights if mask_normalization else None
+    p1n, t1 = normalize_points(points1, norm_w)
+    p2n, t2 = normalize_points(points2, norm_w)
+    A, b = _build_nonhomogeneous_system(p1n, p2n, weights)
+    rew = torch.ones_like(b)
+    for _ in range(n_iter + 1):
+        solution = _lstsq_qr(rew * A, rew * b)
+        rew = torch.sqrt(reweighting_fn(A @ solution - b))
+    return _solution_to_h(solution, t1, t2)
+
+
+def find_homography_dlt_svd(points1, points2, weights=None, *,
+                            mask_normalization=True):
+    """Homogeneous DLT via SVD of the 9x9 normal matrix ``A^T diag(w) A``
+    (the weights enter once, not squared)."""
+    norm_w = weights if mask_normalization else None
+    p1n, t1 = normalize_points(points1, norm_w)
+    p2n, t2 = normalize_points(points2, norm_w)
+    x1, y1 = p1n[..., 0], p1n[..., 1]
+    x2, y2 = p2n[..., 0], p2n[..., 1]
+    ones = torch.ones_like(x1)
+    zeros = torch.zeros_like(x1)
+    ax = torch.stack([zeros, zeros, zeros, -x1, -y1, -ones,
+                      y2 * x1, y2 * y1, y2], dim=-1)
+    ay = torch.stack([x1, y1, ones, zeros, zeros, zeros,
+                      -x2 * x1, -x2 * y1, -x2], dim=-1)
+    A = torch.stack([ax, ay], dim=2).reshape(x1.shape[0], -1, 9)  # (B,2N,9)
+    wA = A if weights is None else (
+        torch.repeat_interleave(weights, 2, dim=-1)[..., None] * A)
+    _, _, vt = torch.linalg.svd(A.transpose(-1, -2) @ wA)
+    h = vt[..., -1, :].reshape(-1, 3, 3)
+    H = _inv_norm_transform(t2) @ (h @ t1)
+    return H / (H[..., 2:3, 2:3] + _EPS)
+
+
 def proj_errors(H, pts_a, pts_b):
     """L2 distance between ``H @ pts_a`` and ``pts_b``.
     H: (B,3,3); pts_a, pts_b: (B,2,N). Returns (B, N)."""
     return torch.linalg.norm(h_proj(H, pts_a) - pts_b, dim=-2)
+
+
+# ---------------------------------------------------------------------------
+# host fits (OpenCV; the reference's ablation solvers)
+# ---------------------------------------------------------------------------
+
+def _cv2(estimator):
+    """``cv2``, or an ImportError that names the estimator needing it."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(f"estimator '{estimator}' needs OpenCV (cv2), "
+                          "which is not installed") from e
+    return cv2
+
+
+def find_homography_cvransac(pts_a, pts_b, weights=None, *,
+                             max_iters=10000, thr=1.4142, conf=0.995):
+    """OpenCV RANSAC homography, one ``cv2.findHomography`` a batch row.
+
+    pts_a, pts_b: (B, N, 2) numpy arrays or tensors; weights are ignored
+    (RANSAC replaces them). RANSAC draws from OpenCV's global RNG
+    (``cv2.setRNGSeed``). Returns (B, 3, 3) float64 numpy. Raises
+    ``ImportError`` without ``cv2`` and ``RuntimeError`` where OpenCV finds
+    no homography."""
+    cv2 = _cv2("cvransac")
+    a, b = _host_points(pts_a), _host_points(pts_b)
+    if a.shape[1] < 4:
+        raise ValueError("RANSAC needs at least 4 correspondences")
+    hs = []
+    for a_i, b_i in zip(a, b):
+        H, _ = cv2.findHomography(a_i.reshape(-1, 1, 2), b_i.reshape(-1, 1, 2),
+                                  method=cv2.RANSAC, maxIters=max_iters,
+                                  ransacReprojThreshold=thr, confidence=conf)
+        if H is None:
+            raise RuntimeError("cv2.findHomography found no homography")
+        hs.append(H / (H[2, 2] + _EPS))
+    return np.stack(hs)
+
+
+def find_homography_trs(pts_a, pts_b, weights=None):
+    """Similarity (translation, rotation, scale) fit by
+    ``cv2.estimateAffinePartial2D`` (its RANSAC: threshold 3 px, 10,000
+    iterations), as a homography. Same conventions and errors as
+    ``find_homography_cvransac``."""
+    cv2 = _cv2("trs")
+    a, b = _host_points(pts_a), _host_points(pts_b)
+    hs = []
+    for a_i, b_i in zip(a, b):
+        A, _ = cv2.estimateAffinePartial2D(
+            a_i.reshape(-1, 1, 2), b_i.reshape(-1, 1, 2),
+            ransacReprojThreshold=3, maxIters=10000, confidence=0.999)
+        if A is None:
+            raise RuntimeError("cv2.estimateAffinePartial2D found no fit")
+        H = np.concatenate([A, [[0.0, 0.0, 1.0]]], axis=0)
+        hs.append(H / (H[2, 2] + _EPS))
+    return np.stack(hs)
+
+
+def _host_points(pts):
+    if isinstance(pts, torch.Tensor):
+        pts = pts.detach().cpu().numpy()
+    return np.asarray(pts, np.float64)
 
 
 # ---------------------------------------------------------------------------

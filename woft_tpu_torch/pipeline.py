@@ -5,7 +5,9 @@ PyTorch twin of ``woft_tpu/pipeline.py``:
 
 - ``build_full_track_chunk``, ``build_multi_track_chunk`` and
   ``build_shared_multi_chunk`` step a chunk of T frames with the
-  device-resident steps (``no_local_h``: no host sync in a step). Where
+  device-resident steps (``no_local_h``: no host sync in a step with a
+  device estimator; the host fits ``cvransac``/``trs`` copy the points to
+  the host every frame). Where
   the JAX package runs a ``lax.scan`` in one dispatch, each is a Python
   loop that queues the T frames' launches back to back and stacks the
   outputs into (T, ...) tensors; the host reads them once a chunk.

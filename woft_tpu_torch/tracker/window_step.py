@@ -31,8 +31,9 @@ from ..ops.pad import make_padder
 from ..ops.sampling import featuremap_coords
 from ..ops.warp import (inverse_h, warp_axis_aligned, warp_perspective,
                         warp_perspective_fast, warp_validity_at)
-from .woft import (TrackerParams, _device_ladder, _estimate_h, _select_tcs,
-                   _select_tcs_sparse, _success_check)
+from .woft import (TrackerParams, _dense_flow, _device_ladder, _estimate_h,
+                   _select_tcs, _select_tcs_sparse, _sparse_ok,
+                   _success_check)
 
 
 @dataclass(frozen=True)
@@ -261,6 +262,21 @@ def _normalized(H):
     return H / H[..., 2:3, 2:3]
 
 
+def _window_flow(raft_cfg, tp, flow_fn):
+    """The step's flow ``(model, img1, img2, template_feats=None) ->
+    (flow, sigmoided weights)`` where the sparse head is not taken:
+    ``flow_fn``, or WeightedRAFT on padded windows with the dense head
+    (windows are /8, so ``RAFT`` padding is the identity there and only
+    the head changes)."""
+    if flow_fn is not None:
+        return flow_fn
+
+    def dense(model, img1, img2, template_feats=None):
+        return _dense_flow(model, raft_cfg, tp.padding_mode, img1, img2,
+                           template_feats)
+    return dense
+
+
 def _window_estimate(model, raft_cfg, tp, wp, flow_fn, st, frame):
     """The window-space estimate of N targets at once, before the ladder.
 
@@ -270,7 +286,8 @@ def _window_estimate(model, raft_cfg, tp, wp, flow_fn, st, frame):
     ``tmpl_mask_window`` (N, Sh, Sw). frame: (1, H, W, 3) float32. Each
     target's search box is cropped from the one frame (kernel A, one
     launch for all), pre-warped by its prior (one launch), and all N
-    windows go through one WeightedRAFT forward (B = N). Returns (h_full
+    windows go through one WeightedRAFT forward (B = N), with the sparse
+    weight head where ``_sparse_ok``, else the dense one. Returns (h_full
     (N, 3, 3) cur frame -> init, ok (N,), inlier_frac (N,), window (N, Sh,
     Sw, 3), h_crop (N, 3, 3), h_crop_inv (N, 3, 3))."""
     Sh, Sw = wp.shape
@@ -285,28 +302,31 @@ def _window_estimate(model, raft_cfg, tp, wp, flow_fn, st, frame):
     h_prior = _normalized(st["h_tmpl_crop"] @ (h_last_good @ h_crop_inv))
     prewarped = warp_perspective_fast(window, h_prior)
 
-    if flow_fn is None:
+    sparse = _sparse_ok(tp, flow_fn)
+    if sparse:
         fo = weighted_raft_forward(model, raft_cfg, None, prewarped,
                                    template_feats=st["tmpl_feats"],
                                    sparse_weight_head=True)
         wflow = fo["flow_up"]
     else:
-        wflow, wweights = flow_fn(model, st["tmpl_window"], prewarped,
-                                  st["tmpl_feats"])
+        wflow, wweights = _window_flow(raft_cfg, tp, flow_fn)(
+            model, st["tmpl_window"], prewarped, st["tmpl_feats"])
 
     dst = (featuremap_coords((Sh, Sw), frame.device).T
            + wflow.reshape(N, hw, 2))
     dst_int = torch.round(dst).long()
     oob = ((dst < 0).any(dim=-1) | (dst_int[..., 0] >= Sw)
            | (dst_int[..., 1] >= Sh))
-    # pre-warp and in-frame validity evaluated at the destination points
-    pts = torch.stack([dst_int[..., 0].clamp(0, Sw - 1),
-                       dst_int[..., 1].clamp(0, Sh - 1)], dim=-1)
-    in_pw = (~oob & warp_validity_at(h_prior, (Sh, Sw), pts)
-             & warp_validity_at(h_prior @ h_crop, frame_hw, pts))
+    in_pw = ~oob
+    if tp.use_pw_mask:
+        # pre-warp and in-frame validity evaluated at the destination points
+        pts = torch.stack([dst_int[..., 0].clamp(0, Sw - 1),
+                           dst_int[..., 1].clamp(0, Sh - 1)], dim=-1)
+        in_pw = (in_pw & warp_validity_at(h_prior, (Sh, Sw), pts)
+                 & warp_validity_at(h_prior @ h_crop, frame_hw, pts))
     valid = st["tmpl_mask_window"].reshape(N, hw) & in_pw
 
-    if flow_fn is None:
+    if sparse:
         src_g, dst_g, w_g, sel = _select_tcs_sparse(wflow, fo, valid,
                                                     tp.subsample_n)
     else:
@@ -335,8 +355,9 @@ def build_window_track_step(raft_cfg: RaftConfig, tp: TrackerParams,
     weights (1,Sh,Sw,1) sigmoided)`` replaces the network (oracle-flow
     tests). Without it both flows (template features -> pre-warped window,
     and the fallback's previous window -> window) run WeightedRAFT with the
-    sparse weight head: the reference's ``sparse_ok`` branch, which its
-    canonical settings take (``nopad``, the one padding the port has).
+    sparse weight head under ``nopad`` and ``sparse_weights`` (the
+    reference's ``sparse_ok`` branch, which its canonical settings take),
+    otherwise with the dense head on padded windows.
 
     With ``tp.no_local_h`` there is no fallback and no host sync: ``ok``,
     ``lost`` and ``n_lost`` stay device tensors and the ladder is
@@ -344,7 +365,8 @@ def build_window_track_step(raft_cfg: RaftConfig, tp: TrackerParams,
     the same parameters)."""
     Sh, Sw = wp.shape
     hw = Sh * Sw
-    sparse_ok = flow_fn is None
+    sparse_ok = _sparse_ok(tp, flow_fn)
+    run_flow = _window_flow(raft_cfg, tp, flow_fn)
 
     def local_branch(model, state, window, h_crop):
         """prev window -> cur window flow chained through the previous
@@ -360,7 +382,7 @@ def build_window_track_step(raft_cfg: RaftConfig, tp: TrackerParams,
             lsrc, ldst, lw, lsel = _select_tcs_sparse(
                 lfo["flow_up"], lfo, lvalid, tp.subsample_n)
         else:
-            lflow, lweights = flow_fn(model, state["prev_window"], window)
+            lflow, lweights = run_flow(model, state["prev_window"], window)
             lsrc, ldst, lw, lsel, _ = _select_tcs(lflow, lweights, lvalid,
                                                   tp.subsample_n)
         hf = _estimate_h(tp, ldst, lsrc, lw, lsel)[0]   # cur -> prev window

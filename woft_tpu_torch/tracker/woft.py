@@ -7,10 +7,13 @@ PyTorch twin of ``woft_tpu/tracker/woft.py`` (the full-frame tracker):
   meta)`` — pre-warp by the last good H (kernel A on the card; exact
   float32 in every precision mode, where the reference relaxes its
   pre-warp in bf16 mode), WeightedRAFT
-  flow against the cached template features with the sparse weight head,
-  mask-as-weights TC selection (TC: a template<->current point pair from
-  the dense flow), Sobol-500 gather, weighted-QR fit, the 5 px / 20 %
-  inlier check, and the local-flow fallback with the lost-counter reset.
+  flow against the cached template features (the sparse weight head
+  under ``nopad``; padded inputs and the dense head otherwise, or when
+  ``sparse_weights`` is off), mask-as-weights TC selection (TC: a
+  template<->current point pair from the dense flow), Sobol-500 gather,
+  the fit (weighted QR, plain QR, IRLS-Huber, or a host fit through
+  ``cv2``), the 5 px / 20 % inlier check, and the local-flow fallback
+  with the lost-counter reset.
   Where the JAX step chooses the fallback inside ``lax.cond``, this step
   syncs the ``ok`` flag to the host and branches in Python, as the JAX
   package's big-frame ``host_fallback`` mode does. With ``no_local_h`` the
@@ -20,7 +23,9 @@ PyTorch twin of ``woft_tpu/tracker/woft.py`` (the full-frame tracker):
 - ``build_shared_multi_step``: N targets from ONE full-frame flow a frame,
   the TC selection and fit batched over the targets;
 - ``WOFTTracker``: the reference's ``init``/``track`` API (numpy BGR in,
-  numpy H out).
+  numpy H out), with its ``downscale`` option: frames and mask resized as
+  ``cv2.resize`` does (``ops/resize.py``, on the device), the output H
+  compensated back to full resolution.
 
 Static-shape conventions are the JAX package's: boolean TC filtering is
 validity masks and zero weights, Sobol-500 is a fixed 500-slot gather, and
@@ -36,25 +41,44 @@ import torch
 
 from ..device import resolve_device
 from ..flow.wrapper import RaftFlow, upload_bgr
-from ..geometry.homography import compose_h, find_homography_wls_qr, proj_errors
+from ..geometry.homography import (
+    _cv2, compose_h, find_homography_cvransac, find_homography_irls_qr,
+    find_homography_trs, find_homography_wls_qr, irls_huber, np_compose_h,
+    proj_errors)
 from ..models.raft import RaftConfig, encode_template, weighted_raft_forward
 from ..ops.pad import make_padder
+from ..ops.resize import SCALES, resize_down
 from ..ops.sampling import featuremap_coords, masked_sobol_gather
 from ..ops.warp import (inverse_h, warp_perspective, warp_perspective_fast,
                         warp_validity_at)
 
-_ESTIMATORS = ("wls_qr", "plain_qr")
+_ESTIMATORS = ("wls_qr", "plain_qr", "irls_huber", "cvransac", "trs")
+_HOST_ESTIMATORS = ("cvransac", "trs")
 
 
 @dataclass(frozen=True)
 class TrackerParams:
-    """Tracker configuration; defaults are the canonical WOFT settings.
+    """Tracker configuration; defaults are the canonical WOFT settings, the
+    fields and their order the JAX package's.
 
-    ``estimator``: 'wls_qr' (weighted QR) or 'plain_qr' (0/1 validity as
-    weights). ``redetection``: 'inliers' | 'never' | 'always'.
+    ``estimator``: 'wls_qr' (weighted QR), 'plain_qr' (0/1 validity as
+    weights), 'irls_huber' (``irls_iters + 1`` QR solves, Huber threshold
+    ``irls_k``), or the host fits 'cvransac' (OpenCV RANSAC, ``ransac_thr``
+    px, ``ransac_iters``) and 'trs' (a similarity), which need ``cv2`` and
+    copy the points to the host once a frame.
+    ``redetection``: 'inliers' | 'never' | 'always'.
+    ``use_pw_mask``: keep only the TCs whose destination lies in the region
+    the pre-warp filled.
     ``no_local_h``: skip the local-flow fallback; the steps then keep the
-    ladder on the device and never sync to the host.
-    ``padding_mode``: 'nopad' (the one ported policy).
+    ladder on the device and never sync to the host (with a device
+    estimator).
+    ``host_fallback``: accepted for the JAX package's configs and changes
+    nothing: the port's steps always branch on the host, the JAX
+    package's ``host_fallback`` behaviour.
+    ``downscale``: the shell's input downscale factor (0: off; 1-4).
+    ``padding_mode``: 'nopad' | 'crop' | 'RAFT' | 'Michal' (``ops/pad.py``).
+    ``sparse_weights``: evaluate the weight head only at the cells the
+    solver consumes; taken only under ``nopad`` (the same logits).
     ``multi_fit_chunk``: the shared-flow multi-target step fits at most
     this many targets at once, in groups beyond it (the sparse weight
     head's patch activations grow with the targets fitted together)."""
@@ -63,9 +87,17 @@ class TrackerParams:
     min_inlier_frac: float = 0.2
     no_prewarp_after_n: int = 10
     estimator: str = "wls_qr"
+    irls_k: float = 2.0
+    irls_iters: int = 5
+    ransac_thr: float = 3.0
+    ransac_iters: int = 10000
     redetection: str = "inliers"
+    use_pw_mask: bool = True
     no_local_h: bool = False
+    host_fallback: bool = False
+    downscale: int = 0
     padding_mode: str = "nopad"
+    sparse_weights: bool = True
     multi_fit_chunk: int = 64
 
     def __post_init__(self):
@@ -74,6 +106,9 @@ class TrackerParams:
                              f"use one of {_ESTIMATORS}")
         if self.redetection not in ("inliers", "never", "always"):
             raise ValueError(f"unknown redetection '{self.redetection}'")
+        if self.downscale and self.downscale not in SCALES:
+            raise ValueError(f"downscale {self.downscale} is not supported; "
+                             f"use 0 or one of {SCALES}")
 
 
 @dataclass
@@ -103,9 +138,43 @@ def _estimate_h(tp: TrackerParams, pts_a, pts_b, weights, valid):
     """Fit H mapping pts_a -> pts_b, one fit a row. pts: (B, N, 2);
     weights: (B, N) sigmoided reliabilities; valid: (B, N) 0/1 selection.
     Returns (B, 3, 3)."""
+    if tp.estimator in _HOST_ESTIMATORS:
+        return _host_fit(tp, pts_a, pts_b, valid)
     if tp.estimator == "plain_qr":
         return find_homography_wls_qr(pts_a, pts_b, valid)
-    return find_homography_wls_qr(pts_a, pts_b, weights * valid)
+    w = weights * valid
+    if tp.estimator == "irls_huber":
+        return find_homography_irls_qr(
+            pts_a, pts_b, w, n_iter=tp.irls_iters,
+            reweighting_fn=lambda r: irls_huber(r, k=tp.irls_k))
+    return find_homography_wls_qr(pts_a, pts_b, w)
+
+
+def _host_fit(tp: TrackerParams, pts_a, pts_b, valid):
+    """The host fits ('cvransac', 'trs'), one target a row: the points copy
+    to the host (a sync), each row fits on its valid points only, and a row
+    with fewer than 4 of them or whose solver fails gets a NaN H, which the
+    steps' finiteness guards send down the fallback ladder (the JAX
+    package's ``_host_robust_fit``). Without ``cv2`` it raises."""
+    cv2 = _cv2(tp.estimator)
+    a = pts_a.cpu().numpy().astype(np.float64)
+    b = pts_b.cpu().numpy().astype(np.float64)
+    v = valid.cpu().numpy() > 0.5
+    out = np.full((a.shape[0], 3, 3), np.nan, np.float32)
+    for i in range(a.shape[0]):
+        sa, sb = a[i][v[i]], b[i][v[i]]
+        if sa.shape[0] < 4:
+            continue
+        try:
+            if tp.estimator == "cvransac":
+                out[i] = find_homography_cvransac(
+                    sa[None], sb[None], max_iters=tp.ransac_iters,
+                    thr=tp.ransac_thr)[0]
+            else:
+                out[i] = find_homography_trs(sa[None], sb[None])[0]
+        except (RuntimeError, cv2.error):
+            pass                        # NaN H: the fallback ladder
+    return torch.from_numpy(out).to(pts_a.device)
 
 
 def _sparse_point_weights(weight_head_at, up_mask, idx, W_img, H1, W1):
@@ -200,21 +269,48 @@ def _success_check(tp: TrackerParams, H, pts_a, pts_b, valid):
     return ok & torch.isfinite(H).flatten(1).all(dim=1), frac
 
 
-def _tc_validity(flow, last_good, frame_hw):
+def _tc_validity(flow, last_good, frame_hw, use_pw_mask=True):
     """(H*W,) bool: the template pixel's destination under ``flow`` (1, H,
-    W, 2) lies in the frame and in the region the pre-warp by
-    ``last_good`` (3, 3) filled. The pre-warp validity mask is a box check
-    on Hinv @ p, so evaluating it at clip(dst_int) equals gathering the
-    mask there."""
+    W, 2) lies in the frame and (``use_pw_mask``) in the region the
+    pre-warp by ``last_good`` (3, 3) filled. The pre-warp validity mask is
+    a box check on Hinv @ p, so evaluating it at clip(dst_int) equals
+    gathering the mask there."""
     H_img, W_img = frame_hw
     dst = (featuremap_coords(frame_hw, flow.device).T
            + flow.reshape(H_img * W_img, 2))
     dst_int = torch.round(dst).long()
     oob = ((dst < 0).any(dim=-1) | (dst_int[:, 0] >= W_img)
            | (dst_int[:, 1] >= H_img))
+    if not use_pw_mask:
+        return ~oob
     pts = torch.stack([dst_int[:, 0].clamp(0, W_img - 1),
                        dst_int[:, 1].clamp(0, H_img - 1)], dim=-1)
     return ~oob & warp_validity_at(last_good, frame_hw, pts)
+
+
+def _sparse_ok(tp: TrackerParams, flow_fn):
+    """Whether a step takes the sparse weight head: the network's own flow
+    (no ``flow_fn``), ``sparse_weights`` on, and unpadded inputs (the
+    reference's gate; the port has only the weighted RAFT-large)."""
+    return (flow_fn is None and tp.sparse_weights
+            and tp.padding_mode == "nopad")
+
+
+def _dense_flow(model, raft_cfg, padding_mode, img1, img2,
+                template_feats=None):
+    """WeightedRAFT with the dense weight head on padded inputs: (flow (B,
+    H, W, 2), sigmoided weights (B, H, W, 1)) at the unpadded size. With
+    ``template_feats`` (encoded from the padded template) ``img1`` is not
+    read."""
+    padder = make_padder(padding_mode, img2.shape)
+    if template_feats is None:
+        p1, p2 = padder.pad(img1, img2)
+    else:
+        p1, (p2,) = None, padder.pad(img2)
+    out = weighted_raft_forward(model, raft_cfg, p1, p2,
+                                template_feats=template_feats)
+    return (padder.unpad(out["flow_up"]),
+            torch.sigmoid(padder.unpad(out["weights_up"])))
 
 
 def _device_ladder(n_lost, no_prewarp_after_n, last_good_h2init):
@@ -238,25 +334,25 @@ def build_track_step(raft_cfg: RaftConfig, tp: TrackerParams, flow_fn=None):
     reference's diagnostics. ``flow_fn(model, img1, img2, template_feats)
     -> (flow (1,H,W,2), weights (1,H,W,1) sigmoided)`` replaces the flow
     network (the tests inject oracle flow here). Without it the main flow
-    runs WeightedRAFT against the cached template features with the sparse
-    weight head (the head and the convex upsample evaluated only at the
-    cells the solver consumes), the fallback flow with the dense head.
+    runs WeightedRAFT against the cached template features: under
+    ``nopad`` with ``sparse_weights`` with the sparse weight head (the
+    head and the convex upsample evaluated only at the cells the solver
+    consumes), otherwise on the padded frame with the dense head, unpadded
+    before the TC selection; the fallback flow always takes the dense head
+    on padded inputs.
 
     The step branches on the host: when the inlier check fails it runs the
     local fallback flow and adds its H to ``meta`` as ``H_local_cur2init``.
     That key follows the reference's ``host_fallback`` path, the one
     ``woft_tpu``'s ``WOFTTracker`` takes for frames of 400k pixels or more
     (1280x720 among them). With ``tp.no_local_h`` there is no fallback and
-    no host sync: ``ok``, ``lost`` and ``n_lost`` stay device tensors (in
+    no host sync (with a device estimator; the host fits copy the points
+    to the host): ``ok``, ``lost`` and ``n_lost`` stay device tensors (in
     the state and in ``meta``) and the ladder is ``torch.where``, the JAX
     step's ``no_local_h`` branch."""
 
     def dense_flow(model, img1, img2):
-        padder = make_padder(tp.padding_mode, img2.shape)
-        p1, p2 = padder.pad(img1, img2)
-        out = weighted_raft_forward(model, raft_cfg, p1, p2)
-        return (padder.unpad(out["flow_up"]),
-                torch.sigmoid(padder.unpad(out["weights_up"])))
+        return _dense_flow(model, raft_cfg, tp.padding_mode, img1, img2)
 
     run_flow = flow_fn if flow_fn is not None else dense_flow
 
@@ -335,29 +431,36 @@ def build_track_step(raft_cfg: RaftConfig, tp: TrackerParams, flow_fn=None):
 
 def _flow_fits(model, raft_cfg, tp, flow_fn, state, frame, last_good):
     """The global flow of a frame and the fits it feeds: pre-warp ``frame``
-    by ``last_good``, one flow from the template (its cached features, the
-    sparse weight head) to the pre-warped frame, the TC validity.
+    by ``last_good``, one flow from the template (its cached features) to
+    the pre-warped frame, the TC validity. The flow takes the sparse
+    weight head where ``_sparse_ok``, else the padded frame and the dense
+    head (``_dense_flow``); the pre-warp, the TC validity and the Sobol
+    gather stay at the unpadded size.
 
     Returns ``fits(masks (N, H, W) bool) ->
     (H_pw2init (N, 3, 3), ok (N,), inlier_frac (N,))``, a TC selection,
-    Sobol-500 gather, weighted fit and inlier check a target, all N in one
-    batch; the targets' sparse weight-head cells come from the one
-    forward."""
+    Sobol-500 gather, fit and inlier check a target, all N in one batch
+    (the host fits loop over the targets); the targets' sparse weight-head
+    cells come from the one forward."""
     H_img, W_img = frame.shape[1:3]
     prewarped = warp_perspective_fast(frame, last_good)
-    if flow_fn is None:
+    sparse = _sparse_ok(tp, flow_fn)
+    if sparse:
         fo = weighted_raft_forward(model, raft_cfg, None, prewarped,
                                    template_feats=state.template_feats,
                                    sparse_weight_head=True)
         flow = fo["flow_up"]
+    elif flow_fn is None:
+        flow, weights = _dense_flow(model, raft_cfg, tp.padding_mode, None,
+                                    prewarped, state.template_feats)
     else:
         flow, weights = flow_fn(model, state.template_img, prewarped,
                                 state.template_feats)[:2]
-    in_pw = _tc_validity(flow, last_good, (H_img, W_img))
+    in_pw = _tc_validity(flow, last_good, (H_img, W_img), tp.use_pw_mask)
 
     def fits(masks):
         valid = masks.reshape(masks.shape[0], -1) & in_pw
-        if flow_fn is None:
+        if sparse:
             src_g, dst_g, w_g, sel = _select_tcs_sparse(flow, fo, valid,
                                                         tp.subsample_n)
         else:
@@ -388,7 +491,9 @@ def build_shared_multi_step(raft_cfg: RaftConfig, tp: TrackerParams,
     stays exact float32 in bf16 mode, where the JAX package relaxes it.
 
     ``meta``: ``global_H_success`` and ``inlier_frac``, each (N,). No host
-    sync: the state's ``lost`` and ``n_lost`` are device tensors. Needs
+    sync with a device estimator (the host fits copy the points to the
+    host and fit target by target): the state's ``lost`` and ``n_lost``
+    are device tensors. Needs
     ``no_local_h`` or ``redetection='always'`` (no per-target local
     fallback)."""
     if not (tp.no_local_h or tp.redetection == "always"):
@@ -460,9 +565,15 @@ class WOFTTracker:
     """Host shell with the reference tracker API: numpy BGR uint8 in, numpy
     float64 H (current -> template) out.
 
-    ``config`` is a Config with ``flow_config`` (a ``RaftFlow`` config) and
-    ``tracker_params`` (TrackerParams, or falsy for the canonical ones).
-    Runs on ``device`` (default ``cuda``; raises without a card).
+    ``config`` is a Config with ``flow_config`` (a ``RaftFlow`` config),
+    ``tracker_params`` (TrackerParams, or falsy for the canonical ones) and
+    optionally ``downscale_inputs`` (honoured beside explicit tracker
+    params, as in the JAX package). Under ``downscale`` s the shell resizes
+    each frame and the mask as ``cv2.resize(INTER_LINEAR)`` does
+    (``ops/resize.py``: the frame after its upload, on the device), checks
+    the resized mask for one blob, tracks at the small size and returns
+    ``diag(s, s, 1) @ H @ diag(1/s, 1/s, 1)``; ``meta`` keeps the small
+    size's H. Runs on ``device`` (default ``cuda``; raises without a card).
     ``raft_flags``: fields of ``RaftConfig`` that no config file carries,
     set on top of the flow config's, e.g. ``{"gru_fused": True,
     "tail_fused": True}`` for the fused refinement loop (the JAX package's
@@ -471,38 +582,54 @@ class WOFTTracker:
     def __init__(self, config, device=None, raft_flags=None):
         self.C = config
         self.device = resolve_device(device)
-        if config.downscale_inputs:
-            raise NotImplementedError("input downscaling is not ported yet")
         of_class = config.flow_config.of_class or RaftFlow
         if of_class is not RaftFlow:
             raise NotImplementedError(f"flow wrapper {of_class} is not ported")
         self.tp = (config.tracker_params
                    if isinstance(config.tracker_params, TrackerParams)
-                   else TrackerParams(padding_mode=str(
-                       config.flow_config.padding_mode or "nopad")))
+                   else TrackerParams(
+                       downscale=int(config.downscale_inputs or 0),
+                       padding_mode=str(config.flow_config.padding_mode
+                                        or "nopad")))
+        if config.downscale_inputs and not self.tp.downscale:
+            self.tp = replace(self.tp, downscale=int(config.downscale_inputs))
         self.flower = RaftFlow(config.flow_config, device=self.device)
         self.raft_cfg = replace(self.flower.cfg, **(raft_flags or {}))
         self._step = build_track_step(self.raft_cfg, self.tp)
         self.state = None
 
     def init(self, img, mask, img_identifier=None):
-        """Start a track on ``img`` with the target ``mask`` (one blob)."""
-        mask = np.asarray(mask) > 0
+        """Start a track on ``img`` with the target ``mask`` (one blob; under
+        ``downscale`` a uint8 mask, resized in its own encoding, or a bool
+        one, taken as 0/1)."""
+        mask = np.asarray(mask)
+        if self.tp.downscale:
+            mask = resize_down(torch.from_numpy(np.ascontiguousarray(
+                mask.astype(np.uint8) if mask.dtype == bool else mask)),
+                self.tp.downscale).numpy()
+        mask = mask > 0
         _, n_blobs = scipy.ndimage.label(mask, structure=np.ones((3, 3)))
         if n_blobs != 1:
             raise ValueError(f"template mask must be one blob, got {n_blobs}")
         self.state = tracker_init_state(
             self.flower.model, self.raft_cfg, self.tp,
-            upload_bgr(img, self.device),
+            upload_bgr(img, self.device, self.tp.downscale),
             torch.from_numpy(mask).to(self.device))
 
     def track(self, input_img, img_identifier=None):
         """-> (H_cur2init (3, 3) float64, meta namespace)."""
         self.state, H_dev, meta_dev = self._step(
-            self.flower.model, self.state, upload_bgr(input_img, self.device))
+            self.flower.model, self.state,
+            upload_bgr(input_img, self.device, self.tp.downscale))
         H = H_dev.cpu().numpy().astype(np.float64)
         meta = SimpleNamespace(**{
             k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
             for k, v in meta_dev.items()})
         meta.estim_H_current2template = H.copy()
+        if self.tp.downscale:
+            # back to full-resolution pixels: full cur -> small cur -> small
+            # init -> full init
+            s = float(self.tp.downscale)
+            H = np_compose_h(np.diag([1 / s, 1 / s, 1.0]), H,
+                             np.diag([s, s, 1.0]))
         return H, meta
