@@ -51,7 +51,23 @@ Phases; any failure ends the script with a non-zero exit:
    ``ABLATION_CORNER_BOUND_PX``), the dense head held to the sparse head
    on the same frames (``DENSE_HEAD_TOL_PX``); then, where ``cv2`` can be
    imported, ``WOFT_cvransac.py`` and ``WOFT_trs.py`` at 1280x720 (their
-   host fits need it) the same way, else one line says so; then the window
+   host fits need it) the same way, else one line says so; then the rest
+   of the flow-network family, each track counted from 0 the same way:
+   kernel B's bf16-level form against its plain version on the same bf16
+   levels (exact; the 720p pyramid dense and indexed, the 8-window batch's
+   pyramid), timed beside its 2-byte-read bound and ``F.grid_sample`` x4;
+   ``WOFT_rep.py`` (the v3 export), ``ablation_10.py`` (the external
+   backend: 'orig' RAFT on v3's backbone, no head, plain QR; B 12 times a
+   flow), ``WOFT_origraft.py`` (seeded weights, 24 iterations, B 24 times a
+   flow, no accuracy bound), ``WOFT_masked.py`` (v4 and a seeded mask
+   head) and ``WOFT.py`` in float32 and with ``precision='default'`` on the
+   720p walk (corners held to ``FAMILY_CORNER_BOUND_PX`` where the weights
+   are trained, 'default' also to the float32 track, each frame traced for
+   device busy time); the masked forward on the card against the CPU path;
+   ``MultiTargetTracker`` x8 on ``WOFT_window.py`` in bf16; the alternate
+   correlation against kernel B at 720p, one flow's time beside the dense
+   path's, and ``WOFT.py`` with ``alternate_corr`` at 3840x2160 (2 frames,
+   peak memory); then the window
    paths on the trained window-mode weights
    (``weights/wraft_tpu_v5_torch.pt``), each counted from 0 the same way:
    ``WOFTWindowTracker`` under ``configs/WOFT_window.py`` at 1280x720 and
@@ -90,8 +106,9 @@ Phases; any failure ends the script with a non-zero exit:
 7. a ``kernels`` JSON line (A-E with their launches on the multi-target
    paths and their times at its shapes; A and B also with their launches
    on the ablation paths, ``downscale_launches`` and
-   ``ablation_launches``, and their times at the downscale shapes), then
-   the device JSON as the last line.
+   ``ablation_launches``, their times at the downscale shapes, and their
+   launches on the flow-family tracks, ``family_launches``; two rows for
+   B's bf16-level form), then the device JSON as the last line.
 """
 
 import json
@@ -329,10 +346,12 @@ def check_window_crop(kernels, warp, dev):
 
 def _window_bytes(levels, coords, rows, radius, sector=None):
     """Bytes of the in-bounds (2r+2)^2 windows this lookup needs, each
-    (pyramid row, level) window counted once. With ``sector`` every row
-    segment of a window is widened to the edges of the sectors of that many
-    bytes it touches: what device memory moves for it (the levels start
+    (pyramid row, level) window counted once, at the levels' element size
+    (4 bytes float32, 2 bf16). With ``sector`` every row segment of a
+    window is widened to the edges of the sectors of that many bytes it
+    touches: what device memory moves for it (the levels start
     sector-aligned)."""
+    elem = levels[0].element_size()
     if rows is None:
         rows = torch.arange(coords.shape[0], device=coords.device)
     else:
@@ -348,13 +367,13 @@ def _window_bytes(levels, coords, rows, radius, sector=None):
         nx = ((c[:, 0] + radius + 1).clamp(max=wl - 1) - xa + 1).clamp(min=0)
         ny = ((c[:, 1] + radius + 1).clamp(max=hl - 1) - ya + 1).clamp(min=0)
         if sector is None:
-            total += int((nx * ny).sum().item()) * 4
+            total += int((nx * ny).sum().item()) * elem
             continue
         dy = torch.arange(2 * radius + 2, device=coords.device)
         live = (dy[None, :] < ny[:, None]) & (nx[:, None] > 0)
         start = ((rows[:, None] * hl + ya[:, None] + dy) * wl
-                 + xa[:, None]) * 4
-        end = start + nx[:, None] * 4
+                 + xa[:, None]) * elem
+        end = start + nx[:, None] * elem
         n_sec = (end - 1) // sector - start // sector + 1
         total += int((n_sec * live).sum().item()) * sector
     return total
@@ -1615,28 +1634,36 @@ DOWNSCALE_GRIDS = {"54x30 (3x of 1280x720)": (30, 54),
                    "40x23 (4x of 1280x720)": (23, 40)}
 
 
-def ablation_label(config, overrides):
-    return config + (" dense head" if overrides.get("sparse_weights") is False
-                     else "")
+def ablation_label(config, overrides, flow=None):
+    label = config + (" dense head" if overrides.get("sparse_weights")
+                      is False else "")
+    return label + "".join(f" {k}={v}" for k, v in (flow or {}).items())
 
 
-def ablation_walk(dev, config, h, w, overrides=None, kernels=None):
+def ablation_walk(dev, config, h, w, overrides=None, kernels=None,
+                  flow=None, n_frames=8, n_fallback=3, profile=False):
     """One full-frame track through ``WOFTTracker`` under
-    ``configs/<config>`` (its tracker parameters with ``overrides``), on
-    ``dev``, on the trained full-frame weights: 8 frames of the walk at
-    h x w, then 3 with ``redetection='never'`` and the pre-warp reset after
-    one lost frame (the local fallback on every frame), the target half of
-    each side (``track_720p``'s). Returns a dict of the track's numbers;
-    ``kernels``' counters are zeroed first and read after."""
+    ``configs/<config>`` (its tracker parameters with ``overrides``, its
+    flow config with ``flow``: ``alternate_corr`` goes to its class
+    parameters), on ``dev``, on the weights the config loads: ``n_frames``
+    frames of the walk at h x w, then ``n_fallback`` with
+    ``redetection='never'`` and the pre-warp reset after one lost frame
+    (the local fallback on every frame), the target half of each side
+    (``track_720p``'s). Returns a dict of the track's numbers;
+    ``kernels``' counters are zeroed first and read after; ``profile``:
+    then one more frame traced (device busy ms, launches)."""
     from woft_tpu_torch.config import load_config
     from woft_tpu_torch.tracker import WOFTTracker
 
     overrides = overrides or {}
-    template, frames, poses = walk(h, w, dev)
+    template, frames, poses = walk(h, w, dev, n=n_frames)
     mask, corners = centred_mask(h, w, 0.5)
     conf = load_config(os.path.join(ROOT, "woft_tpu_torch", "configs",
                                     config))
     conf.tracker_params = replace(conf.tracker_params, **overrides)
+    for k, v in (flow or {}).items():
+        setattr(conf.flow_config.class_params if k == "alternate_corr"
+                else conf.flow_config, k, v)
     cuda = dev.type == "cuda"
 
     def sync():
@@ -1660,31 +1687,36 @@ def ablation_walk(dev, config, h, w, overrides=None, kernels=None):
         fallbacks += not meta.global_H_success
         n_flows += 2 - bool(meta.global_H_success)
         hs.append(H)
-    conf.tracker_params = replace(tracker.tp, redetection="never",
-                                  no_prewarp_after_n=1)
-    never = WOFTTracker(conf, device=dev)
-    never.init(template, mask)
-    for f in frames[:3]:
-        H, _ = never.track(f)
-        n_flows += 2
-        hs.append(H)
+    if n_fallback:
+        conf.tracker_params = replace(tracker.tp, redetection="never",
+                                      no_prewarp_after_n=1)
+        never = WOFTTracker(conf, device=dev)
+        never.init(template, mask)
+        for f in frames[:n_fallback]:
+            H, _ = never.track(f)
+            n_flows += 2
+            hs.append(H)
+        del never
     sync()
-    label = ablation_label(config, overrides)
+    label = ablation_label(config, overrides, flow)
     small = tracker.state.template_img.shape[1:3]
     res = dict(what=label, frame=f"{w}x{h}", tracked=f"{small[1]}x{small[0]}",
                padding=tracker.tp.padding_mode, init_ms=init_ms,
                frame_ms=frame_ms, fallbacks=fallbacks,
-               n_frames=len(frames) + 3, n_flows=n_flows, hs=hs,
-               errs=corner_errors(hs, poses + poses[:3], corners),
+               n_frames=len(frames) + n_fallback, n_flows=n_flows, hs=hs,
+               errs=corner_errors(hs, poses + poses[:n_fallback], corners),
                corners=corners)
     if kernels is not None:
         res["launches"] = read_counts(kernels)
         res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if profile:
+        res["frame_launches"], res["busy_ms"] = profile_launches(
+            lambda: tracker.track(frames[-1]))
     return res
 
 
 def report_ablation_walk(res):
-    steady = res["frame_ms"][1:]
+    steady = res["frame_ms"][1:] or res["frame_ms"]
     n = len(res["frame_ms"])
     log(f"{res['what']} at {res['frame']} (tracked at {res['tracked']}, "
         f"{res['padding']}): init {res['init_ms']:.1f} ms; first frame "
@@ -1701,6 +1733,12 @@ def report_ablation_walk(res):
             f"{res['peak_gib']:.2f} GiB; launches {res['launches']} over "
             f"{res['n_frames']} frames and {res['n_flows']} flows; per "
             f"frame {per_frame}")
+    if "busy_ms" in res:
+        mean = sum(steady) / len(steady)
+        log(f"{res['what']} at {res['frame']}: one more frame traced: "
+            f"{res['frame_launches']} launches, device busy "
+            f"{res['busy_ms']:.2f} ms, {100 * res['busy_ms'] / mean:.1f} % "
+            f"of the steady frame")
 
 
 def check_downscale_shapes(kernels, corr, warp, dev):
@@ -2194,7 +2232,8 @@ def _grid_sample_levels(pyramid, flat, radius, rows=None):
         c = flat.reshape(-1, 1, 1, 2) / 2 ** lvl
         gx, gy = torch.broadcast_tensors(c[..., 0] + d[:, None],
                                          c[..., 1] + d[None, :])
-        grid = torch.stack([2 * gx / (wl - 1) - 1, 2 * gy / (hl - 1) - 1], -1)
+        grid = torch.stack([2 * gx / (wl - 1) - 1, 2 * gy / (hl - 1) - 1],
+                           -1).to(p.dtype)          # the call wants one dtype
         lv = p[:, None] if rows is None else p[rows][:, None]
         outs.append(F.grid_sample(lv, grid, mode="bilinear",
                                   padding_mode="zeros", align_corners=True))
@@ -2542,7 +2581,7 @@ def track_shared_x64(kernels, dev, model, cfg, tp, x8):
                 busy_ms=busy, peak_gib=peak, worst_err=max(errs))
 
 
-def track_window_batch(kernels, dev):
+def track_window_batch(kernels, dev, precision=None):
     """Per-window batched tracking, 8 targets at 1920x1080 on
     ``WOFT_window.py`` (dense float32, the v5 export), ``WindowParams(
     size=256)`` as ``bench.py``: ``MultiTargetTracker`` over 8 frames of the
@@ -2550,7 +2589,10 @@ def track_window_batch(kernels, dev):
     frame: one forward of the 8 windows); checks and corners as the shared
     path; each target against the single-target ``no_local_h`` window step
     (``BATCH_TOL_PX``); two chunks of 4 against the per-frame run, with no
-    host sync in a chunk; launches and device busy a frame."""
+    host sync in a chunk; launches and device busy a frame. ``precision``
+    ('bf16': ``bench.py``'s default batch, the bf16 dense pyramid read by
+    B's bf16 form) replaces the config's; then the track, its checks,
+    corners, launches and busy time only."""
     from woft_tpu_torch.config import load_config
     from woft_tpu_torch.flow import RaftFlow
     from woft_tpu_torch.pipeline import MultiTargetTracker
@@ -2561,6 +2603,8 @@ def track_window_batch(kernels, dev):
                                     "WOFT_window.py"))
     flower = RaftFlow(conf.flow_config, device=dev)
     model, cfg, tp = flower.model, flower.cfg, conf.tracker_params
+    if precision:
+        cfg = replace(cfg, precision=precision)
     wp = WindowParams(size=256)
     template, frames, poses = walk(MULTI_H, MULTI_W, dev)
     masks = window_masks(8)
@@ -2590,6 +2634,15 @@ def track_window_batch(kernels, dev):
         ("warp_perspective_bilinear", "corr_pyramid_lookup"), T, T)
     errs = _report_multi(f"window batch x{n}", n, frame_ms, hs, poses, masks,
                          oks, MULTI_CORNER_BOUND_PX)
+    if precision:
+        n_launch, busy = profile_launches(lambda: tracker.track(frames[-1]))
+        mean = sum(frame_ms[1:]) / (T - 1)
+        log(f"window batch x{n} ({precision}): {n_launch} launches a frame; "
+            f"device busy {busy:.2f} ms a frame; peak device memory "
+            f"{peak:.2f} GiB")
+        return dict(launches=launches, frame_ms=mean,
+                    per_frame_launches=n_launch, busy_ms=busy, peak_gib=peak,
+                    errs=errs)
 
     # each target through the single-target step on the same frames
     tp1 = replace(tp, no_local_h=True)
@@ -2630,6 +2683,263 @@ def track_window_batch(kernels, dev):
         f"frame; peak device memory {peak:.2f} GiB")
     return dict(launches=launches, frame_ms=mean, per_frame_launches=n_launch,
                 busy_ms=busy, peak_gib=peak, errs=errs)
+
+
+# ---------------------------------------------------------------------------
+# the rest of the flow-network family: B on bf16 levels, the new tracks,
+# the bf16 window batch, the alternate correlation
+# ---------------------------------------------------------------------------
+
+# (config, h, w, tracker overrides, flow config overrides), each on the
+# 720p walk: 8 frames, then 3 with redetection='never'
+FAMILY_TRACKS = (
+    ("WOFT_rep.py", 720, 1280, {}, {}),
+    ("ablation_10.py", 720, 1280, {}, {}),
+    ("WOFT_origraft.py", 720, 1280, {}, {}),
+    ("WOFT_masked.py", 720, 1280, {}, {}),
+    ("WOFT.py", 720, 1280, {}, {}),
+    ("WOFT.py", 720, 1280, {}, {"precision": "default"}),
+)
+# B's launches a flow on each: 12 iterations and the weight head's lookup;
+# 'orig' has no head (woft_tpu/models/raft.py:739-740): 24 under
+# orig_raft.py's 24 iterations, 12 in the external backend's RAFT
+FAMILY_B_A_FLOW = {"WOFT_rep.py": 13, "ablation_10.py": 12,
+                   "WOFT_origraft.py": 24, "WOFT_masked.py": 13,
+                   "WOFT.py": 13, "WOFT.py precision=default": 13}
+# corner error against the walk (px; the 8 frames, then the 3 fallback
+# frames): the CPU path's own largest errors on the same walk
+# (tools/torch_downscale_walks.py --family, 8 threads) plus headroom for
+# the card's other summation orders, as ABLATION_CORNER_BOUND_PX. The
+# 'default' track is held to WOFT.py's bound and, tighter, to WOFT.py's
+# float32 track on the same frames (DEFAULT_VS_FP32_PX: TF32 products keep
+# 10 mantissa bits where bf16 keeps 8; the bf16 window step stays within
+# 0.023-0.063 px of its float32 CPU path). WOFT_origraft runs on seeded
+# weights (raft-sintel.pth is not in the repository) and WOFT_masked on a
+# seeded mask head (no trained one exists): their corners carry no meaning
+# and are printed only.
+FAMILY_CORNER_BOUND_PX = {
+    ("WOFT_rep.py", "1280x720"): (0.5, 1.2),              # 0.300, 0.793
+    ("ablation_10.py", "1280x720"): (0.5, 1.2),           # 0.310, 0.794
+    ("WOFT.py", "1280x720"): (0.5, 0.6),                  # 0.255, 0.403
+    ("WOFT.py precision=default", "1280x720"): (0.5, 0.6),
+}
+DEFAULT_VS_FP32_PX = 0.2
+# the masked forward on the card against the CPU path, 1280x720, 12
+# iterations, v4 and the seeded mask head: cuDNN's and the CPU's float32
+# sums; a sanity bound (float32 at 64x96 agrees to ~2e-6 px)
+MASKED_CARD_CPU_TOL = 1e-2
+ALT_LOOKUP_REL = 1e-5            # the same products, summed in another order
+ALT_4K_CORNER_BOUND_PX = 2.0     # sanity bound: no CPU path at 4K
+
+
+def check_lookup_bf16(kernels, corr, dev):
+    """Kernel B's bf16-level form against its plain version on the same
+    bf16 levels (exact): the 720p pyramid dense (Q = 14,400) and indexed
+    (M = 4,500), and the 8-window batch's pyramid (Q = 8,192); each timed
+    beside its bound (2-byte window reads, float32 output), the plain
+    version and ``F.grid_sample`` x4 on the bf16 levels (a bf16 grid: the
+    call wants one dtype). Returns {shape: row}."""
+    radius, k = 4, 9
+    out = {}
+    pyramid, coords, cells, c_cells = lookup_case(corr, dev)
+    pyramid = [p.to(torch.bfloat16) for p in pyramid]
+    g = torch.Generator(device=dev).manual_seed(8)
+    f1 = torch.randn(8, 32, 32, 256, device=dev, generator=g)
+    f2 = torch.randn(8, 32, 32, 256, device=dev, generator=g)
+    batch, _ = corr.corr_pyramid_fused(f1, f2, 4, out_dtype=torch.bfloat16)
+    b_coords = (_cell_grid(dev, 32, 32).expand(8, -1, -1, -1) + (torch.rand(
+        8, 32, 32, 2, device=dev, generator=g) - 0.5) * 40).contiguous()
+    cases = (("B bf16 720p dense", pyramid, coords, None),
+             ("B bf16 720p indexed", pyramid, c_cells, cells),
+             ("B bf16 8-window batch", batch, b_coords, None))
+    for name, pyr, c, rows in cases:
+        flat = c.reshape(-1, 2)
+        Q = flat.shape[0]
+        sub = pyr if rows is None else [p[rows] for p in pyr]
+        want = corr.corr_lookup_plain(sub, c, radius).reshape(Q, -1)
+        got = kernels.corr_pyramid_lookup(pyr, c, radius, rows=rows)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        ms = time_ms(lambda: kernels.corr_pyramid_lookup(pyr, c, radius,
+                                                         rows=rows))
+        plain_ms = time_ms(lambda: corr.corr_lookup_plain(sub, c, radius),
+                           iters=3)
+        library_ms = time_ms(lambda: _grid_sample_levels(pyr, flat, radius,
+                                                         rows), iters=5)
+        n_out = Q * 4 * k * k
+        bnd, by = bound_ms(_window_bytes(pyr, flat, rows, radius) + Q * 8
+                           + (0 if rows is None else Q * 8) + n_out * 4,
+                           n_out * 18)
+        sec = _window_bytes(pyr, flat, rows, radius, sector=32)
+        log(f"kernel B [{name[2:]}, Q={Q}]: max_abs_err {err:.3g} (exact "
+            f"expected); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"F.grid_sample x4 on the bf16 levels {library_ms:.4f} ms, bound "
+            f"{bnd:.4f} ms ({by}); windows {sec / 1e6:.1f} MB in 32-byte "
+            f"sectors")
+        if err != 0.0:
+            raise AssertionError(f"kernel B on bf16 levels ({name}) differs "
+                                 f"from its plain version: {err}")
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bnd, bound_by=by, library_ms=library_ms)
+    return out
+
+
+def check_masked_card_vs_cpu(dev):
+    """``WOFT_masked.py``'s flow (v4, the seeded mask head) on the first
+    frame pair of the 720p walk, 12 iterations, on the card and on the CPU
+    path: flow_up, weights_up and mask_up within MASKED_CARD_CPU_TOL; the
+    share of the target where the sigmoided mask exceeds 0.5."""
+    from woft_tpu_torch.config import load_config
+    from woft_tpu_torch.flow import RaftFlow
+    from woft_tpu_torch.flow.wrapper import upload_bgr
+
+    conf = load_config(os.path.join(ROOT, "woft_tpu_torch", "configs",
+                                    "WOFT_masked.py"))
+    template, frames, _ = walk(H_IMG, W_IMG, dev, n=1)
+    mask, _ = centred_mask(H_IMG, W_IMG, 0.5)
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        flower = RaftFlow(conf.flow_config, device=d)
+        outs[d.type] = [o.cpu() for o in flower.compute_flow_device(
+            upload_bgr(template, d), upload_bgr(frames[0], d))]
+    errs = [(a - b).abs().max().item()
+            for a, b in zip(outs["cuda"], outs["cpu"])]
+    vis = (torch.sigmoid(outs["cuda"][2][0, ..., 0]) > 0.5).numpy()
+    log(f"WOFT_masked.py first pair, card vs CPU: flow_up {errs[0]:.3g} px, "
+        f"weights_up {errs[1]:.3g}, mask_up {errs[2]:.3g} (tol "
+        f"{MASKED_CARD_CPU_TOL}); vis > 0.5 on {vis[mask].mean():.1%} of "
+        f"the target, {vis.mean():.1%} of the frame")
+    if not max(errs) <= MASKED_CARD_CPU_TOL:
+        raise AssertionError("the masked forward on the card disagrees with "
+                             "the CPU path")
+    return dict(errs=errs, vis_target=float(vis[mask].mean()))
+
+
+def check_alternate(kernels, corr, dev):
+    """The alternate correlation: at 720p its lookup against kernel B on
+    the float32 pyramid of the same features (``ALT_LOOKUP_REL``) and one
+    flow's time against the dense path's (v4, 12 iterations, the dense
+    head); then ``WOFT.py`` with ``alternate_corr=True`` at 3840x2160, 2
+    frames of the walk: peak device memory, frame time and corners, where
+    the float32 pyramid would need the bytes printed."""
+    from woft_tpu_torch.config import load_config
+    from woft_tpu_torch.flow import RaftFlow
+    from woft_tpu_torch.models.raft import weighted_raft_forward
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    f1 = torch.randn(1, 90, 160, 256, device=dev, generator=g)
+    f2 = torch.randn(1, 90, 160, 256, device=dev, generator=g)
+    coords = (_cell_grid(dev) + (torch.rand(1, 90, 160, 2, device=dev,
+                                            generator=g) - 0.5) * 40)
+    coords = coords.contiguous()
+    pyramid, _ = corr.corr_pyramid_fused(f1, f2, 4)
+    dense = corr.corr_lookup(pyramid, coords, 4)
+    alt = corr.corr_lookup_alternate(f1, f2, coords, 4, 4)
+    rel = ((alt - dense).abs().max() / dense.abs().max()).item()
+    alt_ms = time_ms(lambda: corr.corr_lookup_alternate(f1, f2, coords, 4, 4),
+                     iters=3, warmup=1)
+    b_ms = time_ms(lambda: corr.corr_lookup(pyramid, coords, 4))
+    log(f"alternate lookup at 720p (Q=14400): against kernel B on the "
+        f"float32 pyramid {rel:.3g} of the largest value (tol "
+        f"{ALT_LOOKUP_REL}); {alt_ms:.3f} ms a lookup, kernel B {b_ms:.4f} "
+        f"ms")
+    if not rel <= ALT_LOOKUP_REL:
+        raise AssertionError(f"alternate lookup disagrees: {rel}")
+    del pyramid, dense, alt
+
+    conf = load_config(os.path.join(ROOT, "woft_tpu_torch", "configs",
+                                    "WOFT.py"))
+    flower = RaftFlow(conf.flow_config, device=dev)
+    template, frames, _ = walk(H_IMG, W_IMG, dev, n=1)
+    img1, img2 = (torch.from_numpy(np.ascontiguousarray(f[..., ::-1])).to(
+        dev).to(torch.float32)[None] for f in (template, frames[0]))
+    flows = {}
+    for what, cfg in (("dense", flower.cfg),
+                      ("alternate", replace(flower.cfg, alternate_corr=True))):
+        flows[what] = time_ms(lambda: weighted_raft_forward(
+            flower.model, cfg, img1, img2), iters=3, warmup=1)
+    log(f"one 720p flow (v4, 12 iterations, dense head): dense pyramid "
+        f"{flows['dense']:.1f} ms, alternate {flows['alternate']:.1f} ms")
+    del flower
+    torch.cuda.empty_cache()
+
+    h, w = 2160, 3840
+    q = (h // 8) * (w // 8)
+    dense_bytes = sum(q * (h // 8 >> lvl) * (w // 8 >> lvl) * 4
+                      for lvl in range(4))
+    res = ablation_walk(dev, "WOFT.py", h, w, kernels=kernels,
+                        flow={"alternate_corr": True}, n_frames=2,
+                        n_fallback=0)
+    report_ablation_walk(res)
+    log(f"WOFT.py alternate_corr at {w}x{h}: peak device memory "
+        f"{res['peak_gib']:.2f} GiB, where the float32 pyramid alone would "
+        f"take {dense_bytes / 1e9:.1f} GB (level 0 "
+        f"{q * q * 4 / 1e9:.1f} GB)")
+    check_counts(f"WOFT.py alternate_corr at {w}x{h}", res["launches"],
+                 {"warp_perspective_bilinear": res["n_frames"]},
+                 ("warp_perspective_bilinear",), res["n_frames"],
+                 res["n_flows"])
+    if not (np.isfinite(res["errs"]).all()
+            and max(res["errs"]) <= ALT_4K_CORNER_BOUND_PX):
+        raise AssertionError(f"4K alternate track: corner error "
+                             f"{max(res['errs']):.3f} px, bound "
+                             f"{ALT_4K_CORNER_BOUND_PX}")
+    return dict(lookup_rel=rel, lookup_ms=alt_ms, b_ms=b_ms, flows=flows,
+                track=res)
+
+
+def track_flow_family(kernels, corr, dev):
+    """The rest of the flow-network family on the card: B on bf16 levels
+    (``check_lookup_bf16``); each of ``FAMILY_TRACKS`` (``ablation_walk``,
+    counted from 0: A once a frame, B ``FAMILY_B_A_FLOW`` times a flow,
+    exactly, nothing else; corners held to ``FAMILY_CORNER_BOUND_PX``
+    where the weights are trained; the 'default' track also to WOFT.py's
+    float32 track, and traced for its device busy time); the masked
+    forward against the CPU path (``check_masked_card_vs_cpu``); the
+    per-window batch x8 in bf16 (``track_window_batch``); the alternate
+    correlation (``check_alternate``). Returns its numbers."""
+    t_phase = time.perf_counter()
+    out = {"bf16": check_lookup_bf16(kernels, corr, dev), "tracks": {}}
+    for config, h, w, overrides, flow in FAMILY_TRACKS:
+        torch.cuda.empty_cache()
+        res = ablation_walk(dev, config, h, w, overrides, kernels, flow,
+                            profile=True)
+        report_ablation_walk(res)
+        key = (res["what"], res["frame"])
+        per_flow = FAMILY_B_A_FLOW[res["what"]]
+        check_counts(f"{res['what']} at {res['frame']}", res["launches"],
+                     {"warp_perspective_bilinear": res["n_frames"],
+                      "corr_pyramid_lookup": per_flow * res["n_flows"]},
+                     ("warp_perspective_bilinear", "corr_pyramid_lookup"),
+                     res["n_frames"], res["n_flows"])
+        if not all(np.isfinite(H).all() for H in res["hs"]):
+            raise AssertionError(f"{key}: non-finite homography")
+        n = len(res["frame_ms"])
+        for errs, bound, which in zip(
+                (res["errs"][:n], res["errs"][n:]),
+                FAMILY_CORNER_BOUND_PX.get(key, (None, None)),
+                ("the walk", "the fallback frames")):
+            if bound is not None and not max(errs) <= bound:
+                raise AssertionError(f"{key}: corner error {max(errs):.3f} "
+                                     f"px on {which}, bound {bound} px")
+        out["tracks"][res["what"]] = res
+    fp32 = out["tracks"]["WOFT.py"]
+    dflt = out["tracks"]["WOFT.py precision=default"]
+    diff = max(h_diff_px(a, b, fp32["corners"])
+               for a, b in zip(fp32["hs"], dflt["hs"]))
+    log(f"WOFT.py precision=default against float32 on the same frames: "
+        f"largest corner distance {diff:.3g} px (tol {DEFAULT_VS_FP32_PX})")
+    if not diff <= DEFAULT_VS_FP32_PX:
+        raise AssertionError(f"'default' strays from float32: {diff} px")
+    out["default_vs_fp32_px"] = diff
+    torch.cuda.empty_cache()
+    out["masked"] = check_masked_card_vs_cpu(dev)
+    torch.cuda.empty_cache()
+    out["batch_bf16"] = track_window_batch(kernels, dev, precision="bf16")
+    torch.cuda.empty_cache()
+    out["alternate"] = check_alternate(kernels, corr, dev)
+    log(f"flow-family phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def main():
@@ -2686,6 +2996,11 @@ def main():
     # head), IRLS-Huber, and the dense head at full frame
     torch.cuda.empty_cache()
     ablation_shapes, ablations = track_ablations(kernels, corr, warp, dev)
+    # the rest of the flow-network family: B on bf16 levels, the 'rep',
+    # external, 'orig', 'weighted_masked' and 'default' tracks, the bf16
+    # window batch, the alternate correlation at 720p and 4K
+    torch.cuda.empty_cache()
+    family = track_flow_family(kernels, corr, dev)
     windows = {}
     for what, h, w in WINDOW_TRACKS:
         torch.cuda.empty_cache()
@@ -2802,6 +3117,32 @@ def main():
             row["downscale_shapes"] = {
                 k: v for k, v in ablation_shapes.items()
                 if k[0] == shapes[row["name"]][0]}
+    # B's bf16-level form: launches on the 'default' track (720p, its dense
+    # and indexed lookups) and on the bf16 window batch, each counted from 0
+    b16 = family["bf16"]
+    source_b = "woft_tpu_torch/csrc/corr_lookup.cu"
+    rows += [
+        dict(name="corr_pyramid_lookup (bf16 levels, 720p)", route="cuda",
+             source=source_b,
+             replaces="woft_tpu/ops/pallas/corr_lookup.py:142",
+             launches=family["tracks"]["WOFT.py precision=default"]
+             ["launches"]["corr_pyramid_lookup"],
+             note="launches: WOFT.py with precision='default' (bf16 "
+                  "pyramid), 12 dense and 1 indexed a flow; times: dense "
+                  "Q=14400, the indexed M=4500 form in 'indexed'",
+             indexed=b16["B bf16 720p indexed"], **b16["B bf16 720p dense"]),
+        dict(name="corr_pyramid_lookup (bf16 levels, 8-window batch)",
+             route="cuda", source=source_b,
+             replaces="woft_tpu/ops/pallas/corr_lookup.py:142",
+             launches=family["batch_bf16"]["launches"]["corr_pyramid_lookup"],
+             note="launches: MultiTargetTracker x8 on WOFT_window.py in "
+                  "bf16, 8 frames; times: Q=8192",
+             **b16["B bf16 8-window batch"]),
+    ]
+    for row in rows[:2]:        # A and B on the family's tracks
+        row["family_launches"] = {
+            what: res["launches"][row["name"]]
+            for what, res in family["tracks"].items()}
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -511,10 +511,21 @@ def test_config_loads_and_matches_jax(name):
 @pytest.mark.parametrize("flow_config", ["wraft_large_rep.py",
                                          "orig_raft.py", "liteflownet2.py"])
 def test_unported_flow_config_raises(flow_config):
+    """The flow configs that were left to port now build, each with its
+    JAX twin's network and iterations; a flow config the port does not
+    have still raises, naming it."""
+    from woft_tpu.config import load_config as jload_config
     from woft_tpu_torch.configs._ablation_base import build_config
 
-    with pytest.raises(NotImplementedError, match=flow_config):
-        build_config(flow_config=flow_config)
+    conf = build_config(flow_config=flow_config).flow_config
+    jconf = jload_config(ROOT / "woft_tpu" / "configs" / "flow"
+                         / flow_config)
+    assert conf.of_class.__name__ == jconf.of_class.__name__
+    assert (conf.raft_type or None) == (jconf.raft_type or None)
+    assert conf.iters == jconf.iters
+    missing = flow_config.replace(".py", "_small.py")
+    with pytest.raises(NotImplementedError, match=missing):
+        build_config(flow_config=missing)
 
 
 def test_tracker_params_defaults_match_jax():

@@ -53,7 +53,9 @@ def test_port_imports_no_jax_woft_tpu_or_cv2(path):
 @pytest.mark.parametrize("config", ["WOFT.py", "WOFT_fast.py",
                                     "WOFT_window.py", "WOFT_window_384.py",
                                     "WOFT_window_native.py",
-                                    "WOFT_downscale_3x.py", "WOFT_wIRLSq.py"])
+                                    "WOFT_downscale_3x.py", "WOFT_wIRLSq.py",
+                                    "WOFT_origraft.py", "WOFT_masked.py",
+                                    "WOFT_rep.py", "ablation_10.py"])
 @pytest.mark.parametrize("entry", ["tracker", "flow"])
 def test_entry_points_need_a_card_unless_asked_for_cpu(entry, config,
                                                        monkeypatch):
@@ -62,11 +64,14 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(entry, config,
     tracker_class = (WOFTWindowTracker if config.startswith("WOFT_window")
                      else WOFTTracker)
     assert conf.tracker_class is tracker_class
+    # the config's flow wrapper: RaftFlow, or the external backend's
+    flow_class = conf.flow_config.of_class
+    assert flow_class is RaftFlow or config == "ablation_10.py"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         if entry == "tracker":
             tracker_class(conf)
         else:
-            RaftFlow(conf.flow_config)
+            flow_class(conf.flow_config)
 
 
 _WRAPPERS = [kernels.warp_perspective_bilinear, kernels.corr_pyramid_lookup,

@@ -263,6 +263,41 @@ def test_lookup_kernel_downscale_grids(dev, hw):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("radius,levels,hw", LOOKUP_GRID, ids=LOOKUP_IDS)
+def test_lookup_kernel_bf16_levels(dev, radius, levels, hw):
+    """Kernel B's bf16-level form (the 'bf16' and 'default' modes' pyramid)
+    at odd level sizes, dense and indexed: each value widened as it is
+    read, float32 blend and output, equal to the plain version on the same
+    bf16 levels bit for bit."""
+    pyr, coords = _lookup_case(dev, levels, hw)
+    pyr = [p.to(torch.bfloat16) for p in pyr]
+    n0 = kernels.corr_pyramid_lookup.launches
+    got = corr.corr_lookup(pyr, coords, radius)
+    want = corr.corr_lookup_plain(pyr, coords, radius)
+    torch.cuda.synchronize()
+    assert kernels.corr_pyramid_lookup.launches == n0 + 1
+    assert got.dtype == torch.float32
+    assert torch.equal(got, want)
+    Q = hw[0] * hw[1]
+    g = torch.Generator(device=dev).manual_seed(3)
+    cells = torch.randint(0, Q, (301,), device=dev, generator=g)
+    cells[:11] = torch.arange(11, device=dev)
+    c = coords.reshape(Q, 2)[cells][None, None]
+    got_i = corr.corr_lookup(pyr, c, radius, rows=cells)
+    assert torch.equal(got_i, corr.corr_lookup_plain(
+        [p[cells] for p in pyr], c, radius))
+    assert torch.equal(got_i.reshape(301, -1), got.reshape(Q, -1)[cells])
+
+
+def test_lookup_wrapper_refuses_mixed_level_dtypes(dev, pyramid):
+    pyr, coords = pyramid
+    mixed = [pyr[0].to(torch.bfloat16)] + list(pyr[1:])
+    with pytest.raises(TypeError):
+        kernels.corr_pyramid_lookup(mixed, coords, 4)
+    with pytest.raises(TypeError):
+        kernels.corr_pyramid_lookup([p.half() for p in pyr], coords, 4)
+
+
 def test_lookup_wrapper_checks_inputs(dev, pyramid):
     pyr, coords = pyramid
     with pytest.raises(ValueError):          # rows must match the queries

@@ -29,6 +29,19 @@ from woft_tpu.ops.pallas import local_lookup as pll
 from woft_tpu_torch.models import corr as tcorr
 from woft_tpu_torch.models import raft as traft
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The suite runs in several worker processes at once, and torch's
+    default of one intra-op thread a core makes this module's many small
+    operations wait on each other's threads. Two threads while the module
+    runs, the previous count restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 K = 9
 RADIUS = 4
 VOL_ATOL, VOL_RTOL = 2e-5, 1e-5

@@ -31,6 +31,19 @@ from woft_tpu_torch.ops import warp as twarp
 from woft_tpu_torch.pipeline import SharedMultiTracker
 from woft_tpu_torch.tracker import woft as tw
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The suite runs in several worker processes at once, and torch's
+    default of one intra-op thread a core makes this module's many small
+    operations wait on each other's threads. Two threads while the module
+    runs, the previous count restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 H_IMG, W_IMG = 96, 128
 BOXES = ((10, 40, 10, 50), (50, 90, 20, 60), (20, 70, 70, 120))  # y0,y1,x0,x1
 

@@ -28,6 +28,19 @@ from woft_tpu_torch.models import raft as traft
 from woft_tpu_torch.models.convert import (params_from_jax_numpy,
                                            params_to_jax_numpy)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The suite runs in several worker processes at once, and torch's
+    default of one intra-op thread a core makes this module's many small
+    operations wait on each other's threads. Two threads while the module
+    runs, the previous count restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = Path(__file__).resolve().parent.parent
 ITERS = 3
 FLOW_TOL = 1e-3
@@ -327,8 +340,8 @@ def test_fused_loop_within_bound_of_jax(models, frames, jax_local_highest):
 
 
 def test_bf16_mode_dense_corr_runs(models, frames):
-    """``precision='bf16'`` with the dense pyramid (kept float32): finite,
-    and close to the float32 flow."""
+    """``precision='bf16'`` with the dense pyramid (bf16 levels, as in the
+    reference): finite, and close to the float32 flow."""
     _, _, _, tcfg0, model = models
     img1, img2, flow_init = frames
     tcfg = traft.RaftConfig(iters=ITERS, precision="bf16")
@@ -345,7 +358,9 @@ def test_raft_config_rejects_unknown_modes():
     with pytest.raises(ValueError):
         traft.RaftConfig(corr_impl="onehot")
     with pytest.raises(ValueError):
-        traft.RaftConfig(precision="default")
+        traft.RaftConfig(precision="fp16")
+    with pytest.raises(ValueError):
+        traft.RaftConfig(variant="small")
 
 
 def test_convex_upsample_matches():

@@ -37,6 +37,18 @@ from woft_tpu_torch.models import raft as traft
 from woft_tpu_torch.models.convert import params_from_jax_numpy
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The suite runs in several worker processes at once, and torch's
+    default of one intra-op thread a core makes this module's many small
+    operations wait on each other's threads. Two threads while the module
+    runs, the previous count restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 def _conv(rng, kh, kw, ci, co, scale):
     return {"weight": (scale * rng.normal(size=(kh, kw, ci, co))
                        ).astype(np.float32),

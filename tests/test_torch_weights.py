@@ -1,6 +1,7 @@
-"""The trained weights carried to the port: ``weights/wraft_tpu_v4_torch.pt``
-and ``weights/wraft_tpu_v5_torch.pt`` against the JAX package's orbax
-checkpoints they were exported from (``tools/export_torch_weights.py``).
+"""The trained weights carried to the port: ``weights/wraft_tpu_v3_torch.pt``,
+``weights/wraft_tpu_v4_torch.pt`` and ``weights/wraft_tpu_v5_torch.pt``
+against the JAX package's orbax checkpoints they were exported from
+(``tools/export_torch_weights.py``).
 
 Tolerances: the files equal a fresh export bit for bit; the forward on the
 exported v4 weights equals the JAX forward on the orbax tree to 1e-3 px of
@@ -25,7 +26,7 @@ from woft_tpu_torch.models import raft as traft
 
 ROOT = Path(__file__).resolve().parent.parent
 WEIGHTS = ROOT / "weights"
-VERSIONS = ["v4", "v5"]
+VERSIONS = ["v3", "v4", "v5"]
 FLOW_TOL = 1e-3
 W_TOL = 1e-4
 

@@ -27,6 +27,18 @@ from woft_tpu_torch.tracker import window_step as tws
 from woft_tpu_torch.tracker import woft as tw
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The suite runs in several worker processes at once, and torch's
+    default of one intra-op thread a core makes this module's many small
+    operations wait on each other's threads. Two threads while the module
+    runs, the previous count restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def window_grid():
     """Block-local volumes of both packages at the feature grid of

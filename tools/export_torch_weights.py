@@ -3,7 +3,8 @@
 
 The JAX package keeps its trained weights as orbax directories
 (``weights/wraft_tpu_v4``: full frame, ``weights/wraft_tpu_v5``: window
-mode), which only JAX and tensorstore read. This tool restores each one
+mode, ``weights/wraft_tpu_v3``: the 'rep' flow config's and the external
+backend's), which only JAX and tensorstore read. This tool restores each one
 read-only with ``woft_tpu.models.checkpoint.load_checkpoint``, converts the
 tree with ``woft_tpu_torch.models.convert.params_from_jax_numpy`` and writes
 ``weights/<name>_torch.pt`` with ``torch.save``: a flat float32 state dict
@@ -12,10 +13,11 @@ that strict-loads into ``woft_tpu_torch.models.raft.WeightedRAFT``.
 It is the one bridge between the packages that needs JAX, so it runs where
 the JAX package is installed, from the repository root:
 
-    JAX_PLATFORMS=cpu python tools/export_torch_weights.py [v4 v5]
+    JAX_PLATFORMS=cpu python tools/export_torch_weights.py [v3 v4 v5]
 
 The port's flow configs then load the files without JAX
-(``woft_tpu_torch/configs/flow/wraft_large.py``, ``configs/WOFT_window.py``).
+(``woft_tpu_torch/configs/flow/wraft_large.py``, ``configs/WOFT_window.py``,
+``configs/flow/wraft_large_rep.py``, ``configs/flow/liteflownet2.py``).
 """
 
 import argparse
@@ -47,8 +49,9 @@ def export_state_dict(name):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("versions", nargs="*", default=["v4", "v5"],
-                        help="checkpoint versions to export (default: v4 v5)")
+    parser.add_argument("versions", nargs="*", default=["v3", "v4", "v5"],
+                        help="checkpoint versions to export (default: v3 v4 "
+                             "v5)")
     args = parser.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     for version in args.versions:

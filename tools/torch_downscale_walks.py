@@ -4,6 +4,7 @@
 Run from the repository root:
 
     python3 tools/torch_downscale_walks.py [--threads 8] [--only LABEL]
+        [--family]
 
 Drives each track of ``chip_smoke.py``'s ``ABLATION_TRACKS``
 (``configs/WOFT_downscale_3x.py`` at 1280x720 and 1920x1080,
@@ -18,7 +19,12 @@ distance to the sparse-head one. The largest
 corner errors of each track against the walk (full-resolution pixels
 after the downscale compensation; on its 8 frames and on its 3 fallback
 frames) are where ``chip_smoke.py``'s ``ABLATION_CORNER_BOUND_PX`` comes
-from. The times it prints are the CPU's, not the card's. Imports no JAX.
+from. ``--family`` drives the flow-network family's tracks instead
+(``FAMILY_TRACKS``: ``WOFT_rep.py``, ``ablation_10.py``,
+``WOFT_origraft.py``, ``WOFT_masked.py``, ``WOFT.py`` in float32 and with
+``precision='default'``, which on the CPU means the bf16 pyramid without
+TF32), the source of ``FAMILY_CORNER_BOUND_PX``. The times it prints are
+the CPU's, not the card's. Imports no JAX.
 """
 
 import argparse
@@ -35,7 +41,10 @@ def main(argv=None):
     parser.add_argument("--threads", type=int, default=8)
     parser.add_argument("--only", action="append",
                         help="a track's label (config, '<config> dense "
-                             "head'); repeatable")
+                             "head', '<config> precision=default'); "
+                             "repeatable")
+    parser.add_argument("--family", action="store_true",
+                        help="the flow-network family's tracks")
     args = parser.parse_args(argv)
     torch.set_num_threads(args.threads)
     sys.path.insert(0, ROOT)
@@ -43,12 +52,16 @@ def main(argv=None):
 
     dev = torch.device("cpu")
     done = {}
-    tracks = chip_smoke.ABLATION_TRACKS + chip_smoke.HOST_FIT_TRACKS
-    for config, h, w, overrides in tracks:
-        label = chip_smoke.ablation_label(config, overrides)
+    tracks = (list(chip_smoke.FAMILY_TRACKS)
+              if args.family else
+              [t + ({},) for t in chip_smoke.ABLATION_TRACKS
+               + chip_smoke.HOST_FIT_TRACKS])
+    for config, h, w, overrides, flow in tracks:
+        label = chip_smoke.ablation_label(config, overrides, flow)
         if args.only and label not in args.only:
             continue
-        res = chip_smoke.ablation_walk(dev, config, h, w, overrides)
+        res = chip_smoke.ablation_walk(dev, config, h, w, overrides,
+                                       flow=flow)
         chip_smoke.report_ablation_walk(res)
         n = len(res["frame_ms"])
         print(f"{label} at {res['frame']}: largest corner error "

@@ -54,7 +54,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-_B_LOAD = ("v[n] = valid ? __ldg(base + (gy * wl + gx)) : 0.f;",
+_B_LOAD = ("v[n] = valid ? load_widened(base + (gy * wl + gx)) : 0.f;",
            "v[n] = valid ? (float)(gy * wl + gx) : 0.f;")
 _B_STORE = ("      o[c] = acc;\n", "      if (acc == 12345.678f) o[c] = acc;\n")
 _A_LOADS = tuple(

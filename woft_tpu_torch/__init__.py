@@ -10,13 +10,16 @@ see ``ops/kernels.py``).
 - ``woft_tpu_torch.geometry`` — weighted-QR homography fit and projective
   helpers.
 - ``woft_tpu_torch.ops``      — warps, sampling, padding, CUDA kernels.
-- ``woft_tpu_torch.models``   — WeightedRAFT, the correlation pyramid and
-  lookup, and the weight bridge to ``woft_tpu`` parameter trees.
+- ``woft_tpu_torch.models``   — RAFT-large and its weighted and masked
+  variants, the correlation pyramid and lookups (dense, block-local,
+  alternate), and the weight bridge to ``woft_tpu`` parameter trees.
 - ``woft_tpu_torch.tracker``  — the WOFT tracker steps (full frame, window,
   shared-flow multi-target, batched windows) and their host shells.
 - ``woft_tpu_torch.pipeline`` — multi-target trackers and the chunk loops
   that step T frames without a host sync (exported here).
-- ``woft_tpu_torch.flow``     — the ``compute_flow`` wrapper protocol.
+- ``woft_tpu_torch.flow``     — the ``compute_flow`` wrapper protocol
+  (``RaftFlow``) and the external backend with its cost-volume weight
+  head (``ExternalFlowWrapper``).
 
 Public functions keep ``woft_tpu``'s layouts (NHWC images, ``(x, y)``
 coordinates); inside, the networks run NCHW. Entry points run on ``cuda``

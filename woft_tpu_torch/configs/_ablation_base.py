@@ -9,9 +9,15 @@ paper's ablation table, and each config file states only its deviation:
 - downscale: 1 (canonical) / 2 / 3 / 4, with replicate ('RAFT') padding,
   since downscaled frames are rarely /8.
 
-A flow config the port does not have (the reference's
-``wraft_large_rep.py``, ``orig_raft.py``, ``liteflownet2.py``) raises
-``NotImplementedError``; no other file is loaded in its place.
+- flow network (``flow_config``): WeightedRAFT (canonical), its 'rep'
+  checkpoint (``wraft_large_rep.py``), the original RAFT
+  (``orig_raft.py``), or the external backend with its cost-volume weight
+  head (``liteflownet2.py``, ``flow/external.py``); ``flow_overrides``
+  sets fields of the flow config (``raft_type``, ``use_weight_head``).
+
+Every flow config of the reference has a twin here. A name the port does
+not have raises ``NotImplementedError``; no other file is loaded in its
+place.
 """
 
 from pathlib import Path

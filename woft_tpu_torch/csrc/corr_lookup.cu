@@ -56,6 +56,16 @@
 // ms, with the stores compiled out 0.021 ms (tools/torch_kernel_ablate.py).
 // Tried and not kept, because no faster: resident blocks that loop over
 // queries and fetch the next coordinate early.
+//
+// bf16 levels (the reference's 'bf16' and 'default' modes store the
+// pyramid so, woft_tpu/models/raft.py:651-657): a second instantiation
+// reads 2-byte values and widens each to float32 as it is loaded (exact: a
+// bf16 value is the top half of its float32), as the TPU kernel widens its
+// strip (corr_lookup.py:109); the fractions, the blend and the float32
+// output are the float32 form's, so it matches the plain version on the
+// same bf16 levels bit for bit. At 720p its reads halve (about 11.5 MB of
+// windows) and the 18.7 MB output stays: the byte bound falls by about a
+// quarter, not by half.
 #include <cuda_runtime.h>
 
 namespace {
@@ -65,12 +75,21 @@ constexpr int kMaxLevels = 8;
 constexpr int kMaxRadius = 8;
 
 struct Levels {
-  const float* ptr[kMaxLevels];
+  const void* ptr[kMaxLevels];      // float or bf16 (unsigned short) data
   int h[kMaxLevels];
   int w[kMaxLevels];
 };
 
-template <int R>
+__device__ __forceinline__ float load_widened(const float* p) {
+  return __ldg(p);
+}
+
+// bf16 -> float32, exact: the 16 bits are the float's top half
+__device__ __forceinline__ float load_widened(const unsigned short* p) {
+  return __uint_as_float(static_cast<unsigned>(__ldg(p)) << 16);
+}
+
+template <int R, typename T>
 __global__ void __launch_bounds__(kWarps * 32)
     corr_lookup_kernel(const __grid_constant__ Levels lv,
                        const float* __restrict__ coords,
@@ -115,7 +134,8 @@ __global__ void __launch_bounds__(kWarps * 32)
   const float w01 = (1.f - fx) * fy;
   const float w11 = fx * fy;
   const long long row = rows != nullptr ? rows[qi] : qi;
-  const float* base = lv.ptr[l] + row * (long long)(hl * wl);
+  const T* base =
+      static_cast<const T*>(lv.ptr[l]) + row * (long long)(hl * wl);
   // keeps the 64-bit row offset out of every load's address arithmetic
   asm volatile("" : "+l"(base));
 
@@ -130,7 +150,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   for (int n = 0; n < kLoads; ++n) {
     const int gy = gy0 + ry + n * kRowsPerLoad;
     const bool valid = in_x && (unsigned)gy < (unsigned)hl;
-    v[n] = valid ? __ldg(base + (gy * wl + gx)) : 0.f;
+    v[n] = valid ? load_widened(base + (gy * wl + gx)) : 0.f;
   }
 #pragma unroll
   for (int n = 0; n < kLoads; ++n) {
@@ -155,13 +175,44 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-template <int R>
+template <int R, typename T>
 void launch(const Levels& lv, int num_levels, const float* coords,
             const long long* rows, int q, float* out, cudaStream_t stream) {
   const int per_block = kWarps / num_levels;   // queries a block, >= 1
   const dim3 block(32, num_levels, per_block);
-  corr_lookup_kernel<R><<<(q + per_block - 1) / per_block, block, 0, stream>>>(
-      lv, coords, rows, q, out);
+  corr_lookup_kernel<R, T>
+      <<<(q + per_block - 1) / per_block, block, 0, stream>>>(
+          lv, coords, rows, q, out);
+}
+
+template <typename T>
+int lookup(const void* const* level_ptrs, const int* hs, const int* ws,
+           int num_levels, const float* coords, const long long* rows,
+           long long q, int radius, float* out, void* stream) {
+  if (num_levels < 1 || num_levels > kMaxLevels || radius < 0 ||
+      radius > kMaxRadius || q < 1 || q * num_levels > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Levels lv = {};
+  for (int l = 0; l < num_levels; ++l) {
+    lv.ptr[l] = level_ptrs[l];
+    lv.h[l] = hs[l];
+    lv.w[l] = ws[l];
+  }
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int n = (int)q;
+  switch (radius) {
+    case 0: launch<0, T>(lv, num_levels, coords, rows, n, out, s); break;
+    case 1: launch<1, T>(lv, num_levels, coords, rows, n, out, s); break;
+    case 2: launch<2, T>(lv, num_levels, coords, rows, n, out, s); break;
+    case 3: launch<3, T>(lv, num_levels, coords, rows, n, out, s); break;
+    case 4: launch<4, T>(lv, num_levels, coords, rows, n, out, s); break;
+    case 5: launch<5, T>(lv, num_levels, coords, rows, n, out, s); break;
+    case 6: launch<6, T>(lv, num_levels, coords, rows, n, out, s); break;
+    case 7: launch<7, T>(lv, num_levels, coords, rows, n, out, s); break;
+    default: launch<8, T>(lv, num_levels, coords, rows, n, out, s);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -176,28 +227,16 @@ extern "C" int woft_corr_lookup(const void* const* level_ptrs, const int* hs,
                                 const float* coords, const long long* rows,
                                 long long q, int radius, float* out,
                                 void* stream) {
-  if (num_levels < 1 || num_levels > kMaxLevels || radius < 0 ||
-      radius > kMaxRadius || q < 1 || q * num_levels > 0x7fffffffLL) {
-    return (int)cudaErrorInvalidValue;
-  }
-  Levels lv = {};
-  for (int l = 0; l < num_levels; ++l) {
-    lv.ptr[l] = static_cast<const float*>(level_ptrs[l]);
-    lv.h[l] = hs[l];
-    lv.w[l] = ws[l];
-  }
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int n = (int)q;
-  switch (radius) {
-    case 0: launch<0>(lv, num_levels, coords, rows, n, out, s); break;
-    case 1: launch<1>(lv, num_levels, coords, rows, n, out, s); break;
-    case 2: launch<2>(lv, num_levels, coords, rows, n, out, s); break;
-    case 3: launch<3>(lv, num_levels, coords, rows, n, out, s); break;
-    case 4: launch<4>(lv, num_levels, coords, rows, n, out, s); break;
-    case 5: launch<5>(lv, num_levels, coords, rows, n, out, s); break;
-    case 6: launch<6>(lv, num_levels, coords, rows, n, out, s); break;
-    case 7: launch<7>(lv, num_levels, coords, rows, n, out, s); break;
-    default: launch<8>(lv, num_levels, coords, rows, n, out, s);
-  }
-  return (int)cudaGetLastError();
+  return lookup<float>(level_ptrs, hs, ws, num_levels, coords, rows, q,
+                       radius, out, stream);
+}
+
+// The same with bf16 levels: the output stays float32.
+extern "C" int woft_corr_lookup_bf16(const void* const* level_ptrs,
+                                     const int* hs, const int* ws,
+                                     int num_levels, const float* coords,
+                                     const long long* rows, long long q,
+                                     int radius, float* out, void* stream) {
+  return lookup<unsigned short>(level_ptrs, hs, ws, num_levels, coords, rows,
+                                q, radius, out, stream);
 }

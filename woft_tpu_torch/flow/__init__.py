@@ -1,1 +1,2 @@
 from .wrapper import RaftFlow  # noqa: F401
+from .external import ExternalFlowWrapper  # noqa: F401

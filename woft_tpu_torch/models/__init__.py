@@ -11,6 +11,7 @@ from .corr import (  # noqa: F401
     LocalCorrVolumes,
     build_local_corr,
     corr_lookup,
+    corr_lookup_alternate,
     corr_lookup_local,
     corr_lookup_local_blocked,
     corr_pyramid_fused,

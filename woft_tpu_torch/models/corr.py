@@ -15,6 +15,13 @@ PyTorch twin of ``woft_tpu/models/corr.py``. The dense path:
   RAFT's transposed-window quirk. CPU tensors take ``corr_lookup_plain``
   (the semantics of ``woft_tpu``'s 'onehot'/'gather' lookups); CUDA tensors
   launch kernel B (``csrc/corr_lookup.cu``). The port keeps this one lookup.
+  Levels are float32, or bf16 in the 'bf16' and 'default' modes
+  (``corr_pyramid_fused(out_dtype=)``, where the reference stores them so):
+  a bf16 level is widened as it is read, the fractions and the blend stay
+  float32 and the output is float32, as in the reference's Pallas kernel.
+- ``corr_lookup_alternate``: the same lookup computed from the features,
+  chunk by chunk, with no stored volume (``RaftConfig.alternate_corr``, for
+  frames whose pyramid does not fit the card).
 
 The block-local path (``corr_impl='local'``, the ``WOFT_fast`` tier):
 
@@ -60,6 +67,7 @@ import torch.nn.functional as F
 
 from ..ops import kernels
 from ..ops.warp import avg_pool2d
+from . import layers
 
 
 def all_pairs_correlation(fmap1, fmap2):
@@ -74,15 +82,20 @@ def corr_mean_response(fmap1, fmap2):
     ``mean_p <f1_q, f2_p> / sqrt(D) == <f1_q, mean_p f2_p> / sqrt(D)``."""
     B, H, W, D = fmap1.shape
     mean2 = fmap2.reshape(B, -1, D).mean(dim=1)                  # (B, D)
-    out = (fmap1.reshape(B, H * W, D) @ mean2[:, :, None])[..., 0]
+    with layers.full_float32():         # the reference's HIGHEST product
+        out = (fmap1.reshape(B, H * W, D) @ mean2[:, :, None])[..., 0]
     return out.reshape(B, H, W) * (1.0 / math.sqrt(D))
 
 
-def corr_pyramid_fused(fmap1, fmap2, num_levels=4):
+def corr_pyramid_fused(fmap1, fmap2, num_levels=4, out_dtype=None):
     """Correlation pyramid straight from pooled feature maps.
 
-    Returns (pyramid [(B*H*W, Hl, Wl) float32 per level], mean_response
-    (B, H, W))."""
+    Each level is computed and scaled in float32 from float32 features
+    (level l+1 pools the float32 features of level l) and then stored in
+    ``out_dtype`` (None: float32; ``torch.bfloat16`` rounds each level
+    once, as the reference does in its 'bf16' and 'default' modes).
+    Returns (pyramid [(B*H*W, Hl, Wl) per level], mean_response (B, H, W)
+    float32)."""
     B, H, W, D = fmap1.shape
     scale = 1.0 / math.sqrt(D)
     f1 = fmap1.reshape(B, H * W, D)
@@ -91,16 +104,18 @@ def corr_pyramid_fused(fmap1, fmap2, num_levels=4):
     for lvl in range(num_levels):
         hl, wl = lv.shape[1:3]
         corr = f1 @ lv.reshape(B, hl * wl, D).transpose(1, 2)
-        pyramid.append((corr * scale).reshape(B * H * W, hl, wl))
+        corr = (corr * scale).reshape(B * H * W, hl, wl)
+        pyramid.append(corr.to(out_dtype or torch.float32))
         if lvl + 1 < num_levels:
             lv = avg_pool2d(lv)
     return pyramid, corr_mean_response(fmap1, fmap2)
 
 
 def _lookup_level_plain(corr_l, coords, radius, rows):
-    """One level: corr_l (R, Hl, Wl); coords (Q, 2) at this level's scale;
-    rows (Q,) int64. Returns (Q, (2r+1)^2), channel i*(2r+1)+j sampling
-    (y + j - r, x + i - r)."""
+    """One level: corr_l (R, Hl, Wl) float32 or bf16 (widened as read);
+    coords (Q, 2) at this level's scale; rows (Q,) int64. Returns (Q,
+    (2r+1)^2) float32, channel i*(2r+1)+j sampling (y + j - r, x + i -
+    r)."""
     _, Hl, Wl = corr_l.shape
     Q = coords.shape[0]
     k = 2 * radius + 1
@@ -120,8 +135,8 @@ def _lookup_level_plain(corr_l, coords, radius, rows):
             gy = yj + dy
             valid = (gx >= 0) & (gx < Wl) & (gy >= 0) & (gy < Hl)
             idx = (gy.clamp(0, Hl - 1) * Wl + gx.clamp(0, Wl - 1))
-            vals = flat[rows[:, None], idx.reshape(Q, k * k)]
-            w = (wx * wy) * valid.reshape(Q, k * k).to(corr_l.dtype)
+            vals = flat[rows[:, None], idx.reshape(Q, k * k)].float()
+            w = (wx * wy) * valid.reshape(Q, k * k).to(torch.float32)
             term = vals * w
             out = term if out is None else out + term
     return out
@@ -142,19 +157,82 @@ def corr_lookup(pyramid, coords, radius=4, rows=None):
     """Sample all pyramid levels around per-query centroids.
 
     Args:
-        pyramid: list of (R, Hl, Wl) levels.
+        pyramid: list of (R, Hl, Wl) levels, all float32 or all bf16.
         coords: (B, H1, W1, 2) float32 (x, y) level-0 coordinates.
         radius: window radius r (canonical 4 -> 9x9 windows).
         rows: optional (B*H1*W1,) int64 pyramid row of each query (the
             sparse weight head reads its cells in place); None reads row q
             for query q.
     Returns:
-        (B, H1, W1, L*(2r+1)^2), the torch reference's channel order.
+        (B, H1, W1, L*(2r+1)^2) float32, the torch reference's channel
+        order.
     """
     if coords.device.type == "cpu":
         return corr_lookup_plain(pyramid, coords, radius, rows)
     out = kernels.corr_pyramid_lookup(pyramid, coords, radius, rows)
     return out.reshape(*coords.shape[:-1], -1)
+
+
+def corr_lookup_alternate(fmap1, fmap2, coords, radius=4, num_levels=4,
+                          chunk=4096, batch=None):
+    """``corr_lookup`` on the pyramid of ``fmap1`` against ``fmap2``,
+    computed from the features with no stored volume (the twin of
+    ``woft_tpu/models/corr.py:corr_lookup_alternate``).
+
+    For each level (fmap2 average-pooled l times, in float32) and each
+    chunk of queries: gather the (2r+2)^2 integer taps of the level around
+    the query's centroid, take each one's product with the query's fmap1
+    row, zero the taps outside the level, scale by 1/sqrt(D), and blend
+    the four corner windows with the window's shared fraction. Peak memory
+    is O(chunk * (2r+2)^2 * D).
+
+    fmap1: (B, H1, W1, D), or (1, 1, M, D) for M chosen queries; fmap2:
+    (B, H2, W2, D) float32; coords: fmap1's shape with 2 channels, level-0
+    (x, y); batch: None (the queries are fmap2's batch elements in order)
+    or the (Q,) int64 batch element of each query. Returns (...,
+    L*(2r+1)^2) float32, the dense lookup's channel order."""
+    B2, _, _, D = fmap2.shape
+    Q = coords.numel() // 2
+    k = 2 * radius + 1
+    scale = 1.0 / math.sqrt(D)
+    dev = coords.device
+    f1 = fmap1.reshape(Q, D).to(torch.float32)
+    flat = coords.reshape(Q, 2)
+    bidx = (torch.arange(B2, device=dev).repeat_interleave(Q // B2)
+            if batch is None else batch)
+    offs = torch.arange(k + 1, device=dev) - radius
+    outs = []
+    lv = fmap2.to(torch.float32)
+    for lvl in range(num_levels):
+        Hl, Wl = lv.shape[1:3]
+        f2 = lv.reshape(B2 * Hl * Wl, D)
+        level = torch.empty((Q, k * k), dtype=torch.float32, device=dev)
+        for s in range(0, Q, chunk):
+            c = flat[s:s + chunk] / (2.0 ** lvl)
+            x0, y0 = torch.floor(c[:, 0]), torch.floor(c[:, 1])
+            fx = (c[:, 0] - x0)[:, None, None]
+            fy = (c[:, 1] - y0)[:, None, None]
+            rows = y0.long()[:, None] + offs                 # (c, k+1)
+            cols = x0.long()[:, None] + offs
+            valid = (((rows >= 0) & (rows < Hl))[:, :, None]
+                     & ((cols >= 0) & (cols < Wl))[:, None, :])
+            idx = (bidx[s:s + chunk, None, None] * (Hl * Wl)
+                   + rows.clamp(0, Hl - 1)[:, :, None] * Wl
+                   + cols.clamp(0, Wl - 1)[:, None, :])      # (c, a, b)
+            n = idx.shape[0]
+            taps = f2[idx.reshape(-1)].reshape(n, (k + 1) ** 2, D)
+            win = torch.bmm(taps, f1[s:s + chunk, :, None]).reshape(
+                n, k + 1, k + 1)
+            win = win * valid.to(torch.float32) * scale
+            blend = ((1 - fy) * (1 - fx) * win[:, :k, :k]
+                     + (1 - fy) * fx * win[:, :k, 1:]
+                     + fy * (1 - fx) * win[:, 1:, :k]
+                     + fy * fx * win[:, 1:, 1:])             # [c, j, i]
+            level[s:s + chunk] = blend.transpose(1, 2).reshape(n, k * k)
+        outs.append(level)
+        if lvl + 1 < num_levels:
+            lv = avg_pool2d(lv)
+    return torch.cat(outs, dim=-1).reshape(*coords.shape[:-1], -1)
 
 
 # ---------------------------------------------------------------------------

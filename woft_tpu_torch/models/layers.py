@@ -16,6 +16,12 @@ to bf16, float32 accumulation, the result stored in bf16 where the caller
 asks for it (``out_dtype``) and in float32 otherwise. Norm statistics are
 float32 and the result goes back to the input's type. ``torch.autocast``
 is not used: it rounds elsewhere and would reach the geometry.
+``precision_scope('default')`` keeps float32 activations and lets the
+card's float32 convolutions and matmuls use TF32 for the scope only (the
+reference's lax ``DEFAULT`` on a GPU): the previous flags come back when it
+ends, so the geometry outside a forward never runs in TF32
+(``device.resolve_device`` turns TF32 off). ``full_float32()`` turns it off
+again inside a forward, where the reference asks for ``HIGHEST``.
 
 Initialisation mirrors the JAX package's distributions, drawn from an
 explicit ``torch.Generator``.
@@ -29,17 +35,39 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
-PRECISIONS = ("highest", "bf16")
+PRECISIONS = ("highest", "default", "bf16")
 _COMPUTE_DTYPE = None      # torch.bfloat16 inside a bf16 precision_scope
 _ROUNDED = {}              # per-scope cache: (id(parameter), dtype) -> its
 #                            rounded copy; once_per_pass keys
 
 
 @contextlib.contextmanager
+def _tf32(allow):
+    """TF32 for float32 matmuls and cuDNN convolutions set to ``allow`` for
+    the enclosed code, the previous flags restored after it."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = allow
+    torch.backends.cudnn.allow_tf32 = allow
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+
+
+def full_float32():
+    """No TF32 inside a 'default' scope (the reference's ``HIGHEST``
+    products: the mean response)."""
+    return _tf32(False)
+
+
+@contextlib.contextmanager
 def precision_scope(precision):
     """Run the enclosed forward pass in ``precision`` ('highest': float32
-    throughout; 'bf16': see the module docstring). Parameters rounded to
-    bf16 are cached for the scope, so each is cast once per pass."""
+    throughout; 'default': float32 activations, TF32 products on the card;
+    'bf16': see the module docstring). Parameters rounded to bf16 are cached
+    for the scope, so each is cast once per pass."""
     global _COMPUTE_DTYPE, _ROUNDED
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, got "
@@ -47,8 +75,10 @@ def precision_scope(precision):
     prev = (_COMPUTE_DTYPE, _ROUNDED)
     _COMPUTE_DTYPE = torch.bfloat16 if precision == "bf16" else None
     _ROUNDED = {}
+    tf32 = _tf32(True) if precision == "default" else contextlib.nullcontext()
     try:
-        yield
+        with tf32:
+            yield
     finally:
         _COMPUTE_DTYPE, _ROUNDED = prev
 

@@ -1,15 +1,21 @@
-"""WeightedRAFT (RAFT-large backbone + reliability weight head) in PyTorch.
+"""RAFT-large and WeightedRAFT in PyTorch.
 
 PyTorch twin of ``woft_tpu/models/raft.py``. The networks are
 ``nn.Module``s whose parameter names follow the reference checkpoints
-(``fnet``, ``cnet``, ``update_block``, ``weight_head``); the forward pass is
-a plain function over the module, as in the JAX package:
+(``fnet``, ``cnet``, ``update_block``, and by ``RaftConfig.variant``
+``weight_head`` and ``mask_head``); the forward pass is a plain function
+over the module, as in the JAX package. Variants: 'weighted' (flow and
+reliability weights), 'orig' (RAFT: flow only) and 'weighted_masked'
+(weights and a visibility mask from ``mask_head`` over the template
+features and the current features sampled at the flow's end points).
 
 - the template's features are encoded once per sequence
   (``encode_template``); per frame only the current frame is encoded,
 - ``corr_impl='dense'``: the correlation pyramid is built from pooled
   features (``models/corr.py:corr_pyramid_fused``) and looked up 12x per
-  flow by kernel B; ``corr_impl='local'`` (one frame pair): the block-local
+  flow by kernel B; ``alternate_corr``: no pyramid, each lookup computed
+  from the features (``corr_lookup_alternate``, plain PyTorch, as the
+  reference's is XLA); ``corr_impl='local'`` (one frame pair): the block-local
   volume is built by kernel C and looked up by kernels D and E in blocked
   form, which the motion encoder's 1x1 ``convc1`` consumes directly
   (``_corr_conv1``),
@@ -28,7 +34,12 @@ does (``models/layers.py``): convolution inputs, weights and stored
 activations are bf16 with float32 accumulation; the GRU state ``net``, the
 coordinates, the flow deltas, ``mean_response``, the feature maps entering
 the correlation, the upsampling mask and the weight logits stay float32.
-The dense pyramid and kernel B stay float32 in both modes.
+``precision='default'`` keeps float32 activations and lets the card use
+TF32 for the forward's products (the reference's lax ``DEFAULT``). In both
+'bf16' and 'default' the correlation volumes are stored in bf16, as the
+reference stores them: the dense pyramid's levels (each computed in
+float32, then rounded; kernel B widens them as it reads) and the
+block-local volume.
 
 ``gru_fused`` / ``tail_fused`` (bf16 mode, one frame pair) run the
 refinement loop's SepConvGRU and flow head as one kernel launch each
@@ -43,11 +54,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.warp import coords_grid
+from ..ops.warp import coords_grid, grid_sample
 from . import layers
 from .corr import (BlockedCorr, build_local_corr, corr_lookup,
-                   corr_lookup_local, corr_lookup_local_blocked,
-                   corr_mean_response, corr_pyramid_fused)
+                   corr_lookup_alternate, corr_lookup_local,
+                   corr_lookup_local_blocked, corr_mean_response,
+                   corr_pyramid_fused)
 from .layers import conv, conv2d, init_conv_, norm_layer
 from . import update
 
@@ -58,12 +70,18 @@ class RaftConfig:
     ``WOFT.py`` flow; ``WOFT_fast.py`` sets ``corr_impl='local'`` and
     ``precision='bf16'``.
 
+    variant: 'weighted', 'orig' (no weight head: flow only) or
+        'weighted_masked' (also ``mask_head``, of ``mask_head_structure``).
+    alternate_corr: no stored volume; each lookup is computed from the
+        features, ``alt_chunk`` queries at a time (frames whose pyramid
+        does not fit the card). Takes precedence over ``corr_impl``.
     corr_impl: 'dense' (all-pairs pyramid, kernel B) or 'local'
         (block-local volume within +-``local_margin`` 1/8-resolution cells,
         kernels C, D, E; a batch of more than one pair takes 'dense').
     fine_check: under 'local', rewrite blocks whose lookups do not fit the
         fine sub-window with the exact lookup (kernel E).
-    precision: 'highest' (float32) or 'bf16' (see the module docstring).
+    precision: 'highest' (float32), 'default' or 'bf16' (see the module
+        docstring).
     gru_fused: each direction of the SepConvGRU as one fused kernel (G) in
         the refinement loop; the counterpart of the JAX package's
         ``gru_pallas``. In effect only in bf16 mode and for one frame pair;
@@ -77,6 +95,10 @@ class RaftConfig:
     corr_levels: int = 4
     radius: int = 4
     weight_head_structure: Tuple = ((128, 3), (128, 3), (128, 3))
+    variant: str = "weighted"
+    mask_head_structure: Tuple = ()
+    alternate_corr: bool = False
+    alt_chunk: int = 4096
     corr_impl: str = "dense"
     local_margin: int = 16
     fine_check: bool = True
@@ -95,6 +117,19 @@ class RaftConfig:
         if self.precision not in layers.PRECISIONS:
             raise ValueError(f"precision must be one of {layers.PRECISIONS}, "
                              f"got {self.precision!r}")
+        if self.variant not in VARIANTS:
+            raise ValueError(f"variant must be one of {VARIANTS}, got "
+                             f"{self.variant!r}")
+
+    @property
+    def volume_dtype(self):
+        """Storage dtype of the correlation volumes: bf16 in the 'bf16' and
+        'default' modes (the reference's), else float32."""
+        return (torch.bfloat16 if self.precision in ("default", "bf16")
+                else torch.float32)
+
+
+VARIANTS = ("weighted", "orig", "weighted_masked")
 
 
 # ---------------------------------------------------------------------------
@@ -194,7 +229,8 @@ def _corr_conv1(convc1, corr):
     its own sum) and only the 256-channel result is laid out spatially."""
     sd = layers.get_compute_dtype()
     if not isinstance(corr, BlockedCorr):
-        return F.relu(conv(convc1, corr))
+        # 'default' mode: a bf16 lookup enters a float32 convolution
+        return F.relu(conv(convc1, corr if sd else corr.float()))
     L, k = corr.levels, corr.k
     co = convc1.weight.shape[0]
     wv = (convc1.weight.reshape(co, L, k, k).permute(0, 1, 3, 2)  # (l, i, j)
@@ -202,6 +238,8 @@ def _corr_conv1(convc1, corr):
     data, bias = corr.data, convc1.bias
     if sd is not None:
         data, wv, bias = data.to(sd), wv.to(sd), bias.to(sd)
+    else:
+        data = data.float()
     nb, C, bq = data.shape
     out = torch.baddbmm(bias.reshape(1, co, 1), wv.expand(nb, co, C), data)
     meta = corr.meta
@@ -402,8 +440,20 @@ def weight_head_apply(head, corr_sample, mean_response):
     return w.reshape(B, H1, W1, 1)
 
 
+def mask_head_apply(head, template_features, current_features):
+    """Visibility-mask logits (B, 1, H1, W1) from the template features and
+    the current features sampled at the flow's end points, both (B, D,
+    H1, W1): the conv stack over their concatenation."""
+    x = torch.cat([template_features, current_features], dim=1)
+    for mod in head.net:
+        x = conv(mod, x) if isinstance(mod, nn.Conv2d) else F.relu(x)
+    return x
+
+
 class WeightedRAFT(nn.Module):
-    """The parameter container of WeightedRAFT-large."""
+    """The parameter container of RAFT-large and its weighted variants:
+    ``weight_head`` unless ``cfg.variant == 'orig'``, ``mask_head`` under
+    'weighted_masked'."""
 
     def __init__(self, cfg: RaftConfig):
         super().__init__()
@@ -412,12 +462,17 @@ class WeightedRAFT(nn.Module):
         self.fnet = BasicEncoder(cfg.fnet_dim, "instance")
         self.cnet = BasicEncoder(hdim + cdim, "batch")
         self.update_block = BasicUpdateBlock(cor_planes, hdim)
-        self.weight_head = WeightHead(cfg.weight_head_structure,
-                                      cfg.corr_levels + 1)
+        if cfg.variant != "orig":
+            self.weight_head = WeightHead(cfg.weight_head_structure,
+                                          cfg.corr_levels + 1)
+        if cfg.variant == "weighted_masked":
+            self.mask_head = WeightHead(cfg.mask_head_structure,
+                                        2 * cfg.fnet_dim)
 
 
 def init_raft_params(cfg: RaftConfig, seed=0, device="cpu"):
-    """A ``WeightedRAFT`` with seeded random weights (the JAX package's
+    """A ``WeightedRAFT`` of ``cfg.variant`` with seeded random weights (the
+    JAX package's
     distributions; the first conv of each encoder kaiming-normal fan_out,
     the rest torch's default conv init; norms at identity), drawn on the
     CPU from ``torch.Generator().manual_seed(seed)``."""
@@ -463,27 +518,31 @@ def encode_template(model, cfg: RaftConfig, image1):
 def weighted_raft_forward(model, cfg: RaftConfig, image1, image2,
                           flow_init=None, iters=None, template_feats=None,
                           sparse_weight_head=False):
-    """Flow and reliability weights between two frames.
+    """Flow and, by ``cfg.variant``, reliability weights and a visibility
+    mask between two frames.
 
     Args:
-        model: a ``WeightedRAFT``.
+        model: a ``WeightedRAFT`` of ``cfg.variant``.
         cfg: its ``RaftConfig``.
         image1, image2: (B, H, W, 3) float RGB in [0, 255], H, W % 8 == 0;
             ``image1`` may be None when ``template_feats`` is given.
         flow_init: optional (B, H/8, W/8, 2) initial flow.
         iters: GRU iterations (defaults to cfg.iters).
         template_feats: optional (fmap1, net0, inp) from ``encode_template``.
-        sparse_weight_head: return ``weight_head_at(rows)`` — (M,) int64
-            rows ``b*H1*W1 + cell`` of flat 1/8-grid cells of batch
+        sparse_weight_head: ('weighted' only; the other variants ignore it,
+            as the reference does) return ``weight_head_at(rows)`` — (M,)
+            int64 rows ``b*H1*W1 + cell`` of flat 1/8-grid cells of batch
             element b -> (M,) logits equal to the dense head's — and
             'up_mask' instead of the dense weights. A batch of B frames
             gives each element's logits as B separate calls would (the
             block-local volume takes B = 1).
     Returns:
-        dict with 'flow' (B,H/8,W/8,2), 'flow_up' (B,H,W,2),
-        'mean_response' (B,H/8,W/8), and either 'weights' (B,H/8,W/8,1) and
+        dict with 'flow' (B,H/8,W/8,2), 'flow_up' (B,H,W,2), 'fmap1' and
+        'fmap2' (B,H/8,W/8,D) and 'mean_response' (B,H/8,W/8); under
+        'weighted' and 'weighted_masked' either 'weights' (B,H/8,W/8,1) and
         'weights_up' (B,H,W,1), or 'up_mask' (B,H/8,W/8,576) and
-        'weight_head_at'.
+        'weight_head_at'; under 'weighted_masked' also the visibility
+        logits 'mask_up' (B,H,W,1).
     """
     with layers.precision_scope(cfg.precision):
         return _raft_forward(model, cfg, image1, image2, flow_init, iters,
@@ -508,12 +567,24 @@ def _raft_forward(model, cfg, image1, image2, flow_init, iters,
 
     f1, f2 = _nhwc(fmap1).contiguous(), _nhwc(fmap2).contiguous()
     local = None
-    if cfg.corr_impl == "local" and B == 1:
+    if cfg.alternate_corr:
+        # no stored volume: each lookup from the features, chunked
+        mean_response = corr_mean_response(f1, f2)
+        chunk = min(cfg.alt_chunk, B * H1 * W1)
+
+        def lookup_natural(coords):
+            return corr_lookup_alternate(f1, f2, coords, radius,
+                                         cfg.corr_levels, chunk=chunk)
+
+        def lookup(coords):
+            return _nchw(lookup_natural(coords))
+    elif cfg.corr_impl == "local" and B == 1:
         # exact within +-local_margin cells of residual flow, saturated
-        # beyond; bf16 mode stores the volume (and the lookups) in bf16
+        # beyond; 'bf16' and 'default' store the volume (and the lookups)
+        # in bf16
         local = build_local_corr(
             f1, f2, radius, cfg.corr_levels, margin=cfg.local_margin,
-            out_dtype=layers.get_compute_dtype())
+            out_dtype=cfg.volume_dtype)
         mean_response = corr_mean_response(f1, f2)
 
         def lookup(coords):        # blocked: convc1 absorbs the layout
@@ -523,7 +594,8 @@ def _raft_forward(model, cfg, image1, image2, flow_init, iters,
         def lookup_natural(coords):
             return corr_lookup_local(local, coords, radius)
     else:
-        pyramid, mean_response = corr_pyramid_fused(f1, f2, cfg.corr_levels)
+        pyramid, mean_response = corr_pyramid_fused(
+            f1, f2, cfg.corr_levels, out_dtype=cfg.volume_dtype)
 
         def lookup(coords):
             return _nchw(corr_lookup(pyramid, coords, radius))
@@ -548,11 +620,13 @@ def _raft_forward(model, cfg, image1, image2, flow_init, iters,
     up_mask = mask_from_net(ub, net)
     flow = coords1 - coords0
     out = {"flow": _nhwc(flow), "flow_up": _nhwc(convex_upsample(flow, up_mask)),
-           "mean_response": mean_response}
+           "fmap1": f1, "fmap2": f2, "mean_response": mean_response}
+    if cfg.variant == "orig":
+        return out
 
     k = 2 * radius + 1
     coords1 = _nhwc(coords1).contiguous()
-    if sparse_weight_head:
+    if sparse_weight_head and cfg.variant == "weighted":
         # pyramid row b*H1*W1 + cell holds batch element b's cell
         coords1_flat = coords1.reshape(B * H1 * W1, 2)
         mr_flat = mean_response.reshape(B * H1 * W1)
@@ -567,6 +641,12 @@ def _raft_forward(model, cfg, image1, image2, flow_init, iters,
             M = cells.shape[0]
             if local is not None:
                 corr_f = corr_dense_flat[cells]
+            elif cfg.alternate_corr:
+                corr_f = corr_lookup_alternate(
+                    f1.reshape(B * H1 * W1, -1)[cells][None, None], f2,
+                    coords1_flat[cells][None, None], radius,
+                    cfg.corr_levels, chunk=min(cfg.alt_chunk, M),
+                    batch=cells // (H1 * W1))
             else:
                 corr_f = corr_lookup(pyramid, coords1_flat[cells][None, None],
                                      radius, rows=cells)    # (1, 1, M, L*k*k)
@@ -584,5 +664,10 @@ def _raft_forward(model, cfg, image1, image2, flow_init, iters,
     weights = weight_head_apply(model.weight_head, corr_sample, mean_response)
     weights_up = convex_upsample(_nchw(weights), up_mask) / 8.0
     out.update(weights=weights, weights_up=_nhwc(weights_up))
+    if cfg.variant == "weighted_masked":
+        # the current features sampled at the flow's end points (zero
+        # outside, align_corners pixel coordinates)
+        warped = _nchw(grid_sample(f2, coords1))
+        mask = mask_head_apply(model.mask_head, fmap1, warped)
+        out["mask_up"] = _nhwc(convex_upsample(mask, up_mask) / 8.0)
     return out
-

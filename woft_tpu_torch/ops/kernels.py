@@ -18,7 +18,7 @@ the kernel.
 | kernel | source | TPU kernel it replaces |
 |---|---|---|
 | A ``warp_perspective_bilinear`` | ``csrc/warp.cu`` | ``ops/pallas/warp.py:block_warp`` |
-| B ``corr_pyramid_lookup`` | ``csrc/corr_lookup.cu`` | ``ops/pallas/corr_lookup.py:fused_corr_lookup`` |
+| B ``corr_pyramid_lookup`` (float32 or bf16 levels) | ``csrc/corr_lookup.cu`` | ``ops/pallas/corr_lookup.py:fused_corr_lookup`` |
 | C ``local_corr_build`` | ``csrc/local_corr.cu`` | ``ops/pallas/local_corr.py:block_local_corr`` |
 | D ``local_lookup_coords`` (from coordinates), ``local_lookup_fine_multi`` (explicit operands) | ``csrc/local_lookup.cu`` | ``ops/pallas/local_lookup.py:block_local_lookup_fine_multi`` |
 | E ``local_lookup_exact_coords`` (from coordinates), ``local_lookup_exact`` (explicit starts) | ``csrc/local_lookup.cu`` | ``ops/pallas/local_lookup.py:block_local_lookup`` |
@@ -60,8 +60,12 @@ _I = ctypes.c_int
 _ENTRIES = {
     "warp": {"woft_warp_bilinear": [_P, _I, _I, _I, _I, _I, _P, _P, _I, _I,
                                     _P]},
-    "corr_lookup": {"woft_corr_lookup": [_P, _P, _P, _I, _P, _P,
-                                         ctypes.c_longlong, _I, _P, _P]},
+    "corr_lookup": {
+        "woft_corr_lookup": [_P, _P, _P, _I, _P, _P, ctypes.c_longlong, _I,
+                             _P, _P],
+        "woft_corr_lookup_bf16": [_P, _P, _P, _I, _P, _P, ctypes.c_longlong,
+                                  _I, _P, _P],
+    },
     "local_corr": {
         "woft_local_corr_plan": [_P, _P, _P, _P, _I, _I, _I, _I,
                                  ctypes.c_float, _I, _P],
@@ -231,6 +235,9 @@ warp_perspective_bilinear.launches = 0
 _level_table = [None, None]     # key and table of the pyramid last looked up
 
 
+_LEVEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _levels(pyramid, device):
     """The checked level table of a pyramid: ``ctypes`` arrays of pointers,
     heights and widths, and the row count R. It is built once a pyramid and
@@ -243,8 +250,12 @@ def _levels(pyramid, device):
         if not 1 <= L <= 8:
             raise ValueError(f"1 to 8 pyramid levels, got {L}")
         R = pyramid[0].shape[0]
+        dtype = pyramid[0].dtype
+        if dtype not in _LEVEL_DTYPES:
+            raise TypeError(f"pyramid levels must be float32 or bfloat16, "
+                            f"got {dtype}")
         for lvl, p in enumerate(pyramid):
-            _check_tensor(p, f"pyramid[{lvl}]", torch.float32, device)
+            _check_tensor(p, f"pyramid[{lvl}]", dtype, device)
             if p.dim() != 3 or p.shape[0] != R or min(p.shape) == 0:
                 raise ValueError(f"pyramid[{lvl}] must be a non-empty ({R}, "
                                  f"Hl, Wl), got {tuple(p.shape)}")
@@ -261,11 +272,12 @@ def _levels(pyramid, device):
 def corr_pyramid_lookup(pyramid, coords, radius, rows=None):
     """Kernel B: bilinear (2r+1)^2 window lookup in every pyramid level.
 
-    pyramid: list of (R, Hl, Wl) float32 CUDA levels; coords: (..., 2)
-    float32 level-0 (x, y), Q points; radius 0 to 8; rows: None (query q
-    reads row q, so R == Q) or (Q,) int64 pyramid rows in [0, R). Returns
-    (Q, L*(2r+1)^2) float32, channel l*(2r+1)^2 + i*(2r+1) + j sampling
-    level l at (x/2^l + i - r, y/2^l + j - r)."""
+    pyramid: list of (R, Hl, Wl) CUDA levels, all float32 or all bfloat16
+    (widened to float32 as they are read); coords: (..., 2) float32
+    level-0 (x, y), Q points; radius 0 to 8; rows: None (query q reads row
+    q, so R == Q) or (Q,) int64 pyramid rows in [0, R). Returns (Q,
+    L*(2r+1)^2) float32, channel l*(2r+1)^2 + i*(2r+1) + j sampling level
+    l at (x/2^l + i - r, y/2^l + j - r)."""
     if coords.device.type != "cuda":
         raise ValueError("corr_pyramid_lookup takes CUDA tensors")
     device = coords.device
@@ -287,7 +299,8 @@ def corr_pyramid_lookup(pyramid, coords, radius, rows=None):
             raise ValueError(f"rows must be ({Q},), got {tuple(rows.shape)}")
     k = 2 * radius + 1
     out = torch.empty((Q, L * k * k), dtype=torch.float32, device=device)
-    fn = _entry("corr_lookup")
+    fn = _entry("corr_lookup", "woft_corr_lookup_bf16"
+                if pyramid[0].dtype == torch.bfloat16 else None)
     with _current(device):
         rc = fn(ctypes.addressof(ptrs), ctypes.addressof(hs),
                 ctypes.addressof(ws), L, coords.data_ptr(),

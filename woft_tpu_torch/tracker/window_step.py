@@ -265,15 +265,16 @@ def _normalized(H):
 def _window_flow(raft_cfg, tp, flow_fn):
     """The step's flow ``(model, img1, img2, template_feats=None) ->
     (flow, sigmoided weights)`` where the sparse head is not taken:
-    ``flow_fn``, or WeightedRAFT on padded windows with the dense head
-    (windows are /8, so ``RAFT`` padding is the identity there and only
-    the head changes)."""
+    ``flow_fn``, or RAFT on padded windows with the dense head (windows
+    are /8, so ``RAFT`` padding is the identity there and only the head
+    changes); uniform weights under 'orig'. A 'weighted_masked' mask is
+    dropped, as the reference's window step drops it."""
     if flow_fn is not None:
         return flow_fn
 
     def dense(model, img1, img2, template_feats=None):
         return _dense_flow(model, raft_cfg, tp.padding_mode, img1, img2,
-                           template_feats)
+                           template_feats)[:2]
     return dense
 
 
@@ -302,7 +303,7 @@ def _window_estimate(model, raft_cfg, tp, wp, flow_fn, st, frame):
     h_prior = _normalized(st["h_tmpl_crop"] @ (h_last_good @ h_crop_inv))
     prewarped = warp_perspective_fast(window, h_prior)
 
-    sparse = _sparse_ok(tp, flow_fn)
+    sparse = _sparse_ok(raft_cfg, tp, flow_fn)
     if sparse:
         fo = weighted_raft_forward(model, raft_cfg, None, prewarped,
                                    template_feats=st["tmpl_feats"],
@@ -365,7 +366,7 @@ def build_window_track_step(raft_cfg: RaftConfig, tp: TrackerParams,
     the same parameters)."""
     Sh, Sw = wp.shape
     hw = Sh * Sw
-    sparse_ok = _sparse_ok(tp, flow_fn)
+    sparse_ok = _sparse_ok(raft_cfg, tp, flow_fn)
     run_flow = _window_flow(raft_cfg, tp, flow_fn)
 
     def local_branch(model, state, window, h_crop):

@@ -6,10 +6,12 @@ PyTorch twin of ``woft_tpu/tracker/woft.py`` (the full-frame tracker):
 - ``build_track_step``: ``(model, state, frame) -> (state, H_cur2init,
   meta)`` — pre-warp by the last good H (kernel A on the card; exact
   float32 in every precision mode, where the reference relaxes its
-  pre-warp in bf16 mode), WeightedRAFT
-  flow against the cached template features (the sparse weight head
-  under ``nopad``; padded inputs and the dense head otherwise, or when
-  ``sparse_weights`` is off), mask-as-weights TC selection (TC: a
+  pre-warp in bf16 mode), RAFT
+  flow against the cached template features (WeightedRAFT's sparse weight
+  head under ``nopad``; padded inputs and the dense head otherwise, or
+  when ``sparse_weights`` is off; uniform weights under 'orig', and under
+  'weighted_masked' its visibility mask joins the TC validity), or an
+  external flow (``flow/external.py``), mask-as-weights TC selection (TC: a
   template<->current point pair from the dense flow), Sobol-500 gather,
   the fit (weighted QR, plain QR, IRLS-Huber, or a host fit through
   ``cv2``), the 5 px / 20 % inlier check, and the local-flow fallback
@@ -288,20 +290,21 @@ def _tc_validity(flow, last_good, frame_hw, use_pw_mask=True):
     return ~oob & warp_validity_at(last_good, frame_hw, pts)
 
 
-def _sparse_ok(tp: TrackerParams, flow_fn):
+def _sparse_ok(raft_cfg: RaftConfig, tp: TrackerParams, flow_fn):
     """Whether a step takes the sparse weight head: the network's own flow
-    (no ``flow_fn``), ``sparse_weights`` on, and unpadded inputs (the
-    reference's gate; the port has only the weighted RAFT-large)."""
-    return (flow_fn is None and tp.sparse_weights
-            and tp.padding_mode == "nopad")
+    (no ``flow_fn``) of the 'weighted' variant, ``sparse_weights`` on, and
+    unpadded inputs (the reference's gate)."""
+    return (flow_fn is None and raft_cfg.variant == "weighted"
+            and tp.sparse_weights and tp.padding_mode == "nopad")
 
 
 def _dense_flow(model, raft_cfg, padding_mode, img1, img2,
                 template_feats=None):
-    """WeightedRAFT with the dense weight head on padded inputs: (flow (B,
-    H, W, 2), sigmoided weights (B, H, W, 1)) at the unpadded size. With
-    ``template_feats`` (encoded from the padded template) ``img1`` is not
-    read."""
+    """RAFT on padded inputs, with the dense weight head: (flow (B, H, W,
+    2), sigmoided weights (B, H, W, 1), uniform ones under 'orig', and the
+    sigmoided visibility mask (B, H, W, 1) under 'weighted_masked', else
+    None), at the unpadded size. With ``template_feats`` (encoded from the
+    padded template) ``img1`` is not read."""
     padder = make_padder(padding_mode, img2.shape)
     if template_feats is None:
         p1, p2 = padder.pad(img1, img2)
@@ -309,8 +312,18 @@ def _dense_flow(model, raft_cfg, padding_mode, img1, img2,
         p1, (p2,) = None, padder.pad(img2)
     out = weighted_raft_forward(model, raft_cfg, p1, p2,
                                 template_feats=template_feats)
-    return (padder.unpad(out["flow_up"]),
-            torch.sigmoid(padder.unpad(out["weights_up"])))
+    flow = padder.unpad(out["flow_up"])
+    weights = (torch.sigmoid(padder.unpad(out["weights_up"]))
+               if "weights_up" in out else torch.ones_like(flow[..., :1]))
+    vis = (torch.sigmoid(padder.unpad(out["mask_up"]))
+           if "mask_up" in out else None)
+    return flow, weights, vis
+
+
+def _flow_seam(res):
+    """A flow's result as (flow, weights, vis or None): a ``flow_fn`` may
+    return the pair without the visibility mask."""
+    return tuple(res) if len(res) == 3 else (*res, None)
 
 
 def _device_ladder(n_lost, no_prewarp_after_n, last_good_h2init):
@@ -332,14 +345,16 @@ def build_track_step(raft_cfg: RaftConfig, tp: TrackerParams, flow_fn=None):
 
     ``frame``: (1, H, W, 3) float RGB in [0, 255]. ``meta``: dict of the
     reference's diagnostics. ``flow_fn(model, img1, img2, template_feats)
-    -> (flow (1,H,W,2), weights (1,H,W,1) sigmoided)`` replaces the flow
-    network (the tests inject oracle flow here). Without it the main flow
-    runs WeightedRAFT against the cached template features: under
+    -> (flow (1,H,W,2), weights (1,H,W,1) sigmoided[, vis (1,H,W,1)])``
+    replaces the flow network (the tests inject oracle flow here, and
+    ``ExternalFlowWrapper.make_flow_fn`` its backend). Without it the main
+    flow runs RAFT against the cached template features: WeightedRAFT under
     ``nopad`` with ``sparse_weights`` with the sparse weight head (the
     head and the convex upsample evaluated only at the cells the solver
     consumes), otherwise on the padded frame with the dense head, unpadded
     before the TC selection; the fallback flow always takes the dense head
-    on padded inputs.
+    on padded inputs. A visibility mask (``weighted_masked``) keeps only
+    the TCs where it exceeds 0.5, in the main flow and in the fallback.
 
     The step branches on the host: when the inlier check fails it runs the
     local fallback flow and adds its H to ``meta`` as ``H_local_cur2init``.
@@ -351,10 +366,10 @@ def build_track_step(raft_cfg: RaftConfig, tp: TrackerParams, flow_fn=None):
     the state and in ``meta``) and the ladder is ``torch.where``, the JAX
     step's ``no_local_h`` branch."""
 
-    def dense_flow(model, img1, img2):
+    def run_flow(model, img1, img2):
+        if flow_fn is not None:
+            return _flow_seam(flow_fn(model, img1, img2))
         return _dense_flow(model, raft_cfg, tp.padding_mode, img1, img2)
-
-    run_flow = flow_fn if flow_fn is not None else dense_flow
 
     def local_h(model, prev_img, frame, prev_h2init, template_mask):
         """Local fallback: prev -> current flow chained onto prev_h2init
@@ -364,7 +379,9 @@ def build_track_step(raft_cfg: RaftConfig, tp: TrackerParams, flow_fn=None):
             template_mask[None, :, :, None].to(torch.float32),
             inverse_h(prev_h2init), mode="nearest")
         lvalid = prev_mask.reshape(hw) > 0
-        lflow, lweights = run_flow(model, prev_img, frame)
+        lflow, lweights, lvis = run_flow(model, prev_img, frame)
+        if lvis is not None:
+            lvalid &= lvis.reshape(hw) > 0.5
         lsrc, ldst, lw, lsel, _ = _select_tcs(lflow, lweights, lvalid,
                                               tp.subsample_n)
         H_flow = _estimate_h(tp, ldst, lsrc, lw, lsel)[0]     # cur -> prev
@@ -383,7 +400,7 @@ def build_track_step(raft_cfg: RaftConfig, tp: TrackerParams, flow_fn=None):
         else:
             last_good = state.last_good_h2init
         fits = _flow_fits(model, raft_cfg, tp, flow_fn, state, frame,
-                          last_good)
+                          last_good, use_vis=True)
         # weighted fit: current-prewarped -> template
         H_pw2init, ok, inlier_frac = fits(state.template_mask[None])
         H_global = compose_h(last_good, H_pw2init[0])
@@ -429,13 +446,16 @@ def build_track_step(raft_cfg: RaftConfig, tp: TrackerParams, flow_fn=None):
     return torch.no_grad()(step)
 
 
-def _flow_fits(model, raft_cfg, tp, flow_fn, state, frame, last_good):
+def _flow_fits(model, raft_cfg, tp, flow_fn, state, frame, last_good,
+               use_vis=False):
     """The global flow of a frame and the fits it feeds: pre-warp ``frame``
     by ``last_good``, one flow from the template (its cached features) to
     the pre-warped frame, the TC validity. The flow takes the sparse
     weight head where ``_sparse_ok``, else the padded frame and the dense
     head (``_dense_flow``); the pre-warp, the TC validity and the Sobol
-    gather stay at the unpadded size.
+    gather stay at the unpadded size. ``use_vis``: a visibility mask of the
+    flow ('weighted_masked') joins the TC validity; the shared-flow step
+    drops it, as the reference's does.
 
     Returns ``fits(masks (N, H, W) bool) ->
     (H_pw2init (N, 3, 3), ok (N,), inlier_frac (N,))``, a TC selection,
@@ -444,19 +464,23 @@ def _flow_fits(model, raft_cfg, tp, flow_fn, state, frame, last_good):
     cells come from the one forward."""
     H_img, W_img = frame.shape[1:3]
     prewarped = warp_perspective_fast(frame, last_good)
-    sparse = _sparse_ok(tp, flow_fn)
+    sparse = _sparse_ok(raft_cfg, tp, flow_fn)
+    vis = None
     if sparse:
         fo = weighted_raft_forward(model, raft_cfg, None, prewarped,
                                    template_feats=state.template_feats,
                                    sparse_weight_head=True)
         flow = fo["flow_up"]
     elif flow_fn is None:
-        flow, weights = _dense_flow(model, raft_cfg, tp.padding_mode, None,
-                                    prewarped, state.template_feats)
+        flow, weights, vis = _dense_flow(model, raft_cfg, tp.padding_mode,
+                                         None, prewarped,
+                                         state.template_feats)
     else:
-        flow, weights = flow_fn(model, state.template_img, prewarped,
-                                state.template_feats)[:2]
+        flow, weights, vis = _flow_seam(flow_fn(
+            model, state.template_img, prewarped, state.template_feats))
     in_pw = _tc_validity(flow, last_good, (H_img, W_img), tp.use_pw_mask)
+    if use_vis and vis is not None:
+        in_pw = in_pw & (vis.reshape(-1) > 0.5)
 
     def fits(masks):
         valid = masks.reshape(masks.shape[0], -1) & in_pw
@@ -574,6 +598,11 @@ class WOFTTracker:
     the resized mask for one blob, tracks at the small size and returns
     ``diag(s, s, 1) @ H @ diag(1/s, 1/s, 1)``; ``meta`` keeps the small
     size's H. Runs on ``device`` (default ``cuda``; raises without a card).
+    ``flow_config.of_class`` picks the flow: ``RaftFlow`` (the default), or
+    a wrapper with ``make_flow_fn()`` (``flow/external.py``:
+    ``ExternalFlowWrapper``), whose flow the step takes through its
+    ``flow_fn`` seam with no template features, as the reference's shell
+    does.
     ``raft_flags``: fields of ``RaftConfig`` that no config file carries,
     set on top of the flow config's, e.g. ``{"gru_fused": True,
     "tail_fused": True}`` for the fused refinement loop (the JAX package's
@@ -583,8 +612,6 @@ class WOFTTracker:
         self.C = config
         self.device = resolve_device(device)
         of_class = config.flow_config.of_class or RaftFlow
-        if of_class is not RaftFlow:
-            raise NotImplementedError(f"flow wrapper {of_class} is not ported")
         self.tp = (config.tracker_params
                    if isinstance(config.tracker_params, TrackerParams)
                    else TrackerParams(
@@ -593,9 +620,16 @@ class WOFTTracker:
                                         or "nopad")))
         if config.downscale_inputs and not self.tp.downscale:
             self.tp = replace(self.tp, downscale=int(config.downscale_inputs))
-        self.flower = RaftFlow(config.flow_config, device=self.device)
-        self.raft_cfg = replace(self.flower.cfg, **(raft_flags or {}))
-        self._step = build_track_step(self.raft_cfg, self.tp)
+        self.flower = of_class(config.flow_config, device=self.device)
+        self._external = of_class is not RaftFlow
+        if self._external:
+            # the reference's seam: the wrapper's flow, no template features
+            self.raft_cfg = RaftConfig()
+            self._step = build_track_step(
+                self.raft_cfg, self.tp, flow_fn=self.flower.make_flow_fn())
+        else:
+            self.raft_cfg = replace(self.flower.cfg, **(raft_flags or {}))
+            self._step = build_track_step(self.raft_cfg, self.tp)
         self.state = None
 
     def init(self, img, mask, img_identifier=None):
@@ -614,7 +648,8 @@ class WOFTTracker:
         self.state = tracker_init_state(
             self.flower.model, self.raft_cfg, self.tp,
             upload_bgr(img, self.device, self.tp.downscale),
-            torch.from_numpy(mask).to(self.device))
+            torch.from_numpy(mask).to(self.device),
+            encode=not self._external)
 
     def track(self, input_img, img_identifier=None):
         """-> (H_cur2init (3, 3) float64, meta namespace)."""
