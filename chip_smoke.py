@@ -103,15 +103,36 @@ Phases; any failure ends the script with a non-zero exit:
    of 256 (the same checks, and each target against the single-target
    window step); each prints frame ms, targets·frames/s, launches and
    device busy a frame (``torch.profiler``) and peak device memory;
-7. a ``kernels`` JSON line (A-E with their launches on the multi-target
+7. evaluation and the entry points (``track_eval_entry``), on textured
+   1280x720 bases written to a temporary directory: kernel A in the
+   render's one-source, N-homography form (30 frames in one launch)
+   against its plain version (exact); ``eval_woft_torch.py``'s synthetic
+   eval (``run_synthetic``, 30 frames, the frames rendered on the card) on
+   ``WOFT.py`` under the default protocol and ``--stress`` and on
+   ``WOFT_fast.py``, each counted from 0 (A once for the render and once
+   a frame, B 13 times a flow, or C once and D, E 13 times), its median
+   alignment error held to ``EVAL_MEDIAN_BOUND_PX`` (the CPU path's own
+   median plus headroom); ``evaluate_pot_sequence`` on ``WOFT.py`` over 10
+   jpg frames of a walk and their POT annotation file (9 scored frames);
+   ``WOFT_demo_torch.py --headless --max-frames 8`` on that clip with and
+   without ``--debug`` (the overlays, the four debug images a frame, 8
+   finite H; B 39 times a debug frame, 13 without); ``track_video`` on
+   ``WOFT_window.py`` (v5) at 1920x1080 over 16 jpg frames decoded on
+   threads, equal to a per-frame loop of the same step (0), ``sync_every``
+   1 and 8 equal, the uint8 upload within 1e-6 of float32, with frames/s,
+   the decode's ms a frame and the device's idle share;
+8. a ``kernels`` JSON line (A-E with their launches on the multi-target
    paths and their times at its shapes; A and B also with their launches
    on the ablation paths, ``downscale_launches`` and
    ``ablation_launches``, their times at the downscale shapes, and their
    launches on the flow-family tracks, ``family_launches``; two rows for
-   B's bf16-level form), then the device JSON as the last line.
+   B's bf16-level form; A-E with their launches on the eval and entry
+   paths, ``eval_launches``, and A's render form, ``render_shape``), then
+   the device JSON as the last line.
 """
 
 import json
+import logging
 import math
 import os
 import subprocess
@@ -241,6 +262,28 @@ def textured_frame(h, w, seed):
     img = (img - img.min()) / (img.max() - img.min()) * 255.0
     return np.ascontiguousarray(
         img[0].permute(1, 2, 0).round().to(torch.uint8).numpy())
+
+
+EVAL_BASES = 3             # 1280x720 base frames of the synthetic evals
+
+
+def write_eval_bases(directory, h=H_IMG, w=W_IMG):
+    """The synthetic evals' base frames: ``EVAL_BASES`` textured frames
+    (seeds 10, 11, ...) as lossless pngs in ``directory``, which
+    ``eval_woft_torch.py --images`` takes. The card's eval phase and the
+    CPU runs that set its bounds read the same files:
+    ``python3 -c "import chip_smoke; chip_smoke.write_eval_bases('DIR')"``.
+    Returns the paths."""
+    from woft_tpu_torch.geometry.homography import _cv2
+
+    os.makedirs(directory, exist_ok=True)
+    paths = []
+    for i in range(EVAL_BASES):
+        paths.append(os.path.join(directory, f"base_{i}.png"))
+        if not _cv2("write_eval_bases").imwrite(
+                paths[-1], textured_frame(h, w, seed=10 + i)):
+            raise OSError(f"cannot write {paths[-1]}")
+    return paths
 
 
 def pose(theta=0.0, scale=1.0, tx=0.0, ty=0.0, persp=(0.0, 0.0),
@@ -2942,6 +2985,457 @@ def track_flow_family(kernels, corr, dev):
     return out
 
 
+# The eval and entry-point phase (track_eval_entry). The synthetic evals'
+# bounds on the median alignment error (px, eval_woft_torch.py's summary,
+# one sequence of 30 frames on the base the seed draws): the CPU path's own
+# median on the same eval (python3 eval_woft_torch.py --device cpu --images
+# DIR --frames 30 --seqs 1 [--stress] --config ..., DIR written by
+# write_eval_bases; 8 frames gave the medians in the comments), plus the
+# headroom the window walks take for the card's other summation orders,
+# half the CPU's error.
+EVAL_TRACKS = (("WOFT.py", False), ("WOFT.py", True), ("WOFT_fast.py", False))
+EVAL_MEDIAN_BOUND_PX = {
+    # (config, stress): (CPU median over 30 frames, bound)
+    ("WOFT.py", False): (0.0957, 0.144),        # 8 frames: 0.1085
+    ("WOFT.py", True): (0.1198, 0.180),         # 8 frames: 0.1371
+    ("WOFT_fast.py", False): (0.0953, 0.143),   # 8 frames: 0.1098
+}
+EVAL_FRAMES = 30
+POT_FRAMES = 10
+DEMO_FRAMES = 8
+VIDEO_FRAMES = 16
+VIDEO_HW = (1080, 1920)
+UINT8_UPLOAD_TOL = 1e-6     # the same integers, cast on the card or the host
+
+
+class TimedTracker:
+    """A reference-API tracker that times each ``track`` (host clock; the
+    shell returns a host H, so the frame's device work is done) and counts
+    the frames whose inlier check failed (a fallback flow ran)."""
+
+    def __init__(self, tracker):
+        self.tracker = tracker
+        self.device = tracker.device
+        self.frame_ms, self.fallbacks = [], 0
+
+    def init(self, img, mask):
+        self.tracker.init(img, mask)
+
+    def track(self, img):
+        t0 = time.perf_counter()
+        H, meta = self.tracker.track(img)
+        self.frame_ms.append((time.perf_counter() - t0) * 1e3)
+        self.fallbacks += not bool(meta.global_H_success)
+        return H, meta
+
+
+def eval_synthetic(kernels, dev, tmp, config, stress):
+    """One synthetic eval through ``eval_woft_torch.py``'s code path
+    (``run_synthetic``): ``EVAL_FRAMES`` frames of one sequence on the
+    bases of ``write_eval_bases``, rendered on the card (kernel A, one
+    launch), tracked from 0 counts. Returns its numbers."""
+    import eval_woft_torch
+    from woft_tpu_torch.config import load_config
+
+    what = f"eval {config}{' --stress' if stress else ''}"
+    args = eval_woft_torch.parse_args(
+        ["--images", os.path.join(tmp, "bases"), "--config",
+         os.path.join(ROOT, "woft_tpu_torch", "configs", config),
+         "--frames", str(EVAL_FRAMES), "--seqs", "1", "--device", str(dev)]
+        + (["--stress"] if stress else []))
+    conf = load_config(args.config)
+    tracker = TimedTracker(conf.tracker_class(conf, device=dev))
+    torch.cuda.synchronize()
+    zero_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    summary, _ = eval_woft_torch.run_synthetic(args, conf, tracker)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steady = tracker.frame_ms[1:]
+    n_frames = len(tracker.frame_ms)
+    n_flows = n_frames + tracker.fallbacks
+    log(f"{what}: median {summary['median_px']:.4f} px, mean "
+        f"{summary['mean_px']:.4f}, p90 {summary['p90_px']:.4f}; "
+        + ", ".join(f"{k} {summary[k]:.3f}" for k in summary
+                    if k.startswith("p@"))
+        + f"; fallbacks {tracker.fallbacks}/{n_frames}; steady frame "
+        f"{sum(steady) / len(steady):.2f} ms (min {min(steady):.2f}, max "
+        f"{max(steady):.2f}); peak device memory {peak:.2f} GiB; whole "
+        f"eval {wall:.2f} s; launches {launches}")
+    # A: one render launch (30 frames of 720p in one chunk) and one
+    # pre-warp a tracked frame; B 13 a flow, or C once and D, E 13 times
+    render = math.ceil(EVAL_FRAMES / max(
+        1, (1 << 30) // (H_IMG * W_IMG * 3 * 4)))
+    want = {"warp_perspective_bilinear": render + n_frames}
+    if config == "WOFT_fast.py":
+        want.update(local_corr_build=n_flows,
+                    local_lookup_coords=13 * n_flows,
+                    local_lookup_exact_coords=13 * n_flows)
+    else:
+        want.update(corr_pyramid_lookup=13 * n_flows)
+    check_counts(what, launches, want, tuple(want), n_frames, n_flows)
+    cpu, bound = EVAL_MEDIAN_BOUND_PX[(config, stress)]
+    if not (np.isfinite(list(summary.values())).all()
+            and summary["median_px"] <= bound):
+        raise AssertionError(f"{what}: median {summary['median_px']} px, "
+                             f"bound {bound} px (CPU {cpu})")
+    return dict(summary=summary, launches=launches, fallbacks=tracker.
+                fallbacks, steady_ms=sum(steady) / len(steady),
+                peak_gib=peak)
+
+
+def check_render(kernels, warp, dev, tmp):
+    """Kernel A in the render's one-source, N-homography form: the 30
+    720p frames of the default eval's trajectory in one launch, against
+    the plain warp on the card (exact: A is built without FMA
+    contraction), timed beside its bound and ``F.grid_sample``."""
+    from woft_tpu_torch.eval.synth_eval import synth_trajectory
+    from woft_tpu_torch.geometry.homography import _cv2
+
+    base = _cv2("check_render").imread(os.path.join(tmp, "bases",
+                                                    "base_0.png"))
+    h_gt = synth_trajectory(np.random.default_rng(0), EVAL_FRAMES, H_IMG,
+                            W_IMG, max_step_px=3.0)
+    src = torch.from_numpy(base).to(dev).to(torch.float32)[None]
+    H = torch.from_numpy(np.linalg.inv(h_gt)).to(dev, torch.float32)
+    hinv = warp.inverse_h(H)
+    got = kernels.warp_perspective_bilinear(src, hinv, H_IMG, W_IMG)
+    want = warp.warp_perspective(src, H, (H_IMG, W_IMG))
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    n = EVAL_FRAMES
+    px = n * H_IMG * W_IMG
+    bnd, by = bound_ms(4 * H_IMG * W_IMG * 3 + 4 * px * 3 + 36 * n,
+                       px * (12 + 2 + 4 + 36))
+    coords = warp.perspective_coords(H, (H_IMG, W_IMG))
+    grid = torch.stack([2 * coords[..., 0] / (W_IMG - 1) - 1,
+                        2 * coords[..., 1] / (H_IMG - 1) - 1], -1)
+    src_nchw = src.permute(0, 3, 1, 2).expand(n, -1, -1, -1)
+    ms = time_ms(lambda: kernels.warp_perspective_bilinear(
+        src, hinv, H_IMG, W_IMG), iters=10)
+    plain_ms = time_ms(lambda: warp.warp_perspective(src, H,
+                                                     (H_IMG, W_IMG)), iters=3)
+    library_ms = time_ms(lambda: F.grid_sample(
+        src_nchw, grid, mode="bilinear", padding_mode="zeros",
+        align_corners=True), iters=10)
+    log(f"kernel A [render, {n} frames of {W_IMG}x{H_IMG} from one source in "
+        f"one launch]: max_abs_err {err:.3g} (tol 0); kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, F.grid_sample {library_ms:.4f} ms, bound "
+        f"{bnd:.4f} ms ({by})")
+    if err != 0:
+        raise AssertionError(f"kernel A disagrees at the render: {err}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+                bound_by=by, library_ms=library_ms, n_frames=n)
+
+
+def write_pot_clip(dev, tmp):
+    """``POT_FRAMES`` frames of a default-protocol walk of base 1 as jpgs,
+    and their ground truth as a POT annotation file (the centred half box
+    projected through the walk). Returns (clip dir, annotation path)."""
+    from woft_tpu_torch.eval.pot import corners_from_homographies
+    from woft_tpu_torch.eval.synth_eval import (render_sequence,
+                                                synth_trajectory)
+    from woft_tpu_torch.geometry.homography import _cv2
+
+    cv2 = _cv2("write_pot_clip")
+    base = cv2.imread(os.path.join(tmp, "bases", "base_1.png"))
+    h_gt = synth_trajectory(np.random.default_rng(1), POT_FRAMES, H_IMG,
+                            W_IMG, max_step_px=3.0)
+    clip = os.path.join(tmp, "pot_clip")
+    os.makedirs(clip)
+    for i, f in enumerate(render_sequence(base, h_gt, device=dev)):
+        cv2.imwrite(os.path.join(clip, f"{i:05d}.jpg"), f)
+    quad = np.array([[W_IMG // 4, H_IMG // 4], [3 * W_IMG // 4, H_IMG // 4],
+                     [3 * W_IMG // 4, 3 * H_IMG // 4],
+                     [W_IMG // 4, 3 * H_IMG // 4]], np.float64)
+    gt = corners_from_homographies(h_gt, quad)
+    ann = os.path.join(tmp, "pot_clip.txt")
+    with open(ann, "w") as f:
+        for c in gt:
+            f.write(" ".join(f"{v:.4f}" for v in c.ravel()) + "\n")
+    return clip, ann
+
+
+def eval_pot(dev, clip, ann):
+    """``evaluate_pot_sequence`` on ``WOFT.py`` over the jpg clip: 9
+    scored frames."""
+    from woft_tpu_torch.config import load_config
+    from woft_tpu_torch.eval.pot import (evaluate_pot_sequence,
+                                         read_pot_annotations)
+
+    conf = load_config(os.path.join(ROOT, "woft_tpu_torch", "configs",
+                                    "WOFT.py"))
+    paths = sorted(os.path.join(clip, p) for p in os.listdir(clip))
+    gt = read_pot_annotations(ann)
+    metrics, est, hs = evaluate_pot_sequence(
+        conf.tracker_class(conf, device=dev), paths, gt)
+    log(f"POT path (WOFT.py, {len(paths)} jpg frames of a walk, its "
+        f"annotation file): {json.dumps(metrics)}")
+    if metrics.get("frames") != POT_FRAMES - 1 or not np.isfinite(hs).all():
+        raise AssertionError(f"POT path: {metrics}")
+    return metrics
+
+
+class DemoLog(logging.Handler):
+    """Collects the demo's per-frame log records ("frame %d: %.1fms
+    lost=%s") and any error it logged."""
+
+    def __init__(self):
+        super().__init__(level=logging.DEBUG)
+        self.frames, self.errors = [], []
+
+    def emit(self, record):
+        if record.levelno >= logging.ERROR:
+            self.errors.append(record.getMessage())
+        elif str(record.msg).startswith("frame %d"):
+            self.frames.append(record.args)
+
+
+def run_demo(kernels, dev, clip, out, debug):
+    """``WOFT_demo_torch.py --headless [--debug] --max-frames 8`` on the
+    jpg clip under ``WOFT.py``, in this process, counted from 0. Returns
+    (launches, frame ms, lost frames)."""
+    import WOFT_demo_torch
+
+    argv = [clip, "--headless", "--out", out, "--max-frames",
+            str(DEMO_FRAMES), "--device", str(dev), "--config",
+            os.path.join(ROOT, "woft_tpu_torch", "configs", "WOFT.py")]
+    args = WOFT_demo_torch.parse_arguments(argv + (["--debug"] if debug
+                                                   else []))
+    logger = logging.getLogger("WOFT_demo_torch")
+    frame_log = DemoLog()
+    logger.addHandler(frame_log)
+    logger.setLevel(logging.DEBUG)
+    try:
+        zero_counts(kernels)
+        rc = WOFT_demo_torch.run(args)
+        torch.cuda.synchronize()
+    finally:
+        logger.removeHandler(frame_log)
+    launches = read_counts(kernels)
+    if rc != 0 or frame_log.errors:
+        raise AssertionError(f"demo: rc {rc}, errors {frame_log.errors}")
+    frame_ms = [ms for _, ms, _ in frame_log.frames]
+    lost = sum(bool(lost) for _, _, lost in frame_log.frames)
+    return launches, frame_ms, lost
+
+
+def check_demo(kernels, dev, clip, tmp):
+    """The demo with and without ``--debug``: overlays, the four debug
+    images a frame, 8 finite H in ``homographies.npz``; B 39 times a debug
+    frame (the step's flow and the overlays' two dense-head flows), 13
+    without, 13 more on a lost frame; A 3 times a debug frame (the
+    pre-warp and the overlays' two warps), once without."""
+    from woft_tpu_torch.geometry.homography import _cv2
+
+    cv2 = _cv2("check_demo")
+    res = {}
+    for debug in (True, False):
+        what = "demo --debug" if debug else "demo"
+        out = os.path.join(tmp, "demo_debug" if debug else "demo")
+        launches, frame_ms, lost = run_demo(kernels, dev, clip, out, debug)
+        n = DEMO_FRAMES
+        flows_a_frame = 3 if debug else 1
+        check_counts(what, launches,
+                     {"warp_perspective_bilinear": flows_a_frame * n,
+                      "corr_pyramid_lookup": 13 * (flows_a_frame * n + lost)},
+                     ("warp_perspective_bilinear", "corr_pyramid_lookup"),
+                     n, flows_a_frame * n + lost)
+        hs = np.load(os.path.join(out, "homographies.npz"))["H"]
+        if hs.shape != (n, 3, 3) or not np.isfinite(hs).all():
+            raise AssertionError(f"{what}: homographies {hs.shape}")
+        names = [f"{i:05d}.jpg" for i in range(n)]
+        if debug:
+            names += [f"{i:05d}_debug_{k}.jpg" for i in range(1, n + 1)
+                      for k in ("pw_flow", "local_flow", "composition",
+                                "template_points")]
+        for name in names:
+            im = cv2.imread(os.path.join(out, name))
+            if im is None or not im.std() > 0:
+                raise AssertionError(f"{what}: {name} missing or blank")
+        steady = frame_ms[1:]
+        log(f"{what}: {n} frames, lost {lost}; frame (track, overlays and "
+            f"their jpgs) {sum(steady) / len(steady):.1f} ms steady (first "
+            f"{frame_ms[0]:.1f}); B {launches['corr_pyramid_lookup']} "
+            f"launches ({launches['corr_pyramid_lookup'] / n:.1f} a frame), "
+            f"A {launches['warp_perspective_bilinear']}; {len(names)} images "
+            f"checked")
+        res[what] = dict(launches=launches, steady_ms=sum(steady)
+                         / len(steady), lost=lost)
+    return res
+
+
+def time_overlay_flow(dev, clip):
+    """One of the debug overlays' two extra flows alone: ``RaftFlow.
+    compute_flow(mode='flow', numpy_out=True)`` on two 720p frames of the
+    clip under ``WOFT.py`` (both frames encoded, the dense weight head,
+    the result downloaded), host clock, mean of 5 after 2."""
+    from woft_tpu_torch.config import load_config
+    from woft_tpu_torch.flow import RaftFlow
+    from woft_tpu_torch.geometry.homography import _cv2
+
+    conf = load_config(os.path.join(ROOT, "woft_tpu_torch", "configs",
+                                    "WOFT.py"))
+    flower = RaftFlow(conf.flow_config, device=dev)
+    a, b = (_cv2("time_overlay_flow").imread(
+        os.path.join(clip, f"{i:05d}.jpg")) for i in (0, 1))
+    for _ in range(2):
+        flower.compute_flow(a, b, mode="flow", numpy_out=True)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        flower.compute_flow(a, b, mode="flow", numpy_out=True,
+                            do_sigmoid=True)
+    ms = (time.perf_counter() - t0) * 1e3 / 5
+    log(f"demo --debug: one overlay flow (compute_flow, both frames "
+        f"encoded, dense head, downloaded) {ms:.1f} ms")
+    return ms
+
+
+def device_idle_share(fn):
+    """``fn()``'s device timeline under ``torch.profiler``: (kernels,
+    busy ms, span ms from the first kernel's start to the last's end, idle
+    share of that span)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and not e.name.startswith("Mem")]
+    if not ev:
+        raise AssertionError("the profiler recorded no kernel")
+    busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+    span = (max(e.time_range.end for e in ev)
+            - min(e.time_range.start for e in ev)) / 1e3
+    return len(ev), busy, span, 1 - busy / span
+
+
+def check_track_video(kernels, dev, tmp):
+    """``track_video`` on ``WOFT_window.py`` (v5) at 1920x1080: 16 frames
+    of the walk as a jpg directory, decoded on threads ('threaded'), under
+    ``no_local_h``: equal to a per-frame loop of the same window step over
+    the same decoded frames (0), ``sync_every`` 1 and 8 equal (0), the
+    uint8 upload within ``UINT8_UPLOAD_TOL`` of float32; frames/s for both
+    cadences, the decode's ms a frame, the device's idle share."""
+    from woft_tpu_torch import pipeline
+    from woft_tpu_torch.config import load_config
+    from woft_tpu_torch.flow import RaftFlow
+    from woft_tpu_torch.geometry.homography import _cv2
+    from woft_tpu_torch.tracker import (build_window_track_step,
+                                        window_init_state,
+                                        window_params_for_mask)
+
+    cv2 = _cv2("check_track_video")
+    h, w = VIDEO_HW
+    template, frames, _ = walk(h, w, dev, n=VIDEO_FRAMES - 1)
+    clip = os.path.join(tmp, "video_clip")
+    os.makedirs(clip)
+    for i, f in enumerate([template] + frames):
+        cv2.imwrite(os.path.join(clip, f"{i:05d}.jpg"), f)
+    mask, _ = centred_mask(h, w, 0.25)
+    conf = load_config(os.path.join(ROOT, "woft_tpu_torch", "configs",
+                                    "WOFT_window.py"))
+    flower = RaftFlow(conf.flow_config, device=dev)
+    model, cfg = flower.model, flower.cfg
+    tp = replace(conf.tracker_params, no_local_h=True)
+    wp = window_params_for_mask(mask, size=conf.window_size,
+                                margin=conf.window_margin,
+                                min_px=conf.min_window_px)
+
+    def run(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hs = pipeline.track_video(model, cfg, tp, wp, clip, mask, **kw)
+        return hs, time.perf_counter() - t0
+
+    run(sync_every=8)                  # warm-up: cuDNN plans, allocator
+    zero_counts(kernels)
+    hs8, t8 = run(sync_every=8)
+    launches = read_counts(kernels)
+    if pipeline.LAST_SOURCE != "threaded":
+        raise AssertionError(f"track_video decoded by {pipeline.LAST_SOURCE}")
+    # the two cadences in turns (8, 1, 1, 8): host clocks spread here
+    hs1, t1 = run(sync_every=1)
+    t1b = run(sync_every=1)[1]
+    t8b = run(sync_every=8)[1]
+    hsu, tu = run(sync_every=8, uint8_upload=True)
+    n = VIDEO_FRAMES - 1
+    check_counts("track_video", launches,
+                 {"warp_perspective_bilinear": 1 + 2 * n,
+                  "corr_pyramid_lookup": 13 * n},
+                 ("warp_perspective_bilinear", "corr_pyramid_lookup"), n, n)
+
+    t0 = time.perf_counter()
+    decoded = list(pipeline._frame_source(clip))
+    decode_ms = (time.perf_counter() - t0) * 1e3 / len(decoded)
+    step = build_window_track_step(cfg, tp, wp)
+    up = [torch.from_numpy(f).to(dev)[None] for f in decoded]
+    state = window_init_state(model, cfg, tp, wp, up[0], mask)
+    loop = [np.eye(3)]
+    for f in up[1:]:
+        state, H, _ = step(model, state, f)
+        loop.append(H.cpu().numpy())
+    loop = np.stack(loop)
+    n_ev, busy, span, idle = device_idle_share(
+        lambda: pipeline.track_video(model, cfg, tp, wp, clip, mask))
+    d_loop = np.abs(hs8 - loop).max()
+    d_sync = np.abs(hs8 - hs1).max()
+    d_u8 = np.abs(hs8 - hsu).max()
+    log(f"track_video (WOFT_window.py, v5, {w}x{h}, {VIDEO_FRAMES} jpg "
+        f"frames, decode '{pipeline.LAST_SOURCE}', window {wp.shape}): "
+        f"sync_every=8 {VIDEO_FRAMES / t8:.1f} / {VIDEO_FRAMES / t8b:.1f} "
+        f"frames/s, sync_every=1 {VIDEO_FRAMES / t1:.1f} / "
+        f"{VIDEO_FRAMES / t1b:.1f} frames/s (in turns 8, 1, 1, 8), uint8 upload "
+        f"{VIDEO_FRAMES / tu:.1f} frames/s (each the whole call, init and "
+        f"decode included); threaded decode {decode_ms:.2f} ms a frame; "
+        f"device {n_ev} kernels, busy {busy:.1f} ms of a {span:.1f} ms "
+        f"span, idle share {idle:.3f}; launches {launches}")
+    log(f"track_video: against the per-frame loop max |dH| {d_loop:.3g} "
+        f"(tol 0), sync_every 1 vs 8 {d_sync:.3g} (tol 0), uint8 vs float32 "
+        f"{d_u8:.3g} (tol {UINT8_UPLOAD_TOL})")
+    if not (np.isfinite(hs8).all() and d_loop == 0 and d_sync == 0
+            and d_u8 <= UINT8_UPLOAD_TOL):
+        raise AssertionError("track_video disagrees")
+    return dict(launches=launches,
+                fps8=(VIDEO_FRAMES / t8, VIDEO_FRAMES / t8b),
+                fps1=(VIDEO_FRAMES / t1, VIDEO_FRAMES / t1b),
+                fps_u8=VIDEO_FRAMES / tu,
+                decode_ms=decode_ms, busy_ms=busy, span_ms=span,
+                idle_share=idle)
+
+
+def track_eval_entry(kernels, warp, dev):
+    """The eval and entry-point phase: the synthetic evals
+    (``EVAL_TRACKS``), kernel A's render form, the POT path, the demo with
+    and without its debug overlays, ``track_video``. Returns its
+    numbers."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    out = {"evals": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_eval_bases(os.path.join(tmp, "bases"), H_IMG, W_IMG)
+        out["render"] = check_render(kernels, warp, dev, tmp)
+        for config, stress in EVAL_TRACKS:
+            torch.cuda.empty_cache()
+            key = f"eval {config}{' --stress' if stress else ''}"
+            out["evals"][key] = eval_synthetic(kernels, dev, tmp, config,
+                                               stress)
+        clip, ann = write_pot_clip(dev, tmp)
+        out["pot"] = eval_pot(dev, clip, ann)
+        out["demo"] = check_demo(kernels, dev, clip, tmp)
+        out["overlay_flow_ms"] = time_overlay_flow(dev, clip)
+        torch.cuda.empty_cache()
+        out["video"] = check_track_video(kernels, dev, tmp)
+    log(f"eval and entry-point phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3032,6 +3526,11 @@ def main():
     del flower
     torch.cuda.empty_cache()
     paths["window batch x8 1920x1080"] = track_window_batch(kernels, dev)
+
+    # evaluation and the entry points: the synthetic evals, A's render
+    # form, the POT path, the demo with its debug overlays, track_video
+    torch.cuda.empty_cache()
+    entry = track_eval_entry(kernels, warp, dev)
 
     # launches: A and B on the WOFT.py path, C, D, E (the last two from
     # coordinates) on the WOFT_fast.py
@@ -3143,6 +3642,16 @@ def main():
         row["family_launches"] = {
             what: res["launches"][row["name"]]
             for what, res in family["tracks"].items()}
+    # A-E on the eval and entry-point paths, each counted from 0; A also
+    # in the render's N-homography form
+    entry_runs = {**entry["evals"], **entry["demo"],
+                  "track_video sync_every=8": entry["video"]}
+    for row in rows[:5]:
+        row["eval_launches"] = {
+            what: res["launches"][row["name"]]
+            for what, res in entry_runs.items()
+            if res["launches"][row["name"]]}
+    rows[0]["render_shape"] = entry["render"]
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,11 +15,16 @@ see ``ops/kernels.py``).
   alternate), and the weight bridge to ``woft_tpu`` parameter trees.
 - ``woft_tpu_torch.tracker``  — the WOFT tracker steps (full frame, window,
   shared-flow multi-target, batched windows) and their host shells.
-- ``woft_tpu_torch.pipeline`` — multi-target trackers and the chunk loops
-  that step T frames without a host sync (exported here).
+- ``woft_tpu_torch.pipeline`` — multi-target trackers, the chunk loops
+  that step T frames without a host sync, and ``track_video``, the
+  streaming loop over one clip (exported here).
 - ``woft_tpu_torch.flow``     — the ``compute_flow`` wrapper protocol
   (``RaftFlow``) and the external backend with its cost-volume weight
-  head (``ExternalFlowWrapper``).
+  head (``ExternalFlowWrapper``), and the flow cache (``FlowCache``).
+- ``woft_tpu_torch.eval``     — synthetic-trajectory and POT evaluation,
+  POT-style alignment metrics.
+- ``woft_tpu_torch.utils``    — host I/O, timing and drawing (``cv2`` is
+  loaded only inside the functions that decode, encode or draw).
 
 Public functions keep ``woft_tpu``'s layouts (NHWC images, ``(x, y)``
 coordinates); inside, the networks run NCHW. Entry points run on ``cuda``
@@ -35,4 +40,5 @@ from .pipeline import (  # noqa: E402,F401
     build_full_track_chunk,
     build_multi_track_chunk,
     build_shared_multi_chunk,
+    track_video,
 )

@@ -138,11 +138,14 @@ class ExternalFlowWrapper:
         return flow_fn
 
     @torch.no_grad()
-    def compute_flow(self, src_img, dst_img, mode="TC", numpy_out=False,
+    def compute_flow(self, src_img, dst_img, mode="TC", vis=False,
+                     src_img_identifier=None, numpy_out=False,
                      do_sigmoid=False):
         """Reference-compatible entry: BGR uint8 images -> (flow, weights)
         or (src, dst, weights) TCs; the weights are None without a head
-        (where the reference has no head to call)."""
+        (where the reference has no head to call). ``vis`` and
+        ``src_img_identifier`` are accepted and unused, as in the
+        reference."""
         if mode not in ("flow", "TC"):
             raise ValueError(f"mode must be 'flow' or 'TC', got {mode!r}")
         flow, cost_volume = self.backend_fn(upload_bgr(src_img, self.device),

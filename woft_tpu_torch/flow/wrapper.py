@@ -18,7 +18,9 @@ layers under 'weighted_masked') and ``class_params.alternate_corr`` pass
 through, as do ``config.corr_impl`` ('dense' or 'local'),
 ``config.local_margin`` and ``config.precision`` ('highest', 'default' or
 'bf16'); ``config.weights_postprocessing_fn``, when set, maps the weight
-logits before the optional sigmoid (the reference's hook).
+logits before the optional sigmoid (the reference's hook);
+``config.flow_cache_dir``, when set, is read for frames the caller
+identifies (``flow/cache.py``).
 
 Weights: ``config.model`` names a torch-readable state dict (``torch.save``
 of ``WeightedRAFT.state_dict()``, or ``params_from_jax_numpy`` output).
@@ -40,6 +42,7 @@ from ..models.raft import RaftConfig, init_raft_params, weighted_raft_forward
 from ..ops.pad import make_padder
 from ..ops.resize import resize_down
 from ..ops.sampling import featuremap_coords
+from .cache import FlowCache
 
 logger = logging.getLogger(__name__)
 
@@ -126,16 +129,39 @@ class RaftFlow:
                 *(padder.unpad(out[k]) if k in out else None
                   for k in ("weights_up", "mask_up")))
 
-    def compute_flow(self, src_img, dst_img, mode="TC", numpy_out=False,
+    def compute_flow(self, src_img, dst_img, mode="TC", vis=False,
+                     src_img_identifier=None, numpy_out=False,
                      do_sigmoid=False):
         """Reference-compatible entry: BGR uint8 images -> flow or TCs,
-        with the reference's outputs and arity for each variant."""
+        with the reference's outputs and arity for each variant. ``vis`` is
+        accepted and unused, as in the reference. With a
+        ``src_img_identifier`` (dataset, seq, frame_i) and the config's
+        ``flow_cache_dir``, a cached flow (``flow/cache.py``) replaces the
+        network: its float16 values, with no visibility mask; a miss is
+        logged at debug level and computes the flow. The config's
+        ``weights_postprocessing_fn`` and ``do_sigmoid`` apply either way."""
         if mode not in ("flow", "TC"):
             raise ValueError(f"mode must be 'flow' or 'TC', got {mode!r}")
         if src_img.shape != dst_img.shape:
             raise ValueError("source and destination shapes differ")
-        flow, weights, mask = self.compute_flow_device(
-            upload_bgr(src_img, self.device), upload_bgr(dst_img, self.device))
+        cached = None
+        if src_img_identifier is not None and self.C.flow_cache_dir:
+            try:
+                cached = FlowCache(self.C.flow_cache_dir).load(
+                    src_img, src_img_identifier)
+                logger.debug("Using pre-computed flow.")
+            except FileNotFoundError as ex:
+                logger.debug("no cached flow: %s", ex)
+        if cached is None:
+            flow, weights, mask = self.compute_flow_device(
+                upload_bgr(src_img, self.device),
+                upload_bgr(dst_img, self.device))
+        else:
+            flow, weights = (None if a is None else
+                             torch.from_numpy(a).to(self.device)[None]
+                             for a in cached)
+            weights = None if weights is None else weights[..., None]
+            mask = None
         if self.C.weights_postprocessing_fn and weights is not None:
             weights = self.C.weights_postprocessing_fn(weights)
         if do_sigmoid:

@@ -18,4 +18,5 @@ from .homography import (  # noqa: F401
     np_h_proj,
     np_compose_h,
 )
-from .bbox import Bbox, h_bbox2bbox, project_bbox  # noqa: F401
+from .bbox import (  # noqa: F401
+    Bbox, h_bbox2bbox, project_bbox, decompose_h, h_interpolate)

@@ -258,13 +258,17 @@ def proj_errors(H, pts_a, pts_b):
 # host fits (OpenCV; the reference's ablation solvers)
 # ---------------------------------------------------------------------------
 
-def _cv2(estimator):
-    """``cv2``, or an ImportError that names the estimator needing it."""
+def _cv2(what):
+    """``cv2``, or an ImportError that names ``what`` needs it. The port's
+    one importer of OpenCV: the host fits here, and the host I/O and
+    drawing (``utils/io.py``, ``utils/vis.py``, ``eval/pot.py``, the
+    pipeline's frame source, the tracker's debug overlays) call it inside
+    the functions that need it, so importing the port never needs ``cv2``."""
     try:
         import cv2
     except ImportError as e:
-        raise ImportError(f"estimator '{estimator}' needs OpenCV (cv2), "
-                          "which is not installed") from e
+        raise ImportError(f"{what} needs OpenCV (cv2), which is not "
+                          "installed") from e
     return cv2
 
 
@@ -277,7 +281,7 @@ def find_homography_cvransac(pts_a, pts_b, weights=None, *,
     (``cv2.setRNGSeed``). Returns (B, 3, 3) float64 numpy. Raises
     ``ImportError`` without ``cv2`` and ``RuntimeError`` where OpenCV finds
     no homography."""
-    cv2 = _cv2("cvransac")
+    cv2 = _cv2("estimator 'cvransac'")
     a, b = _host_points(pts_a), _host_points(pts_b)
     if a.shape[1] < 4:
         raise ValueError("RANSAC needs at least 4 correspondences")
@@ -297,7 +301,7 @@ def find_homography_trs(pts_a, pts_b, weights=None):
     ``cv2.estimateAffinePartial2D`` (its RANSAC: threshold 3 px, 10,000
     iterations), as a homography. Same conventions and errors as
     ``find_homography_cvransac``."""
-    cv2 = _cv2("trs")
+    cv2 = _cv2("estimator 'trs'")
     a, b = _host_points(pts_a), _host_points(pts_b)
     hs = []
     for a_i, b_i in zip(a, b):

@@ -15,6 +15,13 @@ from .sampling import (  # noqa: F401
     featuremap_coords,
     masked_sobol_gather,
 )
+from .interpolation import (  # noqa: F401
+    interp_flow,
+    flow_warp_coords,
+    chain_flow,
+    bilinear_interpolate,
+    forward_interpolate,
+)
 from .kernels import (  # noqa: F401  (the six CUDA launch wrappers)
     warp_perspective_bilinear,
     corr_pyramid_lookup,

@@ -16,24 +16,132 @@ PyTorch twin of ``woft_tpu/pipeline.py``:
   one crop launch, one WeightedRAFT forward with B = N).
 - ``SharedMultiTracker``: N targets sharing ONE full-frame flow a frame
   (``tracker/woft.py:build_shared_multi_step``).
+- ``track_video``: one clip, streamed: a frame source that decodes a jpg
+  directory on worker threads (``cv2.imread``, which releases the
+  interpreter lock while it decodes; the counterpart of the JAX
+  package's ``woft_native.FrameLoader``) ahead of the device, and the
+  device-resident window step, whose homographies the host fetches every
+  ``sync_every`` frames.
 
 ``bgr_u8=True`` takes BGR uint8 frames, flipped and cast on the device.
-``track_video`` and its frame source are not ported yet (they decode
-through ``woft_native`` or ``cv2``).
 """
 
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from .device import resolve_device
 from .flow.wrapper import upload_bgr
+from .geometry.homography import _cv2
 from .models.raft import RaftConfig
 from .tracker.window_step import (WindowParams, build_window_batch_step,
+                                  build_window_track_step,
                                   stack_window_states, window_init_state)
 from .tracker.woft import (TrackerParams, build_shared_multi_step,
                            build_track_step, tracker_init_state)
+from .utils.io import GeneralVideoCapture
+
+
+#: the decode path the latest ``_frame_source`` took: 'threaded' (a jpg
+#: directory, ``cv2.imread`` on worker threads) or 'cv2' (anything else,
+#: through ``GeneralVideoCapture``); tests and ``chip_smoke.py`` check it
+LAST_SOURCE = None
+
+
+def _decode_rgb(path, as_uint8):
+    img = _cv2("_frame_source").imread(path)
+    if img is None:
+        raise OSError(f"cannot decode {path}")
+    rgb = img[:, :, ::-1]
+    return np.ascontiguousarray(rgb) if as_uint8 else rgb.astype(np.float32)
+
+
+def _frame_source(video_path, n_threads=4, prefetch=6, as_uint8=False):
+    """Yield (H, W, 3) RGB frames (float32, or uint8 with ``as_uint8``).
+
+    A directory of jpgs is decoded on ``n_threads`` worker threads,
+    ``prefetch`` frames ahead of the consumer, in order; any other input
+    (a video file, a directory of pngs) through ``GeneralVideoCapture``.
+    Closing the generator early cancels the decodes not yet started."""
+    global LAST_SOURCE
+    prefetch = max(1, prefetch)
+    path = Path(video_path)
+    if path.is_dir():
+        jpgs = sorted(str(p) for p in path.iterdir()
+                      if p.suffix.lower() in (".jpg", ".jpeg"))
+        if jpgs:
+            LAST_SOURCE = "threaded"
+            pool = ThreadPoolExecutor(max_workers=n_threads)
+            try:
+                ahead = [pool.submit(_decode_rgb, p, as_uint8)
+                         for p in jpgs[:prefetch]]
+                for i in range(len(jpgs)):
+                    frame = ahead.pop(0).result()
+                    if i + prefetch < len(jpgs):
+                        ahead.append(pool.submit(
+                            _decode_rgb, jpgs[i + prefetch], as_uint8))
+                    yield frame
+            finally:
+                pool.shutdown(wait=True, cancel_futures=True)
+            return
+    LAST_SOURCE = "cv2"
+    cap = GeneralVideoCapture(video_path)
+    try:
+        while True:
+            ok, frame = cap.read()
+            if not ok or frame is None:
+                return
+            rgb = frame[:, :, ::-1]
+            yield (np.ascontiguousarray(rgb) if as_uint8
+                   else rgb.astype(np.float32))
+    finally:
+        cap.release()
+
+
+def track_video(model, raft_cfg: RaftConfig, tp: TrackerParams,
+                wp: WindowParams, video_path, mask, *, sync_every=8,
+                max_frames=0, uint8_upload=False):
+    """Track one clip end to end; returns (T, 3, 3) float64 homographies
+    (cur -> first frame; ``hs[0]`` is the identity).
+
+    The device-resident window step (``build_window_track_step``) on the
+    model's device, on frames from ``_frame_source``: the host decodes
+    ahead while the card tracks, and fetches the accumulated homographies
+    every ``sync_every`` frames. Use ``TrackerParams(no_local_h=True)``:
+    then no step syncs to the host between fetches. ``uint8_upload``
+    uploads the uint8 RGB frames (4x fewer bytes) and casts them on the
+    card. ``max_frames`` > 0 stops after that many frames, the first
+    included."""
+    dev = next(model.parameters()).device
+    source = _frame_source(video_path, as_uint8=uint8_upload)
+    try:
+        first = next(source)
+        # init runs once and takes float32
+        frame0 = torch.from_numpy(np.asarray(first, np.float32)).to(dev)
+        state = window_init_state(model, raft_cfg, tp, wp, frame0[None],
+                                  np.asarray(mask) > 0)
+        step = build_window_track_step(raft_cfg, tp, wp)
+
+        hs = [np.eye(3)]
+        pending = []
+        for i, frame in enumerate(source):
+            if max_frames and i + 1 >= max_frames:
+                break
+            device_frame = torch.from_numpy(frame)[None].to(
+                dev, non_blocking=True)
+            state, h, _meta = step(model, state, device_frame)
+            pending.append(h)
+            if len(pending) >= sync_every:
+                hs.extend(torch.stack(pending).cpu().numpy())
+                pending = []
+        if pending:
+            hs.extend(torch.stack(pending).cpu().numpy())
+    finally:
+        source.close()
+    return np.stack(hs)
 
 
 def _rgb(frame, bgr_u8):

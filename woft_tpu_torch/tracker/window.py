@@ -208,8 +208,9 @@ class WOFTWindowTracker:
         return torch.tensor(self._to_window(h_full, h_crop),
                             dtype=torch.float32, device=self.device)
 
-    def track(self, input_img, img_identifier=None):
-        """-> (H_cur2init (3, 3) float64, meta namespace)."""
+    def track(self, input_img, debug=False, img_identifier=None):
+        """-> (H_cur2init (3, 3) float64, meta namespace). ``debug`` is
+        accepted and draws nothing, as in the JAX package's window shell."""
         search = self._search_bbox(np.linalg.inv(self.h_last_good),
                                    input_img.shape)
         h_cur_crop = h_bbox2bbox(

@@ -27,7 +27,8 @@ PyTorch twin of ``woft_tpu/tracker/woft.py`` (the full-frame tracker):
 - ``WOFTTracker``: the reference's ``init``/``track`` API (numpy BGR in,
   numpy H out), with its ``downscale`` option: frames and mask resized as
   ``cv2.resize`` does (``ops/resize.py``, on the device), the output H
-  compensated back to full resolution.
+  compensated back to full resolution; ``track(debug=True)``'s overlays
+  and the resume of ``set_fast_meta``.
 
 Static-shape conventions are the JAX package's: boolean TC filtering is
 validity masks and zero weights, Sobol-500 is a fixed 500-slot gather, and
@@ -158,7 +159,7 @@ def _host_fit(tp: TrackerParams, pts_a, pts_b, valid):
     with fewer than 4 of them or whose solver fails gets a NaN H, which the
     steps' finiteness guards send down the fallback ladder (the JAX
     package's ``_host_robust_fit``). Without ``cv2`` it raises."""
-    cv2 = _cv2(tp.estimator)
+    cv2 = _cv2(f"estimator '{tp.estimator}'")
     a = pts_a.cpu().numpy().astype(np.float64)
     b = pts_b.cpu().numpy().astype(np.float64)
     v = valid.cpu().numpy() > 0.5
@@ -631,6 +632,7 @@ class WOFTTracker:
             self.raft_cfg = replace(self.flower.cfg, **(raft_flags or {}))
             self._step = build_track_step(self.raft_cfg, self.tp)
         self.state = None
+        self._fast_forward = None
 
     def init(self, img, mask, img_identifier=None):
         """Start a track on ``img`` with the target ``mask`` (one blob; under
@@ -650,17 +652,54 @@ class WOFTTracker:
             upload_bgr(img, self.device, self.tp.downscale),
             torch.from_numpy(mask).to(self.device),
             encode=not self._external)
+        self._fast_forward = None
 
-    def track(self, input_img, img_identifier=None):
-        """-> (H_cur2init (3, 3) float64, meta namespace)."""
-        self.state, H_dev, meta_dev = self._step(
-            self.flower.model, self.state,
-            upload_bgr(input_img, self.device, self.tp.downscale))
+    def set_fast_meta(self, meta):
+        """Re-inject a previously computed result (resume support,
+        ref:YAOF:49-55): the next ``track`` returns
+        ``meta.estim_H_current2template`` without tracking and restarts the
+        state from it."""
+        if self.tp.downscale:
+            raise NotImplementedError(
+                "Fast-forward incompatible with input downscaling.")
+        self._fast_forward = meta
+
+    def _resume(self, input_img):
+        """The fast-forward branch of ``track``: the state restarts at the
+        injected H on this frame, with the lost counters cleared in the
+        types the step takes (device tensors under ``no_local_h``)."""
+        meta, self._fast_forward = self._fast_forward, None
+        H = np.asarray(meta.estim_H_current2template)
+        frame = upload_bgr(input_img, self.device)
+        H_dev = torch.tensor(H, dtype=torch.float32, device=self.device)
+        lost, n_lost = False, 0
+        if self.tp.no_local_h:
+            lost = torch.zeros((), dtype=torch.bool, device=self.device)
+            n_lost = torch.zeros((), dtype=torch.int32, device=self.device)
+        self.state = replace(self.state, prev_img=frame, prev_h2init=H_dev,
+                             last_good_h2init=H_dev, lost=lost,
+                             n_lost=n_lost)
+        return H, meta
+
+    def track(self, input_img, debug=False, img_identifier=None):
+        """-> (H_cur2init (3, 3) float64, meta namespace). With ``debug``,
+        ``meta.debug_vis`` holds the reference's overlays (``_debug_vis``)."""
+        if self._fast_forward is not None:
+            return self._resume(input_img)
+        prev_img = self.state.prev_img
+        frame = upload_bgr(input_img, self.device, self.tp.downscale)
+        self.state, H_dev, meta_dev = self._step(self.flower.model,
+                                                 self.state, frame)
         H = H_dev.cpu().numpy().astype(np.float64)
         meta = SimpleNamespace(**{
             k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
             for k, v in meta_dev.items()})
         meta.estim_H_current2template = H.copy()
+        if debug:
+            meta.debug_vis = self._debug_vis(
+                frame, prev_img,
+                np.asarray(meta.H_global_cur2init, np.float64),
+                np.asarray(meta.last_good_H2init, np.float64))
         if self.tp.downscale:
             # back to full-resolution pixels: full cur -> small cur -> small
             # init -> full init
@@ -668,3 +707,75 @@ class WOFTTracker:
             H = np_compose_h(np.diag([1 / s, 1 / s, 1.0]), H,
                              np.diag([s, s, 1.0]))
         return H, meta
+
+    def _debug_vis(self, frame, prev_img, H_global, last_good):
+        """The reference's ``track(debug=True)`` overlays, headless
+        (ref:YAOF_tracker_single_control.py:209-265): weight-coloured TC
+        arrows on the pre-warped pair, local-flow arrows, alignment blends
+        and the template's TC scatter. Returns {"pw_flow", "local_flow",
+        "composition", "template_points"}: BGR uint8 images.
+
+        The frames are the tracked ones (under ``downscale`` the resized
+        frames, as the step saw them), downloaded from the device; the two
+        warps run there (``warp_perspective_fast``: kernel A on the card);
+        the two extra flows go through ``RaftFlow.compute_flow`` with the
+        dense weight head."""
+        cv2 = _cv2("WOFTTracker.track(debug=True)")
+        from ..utils import vis as vis_utils
+
+        def host_bgr(img):
+            return np.ascontiguousarray(
+                img[0].round().clamp(0, 255).to(torch.uint8).flip(-1).cpu()
+                .numpy())
+
+        def warped(H):
+            return host_bgr(warp_perspective_fast(
+                frame, torch.tensor(H, dtype=torch.float32,
+                                    device=self.device)))
+
+        template = host_bgr(self.state.template_img)
+        template_mask = self.state.template_mask.cpu().numpy()
+        current, previous = host_bgr(frame), host_bgr(prev_img)
+        Hh, Ww = current.shape[:2]
+        prewarped = warped(last_good)
+
+        # weight-coloured TC arrows, masked to the template (an extra flow
+        # with numpy_out, as the reference does)
+        pw = self.flower.compute_flow(template, prewarped, mode="flow",
+                                      numpy_out=True, do_sigmoid=True)
+        pw_flow = np.transpose(pw[0], (1, 2, 0))            # (H, W, 2)
+        pw_weights = pw[1] if pw[1] is not None else np.ones((Hh, Ww))
+        colors = vis_utils.cv2_colormap(pw_weights, vmin=0, vmax=1)
+        alpha = (template_mask.reshape(-1, 1) > 0).astype(np.uint8)
+        arrow_color = np.concatenate(
+            [colors.reshape(-1, 3), alpha * 255], axis=1)
+        vis_pw_flow = vis_utils.vis_flow_align(
+            pw_flow, template, prewarped, grid_sz=10,
+            arrow_color=arrow_color, pt_radius=3, show_flow=False)
+
+        # local (prev -> current) flow arrows
+        lf = self.flower.compute_flow(previous, current, mode="flow",
+                                      numpy_out=True)
+        local_flow = np.transpose(lf[0], (1, 2, 0))
+        vis_local_flow = vis_utils.vis_flow_align(
+            local_flow, previous, current, grid_sz=30)
+
+        # alignment blends + composition
+        local_align = vis_utils.vis_alignment_plain(previous, current)
+        prewarp_align = vis_utils.vis_alignment_plain(template, prewarped)
+        afterwarp_align = vis_utils.vis_alignment_plain(template,
+                                                        warped(H_global))
+        composition = vis_utils.tile(vis_utils.griddify(
+            vis_utils.name_fig(
+                [local_align, prewarp_align, afterwarp_align],
+                ["local flow", "prewarped", "afterwarped"]), cols=1))
+
+        # template TC scatter
+        canvas = template.copy()
+        ys, xs = np.where(template_mask > 0)
+        for i in range(0, len(xs), max(1, len(xs) // 500)):
+            cv2.circle(canvas, (int(xs[i]), int(ys[i])), radius=2,
+                       color=(255, 255, 255), thickness=-1)
+
+        return {"pw_flow": vis_pw_flow, "local_flow": vis_local_flow,
+                "composition": composition, "template_points": canvas}
