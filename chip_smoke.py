@@ -121,14 +121,41 @@ Phases; any failure ends the script with a non-zero exit:
    threads, equal to a per-frame loop of the same step (0), ``sync_every``
    1 and 8 equal, the uint8 upload within 1e-6 of float32, with frames/s,
    the decode's ms a frame and the device's idle share;
-8. a ``kernels`` JSON line (A-E with their launches on the multi-target
+8. training (``track_training``): kernel B' (the backward of B) against
+   its plain version (autograd through the plain lookup) at batch 4 of
+   288x384 (Q = 6,912, four levels, radius 4; bf16 and float32 levels;
+   windows at integer positions, partly and wholly outside), timed beside
+   its byte bound, the plain version and ``F.grid_sample``'s backward;
+   A-E and B' at the training shapes against their plain versions (A on
+   the trainer's own crops and homographies, four of each in a launch;
+   B and B' on the bf16 pyramid of the v4 features of its first pair; C,
+   D, E at the 36 x 48 grid);
+   ``train_wraft_torch.py``'s ``run`` on WeightedRAFT-large at 288x384,
+   batch 4, 12 iterations, 'default', from the v4 export, on 6 textured
+   pngs written to a temporary directory: 6 weight-head steps (lr 1e-3;
+   finite losses, frozen tensors bit-identical, the head moved), then 6
+   whole-net steps (``--train-flow``, lr 1e-5; every parameter moved),
+   validation and rolling checkpoints every 3, counted from 0 each (A 1 a
+   step and 1 for the validation batch, B 13 a step and 13 a validation,
+   B' 13 a whole-net step and none for the head), steady s/step,
+   samples/s, peak memory and one traced step's idle share and B, B'
+   times; the result tracked under ``WOFT.py`` through
+   ``WOFT_WRAFT_TORCH_CKPT`` (4 frames of the 720p walk); the block-local
+   gradient at B = 1 (C, D, E forward, their plain VJPs backward) against
+   the dense one on every parameter; one weight-head step at 64x96 on the
+   card against the CPU path, the difference split into the forward, the
+   fit's backward and the head's backward (and the head's ReLU sign
+   flips counted);
+9. a ``kernels`` JSON line (A-E with their launches on the multi-target
    paths and their times at its shapes; A and B also with their launches
    on the ablation paths, ``downscale_launches`` and
    ``ablation_launches``, their times at the downscale shapes, and their
    launches on the flow-family tracks, ``family_launches``; two rows for
    B's bf16-level form; A-E with their launches on the eval and entry
-   paths, ``eval_launches``, and A's render form, ``render_shape``), then
-   the device JSON as the last line.
+   paths, ``eval_launches``, and A's render form, ``render_shape``; A-E
+   with their launches in training, ``train_launches``, and their error
+   at its shapes, ``train_max_abs_err``, and the row of B'),
+   then the device JSON as the last line.
 """
 
 import json
@@ -781,24 +808,16 @@ def _row_sector_bytes(local, corr, coords, k):
     return total
 
 
-def check_coord_lookups(kernels, corr, dev):
-    """Kernels D and E from coordinates (the main path's lookup) against
-    their plain versions, bf16 and float32, at the 720p layout (volume from
-    kernel C), at the window step's (24 x 43 cells, 4 levels, margin 16),
-    at the 1080p shared-flow path's (135 x 240 cells: 255 blocks, the last
-    block row half padding) and at a layout of 3 levels and margin 8, the
-    last three of whose grids cut the blocks on both axes:
-    data and flags equal, E rewriting exactly the flagged blocks; then one
-    guarded lookup traced: two kernel launches. Returns the worst error of
-    D and of E."""
-    from torch.profiler import ProfilerActivity, profile
-
+def _compare_coord_lookups(kernels, corr, dev, layouts):
+    """Kernels D and E from coordinates against their plain versions at
+    each (H1, W1, levels, margin) of ``layouts`` (seeded D = 256 features,
+    B = 1), bf16 and float32, on a smooth, a violating and a saturated
+    field (the 720p grid: ``_local_coords``): data and flags equal, E
+    rewriting exactly the flagged blocks. Returns (the worst error of D
+    and of E, the last volumes, the last coordinates)."""
     k = 9
     errs = {"D": 0.0, "E": 0.0}
-    for (H1, W1, L, margin) in ((H_IMG // 8, W_IMG // 8, 4, 16),
-                                (*WINDOW_GRIDS[0], 4, 16),
-                                (*MULTI_GRID, 4, 16),
-                                (37, 83, 3, 8)):
+    for (H1, W1, L, margin) in layouts:
         g = torch.Generator(device=dev).manual_seed(12)
         f1 = torch.randn(1, H1, W1, 256, device=dev, generator=g)
         f2 = torch.randn(1, H1, W1, 256, device=dev, generator=g)
@@ -851,6 +870,25 @@ def check_coord_lookups(kernels, corr, dev):
     if max(errs.values()) > 0.0:
         raise AssertionError(f"kernels D, E from coordinates differ from "
                              f"their plain versions: {errs}")
+    return errs, local, coords
+
+
+def check_coord_lookups(kernels, corr, dev):
+    """Kernels D and E from coordinates (the main path's lookup) against
+    their plain versions, bf16 and float32, at the 720p layout (volume from
+    kernel C), at the window step's (24 x 43 cells, 4 levels, margin 16),
+    at the 1080p shared-flow path's (135 x 240 cells: 255 blocks, the last
+    block row half padding) and at a layout of 3 levels and margin 8, the
+    last three of whose grids cut the blocks on both axes:
+    data and flags equal, E rewriting exactly the flagged blocks; then one
+    guarded lookup traced: two kernel launches. Returns the worst error of
+    D and of E."""
+    from torch.profiler import ProfilerActivity, profile
+
+    errs, local, coords = _compare_coord_lookups(
+        kernels, corr, dev, ((H_IMG // 8, W_IMG // 8, 4, 16),
+                             (*WINDOW_GRIDS[0], 4, 16), (*MULTI_GRID, 4, 16),
+                             (37, 83, 3, 8)))
 
     # one guarded lookup on the card: D then E, nothing else
     for fine, names in ((True, ["local_lookup_fine_kernel",
@@ -1259,8 +1297,9 @@ def check_update_kernels(kernels, dev):
 
 
 COUNTED = ("warp_perspective_bilinear", "corr_pyramid_lookup",
-           "local_corr_build", "local_lookup_coords",
-           "local_lookup_exact_coords", "local_lookup_fine_multi",
+           "corr_pyramid_lookup_backward", "local_corr_build",
+           "local_lookup_coords", "local_lookup_exact_coords",
+           "local_lookup_fine_multi",
            "local_lookup_exact", "local_lookup_fine", "fused_gru_update",
            "motion_encoder_tail", "flow_head")
 FUSED_FLAGS = {"gru_fused": True, "tail_fused": True}
@@ -3294,10 +3333,8 @@ def time_overlay_flow(dev, clip):
     return ms
 
 
-def device_idle_share(fn):
-    """``fn()``'s device timeline under ``torch.profiler``: (kernels,
-    busy ms, span ms from the first kernel's start to the last's end, idle
-    share of that span)."""
+def device_events(fn):
+    """The device kernels ``fn()`` ran, under ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -3309,6 +3346,14 @@ def device_idle_share(fn):
           and not e.name.startswith("Mem")]
     if not ev:
         raise AssertionError("the profiler recorded no kernel")
+    return ev
+
+
+def device_idle_share(fn, ev=None):
+    """``fn()``'s device timeline under ``torch.profiler`` (or the events
+    ``ev`` of one): (kernels, busy ms, span ms from the first kernel's
+    start to the last's end, idle share of that span)."""
+    ev = device_events(fn) if ev is None else ev
     busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
     span = (max(e.time_range.end for e in ev)
             - min(e.time_range.start for e in ev)) / 1e3
@@ -3436,6 +3481,631 @@ def track_eval_entry(kernels, warp, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# training on the card: kernel B' at the training shape, then
+# train_wraft_torch.py's main path in both modes, C, D and E under grad,
+# and one step on the card against the CPU path
+# ---------------------------------------------------------------------------
+
+TRAIN_HW = (288, 384)            # train_wraft.py's defaults
+TRAIN_BATCH = 4
+TRAIN_STEPS = 6                  # a run: weight head, then the whole net
+TRAIN_VAL_EVERY = 3              # validation at steps 0 and 3
+TRAIN_IMAGES = 6                 # textured 360x480 frames, written as png
+BWD_REL = 1e-5                   # B' float32: summation order, relative to
+#                                  the largest magnitude of the result
+LOCAL_GRAD_TOL = 5e-4            # C, D, E vs B under grad: the JAX
+#                                  package's own bound (atol = rtol)
+TRAIN_CARD_CPU_REL = 5e-3        # one weight-head step, card vs CPU: the
+#                                  loss and the head's gradients, relative
+#                                  to the largest (1.98e-3 measured). The
+#                                  fit ignores a common scale of the
+#                                  weights, so the head's gradients are
+#                                  sums of the weight map's gradient that
+#                                  nearly cancel, and the map's gradient
+#                                  differs by 1.3e-4 between the two
+#                                  devices' float32 fits: the check splits
+#                                  the difference so
+TRAIN_FORWARD_REL = 1e-5         # the weight map's forward (5.1e-7)
+TRAIN_PART_REL = 1e-3            # the fit's backward alone (1.3e-4) and the
+#                                  head's backward alone (3.0e-4)
+
+
+def _bwd_case(dev, dtype):
+    """Kernel B' at the training shape: batch 4 of 288x384 (Q = 4 * 36 *
+    48 = 6,912 queries, four levels, radius 4), centroids at integer
+    positions, inside, partly and wholly outside their levels."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    B, (H, W) = TRAIN_BATCH, TRAIN_HW
+    H1, W1 = H // 8, W // 8
+    Q = B * H1 * W1
+    pyramid, h, w = [], H1, W1
+    for _ in range(4):
+        pyramid.append(torch.randn((Q, h, w), generator=g, device=dev)
+                       .to(dtype).contiguous())
+        h, w = h // 2, w // 2
+    grid = _cell_grid(dev, H1, W1).expand(B, -1, -1, -1).reshape(Q, 2)
+    off = torch.randn((Q, 2), generator=g, device=dev) * 8
+    kind = (torch.arange(Q, device=dev) % 4)[:, None]
+    coords = torch.where(kind == 0, grid, grid + off)        # integers
+    coords = torch.where(kind == 3, grid + 20 * off, coords)  # far out
+    gr = torch.randn((Q, 4 * 81), generator=g, device=dev)
+    return pyramid, coords.contiguous(), gr
+
+
+def _grid_sample_backward(pyramid, coords, gr, radius):
+    """Library yardstick of B': ``F.grid_sample``'s backward over the four
+    levels (the input's and the grid's gradients), its forward outside the
+    timed call."""
+    lv = [p.float()[:, None].requires_grad_() for p in pyramid]
+    flat = coords.requires_grad_()
+    outs = _grid_sample_levels([x[:, 0] for x in lv], flat, radius)
+    k = 2 * radius + 1
+    gs = [gr[:, lvl * k * k:(lvl + 1) * k * k].reshape(o.shape)
+          for lvl, o in enumerate(outs)]
+
+    def backward():
+        return torch.autograd.grad(outs, [*lv, flat], gs, retain_graph=True)
+
+    return backward
+
+
+def _compare_lookup_backward(kernels, corr, pyramid, coords, gr, radius,
+                             what):
+    """Kernel B' against its plain version on (pyramid, coords (Q, 2), g):
+    float32 gradients within ``BWD_REL`` of the largest magnitude, bf16
+    levels' within that plus one bf16 ulp; windows wholly outside level 0
+    must leave their rows zero, and the case must hold some. Returns the
+    largest error."""
+    dtype = pyramid[0].dtype
+    d_lv, d_c = kernels.corr_pyramid_lookup_backward(pyramid, coords, gr,
+                                                     radius)
+    p_lv, p_c = corr.corr_lookup_backward_plain(pyramid, coords, gr, radius)
+    torch.cuda.synchronize()
+    err = 0.0
+    for lvl, (a, b) in enumerate(zip(d_lv, p_lv)):
+        a, b = a.float(), b.float()
+        diff = (a - b).abs()
+        err = max(err, diff.max().item())
+        tol = BWD_REL * b.abs().max().item()
+        if dtype == torch.bfloat16:
+            # one bf16 ulp of the plain value, on top of float32 order
+            ulp = torch.exp2(torch.floor(torch.log2(
+                b.abs().clamp(min=1e-30))) - 7)
+            bad = (diff > ulp + tol).sum().item()
+        else:
+            bad = (diff > tol).sum().item()
+        if bad:
+            raise AssertionError(f"kernel B' ({what}, {dtype}) level {lvl}: "
+                                 f"{bad} gradients beyond the bound")
+        if lvl == 0:
+            # windows wholly outside level 0 leave their rows zero
+            hl, wl = pyramid[0].shape[1:]
+            x, y = coords[:, 0], coords[:, 1]
+            out = ((x <= -(radius + 2)) | (x >= wl + radius + 1)
+                   | (y <= -(radius + 2)) | (y >= hl + radius + 1))
+            if not out.any() or a[out].abs().max().item() != 0:
+                raise AssertionError("kernel B': a window wholly outside "
+                                     "its level has a gradient")
+    c_err = (d_c - p_c).abs().max().item()
+    c_tol = BWD_REL * p_c.abs().max().item()
+    log(f"kernel B' [{what}, {dtype}, Q={coords.shape[0]}]: max_abs_err "
+        f"levels {err:.3g}, coordinates {c_err:.3g} (tol {BWD_REL:g} x the "
+        f"largest magnitude"
+        f"{', plus one bf16 ulp' if dtype == torch.bfloat16 else ''})")
+    if not c_err <= c_tol:
+        raise AssertionError(f"kernel B' ({what}, {dtype}) coordinate "
+                             f"gradient disagrees: {c_err} > {c_tol}")
+    return max(err, c_err)
+
+
+def check_lookup_backward(kernels, corr, dev):
+    """Kernel B' against its plain version (autograd through the plain
+    lookup on the levels widened to float32, rounded once to the level's
+    dtype) at the training shape, bf16 levels (the 'default' precision the
+    trainer runs) and float32, timed beside its bound, the plain version
+    and ``F.grid_sample``'s backward over the four levels."""
+    radius, k = 4, 9
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        pyramid, coords, gr = _bwd_case(dev, dtype)
+        Q = coords.shape[0]
+        err = _compare_lookup_backward(kernels, corr, pyramid, coords, gr,
+                                       radius, "random levels")
+        ms = time_ms(lambda: kernels.corr_pyramid_lookup_backward(
+            pyramid, coords, gr, radius))
+        plain_ms = time_ms(lambda: corr.corr_lookup_backward_plain(
+            pyramid, coords, gr, radius), iters=5, warmup=1)
+        library_ms = time_ms(_grid_sample_backward(pyramid, coords, gr,
+                                                   radius), iters=5, warmup=1)
+        esize = pyramid[0].element_size()
+        cells = sum(p.shape[1] * p.shape[2] for p in pyramid)
+        n_out = Q * 4 * k * k
+        # each row written once, g and the coordinates read, the windows
+        # read for the coordinate gradient, the coordinate gradient written
+        n_bytes = (Q * cells * esize + n_out * 4 + Q * 16
+                   + _window_bytes(pyramid, coords, None, radius))
+        bnd, by = bound_ms(n_bytes, n_out * 30)
+        log(f"kernel B' timing [{dtype}]: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, F.grid_sample backward x4 levels "
+            f"{library_ms:.4f} ms, bound {bnd:.4f} ms ({by}: "
+            f"{n_bytes / 1e6:.1f} MB)")
+        rows[str(dtype).split(".")[1]] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bnd, bound_by=by, library_ms=library_ms)
+        del pyramid
+        torch.cuda.empty_cache()
+    return rows
+
+
+def write_train_images(directory):
+    """``TRAIN_IMAGES`` textured 360x480 frames as pngs (crops of 288x384
+    are taken from them)."""
+    from woft_tpu_torch.geometry.homography import _cv2
+
+    os.makedirs(directory, exist_ok=True)
+    for i in range(TRAIN_IMAGES):
+        path = os.path.join(directory, f"train_{i}.png")
+        if not _cv2("write_train_images").imwrite(
+                path, textured_frame(360, 480, seed=20 + i)):
+            raise OSError(f"cannot write {path}")
+
+
+def check_training_shapes(kernels, corr, warp, dev, images, init):
+    """Kernels A-E and B' at the shapes the training runs give them, each
+    against its plain version on the same inputs. A on the trainer's own
+    crops and homographies (the validation batch's, then the first step's:
+    four 288x384 sources warped by four homographies in one launch, the
+    crops and draws taken as ``train_wraft_torch.run`` takes them at its
+    default seed); B and B' on the bf16 pyramid (Q = 6,912, levels 36x48
+    to 4x6) of the v4 features of the first step's pair, at centroids on
+    integer positions, near their cell and far outside; C, D and E at the
+    block-local gradient's 36 x 48 grid (B = 1), bf16 and float32. Bounds:
+    A ``WARP_TOL``, B and D, E exact, B' ``BWD_REL`` of the largest plus
+    one bf16 ulp, C ``CORR_ATOL`` + its rtol. Returns {kernel: the largest
+    error}."""
+    import glob
+
+    import train_wraft_torch
+    from woft_tpu_torch.models import layers
+    from woft_tpu_torch.models.raft import RaftConfig, init_raft_params
+    from woft_tpu_torch.training.synth import (homographies_from_draws,
+                                               synth_draws)
+
+    H, W = TRAIN_HW
+    H1, W1 = H // 8, W // 8
+    radius = 4
+    args = train_wraft_torch.parse_args(["--images", images])
+    stream = train_wraft_torch.image_stream(
+        sorted(glob.glob(os.path.join(images, "*.png"))), TRAIN_HW,
+        TRAIN_BATCH, np.random.default_rng(args.seed), args.scale_jitter)
+    errs = {"A": 0.0}
+    for what, seed in (("validation batch", 12345),
+                       ("first step", args.seed + 1)):
+        imgs = torch.from_numpy(next(stream)).to(dev)
+        d = synth_draws(torch.Generator(device=dev).manual_seed(seed),
+                        TRAIN_BATCH, H, W, jitter=False)
+        hs = homographies_from_draws(
+            d["shift"], d["translation"], H, W,
+            max_corner_shift=args.max_shift,
+            max_translation=args.max_translation)
+        hinv = warp.inverse_h(hs)
+        warped = kernels.warp_perspective_bilinear(imgs, hinv, H, W)
+        want = warp.warp_perspective(imgs, hs)
+        torch.cuda.synchronize()
+        err = (warped - want).abs().max().item()
+        errs["A"] = max(errs["A"], err)
+        log(f"kernel A [training render, {what}: {TRAIN_BATCH} sources x "
+            f"{TRAIN_BATCH} homographies, {H}x{W}, one launch]: "
+            f"max_abs_err {err:.3g} (tol {WARP_TOL})")
+        if not err <= WARP_TOL:
+            raise AssertionError(f"kernel A disagrees on the training "
+                                 f"render ({what}): {err}")
+    ms = time_ms(lambda: kernels.warp_perspective_bilinear(imgs, hinv, H, W))
+    plain_ms = time_ms(lambda: warp.warp_perspective(imgs, hs), iters=5)
+    log(f"kernel A timing (training render): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms")
+
+    # the first step's pair through the v4 feature encoder, as the
+    # trainer's 'default' precision runs it
+    model = init_raft_params(RaftConfig(), seed=0)
+    model.load_state_dict(torch.load(init, map_location="cpu",
+                                     weights_only=True))
+    model.to(dev)
+    x = (2.0 * (torch.cat([imgs, warped]) / 255.0) - 1.0).permute(0, 3, 1, 2)
+    with torch.no_grad(), layers.precision_scope("default"):
+        f1, f2 = (f.permute(0, 2, 3, 1).contiguous()
+                  for f in model.fnet(x).split(TRAIN_BATCH))
+    del model
+    pyramid, _ = corr.corr_pyramid_fused(f1, f2, 4, out_dtype=torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(9)
+    grid = _cell_grid(dev, H1, W1).expand(TRAIN_BATCH, -1, -1, -1)
+    off = torch.randn(grid.shape, generator=g, device=dev) * 8
+    kind = (torch.arange(H1 * W1, device=dev) % 4).reshape(1, H1, W1, 1)
+    coords = torch.where(kind == 0, grid, grid + off)         # integers
+    coords = torch.where(kind == 3, grid + 20 * off, coords)  # far out
+    coords = coords.contiguous()
+    Q = coords.numel() // 2
+    got = kernels.corr_pyramid_lookup(pyramid, coords, radius)
+    want = corr.corr_lookup_plain(pyramid, coords, radius).reshape(Q, -1)
+    torch.cuda.synchronize()
+    errs["B"] = (got - want).abs().max().item()
+    log(f"kernel B [training pyramid, bf16 levels "
+        f"{'/'.join('%dx%d' % tuple(p.shape[1:]) for p in pyramid)}, "
+        f"Q={Q}]: max_abs_err {errs['B']:.3g} (exact expected)")
+    if errs["B"] != 0.0:
+        raise AssertionError(f"kernel B differs from its plain version on "
+                             f"the training pyramid: {errs['B']}")
+    gr = torch.randn((Q, 4 * (2 * radius + 1) ** 2), generator=g, device=dev)
+    errs["B'"] = _compare_lookup_backward(
+        kernels, corr, pyramid, coords.reshape(Q, 2), gr, radius,
+        "training pyramid")
+    del pyramid, f1, f2
+
+    errs["C"] = max(_compare_local_corr(
+        kernels, corr, _local_corr_case(corr, dev, H1, W1, dtype), dtype,
+        rtol, f"training grid {H1}x{W1}")
+        for dtype, rtol in ((torch.bfloat16, CORR_RTOL_BF16),
+                            (torch.float32, CORR_RTOL_FP32)))
+    lookups, _, _ = _compare_coord_lookups(kernels, corr, dev,
+                                           ((H1, W1, 4, 16),))
+    errs.update(lookups)
+    torch.cuda.empty_cache()
+    return errs
+
+
+def train_run(kernels, dev, argv):
+    """``train_wraft_torch.py`` (its ``run``) on ``argv``, counted from 0:
+    each step timed on the host clock between syncs, the fifth step traced
+    for the device's idle share. Returns the result and the numbers."""
+    import train_wraft_torch
+
+    step_s, idle = [], {}
+
+    def wrap_step(i, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 4:
+            out = []
+            ev = device_events(lambda: out.append(fn()))
+            n, busy, span, share = device_idle_share(None, ev)
+            idle.update(kernels=n, busy_ms=busy, span_ms=span, idle=share)
+            # kernels B and B' (corr_lookup_kernel, _backward_kernel)
+            for key, tag in (("b_ms", "corr_lookup_kernel"),
+                             ("bb_ms", "corr_lookup_backward_kernel")):
+                idle[key] = sum(e.time_range.elapsed_us() for e in ev
+                                if tag in e.name) / 1e3
+            loss = out[0]
+        else:
+            loss = fn()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        return loss
+
+    args = train_wraft_torch.parse_args(argv)
+    zero_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    res = train_wraft_torch.run(args, wrap_step=wrap_step)
+    torch.cuda.synchronize()
+    res["launches"] = read_counts(kernels)
+    res["step_s"] = step_s
+    res["idle"] = idle
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    steady = [t for i, t in enumerate(step_s) if i not in (0, 4)]
+    res["steady_s"] = sum(steady) / len(steady)
+    log(f"  losses {', '.join(f'{v:.4f}' for v in res['losses'])}; val EPE "
+        f"{', '.join(f'{s}: {e:.3f}' for s, e in res['val'])} px")
+    log(f"  first step {step_s[0]:.3f} s, steady {res['steady_s']:.4f} s a "
+        f"step ({min(steady):.4f}-{max(steady):.4f}), "
+        f"{TRAIN_BATCH / res['steady_s']:.1f} samples/s (the first and the "
+        f"traced step left out); peak device memory "
+        f"{res['peak_gib']:.2f} GiB; step 5 traced: {idle['kernels']} "
+        f"kernels, busy {idle['busy_ms']:.1f} of {idle['span_ms']:.1f} ms, "
+        f"idle {idle['idle']:.1%}, kernel B {idle['b_ms']:.3f} ms, B' "
+        f"{idle['bb_ms']:.3f} ms; launches {res['launches']}")
+    if res["rc"] != 0 or not all(np.isfinite(res["losses"])):
+        raise AssertionError("training: a non-finite loss")
+    return res
+
+
+def track_trained(kernels, dev, ckpt):
+    """The trained checkpoint served to the tracker through
+    ``WOFT_WRAFT_TORCH_CKPT`` (``RaftFlow`` via ``configs/WOFT.py``): 4
+    frames of the 720p walk, counted from 0."""
+    from woft_tpu_torch.config import load_config
+    from woft_tpu_torch.tracker import WOFTTracker
+
+    prev = os.environ.get("WOFT_WRAFT_TORCH_CKPT")
+    os.environ["WOFT_WRAFT_TORCH_CKPT"] = str(ckpt)
+    try:
+        conf = load_config(os.path.join(ROOT, "woft_tpu_torch", "configs",
+                                        "WOFT.py"))
+    finally:
+        if prev is None:
+            del os.environ["WOFT_WRAFT_TORCH_CKPT"]
+        else:
+            os.environ["WOFT_WRAFT_TORCH_CKPT"] = prev
+    if os.path.abspath(str(conf.flow_config.model)) != os.path.abspath(
+            str(ckpt)):
+        raise AssertionError(f"WOFT.py loads {conf.flow_config.model}, not "
+                             f"the trained checkpoint")
+    template, frames, poses = walk(H_IMG, W_IMG, dev, n=4)
+    mask, corners = centred_mask(H_IMG, W_IMG, 0.5)
+    tracker = WOFTTracker(conf, device=dev)
+    zero_counts(kernels)
+    tracker.init(template, mask)
+    hs = [tracker.track(f)[0] for f in frames]
+    torch.cuda.synchronize()
+    launches = read_counts(kernels)
+    errs = corner_errors(hs, poses, corners)
+    log(f"trained checkpoint under WOFT.py, 4 frames of the 720p walk: "
+        f"corner error {', '.join(f'{e:.3f}' for e in errs)} px; launches "
+        f"{launches}")
+    if not all(np.isfinite(h).all() for h in hs):
+        raise AssertionError("trained checkpoint: non-finite homography")
+    check_counts("trained checkpoint", launches,
+                 {"warp_perspective_bilinear": 4,
+                  "corr_pyramid_lookup": 13 * 4},
+                 ("warp_perspective_bilinear", "corr_pyramid_lookup"), 4, 4)
+    return dict(launches=launches, corner_px=errs)
+
+
+def check_local_grads(kernels, dev, init):
+    """C, D and E under grad: one whole-net gradient at B = 1, 288x384,
+    with the block-local path on the kernels (C forward, D and E forward;
+    the plain versions' VJPs backward), held to the dense path's (B, B')
+    on every parameter, float32, the trained weights."""
+    from woft_tpu_torch.models.raft import (RaftConfig, init_raft_params,
+                                            train_forward)
+
+    H, W = TRAIN_HW
+    model = init_raft_params(RaftConfig(), seed=0)
+    model.load_state_dict(torch.load(init, map_location="cpu",
+                                     weights_only=True))
+    model.to(dev)
+    img1 = torch.tensor(textured_frame(H, W, seed=30), dtype=torch.float32,
+                        device=dev).flip(-1)[None].contiguous()
+    shift = pose(0.01, 1.01, 3.0, -2.0, center=(W / 2, H / 2)).to(dev)
+    from woft_tpu_torch.ops.warp import warp_perspective
+    img2 = warp_perspective(img1, shift)
+    gt = torch.randn((1, H, W, 2), generator=torch.Generator(
+        device=dev).manual_seed(3), device=dev)
+
+    def grads(cfg):
+        model.zero_grad()
+        zero_counts(kernels)
+        out = train_forward(model, cfg, img1, img2)
+        loss = ((out["flow_up"] - gt).abs().mean()
+                + out["weights_up"].mean())
+        loss.backward()
+        torch.cuda.synchronize()
+        return [p.grad.clone() for p in model.parameters()], \
+            read_counts(kernels)
+
+    dense, n_dense = grads(RaftConfig())
+    local, n_local = grads(RaftConfig(corr_impl="local"))
+    check_counts("local gradient", n_local,
+                 {"local_corr_build": 1, "local_lookup_coords": 13,
+                  "local_lookup_exact_coords": 13},
+                 ("local_corr_build", "local_lookup_coords",
+                  "local_lookup_exact_coords"))
+    check_counts("dense gradient", n_dense,
+                 {"corr_pyramid_lookup": 13,
+                  "corr_pyramid_lookup_backward": 13},
+                 ("corr_pyramid_lookup", "corr_pyramid_lookup_backward"))
+    worst, worst_name = 0.0, ""
+    for (name, _), a, b in zip(model.named_parameters(), local, dense):
+        excess = ((a - b).abs() - LOCAL_GRAD_TOL * (1 + b.abs())).max()
+        if excess.item() > worst or not worst_name:
+            worst, worst_name = excess.item(), name
+        if excess.item() > 0:
+            raise AssertionError(f"C, D, E under grad: {name}'s gradient "
+                                 f"differs from the dense path's by more "
+                                 f"than atol = rtol = {LOCAL_GRAD_TOL}")
+    err = max((a - b).abs().max().item() for a, b in zip(local, dense))
+    log(f"C, D, E under grad (B = 1, 288x384, 12 iters, float32): every "
+        f"parameter's gradient within atol = rtol = {LOCAL_GRAD_TOL} of "
+        f"the dense path's; max abs difference {err:.3g}; launches "
+        f"{n_local}")
+    return dict(max_abs_err=err, launches=n_local)
+
+
+def _recording_head(record):
+    """``models/raft.py:weight_head_apply``, each ReLU's pre-activation
+    appended to ``record`` (detached)."""
+    from woft_tpu_torch.models import raft
+
+    def apply(head, corr_sample, mean_response):
+        B, H1, W1, Kp, _, L = corr_sample.shape
+        n = B * H1 * W1
+        x = corr_sample.reshape(n, Kp, Kp, L)
+        mean = mean_response.reshape(n, 1, 1, 1).expand(n, Kp, Kp, 1)
+        x = torch.cat([x, mean], dim=-1).permute(0, 3, 1, 2)
+        for mod in head.net:
+            if isinstance(mod, torch.nn.Conv2d):
+                x = raft.conv(mod, x)
+            else:
+                record.append(x.detach())
+                x = F.relu(x)
+        return x.mean(dim=(2, 3)).reshape(B, H1, W1, 1)
+
+    return apply
+
+
+def check_train_card_vs_cpu(dev):
+    """One weight-head-only step at 64x96, batch 2, 2 iterations,
+    ``precision='highest'`` (grid subsampling: no data-dependent
+    selection), on the card and on the CPU path with the same batch and
+    weights: the loss and the weight head's gradients, relative to the
+    largest, and where their difference arises. The head's ReLU
+    pre-activations are recorded on both devices and their sign flips
+    counted; the loss's gradient with respect to the upsampled weight map
+    (``weights_up``, the head's output as the fit reads it) is compared;
+    the card's head backward is run on the CPU's gradient of that map; and
+    the fit and loss alone (``woft_loss`` on given flow and weights) run on
+    the card from the CPU's flow and weights."""
+    from woft_tpu_torch.models import raft
+    from woft_tpu_torch.models.raft import RaftConfig, init_raft_params
+    from woft_tpu_torch.training import train
+    from woft_tpu_torch.training.synth import synth_homography_batch
+
+    cfg = RaftConfig(iters=2)
+    tcfg = train.TrainConfig(subsample="grid", max_tc=400)
+    rng = np.random.default_rng(4)
+    imgs = torch.tensor(rng.uniform(0, 255, (2, 64, 96, 3)),
+                        dtype=torch.float32)
+    batch = synth_homography_batch(torch.Generator().manual_seed(5), imgs,
+                                   max_corner_shift=0.05)
+    plain_head, plain_forward = raft.weight_head_apply, train.train_forward
+
+    def patched(head=plain_head, forward=plain_forward):
+        raft.weight_head_apply, train.train_forward = head, forward
+
+    def step(d):
+        model = init_raft_params(cfg, seed=0, device=d)
+        tx = train.make_optimizer(model, tcfg)
+        pre, out = [], {}
+
+        def forward(*args, **kw):
+            out.update(plain_forward(*args, **kw))
+            return out
+
+        patched(_recording_head(pre), forward)
+        try:
+            loss = train.woft_loss(model, cfg, tcfg,
+                                   {k: v.to(d) for k, v in batch.items()})
+        finally:
+            patched()
+        d_wu, *grads = torch.autograd.grad(
+            loss, [out["weights_up"]] + tx.params, retain_graph=True)
+        return dict(loss=loss.item(), grads=grads, d_wu=d_wu, pre=pre,
+                    out=out, params=tx.params)
+
+    cpu, card = step("cpu"), step(dev)
+
+    def rel(got, want):
+        return max((a.cpu() - b).abs().max().item() / b.abs().max().item()
+                   for a, b in zip(got, want))
+
+    flips = [int(((a > 0) != (b.cpu() > 0)).sum())
+             for a, b in zip(cpu["pre"], card["pre"])]
+    l_err = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    g_err = rel(card["grads"], cpu["grads"])
+    wu_err = rel([card["out"]["weights_up"]], [cpu["out"]["weights_up"]])
+    d_wu_err = rel([card["d_wu"]], [cpu["d_wu"]])
+    # the card's head backward on the CPU's gradient of the weight map
+    head_err = rel(torch.autograd.grad(
+        card["out"]["weights_up"], card["params"], cpu["d_wu"].to(dev)),
+        cpu["grads"])
+    # the CPU's head backward on the card's gradient of the weight map
+    map_err = rel(torch.autograd.grad(
+        cpu["out"]["weights_up"], cpu["params"], card["d_wu"].cpu()),
+        cpu["grads"])
+    # the last layer's bias gradient is the map's gradient summed: how far
+    # the sum cancels
+    cancel = (cpu["d_wu"].sum().abs() / cpu["d_wu"].abs().sum()).item()
+    # the fit and the loss alone on the card, from the CPU's flow and map
+    given = {k: cpu["out"][k].detach().to(dev).requires_grad_(k != "flow_up")
+             for k in ("flow_up", "weights_up")}
+    patched(forward=lambda *args, **kw: given)
+    try:
+        fit_loss = train.woft_loss(None, cfg, tcfg,
+                                   {k: v.to(dev) for k, v in batch.items()})
+    finally:
+        patched()
+    fit_err = rel(torch.autograd.grad(fit_loss, given["weights_up"]),
+                  [cpu["d_wu"]])
+    log(f"one weight-head step 64x96 x2, card vs CPU: loss "
+        f"{card['loss']:.6f} vs {cpu['loss']:.6f} (relative {l_err:.3g}), "
+        f"head gradients {g_err:.3g} of their largest (tol "
+        f"{TRAIN_CARD_CPU_REL}); the head's ReLU pre-activations change "
+        f"sign at {flips} of {[a.numel() for a in cpu['pre']]}; weights_up "
+        f"{wu_err:.3g} (tol {TRAIN_FORWARD_REL}), the loss's gradient of "
+        f"weights_up {d_wu_err:.3g}, of which the fit and loss alone on the "
+        f"CPU's flow and weights_up {fit_err:.3g} (tol {TRAIN_PART_REL}); "
+        f"the head gradients the CPU's head backward gives from the card's "
+        f"gradient of weights_up {map_err:.3g}, the card's head backward "
+        f"from the CPU's {head_err:.3g} (tol {TRAIN_PART_REL}); that "
+        f"gradient's sum (the last bias's) is {cancel:.3g} of its absolute "
+        f"sum")
+    if not (l_err <= TRAIN_CARD_CPU_REL and g_err <= TRAIN_CARD_CPU_REL):
+        raise AssertionError("training step: the card disagrees with the CPU")
+    if not (wu_err <= TRAIN_FORWARD_REL and fit_err <= TRAIN_PART_REL
+            and head_err <= TRAIN_PART_REL):
+        raise AssertionError("training step: the forward, the fit's "
+                             "backward or the head's backward disagrees "
+                             "with the CPU's")
+    return dict(loss_rel=l_err, grad_rel=g_err, flips=flips,
+                weights_up_rel=wu_err, d_weights_up_rel=d_wu_err,
+                fit_alone_rel=fit_err, from_map_rel=map_err,
+                head_backward_rel=head_err, cancel=cancel)
+
+
+def track_training(kernels, corr, warp, dev):
+    """The training phase. Returns its numbers."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    out = {"bwd": check_lookup_backward(kernels, corr, dev)}
+    init = os.path.join(ROOT, "weights", "wraft_tpu_v4_torch.pt")
+    v4 = torch.load(init, map_location="cpu", weights_only=True)
+    H, W = TRAIN_HW
+    with tempfile.TemporaryDirectory() as tmp:
+        images = os.path.join(tmp, "images")
+        write_train_images(images)
+        out["shapes"] = check_training_shapes(kernels, corr, warp, dev,
+                                              images, init)
+        common = ["--images", images, "--size", f"{H}x{W}", "--batch",
+                  str(TRAIN_BATCH), "--steps", str(TRAIN_STEPS), "--iters",
+                  "12", "--log-every", "1", "--val-every",
+                  str(TRAIN_VAL_EVERY), "--ckpt-every", str(TRAIN_VAL_EVERY)]
+        n_val = len(range(0, TRAIN_STEPS, TRAIN_VAL_EVERY))
+        head = os.path.join(tmp, "head.pt")
+        log(f"--- train_wraft_torch.py: WeightedRAFT-large, {H}x{W}, batch "
+            f"{TRAIN_BATCH}, 12 iters, precision 'default', weight head "
+            f"only, lr 1e-3, from the v4 export")
+        runs = {"weight head": train_run(kernels, dev, common + [
+            "--lr", "1e-3", "--init", init, "--out", head])}
+        after = torch.load(head, map_location="cpu", weights_only=True)
+        for k, v in v4.items():
+            head_key = k.split(".")[0] in ("weight_head", "mask_head")
+            if not head_key and not torch.equal(after[k], v):
+                raise AssertionError(f"weight-head training moved frozen {k}")
+        if not any(not torch.equal(after[k], v) for k, v in v4.items()
+                   if k.startswith("weight_head.")):
+            raise AssertionError("weight-head training left the head as is")
+        full = os.path.join(tmp, "full.pt")
+        log("--- train_wraft_torch.py --train-flow: the whole net, lr 1e-5, "
+            "from the weight-head run's checkpoint")
+        runs["whole net"] = train_run(kernels, dev, common + [
+            "--lr", "1e-5", "--train-flow", "--init", head, "--out", full])
+        trained = torch.load(full, map_location="cpu", weights_only=True)
+        still = [k for k, v in after.items() if v.is_floating_point()
+                 and not k.endswith(("running_mean", "running_var"))
+                 and torch.equal(trained[k], v)]
+        if still:
+            raise AssertionError(f"--train-flow left {len(still)} parameters "
+                                 f"as they were: {still[:4]}")
+        # a step: one render (A) and 13 lookups (B); each validation: 13
+        # lookups (its render was one more A, at set-up); B' 13 a step
+        # with --train-flow, none for the weight head alone
+        for what, res in runs.items():
+            want = {"warp_perspective_bilinear": TRAIN_STEPS + 1,
+                    "corr_pyramid_lookup": 13 * (TRAIN_STEPS + n_val),
+                    "corr_pyramid_lookup_backward":
+                        13 * TRAIN_STEPS if what == "whole net" else 0}
+            check_counts(f"training ({what})", res["launches"], want,
+                         tuple(want), TRAIN_STEPS, TRAIN_STEPS + n_val)
+        out["runs"] = runs
+        torch.cuda.empty_cache()
+        out["tracked"] = track_trained(kernels, dev, full)
+    torch.cuda.empty_cache()
+    out["local"] = check_local_grads(kernels, dev, init)
+    out["card_vs_cpu"] = check_train_card_vs_cpu(dev)
+    log(f"training phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3531,6 +4201,12 @@ def main():
     # form, the POT path, the demo with its debug overlays, track_video
     torch.cuda.empty_cache()
     entry = track_eval_entry(kernels, warp, dev)
+
+    # training: B' at the training shape, train_wraft_torch.py in both
+    # modes at full width, the trained checkpoint tracked, C, D and E
+    # under grad, one step card vs CPU
+    torch.cuda.empty_cache()
+    train = track_training(kernels, corr, warp, dev)
 
     # launches: A and B on the WOFT.py path, C, D, E (the last two from
     # coordinates) on the WOFT_fast.py
@@ -3652,6 +4328,35 @@ def main():
             for what, res in entry_runs.items()
             if res["launches"][row["name"]]}
     rows[0]["render_shape"] = entry["render"]
+    # training: A (the synthetic render, one a step, and the validation
+    # batch's) and B (13 a step, 13 a validation) in both modes; C, D, E
+    # on the block-local gradient at B = 1; B' (13 a step with
+    # --train-flow), its times on bf16 levels, the trainer's precision;
+    # each kernel's error against its plain version at the training shapes
+    for row, kernel in zip(rows[:5], "ABCDE"):
+        row["train_max_abs_err"] = train["shapes"][kernel]
+        row["train_launches"] = {
+            what: res["launches"][row["name"]]
+            for what, res in {**train["runs"],
+                              "block-local gradient, B = 1":
+                                  train["local"]}.items()
+            if res["launches"][row["name"]]}
+    bwd = train["bwd"]
+    rows.append(dict(
+        name="corr_pyramid_lookup_backward", route="cuda",
+        source="woft_tpu_torch/csrc/corr_lookup.cu",
+        replaces="woft_tpu/models/corr.py:919",
+        launches=train["runs"]["whole net"]["launches"][
+            "corr_pyramid_lookup_backward"],
+        train_launches={what: res["launches"]["corr_pyramid_lookup_backward"]
+                        for what, res in train["runs"].items()},
+        note="kernel B', the backward of B: woft_tpu's training "
+             "differentiates its XLA one-hot lookup (corr_lookup at "
+             "woft_tpu/models/corr.py:919; fused_corr_lookup has no VJP); "
+             "launches: --train-flow, 6 steps; times: bf16 levels, Q=6912 "
+             "(batch 4 of 288x384), the float32 form in 'float32'",
+        train_max_abs_err=train["shapes"]["B'"],
+        float32=bwd["float32"], **bwd["bfloat16"]))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,7 +24,9 @@ CV2_IMPORTER = ("woft_tpu_torch/geometry/homography.py", "_cv2")
 
 def _port_files():
     return sorted((ROOT / "woft_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", *sorted((ROOT / "tools").glob("torch_*.py"))]
+        ROOT / "chip_smoke.py", ROOT / "train_wraft_torch.py",
+        ROOT / "eval_woft_torch.py", ROOT / "WOFT_demo_torch.py",
+        *sorted((ROOT / "tools").glob("torch_*.py"))]
 
 
 def _imported_modules(tree):
@@ -75,8 +77,8 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(entry, config,
 
 
 _WRAPPERS = [kernels.warp_perspective_bilinear, kernels.corr_pyramid_lookup,
-             kernels.local_corr_build, kernels.local_lookup_fine_multi,
-             kernels.local_lookup_fine, kernels.local_lookup_exact,
+             kernels.corr_pyramid_lookup_backward, kernels.local_corr_build,
+             kernels.local_lookup_fine_multi, kernels.local_lookup_fine, kernels.local_lookup_exact,
              warp.warp_perspective_fast, warp.warp_axis_aligned,
              corr.corr_lookup,
              corr.block_local_corr, corr.block_local_corr_levels,
@@ -98,6 +100,9 @@ def test_launch_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         kernels.corr_pyramid_lookup([torch.zeros(4, 2, 2)],
                                     torch.zeros(4, 2), 4)
+    with pytest.raises(ValueError):
+        kernels.corr_pyramid_lookup_backward(
+            [torch.zeros(4, 2, 2)], torch.zeros(4, 2), torch.zeros(4, 81), 4)
     vol = torch.zeros(1, 12, 12, 128)
     starts = torch.zeros(2, 1, 128, dtype=torch.int32)
     frac = torch.zeros(2, 1, 128)
@@ -117,13 +122,17 @@ def test_launch_wrappers_refuse_cpu_tensors():
 
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     counted = (kernels.warp_perspective_bilinear, kernels.corr_pyramid_lookup,
-               kernels.local_corr_build, kernels.local_lookup_fine_multi,
+               kernels.corr_pyramid_lookup_backward, kernels.local_corr_build, kernels.local_lookup_fine_multi,
                kernels.local_lookup_fine, kernels.local_lookup_exact)
     before = [fn.launches for fn in counted]
     warp.warp_perspective_fast(torch.rand(1, 16, 16, 3), torch.eye(3))
     warp.warp_axis_aligned(torch.rand(1, 16, 16, 3),
                            torch.diag(torch.tensor([0.5, 0.5, 1.0])), (8, 8))
     corr.corr_lookup([torch.rand(4, 4, 4)], torch.rand(1, 2, 2, 2), 1)
+    # under grad: the autograd Function's CPU path, forward and backward
+    pyr = [torch.rand(4, 4, 4, requires_grad=True)]
+    corr.corr_lookup(pyr, torch.rand(1, 2, 2, 2), 1).sum().backward()
+    assert pyr[0].grad is not None
     local = corr.build_local_corr(torch.rand(1, 8, 16, 32),
                                   torch.rand(1, 8, 16, 32), 4, 2, 8)
     coords = torch.rand(1, 8, 16, 2) * 8

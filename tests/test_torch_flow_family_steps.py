@@ -305,10 +305,17 @@ def test_raft_flow_outputs_by_variant(raft_type, n_flow, n_tc):
 
 
 def test_raft_small_is_not_ported():
+    """RAFT-small is ported since training (the test's name is older): the
+    flow config's ``class_params.small`` builds it, and the RAFT-large
+    checkpoint the config names does not load into it."""
     conf = _flow_conf("wraft_large.py")
     conf.class_params.small = True
-    with pytest.raises(NotImplementedError, match="RAFT-small is not ported"):
+    with pytest.raises(RuntimeError, match="size mismatch"):
         RaftFlow(conf, device="cpu")
+    conf.model = None
+    flower = RaftFlow(conf, device="cpu")
+    assert flower.cfg.small and flower.cfg.radius == 3
+    assert isinstance(flower.model.update_block, traft.SmallUpdateBlock)
 
 
 def test_partial_checkpoints_merge(caplog):

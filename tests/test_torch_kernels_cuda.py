@@ -201,6 +201,59 @@ def test_lookup_kernel_matches_plain(dev, radius, levels, hw):
     assert got[0, 0, 3:11].abs().amax(-1).min().item() > 0.0
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bf16"])
+@pytest.mark.parametrize("radius,levels,hw", LOOKUP_GRID, ids=LOOKUP_IDS)
+def test_lookup_backward_kernel_matches_plain(dev, radius, levels, hw,
+                                              dtype):
+    """Kernel B' against autograd through the plain lookup (levels widened
+    to float32, each gradient rounded once to the level's dtype): float32
+    sums in another order, so 1e-5 of the largest magnitude, plus one bf16
+    ulp of the value for bf16 levels."""
+    pyr, coords = _lookup_case(dev, levels, hw)
+    pyr = [p.to(dtype).contiguous() for p in pyr]
+    flat = coords.reshape(-1, 2).contiguous()
+    k = 2 * radius + 1
+    g = torch.randn(flat.shape[0], levels * k * k, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(2))
+    n0 = kernels.corr_pyramid_lookup_backward.launches
+    d_lv, d_c = kernels.corr_pyramid_lookup_backward(pyr, flat, g, radius)
+    p_lv, p_c = corr.corr_lookup_backward_plain(pyr, flat, g, radius)
+    torch.cuda.synchronize()
+    assert kernels.corr_pyramid_lookup_backward.launches == n0 + 1
+    for a, b in zip(d_lv, p_lv):
+        assert a.dtype == dtype and a.shape == b.shape
+        a, b = a.float(), b.float()
+        tol = 1e-5 * b.abs().max().item()
+        if dtype == torch.bfloat16:
+            tol = tol + torch.exp2(torch.floor(torch.log2(
+                b.abs().clamp(min=1e-30))) - 7)
+        assert ((a - b).abs() <= tol).all()
+    assert (d_c - p_c).abs().max().item() <= 1e-5 * p_c.abs().max().item()
+    assert d_c[:2].abs().max().item() == 0.0     # wholly outside
+
+
+def test_lookup_function_launches_b_and_b_prime(dev):
+    """Under grad, ``corr_lookup`` goes through its ``autograd.Function``:
+    one launch of B forward, one of B' backward."""
+    pyr, coords = _lookup_case(dev, 4, (23, 37))
+    pyr = [p.requires_grad_() for p in pyr]
+    c = coords.clone().requires_grad_()
+    n_b = kernels.corr_pyramid_lookup.launches
+    n_bb = kernels.corr_pyramid_lookup_backward.launches
+    out = corr.corr_lookup(pyr, c, 4)
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    assert kernels.corr_pyramid_lookup.launches == n_b + 1
+    assert kernels.corr_pyramid_lookup_backward.launches == n_bb + 1
+    lv = [p.detach().requires_grad_() for p in pyr]
+    c2 = coords.clone().requires_grad_()
+    corr.corr_lookup_plain(lv, c2, 4).square().sum().backward()
+    for a, b in zip(pyr, lv):
+        assert (a.grad - b.grad).abs().max() <= 1e-5 * b.grad.abs().max()
+    assert (c.grad - c2.grad).abs().max() <= 1e-5 * c2.grad.abs().max()
+
+
 @pytest.mark.parametrize("radius,levels,hw", LOOKUP_GRID, ids=LOOKUP_IDS)
 def test_indexed_lookup_kernel(dev, radius, levels, hw):
     pyr, coords = _lookup_case(dev, levels, hw)

@@ -66,6 +66,36 @@
 // same bf16 levels bit for bit. At 720p its reads halve (about 11.5 MB of
 // windows) and the 18.7 MB output stays: the byte bound falls by about a
 // quarter, not by half.
+//
+// Kernel B' (woft_corr_lookup_backward, _bf16): the backward of B for
+// rows = query, which the training forward's 13 lookups a flow take
+// (models/corr.py:_CorrLookup). The JAX package differentiates its XLA
+// lookup there; it has no backward kernel. Given g = dL/d(out) (Q,
+// L*(2r+1)^2) float32 it writes d_levels[l] (Q, hl, wl) in the level's
+// dtype and d_coords (Q, 2) float32, the VJP of the plain lookup
+// (models/corr.py:corr_lookup_backward_plain): a tap outside the level
+// gives neither value nor gradient, the floor's gradient is zero, each
+// level's coordinate gradient is scaled by 2^-l.
+//
+// Bound on the H100: device-memory bytes. Query q reads row q of each
+// level only, so its gradient is zero outside a (2r+2)^2 patch of row q,
+// but every row is written whole: at batch 4 of 288x384 (Q = 6,912, the
+// 36x48 grid and its three pooled levels, 2,292 floats a query) that is
+// 63.4 MB of float32 rows (31.7 MB of bf16), plus g (9.0 MB) and the
+// patches of the levels read for the coordinate gradient: ~0.022 ms at
+// 3.35 TB/s. The arithmetic is ~30 flops a tap.
+//
+// Design: one warp per (query, level), the block and the tests of B (32,
+// L, 8 / L). The warp stages its (2r+2)^2 window of the level (zeros
+// outside it) and its (2r+1)^2 slice of g in shared memory, computes the
+// patch's gradient there (each cell gathers the up-to-four taps whose
+// corners land on it, w00, w10, w01, w11 terms in that order) and its
+// share of the coordinate gradient (a warp sum), then writes its whole row
+// of d_levels in one coalesced pass, zeros outside the patch: no atomics,
+// no memset, the same result every run. The L warps of a query put their
+// coordinate sums in shared memory, and the level-0 warp adds them in
+// level order. Sums are float32 and rounded once to bf16 for bf16 levels.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -215,6 +245,198 @@ int lookup(const void* const* level_ptrs, const int* hs, const int* ws,
   return (int)cudaGetLastError();
 }
 
+__device__ __forceinline__ void store_grad(float* p, float v) { *p = v; }
+
+__device__ __forceinline__ void store_grad(unsigned short* p, float v) {
+  *p = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+struct GradLevels {
+  void* ptr[kMaxLevels];            // float or bf16 (unsigned short) rows
+};
+
+template <int R, typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+    corr_lookup_backward_kernel(const __grid_constant__ Levels lv,
+                                const __grid_constant__ GradLevels dlv,
+                                const float* __restrict__ coords,
+                                const float* __restrict__ g, int q,
+                                float* __restrict__ d_coords) {
+  constexpr int kK = 2 * R + 1;
+  constexpr int kKK = kK * kK;
+  constexpr int kSide = kK + 1;
+  constexpr int kPitch = kSide + 1;
+  constexpr int kLpr = kSide <= 4 ? 4 : kSide <= 8 ? 8 : kSide <= 16 ? 16 : 32;
+  constexpr int kRowsPerLoad = 32 / kLpr;
+  constexpr int kLoads = (kSide + kRowsPerLoad - 1) / kRowsPerLoad;
+  __shared__ float vals[kWarps][kSide * kPitch];   // the level's window
+  __shared__ float grads[kWarps][kSide * kPitch];  // the patch's gradient
+  __shared__ float gs[kWarps][kKK];                // this level's g
+  __shared__ float2 dxy[kWarps];                   // coordinate sums
+  const int lane = threadIdx.x;
+  const int l = threadIdx.y;
+  const int warp = threadIdx.z * blockDim.y + l;
+  const int qi = blockIdx.x * blockDim.z + threadIdx.z;
+  const bool active = qi < q;      // no return: the block syncs below
+  const int hl = lv.h[l];
+  const int wl = lv.w[l];
+  const float inv_scale = __int_as_float((127 - l) << 23);   // 2^-l, exact
+  const float x = active ? coords[2 * qi] * inv_scale : 0.f;
+  const float y = active ? coords[2 * qi + 1] * inv_scale : 0.f;
+  // as in B: the whole window outside the level gives zero everywhere
+  const bool inside = active && x > -(float)(R + 2) &&
+                      x < (float)(wl + R + 1) && y > -(float)(R + 2) &&
+                      y < (float)(hl + R + 1);
+  float* s = vals[warp];
+  float* d = grads[warp];
+  float* gw = gs[warp];
+  float dx = 0.f, dy = 0.f;
+  int gx0 = 0, gy0 = 0;
+  if (inside) {
+    const float x0f = floorf(x);
+    const float y0f = floorf(y);
+    const float fx = x - x0f;
+    const float fy = y - y0f;
+    gx0 = (int)x0f - R;
+    gy0 = (int)y0f - R;
+    const float w00 = (1.f - fx) * (1.f - fy);
+    const float w10 = fx * (1.f - fy);
+    const float w01 = (1.f - fx) * fy;
+    const float w11 = fx * fy;
+    const T* base =
+        static_cast<const T*>(lv.ptr[l]) + (long long)qi * (hl * wl);
+    const int rx = lane % kLpr;
+    const int ry = lane / kLpr;
+    const int gx = gx0 + rx;
+    const bool in_x = rx < kSide && (unsigned)gx < (unsigned)wl;
+#pragma unroll
+    for (int n = 0; n < kLoads; ++n) {
+      const int wy = ry + n * kRowsPerLoad;
+      const int gy = gy0 + wy;
+      const bool valid = in_x && (unsigned)gy < (unsigned)hl;
+      const float v = valid ? load_widened(base + (gy * wl + gx)) : 0.f;
+      if (rx < kSide && wy < kSide) s[wy * kPitch + rx] = v;
+    }
+    const float* grow = g + (size_t)qi * (blockDim.y * kKK) + l * kKK;
+    for (int c = lane; c < kKK; c += 32) gw[c] = grow[c];
+    __syncwarp();
+    // the coordinate gradient: channel c = i*kK + j samples window cell
+    // (row j, column i); d/dfx of the blend and d/dfy
+    for (int c = lane; c < kKK; c += 32) {
+      const int i = c / kK;
+      const int j = c - i * kK;
+      const float* p = s + j * kPitch + i;
+      const float gc = gw[c];
+      dx = dx + gc * ((p[1] - p[0]) * (1.f - fy) +
+                      (p[kPitch + 1] - p[kPitch]) * fy);
+      dy = dy + gc * ((p[kPitch] - p[0]) * (1.f - fx) +
+                      (p[kPitch + 1] - p[1]) * fx);
+    }
+    // the patch's gradient: cell (wy, wx) is corner (dy, dx) of the tap at
+    // (j, i) = (wy - dy, wx - dx)
+    for (int e = lane; e < kSide * kSide; e += 32) {
+      const int wy = e / kSide;
+      const int wx = e - wy * kSide;
+      float acc = 0.f;
+      if (wy < kK && wx < kK) acc = acc + gw[wx * kK + wy] * w00;
+      if (wy < kK && wx > 0) acc = acc + gw[(wx - 1) * kK + wy] * w10;
+      if (wy > 0 && wx < kK) acc = acc + gw[wx * kK + wy - 1] * w01;
+      if (wy > 0 && wx > 0) acc = acc + gw[(wx - 1) * kK + wy - 1] * w11;
+      d[wy * kPitch + wx] = acc;
+    }
+    __syncwarp();
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    dx += __shfl_xor_sync(0xffffffffu, dx, off);
+    dy += __shfl_xor_sync(0xffffffffu, dy, off);
+  }
+  if (lane == 0) dxy[warp] = make_float2(dx * inv_scale, dy * inv_scale);
+
+  // the whole row, zeros outside the patch, walked in raster order
+  if (active) {
+    T* out = static_cast<T*>(dlv.ptr[l]) + (long long)qi * (hl * wl);
+    const int n = hl * wl;
+    int gy = lane / wl;
+    int gx = lane - gy * wl;
+    const int step_y = 32 / wl;
+    const int step_x = 32 - step_y * wl;
+    for (int e = lane; e < n; e += 32) {
+      const int wy = gy - gy0;
+      const int wx = gx - gx0;
+      const float v = inside && (unsigned)wy < (unsigned)kSide &&
+                              (unsigned)wx < (unsigned)kSide
+                          ? d[wy * kPitch + wx]
+                          : 0.f;
+      store_grad(out + e, v);
+      gx += step_x;
+      gy += step_y;
+      if (gx >= wl) {
+        gx -= wl;
+        ++gy;
+      }
+    }
+  }
+  __syncthreads();
+  if (active && l == 0 && lane == 0) {
+    float sx = 0.f, sy = 0.f;
+    for (int m = 0; m < (int)blockDim.y; ++m) {
+      const float2 v = dxy[threadIdx.z * blockDim.y + m];
+      sx = sx + v.x;
+      sy = sy + v.y;
+    }
+    d_coords[2 * qi] = sx;
+    d_coords[2 * qi + 1] = sy;
+  }
+}
+
+template <int R, typename T>
+void launch_backward(const Levels& lv, const GradLevels& dlv, int num_levels,
+                     const float* coords, const float* g, int q,
+                     float* d_coords, cudaStream_t stream) {
+  const int per_block = kWarps / num_levels;
+  const dim3 block(32, num_levels, per_block);
+  corr_lookup_backward_kernel<R, T>
+      <<<(q + per_block - 1) / per_block, block, 0, stream>>>(
+          lv, dlv, coords, g, q, d_coords);
+}
+
+template <typename T>
+int lookup_backward(const void* const* level_ptrs, void* const* grad_ptrs,
+                    const int* hs, const int* ws, int num_levels,
+                    const float* coords, const float* g, long long q,
+                    int radius, float* d_coords, void* stream) {
+  if (num_levels < 1 || num_levels > kMaxLevels || radius < 0 ||
+      radius > kMaxRadius || q < 1 || q * num_levels > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Levels lv = {};
+  GradLevels dlv = {};
+  for (int l = 0; l < num_levels; ++l) {
+    lv.ptr[l] = level_ptrs[l];
+    dlv.ptr[l] = grad_ptrs[l];
+    lv.h[l] = hs[l];
+    lv.w[l] = ws[l];
+  }
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int n = (int)q;
+  switch (radius) {
+#define WOFT_BWD(r) \
+  launch_backward<r, T>(lv, dlv, num_levels, coords, g, n, d_coords, s)
+    case 0: WOFT_BWD(0); break;
+    case 1: WOFT_BWD(1); break;
+    case 2: WOFT_BWD(2); break;
+    case 3: WOFT_BWD(3); break;
+    case 4: WOFT_BWD(4); break;
+    case 5: WOFT_BWD(5); break;
+    case 6: WOFT_BWD(6); break;
+    case 7: WOFT_BWD(7); break;
+    default: WOFT_BWD(8);
+#undef WOFT_BWD
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // level_ptrs, hs, ws: host arrays of num_levels device pointers to (R, hl,
@@ -239,4 +461,30 @@ extern "C" int woft_corr_lookup_bf16(const void* const* level_ptrs,
                                      int radius, float* out, void* stream) {
   return lookup<unsigned short>(level_ptrs, hs, ws, num_levels, coords, rows,
                                 q, radius, out, stream);
+}
+
+// Kernel B': level_ptrs, hs, ws as above with R = q (row = query);
+// grad_ptrs: host array of num_levels device pointers to the (q, hl, wl)
+// gradient rows, float32, every element written; g (q, num_levels *
+// (2r+1)^2) float32; d_coords (q, 2) float32. Returns cudaGetLastError().
+extern "C" int woft_corr_lookup_backward(const void* const* level_ptrs,
+                                         void* const* grad_ptrs,
+                                         const int* hs, const int* ws,
+                                         int num_levels, const float* coords,
+                                         const float* g, long long q,
+                                         int radius, float* d_coords,
+                                         void* stream) {
+  return lookup_backward<float>(level_ptrs, grad_ptrs, hs, ws, num_levels,
+                                coords, g, q, radius, d_coords, stream);
+}
+
+// The same with bf16 levels and bf16 gradient rows (float32 sums, rounded
+// once to nearest even).
+extern "C" int woft_corr_lookup_backward_bf16(
+    const void* const* level_ptrs, void* const* grad_ptrs, const int* hs,
+    const int* ws, int num_levels, const float* coords, const float* g,
+    long long q, int radius, float* d_coords, void* stream) {
+  return lookup_backward<unsigned short>(level_ptrs, grad_ptrs, hs, ws,
+                                         num_levels, coords, g, q, radius,
+                                         d_coords, stream);
 }

@@ -11,8 +11,7 @@ PyTorch twin of ``woft_tpu/flow/wrapper.py``:
   happen downstream.
 
 ``config.raft_type`` ('weighted', 'orig', 'weighted_masked') picks
-``RaftConfig.variant`` (``class_params.small``, RAFT-small, is not
-ported);
+``RaftConfig.variant``, ``class_params.small`` RAFT-small;
 ``class_params.mask_head_structure`` (default three 128-channel 3x3
 layers under 'weighted_masked') and ``class_params.alternate_corr`` pass
 through, as do ``config.corr_impl`` ('dense' or 'local'),
@@ -61,8 +60,6 @@ def raft_config(config):
     """The ``RaftConfig`` of a flow config (``raft_type``, ``class_params``,
     ``iters``, ``corr_impl``, ``local_margin``, ``precision``)."""
     cp = config.class_params
-    if cp.small:
-        raise NotImplementedError("RAFT-small is not ported")
     variant = str(config.raft_type or "weighted")
     whs = cp.weight_head_structure or ()
     mhs = cp.mask_head_structure or (
@@ -75,7 +72,8 @@ def raft_config(config):
         alternate_corr=bool(cp.alternate_corr),
         corr_impl=str(config.corr_impl) if config.corr_impl else "dense",
         local_margin=int(config.local_margin or 16),
-        precision=str(config.precision) if config.precision else "highest")
+        precision=str(config.precision) if config.precision else "highest",
+        small=bool(cp.small))
 
 
 def load_model(cfg, path, device):

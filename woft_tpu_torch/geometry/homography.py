@@ -158,17 +158,27 @@ _TSQR_ROWS = 256
 def _lstsq_qr(A, b):
     """argmin_x ||A x - b|| by QR, each of the B systems on its own.
 
-    A: (B, M, n); b: (B, M, 1). One system takes Q explicitly. A batch
-    takes only the R of the augmented [A | b], whose last column is Q^T b
-    (the Householder reflectors of A's columns applied to b), by a
-    two-level tall-skinny QR: the R of each block of at most 256 rows,
-    then the R of the stacked blocks' Rs. The same least-squares solution,
-    and on the card a fixed number of launches for any B (the library
-    solver factors a tall matrix one system after another)."""
-    if A.shape[0] == 1:
-        q, r = torch.linalg.qr(A)                      # (1,M,n), (1,n,n)
+    A: (B, M, n); b: (B, M, 1). One system, or a system that autograd
+    records (grad mode on and ``A`` or ``b`` requiring grad: the training
+    loss), takes Q explicitly: the reduced QR, which torch differentiates,
+    as the JAX package's solver does. A batch under no grad (the trackers)
+    takes only the R of the augmented [A | b] (``_lstsq_tsqr``)."""
+    if A.shape[0] == 1 or (torch.is_grad_enabled()
+                           and (A.requires_grad or b.requires_grad)):
+        q, r = torch.linalg.qr(A)                      # (B,M,n), (B,n,n)
         return torch.linalg.solve_triangular(r, q.transpose(-1, -2) @ b,
                                              upper=True)
+    return _lstsq_tsqr(A, b)
+
+
+def _lstsq_tsqr(A, b):
+    """``_lstsq_qr`` of a batch from the R of the augmented [A | b] alone,
+    whose last column is Q^T b (the Householder reflectors of A's columns
+    applied to b), by a two-level tall-skinny QR: the R of each block of at
+    most 256 rows, then the R of the stacked blocks' Rs. The same
+    least-squares solution, and on the card a fixed number of launches for
+    any B (the library solver factors a tall matrix one system after
+    another). Torch cannot differentiate ``mode='r'``."""
     B, M, n = A.shape
     blocks = -(-M // _TSQR_ROWS)
     ab = F.pad(torch.cat([A, b], dim=-1), (0, 0, 0, blocks * _TSQR_ROWS - M))
@@ -246,6 +256,22 @@ def find_homography_dlt_svd(points1, points2, weights=None, *,
     h = vt[..., -1, :].reshape(-1, 3, 3)
     H = _inv_norm_transform(t2) @ (h @ t1)
     return H / (H[..., 2:3, 2:3] + _EPS)
+
+
+def reproj_errors(gt_h, est_h, pts_a):
+    """Forward by the ground truth, back by the estimate: the L2 distance
+    between ``pts_a`` and ``est_h^-1 gt_h pts_a`` (the training loss).
+    gt_h, est_h: (B, 3, 3); pts_a: (B, 2, N). Returns (B, N)."""
+    fwd = gt_h @ e2p(pts_a)
+    back = p2e(torch.linalg.solve_ex(est_h, fwd)[0])
+    return torch.linalg.norm(back - pts_a, dim=-2)
+
+
+def proj_diff_errors(gt_h, est_h, pts_a):
+    """L2 distance between the points projected by the ground truth and by
+    the estimate. Shapes as ``reproj_errors``."""
+    return torch.linalg.norm(h_proj(gt_h, pts_a) - h_proj(est_h, pts_a),
+                             dim=-2)
 
 
 def proj_errors(H, pts_a, pts_b):
@@ -348,3 +374,14 @@ def np_compose_h(*Hs):
             return None
     result = functools.reduce(np.dot, reversed(Hs))
     return result / result[2, 2]
+
+
+def np_reproj_errors(gt_h, est_h, pts_a, mean=True):
+    """Numpy twin of ``reproj_errors`` for one (3, 3) pair and (2, N)
+    points: the mean error, or the (N,) errors with ``mean=False``."""
+    fb = np_compose_h(gt_h, np.linalg.inv(est_h))
+    reproj = np_h_proj(fb, pts_a)
+    err = np.sqrt(np.sum(np.square(reproj - pts_a), axis=0))
+    if mean:
+        return float(np.mean(err))
+    return err

@@ -3,6 +3,7 @@ from .raft import (  # noqa: F401
     WeightedRAFT,
     encode_template,
     init_raft_params,
+    train_forward,
     weighted_raft_forward,
 )
 from .convert import params_from_jax_numpy, params_to_jax_numpy  # noqa: F401

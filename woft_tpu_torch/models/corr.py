@@ -119,6 +119,8 @@ def _lookup_level_plain(corr_l, coords, radius, rows):
     _, Hl, Wl = corr_l.shape
     Q = coords.shape[0]
     k = 2 * radius + 1
+    if Hl * Wl == 0:            # an empty level (tiny frames): every tap out
+        return coords.new_zeros((Q, k * k))
     x, y = coords[:, 0], coords[:, 1]
     x0 = torch.floor(x)
     y0 = torch.floor(y)
@@ -153,6 +155,56 @@ def corr_lookup_plain(pyramid, coords, radius=4, rows=None):
     return torch.cat(outs, dim=-1).reshape(*coords.shape[:-1], -1)
 
 
+def corr_lookup_backward_plain(pyramid, coords, g, radius=4):
+    """Plain PyTorch version of kernel B' (same arguments as
+    ``kernels.corr_pyramid_lookup_backward``): autograd through
+    ``corr_lookup_plain`` on the levels widened to float32, each level's
+    gradient accumulated in float32 and rounded once to the level's dtype.
+    Returns (d_levels [(Q, Hl, Wl) per level], d_coords (Q, 2) float32)."""
+    with torch.enable_grad():
+        levels = [p.detach().float().requires_grad_() for p in pyramid]
+        c = coords.detach().reshape(-1, 2).float().requires_grad_()
+        out = corr_lookup_plain(levels, c, radius)
+        grads = torch.autograd.grad(out, [*levels, c],
+                                    g.reshape(out.shape).float(),
+                                    allow_unused=True)
+    grads = [torch.zeros_like(x) if d is None else d     # empty levels
+             for d, x in zip(grads, [*levels, c])]
+    return ([d.to(p.dtype) for d, p in zip(grads[:-1], pyramid)],
+            grads[-1])
+
+
+class _CorrLookup(torch.autograd.Function):
+    """``corr_lookup`` (row q for query q) with a backward: kernel B
+    forward and kernel B' backward on the card, the plain versions on the
+    CPU."""
+
+    @staticmethod
+    def forward(ctx, radius, coords, *pyramid):
+        ctx.radius = radius
+        ctx.save_for_backward(coords, *pyramid)
+        return _lookup_launch(pyramid, coords, radius, None)
+
+    @staticmethod
+    def backward(ctx, g):
+        coords, *pyramid = ctx.saved_tensors
+        g = g.reshape(coords.numel() // 2, -1).float().contiguous()
+        if coords.device.type == "cpu":
+            d_levels, d_coords = corr_lookup_backward_plain(
+                pyramid, coords, g, ctx.radius)
+        else:
+            d_levels, d_coords = kernels.corr_pyramid_lookup_backward(
+                pyramid, coords, g, ctx.radius)
+        return (None, d_coords.reshape(coords.shape), *d_levels)
+
+
+def _lookup_launch(pyramid, coords, radius, rows):
+    if coords.device.type == "cpu":
+        return corr_lookup_plain(pyramid, coords, radius, rows)
+    out = kernels.corr_pyramid_lookup(pyramid, coords, radius, rows)
+    return out.reshape(*coords.shape[:-1], -1)
+
+
 def corr_lookup(pyramid, coords, radius=4, rows=None):
     """Sample all pyramid levels around per-query centroids.
 
@@ -166,11 +218,19 @@ def corr_lookup(pyramid, coords, radius=4, rows=None):
     Returns:
         (B, H1, W1, L*(2r+1)^2) float32, the torch reference's channel
         order.
+
+    Under grad, when a level or the coordinates require grad (training),
+    the lookup goes through ``_CorrLookup``: its backward is kernel B' on
+    the card (``kernels.corr_pyramid_lookup_backward``) and autograd
+    through the plain version on the CPU. ``rows`` then raises: only the
+    tracker's sparse head reads rows in place, under no grad.
     """
-    if coords.device.type == "cpu":
-        return corr_lookup_plain(pyramid, coords, radius, rows)
-    out = kernels.corr_pyramid_lookup(pyramid, coords, radius, rows)
-    return out.reshape(*coords.shape[:-1], -1)
+    if torch.is_grad_enabled() and (
+            coords.requires_grad or any(p.requires_grad for p in pyramid)):
+        if rows is not None:
+            raise ValueError("the indexed lookup (rows=) has no backward")
+        return _CorrLookup.apply(radius, coords.contiguous(), *pyramid)
+    return _lookup_launch(pyramid, coords, radius, rows)
 
 
 def corr_lookup_alternate(fmap1, fmap2, coords, radius=4, num_levels=4,
@@ -385,6 +445,55 @@ def block_local_corr_plain(f1b, f2, d, nbh, nbw, out_dtype):
     return corr.to(out_dtype).reshape(nbh * nbw, wh, ww, f1b.shape[1])
 
 
+def _local_corr_launch(f1b, levels, ds, nbh, nbw, out_dtype):
+    if f1b.device.type == "cpu":
+        return [block_local_corr_plain(f1b, f2, d, nbh, nbw, out_dtype)
+                for f2, d in zip(levels, ds)]
+    return kernels.local_corr_build(
+        f1b, levels, [(d["pad"], d["sh"], d["sw"], d["wh"], d["ww"])
+                      for d in ds], nbh, nbw, out_dtype)
+
+
+def _vjp(fn, inputs, needs, grads_out):
+    """The VJP of ``fn(*inputs)`` against ``grads_out`` for the inputs
+    whose entry of ``needs`` is set (None for the others): the backward of
+    a kernel whose gradient is the plain version's, recomputed."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(bool(n) and x.is_floating_point())
+                  for x, n in zip(inputs, needs)]
+        outs = fn(*leaves)
+        outs = outs if isinstance(outs, (list, tuple)) else [outs]
+        want = [x for x in leaves if x.requires_grad]
+        got = iter(torch.autograd.grad(
+            outs, want, [g.to(o.dtype) for g, o in zip(grads_out, outs)],
+            allow_unused=True))
+    return [next(got) if x.requires_grad else None for x in leaves]
+
+
+class _LocalCorr(torch.autograd.Function):
+    """``block_local_corr_levels`` with a backward: kernel C forward on the
+    card, the VJP of ``block_local_corr_plain`` backward (the JAX package's
+    ``_corr_bwd``: it has no backward kernel either)."""
+
+    @staticmethod
+    def forward(ctx, ds, nbh, nbw, out_dtype, f1b, *levels):
+        ctx.args = (ds, nbh, nbw, out_dtype)
+        ctx.save_for_backward(f1b, *levels)
+        return tuple(_local_corr_launch(f1b, levels, ds, nbh, nbw,
+                                        out_dtype))
+
+    @staticmethod
+    def backward(ctx, *g):
+        ds, nbh, nbw, out_dtype = ctx.args
+
+        def plain(f1b, *levels):
+            return [block_local_corr_plain(f1b, f2, d, nbh, nbw, out_dtype)
+                    for f2, d in zip(levels, ds)]
+
+        return (None, None, None, None,
+                *_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[4:], g))
+
+
 def block_local_corr_levels(f1b, levels, ds, nbh, nbw, out_dtype):
     """Every level of the block-local volume, one launch of kernel C on a
     CUDA tensor.
@@ -394,13 +503,13 @@ def block_local_corr_levels(f1b, levels, ds, nbh, nbw, out_dtype):
     ``_local_layout`` entries. Returns L (NB, wh, ww, BQ) ``out_dtype``
     volumes: ``<f1b[b, q], window_b[py, px]> / sqrt(D)``, float32
     accumulation, rounded once; window_b starts at (by*sh, (bx*sw)//8*8) of
-    the level zero-padded by ``pad``."""
-    if f1b.device.type == "cpu":
-        return [block_local_corr_plain(f1b, f2, d, nbh, nbw, out_dtype)
-                for f2, d in zip(levels, ds)]
-    return kernels.local_corr_build(
-        f1b, levels, [(d["pad"], d["sh"], d["sw"], d["wh"], d["ww"])
-                      for d in ds], nbh, nbw, out_dtype)
+    the level zero-padded by ``pad``. Under grad, when an input requires
+    grad, through ``_LocalCorr`` (kernel C forward, the plain version's
+    VJP backward)."""
+    if torch.is_grad_enabled() and (
+            f1b.requires_grad or any(lv.requires_grad for lv in levels)):
+        return list(_LocalCorr.apply(ds, nbh, nbw, out_dtype, f1b, *levels))
+    return _local_corr_launch(f1b, levels, ds, nbh, nbw, out_dtype)
 
 
 def block_local_corr(f1b, f2, d, nbh, nbw, out_dtype):
@@ -506,7 +615,9 @@ def block_local_lookup_fine_plain(rc0, vol, rel, frac, k,
 def block_local_lookup_fine(rc0, vol, rel, frac, k, out_dtype=torch.float32):
     """Kernel D for one level: rc0 (NB, 2) int32, vol (NB, wh, ww, BQ), rel
     and frac (2, NB, BQ). Returns (NB, k*k, BQ). No path of the tracker
-    calls it, as none does in the JAX package."""
+    calls it, as none does in the JAX package. It has no backward: under
+    grad, inputs that require grad raise."""
+    kernels.require_no_grad("F (block_local_lookup_fine)", vol, frac)
     if rc0.device.type == "cpu":
         return block_local_lookup_fine_plain(rc0, vol, rel, frac, k,
                                              out_dtype)
@@ -697,6 +808,57 @@ def block_local_lookup_exact_coords(local, coords, k, bad=None, out=None):
                                              out)
 
 
+def _blocked_lookup_plain(local, coords, k, fine, check):
+    """The plain composition of ``corr_lookup_local_blocked``'s data, in a
+    form autograd differentiates: the exact lookup where the guarded one
+    equals it (``check``, or ``fine=False``), else the saturating fine
+    lookup."""
+    if fine and not check:
+        od = (torch.bfloat16 if local.volumes[0].dtype == torch.bfloat16
+              else torch.float32)
+        return block_local_lookup_coords_plain(local, coords, k, od)[0]
+    return block_local_lookup_exact_coords_plain(local, coords, k)
+
+
+class _LocalLookup(torch.autograd.Function):
+    """``corr_lookup_local_blocked``'s data with a backward: kernels D and
+    E forward on the card, the VJP of the plain lookup backward (the JAX
+    package's ``_fine_multi_bwd`` and ``_lookup_bwd``, which differentiate
+    their XLA twins; the integer anchors and starts get no gradient, the
+    coordinates get theirs through the fractions)."""
+
+    @staticmethod
+    def forward(ctx, local, k, fine, check, coords, *volumes):
+        ctx.args = (local, k, fine, check)
+        ctx.save_for_backward(coords, *volumes)
+        return _blocked_lookup_launch(local, coords, k, fine, check)
+
+    @staticmethod
+    def backward(ctx, g):
+        local, k, fine, check = ctx.args
+
+        def plain(coords, *volumes):
+            vols = LocalCorrVolumes(list(volumes), local.meta)
+            data = _blocked_lookup_plain(vols, coords, k, fine, check)
+            # the guarded lookup's dtype (bf16 volumes: bf16 fine lookups)
+            return data.to(g.dtype)
+
+        return (None, None, None, None,
+                *_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[4:],
+                      [g]))
+
+
+def _blocked_lookup_launch(local, coords, k, fine, check):
+    if not fine:
+        return block_local_lookup_exact_coords(local, coords, k)
+    vols = local.volumes
+    od = torch.bfloat16 if vols[0].dtype == torch.bfloat16 else torch.float32
+    data, bad = block_local_lookup_coords(local, coords, k, od)
+    if check:
+        block_local_lookup_exact_coords(local, coords, k, bad=bad, out=data)
+    return data
+
+
 def corr_lookup_local_blocked(local, coords, radius=4, fine=True, check=True):
     """9x9 windows of every level around ``coords`` -> ``BlockedCorr``.
 
@@ -709,22 +871,22 @@ def corr_lookup_local_blocked(local, coords, radius=4, fine=True, check=True):
     everywhere with no host sync and no branch: two launches a lookup on the
     card. ``fine=False``: kernel E on every block, one launch, float32
     output. bfloat16 volumes give bfloat16 fine lookups (float32
-    arithmetic). CPU tensors take the plain versions of the same steps."""
+    arithmetic). CPU tensors take the plain versions of the same steps.
+    Under grad, when a volume or the coordinates require grad, through
+    ``_LocalLookup`` (the same launches forward, the plain lookup's VJP
+    backward)."""
     meta = local.meta
     if radius != meta["radius"]:
         raise ValueError(f"volume built for radius {meta['radius']}, "
                          f"lookup asked for {radius}")
     k = 2 * radius + 1
     vols = local.volumes
-    L = len(vols)
-    if not fine:
-        return BlockedCorr(block_local_lookup_exact_coords(local, coords, k),
-                           meta, L, k)
-    od = torch.bfloat16 if vols[0].dtype == torch.bfloat16 else torch.float32
-    data, bad = block_local_lookup_coords(local, coords, k, od)
-    if check:
-        block_local_lookup_exact_coords(local, coords, k, bad=bad, out=data)
-    return BlockedCorr(data, meta, L, k)
+    if torch.is_grad_enabled() and (
+            coords.requires_grad or any(v.requires_grad for v in vols)):
+        data = _LocalLookup.apply(local, k, fine, check, coords, *vols)
+    else:
+        data = _blocked_lookup_launch(local, coords, k, fine, check)
+    return BlockedCorr(data, meta, len(vols), k)
 
 
 def corr_lookup_local(local, coords, radius=4, fine=True):

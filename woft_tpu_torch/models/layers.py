@@ -67,7 +67,13 @@ def precision_scope(precision):
     """Run the enclosed forward pass in ``precision`` ('highest': float32
     throughout; 'default': float32 activations, TF32 products on the card;
     'bf16': see the module docstring). Parameters rounded to bf16 are cached
-    for the scope, so each is cast once per pass."""
+    for the scope, so each is cast once per pass; under grad a parameter
+    that requires grad is cast in the graph instead, at every use.
+
+    The TF32 flags are process-global and restored when the scope ends, so
+    a backward pass that autograd runs after the forward's scope has closed
+    runs with the caller's flags (off after ``device.resolve_device``):
+    full float32 products on the card."""
     global _COMPUTE_DTYPE, _ROUNDED
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, got "
@@ -94,7 +100,10 @@ def _rounded(t, widen=False):
     if t is None:
         return None
     dtype = torch.float32 if widen else _COMPUTE_DTYPE
-    if not isinstance(t, nn.Parameter):
+    if not isinstance(t, nn.Parameter) or (torch.is_grad_enabled()
+                                           and t.requires_grad):
+        # a parameter being trained is cast in the graph, at every use: a
+        # cached cast would be detached from it
         return t.to(_COMPUTE_DTYPE).to(dtype)
     key = (id(t), dtype)
     if key not in _ROUNDED:
@@ -135,8 +144,9 @@ def conv(mod, x, out_dtype=None):
 
 
 class EvalBatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm2d that always normalises with its running statistics
-    (the tracker runs the networks in eval mode only)."""
+    """BatchNorm2d that always normalises with its running statistics, in
+    ``train()`` mode too: the JAX package's ``batch_norm_eval``, which its
+    trainer also runs (the running statistics are never updated)."""
 
     def forward(self, x):
         return F.batch_norm(x, self.running_mean, self.running_var,

@@ -1,4 +1,4 @@
-"""RAFT-large and WeightedRAFT in PyTorch.
+"""RAFT (large and small) and WeightedRAFT in PyTorch.
 
 PyTorch twin of ``woft_tpu/models/raft.py``. The networks are
 ``nn.Module``s whose parameter names follow the reference checkpoints
@@ -41,6 +41,11 @@ reference stores them: the dense pyramid's levels (each computed in
 float32, then rounded; kernel B widens them as it reads) and the
 block-local volume.
 
+``train_forward`` is the same forward with autograd on (the trainer's,
+``training/train.py``); ``weighted_raft_forward`` and ``encode_template``
+run under ``torch.no_grad``. ``RaftConfig.small`` is RAFT-small, the
+network of the training tests.
+
 ``gru_fused`` / ``tail_fused`` (bf16 mode, one frame pair) run the
 refinement loop's SepConvGRU and flow head as one kernel launch each
 (``models/update.py``: kernels G and I); the GRU state then lives
@@ -54,7 +59,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.warp import coords_grid, grid_sample
+from ..ops import kernels
+from ..ops.warp import coords_grid, grid_sample, upflow8
 from . import layers
 from .corr import (BlockedCorr, build_local_corr, corr_lookup,
                    corr_lookup_alternate, corr_lookup_local,
@@ -90,10 +96,16 @@ class RaftConfig:
         counterpart of ``tail_pallas``, with the same gating. As there, the
         motion encoder stays unfused on the forward path (kernel H is
         reached through ``BasicMotionEncoder.forward(fused=True)``).
+    small: RAFT-small (bottleneck encoders, the small motion encoder, a
+        3x3 ConvGRU, hidden 96, context 64, features 128, radius 3, the
+        bilinear ``upflow8`` output: no convex-upsampling mask); the
+        training tests' network, as in the JAX package. No fused kernel.
+    radius: the lookup radius; 0 (the default) is 3 under ``small``, else
+        4.
     """
     iters: int = 12
     corr_levels: int = 4
-    radius: int = 4
+    radius: int = 0
     weight_head_structure: Tuple = ((128, 3), (128, 3), (128, 3))
     variant: str = "weighted"
     mask_head_structure: Tuple = ()
@@ -105,12 +117,23 @@ class RaftConfig:
     precision: str = "highest"
     gru_fused: bool = False
     tail_fused: bool = False
+    small: bool = False
 
-    hidden_dim = 128
-    context_dim = 128
-    fnet_dim = 256
+    @property
+    def hidden_dim(self):
+        return 96 if self.small else 128
+
+    @property
+    def context_dim(self):
+        return 64 if self.small else 128
+
+    @property
+    def fnet_dim(self):
+        return 128 if self.small else 256
 
     def __post_init__(self):
+        if not self.radius:
+            object.__setattr__(self, "radius", 3 if self.small else 4)
         if self.corr_impl not in ("dense", "local"):
             raise ValueError(f"corr_impl must be 'dense' or 'local', got "
                              f"{self.corr_impl!r}")
@@ -162,20 +185,55 @@ class ResidualBlock(nn.Module):
         return F.relu(x + y)
 
 
-class BasicEncoder(nn.Module):
-    """(N, 3, H, W) in [-1, 1] -> (N, output_dim, H/8, W/8)."""
+class BottleneckBlock(nn.Module):
+    """RAFT-small's block: 1x1, strided 3x3 and 1x1 convolutions at a
+    quarter of the planes, and a strided 1x1 shortcut."""
 
-    def __init__(self, output_dim, norm_fn):
+    def __init__(self, in_planes, planes, norm_fn, stride):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3)
-        self.norm1 = norm_layer(norm_fn, 64, 8)
-        dims = (64, 96, 128)
-        cin = 64
+        ng = planes // 8
+        self.conv1 = nn.Conv2d(in_planes, planes // 4, 1)
+        self.conv2 = nn.Conv2d(planes // 4, planes // 4, 3, stride=stride,
+                               padding=1)
+        self.conv3 = nn.Conv2d(planes // 4, planes, 1)
+        self.norm1 = norm_layer(norm_fn, planes // 4, ng)
+        self.norm2 = norm_layer(norm_fn, planes // 4, ng)
+        self.norm3 = norm_layer(norm_fn, planes, ng)
+        if stride == 1:
+            self.downsample = None
+        else:
+            # registered twice, as norm4 and downsample.1, as the reference
+            self.norm4 = norm_layer(norm_fn, planes, ng)
+            self.downsample = nn.Sequential(
+                nn.Conv2d(in_planes, planes, 1, stride=stride), self.norm4)
+
+    def forward(self, x):
+        sd = layers.get_compute_dtype()
+        y = F.relu(self.norm1(conv(self.conv1, x, sd)))
+        y = F.relu(self.norm2(conv(self.conv2, y, sd)))
+        y = F.relu(self.norm3(conv(self.conv3, y, sd)))
+        if self.downsample is not None:
+            x = self.downsample[1](conv(self.downsample[0], x, sd))
+        return F.relu(x + y)
+
+
+class BasicEncoder(nn.Module):
+    """(N, 3, H, W) in [-1, 1] -> (N, output_dim, H/8, W/8); ``small``:
+    RAFT-small's encoder (bottleneck blocks, 32-64-96 planes)."""
+
+    def __init__(self, output_dim, norm_fn, small=False):
+        super().__init__()
+        block = BottleneckBlock if small else ResidualBlock
+        first = 32 if small else 64
+        self.conv1 = nn.Conv2d(3, first, 7, stride=2, padding=3)
+        self.norm1 = norm_layer(norm_fn, first, 8)
+        dims = (32, 64, 96) if small else (64, 96, 128)
+        cin = first
         for name, planes, stride in zip(("layer1", "layer2", "layer3"), dims,
                                         (1, 2, 2)):
             setattr(self, name, nn.Sequential(
-                ResidualBlock(cin, planes, norm_fn, stride),
-                ResidualBlock(planes, planes, norm_fn, 1)))
+                block(cin, planes, norm_fn, stride),
+                block(planes, planes, norm_fn, 1)))
             cin = planes
         self.conv2 = nn.Conv2d(cin, output_dim, 1)
 
@@ -200,8 +258,12 @@ class BasicMotionEncoder(nn.Module):
 
     def forward(self, flow, corr, fused=False):
         """``fused``: the 3x3 stack and the final ``cat`` as one kernel (H;
-        bf16 mode, one frame pair); ``convc1`` and the 7x7 two-channel
+        bf16 mode, one frame pair; no backward: raises under grad when a
+        parameter requires grad); ``convc1`` and the 7x7 two-channel
         ``convf1`` stay as they are."""
+        if fused:
+            kernels.require_no_grad("H (motion_encoder_tail)",
+                                    *self.parameters())
         sd = layers.get_compute_dtype()
         cor = _corr_conv1(self.convc1, corr)
         flo = F.relu(conv(self.convf1, flow, sd))
@@ -213,6 +275,25 @@ class BasicMotionEncoder(nn.Module):
                 update.nhwc(cor.to(sd)), update.nhwc(flo), update.nhwc(flow),
                 *params))
         cor = F.relu(conv(self.convc2, cor, sd))
+        flo = F.relu(conv(self.convf2, flo, sd))
+        out = F.relu(conv(self.conv, torch.cat([cor, flo], dim=1), sd))
+        return torch.cat([out, flow.to(out.dtype)], dim=1)
+
+
+class SmallMotionEncoder(nn.Module):
+    """RAFT-small's motion encoder: 82 channels, ``cat(out80, flow)``."""
+
+    def __init__(self, cor_planes):
+        super().__init__()
+        self.convc1 = nn.Conv2d(cor_planes, 96, 1)
+        self.convf1 = nn.Conv2d(2, 64, 7, padding=3)
+        self.convf2 = nn.Conv2d(64, 32, 3, padding=1)
+        self.conv = nn.Conv2d(128, 80, 3, padding=1)
+
+    def forward(self, flow, corr):
+        sd = layers.get_compute_dtype()
+        cor = _corr_conv1(self.convc1, corr)
+        flo = F.relu(conv(self.convf1, flow, sd))
         flo = F.relu(conv(self.convf2, flo, sd))
         out = F.relu(conv(self.conv, torch.cat([cor, flo], dim=1), sd))
         return torch.cat([out, flow.to(out.dtype)], dim=1)
@@ -267,6 +348,33 @@ class SepConvGRU(nn.Module):
                                               padding=pad))
 
 
+class ConvGRU(nn.Module):
+    """RAFT-small's 3x3 ConvGRU; each conv reads [h, inp, motion]."""
+
+    def __init__(self, hidden_dim=96, input_dim=146):
+        super().__init__()
+        for name in ("convz", "convr", "convq"):
+            setattr(self, name, nn.Conv2d(hidden_dim + input_dim, hidden_dim,
+                                          3, padding=1))
+
+    def forward(self, h, x):
+        """One gated update of ``h`` by ``x`` = cat(inp, motion), z and r
+        as one convolution; in bf16 mode the gates are bf16 and ``h``
+        stays float32, as in ``_sep_conv_gru``."""
+        sd = layers.get_compute_dtype()
+        C = h.shape[1]
+        zr = conv2d(torch.cat([h.to(x.dtype), x], dim=1),
+                    torch.cat([self.convz.weight, self.convr.weight]),
+                    torch.cat([self.convz.bias, self.convr.bias]),
+                    padding=1, out_dtype=sd)
+        z = torch.sigmoid(zr[:, :C])
+        r = torch.sigmoid(zr[:, C:])
+        q = torch.tanh(conv2d(torch.cat([(r * h).to(x.dtype), x], dim=1),
+                              self.convq.weight, self.convq.bias, padding=1,
+                              out_dtype=sd))
+        return (1 - z) * h + z * q
+
+
 def precompute_gru_context(gru, inp, hd, fused=False):
     """Per-frame loop-invariant context terms of the SepConvGRU.
 
@@ -281,6 +389,7 @@ def precompute_gru_context(gru, inp, hd, fused=False):
     terms laid out channels-minor, the taps stacked tap-major (5, C_out,
     256) and the biases in float32, all prepared here once per forward."""
     if fused:
+        kernels.require_no_grad("G (fused_gru_update)", *gru.parameters())
         update.require_bf16_mode("the fused SepConvGRU")
     ci = inp.shape[1]
     sd = layers.get_compute_dtype()
@@ -353,6 +462,7 @@ class FlowHead(nn.Module):
         """``fused``: both convolutions as one kernel (I; bf16 mode, one
         frame pair)."""
         if fused:
+            kernels.require_no_grad("I (flow_head)", *self.parameters())
             update.require_bf16_mode("the fused flow head")
             params = layers.once_per_pass(
                 (id(self), "taps"), lambda: update.flow_head_params(self))
@@ -370,6 +480,21 @@ class BasicUpdateBlock(nn.Module):
         self.mask = nn.Sequential(nn.Conv2d(128, 256, 3, padding=1),
                                   nn.ReLU(inplace=True),
                                   nn.Conv2d(256, 64 * 9, 1))
+
+
+class SmallUpdateBlock(nn.Module):
+    def __init__(self, cor_planes, hidden_dim=96):
+        super().__init__()
+        self.encoder = SmallMotionEncoder(cor_planes)
+        self.gru = ConvGRU(hidden_dim, 82 + 64)
+        self.flow_head = FlowHead(hidden_dim, 128)
+
+
+def small_update_apply(block, net, inp, corr, flow):
+    """One RAFT-small refinement step -> (net, delta_flow)."""
+    motion = block.encoder(flow, corr)
+    net = block.gru(net, torch.cat([inp.to(motion.dtype), motion], dim=1))
+    return net, block.flow_head(net)
 
 
 def update_block_apply(block, net, corr, flow, pre, gru_fused=False,
@@ -459,9 +584,11 @@ class WeightedRAFT(nn.Module):
         super().__init__()
         hdim, cdim = cfg.hidden_dim, cfg.context_dim
         cor_planes = cfg.corr_levels * (2 * cfg.radius + 1) ** 2
-        self.fnet = BasicEncoder(cfg.fnet_dim, "instance")
-        self.cnet = BasicEncoder(hdim + cdim, "batch")
-        self.update_block = BasicUpdateBlock(cor_planes, hdim)
+        self.fnet = BasicEncoder(cfg.fnet_dim, "instance", cfg.small)
+        self.cnet = BasicEncoder(hdim + cdim,
+                                 "none" if cfg.small else "batch", cfg.small)
+        self.update_block = (SmallUpdateBlock(cor_planes, hdim) if cfg.small
+                             else BasicUpdateBlock(cor_planes, hdim))
         if cfg.variant != "orig":
             self.weight_head = WeightHead(cfg.weight_head_structure,
                                           cfg.corr_levels + 1)
@@ -549,8 +676,35 @@ def weighted_raft_forward(model, cfg: RaftConfig, image1, image2,
                              template_feats, sparse_weight_head)
 
 
+def train_forward(model, cfg: RaftConfig, image1, image2, flow_init=None,
+                  iters=None):
+    """``weighted_raft_forward`` with autograd on: the training forward.
+
+    The same computation, recorded for a backward pass: the coordinates are
+    detached at the top of every refinement iteration (the reference's
+    ``coords1.detach()``), so gradients reach the network through each
+    iteration's update and through the final lookup and heads only. The
+    dense head always runs. The kernels of the path launch inside
+    ``torch.autograd.Function``s whose backwards are kernel B' (the dense
+    lookup) or the VJPs of the plain versions (C, D, E, as the JAX
+    package's ``custom_vjp``s); the fused kernels G, H, I and the pre-warp
+    A have no backward and raise when a parameter they read requires grad.
+
+    Precision: the forward runs in ``cfg.precision``; the backward runs
+    after its scope has closed, so with the caller's TF32 flags (off after
+    ``device.resolve_device``: full float32 products in 'default' mode,
+    where the forward's are TF32); 'bf16' keeps its casts in the graph, so
+    the backward of a bf16 convolution is bf16 too."""
+    with layers.precision_scope(cfg.precision):
+        return _raft_forward(model, cfg, image1, image2, flow_init, iters,
+                             None, False)
+
+
 def _raft_forward(model, cfg, image1, image2, flow_init, iters,
                   template_feats, sparse_weight_head):
+    if cfg.small and sparse_weight_head and cfg.variant == "weighted":
+        raise ValueError("the sparse weight head needs the convex-upsampling "
+                         "mask, which RAFT-small has not")
     iters = cfg.iters if iters is None else iters
     radius = cfg.radius
     x2 = _nchw(2.0 * (image2 / 255.0) - 1.0)
@@ -607,19 +761,38 @@ def _raft_forward(model, cfg, image1, image2, flow_init, iters,
     coords0 = _nchw(coords_grid(B, H1, W1, x2.device))     # (B, 2, H1, W1)
     coords1 = coords0 if flow_init is None else coords0 + _nchw(flow_init)
     # the fused kernels are bf16-mode kernels for one frame pair
-    fusable = B == 1 and layers.get_compute_dtype() == torch.bfloat16
+    fusable = (B == 1 and not cfg.small
+               and layers.get_compute_dtype() == torch.bfloat16)
     gru_fused = cfg.gru_fused and fusable
     tail_fused = cfg.tail_fused and fusable
-    pre = precompute_gru_context(ub.gru, inp, cfg.hidden_dim, fused=gru_fused)
+    pre = (None if cfg.small else
+           precompute_gru_context(ub.gru, inp, cfg.hidden_dim,
+                                  fused=gru_fused))
     for _ in range(iters):         # no host sync inside this loop
+        # the coordinate chain is cut at every iteration (the reference's
+        # coords1.detach(); a no-op under no_grad)
+        coords1 = coords1.detach()
         corr = lookup(_nhwc(coords1).contiguous())
-        net, delta = update_block_apply(ub, net, corr, coords1 - coords0, pre,
-                                        gru_fused, tail_fused)
+        if cfg.small:
+            net, delta = small_update_apply(ub, net, inp, corr,
+                                            coords1 - coords0)
+        else:
+            net, delta = update_block_apply(ub, net, corr, coords1 - coords0,
+                                            pre, gru_fused, tail_fused)
         coords1 = coords1 + delta
 
-    up_mask = mask_from_net(ub, net)
+    if cfg.small:           # no mask head: bilinear x8 outputs
+        up_mask = None
+
+        def upsample(x):
+            return upflow8(_nhwc(x))
+    else:
+        up_mask = mask_from_net(ub, net)
+
+        def upsample(x):
+            return _nhwc(convex_upsample(x, up_mask))
     flow = coords1 - coords0
-    out = {"flow": _nhwc(flow), "flow_up": _nhwc(convex_upsample(flow, up_mask)),
+    out = {"flow": _nhwc(flow), "flow_up": upsample(flow),
            "fmap1": f1, "fmap2": f2, "mean_response": mean_response}
     if cfg.variant == "orig":
         return out
@@ -662,12 +835,11 @@ def _raft_forward(model, cfg, image1, image2, flow_init, iters,
     corr_final = lookup_natural(coords1)                    # (B,H1,W1,L*k*k)
     corr_sample = corr_final.reshape(B, H1, W1, k, k, cfg.corr_levels)
     weights = weight_head_apply(model.weight_head, corr_sample, mean_response)
-    weights_up = convex_upsample(_nchw(weights), up_mask) / 8.0
-    out.update(weights=weights, weights_up=_nhwc(weights_up))
+    out.update(weights=weights, weights_up=upsample(_nchw(weights)) / 8.0)
     if cfg.variant == "weighted_masked":
         # the current features sampled at the flow's end points (zero
         # outside, align_corners pixel coordinates)
         warped = _nchw(grid_sample(f2, coords1))
         mask = mask_head_apply(model.mask_head, fmap1, warped)
-        out["mask_up"] = _nhwc(convex_upsample(mask, up_mask) / 8.0)
+        out["mask_up"] = upsample(mask) / 8.0
     return out

@@ -14,7 +14,12 @@ PyTorch twin of ``woft_tpu/ops/pallas/gru.py`` (``sep_conv_gru_pallas``) and
   final ``cat`` with the flow;
 - ``flow_head`` (kernel I): ``conv2(relu(conv1(net)))``.
 
-They are bf16-mode functions for one frame pair. Maps are channels-minor,
+They are bf16-mode functions for one frame pair, and forward only: none
+has a backward (nor has its JAX twin), and the taps are detached copies of
+the weights, so each raises under grad when an input requires grad
+(``kernels.require_no_grad``), as do the model paths that reach them
+(``models/raft.py``: ``gru_fused``, ``tail_fused``, the fused motion
+encoder) when a parameter of theirs requires grad. Maps are channels-minor,
 (1, H, W, C); taps are stacked tap-major with the input channels minor,
 (taps, C_out, C_in), which is how a tensor-core product reads them. On a
 CUDA tensor each launches its kernel (``ops/kernels.py``); on a CPU tensor it
@@ -105,6 +110,8 @@ def gru_update(h, x, pre_zr, pre_q, wzr, wq, bzr, bq, axis):
     pre_zr (1, H, W, 256), pre_q (1, H, W, 128): bf16 context terms; wzr (5,
     256, 256), wq (5, 128, 256): ``gru_taps``; bzr, bq: float32 biases.
     Returns the new float32 state."""
+    kernels.require_no_grad("G (fused_gru_update)", h, x, pre_zr, pre_q, wzr,
+                            wq, bzr, bq)
     if h.device.type == "cuda":
         return kernels.fused_gru_update(h, x, pre_zr, pre_q, wzr, wq, bzr, bq,
                                         axis)
@@ -140,6 +147,8 @@ def motion_encoder_tail(cor1, flo1, flow, wc2, bc2, wf2, bf2, wcv, bcv):
     and ``relu(convf1(flow))``; flow (1, H, W, 2) float32; taps and float32
     biases from ``motion_encoder_params``. Returns (1, H, W, 128) bf16,
     ``cat(out126, bf16(flow))``."""
+    kernels.require_no_grad("H (motion_encoder_tail)", cor1, flo1, flow, wc2,
+                            bc2, wf2, bf2, wcv, bcv)
     if cor1.device.type == "cuda":
         return kernels.motion_encoder_tail(cor1, flo1, flow, wc2, bc2, wf2,
                                            bf2, wcv, bcv)
@@ -170,6 +179,7 @@ def flow_head(net, w1, b1, w2, b2):
     """``conv2(relu(conv1(net)))``: net (1, H, W, 128) float32 -> (1, H, W,
     2) float32 delta. w1 (9, 256, 128), w2 (9, 2, 256): ``taps``; b1, b2:
     float32 biases."""
+    kernels.require_no_grad("I (flow_head)", net, w1, b1, w2, b2)
     if net.device.type == "cuda":
         return kernels.flow_head(net, w1, b1, w2, b2)
     return flow_head_plain(net, w1, b1, w2, b2)

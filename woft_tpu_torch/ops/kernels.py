@@ -13,12 +13,17 @@ callers (``ops/warp.py:warp_perspective_fast``, ``models/corr.py``:
 ``corr_lookup``, ``block_local_corr``, ``block_local_lookup*``;
 ``models/update.py``: ``gru_update``, ``motion_encoder_tail``, ``flow_head``)
 take the plain PyTorch version for CPU tensors; a CUDA tensor always goes to
-the kernel.
+the kernel. Under grad, B, C, D and E are reached through
+``torch.autograd.Function``s (``models/corr.py``: B's backward is kernel
+B', C's, D's and E's the VJPs of their plain versions, as in the JAX
+package); A, F, G, H and I have no backward, and their callers raise
+(``require_no_grad``) rather than return an output with no graph.
 
 | kernel | source | TPU kernel it replaces |
 |---|---|---|
 | A ``warp_perspective_bilinear`` | ``csrc/warp.cu`` | ``ops/pallas/warp.py:block_warp`` |
 | B ``corr_pyramid_lookup`` (float32 or bf16 levels) | ``csrc/corr_lookup.cu`` | ``ops/pallas/corr_lookup.py:fused_corr_lookup`` |
+| B' ``corr_pyramid_lookup_backward`` (B's backward, training) | ``csrc/corr_lookup.cu`` | none: the JAX package differentiates its XLA lookup |
 | C ``local_corr_build`` | ``csrc/local_corr.cu`` | ``ops/pallas/local_corr.py:block_local_corr`` |
 | D ``local_lookup_coords`` (from coordinates), ``local_lookup_fine_multi`` (explicit operands) | ``csrc/local_lookup.cu`` | ``ops/pallas/local_lookup.py:block_local_lookup_fine_multi`` |
 | E ``local_lookup_exact_coords`` (from coordinates), ``local_lookup_exact`` (explicit starts) | ``csrc/local_lookup.cu`` | ``ops/pallas/local_lookup.py:block_local_lookup`` |
@@ -65,6 +70,10 @@ _ENTRIES = {
                              _P, _P],
         "woft_corr_lookup_bf16": [_P, _P, _P, _I, _P, _P, ctypes.c_longlong,
                                   _I, _P, _P],
+        "woft_corr_lookup_backward": [_P, _P, _P, _P, _I, _P, _P,
+                                      ctypes.c_longlong, _I, _P, _P],
+        "woft_corr_lookup_backward_bf16": [_P, _P, _P, _P, _I, _P, _P,
+                                           ctypes.c_longlong, _I, _P, _P],
     },
     "local_corr": {
         "woft_local_corr_plan": [_P, _P, _P, _P, _I, _I, _I, _I,
@@ -179,6 +188,19 @@ def _stream():
     if raw is not None:
         return raw(torch.cuda.current_device())
     return torch.cuda.current_stream().cuda_stream
+
+
+def require_no_grad(kernel, *tensors):
+    """Raise when autograd would record one of ``tensors`` through
+    ``kernel``, a kernel with no backward (A, F, G, H, I; none has one in
+    the JAX package either): its output would carry no graph, and the
+    gradient would be lost without an error. Checked before the device
+    dispatch, so the CPU path refuses the same calls."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"kernel {kernel} has no backward: call it under "
+            f"torch.no_grad(), or on tensors that do not require grad")
 
 
 def _raise_on_error(rc, name):
@@ -312,6 +334,50 @@ def corr_pyramid_lookup(pyramid, coords, radius, rows=None):
 
 
 corr_pyramid_lookup.launches = 0
+
+
+def corr_pyramid_lookup_backward(pyramid, coords, g, radius):
+    """Kernel B': the backward of ``corr_pyramid_lookup`` with rows = query.
+
+    pyramid, coords, radius as the forward's (R == Q); g: (Q, L*(2r+1)^2)
+    float32, the gradient of its output. Returns (d_levels, one (Q, Hl, Wl)
+    a level in the level's dtype, every element written; d_coords (Q, 2)
+    float32): the VJP of the plain lookup, each level's gradient summed in
+    float32 and rounded once, the coordinates' summed level by level."""
+    if coords.device.type != "cuda":
+        raise ValueError("corr_pyramid_lookup_backward takes CUDA tensors")
+    device = coords.device
+    _check_tensor(coords, "coords", torch.float32, device)
+    _check_tensor(g, "g", torch.float32, device)
+    if not 0 <= radius <= 8:
+        raise ValueError(f"radius 0 to 8, got {radius}")
+    Q = coords.numel() // 2
+    ptrs, hs, ws, R = _levels(pyramid, device)
+    L = len(pyramid)
+    k = 2 * radius + 1
+    if coords.shape[-1] != 2 or Q == 0 or R != Q:
+        raise ValueError(f"coords must be (..., 2) with one point a pyramid "
+                         f"row ({R}), got {tuple(coords.shape)}")
+    if g.shape != (Q, L * k * k):
+        raise ValueError(f"g must be ({Q}, {L * k * k}), got "
+                         f"{tuple(g.shape)}")
+    d_levels = [torch.empty_like(p) for p in pyramid]
+    d_ptrs = (ctypes.c_void_p * L)(*[d.data_ptr() for d in d_levels])
+    d_coords = torch.empty((Q, 2), dtype=torch.float32, device=device)
+    fn = _entry("corr_lookup", "woft_corr_lookup_backward_bf16"
+                if pyramid[0].dtype == torch.bfloat16
+                else "woft_corr_lookup_backward")
+    with _current(device):
+        rc = fn(ctypes.addressof(ptrs), ctypes.addressof(d_ptrs),
+                ctypes.addressof(hs), ctypes.addressof(ws), L,
+                coords.data_ptr(), g.data_ptr(), Q, radius,
+                d_coords.data_ptr(), _stream())
+    _raise_on_error(rc, "corr_lookup_backward")
+    corr_pyramid_lookup_backward.launches += 1
+    return d_levels, d_coords
+
+
+corr_pyramid_lookup_backward.launches = 0
 
 
 _VOLUME_DTYPES = (torch.float32, torch.bfloat16)

@@ -132,7 +132,9 @@ def warp_perspective_fast(img, H, out_shape=None):
     so the TPU's pose envelope and its gather fallback have no counterpart.
     A source batch of 1 with N homographies gives N warps of that one
     source in one launch (the multi-target tracker's N search crops).
+    Kernel A has no backward: under grad, inputs that require grad raise.
     """
+    kernels.require_no_grad("A (warp_perspective_fast)", img, H)
     if H.dim() == 2:
         H = H[None]
     out_h, out_w = out_shape if out_shape is not None else img.shape[1:3]
@@ -191,7 +193,12 @@ def upflow8(flow):
 
 
 def avg_pool2d(x, window=2, stride=2):
-    """``F.avg_pool2d`` on NHWC (valid padding, floor output size)."""
+    """``F.avg_pool2d`` on NHWC (valid padding, floor output size; a side
+    shorter than the window gives an empty map, as in the JAX package)."""
+    N, H, W, C = x.shape
+    if H < window or W < window:
+        return x.new_zeros((N, max(0, (H - window) // stride + 1),
+                            max(0, (W - window) // stride + 1), C))
     return F.avg_pool2d(x.permute(0, 3, 1, 2), window, stride).permute(
         0, 2, 3, 1)
 
