@@ -146,7 +146,25 @@ Phases; any failure ends the script with a non-zero exit:
    card against the CPU path, the difference split into the forward, the
    fit's backward and the head's backward (and the head's ReLU sign
    flips counted);
-9. a ``kernels`` JSON line (A-E with their launches on the multi-target
+9. scale-out (``track_scale_out``, ``woft_tpu_torch/parallel``): kernels
+   C, D and E on rank 1's band of the 720p grid (blocks 60-119, ``b0`` =
+   60) against their plain versions and the whole-grid launch's rows, C's
+   kept plan not reused at another ``b0``, kernel B on two key-column
+   shards with x shifted, the parts' sum against the whole lookup, each
+   timed at that shape; NCCL with one rank in this process (a file
+   store): an all-reduce, ``sharded_track_batch`` over 2 streams of 8
+   frames of the 720p walk under ``WOFT.py`` (each its own target)
+   against each stream's ``build_track_step`` (0 px; A once and B 13
+   times a stream-frame, exactly), one ``sharded_train_step`` at 288x384,
+   batch 4, ``--train-flow`` against the plain step; then two ``gloo``
+   ranks both on this card (``parallel.launch``; NCCL refuses two ranks on
+   one GPU): 2 x 2 streams, ``spatial_sharded_forward`` at sp = 2 in its
+   pyramid form (``WOFT.py``) and its block-local form (``WOFT_fast.py``,
+   rank 1 launching C, D, E at ``b0`` = 60), and the dp step on 2 x 2
+   rows, each against its single-process twin here at a measured bound,
+   with targets·frames/s, per-rank volume bytes and memory, all-reduced
+   bytes, seconds;
+10. a ``kernels`` JSON line (A-E with their launches on the multi-target
    paths and their times at its shapes; A and B also with their launches
    on the ablation paths, ``downscale_launches`` and
    ``ablation_launches``, their times at the downscale shapes, and their
@@ -154,8 +172,10 @@ Phases; any failure ends the script with a non-zero exit:
    B's bf16-level form; A-E with their launches on the eval and entry
    paths, ``eval_launches``, and A's render form, ``render_shape``; A-E
    with their launches in training, ``train_launches``, and their error
-   at its shapes, ``train_max_abs_err``, and the row of B'),
-   then the device JSON as the last line.
+   at its shapes, ``train_max_abs_err``, and the row of B'; A-E and B'
+   with their launches in the scale-out runs, ``scale_out_launches``, and
+   B-E at the band and shard shapes, ``scale_out_shape``), then the device
+   JSON as the last line.
 """
 
 import json
@@ -673,13 +693,14 @@ def _compare_local_corr(kernels, corr, case, dtype, rtol, grid):
     return err
 
 
-def _time_local_corr(kernels, corr, case, dtype, rate, grid):
-    """Times kernel C on ``case`` (all levels, one launch) beside its plain
-    version, ``torch.bmm`` on pre-gathered windows and its bound; logs them
-    and returns the row's numbers (``max_abs_err`` left to the caller)."""
+def _time_local_corr(kernels, corr, case, dtype, rate, grid, b0=0):
+    """Times kernel C on ``case`` (all levels, one launch; its ``f1b`` the
+    query blocks from ``b0`` on) beside its plain version, ``torch.bmm`` on
+    pre-gathered windows and its bound; logs them and returns the row's
+    numbers (``max_abs_err`` left to the caller)."""
     meta, f1b, lvs, geoms = case
     nbh, nbw = meta["nbh"], meta["nbw"]
-    nb = nbh * nbw
+    nb = f1b.shape[0]
     name = str(dtype).split(".")[-1]
     n_bytes, n_flops = f1b.numel() * f1b.element_size(), 0
     patches = []
@@ -694,14 +715,14 @@ def _time_local_corr(kernels, corr, case, dtype, rate, grid):
         patches.append(torch.stack([
             fp[by * d["sh"]:by * d["sh"] + d["wh"],
                bx * d["sw"] // 8 * 8:bx * d["sw"] // 8 * 8 + d["ww"]]
-            for by in range(nbh) for bx in range(nbw)]).reshape(
-                nb, -1, f1b.shape[2]))
+            for by, bx in (divmod(b, nbw) for b in range(b0, b0 + nb))
+        ]).reshape(nb, -1, f1b.shape[2]))
 
     f1t = f1b.transpose(1, 2)
     ms = time_ms(lambda: kernels.local_corr_build(f1b, lvs, geoms, nbh,
-                                                  nbw, dtype), iters=10)
+                                                  nbw, dtype, b0), iters=10)
     plain_ms = time_ms(lambda: [corr.block_local_corr_plain(
-        f1b, lv, d, nbh, nbw, dtype)
+        f1b, lv, d, nbh, nbw, dtype, b0)
         for d, lv in zip(meta["levels"], lvs)], iters=3, warmup=1)
     library_ms = time_ms(lambda: [torch.bmm(p, f1t) for p in patches],
                          iters=10)
@@ -1096,8 +1117,9 @@ def _time_coord_lookups(kernels, corr, local, coords, grid):
     # (8 bytes a pixel) and writes the flags; its yardstick samples the four
     # levels with F.grid_sample at the starts the plain version computes
     coord_bytes = H1 * W1 * 8 + nb * L
+    b0 = local.b0
     ms = time_ms(lambda: kernels.local_lookup_coords(coords, vols, table, k,
-                                                     od))
+                                                     od, b0))
     plain_ms = time_ms(lambda: corr.block_local_lookup_coords_plain(
         local, coords, k, od), iters=5, warmup=1)
     library_ms = time_ms(lambda: [_grid_sample_lookup(vq[l], starts[l],
@@ -1119,7 +1141,8 @@ def _time_coord_lookups(kernels, corr, local, coords, grid):
     # E as the guard runs it: one launch a lookup, every level, from the
     # coordinates into D's output, on the blocks the field flags and with
     # no block flagged. The bound counts the flagged blocks' work only.
-    scratch, bad = kernels.local_lookup_coords(coords, vols, table, k, od)
+    scratch, bad = kernels.local_lookup_coords(coords, vols, table, k, od,
+                                               b0)
     none = torch.zeros_like(bad)
     sel = bad.bool().any(1)
     nf = int(sel.sum().item())
@@ -1128,9 +1151,9 @@ def _time_coord_lookups(kernels, corr, local, coords, grid):
     s_f, fr_f = starts[:, :, sel].contiguous(), frac[:, :, sel].contiguous()
     scratch_p = scratch.clone()
     ms = time_ms(lambda: kernels.local_lookup_exact_coords(
-        coords, vols, table, k, bad=bad, out=scratch))
+        coords, vols, table, k, bad=bad, out=scratch, b0=b0))
     ms_none = time_ms(lambda: kernels.local_lookup_exact_coords(
-        coords, vols, table, k, bad=none, out=scratch))
+        coords, vols, table, k, bad=none, out=scratch, b0=b0))
     plain_ms = time_ms(lambda: corr.block_local_lookup_exact_coords_plain(
         local, coords, k, bad=bad, out=scratch_p), iters=5, warmup=1)
     library_ms = time_ms(lambda: [_grid_sample_lookup(vq_f[l], s_f[l],
@@ -4106,6 +4129,641 @@ def track_training(kernels, corr, warp, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# scale-out (track_scale_out)
+# ---------------------------------------------------------------------------
+
+SCALE_FRAMES = 8                 # frames of the walk a stream tracks
+SCALE_STREAMS = 2                # streams a rank (and in the NCCL run)
+SCALE_BAND_B0 = 60               # rank 1's first block at 720p (120 / 2)
+# each stream's own target: (y0, y1, x0, x1) fractions of the frame
+SCALE_BOXES = ((0.25, 0.75, 0.25, 0.75), (0.15, 0.55, 0.1, 0.5),
+               (0.45, 0.85, 0.5, 0.9), (0.2, 0.6, 0.55, 0.95))
+SHARD_LOOKUP_TOL = 1e-5          # B on two column shards, summed, against
+                                 # the whole level: the four taps' sum in
+                                 # another association, and the shifted
+                                 # x rounded once
+# bounds of the sharded runs against their single-process twins on the
+# card (NVIDIA H100 80GB HBM3, 700 W; this script's readings), each some
+# five times the reading; two processes may pick other cuDNN algorithms
+GLOO_TRACK_TOL_PX = 1e-3         # read 0
+SP_PYRAMID_TOL = 1e-3            # flow_up px and weights_up; read 1.8e-4
+                                 # and 1.4e-4 (the shard's products have
+                                 # another shape; x shifted)
+SP_LOCAL_TOL = 1e-3              # flow_up px and weights_up; read 0
+# the training step (AdamW, lr 1e-5, 'default' precision): the loss
+# relative, and each parameter relative to its tensor's largest magnitude
+# where the single step's gradient is above 1e-5 (AdamW's eps regime
+# otherwise: held to 2 lr, a flipped sign). NCCL's one rank runs the batch
+# of 4 as the single step does (read 0 and 1.7e-7: the backward's sums
+# vary between calls); each gloo rank runs 2 rows, and the forward's TF32
+# convolutions at batch 2 against batch 4 (read 3.7e-5 and 2.1e-4)
+DP_SAME_BATCH_REL = (1e-6, 1e-6)
+DP_HALF_BATCH_REL = (2e-4, 1e-3)
+
+
+def scale_masks(h=H_IMG, w=W_IMG):
+    """The streams' targets: (4, h, w) bool boxes and their corners (4, 2,
+    4), inclusive."""
+    masks = np.zeros((len(SCALE_BOXES), h, w), bool)
+    corners = []
+    for m, (y0, y1, x0, x1) in zip(masks, SCALE_BOXES):
+        y0, y1, x0, x1 = int(y0 * h), int(y1 * h), int(x0 * w), int(x1 * w)
+        m[y0:y1, x0:x1] = True
+        corners.append([[x0, x1 - 1, x1 - 1, x0], [y0, y0, y1 - 1, y1 - 1]])
+    return masks, np.asarray(corners, np.float64)
+
+
+def _scale_tracker(dev, config="WOFT.py"):
+    from woft_tpu_torch.config import load_config
+    from woft_tpu_torch.flow import RaftFlow
+    conf = load_config(os.path.join(ROOT, "woft_tpu_torch", "configs",
+                                    config))
+    flower = RaftFlow(conf.flow_config, device=dev)
+    return flower.model, flower.cfg, conf.tracker_params
+
+
+def scale_track(kernels, step, model, cfg, tp, template, frames, masks, dev):
+    """``sharded_track_batch``'s ``step`` over ``len(masks)`` streams of
+    the walk, each its own target, counted from 0. Returns (hs (frames,
+    streams, 3, 3) float64, launches, seconds, flows)."""
+    from woft_tpu_torch.flow.wrapper import upload_bgr
+    from woft_tpu_torch.tracker.woft import tracker_init_state
+
+    tmpl = upload_bgr(template, dev)
+    states = [tracker_init_state(model, cfg, tp, tmpl,
+                                 torch.from_numpy(m).to(dev)) for m in masks]
+    zero_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hs, flows = [], 0
+    for f in frames:
+        batch = upload_bgr(f, dev).expand(len(masks), -1, -1, -1)[:, None]
+        states, h, metas = step(model, states, batch)
+        flows += sum(1 + (not m["global_H_success"]) for m in metas)
+        hs.append(h.double().cpu().numpy())
+    torch.cuda.synchronize()
+    return (np.stack(hs), read_counts(kernels), time.perf_counter() - t0,
+            flows)
+
+
+def single_streams(model, cfg, tp, template, frames, masks, dev):
+    """The per-stream ``build_track_step`` twin: each stream alone over the
+    frames. Returns hs (frames, streams, 3, 3) float64."""
+    from woft_tpu_torch.flow.wrapper import upload_bgr
+    from woft_tpu_torch.tracker.woft import build_track_step, \
+        tracker_init_state
+
+    step = build_track_step(cfg, tp)
+    tmpl = upload_bgr(template, dev)
+    out = []
+    for m in masks:
+        state = tracker_init_state(model, cfg, tp, tmpl,
+                                   torch.from_numpy(m).to(dev))
+        hs = []
+        for f in frames:
+            state, h, _ = step(model, state, upload_bgr(f, dev))
+            hs.append(h.double().cpu().numpy())
+        out.append(hs)
+    return np.asarray(out).transpose(1, 0, 2, 3)
+
+
+def stream_px(ha, hb, corners):
+    """The largest distance (px) between the stream targets' corners
+    mapped by two H sets (frames, streams, 3, 3)."""
+    def proj(H, pts):
+        p = H @ np.vstack([pts, np.ones(pts.shape[1])])
+        return p[:2] / p[2:]
+
+    return max(float(np.linalg.norm(proj(a, c) - proj(b, c), axis=0).max())
+               for fa, fb in zip(ha, hb) for a, b, c in zip(fa, fb, corners))
+
+
+def scale_train_batch(dev):
+    """The training phase's global batch: 4 textured 288x384 crops, the
+    synthetic pairs drawn on the card from seed 3 (numpy, CPU)."""
+    from woft_tpu_torch.training.synth import synth_homography_batch
+
+    h, w = TRAIN_HW
+    imgs = np.stack([textured_frame(h, w, seed=30 + i)[..., ::-1]
+                     for i in range(TRAIN_BATCH)]).astype(np.float32)
+    batch = synth_homography_batch(torch.Generator(device=dev).manual_seed(3),
+                                   torch.from_numpy(imgs).to(dev))
+    return {k: v.cpu().numpy() for k, v in batch.items()}
+
+
+def scale_train_model(dev):
+    """WeightedRAFT-large from the v4 export, 'default' precision, 12
+    iterations, its optimizer for the whole net (``--train-flow``, lr
+    1e-5) with the gradients it is handed recorded."""
+    import train_wraft_torch
+    from woft_tpu_torch.models.raft import RaftConfig, init_raft_params
+    from woft_tpu_torch.training.train import TrainConfig, init_train_state
+
+    cfg = RaftConfig(variant="weighted", iters=12, precision="default")
+    tcfg = TrainConfig(learning_rate=1e-5, train_flow=True)
+    model = init_raft_params(cfg, seed=0)
+    train_wraft_torch.load_init(model, os.path.join(
+        ROOT, "weights", "wraft_tpu_v4_torch.pt"))
+    model.to(dev)
+    tx, state = init_train_state(model, tcfg)
+    seen = {}
+    update = tx.update
+
+    def recording(grads, st, loss=None):
+        seen.update({n: g.detach().clone() for n, g in zip(tx.names,
+                                                            grads)})
+        return update(grads, st, loss)
+
+    tx.update = recording
+    return model, cfg, tcfg, tx, state, seen
+
+
+def _train_rows(batch, mesh, dev):
+    from woft_tpu_torch.parallel import shard_batch
+    rows = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    if mesh is not None:
+        rows = shard_batch(mesh, rows)
+    rows["generator"] = torch.Generator(device=dev).manual_seed(17)
+    return rows
+
+
+def _named_cpu(model):
+    return {n: p.detach().cpu() for n, p in model.named_parameters()}
+
+
+def single_train_step(dev, batch):
+    """The plain single-process step on the whole batch: (loss, gradients,
+    parameters after it)."""
+    from woft_tpu_torch.training.train import make_train_step
+
+    model, cfg, tcfg, tx, state, seen = scale_train_model(dev)
+    loss = make_train_step(model, cfg, tcfg, tx)(state, _train_rows(
+        batch, None, dev))
+    return float(loss), {n: g.cpu() for n, g in seen.items()}, \
+        _named_cpu(model)
+
+
+def compare_train(what, got, want, bounds, lr=1e-5):
+    """A sharded step's (loss, gradients, parameters) against the single
+    step's: the loss to ``bounds[0]`` relative; each parameter to
+    ``bounds[1]`` of its tensor's largest magnitude where the single
+    step's gradient exceeds 1e-5, and to ``2 lr`` elsewhere (the AdamW
+    step ``lr * g / (|g| + 1e-8)`` amplifies the rounding of small
+    gradients, up to a flipped sign). Logs the gradients' largest gap
+    against the largest gradient of their part of the network. Returns the
+    numbers it logs."""
+    loss, grads, params = got
+    loss0, grads0, params0 = want
+    rel = abs(loss - loss0) / abs(loss0)
+    worst, loose, gmax = 0.0, 0, 0.0
+    part = {}
+    for n, g0 in grads0.items():
+        key = n.split(".")[0]
+        part[key] = max(part.get(key, 0.0), g0.abs().max().item())
+    g_rel = max((grads[n] - g0).abs().max().item() / part[n.split(".")[0]]
+                for n, g0 in grads0.items())
+    for n, p0 in params0.items():
+        err = (params[n] - p0).abs()
+        tight = grads0[n].abs() > 1e-5
+        scale = p0.abs().max().item()
+        if err[tight].numel():
+            worst = max(worst, err[tight].max().item() / scale)
+        loose += int((~tight).sum())
+        gmax = max(gmax, err.max().item())
+    log(f"{what}: loss {loss:.6f} against {loss0:.6f} ({rel:.3g} relative); "
+        f"gradients {g_rel:.3g} of their part's largest; parameters, where "
+        f"|g| > 1e-5: {worst:.3g} of each tensor's largest; the {loose} "
+        f"entries with |g| <= 1e-5: largest gap {gmax:.3g} (lr {lr})")
+    if not (rel <= bounds[0] and worst <= bounds[1]
+            and gmax <= 2 * lr * (1 + 1e-3)):
+        raise AssertionError(f"{what}: the sharded step differs from the "
+                             f"single step")
+    return dict(loss_rel=rel, grad_rel=g_rel, param_rel=worst,
+                eps_regime_entries=loose, largest_gap=gmax)
+
+
+def scale_out_rank(rank, world, device, job):
+    """One of the two ``gloo`` ranks, both on ``cuda:0``: (a) 2 streams of
+    ``sharded_track_batch`` under ``WOFT.py`` (dp = 2), (b) the pyramid
+    form of ``spatial_sharded_forward`` under ``WOFT.py`` and (c) its
+    block-local form under ``WOFT_fast.py`` (sp = 2), (d) one
+    ``sharded_train_step`` on 2 rows of the batch of 4 (dp = 2); each
+    counted from 0."""
+    sys.path.insert(0, ROOT)
+    from woft_tpu_torch.device import resolve_device
+    from woft_tpu_torch.flow.wrapper import upload_bgr
+    from woft_tpu_torch.ops import kernels
+    from woft_tpu_torch.parallel import (
+        gather_streams, make_mesh, sharded_track_batch, sharded_train_step,
+        spatial_sharded_forward)
+
+    dev = resolve_device(str(device))
+    kernels.build()          # built by the parent: loads its libraries
+    out = {}
+    dp_mesh = make_mesh(sp=1, device=dev)
+    sp_mesh = make_mesh(sp=2, device=dev)
+
+    model, cfg, tp = _scale_tracker(dev)
+    mine = job["masks"][rank * SCALE_STREAMS:(rank + 1) * SCALE_STREAMS]
+    step = sharded_track_batch(dp_mesh, cfg, tp)
+    hs, launches, secs, flows = scale_track(
+        kernels, step, model, cfg, tp, job["template"], job["frames"], mine,
+        dev)
+    all_hs = gather_streams(dp_mesh, torch.from_numpy(hs).permute(
+        1, 0, 2, 3).float().to(dev).contiguous())
+    out["track"] = dict(hs=hs, all_hs=all_hs.cpu().numpy(),
+                        launches=launches, seconds=secs, flows=flows)
+
+    img1 = upload_bgr(job["template"], dev)
+    img2 = upload_bgr(job["frames"][0], dev)
+    for form, (m, c) in (("pyramid", (model, cfg)),
+                         ("block-local", _scale_tracker(dev,
+                                                        "WOFT_fast.py")[:2])):
+        fwd = spatial_sharded_forward(sp_mesh, c)
+        with torch.no_grad():
+            fwd(m, img1, img2)                  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(kernels)
+        fwd.shard.reduces = 0
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            flow_up, weights_up = fwd(m, img1, img2)
+        torch.cuda.synchronize()
+        out[form] = dict(
+            flow_up=flow_up.cpu().numpy(), weights_up=weights_up.cpu().numpy(),
+            ms=(time.perf_counter() - t0) * 1e3,
+            launches=read_counts(kernels),
+            volume_bytes=fwd.shard.volume_bytes,
+            reduce_bytes=fwd.shard.reduce_bytes, reduces=fwd.shard.reduces,
+            blocks=fwd.shard.blocks,
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del model
+    torch.cuda.empty_cache()
+
+    tmodel, tcfg_r, tcfg, tx, state, seen = scale_train_model(dev)
+    zero_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = sharded_train_step(dp_mesh, tmodel, tcfg_r, tcfg, tx)(
+        state, _train_rows(job["batch"], dp_mesh, dev))
+    loss = float(loss)
+    out["train"] = dict(
+        step=(loss, {n: g.cpu() for n, g in seen.items()},
+              _named_cpu(tmodel)),
+        seconds=time.perf_counter() - t0, launches=read_counts(kernels))
+    return out
+
+
+def check_band_kernels(kernels, corr, dev):
+    """Kernels C, D, E on rank 1's band of the 720p grid (blocks 60-119,
+    ``b0`` = 60) against their plain versions (C within one bf16 ulp, D
+    and E exact) and against the matching rows of the whole-grid launch
+    (exact); C's plan keyed on ``b0`` (the same pointers at ``b0`` = 0
+    after a band launch compute blocks 0-59); kernel B on two key-column
+    shards with x shifted, summed, against the whole-level lookup. Each
+    timed at the band or shard shape beside its bound, its plain version
+    and a library call. Returns {kernel: row}."""
+    H1, W1 = H_IMG // 8, W_IMG // 8
+    dt = torch.bfloat16
+    b0 = SCALE_BAND_B0
+    rows = {}
+    meta, f1b, lvs, geoms = _local_corr_case(corr, dev, H1, W1, dt)
+    nbh, nbw = meta["nbh"], meta["nbw"]
+    nb = nbh * nbw - b0
+    whole = [v.clone() for v in kernels.local_corr_build(
+        f1b, lvs, geoms, nbh, nbw, dt)]
+    band_f1b = f1b[b0:].contiguous()
+    n0 = kernels.local_corr_build.launches
+    band = kernels.local_corr_build(band_f1b, lvs, geoms, nbh, nbw, dt, b0)
+    torch.cuda.synchronize()
+    if kernels.local_corr_build.launches != n0 + 1:
+        raise AssertionError("kernel C's band took more than one launch")
+    err_c = 0.0
+    for d, lv, got, w in zip(meta["levels"], lvs, band, whole):
+        if not torch.equal(got, w[b0:]):
+            raise AssertionError("kernel C's band differs from the whole "
+                                 "grid's rows")
+        want = corr.block_local_corr_plain(band_f1b, lv, d, nbh, nbw, dt, b0)
+        diff = (got.float() - want.float()).abs()
+        if int((diff > CORR_ATOL + CORR_RTOL_BF16
+                * want.float().abs()).sum()):
+            raise AssertionError("kernel C's band disagrees with its plain "
+                                 "version")
+        err_c = max(err_c, diff.max().item())
+    del band
+    # the same pointers at b0 = 0: the kept plan must not serve it
+    again = kernels.local_corr_build(band_f1b, lvs, geoms, nbh, nbw, dt)
+    want0 = corr.block_local_corr_plain(band_f1b, lvs[0], meta["levels"][0],
+                                        nbh, nbw, dt)
+    torch.cuda.synchronize()
+    stale = (again[0].float() - want0.float()).abs().max().item()
+    log(f"kernel C [720p band, blocks {b0}-{nbh * nbw - 1}, bf16]: equal to "
+        f"the whole grid's rows; against its plain version max_abs_err "
+        f"{err_c:.3g}; the same pointers at b0 = 0 after it: max_abs_err "
+        f"{stale:.3g} against blocks 0-{nb - 1}")
+    if not stale <= 0.05:
+        raise AssertionError("kernel C reused the band's plan at b0 = 0")
+    rows["C"] = dict(max_abs_err=err_c, **_time_local_corr(
+        kernels, corr, (meta, band_f1b, lvs, geoms), dt, BF16_FLOPS,
+        f"720p band b0={b0}", b0))
+    del whole, again
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    f1 = torch.randn(1, H1, W1, 256, device=dev, generator=g)
+    f2 = torch.randn(1, H1, W1, 256, device=dev, generator=g)
+    local = corr.build_local_corr(f1, f2, 4, 4, 16, out_dtype=dt)
+    band = corr.LocalCorrVolumes([v[b0:].contiguous() for v in local.volumes],
+                                 local.meta, b0)
+    table = local.consts["table"]
+    errs = {"D": 0.0, "E": 0.0}
+    for kind in ("smooth", "violating"):
+        coords = _local_coords(dev, kind)
+        d_all, bad_all = kernels.local_lookup_coords(coords, local.volumes,
+                                                     table, 9, dt)
+        got, bad = kernels.local_lookup_coords(coords, band.volumes, table, 9,
+                                               dt, b0)
+        want, bad_p = corr.block_local_lookup_coords_plain(band, coords, 9,
+                                                           dt)
+        e_all = d_all.clone()
+        kernels.local_lookup_exact_coords(coords, local.volumes, table, 9,
+                                          bad=bad_all, out=e_all)
+        e_band, e_plain = got.clone(), got.clone()
+        kernels.local_lookup_exact_coords(coords, band.volumes, table, 9,
+                                          bad=bad, out=e_band, b0=b0)
+        corr.block_local_lookup_exact_coords_plain(band, coords, 9, bad=bad,
+                                                   out=e_plain)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, d_all[b0:]) and torch.equal(bad, bad_p)
+                and torch.equal(bad, bad_all[b0:])
+                and torch.equal(e_band, e_all[b0:])):
+            raise AssertionError(f"kernels D, E on the band ({kind}) differ "
+                                 f"from the whole grid's rows or flags")
+        errs["D"] = max(errs["D"], (got.float() - want.float()).abs().max()
+                        .item())
+        errs["E"] = max(errs["E"], (e_band.float() - e_plain.float()).abs()
+                        .max().item())
+        log(f"kernels D, E [720p band b0={b0}, {kind}]: equal to the whole "
+            f"grid's rows and flags ({int(bad.bool().any(1).sum())} of {nb} "
+            f"blocks flagged); against their plain versions D "
+            f"{errs['D']:.3g}, E {errs['E']:.3g}")
+    if max(errs.values()) > 0.0:
+        raise AssertionError(f"kernels D, E on the band differ from their "
+                             f"plain versions: {errs}")
+    timed = _time_coord_lookups(kernels, corr, band, _local_coords(
+        dev, "smooth"), f"720p band b0={b0}")
+    for k in "DE":
+        rows[k] = dict(max_abs_err=errs[k], **timed[k])
+    del local, band
+
+    rows["B"] = check_shard_lookup(kernels, corr, dev)
+    return rows
+
+
+def check_shard_lookup(kernels, corr, dev):
+    """Kernel B on the two key-column halves of the 720p pyramid (Q =
+    14,400, 80 / 40 / 20 / 10 columns a level), x shifted by each half's
+    first level-0 column, the parts summed against the whole-level lookup
+    (``SHARD_LOOKUP_TOL``), dense and indexed; the second half timed
+    beside its bound, its plain version and ``F.grid_sample`` x4."""
+    radius, k = 4, 9
+    pyramid, coords, cells, c_cells = lookup_case(corr, dev)
+    Q = coords.numel() // 2
+    W0 = pyramid[0].shape[2]
+    halves = [[p[:, :, r * p.shape[2] // 2:(r + 1) * p.shape[2] // 2]
+               .contiguous() for p in pyramid] for r in (0, 1)]
+    shift = torch.tensor([W0 / 2, 0.0], device=dev)
+    shifted = (coords - shift).contiguous()
+    whole = kernels.corr_pyramid_lookup(pyramid, coords, radius)
+    parts = (kernels.corr_pyramid_lookup(halves[0], coords, radius)
+             + kernels.corr_pyramid_lookup(halves[1], shifted, radius))
+    whole_i = kernels.corr_pyramid_lookup(pyramid, c_cells, radius,
+                                          rows=cells)
+    parts_i = (kernels.corr_pyramid_lookup(halves[0], c_cells, radius,
+                                           rows=cells)
+               + kernels.corr_pyramid_lookup(
+                   halves[1], (c_cells - shift).contiguous(), radius,
+                   rows=cells))
+    plain = corr.corr_lookup_plain(halves[1], shifted, radius).reshape(Q, -1)
+    one = kernels.corr_pyramid_lookup(halves[1], shifted, radius)
+    torch.cuda.synchronize()
+    err = (parts - whole).abs().max().item()
+    err_i = (parts_i - whole_i).abs().max().item()
+    err_p = (one - plain).abs().max().item()
+    log(f"kernel B on two key-column shards [720p, Q={Q}, x shifted by "
+        f"{W0 // 2}]: the parts' sum against the whole lookup max_abs_err "
+        f"{err:.3g} dense, {err_i:.3g} indexed (tol {SHARD_LOOKUP_TOL}); "
+        f"one shard against its plain version {err_p:.3g}")
+    if not (max(err, err_i) <= SHARD_LOOKUP_TOL and err_p <= LOOKUP_TOL):
+        raise AssertionError("kernel B on key-column shards disagrees")
+    n_out = Q * 4 * k * k
+    flat = shifted.reshape(Q, 2)
+    bnd, by = bound_ms(_window_bytes(halves[1], flat, None, radius) + Q * 8
+                       + n_out * 4, n_out * 18)
+    d = torch.arange(k, device=dev, dtype=torch.float32) - radius
+    grids = []
+    for lvl, p in enumerate(halves[1]):
+        hl, wl = p.shape[1:]
+        c = flat.reshape(Q, 1, 1, 2) / 2 ** lvl
+        gx, gy = torch.broadcast_tensors(c[..., 0] + d[:, None],
+                                         c[..., 1] + d[None, :])
+        grids.append(torch.stack([2 * gx / (wl - 1) - 1,
+                                  2 * gy / (hl - 1) - 1], -1))
+    levels = [p[:, None] for p in halves[1]]
+    ms = time_ms(lambda: kernels.corr_pyramid_lookup(halves[1], shifted,
+                                                     radius))
+    plain_ms = time_ms(lambda: corr.corr_lookup_plain(halves[1], shifted,
+                                                      radius), iters=5,
+                       warmup=1)
+    library_ms = time_ms(lambda: [F.grid_sample(
+        lv, gr, mode="bilinear", padding_mode="zeros", align_corners=True)
+        for lv, gr in zip(levels, grids)])
+    log(f"kernel B timing (one key-column shard, Q={Q}, half of each "
+        f"level): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, F.grid_sample "
+        f"x4 {library_ms:.4f} ms, bound {bnd:.4f} ms ({by})")
+    return dict(max_abs_err=max(err, err_i), ms=ms, plain_ms=plain_ms,
+                bound_ms=bnd, bound_by=by, library_ms=library_ms)
+
+
+def track_scale_out(kernels, corr, dev):
+    """The scale-out phase: C, D, E at a band and B on column shards; then
+    NCCL with one rank (world 1, a file store, in this process): an
+    all-reduce, ``sharded_track_batch`` over 2 streams of 8 frames under
+    ``WOFT.py`` against each stream's own ``build_track_step`` (0 px; A
+    once and B 13 times a stream-frame), one ``sharded_train_step`` at
+    288x384, batch 4, ``--train-flow``, against the plain step; then two
+    ``gloo`` ranks on ``cuda:0`` (``parallel.launch``; NCCL refuses two
+    ranks on one GPU): tracking 2 x 2 streams, the pyramid and block-local
+    forms of ``spatial_sharded_forward`` (sp = 2) and the dp step on 2 x 2
+    rows, each against its single-process twin here. Returns the kernel
+    rows at the band and shard shapes and each run's launches."""
+    import tempfile
+    from woft_tpu_torch.flow.wrapper import upload_bgr
+    from woft_tpu_torch.models.raft import weighted_raft_forward
+    from woft_tpu_torch.parallel import (
+        all_reduce_sum, launch, make_mesh, process_group,
+        sharded_track_batch, sharded_train_step)
+
+    t_phase = time.perf_counter()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    rows = check_band_kernels(kernels, corr, dev)
+    torch.cuda.empty_cache()
+
+    template, frames, poses = walk(H_IMG, W_IMG, dev, n=SCALE_FRAMES)
+    masks, corners = scale_masks()
+    batch = scale_train_batch(dev)
+    runs = {}
+    model, cfg, tp = _scale_tracker(dev)
+    # each stream alone, the twin of every sharded run
+    single = single_streams(model, cfg, tp, template, frames, masks, dev)
+    errs = corner_errors_streams(single, poses, corners)
+    log(f"scale-out: 4 streams of {SCALE_FRAMES} frames alone under WOFT.py"
+        f", corner error against the walk {min(errs):.3f}-{max(errs):.3f} px")
+    train0 = single_train_step(dev, batch)
+
+    with tempfile.TemporaryDirectory() as tmp, process_group(
+            "nccl", os.path.join(tmp, "store"), 0, 1, timeout=300.0):
+        mesh = make_mesh(sp=1, device=dev)
+        t = all_reduce_sum(torch.full((4,), 3.0, device=dev), mesh)
+        if not torch.equal(t, torch.full((4,), 3.0, device=dev)):
+            raise AssertionError("NCCL all-reduce of one rank changed t")
+        step = sharded_track_batch(mesh, cfg, tp)
+        mine = masks[:SCALE_STREAMS]
+        hs, launches, secs, flows = scale_track(
+            kernels, step, model, cfg, tp, template, frames, mine, dev)
+        px = stream_px(hs, single[:, :SCALE_STREAMS], corners)
+        n = SCALE_STREAMS * SCALE_FRAMES
+        log(f"NCCL, one rank [{card}]: all-reduce ok; sharded_track_batch "
+            f"{SCALE_STREAMS} streams x {SCALE_FRAMES} frames in "
+            f"{secs:.3f} s ({n / secs:.1f} targets.frames/s), against each "
+            f"stream alone {px:.3g} px; launches {launches}")
+        if px != 0.0:
+            raise AssertionError("NCCL sharded_track_batch differs from "
+                                 "the streams alone")
+        check_counts("NCCL sharded_track_batch", launches,
+                     {"warp_perspective_bilinear": n,
+                      "corr_pyramid_lookup": 13 * flows},
+                     ("warp_perspective_bilinear", "corr_pyramid_lookup"),
+                     n, flows)
+        runs["NCCL tracking, 2 streams x 8 frames"] = launches
+        del step
+        tmodel, tcfg_r, tcfg, tx, state, seen = scale_train_model(dev)
+        zero_counts(kernels)
+        loss = float(sharded_train_step(mesh, tmodel, tcfg_r, tcfg, tx)(
+            state, _train_rows(batch, mesh, dev)))
+        runs["NCCL training step, batch 4"] = read_counts(kernels)
+        nccl_train = compare_train(
+            f"NCCL, one rank, sharded_train_step [{card}]",
+            (loss, {n_: g.cpu() for n_, g in seen.items()},
+             _named_cpu(tmodel)), train0, DP_SAME_BATCH_REL)
+        del tmodel, tx, state, seen
+    torch.cuda.empty_cache()
+
+    # the single-process twins of the spatial forwards
+    img1 = upload_bgr(template, dev)
+    img2 = upload_bgr(frames[0], dev)
+    with torch.no_grad():
+        ref = weighted_raft_forward(model, cfg, img1, img2)
+        fast_model, fast_cfg, _ = _scale_tracker(dev, "WOFT_fast.py")
+        ref_fast = weighted_raft_forward(fast_model, fast_cfg, img1, img2)
+    refs = {"pyramid": (ref["flow_up"].cpu().numpy(),
+                        ref["weights_up"].cpu().numpy()),
+            "block-local": (ref_fast["flow_up"].cpu().numpy(),
+                            ref_fast["weights_up"].cpu().numpy())}
+    whole_bytes = sum(v.numel() * 4 for v in corr.corr_pyramid_fused(
+        ref["fmap1"], ref["fmap2"], 4)[0])
+    del ref, ref_fast, model, fast_model
+    torch.cuda.empty_cache()
+
+    job = dict(template=template, frames=frames, masks=masks, batch=batch)
+    t0 = time.perf_counter()
+    res = launch(scale_out_rank, 2, "gloo", ["cuda:0", "cuda:0"],
+                 args=(job,), timeout=300.0, join_timeout=600.0)
+    log(f"two gloo ranks on cuda:0: {time.perf_counter() - t0:.1f} s from "
+        f"spawn to join")
+
+    # (a) tracking
+    hs = np.concatenate([r["track"]["hs"] for r in res], axis=1)
+    px = stream_px(hs, single, corners)
+    secs = max(r["track"]["seconds"] for r in res)
+    n = len(masks) * SCALE_FRAMES
+    log(f"gloo (a) sharded_track_batch, 2 ranks x {SCALE_STREAMS} streams x "
+        f"{SCALE_FRAMES} frames [{card}]: {secs:.3f} s on the slower rank, "
+        f"{n / secs:.1f} targets.frames/s (two processes sharing one card); "
+        f"against each stream alone {px:.3g} px (bound "
+        f"{GLOO_TRACK_TOL_PX}); launches {[r['track']['launches'] for r in res]}")
+    if not px <= GLOO_TRACK_TOL_PX:
+        raise AssertionError("gloo sharded_track_batch differs from the "
+                             "streams alone")
+    for r in res:
+        if not np.array_equal(r["track"]["all_hs"],
+                              hs.transpose(1, 0, 2, 3).astype(np.float32)):
+            raise AssertionError("gather_streams differs from the ranks' Hs")
+    for i, r in enumerate(res):
+        nr = SCALE_STREAMS * SCALE_FRAMES
+        check_counts(f"gloo tracking rank {i}", r["track"]["launches"],
+                     {"warp_perspective_bilinear": nr,
+                      "corr_pyramid_lookup": 13 * r["track"]["flows"]},
+                     ("warp_perspective_bilinear", "corr_pyramid_lookup"),
+                     nr, r["track"]["flows"])
+        runs[f"gloo tracking rank {i}, 2 streams x 8 frames"] = \
+            r["track"]["launches"]
+
+    # (b), (c) the spatial forwards
+    spatial = {}
+    for form, tol in (("pyramid", SP_PYRAMID_TOL),
+                      ("block-local", SP_LOCAL_TOL)):
+        f_ref, w_ref = refs[form]
+        gaps = [(float(np.abs(r[form]["flow_up"] - f_ref).max()),
+                 float(np.abs(r[form]["weights_up"] - w_ref).max()))
+                for r in res]
+        info = [dict(ms=r[form]["ms"], volume_bytes=r[form]["volume_bytes"],
+                     reduce_bytes=r[form]["reduce_bytes"],
+                     reduces=r[form]["reduces"], blocks=r[form]["blocks"],
+                     peak_gib=r[form]["peak_gib"]) for r in res]
+        log(f"gloo ({'b' if form == 'pyramid' else 'c'}) "
+            f"spatial_sharded_forward, {form}, sp = 2 [{card}]: flow_up and "
+            f"weights_up against the unsharded forward {gaps} (bound {tol}); "
+            f"per rank {info}; the whole float32 pyramid "
+            f"{whole_bytes / 1e9:.3f} GB")
+        if not max(max(g) for g in gaps) <= tol:
+            raise AssertionError(f"spatial_sharded_forward ({form}) differs "
+                                 f"from the unsharded forward")
+        for i, r in enumerate(res):
+            want = ({"corr_pyramid_lookup": 13} if form == "pyramid" else
+                    {"local_corr_build": 1, "local_lookup_coords": 13,
+                     "local_lookup_exact_coords": 13})
+            check_counts(f"spatial {form} rank {i}", r[form]["launches"],
+                         want, tuple(want), 0, 1)
+            runs[f"gloo spatial {form} rank {i}, one flow"] = \
+                r[form]["launches"]
+        spatial[form] = dict(gaps=gaps, ranks=info)
+    if res[1]["block-local"]["blocks"] != (SCALE_BAND_B0, 120):
+        raise AssertionError(f"rank 1 held blocks "
+                             f"{res[1]['block-local']['blocks']}")
+
+    # (d) training
+    dp_train = [compare_train(f"gloo (d) sharded_train_step rank {i}, 2 of "
+                              f"4 rows [{card}]", r["train"]["step"], train0,
+                              DP_HALF_BATCH_REL)
+                for i, r in enumerate(res)]
+    for i, r in enumerate(res):
+        runs[f"gloo training rank {i}, 2 rows"] = r["train"]["launches"]
+    log(f"scale-out phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(rows=rows, runs=runs, spatial=spatial, train=dict(
+        nccl=nccl_train, gloo=dp_train))
+
+
+def corner_errors_streams(hs, poses, corners):
+    """Each stream's corner errors against the walk (template px)."""
+    return [e for s in range(hs.shape[1])
+            for e in corner_errors(list(hs[:, s]), poses, corners[s])]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4207,6 +4865,12 @@ def main():
     # under grad, one step card vs CPU
     torch.cuda.empty_cache()
     train = track_training(kernels, corr, warp, dev)
+
+    # scale-out: C, D, E at a band and B on key-column shards; NCCL with
+    # one rank; two gloo ranks on this card (tracking, both spatial forms,
+    # the dp step)
+    torch.cuda.empty_cache()
+    scale = track_scale_out(kernels, corr, dev)
 
     # launches: A and B on the WOFT.py path, C, D, E (the last two from
     # coordinates) on the WOFT_fast.py
@@ -4357,6 +5021,15 @@ def main():
              "(batch 4 of 288x384), the float32 form in 'float32'",
         train_max_abs_err=train["shapes"]["B'"],
         float32=bwd["float32"], **bwd["bfloat16"]))
+    # scale-out: each kernel's launches in its runs (per rank), and B, C,
+    # D, E at the band and shard shapes
+    for row in rows:
+        counts = {what: c[row["name"]] for what, c in scale["runs"].items()
+                  if row["name"] in c and c[row["name"]]}
+        if counts:
+            row["scale_out_launches"] = counts
+    for row, kernel in zip(rows[1:5], "BCDE"):
+        row["scale_out_shape"] = scale["rows"][kernel]
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

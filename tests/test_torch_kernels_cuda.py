@@ -650,6 +650,69 @@ def test_coord_lookup_kernels_match_plain(dev, dtype, shape):
             local, coords, k))
 
 
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2.0 ** -7)],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(90, 160, 4, 16), (37, 83, 3, 8)],
+                         ids=["720p", "37x83"])
+def test_band_kernels_match_plain_and_whole_grid(dev, dtype, rtol, shape):
+    """Kernels C, D and E on a band of the grid (blocks b0 .. b0 + nb - 1,
+    the spatially sharded forward's share of a rank) against their plain
+    versions at that b0 (C to the tolerance of two summation orders, D and
+    E bit for bit) and against the matching rows of the whole-grid launch
+    (bit for bit); C's kept parameter block is keyed on b0."""
+    H1, W1, L, margin = shape
+    f1, f2 = _features(dev, H1, W1, 64, seed=9)
+    whole = corr.build_local_corr(
+        f1, f2, 4, L, margin,
+        out_dtype=None if dtype == torch.float32 else dtype)
+    meta = whole.meta
+    nbh, nbw = meta["nbh"], meta["nbw"]
+    b0 = nbh * nbw // 2
+    rows = slice(b0, nbh * nbw)
+    f1b = corr._to_blocked(f1.reshape(-1, 64), meta).reshape(
+        nbh * nbw, 128, 64)[rows].to(dtype).contiguous()
+    levels = [f2]
+    while len(levels) < L:
+        levels.append(warp.avg_pool2d(levels[-1]))
+    levels = [lv[0].to(dtype).contiguous() for lv in levels]
+    vols = corr.block_local_corr_levels(f1b, levels, meta["levels"], nbh,
+                                        nbw, dtype, b0)
+    for v, w, lv, d in zip(vols, whole.volumes, levels, meta["levels"]):
+        assert torch.equal(v, w[rows])
+        want = corr.block_local_corr_plain(f1b, lv, d, nbh, nbw, dtype,
+                                           b0).float()
+        assert ((v.float() - want).abs() <= 2e-5 + rtol * want.abs()).all()
+    # the same pointers at b0 = 0: a kept plan of the band must not serve
+    at0 = corr.block_local_corr_levels(f1b, levels, meta["levels"], nbh,
+                                       nbw, dtype)
+    want0 = corr.block_local_corr_plain(f1b, levels[0], meta["levels"][0],
+                                        nbh, nbw, dtype).float()
+    assert ((at0[0].float() - want0).abs() <= 2e-5 + rtol
+            * want0.abs()).all()
+    band = corr.LocalCorrVolumes(vols, meta, b0)
+    for kind in ("smooth", "jitter", "saturated"):
+        coords = _field(dev, H1, W1, kind)
+        d_all, bad_all = corr.block_local_lookup_coords(whole, coords, 9,
+                                                        dtype)
+        got, bad = corr.block_local_lookup_coords(band, coords, 9, dtype)
+        want, bad_p = corr.block_local_lookup_coords_plain(band, coords, 9,
+                                                           dtype)
+        assert torch.equal(got, want) and torch.equal(bad, bad_p), kind
+        assert torch.equal(got, d_all[rows]), kind
+        assert torch.equal(bad, bad_all[rows]), kind
+        e_all = d_all.clone()
+        corr.block_local_lookup_exact_coords(whole, coords, 9, bad=bad_all,
+                                             out=e_all)
+        out_k, out_p = got.clone(), got.clone()
+        corr.block_local_lookup_exact_coords(band, coords, 9, bad=bad,
+                                             out=out_k)
+        corr.block_local_lookup_exact_coords_plain(band, coords, 9, bad=bad,
+                                                   out=out_p)
+        assert torch.equal(out_k, out_p) and torch.equal(out_k,
+                                                         e_all[rows]), kind
+
+
 def test_guarded_lookup_is_two_launches(dev, local_volume):
     """One guarded ``corr_lookup_local_blocked`` on the card is two kernel
     launches, D then E, and nothing else on the device; ``fine=False`` is

@@ -4,7 +4,8 @@ RAFT-small, ``--train-flow``, validation and a rolling checkpoint. The
 final checkpoint is a torch state dict that the port's ``RaftFlow`` loads
 and that ``woft_tpu``'s ``load_torch_checkpoint`` reads into the same tree
 as ``params_to_jax_numpy`` makes, with the same forward on both sides
-(flow 1e-3 px, weight logits 1e-4, as in ``test_torch_small_raft.py``)."""
+(flow 1e-3 px, weight logits 1e-4, as in ``test_torch_small_raft.py``).
+``--dp 2`` on two CPU ranks against ``--dp 1``."""
 
 import sys
 
@@ -98,9 +99,64 @@ def test_init_takes_a_state_dict_only(tmp_path):
         train_wraft_torch.load_init(None, tmp_path)
 
 
-def test_help_says_data_parallel_is_not_ported(capsys):
-    with pytest.raises(SystemExit):
-        train_wraft_torch.parse_args(["--help"])
-    text = capsys.readouterr().out
-    assert "--device" in text and "--dp DP" not in text
-    assert "(train_wraft.py --dp) is not ported" in text
+def _dp_argv(tmp_path, dp, out):
+    return ["--images", str(tmp_path / "imgs"), "--size", "32x64",
+            "--batch", "4", "--steps", "2", "--iters", "1", "--small",
+            "--log-every", "1", "--out", str(out), "--device", "cpu",
+            "--dp", str(dp)]
+
+
+def test_dp_two_ranks_equal_one(tmp_path, monkeypatch):
+    """``--dp 2 --device cpu`` (two spawned ``gloo`` ranks, a global batch
+    of 4) trains as ``--dp 1`` does: the same losses a step to 1e-6
+    relative and frozen tensors bit-identical. AdamW moves a parameter by
+    ``lr * g / (|g| + 1e-8)`` a step, so where a gradient is within a few
+    of its eps of zero the float32 rounding of the two ranks' gradient sum
+    moves the step by up to ``2 lr`` (a flipped sign): those entries (a
+    gradient of 1e-5 or less at either step) are held to ``4 lr`` over the
+    two steps, and the others, whose second step sees the first's
+    differences, to 1e-4 of the tensor's largest magnitude (measured 1.3e-5
+    on the weight head's last bias)."""
+    from woft_tpu_torch.training import train as ttrain
+    _images(tmp_path / "imgs")
+    seen = []
+    update = ttrain.AdamW.update
+
+    def recording(self, grads, state, loss=None):
+        seen.append({n: g.detach().clone() for n, g in zip(self.names,
+                                                             grads)})
+        return update(self, grads, state, loss)
+
+    monkeypatch.setattr(ttrain.AdamW, "update", recording)
+    one = train_wraft_torch.run(train_wraft_torch.parse_args(
+        _dp_argv(tmp_path, 1, tmp_path / "dp1.pt")))
+    monkeypatch.setattr(ttrain.AdamW, "update", update)
+    two = train_wraft_torch.run_dp(train_wraft_torch.parse_args(
+        _dp_argv(tmp_path, 2, tmp_path / "dp2.pt")))
+    assert two["rc"] == 0 and len(two["losses"]) == 2
+    for a, b in zip(two["losses"], one["losses"]):
+        assert abs(a - b) <= 1e-6 * abs(b), (a, b)
+    want = torch.load(str(tmp_path / "dp1.pt"), weights_only=True)
+    got = torch.load(str(tmp_path / "dp2.pt"), weights_only=True)
+    lr = train_wraft_torch.parse_args(_dp_argv(tmp_path, 1, "x")).lr
+    assert len(seen) == 2
+    for k, v in want.items():
+        if k not in seen[0]:
+            assert torch.equal(got[k], v), k
+            continue
+        err = (got[k] - v).abs()
+        sure = (seen[0][k].abs() > 1e-5) & (seen[1][k].abs() > 1e-5)
+        assert err[sure].max() <= 1e-4 * v.abs().max(), k
+        assert err.max() <= 4 * lr, k
+
+
+def test_dp_beyond_the_visible_gpus_raises(tmp_path):
+    """``--dp`` on the card needs one GPU a rank: with more ranks than GPUs
+    the run raises, naming both numbers, and never falls back to sharing
+    a card or to the CPU."""
+    args = train_wraft_torch.parse_args(
+        _dp_argv(tmp_path, 1, tmp_path / "x.pt")[:-4])
+    args.dp = torch.cuda.device_count() + 1
+    with pytest.raises(ValueError, match=f"--dp {args.dp} needs {args.dp} "
+                       f"GPUs, {torch.cuda.device_count()} visible"):
+        train_wraft_torch.run_dp(args)

@@ -8,7 +8,10 @@ and the drawing helpers, the png flow files, the frame readers and
 writers. Held within 1e-5 with equal NaN positions: ``interp_flow``,
 ``flow_warp_coords`` and ``chain_flow`` (float32 bilinear sampling in two
 libraries). Without ``cv2``, each function that needs it raises an
-``ImportError`` naming itself.
+``ImportError`` naming itself. The small utilities (``random_utils``,
+``logging_utils``, ``notifications``, ``profiling``): the same draws, log
+lines and notification lines as the JAX package's; the profiler's trace
+written on the CPU.
 """
 
 import builtins
@@ -375,3 +378,112 @@ def test_cv2_users_name_themselves_without_cv2(monkeypatch, tmp_path):
     for name, call in calls.items():
         with pytest.raises(ImportError, match=name):
             call()
+
+
+def test_tmp_np_seed_matches_jax():
+    """The same draws inside the block as ``woft_tpu``'s, numpy's global
+    state restored after it, and ``None`` leaves the stream alone."""
+    from woft_tpu.utils.random_utils import tmp_np_seed as jseed
+    from woft_tpu_torch.utils import tmp_np_seed
+    np.random.seed(5)
+    before = np.random.get_state()[1].copy()
+    with tmp_np_seed(42):
+        got = np.random.rand(6)
+    assert np.array_equal(np.random.get_state()[1], before)
+    with jseed(42):
+        want = np.random.rand(6)
+    np.testing.assert_array_equal(got, want)
+    with tmp_np_seed(None):
+        a = np.random.rand(3)
+    np.random.seed(5)
+    np.testing.assert_array_equal(a, np.random.rand(3))
+
+
+def test_sparse_exception_logger_matches_jax():
+    """One line a distinct message, the OOM and missing-file spam folded
+    by prefix, as the JAX class logs them."""
+    import logging
+    from woft_tpu.utils.logging_utils import SparseExceptionLogger as J
+    from woft_tpu_torch.utils import SparseExceptionLogger as T
+
+    errors = [RuntimeError("CUDA out of memory. Tried 2 GiB"),
+              RuntimeError("CUDA out of memory. Tried 4 GiB"),
+              FileNotFoundError(2, "No such file or directory", "a.png"),
+              FileNotFoundError(2, "No such file or directory", "b.png"),
+              ValueError("bad frame"), ValueError("bad frame"),
+              KeyError("gt")]
+
+    class Lines(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    out = {}
+    for name, cls in (("jax", J), ("torch", T)):
+        log = logging.getLogger(f"sparse_{name}")
+        log.propagate = False
+        handler = Lines()
+        log.addHandler(handler)
+        sparse = cls(log, extra_starts=("bad",))
+        for e in errors:
+            sparse("frame", e)
+        log.removeHandler(handler)
+        out[name] = handler.lines
+    assert out["torch"] == out["jax"]
+    assert len(out["torch"]) == 4
+
+
+def test_send_notification_writes_the_file(tmp_path, monkeypatch):
+    """``WOFT_NOTIFY_FILE`` receives the host-tagged line, as the JAX
+    package's; ``with_notification`` reports a crash past its minimum
+    runtime and re-raises."""
+    import socket
+    from woft_tpu.utils import notifications as jn
+    from woft_tpu_torch.utils import send_notification, with_notification
+    path = tmp_path / "notify.log"
+    monkeypatch.delenv("WOFT_NOTIFY_CMD", raising=False)
+    monkeypatch.setenv("WOFT_NOTIFY_FILE", str(path))
+    assert send_notification("job done")
+    assert jn.send_notification("job done")
+
+    @with_notification(min_runtime_s=0.0)
+    def crash():
+        raise RuntimeError("boom")
+
+    with pytest.raises(RuntimeError, match="boom"):
+        crash()
+    lines = path.read_text().splitlines()
+    tag = f"[{socket.gethostname()}] "
+    assert lines[:2] == [tag + "job done"] * 2
+    assert lines[2].startswith(tag + "crash crashed after")
+    assert "RuntimeError('boom')" in lines[2]
+
+
+def test_stage_timer_and_trace_step(tmp_path, caplog):
+    """``stage_timer`` logs its stage's ms at debug level; ``trace_step``
+    runs the step n times under ``torch.profiler`` and writes a Chrome
+    trace on the CPU."""
+    import json
+    import logging
+    from woft_tpu_torch.utils import stage_timer, trace_step
+    with caplog.at_level(logging.DEBUG,
+                         logger="woft_tpu_torch.utils.profiling"):
+        with stage_timer("flow", sync_value=torch.ones(2)):
+            torch.ones(64, 64) @ torch.ones(64, 64)
+    assert any(r.getMessage().startswith("flow: ")
+               and r.getMessage().endswith("ms") for r in caplog.records)
+    calls = []
+
+    def step(x):
+        calls.append(1)
+        return x @ x
+
+    out = trace_step(step, (torch.ones(32, 32),), log_dir=str(tmp_path),
+                     n=3)
+    assert len(calls) == 3 and torch.equal(out, torch.full((32, 32), 32.0))
+    trace = json.loads((tmp_path / "trace.json").read_text())
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert any(n and "matmul" in n for n in names)

@@ -17,7 +17,15 @@ through ``WOFT_WRAFT_TORCH_CKPT`` (``flow/wrapper.py:load_model``), and
 tree. ``--init`` takes such a state dict (``.pt``/``.pth``, a ``module.``
 prefix allowed, merged non-strictly over the seeded initialisation).
 
-Data parallelism (``train_wraft.py --dp``) is not ported yet.
+``--dp N`` trains data-parallel on N ranks (``woft_tpu_torch/parallel``):
+rank r runs on ``cuda:r`` under NCCL (``--device cpu``: the CPU under
+``gloo``), and more ranks than visible GPUs raise. ``--batch`` stays the
+global batch and must divide by N: every rank reads the same seeded image
+stream and draws the synthetic pairs and the stand-in masks for the whole
+batch, keeps its rows, and the gradients of the loss over the global
+count of points are summed over the ranks, so a step equals the
+single-process step on the whole batch. Rank 0 alone validates, logs and
+writes the checkpoints.
 
 Example:
     python train_wraft_torch.py --images /data/coco --size 288x384 \\
@@ -28,6 +36,7 @@ Example:
 import argparse
 import glob
 import logging
+import math
 import time
 from pathlib import Path
 
@@ -39,9 +48,7 @@ logger = logging.getLogger(__name__)
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
-        formatter_class=argparse.ArgumentDefaultsHelpFormatter,
-        epilog="Data-parallel training (train_wraft.py --dp) is not "
-               "ported yet.")
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     p.add_argument("--images", required=True,
                    help="directory of training images (jpg/png); a comma "
                         "list pools several directories")
@@ -89,6 +96,10 @@ def parse_args(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card; 'cpu' runs "
                         "the plain PyTorch path)")
+    p.add_argument("--dp", type=int, default=0,
+                   help="data-parallel ranks (0 = single process): rank r "
+                        "on cuda:r under NCCL, or on the CPU under gloo "
+                        "with --device cpu")
     return p.parse_args(argv)
 
 
@@ -170,15 +181,49 @@ def val_epe(model, cfg, batch):
     return torch.linalg.norm(flow - gt, dim=-1).mean()
 
 
-def run(args, wrap_step=None):
+def _dp_rank(rank, world, device, args):
+    """One rank of ``--dp``: ``run`` on this rank's device, its model and
+    optimizer state kept equal across the ranks by the summed gradients.
+    Returns rank 0's result without the model."""
+    from woft_tpu_torch.parallel import make_mesh
+    if rank:
+        logging.disable(logging.INFO)       # rank 0 alone logs
+    res = run(args, mesh=make_mesh(sp=1, device=device), device=device)
+    res.pop("model")
+    return res
+
+
+def run_dp(args):
+    """``--dp N``: N spawned ranks, rank r on ``cuda:r`` under NCCL, or on
+    the CPU under ``gloo`` with ``--device cpu``. Raises ``ValueError``
+    when N exceeds the visible GPUs. Returns rank 0's result (no model)."""
+    from woft_tpu_torch.parallel import launch
+    n = args.dp
+    if args.device is not None and torch.device(args.device).type == "cpu":
+        backend, devices = "gloo", ["cpu"] * n
+    else:
+        visible = torch.cuda.device_count()
+        if n > visible:
+            raise ValueError(f"--dp {n} needs {n} GPUs, {visible} visible")
+        backend, devices = "nccl", [f"cuda:{r}" for r in range(n)]
+    # the group's set-up and each collective get 30 minutes (the first
+    # steps build the kernels); the run as a whole has no time limit
+    return launch(_dp_rank, n, backend, devices, args=(args,),
+                  timeout=1800.0, join_timeout=math.inf)[0]
+
+
+def run(args, wrap_step=None, mesh=None, device=None):
     """Train as ``args`` say. ``wrap_step(i, fn)``, when given, runs step
-    i's ``fn()`` and returns its loss (a measurement hook). Returns dict
-    (model, cfg, losses [per-step float], val [(step, EPE)], out, rc): rc 1
-    when a non-finite loss came with non-finite parameters (halted), else
-    0."""
+    i's ``fn()`` and returns its loss (a measurement hook). With ``mesh``
+    (one rank of ``--dp``, on ``device``) the step is
+    ``sharded_train_step`` on this rank's rows, and only rank 0 validates
+    and writes checkpoints. Returns dict (model, cfg, losses [per-step
+    float], val [(step, EPE)], out, rc): rc 1 when a non-finite loss came
+    with non-finite parameters (halted), else 0."""
     from woft_tpu_torch.device import resolve_device
     from woft_tpu_torch.models.raft import RaftConfig, init_raft_params
-    from woft_tpu_torch.training.synth import synth_homography_batch
+    from woft_tpu_torch.training.synth import (synth_draws, synth_from_draws,
+                                               synth_homography_batch)
     from woft_tpu_torch.training.train import (TrainConfig, init_train_state,
                                                make_train_step)
 
@@ -191,8 +236,15 @@ def run(args, wrap_step=None):
         batches = batches * len(sizes)
     if len(batches) != len(sizes):
         raise ValueError("--batch list must pair with --size")
+    dp, rank = 1, 0
+    if mesh is not None:
+        from woft_tpu_torch.parallel import sharded_train_step
+        dp, rank = mesh.shape[0], mesh.get_local_rank("dp")
+    if any(b % dp for b in batches):
+        raise ValueError(f"--batch {args.batch}: every batch must divide by "
+                         f"--dp {dp}")
 
-    dev = resolve_device(args.device)
+    dev = resolve_device(device if device is not None else args.device)
     cfg = RaftConfig(variant="weighted", iters=args.iters,
                      precision="default", small=args.small,
                      **({"weight_head_structure": ((32, 3),)}
@@ -208,7 +260,8 @@ def run(args, wrap_step=None):
         load_init(model, args.init)
     model.to(dev)
     tx, opt_state = init_train_state(model, tcfg)
-    step = make_train_step(model, cfg, tcfg, tx)
+    step = (make_train_step(model, cfg, tcfg, tx) if mesh is None
+            else sharded_train_step(mesh, model, cfg, tcfg, tx))
 
     paths = sorted(sum((glob.glob(str(Path(d) / f"*.{e}"))
                         for d in str(args.images).split(",")
@@ -241,9 +294,19 @@ def run(args, wrap_step=None):
                                              np.log(args.max_shift))))
         else:
             shift = args.max_shift
-        batch = synth_homography_batch(
-            gen, upload(next(streams[i % len(streams)])),
-            max_corner_shift=shift, max_translation=args.max_translation)
+        imgs = next(streams[i % len(streams)])
+        if mesh is None:
+            batch = synth_homography_batch(
+                gen, upload(imgs), max_corner_shift=shift,
+                max_translation=args.max_translation)
+        else:
+            # the draws of the whole batch, this rank's rows of them
+            B, H, W, _ = imgs.shape
+            rows = slice(rank * B // dp, (rank + 1) * B // dp)
+            draws = synth_draws(gen, B, H, W)
+            batch = synth_from_draws(
+                upload(imgs[rows]), {k: v[rows] for k, v in draws.items()},
+                max_corner_shift=shift, max_translation=args.max_translation)
         batch["generator"] = gen
         loss = (step(opt_state, batch) if wrap_step is None
                 else wrap_step(i, lambda: step(opt_state, batch)))
@@ -266,6 +329,8 @@ def run(args, wrap_step=None):
                                  "checkpoint is the survivor", i)
                     return dict(model=model, cfg=cfg, losses=[
                         float(v) for v in losses], val=val, out=None, rc=1)
+        if rank:
+            continue
         if args.val_every and i % args.val_every == 0:
             epe = float(val_epe(model, cfg, val_batch))
             val.append((i, epe))
@@ -274,8 +339,10 @@ def run(args, wrap_step=None):
             save_checkpoint(model, args.out)
             logger.info("rolling checkpoint @ step %d", i)
 
-    out = save_checkpoint(model, args.out)
-    logger.info("saved checkpoint to %s", out)
+    out = None
+    if rank == 0:
+        out = save_checkpoint(model, args.out)
+        logger.info("saved checkpoint to %s", out)
     return dict(model=model, cfg=cfg, losses=[float(v) for v in losses],
                 val=val, out=out, rc=0)
 
@@ -284,7 +351,7 @@ def main(argv=None):
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="[%(asctime)s] %(levelname)s:%(message)s")
-    return run(args)["rc"]
+    return (run_dp(args) if args.dp > 1 else run(args))["rc"]
 
 
 if __name__ == "__main__":

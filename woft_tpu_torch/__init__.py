@@ -23,8 +23,12 @@ see ``ops/kernels.py``).
   head (``ExternalFlowWrapper``), and the flow cache (``FlowCache``).
 - ``woft_tpu_torch.eval``     — synthetic-trajectory and POT evaluation,
   POT-style alignment metrics.
-- ``woft_tpu_torch.utils``    — host I/O, timing and drawing (``cv2`` is
-  loaded only inside the functions that decode, encode or draw).
+- ``woft_tpu_torch.parallel`` — scale-out on ``torch.distributed``: the
+  (dp, sp) ``DeviceMesh``, the rank launcher, many streams or training
+  rows over ``dp``, one frame pair's correlation over ``sp``.
+- ``woft_tpu_torch.utils``    — host I/O, timing, drawing, logging, seeding,
+  notifications and profiling (``cv2`` is loaded only inside the functions
+  that decode, encode or draw).
 
 Public functions keep ``woft_tpu``'s layouts (NHWC images, ``(x, y)``
 coordinates); inside, the networks run NCHW. Entry points run on ``cuda``

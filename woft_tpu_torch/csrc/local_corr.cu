@@ -12,8 +12,12 @@
 // Function: out_l[b, py, px, q] = scale * sum_d win_b[py, px, d] * f1b[b, q, d]
 // with win_b[py, px] = f2_l[by*sh - pad + py, (bx*sw)//8*8 - pad + px] and
 // zero outside the level, b = by*nbw + bx, float32 accumulation, one
-// rounding to the output type. The quantised x-origin is part of the
-// function (it decides where a far-off lookup saturates), so it is kept.
+// rounding to the output type. A launch may compute a band of the grid:
+// blocks b0 .. b0 + nb - 1 (the spatially sharded forward gives each rank
+// its own band), query block and volume at the band's local index
+// b - b0, the window at the grid's block b; b0 = 0 is the whole grid.
+// The quantised x-origin is part of the function (it decides where a
+// far-off lookup saturates), so it is kept.
 //
 // Bound on the H100 at 720p (120 blocks, D = 256, four levels, windows of
 // 3,200 / 1,200 / 704 / 672 positions): 2 * 120 * 128 * 256 * 5,776 = 45.4
@@ -101,8 +105,9 @@ struct LevelGeom {
 
 struct Geom {
   LevelGeom lv[kMaxLevels];
-  const void* f1b;  // (nb, 128, D)
+  const void* f1b;  // (nb, 128, D): the band's query blocks
   int L, nb, nbw, D, f32_tiles, is_bf16;
+  int b0;           // the band's first block in the nbh x nbw grid
   float scale;
 };
 
@@ -203,7 +208,7 @@ local_corr_bf16_kernel(const __grid_constant__ Params P) {
       mbar_expect_tx(q_bar, KC * kSlice);
       for (int kc = 0; kc < KC; ++kc)
         tma_load_2d(q_s + kc * kSlice, &P.maps.q, kc * 64, b * kBQ, q_bar);
-      const int by = b / G.nbw, bx = b - by * G.nbw;
+      const int by = (G.b0 + b) / G.nbw, bx = G.b0 + b - by * G.nbw;
       int it = 0;
       for (int l = 0; l < G.L; ++l) {
         const LevelGeom& lv = G.lv[l];
@@ -332,7 +337,7 @@ local_corr_f32_kernel(const Geom G) {
 
   // loader: row lr, 8 elements at column lc
   const int lr = t >> 1, lc = (t & 1) * 8;
-  const float* a_src = window_row(lv, G.D, G.nbw, b, p0 + lr);
+  const float* a_src = window_row(lv, G.D, G.nbw, G.b0 + b, p0 + lr);
   const float* b_src =
       static_cast<const float*>(G.f1b) + ((size_t)b * kBQ + lr) * G.D;
   float4 a_reg[2], b_reg[2];
@@ -419,10 +424,11 @@ int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int rank,
 extern "C" int woft_local_corr_params_size() { return (int)sizeof(Params); }
 
 // Fills the parameter block of one launch (tensor maps included) into
-// params (woft_local_corr_params_size() bytes). f1b (nb, 128, D) blocked
-// query features; f2s[l] (hl, wl, D) unpadded levels; outs[l] (nb, wh, ww,
-// 128) volumes; all of one element type, bfloat16 when is_bf16 else
-// float32, contiguous and 16-byte aligned. geo: L rows of hl, wl, pad, sh,
+// params (woft_local_corr_params_size() bytes). The launch computes blocks
+// b0 .. b0 + nb - 1 of the grid of nbw block columns. f1b (nb, 128, D)
+// those blocks' query features; f2s[l] (hl, wl, D) unpadded levels;
+// outs[l] (nb, wh, ww, 128) volumes; all of one element type, bfloat16
+// when is_bf16 else float32, contiguous and 16-byte aligned. geo: L rows of hl, wl, pad, sh,
 // sw, wh, ww, rows, tiles (rows and tiles: the bf16 tiling, whole window
 // rows of at most 128 positions, ops/kernels.py:local_corr_table). bf16
 // needs D a multiple of 64 up to 256, float32 a multiple of 32. Returns 0,
@@ -430,9 +436,10 @@ extern "C" int woft_local_corr_params_size() { return (int)sizeof(Params); }
 // when the driver has no cuTensorMapEncodeTiled.
 extern "C" int woft_local_corr_plan(const void* f1b, const void* const* f2s,
                                     void* const* outs, const int* geo, int L,
-                                    int nb, int nbw, int D, float scale,
-                                    int is_bf16, void* params) {
-  if (L < 1 || L > kMaxLevels || nb < 1 || nbw < 1 || D < 32 || D % 32 ||
+                                    int nb, int nbw, int b0, int D,
+                                    float scale, int is_bf16, void* params) {
+  if (L < 1 || L > kMaxLevels || nb < 1 || nbw < 1 || b0 < 0 || D < 32 ||
+      D % 32 ||
       (is_bf16 && (D % 64 || D > 256))) {
     return (int)cudaErrorInvalidValue;
   }
@@ -443,6 +450,7 @@ extern "C" int woft_local_corr_plan(const void* f1b, const void* const* f2s,
   G.L = L;
   G.nb = nb;
   G.nbw = nbw;
+  G.b0 = b0;
   G.D = D;
   G.is_bf16 = is_bf16;
   G.scale = scale;

@@ -36,6 +36,11 @@
 // to [0, size - fine], and a start beyond anchor + rel_max saturates there
 // and sets the block's flag for that level (_fine_anchor_starts). Built
 // with --fmad=false, so every step rounds like the plain PyTorch version.
+// The coordinate-driven entries may look up a band of the block grid:
+// blocks b0 .. b0 + nb - 1, each block's queries and window origin those
+// of the grid's block b, its volume, output rows and flags at the band's
+// local index b - b0 (the spatially sharded forward gives each rank its
+// own band); b0 = 0 is the whole grid.
 //
 // Bound on the H100 at 720p (120 blocks of 128 queries, 4 levels, bf16):
 // each query and level needs one 10 x 10 patch (15,360 * 4 * 200 B = 12.3
@@ -129,6 +134,7 @@ struct Params {
   int num_levels;
   const float* coords;          // (H1, W1, 2) (x, y), or null: explicit
   int H1, W1, nbw, bh, bw, r;
+  int b0;                       // coordinates: the band's first block
   const int* anchors;           // explicit D: (nb, num_levels, 2) [r0, c0]
   const unsigned char* flag;    // explicit E: (nb,) or null
   const unsigned char* bad;     // E from coordinates: (nb, num_levels) or null
@@ -197,14 +203,14 @@ __device__ __forceinline__ int axis_start(float c, float div, float pad,
   return (int)t - r;
 }
 
-// Query q of block b at level l, from the level-0 coordinates: its slab
-// start (sy, sx) in the stored window and its fractions.
+// Query q of the band's block b at level l, from the level-0 coordinates:
+// its slab start (sy, sx) in the stored window and its fractions.
 __device__ __forceinline__ void coord_start(const Params& P, int b, int l,
                                             int q, int& sy, int& sx,
                                             float& fy, float& fx) {
   const Level& lv = P.lv[l];
-  const int by = b / P.nbw;
-  const int bx = b - by * P.nbw;
+  const int by = (P.b0 + b) / P.nbw;
+  const int bx = P.b0 + b - by * P.nbw;
   const float2 c = query_coord(P, by, bx, q);
   sy = axis_start(c.y, lv.div, lv.pad, (float)(by * lv.sh), lv.hi_y, P.r, fy);
   sx = axis_start(c.x, lv.div, lv.pad, (float)((bx * lv.sw) / 8 * 8),
@@ -276,8 +282,8 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   VT* stage = reinterpret_cast<VT*>(stage_raw) +
               (size_t)warp * P.stage_positions * kRowQ;
-  const int by = b / P.nbw;
-  const int bx = b - by * P.nbw;
+  const int by = (P.b0 + b) / P.nbw;     // b0 = 0 from explicit operands
+  const int bx = P.b0 + b - by * P.nbw;
   const float oy = (float)(by * lv.sh);
   const float ox = (float)((bx * lv.sw) / 8 * 8);
 
@@ -553,18 +559,21 @@ void fill_levels(Params& P, const void* const* vols, const int* whs,
 
 // The level table of the coordinate-driven entries (layout at kHeader).
 int fill_coord_levels(Params& P, const float* coords, const void* const* vols,
-                      int num_levels, const int* geo, const float* fgeo) {
-  if (num_levels < 1 || num_levels > kMaxLevels) {
+                      int num_levels, const int* geo, const float* fgeo,
+                      int b0, int nb) {
+  if (num_levels < 1 || num_levels > kMaxLevels || b0 < 0) {
     return (int)cudaErrorInvalidValue;
   }
   P.coords = coords;
+  P.b0 = b0;
   P.H1 = geo[0];
   P.W1 = geo[1];
   P.nbw = geo[2];
   P.bh = geo[3];
   P.bw = geo[4];
   P.r = geo[5];
-  if (P.H1 < 1 || P.W1 < 1 || P.nbw < 1 || P.bh < 1 || P.bw < 1) {
+  if (P.H1 < 1 || P.W1 < 1 || P.nbw < 1 || P.bh < 1 || P.bw < 1 ||
+      b0 + nb > (P.H1 + P.bh - 1) / P.bh * P.nbw) {
     return (int)cudaErrorInvalidValue;
   }
   for (int l = 0; l < num_levels; ++l) {
@@ -593,9 +602,10 @@ int fill_coord_levels(Params& P, const float* coords, const void* const* vols,
 
 }  // namespace
 
-// Kernel D from coordinates. coords (H1, W1, 2) float32 level-0 (x, y),
-// natural raster order; vols: host array of num_levels device pointers to
-// (nb, wh, ww, bq) volumes; geo, fgeo: host level table (kHeader + 10 per
+// Kernel D from coordinates over blocks b0 .. b0 + nb - 1 of the grid.
+// coords (H1, W1, 2) float32 level-0 (x, y), natural raster order; vols:
+// host array of num_levels device pointers to the band's (nb, wh, ww, bq)
+// volumes; geo, fgeo: host level table (kHeader + 10 per
 // level ints, 4 per level floats, see above). out (nb, num_levels*k*k, bq);
 // bad (nb, num_levels) uint8: 1 where a start of the block left its fine
 // window at that level. *_bf16: element type bfloat16 instead of float32.
@@ -604,12 +614,13 @@ int fill_coord_levels(Params& P, const float* coords, const void* const* vols,
 extern "C" int woft_local_lookup_coords(const float* coords,
                                         const void* const* vols,
                                         int num_levels, const int* geo,
-                                        const float* fgeo, int nb, int bq,
-                                        int k, int vol_bf16, void* out,
-                                        int out_bf16, unsigned char* bad,
-                                        void* stream) {
+                                        const float* fgeo, int b0, int nb,
+                                        int bq, int k, int vol_bf16,
+                                        void* out, int out_bf16,
+                                        unsigned char* bad, void* stream) {
   Params P = {};
-  const int rc = fill_coord_levels(P, coords, vols, num_levels, geo, fgeo);
+  const int rc =
+      fill_coord_levels(P, coords, vols, num_levels, geo, fgeo, b0, nb);
   if (rc != 0) return rc;
   P.bad_out = bad;
   P.bq = bq;
@@ -620,14 +631,17 @@ extern "C" int woft_local_lookup_coords(const float* coords,
 }
 
 // Kernel E from coordinates, every level in one launch: coords, vols, geo,
-// fgeo as for kernel D; bad (nb, num_levels) uint8 or NULL: a block none of
-// whose flags is set is left untouched. out (nb, num_levels*k*k, bq).
+// fgeo, b0 as for kernel D; bad (nb, num_levels) uint8 or NULL: a block
+// none of whose flags is set is left untouched. out (nb,
+// num_levels*k*k, bq).
 extern "C" int woft_local_lookup_exact_coords(
     const float* coords, const void* const* vols, int num_levels,
-    const int* geo, const float* fgeo, const unsigned char* bad, int nb,
-    int bq, int k, int vol_bf16, void* out, int out_bf16, void* stream) {
+    const int* geo, const float* fgeo, const unsigned char* bad, int b0,
+    int nb, int bq, int k, int vol_bf16, void* out, int out_bf16,
+    void* stream) {
   Params P = {};
-  const int rc = fill_coord_levels(P, coords, vols, num_levels, geo, fgeo);
+  const int rc =
+      fill_coord_levels(P, coords, vols, num_levels, geo, fgeo, b0, nb);
   if (rc != 0) return rc;
   P.bad = bad;
   P.bq = bq;

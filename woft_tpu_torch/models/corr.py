@@ -360,7 +360,9 @@ def _fine_extents(d, k):
 class LocalCorrVolumes:
     """Block-local correlation pyramid (``build_local_corr``).
 
-    volumes: list of (NB, wh_l, ww_l, BQ) levels, queries minor.
+    volumes: list of (NB, wh_l, ww_l, BQ) levels, queries minor: blocks
+        ``b0 .. b0 + NB - 1`` of the layout's nbh x nbw grid (all of them,
+        b0 = 0, unless a spatially sharded forward holds a band).
     meta: the ``_local_layout`` dict.
     consts: per-level lookup constants on the volumes' device, each shaped
         to broadcast against (L, 2, NB, BQ) coordinates, axis 0 = y, 1 = x,
@@ -369,9 +371,10 @@ class LocalCorrVolumes:
         layout).
     """
 
-    def __init__(self, volumes, meta):
+    def __init__(self, volumes, meta, b0=0):
         self.volumes = volumes
         self.meta = meta
+        self.b0 = b0
         self.consts = _lookup_constants(
             meta["H1"], meta["W1"], meta["radius"], len(meta["levels"]),
             meta["margin"], volumes[0].device)
@@ -427,31 +430,32 @@ def _lookup_constants(H1, W1, radius, num_levels, margin, device):
         exts=tuple(_fine_extents(d, k) for d in meta["levels"]))
 
 
-def block_local_corr_plain(f1b, f2, d, nbh, nbw, out_dtype):
+def block_local_corr_plain(f1b, f2, d, nbh, nbw, out_dtype, b0=0):
     """Plain PyTorch version of kernel C (same arguments as
     ``block_local_corr``): zero-pad the level, cut each block's window with
     strided slices, one einsum. Operands are widened to float32 first, so
     products of bf16 values are exact and the sum is float32."""
     pad, wh, ww, sh, sw = d["pad"], d["wh"], d["ww"], d["sh"], d["sw"]
     hl, wl, D = f2.shape
+    nb = f1b.shape[0]
     fp = F.pad(f2, (0, 0, pad, d["wp"] - wl - pad, pad, d["hp"] - hl - pad))
     bands = torch.stack([fp[by * sh:by * sh + wh] for by in range(nbh)])
     patches = torch.stack([bands[:, :, bx * sw // 8 * 8:bx * sw // 8 * 8 + ww]
                            for bx in range(nbw)], dim=1)  # (nbh,nbw,wh,ww,D)
-    patches = patches.reshape(nbh * nbw, wh * ww, D)
+    patches = patches.reshape(nbh * nbw, wh * ww, D)[b0:b0 + nb]
     corr = torch.einsum("bpd,bqd->bpq", patches.to(torch.float32),
                         f1b.to(torch.float32))
     corr = corr * (1.0 / math.sqrt(D))
-    return corr.to(out_dtype).reshape(nbh * nbw, wh, ww, f1b.shape[1])
+    return corr.to(out_dtype).reshape(nb, wh, ww, f1b.shape[1])
 
 
-def _local_corr_launch(f1b, levels, ds, nbh, nbw, out_dtype):
+def _local_corr_launch(f1b, levels, ds, nbh, nbw, out_dtype, b0):
     if f1b.device.type == "cpu":
-        return [block_local_corr_plain(f1b, f2, d, nbh, nbw, out_dtype)
+        return [block_local_corr_plain(f1b, f2, d, nbh, nbw, out_dtype, b0)
                 for f2, d in zip(levels, ds)]
     return kernels.local_corr_build(
         f1b, levels, [(d["pad"], d["sh"], d["sw"], d["wh"], d["ww"])
-                      for d in ds], nbh, nbw, out_dtype)
+                      for d in ds], nbh, nbw, out_dtype, b0)
 
 
 def _vjp(fn, inputs, needs, grads_out):
@@ -476,46 +480,51 @@ class _LocalCorr(torch.autograd.Function):
     ``_corr_bwd``: it has no backward kernel either)."""
 
     @staticmethod
-    def forward(ctx, ds, nbh, nbw, out_dtype, f1b, *levels):
-        ctx.args = (ds, nbh, nbw, out_dtype)
+    def forward(ctx, ds, nbh, nbw, out_dtype, b0, f1b, *levels):
+        ctx.args = (ds, nbh, nbw, out_dtype, b0)
         ctx.save_for_backward(f1b, *levels)
         return tuple(_local_corr_launch(f1b, levels, ds, nbh, nbw,
-                                        out_dtype))
+                                        out_dtype, b0))
 
     @staticmethod
     def backward(ctx, *g):
-        ds, nbh, nbw, out_dtype = ctx.args
+        ds, nbh, nbw, out_dtype, b0 = ctx.args
 
         def plain(f1b, *levels):
-            return [block_local_corr_plain(f1b, f2, d, nbh, nbw, out_dtype)
+            return [block_local_corr_plain(f1b, f2, d, nbh, nbw, out_dtype,
+                                           b0)
                     for f2, d in zip(levels, ds)]
 
-        return (None, None, None, None,
-                *_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[4:], g))
+        return (None, None, None, None, None,
+                *_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[5:], g))
 
 
-def block_local_corr_levels(f1b, levels, ds, nbh, nbw, out_dtype):
+def block_local_corr_levels(f1b, levels, ds, nbh, nbw, out_dtype, b0=0):
     """Every level of the block-local volume, one launch of kernel C on a
     CUDA tensor.
 
-    f1b: (NB, BQ, D) blocked query features; levels: L (hl, wl, D) unpadded
-    target features, same dtype (float32 or bfloat16); ds: the levels'
-    ``_local_layout`` entries. Returns L (NB, wh, ww, BQ) ``out_dtype``
-    volumes: ``<f1b[b, q], window_b[py, px]> / sqrt(D)``, float32
-    accumulation, rounded once; window_b starts at (by*sh, (bx*sw)//8*8) of
-    the level zero-padded by ``pad``. Under grad, when an input requires
+    f1b: (NB, BQ, D) blocked query features of blocks ``b0 .. b0 + NB - 1``
+    of the nbh x nbw grid (b0 = 0 and NB = nbh*nbw: the whole grid);
+    levels: L (hl, wl, D) unpadded target features, same dtype (float32 or
+    bfloat16); ds: the levels' ``_local_layout`` entries. Returns L (NB,
+    wh, ww, BQ) ``out_dtype`` volumes: ``<f1b[b, q], window_b[py, px]> /
+    sqrt(D)``, float32 accumulation, rounded once; window_b starts at
+    (by*sh, (bx*sw)//8*8) of the level zero-padded by ``pad``, (by, bx) the
+    grid position of block b0 + b. Under grad, when an input requires
     grad, through ``_LocalCorr`` (kernel C forward, the plain version's
     VJP backward)."""
     if torch.is_grad_enabled() and (
             f1b.requires_grad or any(lv.requires_grad for lv in levels)):
-        return list(_LocalCorr.apply(ds, nbh, nbw, out_dtype, f1b, *levels))
-    return _local_corr_launch(f1b, levels, ds, nbh, nbw, out_dtype)
+        return list(_LocalCorr.apply(ds, nbh, nbw, out_dtype, b0, f1b,
+                                     *levels))
+    return _local_corr_launch(f1b, levels, ds, nbh, nbw, out_dtype, b0)
 
 
-def block_local_corr(f1b, f2, d, nbh, nbw, out_dtype):
+def block_local_corr(f1b, f2, d, nbh, nbw, out_dtype, b0=0):
     """One level of the block-local volume (``block_local_corr_levels`` for
     one level: f2 (hl, wl, D), d its layout entry)."""
-    return block_local_corr_levels(f1b, [f2], [d], nbh, nbw, out_dtype)[0]
+    return block_local_corr_levels(f1b, [f2], [d], nbh, nbw, out_dtype,
+                                   b0)[0]
 
 
 def build_local_corr(fmap1, fmap2, radius=4, num_levels=4, margin=16,
@@ -717,14 +726,16 @@ def _local_level_coords(local, coords):
     NB, BQ) int32 absolute slab starts, frac (L, 2, NB, BQ) float32), axis
     0 = rows (y), 1 = columns (x): level coordinate + pad - block origin,
     clamped to [r, size - r - 1.001] so the whole k-window and its +1 tap
-    stay inside the stored window."""
+    stay inside the stored window. NB: the blocks ``local`` holds (its
+    band, from ``local.b0``)."""
     meta, c = local.meta, local.consts
     r = meta["radius"]
     nb = meta["nbh"] * meta["nbw"]
+    band = slice(local.b0, local.b0 + local.volumes[0].shape[0])
     cb = _to_blocked(coords.reshape(meta["H1"] * meta["W1"], 2), meta)
     # (2, NB, BQ): y, x; contiguous, so everything derived from it is too
-    cb = cb.reshape(nb, -1, 2).flip(-1).permute(2, 0, 1).contiguous()
-    w = cb[None] / c["div"] + c["pad"] - c["origin"]
+    cb = cb.reshape(nb, -1, 2)[band].flip(-1).permute(2, 0, 1).contiguous()
+    w = cb[None] / c["div"] + c["pad"] - c["origin"][:, :, band]
     w = torch.clamp(w, c["lo"], c["hi"])
     # w >= r > 0: truncation is the floor and frac(w) = w - floor(w)
     return w.to(torch.int32) - r, torch.frac(w)
@@ -780,7 +791,8 @@ def block_local_lookup_coords(local, coords, k, out_dtype):
     if coords.device.type == "cpu":
         return block_local_lookup_coords_plain(local, coords, k, out_dtype)
     return kernels.local_lookup_coords(coords, local.volumes,
-                                       local.consts["table"], k, out_dtype)
+                                       local.consts["table"], k, out_dtype,
+                                       local.b0)
 
 
 def block_local_lookup_exact_coords_plain(local, coords, k, bad=None,
@@ -805,7 +817,7 @@ def block_local_lookup_exact_coords(local, coords, k, bad=None, out=None):
                                                      out)
     return kernels.local_lookup_exact_coords(coords, local.volumes,
                                              local.consts["table"], k, bad,
-                                             out)
+                                             out, local.b0)
 
 
 def _blocked_lookup_plain(local, coords, k, fine, check):
@@ -838,7 +850,7 @@ class _LocalLookup(torch.autograd.Function):
         local, k, fine, check = ctx.args
 
         def plain(coords, *volumes):
-            vols = LocalCorrVolumes(list(volumes), local.meta)
+            vols = LocalCorrVolumes(list(volumes), local.meta, local.b0)
             data = _blocked_lookup_plain(vols, coords, k, fine, check)
             # the guarded lookup's dtype (bf16 volumes: bf16 fine lookups)
             return data.to(g.dtype)

@@ -63,9 +63,8 @@ from ..ops import kernels
 from ..ops.warp import coords_grid, grid_sample, upflow8
 from . import layers
 from .corr import (BlockedCorr, build_local_corr, corr_lookup,
-                   corr_lookup_alternate, corr_lookup_local,
-                   corr_lookup_local_blocked, corr_mean_response,
-                   corr_pyramid_fused)
+                   corr_lookup_alternate, corr_lookup_local_blocked,
+                   corr_mean_response, corr_pyramid_fused)
 from .layers import conv, conv2d, init_conv_, norm_layer
 from . import update
 
@@ -644,7 +643,7 @@ def encode_template(model, cfg: RaftConfig, image1):
 @torch.no_grad()
 def weighted_raft_forward(model, cfg: RaftConfig, image1, image2,
                           flow_init=None, iters=None, template_feats=None,
-                          sparse_weight_head=False):
+                          sparse_weight_head=False, corr_shard=None):
     """Flow and, by ``cfg.variant``, reliability weights and a visibility
     mask between two frames.
 
@@ -663,6 +662,13 @@ def weighted_raft_forward(model, cfg: RaftConfig, image1, image2,
             'up_mask' instead of the dense weights. A batch of B frames
             gives each element's logits as B separate calls would (the
             block-local volume takes B = 1).
+        corr_shard: optional spatial sharding of the correlation over the
+            ``sp`` ranks of a mesh (``parallel/sharding.py``, the JAX
+            package's hook of this name): its ``pyramid`` and ``lookup``
+            replace ``corr_pyramid_fused`` and ``corr_lookup`` (each rank
+            holds a range of key columns, one ``all_reduce`` a lookup), its
+            ``local`` and ``lookup_local`` replace ``build_local_corr`` and
+            the block-local lookup (each rank holds a range of blocks).
     Returns:
         dict with 'flow' (B,H/8,W/8,2), 'flow_up' (B,H,W,2), 'fmap1' and
         'fmap2' (B,H/8,W/8,D) and 'mean_response' (B,H/8,W/8); under
@@ -673,7 +679,7 @@ def weighted_raft_forward(model, cfg: RaftConfig, image1, image2,
     """
     with layers.precision_scope(cfg.precision):
         return _raft_forward(model, cfg, image1, image2, flow_init, iters,
-                             template_feats, sparse_weight_head)
+                             template_feats, sparse_weight_head, corr_shard)
 
 
 def train_forward(model, cfg: RaftConfig, image1, image2, flow_init=None,
@@ -701,7 +707,7 @@ def train_forward(model, cfg: RaftConfig, image1, image2, flow_init=None,
 
 
 def _raft_forward(model, cfg, image1, image2, flow_init, iters,
-                  template_feats, sparse_weight_head):
+                  template_feats, sparse_weight_head, corr_shard=None):
     if cfg.small and sparse_weight_head and cfg.variant == "weighted":
         raise ValueError("the sparse weight head needs the convex-upsampling "
                          "mask, which RAFT-small has not")
@@ -736,26 +742,37 @@ def _raft_forward(model, cfg, image1, image2, flow_init, iters,
         # exact within +-local_margin cells of residual flow, saturated
         # beyond; 'bf16' and 'default' store the volume (and the lookups)
         # in bf16
-        local = build_local_corr(
-            f1, f2, radius, cfg.corr_levels, margin=cfg.local_margin,
-            out_dtype=cfg.volume_dtype)
+        if corr_shard is None:
+            local = build_local_corr(
+                f1, f2, radius, cfg.corr_levels, margin=cfg.local_margin,
+                out_dtype=cfg.volume_dtype)
+            lookup_blocked = corr_lookup_local_blocked
+        else:           # this rank's band of blocks
+            local = corr_shard.local(f1, f2, radius, cfg.corr_levels,
+                                     cfg.local_margin, cfg.volume_dtype)
+            lookup_blocked = corr_shard.lookup_local
         mean_response = corr_mean_response(f1, f2)
 
         def lookup(coords):        # blocked: convc1 absorbs the layout
-            return corr_lookup_local_blocked(local, coords, radius,
-                                             check=cfg.fine_check)
+            return lookup_blocked(local, coords, radius, check=cfg.fine_check)
 
         def lookup_natural(coords):
-            return corr_lookup_local(local, coords, radius)
+            return lookup_blocked(local, coords, radius).to_natural()
     else:
-        pyramid, mean_response = corr_pyramid_fused(
-            f1, f2, cfg.corr_levels, out_dtype=cfg.volume_dtype)
+        if corr_shard is None:
+            pyramid, mean_response = corr_pyramid_fused(
+                f1, f2, cfg.corr_levels, out_dtype=cfg.volume_dtype)
+            lookup_rows = corr_lookup
+        else:           # this rank's key columns of each level
+            pyramid, mean_response = corr_shard.pyramid(
+                f1, f2, cfg.corr_levels, out_dtype=cfg.volume_dtype)
+            lookup_rows = corr_shard.lookup
 
         def lookup(coords):
-            return _nchw(corr_lookup(pyramid, coords, radius))
+            return _nchw(lookup_rows(pyramid, coords, radius))
 
         def lookup_natural(coords):
-            return corr_lookup(pyramid, coords, radius)
+            return lookup_rows(pyramid, coords, radius)
 
     ub = model.update_block
     coords0 = _nchw(coords_grid(B, H1, W1, x2.device))     # (B, 2, H1, W1)
@@ -821,7 +838,7 @@ def _raft_forward(model, cfg, image1, image2, flow_init, iters,
                     cfg.corr_levels, chunk=min(cfg.alt_chunk, M),
                     batch=cells // (H1 * W1))
             else:
-                corr_f = corr_lookup(pyramid, coords1_flat[cells][None, None],
+                corr_f = lookup_rows(pyramid, coords1_flat[cells][None, None],
                                      radius, rows=cells)    # (1, 1, M, L*k*k)
             corr_s = corr_f.reshape(1, 1, M, k, k, cfg.corr_levels)
             with layers.precision_scope(cfg.precision):

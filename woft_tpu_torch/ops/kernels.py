@@ -76,16 +76,16 @@ _ENTRIES = {
                                            ctypes.c_longlong, _I, _P, _P],
     },
     "local_corr": {
-        "woft_local_corr_plan": [_P, _P, _P, _P, _I, _I, _I, _I,
+        "woft_local_corr_plan": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  ctypes.c_float, _I, _P],
         "woft_local_corr_launch": [_P, _P],
         "woft_local_corr_params_size": [],
     },
     "local_lookup": {
-        "woft_local_lookup_coords": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P,
-                                     _I, _P, _P],
+        "woft_local_lookup_coords": [_P, _P, _I, _P, _P, _I, _I, _I, _I,
+                                     _I, _P, _I, _P, _P],
         "woft_local_lookup_exact_coords": [_P, _P, _I, _P, _P, _P, _I, _I,
-                                           _I, _I, _P, _I, _P],
+                                           _I, _I, _I, _P, _I, _P],
         "woft_local_lookup_fine_multi": [_P, _P, _P, _I, _P, _P, _P, _I, _I,
                                          _I, _I, _P, _I, _P],
         "woft_local_lookup_fine": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
@@ -405,19 +405,22 @@ def local_corr_table(level_shapes, geoms):
 _corr_plan = [None, None]       # key and parameter block of the last launch
 
 
-def local_corr_build(f1b, levels, geoms, nbh, nbw, out_dtype):
+def local_corr_build(f1b, levels, geoms, nbh, nbw, out_dtype, b0=0):
     """Kernel C: every level of the block-local correlation volume in one
     launch.
 
-    f1b: (nbh*nbw, 128, D) blocked query features; levels: L (hl, wl, D)
+    f1b: (nb, 128, D) blocked query features of blocks ``b0 .. b0 + nb -
+    1`` of the nbh x nbw grid (the whole grid: b0 = 0, nb = nbh*nbw; a
+    band: the spatially sharded forward's share); levels: L (hl, wl, D)
     unpadded target features; all CUDA, contiguous, of ``out_dtype``
     (float32 or bfloat16); D a multiple of 64 up to 256 in bfloat16, of 32
     in float32. geoms: per level (pad, sh, sw, wh, ww), the ``_local_layout``
-    entries; ww at most 128. Returns L (nbh*nbw, wh, ww, 128) volumes:
+    entries; ww at most 128. Returns L (nb, wh, ww, 128) volumes:
     ``<f1b[b, q], win_b[py, px]> / sqrt(D)`` with win_b the (wh, ww) window
-    at (by*sh - pad, (bx*sw)//8*8 - pad) of the level, zero outside it;
-    float32 accumulation, rounded once. The parameter block (tensor maps in
-    bfloat16) is kept for the pointers and shapes of the last call."""
+    at (by*sh - pad, (bx*sw)//8*8 - pad) of the level, zero outside it, (by,
+    bx) the grid position of block b0 + b; float32 accumulation, rounded
+    once. The parameter block (tensor maps in bfloat16) is kept for the
+    pointers, shapes and band of the last call."""
     if f1b.device.type != "cuda":
         raise ValueError("local_corr_build takes CUDA tensors")
     if out_dtype not in _VOLUME_DTYPES:
@@ -426,13 +429,15 @@ def local_corr_build(f1b, levels, geoms, nbh, nbw, out_dtype):
     device = f1b.device
     bf16 = out_dtype == torch.bfloat16
     _check_tensor(f1b, "f1b", out_dtype, device)
-    nb = nbh * nbw
     L = len(levels)
     if not 1 <= L <= 8 or len(geoms) != L:
         raise ValueError(f"1 to 8 levels with one geometry each, got {L} "
                          f"and {len(geoms)}")
-    if f1b.dim() != 3 or f1b.shape[0] != nb or f1b.shape[1] != 128:
-        raise ValueError(f"f1b must be ({nb}, 128, D), got "
+    nb = f1b.shape[0] if f1b.dim() == 3 else 0
+    if (f1b.dim() != 3 or f1b.shape[1] != 128 or nb < 1 or b0 < 0
+            or b0 + nb > nbh * nbw):
+        raise ValueError(f"f1b must be (nb, 128, D) for blocks {b0} .. "
+                         f"{b0} + nb - 1 of {nbh * nbw}, got "
                          f"{tuple(f1b.shape)}")
     D = f1b.shape[2]
     if (D % 64 or D > 256) if bf16 else D % 32:
@@ -451,7 +456,7 @@ def local_corr_build(f1b, levels, geoms, nbh, nbw, out_dtype):
     outs = [torch.empty((nb, g[5], g[6], 128), dtype=out_dtype, device=device)
             for g in table]
     key = (f1b.data_ptr(), D, tuple(lv.data_ptr() for lv in levels),
-           tuple(o.data_ptr() for o in outs), tuple(table), nbw, bf16)
+           tuple(o.data_ptr() for o in outs), tuple(table), nbw, b0, bf16)
     if _corr_plan[0] != key:
         size = _entry("local_corr", "woft_local_corr_params_size")()
         params = ctypes.create_string_buffer(size)
@@ -460,8 +465,8 @@ def local_corr_build(f1b, levels, geoms, nbh, nbw, out_dtype):
         geo = (ctypes.c_int * (9 * L))(*[v for g in table for v in g])
         rc = _entry("local_corr", "woft_local_corr_plan")(
             f1b.data_ptr(), ctypes.addressof(lv_ptrs),
-            ctypes.addressof(out_ptrs), ctypes.addressof(geo), L, nb, nbw, D,
-            1.0 / math.sqrt(D), int(bf16), ctypes.addressof(params))
+            ctypes.addressof(out_ptrs), ctypes.addressof(geo), L, nb, nbw, b0,
+            D, 1.0 / math.sqrt(D), int(bf16), ctypes.addressof(params))
         _raise_on_error(rc, "local_corr")
         _corr_plan[:] = key, params
     fn = _entry("local_corr", "woft_local_corr_launch")
@@ -633,11 +638,12 @@ local_lookup_exact.launches = 0
 _lookup_table = [None, None]    # key and ctypes arrays of the last layout
 
 
-def _coord_operands(coords, vols, table, k):
+def _coord_operands(coords, vols, table, k, b0):
     """Shared checks of kernels D and E from coordinates -> (device, dtype,
     nb, bq, ctypes int table, ctypes float table, ctypes volume pointers).
     ``table``: (ints, floats), ``models/corr.py:_lookup_constants``'s
-    ``table``; its ctypes arrays are kept for the last layout."""
+    ``table``; its ctypes arrays are kept for the last layout. The volumes
+    hold blocks ``b0 .. b0 + nb - 1`` of the table's grid."""
     device, dtype, nb, bq = _check_volumes(vols, k)
     if _lookup_table[0] != table:
         ints, floats = table
@@ -648,9 +654,10 @@ def _coord_operands(coords, vols, table, k):
     H1, W1, nbw, bh, bw, r = ints[:6]
     if not 1 <= L <= 8 or len(ints) != 6 + 10 * L or len(floats) != 4 * L:
         raise ValueError(f"a level table of {L} levels (1 to 8) expected")
-    if k != 2 * r + 1 or bq != bh * bw or nb != -(-H1 // bh) * nbw:
-        raise ValueError(f"volumes ({nb}, .., {bq}) and k = {k} do not "
-                         f"match the level table's layout")
+    if (k != 2 * r + 1 or bq != bh * bw or b0 < 0
+            or b0 + nb > -(-H1 // bh) * nbw):
+        raise ValueError(f"volumes ({nb}, .., {bq}) from block {b0} and k = "
+                         f"{k} do not match the level table's layout")
     for lvl, v in enumerate(vols):
         window = tuple(ints[6 + 10 * lvl:8 + 10 * lvl])
         if tuple(v.shape[1:3]) != window:
@@ -664,19 +671,21 @@ def _coord_operands(coords, vols, table, k):
     return (device, dtype, nb, bq) + _lookup_table[1] + (ptrs,)
 
 
-def local_lookup_coords(coords, vols, table, k, out_dtype):
+def local_lookup_coords(coords, vols, table, k, out_dtype, b0=0):
     """Kernel D from coordinates: every level's fine-window lookup in one
     launch, each query's start, fraction and its block's anchor and flags
     computed in the kernel.
 
     coords: (1, H1, W1, 2) float32 CUDA level-0 (x, y); vols: L (NB, wh,
-    ww, BQ) CUDA volumes of one dtype, 16-byte aligned, BQ a multiple of 16;
-    table: the layout's level table (``models/corr.py:_lookup_constants``).
-    Returns (out (NB, L*k*k, BQ) ``out_dtype``, channel l*k*k + j*k + i;
-    bad (NB, L) uint8, 1 where a start of the block left its fine window at
-    that level)."""
+    ww, BQ) CUDA volumes of one dtype, 16-byte aligned, BQ a multiple of 16,
+    blocks ``b0 .. b0 + NB - 1`` of the layout's grid (the whole grid, or
+    a band of it: the queries and window origins of block b are those of
+    the grid's block b0 + b); table: the layout's level table
+    (``models/corr.py:_lookup_constants``). Returns (out (NB, L*k*k, BQ)
+    ``out_dtype``, channel l*k*k + j*k + i; bad (NB, L) uint8, 1 where a
+    start of the block left its fine window at that level)."""
     device, dtype, nb, bq, ints, floats, ptrs = _coord_operands(
-        coords, vols, table, k)
+        coords, vols, table, k, b0)
     if out_dtype not in _VOLUME_DTYPES:
         raise TypeError(f"out_dtype must be float32 or bfloat16, got "
                         f"{out_dtype}")
@@ -687,8 +696,8 @@ def local_lookup_coords(coords, vols, table, k, out_dtype):
     fn = _entry("local_lookup", "woft_local_lookup_coords")
     with _current(device):
         rc = fn(coords.data_ptr(), ctypes.addressof(ptrs), L,
-                ctypes.addressof(ints), ctypes.addressof(floats), nb, bq, k,
-                int(dtype == torch.bfloat16), out.data_ptr(),
+                ctypes.addressof(ints), ctypes.addressof(floats), b0, nb, bq,
+                k, int(dtype == torch.bfloat16), out.data_ptr(),
                 int(out_dtype == torch.bfloat16), bad.data_ptr(), _stream())
     _raise_on_error(rc, "local_lookup_coords")
     local_lookup_coords.launches += 1
@@ -698,17 +707,19 @@ def local_lookup_coords(coords, vols, table, k, out_dtype):
 local_lookup_coords.launches = 0
 
 
-def local_lookup_exact_coords(coords, vols, table, k, bad=None, out=None):
+def local_lookup_exact_coords(coords, vols, table, k, bad=None, out=None,
+                              b0=0):
     """Kernel E from coordinates: every level of a lookup over the whole
     stored windows in one launch, each query's start and fraction computed
     in the kernel.
 
-    coords, vols, table as for ``local_lookup_coords``. Without ``out``
-    returns a new (NB, L*k*k, BQ) float32. With ``out`` (NB, L*k*k, BQ)
-    float32 or bfloat16 it writes in place and returns ``out``; with
-    ``bad`` (NB, L) uint8 only the blocks with a flag set at some level."""
+    coords, vols, table, b0 as for ``local_lookup_coords``. Without
+    ``out`` returns a new (NB, L*k*k, BQ) float32. With ``out`` (NB,
+    L*k*k, BQ) float32 or bfloat16 it writes in place and returns ``out``;
+    with ``bad`` (NB, L) uint8 only the blocks with a flag set at some
+    level."""
     device, dtype, nb, bq, ints, floats, ptrs = _coord_operands(
-        coords, vols, table, k)
+        coords, vols, table, k, b0)
     L = len(vols)
     if out is None:
         if bad is not None:
@@ -732,7 +743,7 @@ def local_lookup_exact_coords(coords, vols, table, k, bad=None, out=None):
     with _current(device):
         rc = fn(coords.data_ptr(), ctypes.addressof(ptrs), L,
                 ctypes.addressof(ints), ctypes.addressof(floats),
-                None if bad is None else bad.data_ptr(), nb, bq, k,
+                None if bad is None else bad.data_ptr(), b0, nb, bq, k,
                 int(dtype == torch.bfloat16), out.data_ptr(),
                 int(out.dtype == torch.bfloat16), _stream())
     _raise_on_error(rc, "local_lookup_exact_coords")

@@ -99,6 +99,25 @@ def woft_loss(model, cfg: RaftConfig, tcfg: TrainConfig, batch):
     3) img1 -> img2, and optionally 'generator', a ``torch.Generator`` for
     the stand-in masks of the 'sobol' mode (without it every in-bounds
     point is a candidate). Returns the scalar loss, its graph recorded."""
+    err, epe, count = loss_terms(model, cfg, tcfg, batch)
+    count = torch.clamp(count, min=1.0)
+    loss = err / count
+    if epe is not None:
+        loss = loss + tcfg.epe_weight * (epe / count)
+    return loss
+
+
+def loss_terms(model, cfg: RaftConfig, tcfg: TrainConfig, batch, rows=None):
+    """The sums behind ``woft_loss``: (the clipped reprojection errors'
+    sum, the clipped EPE's sum or None without ``epe_weight``, the count of
+    selected points), the sums' graphs recorded. The loss divides both sums
+    by the count (at least 1) over the WHOLE batch, so data-parallel ranks
+    each add their rows' sums and divide by the global count
+    (``parallel/sharding.py:sharded_train_step``). ``rows``: (first row,
+    rows in the whole batch) when ``batch`` holds rows of a larger batch:
+    the stand-in masks are drawn for the whole batch from the generator and
+    these rows kept, as one process drawing them for the whole batch
+    would."""
     out = train_forward(model, cfg, batch["img1"], batch["img2"])
     flow = out["flow_up"]                               # (B, H, W, 2)
     weights = torch.sigmoid(out["weights_up"])          # (B, H, W, 1)
@@ -113,7 +132,9 @@ def woft_loss(model, cfg: RaftConfig, tcfg: TrainConfig, batch):
         inb = ((dst_all[..., 0] >= 0) & (dst_all[..., 0] <= W - 1)
                & (dst_all[..., 1] >= 0) & (dst_all[..., 1] <= H - 1))
         if "generator" in batch:
-            masks = _random_rect_mask(batch["generator"], H, W, B, dev)
+            row0, n = (0, B) if rows is None else rows
+            masks = _random_rect_mask(batch["generator"], H, W, n,
+                                      dev)[row0:row0 + B]
             valid = masks.reshape(B, hw) & inb
         else:
             valid = inb
@@ -134,9 +155,7 @@ def woft_loss(model, cfg: RaftConfig, tcfg: TrainConfig, batch):
     pts = src.transpose(1, 2)                                  # (B, 2, n)
     errs = reproj_errors(batch["h_gt"], h_est, pts)            # (B, n)
     errs = torch.clamp(errs, 0.0, tcfg.max_loss) * sel
-    count = torch.clamp(sel.sum(), min=1.0)
-    loss = errs.sum() / count
-
+    epe_sum = None
     if tcfg.epe_weight:
         # dense supervision: the ground-truth H induces the exact flow
         ones = torch.ones_like(src[..., :1])
@@ -144,9 +163,8 @@ def woft_loss(model, cfg: RaftConfig, tcfg: TrainConfig, batch):
                             torch.cat([src, ones], -1))
         gt_dst = proj[..., :2] / proj[..., 2:3]
         epe = torch.linalg.norm(dst - gt_dst, dim=-1) * sel    # (B, n)
-        loss = loss + tcfg.epe_weight * (
-            torch.clamp(epe, 0.0, tcfg.epe_clip).sum() / count)
-    return loss
+        epe_sum = torch.clamp(epe, 0.0, tcfg.epe_clip).sum()
+    return errs.sum(), epe_sum, sel.sum()
 
 
 def _trainable(name, train_flow):

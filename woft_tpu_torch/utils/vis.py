@@ -8,23 +8,10 @@ colouring, and simple grid tiling. Images are numpy BGR uint8; ``cv2`` is
 loaded inside the functions that draw (``geometry/homography.py:_cv2``).
 """
 
-import contextlib
-
 import numpy as np
 
 from ..geometry.homography import _cv2
-
-
-@contextlib.contextmanager
-def _tmp_np_seed(seed):
-    """numpy's global RNG seeded inside the block and restored after it
-    (the JAX package's ``utils/random_utils.tmp_np_seed``)."""
-    state = np.random.get_state()
-    np.random.seed(seed)
-    try:
-        yield
-    finally:
-        np.random.set_state(state)
+from .random_utils import tmp_np_seed
 
 
 def blend_mask(img, mask, color=(0, 255, 0), alpha=0.5, fill=True,
@@ -426,7 +413,7 @@ def vis_flow(flow, src_img, dst_img, grid_sz=10, occl=None, occl_thr=255,
     occluded = (np.zeros(len(xs), bool) if occl is None
                 else occl[ys, xs] >= occl_thr)
     if arrow_color == "rand":
-        with _tmp_np_seed(42):
+        with tmp_np_seed(42):
             palette = np.random.randint(0, 255, size=(H * W, 3))
         colors = [tuple(int(v) for v in palette[i])
                   for i in ys * W + xs]
