@@ -146,7 +146,22 @@ Phases; any failure ends the script with a non-zero exit:
    card against the CPU path, the difference split into the forward, the
    fit's backward and the head's backward (and the head's ReLU sign
    flips counted);
-9. scale-out (``track_scale_out``, ``woft_tpu_torch/parallel``): kernels
+9. RAFT-small (``check_small_tracking``): kernel B at radius 3 against
+   its plain version, dense at Q = 14,400 and on the 24x43 window grid
+   (exact), timed beside its bound, its plain version and
+   ``F.grid_sample``; ``train_wraft_torch.py --small --train-flow`` from
+   seeded weights, 100 steps at 288x384, batch 4, counted from 0; the
+   checkpoint served by ``WOFT.py`` with ``class_params.small`` through
+   the single step (``WOFTTracker``) and the shared step x2 at 1280x720
+   and the window step and the window batch x2 at 1920x1080 (the 192x344
+   window), 8 frames of the walk each, run twice: with kernels A and B,
+   and with their plain versions on the card's tensors
+   (``PlainKernels``); H held to ``CORNER_TOL_PX`` where both pass and
+   on every frame before the first whose ok flags differ, the ok flags
+   to one frame in eight, the TC points whose validity flipped
+   counted, launches exact (A, B; every other kernel 0); the corner error
+   against the walk printed and not held (no trained RAFT-small weights);
+10. scale-out (``track_scale_out``, ``woft_tpu_torch/parallel``): kernels
    C, D and E on rank 1's band of the 720p grid (blocks 60-119, ``b0`` =
    60) against their plain versions and the whole-grid launch's rows, C's
    kept plan not reused at another ``b0``, kernel B on two key-column
@@ -155,16 +170,18 @@ Phases; any failure ends the script with a non-zero exit:
    store): an all-reduce, ``sharded_track_batch`` over 2 streams of 8
    frames of the 720p walk under ``WOFT.py`` (each its own target)
    against each stream's ``build_track_step`` (0 px; A once and B 13
-   times a stream-frame, exactly), one ``sharded_train_step`` at 288x384,
+   times a stream-frame, exactly), the same over 2 streams of 4 frames on
+   the RAFT-small checkpoint, one ``sharded_train_step`` at 288x384,
    batch 4, ``--train-flow`` against the plain step; then two ``gloo``
    ranks both on this card (``parallel.launch``; NCCL refuses two ranks on
-   one GPU): 2 x 2 streams, ``spatial_sharded_forward`` at sp = 2 in its
+   one GPU): 2 x 2 streams, one RAFT-small stream each (0 px),
+   ``spatial_sharded_forward`` at sp = 2 in its
    pyramid form (``WOFT.py``) and its block-local form (``WOFT_fast.py``,
    rank 1 launching C, D, E at ``b0`` = 60), and the dp step on 2 x 2
    rows, each against its single-process twin here at a measured bound,
    with targets·frames/s, per-rank volume bytes and memory, all-reduced
    bytes, seconds;
-10. a ``kernels`` JSON line (A-E with their launches on the multi-target
+11. a ``kernels`` JSON line (A-E with their launches on the multi-target
    paths and their times at its shapes; A and B also with their launches
    on the ablation paths, ``downscale_launches`` and
    ``ablation_launches``, their times at the downscale shapes, and their
@@ -174,8 +191,9 @@ Phases; any failure ends the script with a non-zero exit:
    with their launches in training, ``train_launches``, and their error
    at its shapes, ``train_max_abs_err``, and the row of B'; A-E and B'
    with their launches in the scale-out runs, ``scale_out_launches``, and
-   B-E at the band and shard shapes, ``scale_out_shape``), then the device
-   JSON as the last line.
+   B-E at the band and shard shapes, ``scale_out_shape``; A and B with
+   their launches on the RAFT-small steps, ``small_tracking_launches``, B
+   at radius 3, ``radius3``), then the device JSON as the last line.
 """
 
 import json
@@ -3816,7 +3834,10 @@ def train_run(kernels, dev, argv):
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     steady = [t for i, t in enumerate(step_s) if i not in (0, 4)]
     res["steady_s"] = sum(steady) / len(steady)
-    log(f"  losses {', '.join(f'{v:.4f}' for v in res['losses'])}; val EPE "
+    losses = [f"{v:.4f}" for v in res["losses"]]
+    if len(losses) > 8:             # the first and the last three
+        losses = losses[:3] + ["..."] + losses[-3:]
+    log(f"  losses {', '.join(losses)}; val EPE "
         f"{', '.join(f'{s}: {e:.3f}' for s, e in res['val'])} px")
     log(f"  first step {step_s[0]:.3f} s, steady {res['steady_s']:.4f} s a "
         f"step ({min(steady):.4f}-{max(steady):.4f}), "
@@ -3831,18 +3852,17 @@ def train_run(kernels, dev, argv):
     return res
 
 
-def track_trained(kernels, dev, ckpt):
-    """The trained checkpoint served to the tracker through
-    ``WOFT_WRAFT_TORCH_CKPT`` (``RaftFlow`` via ``configs/WOFT.py``): 4
-    frames of the 720p walk, counted from 0."""
+def served_conf(ckpt, config="WOFT.py"):
+    """``configs/<config>`` loaded with the checkpoint ``ckpt`` named by
+    ``WOFT_WRAFT_TORCH_CKPT``, as a user serves a trained file; the
+    variable is restored after."""
     from woft_tpu_torch.config import load_config
-    from woft_tpu_torch.tracker import WOFTTracker
 
     prev = os.environ.get("WOFT_WRAFT_TORCH_CKPT")
     os.environ["WOFT_WRAFT_TORCH_CKPT"] = str(ckpt)
     try:
         conf = load_config(os.path.join(ROOT, "woft_tpu_torch", "configs",
-                                        "WOFT.py"))
+                                        config))
     finally:
         if prev is None:
             del os.environ["WOFT_WRAFT_TORCH_CKPT"]
@@ -3850,8 +3870,18 @@ def track_trained(kernels, dev, ckpt):
             os.environ["WOFT_WRAFT_TORCH_CKPT"] = prev
     if os.path.abspath(str(conf.flow_config.model)) != os.path.abspath(
             str(ckpt)):
-        raise AssertionError(f"WOFT.py loads {conf.flow_config.model}, not "
-                             f"the trained checkpoint")
+        raise AssertionError(f"{config} loads {conf.flow_config.model}, not "
+                             f"the checkpoint {ckpt}")
+    return conf
+
+
+def track_trained(kernels, dev, ckpt):
+    """The trained checkpoint served to the tracker through
+    ``WOFT_WRAFT_TORCH_CKPT`` (``RaftFlow`` via ``configs/WOFT.py``): 4
+    frames of the 720p walk, counted from 0."""
+    from woft_tpu_torch.tracker import WOFTTracker
+
+    conf = served_conf(ckpt)
     template, frames, poses = walk(H_IMG, W_IMG, dev, n=4)
     mask, corners = centred_mask(H_IMG, W_IMG, 0.5)
     tracker = WOFTTracker(conf, device=dev)
@@ -4130,6 +4160,352 @@ def track_training(kernels, corr, warp, dev):
 
 
 # ---------------------------------------------------------------------------
+# RAFT-small through every tracker step (check_small_tracking)
+# ---------------------------------------------------------------------------
+
+SMALL_RADIUS = 3                 # RAFT-small's lookup radius (RaftConfig)
+SMALL_TRAIN_STEPS = 100          # 12-19 s on an H100 (0.12-0.19 s a step)
+SMALL_VAL_EVERY = 50             # validation EPE at steps 0 and 50
+SMALL_FRAMES = 8                 # frames of the walk each step tracks
+SMALL_SCALE_FRAMES = 4           # frames of the sharded RAFT-small case
+SMALL_WINDOW_FRAME = (1080, 1920)        # the window steps' frames
+SMALL_WINDOW = (192, 344)        # bench.py's window at 1920x1080
+# The card and the plain path run the same step on the same frames, with
+# kernels A and B in one and their plain versions in the other; A and B
+# are exact, so the two should agree bit for bit. But the rest of the step
+# is cuDNN's, which may pick another algorithm for a shape on the second
+# run (its heuristics see the free memory), and an untrained network's
+# inlier fraction can sit on the 20 % threshold, where a last-bit
+# difference flips a check: one frame in eight may differ; more would be
+# systematic.
+SMALL_OK_FLIPS_PER_8 = 1
+
+
+def _small_conf(ckpt, config="WOFT.py"):
+    """``served_conf`` of the RAFT-small checkpoint ``ckpt`` with
+    ``class_params.small`` set, as a user serves a ``train_wraft_torch.py
+    --small`` checkpoint."""
+    conf = served_conf(ckpt, config)
+    conf.flow_config.class_params.small = True
+    return conf
+
+
+class PlainKernels:
+    """Within the block, kernels A and B's wrappers are their plain
+    versions on the card's tensors: the same step runs with nothing of the
+    two kernels in it, and launches nothing that is counted."""
+
+    def __init__(self, kernels, warp, corr):
+        self.kernels, self.warp, self.corr = kernels, warp, corr
+
+    def _warp(self, img, hinv, out_h, out_w):
+        ys, xs = torch.meshgrid(
+            torch.arange(out_h, dtype=torch.float32, device=img.device),
+            torch.arange(out_w, dtype=torch.float32, device=img.device),
+            indexing="ij")
+        sx, sy = self.warp._back_project(hinv, xs, ys)
+        return self.warp.grid_sample(img, torch.stack([sx, sy], -1))
+
+    def _lookup(self, pyramid, coords, radius, rows=None):
+        out = self.corr.corr_lookup_plain(pyramid, coords, radius, rows)
+        return out.reshape(coords.numel() // 2, -1)     # the kernel's shape
+
+    def __enter__(self):
+        k = self.kernels
+        self.saved = k.warp_perspective_bilinear, k.corr_pyramid_lookup
+        k.warp_perspective_bilinear, k.corr_pyramid_lookup = (self._warp,
+                                                              self._lookup)
+        return self
+
+    def __exit__(self, *exc):
+        k = self.kernels
+        k.warp_perspective_bilinear, k.corr_pyramid_lookup = self.saved
+
+
+class TcValidity:
+    """Records the TC validity mask of every selection the steps make
+    (``_select_tcs``: the full-frame, shared and window steps and their
+    fallbacks) as a host copy."""
+
+    def __init__(self):
+        from woft_tpu_torch.tracker import window_step as tws
+        from woft_tpu_torch.tracker import woft as tw
+        self.modules = (tw, tws)
+        self.masks = []
+
+    def __enter__(self):
+        select = self.select = self.modules[0]._select_tcs
+
+        def recording(flow, weights, valid, n):
+            self.masks.append(valid.reshape(-1, valid.shape[-1]).cpu())
+            return select(flow, weights, valid, n)
+
+        for m in self.modules:
+            m._select_tcs = recording
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.modules:
+            m._select_tcs = self.select
+
+
+def check_lookup_radius3(kernels, corr, dev):
+    """Kernel B at radius 3, RAFT-small's, against its plain version:
+    dense at Q = 14,400 (1280x720) and on the 24x43 window grid (Q =
+    1,032), exact; timed at 720p beside its plain version, one
+    ``F.grid_sample`` a level and its byte bound."""
+    radius = SMALL_RADIUS
+    err = 0.0
+    for h1, w1 in ((H_IMG // 8, W_IMG // 8), WINDOW_GRIDS[0]):
+        pyramid, coords, _, _ = lookup_case(corr, dev, h1, w1)
+        want = corr.corr_lookup_plain(pyramid, coords, radius)
+        got = kernels.corr_pyramid_lookup(pyramid, coords, radius)
+        torch.cuda.synchronize()
+        e = (got.reshape(want.shape) - want).abs().max().item()
+        log(f"kernel B [radius {radius}, dense {h1}x{w1}, Q={h1 * w1}]: "
+            f"max_abs_err {e:.3g} (exact)")
+        if e != 0.0:
+            raise AssertionError(f"kernel B at radius {radius} ({h1}x{w1}) "
+                                 f"disagrees: {e}")
+        err = max(err, e)
+    pyramid, coords, _, _ = lookup_case(corr, dev, H_IMG // 8, W_IMG // 8)
+    Q = coords.numel() // 2
+    flat = coords.reshape(Q, 2)
+    k = 2 * radius + 1
+    n_out = Q * len(pyramid) * k * k
+    ms = time_ms(lambda: kernels.corr_pyramid_lookup(pyramid, coords,
+                                                     radius))
+    plain_ms = time_ms(lambda: corr.corr_lookup_plain(pyramid, coords,
+                                                       radius))
+    library_ms = time_ms(lambda: _grid_sample_levels(pyramid, flat, radius))
+    window = _window_bytes(pyramid, flat, None, radius)
+    bnd, by = bound_ms(window + Q * 8 + n_out * 4, n_out * 18)
+    log(f"kernel B timing [radius {radius}, dense Q={Q}]: kernel {ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, F.grid_sample x4 levels "
+        f"{library_ms:.4f} ms, bound {bnd:.4f} ms ({by}: windows "
+        f"{window / 1e6:.1f} MB)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+                bound_by=by, library_ms=library_ms)
+
+
+def _small_runs(what, run, kernels, warp, corr, poses, corners, want_of):
+    """One step of the RAFT-small phase, twice on the same frames: on the
+    card counted from 0, then through the plain path (``PlainKernels``).
+    ``run() -> (hs (T, N, 3, 3), oks (T, N), flows)``; ``want_of(flows)``
+    the launches expected. Holds H to ``CORNER_TOL_PX`` on the frames
+    where both pass, and on every frame before the first whose ok flags
+    differ (the two states are the same until then, whichever H the
+    ladder took), and the ok flags to ``SMALL_OK_FLIPS_PER_8``; counts the
+    TC points whose validity flipped; prints the corner error against the
+    walk as a fact about an untrained network."""
+    zero_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with TcValidity() as card_tc:
+        hs, oks, flows = run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    zero_counts(kernels)
+    with PlainKernels(kernels, warp, corr), TcValidity() as plain_tc:
+        hs_p, oks_p, _ = run()
+    torch.cuda.synchronize()
+    plain_launches = read_counts(kernels)
+    if any(plain_launches.values()):
+        raise AssertionError(f"{what}: the plain path launched "
+                             f"{plain_launches}")
+    T, N = oks.shape
+    flips = [[int((a != b).sum()) for a, b in zip(*pair)]
+             for pair in zip(card_tc.masks, plain_tc.masks)]
+    differ = (oks != oks_p).any(axis=1)
+    same_state = np.cumsum(differ) == 0
+    held = (oks & oks_p) | same_state[:, None]
+    px = [h_diff_px(hs[t, n], hs_p[t, n], corners[n])
+          for t in range(T) for n in range(N) if held[t, n]]
+    ok_diff = int(differ.sum())
+    errs = [corner_errors(list(hs[:, n]), poses, corners[n])
+            for n in range(N)]
+    log(f"RAFT-small, {what}: checks passed card {int(oks.sum())}, plain "
+        f"{int(oks_p.sum())} of {T * N}; frames whose ok flags differ "
+        f"{ok_diff} of {T} (allowed {SMALL_OK_FLIPS_PER_8 * T // 8}); H "
+        f"card vs plain on {len(px)} of {T * N} (both passed, or before "
+        f"the first difference) {max(px) if px else 0.0:.3g} px (tol "
+        f"{CORNER_TOL_PX}); TC points "
+        f"whose validity flipped, by selection {flips}; {secs:.2f} s on the "
+        f"card; launches {({k: v for k, v in launches.items() if v})} in "
+        f"{flows} flows (every other kernel 0); corner error against the "
+        f"walk {max(max(e) for e in errs):.3f} px (not held: no trained "
+        f"RAFT-small weights)")
+    if not all(np.isfinite(h).all() for h in hs):
+        raise AssertionError(f"RAFT-small {what}: non-finite homography")
+    if px and not max(px) <= CORNER_TOL_PX:
+        raise AssertionError(f"RAFT-small {what}: the card is {max(px)} px "
+                             f"from the plain path")
+    if ok_diff > SMALL_OK_FLIPS_PER_8 * T // 8:
+        raise AssertionError(f"RAFT-small {what}: ok flags differ on "
+                             f"{ok_diff} of {T} frames")
+    want = want_of(flows)
+    check_counts(f"RAFT-small {what}", launches, want, tuple(want), T, flows)
+    return dict(launches=launches, seconds=secs, card_vs_plain_px=px,
+                ok_flags_differ=ok_diff, validity_flips=flips,
+                corner_px=errs)
+
+
+def track_small_steps(kernels, warp, corr, dev, ckpt):
+    """The four tracker steps on a RAFT-small checkpoint served through
+    ``WOFT.py`` with ``class_params.small``: the single step
+    (``WOFTTracker``) and the shared step x2 at 1280x720, the window step
+    and the window batch x2 at 1920x1080 with the 192x344 window, each on
+    8 frames of the walk (``_small_runs``)."""
+    from woft_tpu_torch.flow import RaftFlow
+    from woft_tpu_torch.pipeline import MultiTargetTracker, SharedMultiTracker
+    from woft_tpu_torch.tracker import (WOFTTracker, build_window_track_step,
+                                        window_init_state,
+                                        window_params_for_mask)
+
+    conf = _small_conf(ckpt)
+    flower = RaftFlow(conf.flow_config, device=dev)
+    model, cfg, tp = flower.model, flower.cfg, conf.tracker_params
+    if not (cfg.small and cfg.radius == SMALL_RADIUS):
+        raise AssertionError(f"WOFT.py with class_params.small gave {cfg}")
+    T = SMALL_FRAMES
+    out = {}
+
+    template, frames, poses = walk(H_IMG, W_IMG, dev, n=T)
+    mask, corners = centred_mask(H_IMG, W_IMG, 0.5)
+
+    def single():
+        tracker = WOFTTracker(conf, device=dev)
+        tracker.init(template, mask)
+        hs, oks = [], []
+        for f in frames:
+            H, meta = tracker.track(f)
+            hs.append([H])
+            oks.append([bool(meta.global_H_success)])
+        oks = np.array(oks)
+        return np.array(hs), oks, T + int((~oks).sum())
+
+    # a frame: A once (the pre-warp); a flow: B 13 times (12 iterations and
+    # the dense weight head's lookup), the failed checks' fallback flows too
+    frame = f"{W_IMG}x{H_IMG}"
+    out[f"single step {frame}"] = _small_runs(
+        f"single step (WOFTTracker) at {frame}", single, kernels, warp,
+        corr, poses, [corners], lambda flows: {
+            "warp_perspective_bilinear": T,
+            "corr_pyramid_lookup": 13 * flows})
+
+    masks, corners_s = scale_masks(H_IMG, W_IMG)
+    masks, corners_s = masks[:2], corners_s[:2]
+
+    def shared():
+        tracker = SharedMultiTracker(model, cfg, tp, device=dev)
+        tracker.init(template, masks)
+        hs, oks = zip(*[(h, m["global_H_success"])
+                        for h, m in map(tracker.track, frames)])
+        return np.array(hs, np.float64), np.array(oks), T
+
+    out[f"shared x2 {frame}"] = _small_runs(
+        f"shared step x2 at {frame}", shared, kernels, warp, corr, poses,
+        corners_s, lambda flows: {"warp_perspective_bilinear": T,
+                                  "corr_pyramid_lookup": 13 * T})
+    del template, frames
+
+    h, w = SMALL_WINDOW_FRAME
+    template, frames, poses = walk(h, w, dev, n=T)
+    mask, corners = centred_mask(h, w, 1 / 3)
+    wp = window_params_for_mask(mask, size=256)
+    if wp.shape != SMALL_WINDOW:
+        raise AssertionError(f"window {wp.shape}, not {SMALL_WINDOW}")
+
+    def rgb(bgr):
+        return torch.from_numpy(np.ascontiguousarray(
+            bgr[..., ::-1])).to(dev).to(torch.float32)[None]
+
+    def window():
+        step = build_window_track_step(cfg, tp, wp)
+        state = window_init_state(model, cfg, tp, wp, rgb(template), mask)
+        hs, oks = [], []
+        for f in frames:
+            state, H, meta = step(model, state, rgb(f))
+            hs.append([H.cpu().numpy().astype(np.float64)])
+            oks.append([bool(meta["global_H_success"])])
+        oks = np.array(oks)
+        return np.array(hs), oks, T + int((~oks).sum())
+
+    # a frame: A twice (the crop and the pre-warp), once at the init (the
+    # template crop); B 13 times a flow, the fallback's too
+    frame = f"{w}x{h}"
+    out[f"window step {frame}"] = _small_runs(
+        f"window step at {frame}, window {wp.shape[0]}x{wp.shape[1]}",
+        window, kernels, warp, corr, poses, [corners], lambda flows: {
+            "warp_perspective_bilinear": 2 * T + 1,
+            "corr_pyramid_lookup": 13 * flows})
+
+    masks = window_masks(2, h, w)
+    corners_b = [mask_corners(m) for m in masks]
+
+    def batch():
+        tracker = MultiTargetTracker(model, cfg, tp, wp, device=dev)
+        tracker.init(template, masks)
+        hs, oks = zip(*[(hb, m["global_H_success"])
+                        for hb, m in map(tracker.track, frames)])
+        return np.array(hs, np.float64), np.array(oks), T
+
+    # one B = 2 forward a frame; A: the 2 crops in one launch, the 2
+    # pre-warps in one, and the 2 template crops once each at the init
+    out[f"window batch x2 {frame}"] = _small_runs(
+        f"window batch x2 at {frame}, window {wp.shape[0]}x{wp.shape[1]}",
+        batch, kernels, warp, corr, poses, corners_b, lambda flows: {
+            "warp_perspective_bilinear": 2 * T + 2,
+            "corr_pyramid_lookup": 13 * T})
+    return out
+
+
+def check_small_tracking(kernels, corr, warp, dev, ckpt):
+    """The RAFT-small phase: kernel B at radius 3 against its plain version
+    (``check_lookup_radius3``); ``train_wraft_torch.py --small
+    --train-flow`` from seeded weights at 288x384, batch 4, on the textured
+    pngs, counted from 0, its checkpoint written to ``ckpt`` (the
+    scale-out phase tracks it too); that checkpoint through the four
+    tracker steps (``track_small_steps``). Returns the numbers."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    out = {"B": check_lookup_radius3(kernels, corr, dev)}
+    H, W = TRAIN_HW
+    n_val = len(range(0, SMALL_TRAIN_STEPS, SMALL_VAL_EVERY))
+    with tempfile.TemporaryDirectory() as tmp:
+        images = os.path.join(tmp, "images")
+        write_train_images(images)
+        log(f"--- train_wraft_torch.py --small --train-flow: RAFT-small, "
+            f"{H}x{W}, batch {TRAIN_BATCH}, 12 iters, precision 'default', "
+            f"lr 1e-3, --epe-weight 1, {SMALL_TRAIN_STEPS} steps from "
+            f"seeded weights")
+        res = train_run(kernels, dev, [
+            "--images", images, "--size", f"{H}x{W}", "--batch",
+            str(TRAIN_BATCH), "--steps", str(SMALL_TRAIN_STEPS), "--iters",
+            "12", "--small", "--train-flow", "--epe-weight", "1",
+            "--log-every", str(SMALL_VAL_EVERY), "--val-every",
+            str(SMALL_VAL_EVERY), "--out", ckpt])
+        want = {"warp_perspective_bilinear": SMALL_TRAIN_STEPS + 1,
+                "corr_pyramid_lookup": 13 * (SMALL_TRAIN_STEPS + n_val),
+                "corr_pyramid_lookup_backward": 13 * SMALL_TRAIN_STEPS}
+        check_counts("RAFT-small training", res["launches"], want,
+                     tuple(want), SMALL_TRAIN_STEPS, SMALL_TRAIN_STEPS + n_val)
+        out["train"] = dict(
+            first_loss=float(res["losses"][0]),
+            last_loss=float(res["losses"][-1]),
+            val=res["val"], steady_s=res["steady_s"],
+            launches=res["launches"])
+    t_steps = time.perf_counter()
+    torch.cuda.empty_cache()
+    out["steps"] = track_small_steps(kernels, warp, corr, dev, ckpt)
+    log(f"RAFT-small phase: {time.perf_counter() - t_phase:.1f} s, the four "
+        f"steps {time.perf_counter() - t_steps:.1f} s of it")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # scale-out (track_scale_out)
 # ---------------------------------------------------------------------------
 
@@ -4174,11 +4550,14 @@ def scale_masks(h=H_IMG, w=W_IMG):
     return masks, np.asarray(corners, np.float64)
 
 
-def _scale_tracker(dev, config="WOFT.py"):
+def _scale_tracker(dev, config="WOFT.py", small_ckpt=None):
+    """(model, RaftConfig, TrackerParams) of ``configs/<config>``; with
+    ``small_ckpt`` RAFT-small on that checkpoint (``_small_conf``)."""
     from woft_tpu_torch.config import load_config
     from woft_tpu_torch.flow import RaftFlow
-    conf = load_config(os.path.join(ROOT, "woft_tpu_torch", "configs",
-                                    config))
+    conf = (_small_conf(small_ckpt, config) if small_ckpt else
+            load_config(os.path.join(ROOT, "woft_tpu_torch", "configs",
+                                     config)))
     flower = RaftFlow(conf.flow_config, device=dev)
     return flower.model, flower.cfg, conf.tracker_params
 
@@ -4345,7 +4724,9 @@ def compare_train(what, got, want, bounds, lr=1e-5):
 
 def scale_out_rank(rank, world, device, job):
     """One of the two ``gloo`` ranks, both on ``cuda:0``: (a) 2 streams of
-    ``sharded_track_batch`` under ``WOFT.py`` (dp = 2), (b) the pyramid
+    ``sharded_track_batch`` under ``WOFT.py`` (dp = 2), (a') stream
+    ``rank`` of the RAFT-small checkpoint ``job["small_ckpt"]``, 4 frames,
+    (b) the pyramid
     form of ``spatial_sharded_forward`` under ``WOFT.py`` and (c) its
     block-local form under ``WOFT_fast.py`` (sp = 2), (d) one
     ``sharded_train_step`` on 2 rows of the batch of 4 (dp = 2); each
@@ -4374,6 +4755,14 @@ def scale_out_rank(rank, world, device, job):
         1, 0, 2, 3).float().to(dev).contiguous())
     out["track"] = dict(hs=hs, all_hs=all_hs.cpu().numpy(),
                         launches=launches, seconds=secs, flows=flows)
+    # (a') RAFT-small: this rank's one stream of 4 frames
+    s_model, s_cfg, s_tp = _scale_tracker(dev, small_ckpt=job["small_ckpt"])
+    hs, launches, secs, flows = scale_track(
+        kernels, sharded_track_batch(dp_mesh, s_cfg, s_tp), s_model, s_cfg,
+        s_tp, job["template"], job["frames"][:SMALL_SCALE_FRAMES],
+        job["masks"][rank:rank + 1], dev)
+    out["small"] = dict(hs=hs, launches=launches, flows=flows)
+    del s_model
 
     img1 = upload_bgr(job["template"], dev)
     img2 = upload_bgr(job["frames"][0], dev)
@@ -4586,7 +4975,7 @@ def check_shard_lookup(kernels, corr, dev):
                 bound_ms=bnd, bound_by=by, library_ms=library_ms)
 
 
-def track_scale_out(kernels, corr, dev):
+def track_scale_out(kernels, corr, dev, small_ckpt):
     """The scale-out phase: C, D, E at a band and B on column shards; then
     NCCL with one rank (world 1, a file store, in this process): an
     all-reduce, ``sharded_track_batch`` over 2 streams of 8 frames under
@@ -4596,8 +4985,11 @@ def track_scale_out(kernels, corr, dev):
     ``gloo`` ranks on ``cuda:0`` (``parallel.launch``; NCCL refuses two
     ranks on one GPU): tracking 2 x 2 streams, the pyramid and block-local
     forms of ``spatial_sharded_forward`` (sp = 2) and the dp step on 2 x 2
-    rows, each against its single-process twin here. Returns the kernel
-    rows at the band and shard shapes and each run's launches."""
+    rows, each against its single-process twin here. The RAFT-small
+    checkpoint ``small_ckpt`` under ``WOFT.py`` runs ``sharded_track_batch``
+    over 2 streams of 4 frames with NCCL, and one stream a ``gloo`` rank,
+    each stream against its own ``build_track_step`` (0 px). Returns the
+    kernel rows at the band and shard shapes and each run's launches."""
     import tempfile
     from woft_tpu_torch.flow.wrapper import upload_bgr
     from woft_tpu_torch.models.raft import weighted_raft_forward
@@ -4624,6 +5016,11 @@ def track_scale_out(kernels, corr, dev):
     log(f"scale-out: 4 streams of {SCALE_FRAMES} frames alone under WOFT.py"
         f", corner error against the walk {min(errs):.3f}-{max(errs):.3f} px")
     train0 = single_train_step(dev, batch)
+    small_model, small_cfg, small_tp = _scale_tracker(dev,
+                                                      small_ckpt=small_ckpt)
+    small_frames = frames[:SMALL_SCALE_FRAMES]
+    small_single = single_streams(small_model, small_cfg, small_tp, template,
+                                  small_frames, masks[:2], dev)
 
     with tempfile.TemporaryDirectory() as tmp, process_group(
             "nccl", os.path.join(tmp, "store"), 0, 1, timeout=300.0):
@@ -4651,6 +5048,24 @@ def track_scale_out(kernels, corr, dev):
                      n, flows)
         runs["NCCL tracking, 2 streams x 8 frames"] = launches
         del step
+        hs, launches, secs, flows = scale_track(
+            kernels, sharded_track_batch(mesh, small_cfg, small_tp),
+            small_model, small_cfg, small_tp, template, small_frames,
+            masks[:2], dev)
+        px = stream_px(hs, small_single, corners[:2])
+        n = 2 * SMALL_SCALE_FRAMES
+        log(f"NCCL, one rank [{card}]: sharded_track_batch RAFT-small 2 "
+            f"streams x {SMALL_SCALE_FRAMES} frames in {secs:.3f} s, against "
+            f"each stream alone {px:.3g} px; launches {launches}")
+        if px != 0.0:
+            raise AssertionError("NCCL sharded_track_batch (RAFT-small) "
+                                 "differs from the streams alone")
+        check_counts("NCCL sharded_track_batch RAFT-small", launches,
+                     {"warp_perspective_bilinear": n,
+                      "corr_pyramid_lookup": 13 * flows},
+                     ("warp_perspective_bilinear", "corr_pyramid_lookup"),
+                     n, flows)
+        runs["NCCL tracking RAFT-small, 2 streams x 4 frames"] = launches
         tmodel, tcfg_r, tcfg, tx, state, seen = scale_train_model(dev)
         zero_counts(kernels)
         loss = float(sharded_train_step(mesh, tmodel, tcfg_r, tcfg, tx)(
@@ -4676,10 +5091,11 @@ def track_scale_out(kernels, corr, dev):
                             ref_fast["weights_up"].cpu().numpy())}
     whole_bytes = sum(v.numel() * 4 for v in corr.corr_pyramid_fused(
         ref["fmap1"], ref["fmap2"], 4)[0])
-    del ref, ref_fast, model, fast_model
+    del ref, ref_fast, model, fast_model, small_model
     torch.cuda.empty_cache()
 
-    job = dict(template=template, frames=frames, masks=masks, batch=batch)
+    job = dict(template=template, frames=frames, masks=masks, batch=batch,
+               small_ckpt=small_ckpt)
     t0 = time.perf_counter()
     res = launch(scale_out_rank, 2, "gloo", ["cuda:0", "cuda:0"],
                  args=(job,), timeout=300.0, join_timeout=600.0)
@@ -4712,6 +5128,25 @@ def track_scale_out(kernels, corr, dev):
                      nr, r["track"]["flows"])
         runs[f"gloo tracking rank {i}, 2 streams x 8 frames"] = \
             r["track"]["launches"]
+
+    # (a') RAFT-small, one stream a rank
+    hs = np.concatenate([r["small"]["hs"] for r in res], axis=1)
+    px = stream_px(hs, small_single, corners[:2])
+    log(f"gloo (a') sharded_track_batch RAFT-small, 2 ranks x 1 stream x "
+        f"{SMALL_SCALE_FRAMES} frames [{card}]: against each stream alone "
+        f"{px:.3g} px; launches {[r['small']['launches'] for r in res]}")
+    if px != 0.0:
+        raise AssertionError("gloo sharded_track_batch (RAFT-small) differs "
+                             "from the streams alone")
+    for i, r in enumerate(res):
+        check_counts(f"gloo RAFT-small tracking rank {i}",
+                     r["small"]["launches"],
+                     {"warp_perspective_bilinear": SMALL_SCALE_FRAMES,
+                      "corr_pyramid_lookup": 13 * r["small"]["flows"]},
+                     ("warp_perspective_bilinear", "corr_pyramid_lookup"),
+                     SMALL_SCALE_FRAMES, r["small"]["flows"])
+        runs[f"gloo tracking RAFT-small rank {i}, 1 stream x 4 frames"] = \
+            r["small"]["launches"]
 
     # (b), (c) the spatial forwards
     spatial = {}
@@ -4765,6 +5200,8 @@ def corner_errors_streams(hs, poses, corners):
 
 
 def main():
+    import tempfile
+
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -4866,11 +5303,18 @@ def main():
     torch.cuda.empty_cache()
     train = track_training(kernels, corr, warp, dev)
 
-    # scale-out: C, D, E at a band and B on key-column shards; NCCL with
-    # one rank; two gloo ranks on this card (tracking, both spatial forms,
-    # the dp step)
-    torch.cuda.empty_cache()
-    scale = track_scale_out(kernels, corr, dev)
+    with tempfile.TemporaryDirectory() as small_dir:
+        # RAFT-small: B at radius 3, a --small training run, its checkpoint
+        # through the four tracker steps, card against the plain path
+        small_ckpt = os.path.join(small_dir, "small.pt")
+        torch.cuda.empty_cache()
+        small = check_small_tracking(kernels, corr, warp, dev, small_ckpt)
+
+        # scale-out: C, D, E at a band and B on key-column shards; NCCL
+        # with one rank; two gloo ranks on this card (tracking, RAFT-small
+        # tracking, both spatial forms, the dp step)
+        torch.cuda.empty_cache()
+        scale = track_scale_out(kernels, corr, dev, small_ckpt)
 
     # launches: A and B on the WOFT.py path, C, D, E (the last two from
     # coordinates) on the WOFT_fast.py
@@ -5030,6 +5474,16 @@ def main():
             row["scale_out_launches"] = counts
     for row, kernel in zip(rows[1:5], "BCDE"):
         row["scale_out_shape"] = scale["rows"][kernel]
+    # RAFT-small: A and B on its four tracker steps, each counted from 0,
+    # and in its training run (B' too); B at radius 3
+    for row in rows[:2]:
+        row["small_tracking_launches"] = {
+            what: res["launches"][row["name"]]
+            for what, res in small["steps"].items()}
+    for row in rows[:2] + rows[-1:]:
+        row["train_launches"]["RAFT-small, --train-flow"] = \
+            small["train"]["launches"][row["name"]]
+    rows[1]["radius3"] = small["B"]
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

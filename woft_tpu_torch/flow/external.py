@@ -74,7 +74,7 @@ def make_raft_backend(config, device):
     ``model`` attribute."""
     cfg = RaftConfig(variant="orig", iters=int(config.backend_iters or 12),
                      precision=str(config.precision or "highest"))
-    model = load_model(cfg, config.backend_model, device)
+    model, cfg = load_model(cfg, config.backend_model, device)
     patch = int(config.patch or 7)
     padding_mode = str(config.padding_mode or "nopad")
 

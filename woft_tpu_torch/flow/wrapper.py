@@ -27,11 +27,15 @@ A state dict that lacks subtrees the variant has (the v4 weights under
 'weighted_masked': no ``mask_head``) loads what it has and keeps the
 seeded init for the rest; subtrees the variant lacks (``weight_head``
 under 'orig') are dropped; either way with the reference's warning.
-Without a file the network gets seeded random weights and a warning.
+The weight head takes the checkpoint's own layers where they differ from
+``class_params.weight_head_structure`` (a ``train_wraft_torch.py --small``
+checkpoint under ``WOFT.py``'s config); ``RaftFlow.cfg`` names them. Without
+a file the network gets seeded random weights and a warning.
 """
 
 import logging
 import os
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -76,17 +80,44 @@ def raft_config(config):
         small=bool(cp.small))
 
 
+def _head_structure(state):
+    """The (channels, kernel) layers of a state dict's weight head before
+    its 1x1 output convolution, or None when it has no weight head."""
+    prefix = "weight_head.net."
+    convs = sorted((int(k[len(prefix):].split(".")[0]), v.shape)
+                   for k, v in state.items()
+                   if k.startswith(prefix) and k.endswith(".weight"))
+    if not convs:
+        return None
+    return tuple((int(s[0]), int(s[-1])) for _, s in convs[:-1])
+
+
 def load_model(cfg, path, device):
     """A seeded ``WeightedRAFT`` of ``cfg`` with the state dict at ``path``
-    loaded over it: strictly when the keys match; otherwise the keys both
-    have (the reference's merge of a partial match), with its warning.
-    Without a file: the seeded weights and a warning."""
-    model = init_raft_params(cfg, seed=0)
+    loaded over it, and the config it was built to: strictly when the keys
+    match; otherwise the keys both have (the reference's merge of a partial
+    match), with its warning. The weight head takes the layers of the
+    checkpoint's own head where they differ from ``cfg``'s (a
+    ``train_wraft_torch.py --small`` checkpoint has one 32-channel layer,
+    the flow configs name three of 128). Without a file: the seeded
+    weights and a warning."""
+    state = None
     if path and os.path.exists(str(path)):
         logger.info("Loading torch checkpoint %s", path)
         state = torch.load(str(path), map_location="cpu", weights_only=True)
         state = {k[len("module."):] if k.startswith("module.") else k: v
                  for k, v in state.items()}
+        head = _head_structure(state)
+        if (cfg.variant != "orig" and head is not None
+                and head != tuple(cfg.weight_head_structure)):
+            logger.info("checkpoint %s has the weight head %s; the config "
+                        "names %s", path, head, cfg.weight_head_structure)
+            cfg = replace(cfg, weight_head_structure=head)
+    else:
+        logger.warning("No torch-readable checkpoint (%s); using seeded "
+                       "random weights (seed 0)", path or "none given")
+    model = init_raft_params(cfg, seed=0)
+    if state is not None:
         own = model.state_dict()
         if set(state) != set(own):
             logger.warning("checkpoint %s is a partial match; merging "
@@ -99,10 +130,7 @@ def load_model(cfg, path, device):
                 raise ValueError(f"checkpoint {path} shares no tensor with "
                                  f"a '{cfg.variant}' RAFT")
         model.load_state_dict(state, strict=set(state) == set(own))
-    else:
-        logger.warning("No torch-readable checkpoint (%s); using seeded "
-                       "random weights (seed 0)", path or "none given")
-    return model.to(device).eval()
+    return model.to(device).eval(), cfg
 
 
 class RaftFlow:
@@ -112,9 +140,9 @@ class RaftFlow:
     def __init__(self, config, device=None):
         self.C = config
         self.device = resolve_device(device)
-        self.cfg = raft_config(config)
         self.padding_mode = config.padding_mode or "nopad"
-        self.model = load_model(self.cfg, config.model, self.device)
+        self.model, self.cfg = load_model(raft_config(config), config.model,
+                                          self.device)
 
     def compute_flow_device(self, src, dst):
         """(B, H, W, 3) float RGB device tensors -> (flow (B, H, W, 2),

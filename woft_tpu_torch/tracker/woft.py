@@ -293,10 +293,13 @@ def _tc_validity(flow, last_good, frame_hw, use_pw_mask=True):
 
 def _sparse_ok(raft_cfg: RaftConfig, tp: TrackerParams, flow_fn):
     """Whether a step takes the sparse weight head: the network's own flow
-    (no ``flow_fn``) of the 'weighted' variant, ``sparse_weights`` on, and
-    unpadded inputs (the reference's gate)."""
+    (no ``flow_fn``) of the 'weighted' variant, not RAFT-small,
+    ``sparse_weights`` on, and unpadded inputs (the reference's gate).
+    RAFT-small upsamples bilinearly and has no convex-upsampling mask,
+    which the sparse head's cells need, so it takes the dense head."""
     return (flow_fn is None and raft_cfg.variant == "weighted"
-            and tp.sparse_weights and tp.padding_mode == "nopad")
+            and not raft_cfg.small and tp.sparse_weights
+            and tp.padding_mode == "nopad")
 
 
 def _dense_flow(model, raft_cfg, padding_mode, img1, img2,
