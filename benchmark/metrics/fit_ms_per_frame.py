@@ -1,0 +1,12 @@
+"""Device ms of the QR and triangular-solve kernels of the homography
+fits in the traced window, a frame."""
+
+from benchmark.harness import trace as tr
+
+
+def read(run):
+    t = run.trace
+    if t is None:
+        return None
+    s = tr.kernel_seconds(t, lambda n: tr.category(n) == "qr / solve")
+    return s * 1e3 / t.frames if s else None
