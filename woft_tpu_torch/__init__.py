@@ -27,8 +27,10 @@ see ``ops/kernels.py``).
   (dp, sp) ``DeviceMesh``, the rank launcher, many streams or training
   rows over ``dp``, one frame pair's correlation over ``sp``.
 - ``woft_tpu_torch.utils``    — host I/O, timing, drawing, logging, seeding,
-  notifications and profiling (``cv2`` is loaded only inside the functions
-  that decode, encode or draw).
+  notifications and profiling: the program's stage spans (``span``, off
+  unless a profiler records or ``recording()`` is open; ``recorded_spans``
+  gives each span's device and host times) and ``trace_step`` (``cv2`` is
+  loaded only inside the functions that decode, encode or draw).
 
 Public functions keep ``woft_tpu``'s layouts (NHWC images, ``(x, y)``
 coordinates); inside, the networks run NCHW. Entry points run on ``cuda``

@@ -26,6 +26,12 @@ features and the current features sampled at the flow's end points).
 - ``sparse_weight_head=True`` defers the weight head to a closure
   ``weight_head_at(cells)`` that evaluates the same logits at M cells only,
   reading their pyramid rows in place.
+- the forward's stages run inside the program's spans
+  (``utils/profiling.py``; off unless a profiler records or
+  ``recording()`` is open): ``woft.flow.encode``, ``woft.flow.volume``,
+  ``woft.flow.refine`` (the GRU context and the iterations),
+  ``woft.flow.upsample`` (the mask head and the upsampling) and
+  ``woft.weight_head`` (its lookup and ``weight_head_apply``).
 
 Images are NHWC float RGB in [0, 255]; inside, everything runs NCHW.
 ``precision='highest'`` is float32 throughout (TF32 off, see
@@ -61,6 +67,7 @@ import torch.nn.functional as F
 
 from ..ops import kernels
 from ..ops.warp import coords_grid, grid_sample, upflow8
+from ..utils.profiling import span
 from . import layers
 from .corr import (BlockedCorr, build_local_corr, corr_lookup,
                    corr_lookup_alternate, corr_lookup_local_blocked,
@@ -713,104 +720,112 @@ def _raft_forward(model, cfg, image1, image2, flow_init, iters,
                          "mask, which RAFT-small has not")
     iters = cfg.iters if iters is None else iters
     radius = cfg.radius
-    x2 = _nchw(2.0 * (image2 / 255.0) - 1.0)
-    B = x2.shape[0]
+    dev = image2.device
+    with span("woft.flow.encode", dev):
+        x2 = _nchw(2.0 * (image2 / 255.0) - 1.0)
+        B = x2.shape[0]
 
-    if template_feats is not None:
-        fmap1, net, inp = (_nchw(t) for t in template_feats)
-        fmap2 = model.fnet(x2)
-    else:
-        x1 = _nchw(2.0 * (image1 / 255.0) - 1.0)
-        fmap1, fmap2 = model.fnet(torch.cat([x1, x2])).split(B)
-        net, inp = _context(cfg, model.cnet(x1))
-    H1, W1 = fmap2.shape[2:]
+        if template_feats is not None:
+            fmap1, net, inp = (_nchw(t) for t in template_feats)
+            fmap2 = model.fnet(x2)
+        else:
+            x1 = _nchw(2.0 * (image1 / 255.0) - 1.0)
+            fmap1, fmap2 = model.fnet(torch.cat([x1, x2])).split(B)
+            net, inp = _context(cfg, model.cnet(x1))
+        H1, W1 = fmap2.shape[2:]
 
-    f1, f2 = _nhwc(fmap1).contiguous(), _nhwc(fmap2).contiguous()
-    local = None
-    if cfg.alternate_corr:
-        # no stored volume: each lookup from the features, chunked
-        mean_response = corr_mean_response(f1, f2)
-        chunk = min(cfg.alt_chunk, B * H1 * W1)
+        f1, f2 = _nhwc(fmap1).contiguous(), _nhwc(fmap2).contiguous()
+    with span("woft.flow.volume", dev):
+        local = None
+        if cfg.alternate_corr:
+            # no stored volume: each lookup from the features, chunked
+            mean_response = corr_mean_response(f1, f2)
+            chunk = min(cfg.alt_chunk, B * H1 * W1)
 
-        def lookup_natural(coords):
-            return corr_lookup_alternate(f1, f2, coords, radius,
-                                         cfg.corr_levels, chunk=chunk)
+            def lookup_natural(coords):
+                return corr_lookup_alternate(f1, f2, coords, radius,
+                                             cfg.corr_levels, chunk=chunk)
 
-        def lookup(coords):
-            return _nchw(lookup_natural(coords))
-    elif cfg.corr_impl == "local" and B == 1:
-        # exact within +-local_margin cells of residual flow, saturated
-        # beyond; 'bf16' and 'default' store the volume (and the lookups)
-        # in bf16
-        if corr_shard is None:
-            local = build_local_corr(
-                f1, f2, radius, cfg.corr_levels, margin=cfg.local_margin,
-                out_dtype=cfg.volume_dtype)
-            lookup_blocked = corr_lookup_local_blocked
-        else:           # this rank's band of blocks
-            local = corr_shard.local(f1, f2, radius, cfg.corr_levels,
-                                     cfg.local_margin, cfg.volume_dtype)
-            lookup_blocked = corr_shard.lookup_local
-        mean_response = corr_mean_response(f1, f2)
+            def lookup(coords):
+                return _nchw(lookup_natural(coords))
+        elif cfg.corr_impl == "local" and B == 1:
+            # exact within +-local_margin cells of residual flow, saturated
+            # beyond; 'bf16' and 'default' store the volume (and the lookups)
+            # in bf16
+            if corr_shard is None:
+                local = build_local_corr(
+                    f1, f2, radius, cfg.corr_levels, margin=cfg.local_margin,
+                    out_dtype=cfg.volume_dtype)
+                lookup_blocked = corr_lookup_local_blocked
+            else:           # this rank's band of blocks
+                local = corr_shard.local(f1, f2, radius, cfg.corr_levels,
+                                         cfg.local_margin, cfg.volume_dtype)
+                lookup_blocked = corr_shard.lookup_local
+            mean_response = corr_mean_response(f1, f2)
 
-        def lookup(coords):        # blocked: convc1 absorbs the layout
-            return lookup_blocked(local, coords, radius, check=cfg.fine_check)
+            def lookup(coords):        # blocked: convc1 absorbs the layout
+                return lookup_blocked(local, coords, radius,
+                                      check=cfg.fine_check)
 
-        def lookup_natural(coords):
-            return lookup_blocked(local, coords, radius).to_natural()
-    else:
-        if corr_shard is None:
-            pyramid, mean_response = corr_pyramid_fused(
-                f1, f2, cfg.corr_levels, out_dtype=cfg.volume_dtype)
-            lookup_rows = corr_lookup
-        else:           # this rank's key columns of each level
-            pyramid, mean_response = corr_shard.pyramid(
-                f1, f2, cfg.corr_levels, out_dtype=cfg.volume_dtype)
-            lookup_rows = corr_shard.lookup
+            def lookup_natural(coords):
+                return lookup_blocked(local, coords, radius).to_natural()
+        else:
+            if corr_shard is None:
+                pyramid, mean_response = corr_pyramid_fused(
+                    f1, f2, cfg.corr_levels, out_dtype=cfg.volume_dtype)
+                lookup_rows = corr_lookup
+            else:           # this rank's key columns of each level
+                pyramid, mean_response = corr_shard.pyramid(
+                    f1, f2, cfg.corr_levels, out_dtype=cfg.volume_dtype)
+                lookup_rows = corr_shard.lookup
 
-        def lookup(coords):
-            return _nchw(lookup_rows(pyramid, coords, radius))
+            def lookup(coords):
+                return _nchw(lookup_rows(pyramid, coords, radius))
 
-        def lookup_natural(coords):
-            return lookup_rows(pyramid, coords, radius)
+            def lookup_natural(coords):
+                return lookup_rows(pyramid, coords, radius)
 
     ub = model.update_block
-    coords0 = _nchw(coords_grid(B, H1, W1, x2.device))     # (B, 2, H1, W1)
-    coords1 = coords0 if flow_init is None else coords0 + _nchw(flow_init)
-    # the fused kernels are bf16-mode kernels for one frame pair
-    fusable = (B == 1 and not cfg.small
-               and layers.get_compute_dtype() == torch.bfloat16)
-    gru_fused = cfg.gru_fused and fusable
-    tail_fused = cfg.tail_fused and fusable
-    pre = (None if cfg.small else
-           precompute_gru_context(ub.gru, inp, cfg.hidden_dim,
-                                  fused=gru_fused))
-    for _ in range(iters):         # no host sync inside this loop
-        # the coordinate chain is cut at every iteration (the reference's
-        # coords1.detach(); a no-op under no_grad)
-        coords1 = coords1.detach()
-        corr = lookup(_nhwc(coords1).contiguous())
-        if cfg.small:
-            net, delta = small_update_apply(ub, net, inp, corr,
-                                            coords1 - coords0)
+    with span("woft.flow.refine", dev):
+        coords0 = _nchw(coords_grid(B, H1, W1, x2.device))  # (B, 2, H1, W1)
+        coords1 = (coords0 if flow_init is None
+                   else coords0 + _nchw(flow_init))
+        # the fused kernels are bf16-mode kernels for one frame pair
+        fusable = (B == 1 and not cfg.small
+                   and layers.get_compute_dtype() == torch.bfloat16)
+        gru_fused = cfg.gru_fused and fusable
+        tail_fused = cfg.tail_fused and fusable
+        pre = (None if cfg.small else
+               precompute_gru_context(ub.gru, inp, cfg.hidden_dim,
+                                      fused=gru_fused))
+        for _ in range(iters):         # no host sync inside this loop
+            # the coordinate chain is cut at every iteration (the
+            # reference's coords1.detach(); a no-op under no_grad)
+            coords1 = coords1.detach()
+            corr = lookup(_nhwc(coords1).contiguous())
+            if cfg.small:
+                net, delta = small_update_apply(ub, net, inp, corr,
+                                                coords1 - coords0)
+            else:
+                net, delta = update_block_apply(ub, net, corr,
+                                                coords1 - coords0, pre,
+                                                gru_fused, tail_fused)
+            coords1 = coords1 + delta
+
+    with span("woft.flow.upsample", dev):
+        if cfg.small:           # no mask head: bilinear x8 outputs
+            up_mask = None
+
+            def upsample(x):
+                return upflow8(_nhwc(x))
         else:
-            net, delta = update_block_apply(ub, net, corr, coords1 - coords0,
-                                            pre, gru_fused, tail_fused)
-        coords1 = coords1 + delta
+            up_mask = mask_from_net(ub, net)
 
-    if cfg.small:           # no mask head: bilinear x8 outputs
-        up_mask = None
-
-        def upsample(x):
-            return upflow8(_nhwc(x))
-    else:
-        up_mask = mask_from_net(ub, net)
-
-        def upsample(x):
-            return _nhwc(convex_upsample(x, up_mask))
-    flow = coords1 - coords0
-    out = {"flow": _nhwc(flow), "flow_up": upsample(flow),
-           "fmap1": f1, "fmap2": f2, "mean_response": mean_response}
+            def upsample(x):
+                return _nhwc(convex_upsample(x, up_mask))
+        flow = coords1 - coords0
+        out = {"flow": _nhwc(flow), "flow_up": upsample(flow),
+               "fmap1": f1, "fmap2": f2, "mean_response": mean_response}
     if cfg.variant == "orig":
         return out
 
@@ -824,35 +839,40 @@ def _raft_forward(model, cfg, image1, image2, flow_init, iters,
             # queries are minor in the block-local volume, so per-cell reads
             # would be strided: one more dense lookup at the final
             # coordinates, then a row select
-            corr_dense_flat = lookup_natural(coords1).reshape(H1 * W1, -1)
+            with span("woft.weight_head", dev):
+                corr_dense_flat = lookup_natural(coords1).reshape(H1 * W1, -1)
 
         @torch.no_grad()
         def weight_head_at(cells):
             M = cells.shape[0]
-            if local is not None:
-                corr_f = corr_dense_flat[cells]
-            elif cfg.alternate_corr:
-                corr_f = corr_lookup_alternate(
-                    f1.reshape(B * H1 * W1, -1)[cells][None, None], f2,
-                    coords1_flat[cells][None, None], radius,
-                    cfg.corr_levels, chunk=min(cfg.alt_chunk, M),
-                    batch=cells // (H1 * W1))
-            else:
-                corr_f = lookup_rows(pyramid, coords1_flat[cells][None, None],
-                                     radius, rows=cells)    # (1, 1, M, L*k*k)
-            corr_s = corr_f.reshape(1, 1, M, k, k, cfg.corr_levels)
-            with layers.precision_scope(cfg.precision):
-                w = weight_head_apply(model.weight_head, corr_s,
-                                      mr_flat[cells].reshape(1, 1, M))
-            return w.reshape(M)
+            with span("woft.weight_head", dev):
+                if local is not None:
+                    corr_f = corr_dense_flat[cells]
+                elif cfg.alternate_corr:
+                    corr_f = corr_lookup_alternate(
+                        f1.reshape(B * H1 * W1, -1)[cells][None, None], f2,
+                        coords1_flat[cells][None, None], radius,
+                        cfg.corr_levels, chunk=min(cfg.alt_chunk, M),
+                        batch=cells // (H1 * W1))
+                else:
+                    corr_f = lookup_rows(
+                        pyramid, coords1_flat[cells][None, None], radius,
+                        rows=cells)                     # (1, 1, M, L*k*k)
+                corr_s = corr_f.reshape(1, 1, M, k, k, cfg.corr_levels)
+                with layers.precision_scope(cfg.precision):
+                    w = weight_head_apply(model.weight_head, corr_s,
+                                          mr_flat[cells].reshape(1, 1, M))
+                return w.reshape(M)
 
         out.update(up_mask=_nhwc(up_mask), weight_head_at=weight_head_at)
         return out
 
-    corr_final = lookup_natural(coords1)                    # (B,H1,W1,L*k*k)
-    corr_sample = corr_final.reshape(B, H1, W1, k, k, cfg.corr_levels)
-    weights = weight_head_apply(model.weight_head, corr_sample, mean_response)
-    out.update(weights=weights, weights_up=upsample(_nchw(weights)) / 8.0)
+    with span("woft.weight_head", dev):
+        corr_final = lookup_natural(coords1)                # (B,H1,W1,L*k*k)
+        corr_sample = corr_final.reshape(B, H1, W1, k, k, cfg.corr_levels)
+        weights = weight_head_apply(model.weight_head, corr_sample,
+                                    mean_response)
+        out.update(weights=weights, weights_up=upsample(_nchw(weights)) / 8.0)
     if cfg.variant == "weighted_masked":
         # the current features sampled at the flow's end points (zero
         # outside, align_corners pixel coordinates)

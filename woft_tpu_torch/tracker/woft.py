@@ -54,6 +54,7 @@ from ..ops.resize import SCALES, resize_down
 from ..ops.sampling import featuremap_coords, masked_sobol_gather
 from ..ops.warp import (inverse_h, warp_perspective, warp_perspective_fast,
                         warp_validity_at)
+from ..utils.profiling import span
 
 _ESTIMATORS = ("wls_qr", "plain_qr", "irls_huber", "cvransac", "trs")
 _HOST_ESTIMATORS = ("cvransac", "trs")
@@ -378,17 +379,22 @@ def build_track_step(raft_cfg: RaftConfig, tp: TrackerParams, flow_fn=None):
     def local_h(model, prev_img, frame, prev_h2init, template_mask):
         """Local fallback: prev -> current flow chained onto prev_h2init
         (dense weight head: the fallback is off the steady-state path)."""
+        dev = frame.device
         hw = frame.shape[1] * frame.shape[2]
-        prev_mask = warp_perspective(
-            template_mask[None, :, :, None].to(torch.float32),
-            inverse_h(prev_h2init), mode="nearest")
-        lvalid = prev_mask.reshape(hw) > 0
-        lflow, lweights, lvis = run_flow(model, prev_img, frame)
-        if lvis is not None:
-            lvalid &= lvis.reshape(hw) > 0.5
-        lsrc, ldst, lw, lsel, _ = _select_tcs(lflow, lweights, lvalid,
-                                              tp.subsample_n)
-        H_flow = _estimate_h(tp, ldst, lsrc, lw, lsel)[0]     # cur -> prev
+        with span("woft.select", dev):
+            prev_mask = warp_perspective(
+                template_mask[None, :, :, None].to(torch.float32),
+                inverse_h(prev_h2init), mode="nearest")
+            lvalid = prev_mask.reshape(hw) > 0
+        with span("woft.flow", dev):
+            lflow, lweights, lvis = run_flow(model, prev_img, frame)
+        with span("woft.select", dev):
+            if lvis is not None:
+                lvalid &= lvis.reshape(hw) > 0.5
+            lsrc, ldst, lw, lsel, _ = _select_tcs(lflow, lweights, lvalid,
+                                                  tp.subsample_n)
+        with span("woft.fit", dev):
+            H_flow = _estimate_h(tp, ldst, lsrc, lw, lsel)[0]  # cur -> prev
         # H_flow applies first (cur -> prev), then prev_h2init (prev -> init)
         H_local = compose_h(H_flow, prev_h2init)
         return torch.where(torch.isfinite(H_local).all(), H_local,
@@ -423,12 +429,14 @@ def build_track_step(raft_cfg: RaftConfig, tp: TrackerParams, flow_fn=None):
                     "N_lost": n_lost}
             return new_state, H_global, meta
 
-        ok = bool(ok)                   # host sync: the branch below is Python
+        with span("woft.wait", frame.device):
+            ok = bool(ok)               # host sync: the branch below is Python
         if tp.redetection == "always" or ok:
             H_cur2init = H_global
         else:
-            H_cur2init = local_h(model, state.prev_img, frame,
-                                 state.prev_h2init, state.template_mask)
+            with span("woft.fallback", frame.device):
+                H_cur2init = local_h(model, state.prev_img, frame,
+                                     state.prev_h2init, state.template_mask)
 
         n_lost = 0 if ok else state.n_lost + 1
         new_state = replace(
@@ -467,35 +475,43 @@ def _flow_fits(model, raft_cfg, tp, flow_fn, state, frame, last_good,
     (the host fits loop over the targets); the targets' sparse weight-head
     cells come from the one forward."""
     H_img, W_img = frame.shape[1:3]
-    prewarped = warp_perspective_fast(frame, last_good)
+    dev = frame.device
+    with span("woft.prewarp", dev):
+        prewarped = warp_perspective_fast(frame, last_good)
     sparse = _sparse_ok(raft_cfg, tp, flow_fn)
     vis = None
-    if sparse:
-        fo = weighted_raft_forward(model, raft_cfg, None, prewarped,
-                                   template_feats=state.template_feats,
-                                   sparse_weight_head=True)
-        flow = fo["flow_up"]
-    elif flow_fn is None:
-        flow, weights, vis = _dense_flow(model, raft_cfg, tp.padding_mode,
-                                         None, prewarped,
-                                         state.template_feats)
-    else:
-        flow, weights, vis = _flow_seam(flow_fn(
-            model, state.template_img, prewarped, state.template_feats))
-    in_pw = _tc_validity(flow, last_good, (H_img, W_img), tp.use_pw_mask)
-    if use_vis and vis is not None:
-        in_pw = in_pw & (vis.reshape(-1) > 0.5)
+    with span("woft.flow", dev):
+        if sparse:
+            fo = weighted_raft_forward(model, raft_cfg, None, prewarped,
+                                       template_feats=state.template_feats,
+                                       sparse_weight_head=True)
+            flow = fo["flow_up"]
+        elif flow_fn is None:
+            flow, weights, vis = _dense_flow(model, raft_cfg,
+                                             tp.padding_mode, None,
+                                             prewarped, state.template_feats)
+        else:
+            flow, weights, vis = _flow_seam(flow_fn(
+                model, state.template_img, prewarped, state.template_feats))
+    with span("woft.select", dev):
+        in_pw = _tc_validity(flow, last_good, (H_img, W_img),
+                             tp.use_pw_mask)
+        if use_vis and vis is not None:
+            in_pw = in_pw & (vis.reshape(-1) > 0.5)
 
     def fits(masks):
-        valid = masks.reshape(masks.shape[0], -1) & in_pw
-        if sparse:
-            src_g, dst_g, w_g, sel = _select_tcs_sparse(flow, fo, valid,
+        with span("woft.select", dev):
+            valid = masks.reshape(masks.shape[0], -1) & in_pw
+            if sparse:
+                src_g, dst_g, w_g, sel = _select_tcs_sparse(flow, fo, valid,
+                                                            tp.subsample_n)
+            else:
+                src_g, dst_g, w_g, sel, _ = _select_tcs(flow, weights, valid,
                                                         tp.subsample_n)
-        else:
-            src_g, dst_g, w_g, sel, _ = _select_tcs(flow, weights, valid,
-                                                    tp.subsample_n)
-        H_pw2init = _estimate_h(tp, dst_g, src_g, w_g, sel)
-        ok, frac = _success_check(tp, H_pw2init, dst_g, src_g, sel)
+        with span("woft.fit", dev):
+            H_pw2init = _estimate_h(tp, dst_g, src_g, w_g, sel)
+        with span("woft.check", dev):
+            ok, frac = _success_check(tp, H_pw2init, dst_g, src_g, sel)
         return H_pw2init, ok, frac
 
     return fits
@@ -686,17 +702,26 @@ class WOFTTracker:
 
     def track(self, input_img, debug=False, img_identifier=None):
         """-> (H_cur2init (3, 3) float64, meta namespace). With ``debug``,
-        ``meta.debug_vis`` holds the reference's overlays (``_debug_vis``)."""
+        ``meta.debug_vis`` holds the reference's overlays (``_debug_vis``).
+        The call runs inside the span ``woft.track``, its stages inside
+        ``woft.upload``, ``woft.step`` and ``woft.readback``."""
+        with span("woft.track", self.device):
+            return self._track(input_img, debug)
+
+    def _track(self, input_img, debug):
         if self._fast_forward is not None:
             return self._resume(input_img)
         prev_img = self.state.prev_img
-        frame = upload_bgr(input_img, self.device, self.tp.downscale)
-        self.state, H_dev, meta_dev = self._step(self.flower.model,
-                                                 self.state, frame)
-        H = H_dev.cpu().numpy().astype(np.float64)
-        meta = SimpleNamespace(**{
-            k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
-            for k, v in meta_dev.items()})
+        with span("woft.upload", self.device):
+            frame = upload_bgr(input_img, self.device, self.tp.downscale)
+        with span("woft.step", self.device):
+            self.state, H_dev, meta_dev = self._step(self.flower.model,
+                                                     self.state, frame)
+        with span("woft.readback", self.device):
+            H = H_dev.cpu().numpy().astype(np.float64)
+            meta = SimpleNamespace(**{
+                k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+                for k, v in meta_dev.items()})
         meta.estim_H_current2template = H.copy()
         if debug:
             meta.debug_vis = self._debug_vis(
