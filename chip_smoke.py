@@ -14,7 +14,9 @@ Phases; any failure ends the script with a non-zero exit:
 3. hold each kernel (A pre-warp, B pyramid lookup, C block-local volume,
    D, E, F block-local lookups, D and E both from the coordinates, as the
    main path calls them, and from explicit operands, G fused GRU
-   direction, H motion-encoder tail, I flow head) against its plain
+   direction, G's float32 form (the canonical float32 route; its
+   yardstick the unfused float32 direction), H motion-encoder tail, I flow
+   head) against its plain
    PyTorch version on the card at the 1280x720 main-path shapes (D and E
    from coordinates also at an odd shape, bf16 and float32; A also at the
    window tracker's crop, 1920x1080 into 192x344 at scale 0.3, partly off
@@ -234,6 +236,9 @@ TAIL_TOL_ULPS = 2        # H, bf16 result: one ulp (2 bounds any mantissa),
 #                          first-stage activations
 HEAD_TOL_ULPS = 1        # I, float32 delta: one ulp of the map's scale
 UPDATE_DIFF_SHARE = 0.02         # G, H: at most this share of entries differs
+# G's float32 form sums the same float32 products as its plain version in
+# another order and rounds alike: a few float32 ulps of the state
+GRU_F32_TOL = 1e-5
 H_IMG, W_IMG = 720, 1280
 # the window paths' feature grids (1/8 of the window): the 192x344 window of
 # bench.py's step and of WOFT_window.py at 720p and 1080p, and the 320x512
@@ -1243,7 +1248,8 @@ def check_update_kernels(kernels, dev):
         return sum(t.numel() * t.element_size() for t in tensors)
 
     def report(name, diff, allowed, kernel_fn, plain_fn, unfused_fn, bnd, by,
-               label, max_share=UPDATE_DIFF_SHARE, parent_ms=None):
+               label, max_share=UPDATE_DIFF_SHARE, parent_ms=None,
+               precision="bf16"):
         torch.cuda.synchronize()
         share = (diff > 0).float().mean().item()
         worst = (diff / allowed).max().item()
@@ -1253,7 +1259,7 @@ def check_update_kernels(kernels, dev):
         if not (worst <= 1.0 and share <= max_share):
             raise AssertionError(f"kernel {name} disagrees with its plain "
                                  f"version")
-        with layers.precision_scope("bf16"), torch.no_grad():
+        with layers.precision_scope(precision), torch.no_grad():
             ms = time_ms(kernel_fn)
             plain_ms = time_ms(plain_fn, iters=5, warmup=1)
             unfused_ms = time_ms(unfused_fn)
@@ -1293,6 +1299,40 @@ def check_update_kernels(kernels, dev):
                      max_abs_err=max(r["max_abs_err"] for r in per_dir))
     for key in ("ms", "plain_ms", "unfused_ms", "bound_ms"):
         rows["G"][key] = sum(r[key] for r in per_dir) / len(per_dir)
+
+    # G's float32 form (the canonical float32 route), each direction: its
+    # yardstick is the unfused float32 direction it replaces (two cuDNN
+    # convolutions and the elementwise chain)
+    motion32 = case["motion"].float()
+    x32 = update.nhwc(motion32)
+    with layers.precision_scope("highest"), torch.no_grad():
+        inp32 = torch.relu(torch.randn(net.shape, device=dev,
+                                       generator=torch.Generator(
+                                           device=dev).manual_seed(12)))
+        f32 = traft.precompute_gru_context_f32(ub.gru, inp32, 128)
+        unfused32 = traft.precompute_gru_context(ub.gru, inp32, 128)
+    per_dir = []
+    for d, args in enumerate(f32):
+        axis = args[-1]
+        with torch.no_grad():
+            got = kernels.fused_gru_update_f32(h, x32, *args)
+            want = update.gru_update_f32_plain(h, x32, *args)
+        bnd, by = bound_ms(n_bytes(h, x32, *args[:-1]) + n_bytes(got),
+                           g_flops, FP32_FLOPS)
+        per_dir.append(report(
+            f"G float32 [{axis}]", (got - want).abs(),
+            torch.full_like(want, GRU_F32_TOL),
+            lambda: kernels.fused_gru_update_f32(h, x32, *args),
+            lambda: update.gru_update_f32_plain(h, x32, *args),
+            lambda: traft._sep_conv_gru(net, motion32, unfused32[d:d + 1]),
+            bnd, by, "one unfused float32 _sep_conv_gru direction (~14 "
+            "calls)", max_share=1.0, precision="highest"))
+        per_dir[-1]["axis"] = axis
+    rows["G (float32)"] = dict(per_dir[0], per_direction=per_dir,
+                               max_abs_err=max(r["max_abs_err"]
+                                               for r in per_dir))
+    for key in ("ms", "plain_ms", "unfused_ms", "bound_ms"):
+        rows["G (float32)"][key] = sum(r[key] for r in per_dir) / len(per_dir)
 
     enc = ub.encoder
     me = update.motion_encoder_params(enc)
@@ -1342,7 +1382,11 @@ COUNTED = ("warp_perspective_bilinear", "corr_pyramid_lookup",
            "local_lookup_coords", "local_lookup_exact_coords",
            "local_lookup_fine_multi",
            "local_lookup_exact", "local_lookup_fine", "fused_gru_update",
-           "motion_encoder_tail", "flow_head")
+           "fused_gru_update_f32", "motion_encoder_tail", "flow_head")
+# G's float32 form runs in every float32 forward of RAFT-large on one frame
+# pair; a track checks its count where it names it (track_720p), the others
+# report it unchecked
+UNCHECKED = ("fused_gru_update_f32",)
 FUSED_FLAGS = {"gru_fused": True, "tail_fused": True}
 
 
@@ -1405,8 +1449,10 @@ def read_counts(kernels):
 def check_counts(what, launches, want, exact=(), n_frames=0, n_flows=0):
     """``want``: launches expected of each counted wrapper (others 0); at
     least that many, or exactly for the names in ``exact``."""
-    want = {**dict.fromkeys(COUNTED, 0), **want}
+    want = {**dict.fromkeys(COUNTED, 0), **dict.fromkeys(UNCHECKED), **want}
     for name, n in want.items():
+        if n is None:
+            continue
         if (launches[name] < n or (n == 0 and launches[name])
                 or (name in exact and launches[name] != n)):
             least = "at least " if n and name not in exact else ""
@@ -1498,9 +1544,13 @@ def track_720p(kernels, dev, config, fused=False):
         want.update(corr_pyramid_lookup=13 * n_flows)
     if fused:
         want.update(fused_gru_update=2 * 12 * n_flows, flow_head=12 * n_flows)
+    # G's float32 form: once a direction every iteration of a float32 flow
+    # (WOFT.py), never in bf16 mode
+    want.update(fused_gru_update_f32=0 if fast else 2 * 12 * n_flows)
     # C, D and E: exactly one launch a flow and a lookup
     exact = (("local_corr_build", "local_lookup_coords",
               "local_lookup_exact_coords") if fast else ())
+    exact += ("fused_gru_update_f32",)
     check_counts(config, launches, want, exact, n_frames, n_flows)
     return launches, steady
 
@@ -5361,6 +5411,13 @@ def main():
              replaces="woft_tpu/ops/pallas/gru.py:133",
              launches=fused["fused_gru_update"],
              note="times are the mean of the two directions", **upd["G"]),
+        dict(name="fused_gru_update_f32", route="cuda",
+             source="woft_tpu_torch/csrc/gru_f32.cu",
+             replaces="none: woft_tpu runs its float32 GRU through XLA",
+             launches=canon["fused_gru_update_f32"],
+             note="times are the mean of the two directions; "
+                  "unfused_ms is the float32 direction it replaces",
+             **upd["G (float32)"]),
         dict(name="motion_encoder_tail", route="cuda", source=update_tail,
              replaces="woft_tpu/ops/pallas/update_tail.py:184",
              launches=fused["motion_encoder_tail"],
@@ -5397,9 +5454,10 @@ def main():
                 k: v for k, v in counts.items() if "downscale" in k}
             row["ablation_launches"] = {
                 k: v for k, v in counts.items() if "downscale" not in k}
-            row["downscale_shapes"] = {
-                k: v for k, v in ablation_shapes.items()
-                if k[0] == shapes[row["name"]][0]}
+            if row["name"] in shapes:       # A's and B's shapes
+                row["downscale_shapes"] = {
+                    k: v for k, v in ablation_shapes.items()
+                    if k[0] == shapes[row["name"]][0]}
     # B's bf16-level form: launches on the 'default' track (720p, its dense
     # and indexed lookups) and on the bf16 window batch, each counted from 0
     b16 = family["bf16"]

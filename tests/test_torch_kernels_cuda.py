@@ -870,6 +870,126 @@ def test_gru_kernel_border(dev, update_block):
         assert (got - want).abs().max().item() <= 4 * ULP
 
 
+# G's float32 form against its plain version: both sum the same 1,280
+# float32 products in another order and then round alike, so they differ by
+# a few float32 ulps of the state (6.3e-7 at 720p on the card; the unfused
+# cuDNN path there matched the kernel bit for bit); a tap out of place moves
+# the state by 0.7
+GRU_F32_TOL = 1e-5
+# 720p, a line of one CTA's 124 positions and one more on each axis, a map
+# smaller than the 5-tap window, a ragged one
+GRU_F32_SHAPES = [(90, 160), (1, 124), (1, 125), (124, 1), (125, 1), (5, 3),
+                  (19, 28)]
+
+
+@pytest.fixture(scope="module")
+def update_block_f32(dev):
+    return traft.init_raft_params(traft.RaftConfig(), seed=1,
+                                  device=dev).update_block
+
+
+def _gru_f32_args(dev, ub, hw, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h, x, inp = (torch.randn(1, 128, *hw, device=dev, generator=g)
+                 for _ in range(3))
+    h, x, inp = torch.tanh(h), torch.relu(x), torch.relu(inp)
+    with layers.precision_scope("highest"), torch.no_grad():
+        pre = traft.precompute_gru_context_f32(ub.gru, inp, 128)
+    return update.nhwc(h), update.nhwc(x), pre
+
+
+@pytest.mark.parametrize("hw", GRU_F32_SHAPES,
+                         ids=[f"{h}x{w}" for h, w in GRU_F32_SHAPES])
+@pytest.mark.parametrize("axis", ["w", "h"])
+def test_gru_f32_kernel_matches_plain(dev, update_block_f32, hw, axis):
+    """Kernel G's float32 form against its plain version on the card's
+    tensors (full float32 products: TF32 is off)."""
+    h, x, pre = _gru_f32_args(dev, update_block_f32, hw, 20)
+    args = pre[0 if axis == "w" else 1]
+    assert args[-1] == axis
+    n0 = kernels.fused_gru_update_f32.launches
+    with torch.no_grad():
+        got = update.gru_update_f32(h, x, *args)
+        want = update.gru_update_f32_plain(h, x, *args)
+    torch.cuda.synchronize()
+    assert kernels.fused_gru_update_f32.launches == n0 + 1
+    assert got.shape == want.shape == h.shape and got.dtype == torch.float32
+    assert (got - want).abs().max().item() <= GRU_F32_TOL
+    assert want.abs().max().item() > 0.1
+
+
+def test_gru_f32_kernel_border(dev, update_block_f32):
+    """Zero padding at the border on both axes: impulses at opposite
+    corners, a constant context; ``r * h`` outside the image is zero, not
+    a neighbouring line's."""
+    hw = (8, 16)
+    h = torch.zeros(1, *hw, 128, device=dev)
+    h[0, 0, 0] = 1.0
+    x = torch.zeros(1, *hw, 128, device=dev)
+    x[0, -1, -1] = 1.0
+    inp = torch.ones(1, 128, *hw, device=dev)
+    with layers.precision_scope("highest"), torch.no_grad():
+        pre = traft.precompute_gru_context_f32(update_block_f32.gru, inp, 128)
+        for args in pre:
+            got = update.gru_update_f32(h, x, *args)
+            want = update.gru_update_f32_plain(h, x, *args)
+            assert (got - want).abs().max().item() <= GRU_F32_TOL
+            assert not torch.allclose(want[0, 0, 0], want[0, 4, 8])
+
+
+def test_woft_step_720p_runs_the_float32_gru(dev, monkeypatch):
+    """One ``WOFT.py`` tracker step on a 720p frame of the walk, on the
+    trained weights: 24 launches of G's float32 form a flow (12 iterations,
+    2 directions), and its H within 1e-3 px (the card-against-CPU flow
+    bound of 12 float32 iterations) of the unfused route's H."""
+    import sys
+
+    import numpy as np
+
+    sys.path.insert(0, str(kernels.CSRC.parents[1]))
+    import chip_smoke
+    from woft_tpu_torch.config import load_config
+    from woft_tpu_torch.tracker import WOFTTracker
+
+    template, frames, _ = chip_smoke.walk(720, 1280, dev, n=1)
+    mask, corners = chip_smoke.centred_mask(720, 1280, 0.5)
+    config = str(kernels.CSRC.parent / "configs" / "WOFT.py")
+
+    def step():
+        tracker = WOFTTracker(load_config(config))
+        tracker.init(template, mask)
+        n0 = kernels.fused_gru_update_f32.launches
+        H, meta = tracker.track(frames[0])
+        torch.cuda.synchronize()
+        flows = 1 + (not meta.global_H_success)
+        return np.asarray(H), flows, kernels.fused_gru_update_f32.launches - n0
+
+    H, flows, n = step()
+    assert n == 24 * flows
+    with monkeypatch.context() as m:
+        m.setattr(traft, "_gru_route", lambda *a, **k: False)
+        H_unfused, _, n_unfused = step()
+    assert n_unfused == 0
+    assert chip_smoke.h_diff_px(H, H_unfused, corners) <= 1e-3
+
+
+def test_training_step_keeps_the_unfused_gru(dev):
+    """A whole-net training step (``train_forward`` and its backward, every
+    parameter trained) launches G's float32 form 0 times and gives the GRU
+    its gradient."""
+    cfg = traft.RaftConfig(iters=2)
+    model = traft.init_raft_params(cfg, seed=0, device=dev)
+    g = torch.Generator().manual_seed(5)
+    img1 = (torch.rand(1, 64, 96, 3, generator=g) * 255).to(dev)
+    img2 = torch.roll(img1, shifts=(2, 3), dims=(1, 2))
+    n0 = kernels.fused_gru_update_f32.launches
+    out = traft.train_forward(model, cfg, img1, img2)
+    out["flow_up"].abs().mean().backward()
+    torch.cuda.synchronize()
+    assert kernels.fused_gru_update_f32.launches == n0
+    assert model.update_block.gru.convz1.weight.grad.abs().sum().item() > 0
+
+
 @pytest.mark.parametrize("hw", UPDATE_SHAPES, ids=UPDATE_IDS)
 def test_motion_encoder_kernel_matches_plain(dev, update_block, hw):
     """Kernel H against its plain version: bf16 output, one ulp (2^-7

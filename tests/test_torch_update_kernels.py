@@ -388,3 +388,216 @@ def test_a_cuda_tensor_never_takes_a_plain_version():
     for name in ("gru", "update_tail"):
         assert (kernels.CSRC / f"{name}.cu").exists()
         assert kernels.library_path(name).parent == kernels.BUILD_DIR
+
+
+# ---------------------------------------------------------------------------
+# G's float32 form: the canonical float32 route
+# ---------------------------------------------------------------------------
+#
+# Tolerance of the float32 form against the unfused float32 path: both sum
+# the same 1,280 float32 products a z|r or q entry, in another order (tap
+# by tap here, the CPU library's order there), then take the same sigmoid,
+# tanh and blend in float32, so they differ by the rounding of differently
+# ordered float32 sums alone. With the network's own initial weights
+# (``init_raft_params``) and |h| < 1 that is a few ulps of the state:
+# observed at most 8.3e-7 over three seeds and five map sizes; 1e-5 is
+# twelve times that, while the taps in reverse order, or h and x swapped,
+# move the state by 0.7.
+F32_TOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def f32_gru():
+    return traft.init_raft_params(traft.RaftConfig(), seed=1).update_block.gru
+
+
+def _f32_case(seed, H, W):
+    rng = np.random.default_rng(seed)
+    h = np.tanh(rng.normal(size=(1, H, W, 128))).astype(np.float32)
+    x = np.maximum(rng.normal(size=(1, H, W, 128)), 0).astype(np.float32)
+    inp = np.maximum(rng.normal(size=(1, H, W, 128)), 0).astype(np.float32)
+    return _nchw(h), _nchw(x), _nchw(inp)
+
+
+def _f32_directions(gru, h, x, inp):
+    """Each direction's unfused step and float32-form step from the same
+    state, as (axis, unfused, float32 form) NCHW tensors."""
+    with layers.precision_scope("highest"), torch.no_grad():
+        unfused = traft.precompute_gru_context(gru, inp, 128)
+        f32 = traft.precompute_gru_context_f32(gru, inp, 128)
+        return [(f32[d][-1], traft._sep_conv_gru(h, x, unfused[d:d + 1]),
+                 traft._sep_conv_gru(h, x, f32[d:d + 1], fused="f32"))
+                for d in range(2)]
+
+
+@pytest.mark.parametrize("H,W", [(16, 32), (19, 28), (2, 61), (11, 15),
+                                 (5, 3)])
+def test_gru_f32_plain_matches_unfused(f32_gru, H, W):
+    """Both axes (the 1x5 and the 5x1 direction), on map sizes that cut
+    nothing evenly, from the same state."""
+    got = _f32_directions(f32_gru, *_f32_case(3, H, W))
+    assert [axis for axis, _, _ in got] == ["w", "h"]
+    for axis, want, port in got:
+        assert port.shape == want.shape == (1, 128, H, W)
+        assert port.dtype == torch.float32
+        assert (port - want).abs().max().item() <= F32_TOL, axis
+        assert port.abs().max().item() > 0.1
+
+
+def test_gru_f32_plain_border_zero_padding(f32_gru):
+    """Impulses at opposite corners and a constant context probe the zero
+    padding of both convolutions along each axis, ``r * h`` outside the
+    image included: the border rows and columns differ from the interior,
+    and the float32 form follows the unfused path there too."""
+    H, W = 8, 16
+    h = torch.zeros(1, 128, H, W)
+    h[0, :, 0, 0] = 1.0
+    x = torch.zeros(1, 128, H, W)
+    x[0, :, H - 1, W - 1] = 1.0
+    inp = torch.ones(1, 128, H, W)
+    for axis, want, port in _f32_directions(f32_gru, h, x, inp):
+        assert (port - want).abs().max().item() <= F32_TOL, axis
+        edge = want[0, :, 0, 0] if axis == "w" else want[0, :, 0, 3]
+        assert not torch.allclose(edge, want[0, :, 4, 8]), axis
+
+
+def test_gru_f32_taps_layout():
+    """``gru_taps_f32``: the z, r and q weights with the context rows
+    dropped, as (pass, input channel, tap, output channel), and the three
+    biases in order."""
+    gru = _load(traft.SepConvGRU(128, 256), _gru_tree(4))
+    for names in (("convz1", "convr1", "convq1"),
+                  ("convz2", "convr2", "convq2")):
+        w, b = update.gru_taps_f32(gru, names, 128, 128)
+        assert w.shape == (3, 256, 5, 128) and w.is_contiguous()
+        assert b.shape == (384,) and w.dtype == b.dtype == torch.float32
+        for p, name in enumerate(names):
+            conv = getattr(gru, name)
+            full = conv.weight.detach().reshape(128, 384, 5)
+            assert torch.equal(w[p, :128], full[:, :128].permute(1, 2, 0))
+            assert torch.equal(w[p, 128:], full[:, 256:].permute(1, 2, 0))
+            assert torch.equal(b[128 * p:128 * (p + 1)], conv.bias.detach())
+
+
+class _RouteSpy:
+    """Counts the calls of the two fused GRU steps of ``models/update.py``
+    (``models/raft.py`` reaches them through the module at call time)."""
+
+    def __init__(self, monkeypatch):
+        self.calls = {"gru_update_f32": 0, "gru_update": 0}
+        for name in self.calls:
+            fn = getattr(update, name)
+            monkeypatch.setattr(update, name, self._counted(name, fn))
+
+    def _counted(self, name, fn):
+        def step(*args):
+            self.calls[name] += 1
+            return fn(*args)
+        return step
+
+
+def _forced_unfused(monkeypatch, run):
+    """``run()`` with the unfused route forced, the route restored after."""
+    with monkeypatch.context() as m:
+        m.setattr(traft, "_gru_route", lambda *a, **k: False)
+        return run()
+
+
+ROUTE_CASES = {
+    # name: (config overrides, frame pairs, float32 form expected)
+    "highest": (dict(), 1, True),
+    "default": (dict(precision="default"), 1, False),
+    "bf16-no-flag": (dict(precision="bf16"), 1, False),
+    "small": (dict(small=True), 1, False),
+    "batch-2": (dict(), 2, False),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_gru_route_by_what_the_forward_observes(small_forward, monkeypatch,
+                                                case):
+    """The float32 form runs for 'highest', one frame pair, RAFT-large,
+    without grad: two launches an iteration, and the flow within float32
+    noise of the unfused route's. Everywhere else the unfused path runs,
+    bit for bit as with the route forced off."""
+    overrides, B, engaged = ROUTE_CASES[case]
+    _, img1, img2 = small_forward
+    if B > 1:
+        img1, img2 = (torch.cat([a, a.flip(1)]) for a in (img1, img2))
+    cfg = traft.RaftConfig(iters=2, **overrides)
+    model = traft.init_raft_params(cfg, seed=3)
+    spy = _RouteSpy(monkeypatch)
+
+    def run():
+        return traft.weighted_raft_forward(model, cfg, img1, img2)
+
+    got = run()
+    assert spy.calls == {"gru_update_f32": 2 * cfg.iters if engaged else 0,
+                         "gru_update": 0}
+    want = _forced_unfused(monkeypatch, run)
+    for key in ("flow", "flow_up"):
+        if engaged:
+            assert (got[key] - want[key]).abs().max().item() <= 1e-4, key
+        else:
+            assert torch.equal(got[key], want[key]), key
+
+
+def test_gru_route_keeps_unfused_under_training(small_forward, monkeypatch):
+    """A whole-net training forward records a gradient through the GRU: the
+    unfused path, bit for bit, gradients included."""
+    _, img1, img2 = small_forward
+    cfg = traft.RaftConfig(iters=2)
+    spy = _RouteSpy(monkeypatch)
+
+    def run():
+        model = traft.init_raft_params(cfg, seed=3)
+        out = traft.train_forward(model, cfg, img1, img2)
+        out["flow_up"].abs().mean().backward()
+        return out["flow_up"].detach(), model.update_block.gru.convz1.weight.grad
+
+    flow, grad = run()
+    assert spy.calls == {"gru_update_f32": 0, "gru_update": 0}
+    want_flow, want_grad = _forced_unfused(monkeypatch, run)
+    assert torch.equal(flow, want_flow) and torch.equal(grad, want_grad)
+
+
+def test_gru_route_takes_float32_form_for_a_frozen_network(small_forward,
+                                                           monkeypatch):
+    """Weight-head-only training: the network's parameters do not require
+    grad, so its forward takes the float32 form under grad mode too, and
+    the head still gets its gradient."""
+    _, img1, img2 = small_forward
+    cfg = traft.RaftConfig(iters=2)
+    model = traft.init_raft_params(cfg, seed=3)
+    for name, p in model.named_parameters():
+        p.requires_grad_(name.startswith("weight_head"))
+    spy = _RouteSpy(monkeypatch)
+    out = traft.train_forward(model, cfg, img1, img2)
+    assert spy.calls["gru_update_f32"] == 2 * cfg.iters
+    out["weights"].mean().backward()
+    assert model.weight_head.net[0].weight.grad is not None
+
+
+def test_gru_f32_wrappers_refuse_and_dispatch():
+    """The launch wrapper refuses a CPU tensor; the step's dispatch has no
+    ``try``; under grad the step raises rather than lose the gradient."""
+    import ast
+    import inspect
+
+    from woft_tpu_torch.ops import kernels
+
+    h = torch.zeros(1, 4, 6, 128)
+    w, b = update.gru_taps_f32(traft.SepConvGRU(128, 256),
+                               ("convz1", "convr1", "convq1"), 128, 128)
+    args = (h, h, torch.zeros(1, 4, 6, 256), h, w, b, "w")
+    with pytest.raises(ValueError):
+        kernels.fused_gru_update_f32(*args)
+    for fn in (update.gru_update_f32, kernels.fused_gru_update_f32):
+        tree = ast.parse(inspect.getsource(fn))
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
+    with pytest.raises(RuntimeError):
+        update.gru_update_f32(h.clone().requires_grad_(), *args[1:])
+    assert update.gru_update_f32(*args).shape == h.shape
+    with layers.precision_scope("bf16"), pytest.raises(ValueError):
+        traft.precompute_gru_context_f32(traft.SepConvGRU(128, 256),
+                                         torch.zeros(1, 128, 4, 6), 128)

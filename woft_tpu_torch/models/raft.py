@@ -52,9 +52,15 @@ block-local volume.
 run under ``torch.no_grad``. ``RaftConfig.small`` is RAFT-small, the
 network of the training tests.
 
-``gru_fused`` / ``tail_fused`` (bf16 mode, one frame pair) run the
-refinement loop's SepConvGRU and flow head as one kernel launch each
-(``models/update.py``: kernels G and I); the GRU state then lives
+The SepConvGRU's route by precision (``_gru_route``): in 'highest' every
+forward of RAFT-large on one frame pair that records no gradient through
+the update block runs each direction as one launch of kernel G's float32
+form (``models/update.py:gru_update_f32``: float32 FFMA, the unfused
+path's arithmetic in another summation order), with no flag; in 'bf16'
+``gru_fused`` / ``tail_fused`` (one frame pair) run the SepConvGRU and the
+flow head as one launch each of kernels G and I; 'default' (the TF32
+control), RAFT-small, a batch of pairs and a forward that trains the
+network keep the unfused path. On a fused route the GRU state lives
 channels-minor across the loop.
 """
 
@@ -94,10 +100,12 @@ class RaftConfig:
         fine sub-window with the exact lookup (kernel E).
     precision: 'highest' (float32), 'default' or 'bf16' (see the module
         docstring).
-    gru_fused: each direction of the SepConvGRU as one fused kernel (G) in
-        the refinement loop; the counterpart of the JAX package's
-        ``gru_pallas``. In effect only in bf16 mode and for one frame pair;
-        otherwise the unfused path runs.
+    gru_fused: each direction of the SepConvGRU as one launch of the bf16
+        kernel G in the refinement loop; the counterpart of the JAX
+        package's ``gru_pallas``. In effect only in bf16 mode and for one
+        frame pair; otherwise the precision's route runs (float32:
+        kernel G's float32 form, without this flag; 'default' and the
+        other cases: the unfused path).
     tail_fused: the flow head as one fused kernel (I) in the loop; the
         counterpart of ``tail_pallas``, with the same gating. As there, the
         motion encoder stays unfused on the forward path (kernel H is
@@ -381,6 +389,17 @@ class ConvGRU(nn.Module):
         return (1 - z) * h + z * q
 
 
+def _gru_context(gru, inp, hd, names, pad, cast, sd):
+    """(zr_pre, q_pre): the ``inp`` rows of one direction's convolutions
+    ``names`` (z, r, q) convolved with ``inp`` (bias-free), z and r as one
+    convolution."""
+    ci = inp.shape[1]
+    wz, wr, wq = (getattr(gru, n).weight[:, hd:hd + ci] for n in names)
+    return (conv2d(inp, cast(torch.cat([wz, wr])), padding=pad,
+                   out_dtype=sd),
+            conv2d(inp, cast(wq), padding=pad, out_dtype=sd))
+
+
 def precompute_gru_context(gru, inp, hd, fused=False):
     """Per-frame loop-invariant context terms of the SepConvGRU.
 
@@ -408,15 +427,11 @@ def precompute_gru_context(gru, inp, hd, fused=False):
         wz, wr, wq = (getattr(gru, n).weight for n in (kz, kr, kq))
         bz, br, bq = (getattr(gru, n).bias for n in (kz, kr, kq))
 
-        def ctx(w):
-            return w[:, hd:hd + ci]
-
         def hm(w):
             return torch.cat([w[:, :hd], w[:, hd + ci:]], dim=1)
 
-        zr_pre = conv2d(inp, cast(torch.cat([ctx(wz), ctx(wr)])),
-                        padding=pad, out_dtype=sd)
-        q_pre = conv2d(inp, cast(ctx(wq)), padding=pad, out_dtype=sd)
+        zr_pre, q_pre = _gru_context(gru, inp, hd, (kz, kr, kq), pad, cast,
+                                     sd)
         if fused:
             w_zr, b_zr = update.gru_taps(gru, (kz, kr), hd, ci)
             w_q, b_q = update.gru_taps(gru, (kq,), hd, ci)
@@ -428,21 +443,66 @@ def precompute_gru_context(gru, inp, hd, fused=False):
     return out
 
 
+def precompute_gru_context_f32(gru, inp, hd):
+    """``precompute_gru_context`` for kernel G's float32 form (float32
+    mode): per direction the arguments of ``update.gru_update_f32``,
+    (pre_zr, pre_q, w, b, axis): the same context terms laid out
+    channels-minor, the taps ``update.gru_taps_f32`` and the axis, all
+    prepared here once per forward."""
+    if layers.get_compute_dtype() is not None:
+        raise ValueError("kernel G's float32 form is a float32-mode path")
+    ci = inp.shape[1]
+    out = []
+    for kz, kr, kq, pad in _GRU_DIRS:
+        zr_pre, q_pre = _gru_context(gru, inp, hd, (kz, kr, kq), pad,
+                                     lambda t: t, None)
+        w, b = update.gru_taps_f32(gru, (kz, kr, kq), hd, ci)
+        out.append((update.nhwc(zr_pre), update.nhwc(q_pre), w, b,
+                    "w" if pad == (0, 2) else "h"))
+    return out
+
+
+def _gru_route(cfg, B, ub, *tensors):
+    """How the refinement loop runs its SepConvGRU, from what the forward
+    can observe: 'f32' (kernel G's float32 form) in float32 mode ('highest':
+    TF32 off) for RAFT-large on one frame pair when nothing it reads
+    records a gradient (``tensors``: the loop's inputs; and the update
+    block's parameters); True (the bf16 kernel G) under the opt-in
+    ``gru_fused`` in bf16 mode, one frame pair; False (the unfused path)
+    otherwise: 'default' (TF32 products), RAFT-small, a batch, a forward
+    that trains the network."""
+    if B != 1 or cfg.small:
+        return False
+    if layers.get_compute_dtype() == torch.bfloat16:
+        return cfg.gru_fused
+    if cfg.precision != "highest":
+        return False
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (*tensors, *ub.parameters())):
+        return False
+    return "f32"
+
+
 def _sep_conv_gru(h, x, pre, fused=False):
     """One SepConvGRU update of hidden state ``h`` by motion features ``x``
     with the hoisted context ``pre`` (``precompute_gru_context``). In bf16
     mode the gates are bf16 and the state ``h`` stays float32: ``r * h``
     and the convex blend are taken at the state's precision.
 
-    ``fused`` (``pre`` made with ``fused=True``): one ``update.gru_update``
-    per direction. The state it returns is channels-minor in memory under
-    its (B, C, H, W) shape, so handing it back here costs no copy; ``x`` is
-    re-laid once per call."""
+    ``fused``: one kernel launch a direction, ``update.gru_update`` (True,
+    ``pre`` made with ``fused=True``: bf16 G) or ``update.gru_update_f32``
+    ('f32', ``pre`` from ``precompute_gru_context_f32``); ``h`` and ``x``
+    are re-laid channels-minor once per call. bf16 G's state is handed back
+    channels-minor in memory under its (B, C, H, W) shape, which costs no
+    copy; the float32 route copies it back to NCHW, since cuDNN's float32
+    flow and mask heads ran slower on a channels-last map (49.87 against
+    49.64 ms a 720p frame of ``WOFT.py``, in turns in one process)."""
     if fused:
+        step = update.gru_update_f32 if fused == "f32" else update.gru_update
         h, x = update.nhwc(h), update.nhwc(x)
         for args in pre:
-            h = update.gru_update(h, x, *args)
-        return _nchw(h)
+            h = step(h, x, *args)
+        return _nchw(h).contiguous() if fused == "f32" else _nchw(h)
     sd = layers.get_compute_dtype()
     for zr_pre, q_pre, w_zr, b_zr, w_q, b_q, pad in pre:
         zr = conv2d(torch.cat([h.to(x.dtype), x], dim=1), w_zr, b_zr,
@@ -506,8 +566,9 @@ def small_update_apply(block, net, inp, corr, flow):
 def update_block_apply(block, net, corr, flow, pre, gru_fused=False,
                        tail_fused=False):
     """One refinement step -> (net, delta_flow). ``corr``: (B, L*k*k, H1,
-    W1) lookup or a ``BlockedCorr``; ``pre``: ``precompute_gru_context`` of
-    this frame (made with ``fused=gru_fused``). The
+    W1) lookup or a ``BlockedCorr``; ``pre``: this frame's context terms
+    for the SepConvGRU's route ``gru_fused`` (``_gru_route``: False, True
+    or 'f32'; ``_sep_conv_gru``). The
     convex-upsample mask is not computed here (``mask_from_net``: only the
     last iteration's mask is consumed). The motion encoder stays unfused
     under ``tail_fused``, as in the JAX package."""
@@ -790,14 +851,18 @@ def _raft_forward(model, cfg, image1, image2, flow_init, iters,
         coords0 = _nchw(coords_grid(B, H1, W1, x2.device))  # (B, 2, H1, W1)
         coords1 = (coords0 if flow_init is None
                    else coords0 + _nchw(flow_init))
-        # the fused kernels are bf16-mode kernels for one frame pair
-        fusable = (B == 1 and not cfg.small
-                   and layers.get_compute_dtype() == torch.bfloat16)
-        gru_fused = cfg.gru_fused and fusable
-        tail_fused = cfg.tail_fused and fusable
-        pre = (None if cfg.small else
-               precompute_gru_context(ub.gru, inp, cfg.hidden_dim,
-                                      fused=gru_fused))
+        # kernel I is a bf16-mode kernel for one frame pair; the GRU's
+        # route by _gru_route
+        tail_fused = (cfg.tail_fused and B == 1 and not cfg.small
+                      and layers.get_compute_dtype() == torch.bfloat16)
+        gru_fused = _gru_route(cfg, B, ub, net, inp, f1, f2)
+        if cfg.small:
+            pre = None
+        elif gru_fused == "f32":
+            pre = precompute_gru_context_f32(ub.gru, inp, cfg.hidden_dim)
+        else:
+            pre = precompute_gru_context(ub.gru, inp, cfg.hidden_dim,
+                                         fused=gru_fused)
         for _ in range(iters):         # no host sync inside this loop
             # the coordinate chain is cut at every iteration (the
             # reference's coords1.detach(); a no-op under no_grad)

@@ -1,6 +1,15 @@
-"""The fused refinement loop: the update block's bf16 convolution chains as
+"""The fused refinement loop: the update block's convolution chains as
 single kernels, their plain PyTorch versions, and the weight layouts both
 read.
+
+Which route each precision takes (``models/raft.py:_gru_route``): in
+float32 ('highest': TF32 off) every forward of RAFT-large on one frame pair
+that needs no gradient runs the SepConvGRU as kernel G's float32 form
+(``gru_update_f32``), one launch a direction; bf16 mode runs kernels G
+and I only under the opt-in flags (``RaftConfig.gru_fused``,
+``tail_fused``), as the JAX package does; 'default' (TF32 products),
+RAFT-small, a batch of frame pairs and a forward that records a gradient
+keep the unfused path.
 
 PyTorch twin of ``woft_tpu/ops/pallas/gru.py`` (``sep_conv_gru_pallas``) and
 ``woft_tpu/ops/pallas/update_tail.py`` (``motion_encoder_pallas``,
@@ -12,9 +21,15 @@ PyTorch twin of ``woft_tpu/ops/pallas/gru.py`` (``sep_conv_gru_pallas``) and
 - ``motion_encoder_tail`` (kernel H, two launches through L2: ``convc2``
   and ``convf2``, then ``conv``): the motion encoder's 3x3 stack and the
   final ``cat`` with the flow;
-- ``flow_head`` (kernel I): ``conv2(relu(conv1(net)))``.
+- ``flow_head`` (kernel I): ``conv2(relu(conv1(net)))``;
 
-They are bf16-mode functions for one frame pair, and forward only: none
+and, with no TPU twin (the JAX package runs its float32 GRU through XLA),
+``gru_update_f32`` (kernel G's float32 form): the direction of G in
+float32, products on FFMA, at the unfused path's arithmetic, forward only
+and raising under grad as the others do; its maps are float32 and
+channels-minor, its taps ``gru_taps_f32``.
+
+The three are bf16-mode functions for one frame pair, and forward only: none
 has a backward (nor has its JAX twin), and the taps are detached copies of
 the weights, so each raises under grad when an input requires grad
 (``kernels.require_no_grad``), as do the model paths that reach them
@@ -76,8 +91,9 @@ def gru_taps(gru, names, hd, ci):
 def _conv_taps(x, w, kh, kw):
     """Zero-padded (kh x kw) convolution as a sum of per-tap products.
 
-    x: (1, H, W, C_in) bf16; w: (kh * kw, C_out, C_in) bf16. Returns (1, H,
-    W, C_out) float32: bf16 products (exact in float32) summed in float32."""
+    x: (1, H, W, C_in) bf16 or float32; w: (kh * kw, C_out, C_in) of the
+    same type. Returns (1, H, W, C_out) float32: the products (exact in
+    float32 for bf16 operands) summed in float32."""
     H, W = x.shape[1:3]
     xp = F.pad(x.float(), (0, 0, kw // 2, kw // 2, kh // 2, kh // 2))
     wf = w.float()
@@ -116,6 +132,50 @@ def gru_update(h, x, pre_zr, pre_q, wzr, wq, bzr, bq, axis):
         return kernels.fused_gru_update(h, x, pre_zr, pre_q, wzr, wq, bzr, bq,
                                         axis)
     return gru_update_plain(h, x, pre_zr, pre_q, wzr, wq, bzr, bq, axis)
+
+
+def gru_taps_f32(gru, names, hd, ci):
+    """Kernel G's float32 form's taps of one ``SepConvGRU`` direction, the
+    convolutions ``names`` (z, r, q) with their ``inp`` rows ``[hd, hd +
+    ci)`` dropped -> ((3, hd + motion, 5, C_out) float32 taps, input
+    channel, tap, output channel: a slice of input channels is one
+    contiguous block; (3 * C_out,) float32 biases bz | br | bq)."""
+    ws = [getattr(gru, n).weight.detach() for n in names]
+    w = torch.stack([torch.cat([v[:, :hd], v[:, hd + ci:]], dim=1)
+                     for v in ws])                  # (3, C_out, C_in, kh, kw)
+    w = w.flatten(3).permute(0, 2, 3, 1).float().contiguous()
+    b = torch.cat([getattr(gru, n).bias.detach() for n in names])
+    return w, b.float().contiguous()
+
+
+def gru_update_f32_plain(h, x, pre_zr, pre_q, w, b, axis):
+    """Plain version of kernel G's float32 form (arguments as
+    ``gru_update_f32``): the unfused path's arithmetic in float32, each
+    convolution summed tap by tap."""
+    kh, kw = (1, 5) if axis == "w" else (5, 1)
+    C = h.shape[-1]
+    wz, wr, wq = (t.permute(1, 2, 0) for t in w)    # (5, C_out, C_in)
+    hx = torch.cat([h, x], -1)
+    z = torch.sigmoid(_conv_taps(hx, wz, kh, kw) + b[:C] + pre_zr[..., :C])
+    r = torch.sigmoid(_conv_taps(hx, wr, kh, kw) + b[C:2 * C]
+                      + pre_zr[..., C:])
+    q = torch.tanh(_conv_taps(torch.cat([r * h, x], -1), wq, kh, kw)
+                   + b[2 * C:] + pre_q)
+    return (1 - z) * h + z * q
+
+
+def gru_update_f32(h, x, pre_zr, pre_q, w, b, axis):
+    """One direction of the SepConvGRU in float32 (``axis`` 'w': 1x5, 'h':
+    5x1), kernel G's float32 form on a CUDA tensor.
+
+    h, x: (1, H, W, 128) float32 state and motion features; pre_zr (1, H,
+    W, 256), pre_q (1, H, W, 128): float32 context terms; w, b:
+    ``gru_taps_f32``. Returns the new float32 state."""
+    kernels.require_no_grad("G (fused_gru_update_f32)", h, x, pre_zr, pre_q,
+                            w, b)
+    if h.device.type == "cuda":
+        return kernels.fused_gru_update_f32(h, x, pre_zr, pre_q, w, b, axis)
+    return gru_update_f32_plain(h, x, pre_zr, pre_q, w, b, axis)
 
 
 def motion_encoder_stage1_plain(cor1, flo1, wc2, bc2, wf2, bf2):

@@ -11,7 +11,8 @@ the current stream, raise if the C entry reports a CUDA error, and count
 their launches in a plain integer attribute (``<wrapper>.launches``). The
 callers (``ops/warp.py:warp_perspective_fast``, ``models/corr.py``:
 ``corr_lookup``, ``block_local_corr``, ``block_local_lookup*``;
-``models/update.py``: ``gru_update``, ``motion_encoder_tail``, ``flow_head``)
+``models/update.py``: ``gru_update``, ``gru_update_f32``,
+``motion_encoder_tail``, ``flow_head``)
 take the plain PyTorch version for CPU tensors; a CUDA tensor always goes to
 the kernel. Under grad, B, C, D and E are reached through
 ``torch.autograd.Function``s (``models/corr.py``: B's backward is kernel
@@ -29,10 +30,12 @@ package); A, F, G, H and I have no backward, and their callers raise
 | E ``local_lookup_exact_coords`` (from coordinates), ``local_lookup_exact`` (explicit starts) | ``csrc/local_lookup.cu`` | ``ops/pallas/local_lookup.py:block_local_lookup`` |
 | F ``local_lookup_fine`` | ``csrc/local_lookup.cu`` | ``ops/pallas/local_lookup.py:block_local_lookup_fine`` |
 | G ``fused_gru_update`` | ``csrc/gru.cu`` | ``ops/pallas/gru.py:fused_gru_update`` |
+| G's float32 form ``fused_gru_update_f32`` (the canonical float32 path) | ``csrc/gru_f32.cu`` | none: the JAX package runs its float32 GRU through XLA |
 | H ``motion_encoder_tail`` | ``csrc/update_tail.cu`` | ``ops/pallas/update_tail.py:motion_encoder_pallas`` |
 | I ``flow_head`` | ``csrc/flow_head.cu`` | ``ops/pallas/update_tail.py:flow_head_pallas`` |
 
-G, H and I share ``csrc/conv_wgmma.cuh`` (a convolution as per-tap
+G's float32 form is float32 FFMA (no tensor cores) and shares no kernel
+body with G. G, H and I share ``csrc/conv_wgmma.cuh`` (a convolution as per-tap
 ``wgmma`` products, the taps brought in by TMA; the C entries encode the
 taps' tensor maps at the first call with a pointer and keep them); every
 ``csrc/*.cuh`` enters each library's content hash.
@@ -52,7 +55,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("warp", "corr_lookup", "local_corr", "local_lookup", "gru",
-           "update_tail", "flow_head")
+           "gru_f32", "update_tail", "flow_head")
 # --fmad=false: no FMA contraction, so the kernels round like their plain
 # PyTorch versions (see the notes at the top of each source)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -94,6 +97,7 @@ _ENTRIES = {
                                     _I, _P, _I, _I, _I, _P],
     },
     "gru": {"woft_gru_update": [_P] * 9 + [_I] * 5 + [_P]},
+    "gru_f32": {"woft_gru_update_f32": [_P] * 7 + [_I] * 5 + [_P]},
     "update_tail": {"woft_motion_encoder_tail": [_P] * 11 + [_I, _I, _P]},
     "flow_head": {"woft_flow_head": [_P] * 6 + [_I, _I, _P]},
 }
@@ -807,6 +811,49 @@ def fused_gru_update(h, x, pre_zr, pre_q, wzr, wq, bzr, bq, axis):
 
 
 fused_gru_update.launches = 0
+
+
+def fused_gru_update_f32(h, x, pre_zr, pre_q, w, b, axis):
+    """Kernel G's float32 form: one direction of the SepConvGRU's gated
+    update in float32, products on FFMA.
+
+    All maps float32, channels-minor, CUDA, contiguous: h (1, H, W, 128)
+    state; x (1, H, W, 128) motion features; pre_zr (1, H, W, 256) and
+    pre_q (1, H, W, 128) hoisted context terms; w (3, 256, 5, 128) taps of
+    z, r and q over cat(h, x) and cat(r * h, x) (input channel, tap, output
+    channel); b (384,) biases bz | br | bq. ``axis``: 'w' (the 1x5 update) or
+    'h' (5x1). Returns the new (1, H, W, 128) state; the arithmetic is
+    ``models/update.py:gru_update_f32_plain``'s."""
+    if h.device.type != "cuda":
+        raise ValueError("fused_gru_update_f32 takes CUDA tensors")
+    if axis not in ("w", "h"):
+        raise ValueError(f"axis must be 'w' or 'h', got {axis!r}")
+    if h.dim() != 4 or h.shape[0] != 1 or min(h.shape) == 0:
+        raise ValueError(f"h must be a non-empty (1, H, W, 128), got "
+                         f"{tuple(h.shape)}")
+    device, hw = h.device, tuple(h.shape[1:3])
+    f32 = torch.float32
+    _check_operand(h, "h", f32, device, (1, *hw, 128))
+    _check_operand(x, "x", f32, device, (1, *hw, 128))
+    _check_operand(pre_zr, "pre_zr", f32, device, (1, *hw, 256))
+    _check_operand(pre_q, "pre_q", f32, device, (1, *hw, 128))
+    _check_operand(w, "w", f32, device, (3, 256, 5, 128))
+    _check_operand(b, "b", f32, device, (384,))
+    H, W = hw
+    # lines, positions along the convolution, and their pixel strides
+    geom = (H, W, W, 1) if axis == "w" else (W, H, 1, W)
+    out = torch.empty_like(h)
+    fn = _entry("gru_f32")
+    with _current(device):
+        rc = fn(h.data_ptr(), x.data_ptr(), pre_zr.data_ptr(),
+                pre_q.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                128, *geom, _stream())
+    _raise_on_error(rc, "gru_update_f32")
+    fused_gru_update_f32.launches += 1
+    return out
+
+
+fused_gru_update_f32.launches = 0
 
 
 def motion_encoder_tail(cor1, flo1, flow, wc2, bc2, wf2, bf2, wcv, bcv,
