@@ -16,6 +16,7 @@ fall the other way on a small share of entries; their tests state the bound
 in bf16 ulps of the rounded quantity.
 """
 
+import copy
 import math
 
 import pytest
@@ -23,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from woft_tpu_torch.device import resolve_device
-from woft_tpu_torch.models import corr, layers, update
+from woft_tpu_torch.models import corr, layers, loop_graph, update
 from woft_tpu_torch.models import raft as traft
 from woft_tpu_torch.ops import kernels, warp
 
@@ -1207,3 +1208,83 @@ def test_fused_motion_encoder_module(dev, update_block):
     assert diff.max().item() <= 4 * ULP * want.float().abs().max().item()
     with pytest.raises(ValueError), torch.no_grad():
         update_block.encoder(flow, corr_feat, fused=True)   # float32 mode
+
+
+def _launches():
+    return {fn.__name__: fn.launches for fn in vars(kernels).values()
+            if callable(fn) and isinstance(getattr(fn, "launches", None), int)}
+
+
+@pytest.mark.parametrize("precision", ["bf16", "highest"])
+def test_block_local_loop_graph_matches_eager(dev, precision):
+    """The block-local forward's volume and refinement loop replayed from a
+    CUDA graph (``models/loop_graph.py``): the first forward of a shape runs
+    eagerly and captures, later ones replay. A replay's outputs equal, bit
+    for bit, an eager forward of a copy of the model on the same pair (the
+    same kernels on the same operands), also after a further replay has
+    overwritten the graph's buffers; the kernel counters advance by what
+    the eager forward launches."""
+    cfg = traft.RaftConfig(corr_impl="local", precision=precision, iters=3)
+    model = traft.init_raft_params(cfg, seed=2, device=dev)
+    twin = copy.deepcopy(model)
+    g = torch.Generator().manual_seed(9)
+    imgs = [(torch.rand(1, 256, 448, 3, generator=g) * 255).to(dev)
+            for _ in range(4)]
+    cells = torch.arange(0, 32 * 56, 7, device=dev)
+
+    def forward(m, frame):
+        n0 = _launches()
+        out = traft.weighted_raft_forward(m, cfg, imgs[0], frame,
+                                          sparse_weight_head=True)
+        w = out.pop("weight_head_at")(cells)
+        torch.cuda.synchronize()
+        n1 = _launches()
+        return ({k: v.clone() for k, v in out.items()}, w,
+                {k: n1[k] - n0[k] for k in n0 if n1[k] != n0[k]})
+
+    forward(model, imgs[1])
+    assert loop_graph.captured(model) == 1
+    got, w_got, n_got = forward(model, imgs[2])
+    forward(model, imgs[3])
+    assert loop_graph.captured(model) == 1
+    want, w_want, n_want = forward(twin, imgs[2])
+    assert n_got == n_want
+    assert n_got["local_corr_build"] == 1
+    assert n_got["local_lookup_coords"] == cfg.iters + 1
+    for key in ("flow", "flow_up", "up_mask", "mean_response"):
+        assert torch.equal(got[key], want[key]), key
+    assert torch.equal(w_got, w_want)
+    assert got["flow"].abs().max().item() > 0
+
+
+def test_block_local_loop_graph_keys(dev):
+    """A new shape or new update-block weights capture a graph of their own
+    (at most ``MAX_GRAPHS`` a model); a forward that records a gradient,
+    and the all-pairs path, run eagerly."""
+    cfg = traft.RaftConfig(corr_impl="local", precision="bf16", iters=2)
+    model = traft.init_raft_params(cfg, seed=3, device=dev)
+    g = torch.Generator().manual_seed(10)
+
+    def pair(h, w):
+        return [(torch.rand(1, h, w, 3, generator=g) * 255).to(dev)
+                for _ in range(2)]
+
+    for hw in [(64, 96), (64, 96), (96, 64)]:
+        traft.weighted_raft_forward(model, cfg, *pair(*hw))
+    assert loop_graph.captured(model) == 2
+    with torch.no_grad():
+        for p in model.update_block.parameters():
+            p.data = p.data.clone()
+    traft.weighted_raft_forward(model, cfg, *pair(64, 96))
+    assert loop_graph.captured(model) == 3
+    for hw in [(128, 96), (96, 128), (128, 128)]:
+        traft.weighted_raft_forward(model, cfg, *pair(*hw))
+    assert loop_graph.captured(model) == loop_graph.MAX_GRAPHS
+    dense = traft.RaftConfig(precision="bf16", iters=2)
+    dense_model = traft.init_raft_params(dense, seed=3, device=dev)
+    traft.weighted_raft_forward(dense_model, dense, *pair(64, 96))
+    assert loop_graph.captured(dense_model) == 0
+    trained = traft.RaftConfig(corr_impl="local", iters=2)
+    trained_model = traft.init_raft_params(trained, seed=3, device=dev)
+    traft.train_forward(trained_model, trained, *pair(64, 96))
+    assert loop_graph.captured(trained_model) == 0

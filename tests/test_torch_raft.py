@@ -279,6 +279,22 @@ def test_local_falls_back_to_dense_for_a_batch(models, frames):
                                   want["flow_up"].numpy())
 
 
+def test_local_forward_on_the_cpu_is_eager(models, frames):
+    """The block-local volume and loop are replayed from a CUDA graph on the
+    card only (``models/loop_graph.py``): on the CPU every forward runs the
+    code, keeps no graph, and a second forward equals the first."""
+    from woft_tpu_torch.models import loop_graph
+    _, _, _, _, model = models
+    img1, img2, _ = frames
+    _, tcfg = local_cfgs("bf16")
+    pair = [torch.from_numpy(a) for a in (img1, img2)]
+    first = traft.weighted_raft_forward(model, tcfg, *pair)
+    again = traft.weighted_raft_forward(model, tcfg, *pair)
+    assert loop_graph.captured(model) == 0
+    for key in ("flow_up", "weights"):
+        assert torch.equal(first[key], again[key])
+
+
 def test_bf16_mode_within_bound_of_jax(models, frames, jax_local_highest):
     """``precision='bf16'`` on the block-local path (the ``WOFT_fast``
     flow): the port's result lies within BF16_MULTIPLE times the distance

@@ -201,3 +201,70 @@ def test_nesting_frames_and_clearing():
     assert b["frame"] == a["frame"] != c["frame"]
     profiling.clear_spans()
     assert profiling.recorded_spans() == []
+
+
+def shared_tracker():
+    """``SharedMultiTracker`` on the tiny network, two targets."""
+    from woft_tpu_torch.pipeline import SharedMultiTracker
+
+    flower = RaftFlow(tiny_config().flow_config, device="cpu")
+    return SharedMultiTracker(flower.model, flower.cfg,
+                              tw.TrackerParams(subsample_n=100),
+                              device="cpu")
+
+
+def two_masks():
+    masks = np.zeros((2, H_IMG, W_IMG), bool)
+    masks[0, 16:48, 8:40] = True
+    masks[1, 16:48, 56:88] = True
+    return masks
+
+
+def test_one_chunk_tree_a_traced_track_chunk():
+    """A traced ``track_chunk`` of T frames is one ``woft.chunk`` tree with
+    the upload, T ``woft.step`` spans and the readback under it, each
+    step's stages and the network's under the step; a traced ``track`` of
+    the shared tracker is one ``woft.track`` tree like the shell's."""
+    template, _, frames = clip(3)
+    t = shared_tracker()
+    t.init(template, two_masks())
+    with profile(activities=[ProfilerActivity.CPU]):
+        t.track_chunk(np.stack(frames))
+        t.track(frames[0])
+    chunk, single = trees(profiling.recorded_spans()).values()
+    step = Counter({("woft.prewarp", "woft.step"): 1,
+                    ("woft.flow", "woft.step"): 1,
+                    ("woft.select", "woft.step"): 2,
+                    ("woft.fit", "woft.step"): 1,
+                    ("woft.check", "woft.step"): 1,
+                    ("woft.weight_head", "woft.select"): 1})
+    step.update({(name, "woft.flow"): 1 for name in NETWORK})
+    want = Counter({("woft.chunk", None): 1,
+                    ("woft.upload", "woft.chunk"): 1,
+                    ("woft.step", "woft.chunk"): 3,
+                    ("woft.readback", "woft.chunk"): 1})
+    for _ in range(3):
+        want.update(step)
+    assert chunk == want
+    assert single == SHELL + step
+
+
+def test_shared_tracker_records_nothing_when_off():
+    """Tracing off, ``track_chunk`` records no span; its answers equal
+    those of a run recording its spans, bit for bit."""
+    template, _, frames = clip(2)
+    runs = []
+    for on in (False, True):
+        t = shared_tracker()
+        t.init(template, two_masks())
+        if on:
+            with profiling.recording():
+                runs.append(t.track_chunk(np.stack(frames)))
+        else:
+            runs.append(t.track_chunk(np.stack(frames)))
+            assert profiling.recorded_spans() == []
+    (hs0, m0), (hs1, m1) = runs
+    np.testing.assert_array_equal(hs0, hs1)
+    for k in m0:
+        np.testing.assert_array_equal(m0[k], m1[k])
+    assert profiling.recorded_spans()

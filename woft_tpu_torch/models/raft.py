@@ -32,6 +32,13 @@ features and the current features sampled at the flow's end points).
   ``woft.flow.refine`` (the GRU context and the iterations),
   ``woft.flow.upsample`` (the mask head and the upsampling) and
   ``woft.weight_head`` (its lookup and ``weight_head_apply``).
+- on the card, a block-local forward of one frame pair that records no
+  gradient builds its volume and runs the GRU context and the iterations
+  as one CUDA graph, captured at a shape's first forward and replayed
+  after it (``models/loop_graph.py``): one launch where the loop has ~80
+  an iteration, which the host issued slower than the card ran them. The
+  same kernels, so the same results; kernel C then runs inside
+  ``woft.flow.refine``.
 
 Images are NHWC float RGB in [0, 255]; inside, everything runs NCHW.
 ``precision='highest'`` is float32 throughout (TF32 off, see
@@ -74,7 +81,7 @@ import torch.nn.functional as F
 from ..ops import kernels
 from ..ops.warp import coords_grid, grid_sample, upflow8
 from ..utils.profiling import span
-from . import layers
+from . import layers, loop_graph
 from .corr import (BlockedCorr, build_local_corr, corr_lookup,
                    corr_lookup_alternate, corr_lookup_local_blocked,
                    corr_mean_response, corr_pyramid_fused)
@@ -796,6 +803,11 @@ def _raft_forward(model, cfg, image1, image2, flow_init, iters,
         H1, W1 = fmap2.shape[2:]
 
         f1, f2 = _nhwc(fmap1).contiguous(), _nhwc(fmap2).contiguous()
+    # the block-local volume and the loop as one CUDA graph (loop_graph.py)
+    graphed = (cfg.corr_impl == "local" and B == 1 and corr_shard is None
+               and not cfg.alternate_corr and not cfg.small
+               and x2.is_cuda and not torch.is_grad_enabled()
+               and not torch.cuda.is_current_stream_capturing())
     with span("woft.flow.volume", dev):
         local = None
         if cfg.alternate_corr:
@@ -814,9 +826,13 @@ def _raft_forward(model, cfg, image1, image2, flow_init, iters,
             # beyond; 'bf16' and 'default' store the volume (and the lookups)
             # in bf16
             if corr_shard is None:
-                local = build_local_corr(
-                    f1, f2, radius, cfg.corr_levels, margin=cfg.local_margin,
-                    out_dtype=cfg.volume_dtype)
+                def volume(f1, f2):
+                    return build_local_corr(
+                        f1, f2, radius, cfg.corr_levels,
+                        margin=cfg.local_margin, out_dtype=cfg.volume_dtype)
+
+                if not graphed:     # else built in the loop's graph
+                    local = volume(f1, f2)
                 lookup_blocked = corr_lookup_local_blocked
             else:           # this rank's band of blocks
                 local = corr_shard.local(f1, f2, radius, cfg.corr_levels,
@@ -856,26 +872,49 @@ def _raft_forward(model, cfg, image1, image2, flow_init, iters,
         tail_fused = (cfg.tail_fused and B == 1 and not cfg.small
                       and layers.get_compute_dtype() == torch.bfloat16)
         gru_fused = _gru_route(cfg, B, ub, net, inp, f1, f2)
-        if cfg.small:
-            pre = None
-        elif gru_fused == "f32":
-            pre = precompute_gru_context_f32(ub.gru, inp, cfg.hidden_dim)
-        else:
-            pre = precompute_gru_context(ub.gru, inp, cfg.hidden_dim,
-                                         fused=gru_fused)
-        for _ in range(iters):         # no host sync inside this loop
-            # the coordinate chain is cut at every iteration (the
-            # reference's coords1.detach(); a no-op under no_grad)
-            coords1 = coords1.detach()
-            corr = lookup(_nhwc(coords1).contiguous())
+
+        def refine(lookup, net, inp, coords0, coords1):
             if cfg.small:
-                net, delta = small_update_apply(ub, net, inp, corr,
-                                                coords1 - coords0)
+                pre = None
+            elif gru_fused == "f32":
+                pre = precompute_gru_context_f32(ub.gru, inp, cfg.hidden_dim)
             else:
-                net, delta = update_block_apply(ub, net, corr,
-                                                coords1 - coords0, pre,
-                                                gru_fused, tail_fused)
-            coords1 = coords1 + delta
+                pre = precompute_gru_context(ub.gru, inp, cfg.hidden_dim,
+                                             fused=gru_fused)
+            for _ in range(iters):         # no host sync inside this loop
+                # the coordinate chain is cut at every iteration (the
+                # reference's coords1.detach(); a no-op under no_grad)
+                coords1 = coords1.detach()
+                corr = lookup(_nhwc(coords1).contiguous())
+                if cfg.small:
+                    net, delta = small_update_apply(ub, net, inp, corr,
+                                                    coords1 - coords0)
+                else:
+                    net, delta = update_block_apply(ub, net, corr,
+                                                    coords1 - coords0, pre,
+                                                    gru_fused, tail_fused)
+                coords1 = coords1 + delta
+            return net, coords1
+
+        if graphed:
+            def volume_and_refine(f1, f2, net, inp, coords0, coords1):
+                nonlocal local          # what ``lookup`` reads
+                local = volume(f1, f2)
+                return (local, *refine(lookup, net, inp, coords0, coords1))
+
+            # everything the graph reads besides its inputs: the
+            # configuration, the update block's weights, the routes and
+            # the precision flags it was captured under
+            key = (cfg, iters, gru_fused, tail_fused,
+                   layers.get_compute_dtype(),
+                   torch.backends.cuda.matmul.allow_tf32,
+                   torch.backends.cudnn.allow_tf32,
+                   tuple(p.data_ptr() for p in ub.parameters()))
+            local, net, coords1 = loop_graph.run(
+                model, key, volume_and_refine, f1, f2, net, inp, coords0,
+                coords1)
+        else:
+            net, coords1 = refine(lookup, net, inp, coords0, coords1)
 
     with span("woft.flow.upsample", dev):
         if cfg.small:           # no mask head: bilinear x8 outputs

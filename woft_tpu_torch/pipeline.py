@@ -43,6 +43,7 @@ from .tracker.window_step import (WindowParams, build_window_batch_step,
 from .tracker.woft import (TrackerParams, build_shared_multi_step,
                            build_track_step, tracker_init_state)
 from .utils.io import GeneralVideoCapture
+from .utils.profiling import span
 
 
 #: the decode path the latest ``_frame_source`` took: 'threaded' (a jpg
@@ -201,15 +202,17 @@ def build_shared_multi_chunk(raft_cfg: RaftConfig, tp: TrackerParams,
     """The shared-flow multi-target step over a chunk of frames, never
     syncing to the host: ``(model, state, masks (N, H*W), h_last (N, 3,
     3), frames (T, 1, H, W, 3)) -> (state, h_last, hs (T, N, 3, 3), meta
-    of (T, N))``; ``no_local_h`` forced."""
+    of (T, ...))``; ``no_local_h`` forced. Each frame's step runs inside
+    the span ``woft.step``."""
     tp = replace(tp, no_local_h=True)
     step = build_shared_multi_step(raft_cfg, tp, flow_fn=flow_fn)
 
     def chunk(model, state, masks, h_last, frames):
         hs, metas = [], []
         for f in frames:
-            state, h_last, h, meta = step(model, state, masks, h_last,
-                                          _rgb(f, bgr_u8))
+            with span("woft.step", f.device):
+                state, h_last, h, meta = step(model, state, masks, h_last,
+                                              _rgb(f, bgr_u8))
             hs.append(h)
             metas.append(meta)
         return state, h_last, torch.stack(hs), _stack_meta(metas)
@@ -311,20 +314,34 @@ class SharedMultiTracker:
                                 device=self.device).repeat(n, 1, 1)
 
     def track(self, frame_bgr):
-        """-> ((N, 3, 3) homographies, meta dict of (N,) diagnostics)."""
-        self.state, self.h_last, hs, meta = self._step(
-            self.model, self.state, self.masks, self.h_last,
-            upload_bgr(frame_bgr, self.device))
-        return _host(hs, meta)
+        """-> ((N, 3, 3) homographies, meta dict of the step's diagnostics:
+        (N,) a target, and the control target's ladder). The call runs
+        inside the span ``woft.track``, its stages inside ``woft.upload``,
+        ``woft.step`` and ``woft.readback``."""
+        with span("woft.track", self.device):
+            with span("woft.upload", self.device):
+                frame = upload_bgr(frame_bgr, self.device)
+            with span("woft.step", self.device):
+                self.state, self.h_last, hs, meta = self._step(
+                    self.model, self.state, self.masks, self.h_last, frame)
+            with span("woft.readback", self.device):
+                return _host(hs, meta)
 
     def track_chunk(self, frames_bgr):
         """Track T frames with one host read at the end: ``frames_bgr``
         (T, H, W, 3) uint8 BGR -> ((T, N, 3, 3) homographies, meta dict of
-        (T, N) diagnostics). Uploads uint8 and converts on the device."""
+        (T, ...) diagnostics). Uploads uint8 and converts on the device.
+        The call runs inside the span ``woft.chunk`` (not ``woft.track``:
+        one tree holds T steps), the upload and the read inside
+        ``woft.upload`` and ``woft.readback``, each frame inside
+        ``woft.step``."""
         if self._chunk_step is None:
             self._chunk_step = build_shared_multi_chunk(
                 self.cfg, self.tp, flow_fn=self._flow_fn, bgr_u8=True)
-        self.state, self.h_last, hs, meta = self._chunk_step(
-            self.model, self.state, self.masks, self.h_last,
-            _upload_chunk(frames_bgr, self.device))
-        return _host(hs, meta)
+        with span("woft.chunk", self.device):
+            with span("woft.upload", self.device):
+                frames = _upload_chunk(frames_bgr, self.device)
+            self.state, self.h_last, hs, meta = self._chunk_step(
+                self.model, self.state, self.masks, self.h_last, frames)
+            with span("woft.readback", self.device):
+                return _host(hs, meta)

@@ -534,10 +534,12 @@ def build_shared_multi_step(raft_cfg: RaftConfig, tp: TrackerParams,
     drives the state's ladder as ``build_track_step`` does. The pre-warp
     stays exact float32 in bf16 mode, where the JAX package relaxes it.
 
-    ``meta``: ``global_H_success`` and ``inlier_frac``, each (N,). No host
-    sync with a device estimator (the host fits copy the points to the
-    host and fit target by target): the state's ``lost`` and ``n_lost``
-    are device tensors. Needs
+    ``meta``: ``global_H_success`` and ``inlier_frac``, each (N,), and the
+    control target's ladder: ``last_good_H2init`` (3, 3), the H the frame
+    was pre-warped by, and ``N_lost``, its lost counter after the frame.
+    No host sync with a device estimator (the host fits copy the points to
+    the host and fit target by target): the state's ``lost`` and
+    ``n_lost`` are device tensors. Needs
     ``no_local_h`` or ``redetection='always'`` (no per-target local
     fallback)."""
     if not (tp.no_local_h or tp.redetection == "always"):
@@ -566,13 +568,15 @@ def build_shared_multi_step(raft_cfg: RaftConfig, tp: TrackerParams,
         # per-target ladder: keep the last good H when a fit fails
         hs = torch.where(oks[:, None, None], h_fit, h_last)
         ok0 = oks[0]
+        n_lost = torch.where(ok0, torch.zeros_like(n_lost_in), n_lost_in + 1)
         new_state = replace(
             state, prev_img=frame, prev_h2init=hs[0],
             last_good_h2init=torch.where(ok0, hs[0], last_good), lost=~ok0,
-            n_lost=torch.where(ok0, torch.zeros_like(n_lost_in),
-                               n_lost_in + 1))
+            n_lost=n_lost)
         return new_state, hs, hs, {"global_H_success": oks,
-                                   "inlier_frac": fracs}
+                                   "inlier_frac": fracs,
+                                   "last_good_H2init": last_good,
+                                   "N_lost": n_lost}
 
     return step
 
