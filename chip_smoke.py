@@ -236,6 +236,13 @@ TAIL_TOL_ULPS = 2        # H, bf16 result: one ulp (2 bounds any mantissa),
 #                          first-stage activations
 HEAD_TOL_ULPS = 1        # I, float32 delta: one ulp of the map's scale
 UPDATE_DIFF_SHARE = 0.02         # G, H: at most this share of entries differs
+# J, the weight head's logits: a bf16 activation that rounds the other way
+# than in the plain version moves a logit by up to ~1e-5; a quarter of one
+# bf16 ulp of the largest logit (2.05e-5 of 0.070 read on the card)
+HEAD_J_TOL = BF16_ULP / 4
+HEAD_J_ROWS = (4500, 32400)      # WOFT_fast.py at 720p; the 1080p grid, 8 targets
+HEAD_J_FLOPS_PER_ROW = 2 * 81 * 128 * (45 + 2 * 9 * 128 + 1)
+L2_BYTES_PER_S = 5.5e12          # H100 L2 reads, an estimate (not published)
 # G's float32 form sums the same float32 products as its plain version in
 # another order and rounds alike: a few float32 ulps of the state
 GRU_F32_TOL = 1e-5
@@ -1377,16 +1384,96 @@ def check_update_kernels(kernels, dev):
     return rows
 
 
+def check_weight_head(kernels, dev):
+    """Kernel J, the bf16 weight head, against its plain version and a
+    float64 evaluation at the same rounding points, with the unfused cuDNN
+    chain it replaces beside it, at the rows of ``WOFT_fast.py`` at 720p
+    (4,500) and of the 1080p grid (32,400), on the seeded head. Bounds: the
+    operations at the bf16 peak, and the taps' L2 bytes (590 KB a pair of
+    rows) at ``L2_BYTES_PER_S``."""
+    from woft_tpu_torch.models import layers
+    from woft_tpu_torch.models import raft as traft
+    from woft_tpu_torch.models import weight_head as whead
+
+    head = traft.init_raft_params(traft.RaftConfig(precision="bf16"),
+                                  seed=0, device=dev).weight_head
+    taps, consts = whead.head_params(head)
+    out = {}
+    for M in HEAD_J_ROWS:
+        g = torch.Generator(device=dev).manual_seed(M)
+        corr = (2.0 * torch.randn(M, 324, device=dev, generator=g)).bfloat16()
+        mean = torch.randn(M, device=dev, generator=g)
+        cs, mr = corr.reshape(1, 1, M, 9, 9, 4), mean.reshape(1, 1, M)
+
+        def kernel():
+            return kernels.weight_head(corr, mean, taps, consts)
+
+        def plain():
+            return whead.weight_head_plain(corr, mean, taps, consts)
+
+        def chain():
+            with layers.precision_scope("bf16"):
+                return traft.weight_head_chain(head, cs, mr)
+
+        with torch.no_grad():
+            n0 = kernels.weight_head.launches
+            got = kernel()
+            torch.cuda.synchronize()
+            if kernels.weight_head.launches != n0 + 1:
+                raise AssertionError("kernel J: not one launch a call")
+            want = plain()
+            f64 = whead.weight_head_plain(corr, mean, taps, consts,
+                                          dtype=torch.float64)
+            lib = chain().reshape(M)
+            gap_j = (got.double() - f64).abs()
+            gap_lib = (lib.double() - f64).abs()
+            diff = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            log(f"kernel J, M={M}: max_abs_err {diff:.3g} against the plain "
+                f"version (tol {HEAD_J_TOL * scale:.3g}); from float64: J "
+                f"median {gap_j.median().item():.3g}, largest "
+                f"{gap_j.max().item():.3g}; cuDNN chain median "
+                f"{gap_lib.median().item():.3g}, largest "
+                f"{gap_lib.max().item():.3g}")
+            if not diff <= HEAD_J_TOL * scale:
+                raise AssertionError("kernel J disagrees with its plain "
+                                     "version")
+            ms = time_ms(kernel)
+            plain_ms = time_ms(plain, iters=3, warmup=1)
+            library_ms = time_ms(chain, iters=5, warmup=1)
+        flops = HEAD_J_FLOPS_PER_ROW * M
+        ops_ms = flops / BF16_FLOPS * 1e3
+        tap_bytes = (M + 1) // 2 * 37 * 128 * 64 * 2   # 37 boxes a pair
+        l2_ms = tap_bytes / L2_BYTES_PER_S * 1e3
+        log(f"kernel J timing, M={M}: kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+            f"the unfused cuDNN chain {library_ms:.4f} ms, bound "
+            f"{ops_ms:.4f} ms (operations; the taps' {tap_bytes / 1e9:.2f} "
+            f"GB from L2 {l2_ms:.4f} ms)")
+        out[M] = dict(max_abs_err=diff, ms=ms, plain_ms=plain_ms,
+                      bound_ms=ops_ms, bound_by="operations",
+                      l2_tap_bytes=tap_bytes, l2_ms=l2_ms,
+                      library_ms=library_ms,
+                      library_is="the unfused cuDNN chain (weight_head_chain)",
+                      f64_median=gap_j.median().item(),
+                      f64_max=gap_j.max().item(),
+                      library_f64_median=gap_lib.median().item(),
+                      library_f64_max=gap_lib.max().item())
+    return dict(out[HEAD_J_ROWS[1]], rows_4500=out[HEAD_J_ROWS[0]])
+
+
 COUNTED = ("warp_perspective_bilinear", "corr_pyramid_lookup",
            "corr_pyramid_lookup_backward", "local_corr_build",
            "local_lookup_coords", "local_lookup_exact_coords",
            "local_lookup_fine_multi",
            "local_lookup_exact", "local_lookup_fine", "fused_gru_update",
-           "fused_gru_update_f32", "motion_encoder_tail", "flow_head")
+           "fused_gru_update_f32", "motion_encoder_tail", "flow_head",
+           "weight_head")
 # G's float32 form runs in every float32 forward of RAFT-large on one frame
-# pair; a track checks its count where it names it (track_720p), the others
-# report it unchecked
-UNCHECKED = ("fused_gru_update_f32",)
+# pair, J in every bf16 weight head on the card; a track checks their counts
+# where it names them (track_720p, track_shared), the others report them
+# unchecked
+UNCHECKED = ("fused_gru_update_f32", "weight_head")
 FUSED_FLAGS = {"gru_fused": True, "tail_fused": True}
 
 
@@ -1545,8 +1632,10 @@ def track_720p(kernels, dev, config, fused=False):
     if fused:
         want.update(fused_gru_update=2 * 12 * n_flows, flow_head=12 * n_flows)
     # G's float32 form: once a direction every iteration of a float32 flow
-    # (WOFT.py), never in bf16 mode
-    want.update(fused_gru_update_f32=0 if fast else 2 * 12 * n_flows)
+    # (WOFT.py), never in bf16 mode; J: the bf16 weight head, at least once
+    # a frame (the main step's), never in float32
+    want.update(fused_gru_update_f32=0 if fast else 2 * 12 * n_flows,
+                weight_head=len(frames) if fast else 0)
     # C, D and E: exactly one launch a flow and a lookup
     exact = (("local_corr_build", "local_lookup_coords",
               "local_lookup_exact_coords") if fast else ())
@@ -2648,11 +2737,15 @@ def track_shared(kernels, dev, model, cfg, tp):
     peak = torch.cuda.max_memory_allocated() / 2**30
     hs, oks = np.stack(hs), np.stack(oks)
     T = len(frames)
+    # J once a frame: 8 targets ask for more rows than the grid has, so the
+    # head runs once over every cell
     check_counts(f"shared x{n}", launches, {
         "warp_perspective_bilinear": T, "local_corr_build": T,
-        "local_lookup_coords": 13 * T, "local_lookup_exact_coords": 13 * T},
+        "local_lookup_coords": 13 * T, "local_lookup_exact_coords": 13 * T,
+        "weight_head": T},
         ("warp_perspective_bilinear", "local_corr_build",
-         "local_lookup_coords", "local_lookup_exact_coords"), T, T)
+         "local_lookup_coords", "local_lookup_exact_coords", "weight_head"),
+        T, T)
     errs = _report_multi(f"shared x{n}", n, frame_ms, hs, poses, masks, oks,
                          MULTI_CORNER_BOUND_PX)
 
@@ -5292,6 +5385,8 @@ def main():
     lookups = check_local_lookups(kernels, corr, dev)
     upd = check_update_kernels(kernels, dev)
     torch.cuda.empty_cache()
+    head_j = check_weight_head(kernels, dev)
+    torch.cuda.empty_cache()
     canon, canon_ms = track_720p(kernels, dev, "WOFT.py")
     torch.cuda.empty_cache()
     fast, fast_ms = track_720p(kernels, dev, "WOFT_fast.py")
@@ -5428,6 +5523,13 @@ def main():
              source="woft_tpu_torch/csrc/flow_head.cu",
              replaces="woft_tpu/ops/pallas/update_tail.py:283",
              launches=fused["flow_head"], **upd["I"]),
+        dict(name="weight_head", route="cuda",
+             source="woft_tpu_torch/csrc/weight_head.cu",
+             replaces="none: woft_tpu runs its weight head through XLA",
+             launches=fast["weight_head"],
+             note="times at M=32400 (the 1080p grid), rows_4500 at "
+                  "WOFT_fast.py's 720p rows; launches: WOFT_fast.py at 720p",
+             **head_j),
     ]
     # the window paths' and the multi-target paths' own runs, each counted
     # from 0 (kernels A-E), and A-E timed at the multi-target shapes

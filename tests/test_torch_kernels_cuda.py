@@ -13,7 +13,9 @@ sums its products in another order than the plain einsum; its tests state
 the bound. Kernels G, H and I round to bf16 inside (gates, activations), and
 they too sum in another order than their plain versions, so a rounding may
 fall the other way on a small share of entries; their tests state the bound
-in bf16 ulps of the rounded quantity.
+in bf16 ulps of the rounded quantity. Kernel J (the bf16 weight head) is
+held to a float64 evaluation at its rounding points, beside the unfused
+cuDNN chain it replaces.
 """
 
 import copy
@@ -26,6 +28,7 @@ import torch.nn.functional as F
 from woft_tpu_torch.device import resolve_device
 from woft_tpu_torch.models import corr, layers, loop_graph, update
 from woft_tpu_torch.models import raft as traft
+from woft_tpu_torch.models import weight_head as whead
 from woft_tpu_torch.ops import kernels, warp
 
 pytestmark = pytest.mark.cuda
@@ -1288,3 +1291,184 @@ def test_block_local_loop_graph_keys(dev):
     trained_model = traft.init_raft_params(trained, seed=3, device=dev)
     traft.train_forward(trained_model, trained, *pair(64, 96))
     assert loop_graph.captured(trained_model) == 0
+
+
+# ---------------------------------------------------------------------------
+# kernel J: the bf16 weight head
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def weight_head_case(dev):
+    head = traft.init_raft_params(traft.RaftConfig(precision="bf16"), seed=0,
+                                  device=dev).weight_head
+    return head, whead.head_params(head)
+
+
+def _head_rows(dev, M, dtype=torch.bfloat16):
+    g = torch.Generator(device=dev).manual_seed(M)
+    corr = (2.0 * torch.randn(M, 324, device=dev, generator=g)).to(dtype)
+    return corr, torch.randn(M, device=dev, generator=g)
+
+
+# largest logit gap from float64: J's against the cuDNN chain's (read
+# 1.05-1.38x; see the test below)
+HEAD_MAX_GAP_RATIO = 2.0
+
+
+@pytest.mark.parametrize("M,dtype", [(1, torch.bfloat16),
+                                     (63, torch.bfloat16),
+                                     (4500, torch.bfloat16),
+                                     (4501, torch.float32),
+                                     (32400, torch.bfloat16)],
+                         ids=["1", "63", "4500", "4501-f32", "32400"])
+def test_weight_head_kernel_against_float64(dev, weight_head_case, M, dtype):
+    """Kernel J and the unfused cuDNN chain against a float64 evaluation at
+    the same rounding points (``weight_head_plain(dtype=float64)``), on the
+    seeded head: J's median logit gap is at most the chain's, and its
+    largest at most twice the chain's. M = 4,501 (odd: the last pair holds
+    one row) takes float32 rows, as the dense pyramid's lookup gives them.
+
+    Readings on an H100, J / chain: M = 4,500 median 4.81e-9 / 3.54e-8,
+    largest 1.55e-5 / 1.47e-5; M = 4,501 largest 1.46e-5 / 1.06e-5; M =
+    32,400 median 4.79e-9 / 4.01e-8, largest 2.05e-5 / 1.96e-5 (logits up
+    to 0.070). The largest gap is the row where some activation's sum lies
+    within float32 rounding of a bf16 boundary: float64 rounds it one way,
+    each float32 order its own way, and one flipped activation moves a
+    logit by up to ~1e-5. Which rows flip is a matter of the order: the
+    plain version summed in float32 by cuBLAS reads the chain's largest to
+    the digit at 4,500 and 32,400, and J's reads 1.05-1.38x of it, so the
+    largest gap is bounded at twice the chain's, while the median, which
+    counts the flips, is held to the chain's. J without its float32
+    promotion of the tensor cores' partial sums read a median of 2.12e-7,
+    5x the chain's."""
+    head, (taps, consts) = weight_head_case
+    corr_rows, mean = _head_rows(dev, M, dtype)
+    with torch.no_grad():
+        n0 = kernels.weight_head.launches
+        got = whead.weight_head(corr_rows, mean, taps, consts)
+        torch.cuda.synchronize()
+        assert kernels.weight_head.launches == n0 + 1
+        f64 = whead.weight_head_plain(corr_rows, mean, taps, consts,
+                                      dtype=torch.float64)
+        with layers.precision_scope("bf16"):
+            lib = traft.weight_head_chain(
+                head, corr_rows.reshape(1, 1, M, 9, 9, 4),
+                mean.reshape(1, 1, M)).reshape(M)
+    assert got.shape == (M,) and got.dtype == torch.float32
+    gap = (got.double() - f64).abs()
+    gap_lib = (lib.double() - f64).abs()
+    assert gap.median().item() <= gap_lib.median().item()
+    assert gap.max().item() <= HEAD_MAX_GAP_RATIO * gap_lib.max().item()
+
+
+def test_weight_head_kernel_reshape_quirk(dev, weight_head_case):
+    """A row of 324 distinct values (exact in bf16): J reads the channels
+    as (Kp, Kp, L), as the plain version does."""
+    _, (taps, consts) = weight_head_case
+    g = torch.Generator().manual_seed(3)
+    corr_row = ((torch.randperm(324, generator=g) - 162).float() / 64.0)
+    corr_row = corr_row[None].to(dev)
+    mean = torch.tensor([3.3], device=dev)
+    with torch.no_grad():
+        got = whead.weight_head(corr_row, mean, taps, consts)
+        want = whead.weight_head_plain(corr_row, mean, taps, consts)
+    assert (got - want).abs().item() <= 1e-6 * want.abs().item() + 1e-9
+
+
+def test_weight_head_route_on_the_card(dev, weight_head_case):
+    """``weight_head_apply`` on the card: one launch of J a call in bf16
+    mode; none in 'highest' and 'default', nor when a gradient flows into
+    the head, where it returns the unfused chain bit for bit."""
+    head, _ = weight_head_case
+    corr_rows, mean = _head_rows(dev, 300)
+    cs, mr = corr_rows.float().reshape(1, 3, 100, 9, 9, 4), mean.reshape(1, 3, 100)
+    n0 = kernels.weight_head.launches
+    with torch.no_grad(), layers.precision_scope("bf16"):
+        got = traft.weight_head_apply(head, cs, mr)
+    assert kernels.weight_head.launches == n0 + 1
+    assert got.shape == (1, 3, 100, 1)
+    for precision in ("highest", "default"):
+        with torch.no_grad(), layers.precision_scope(precision):
+            got = traft.weight_head_apply(head, cs, mr)
+            want = traft.weight_head_chain(head, cs, mr)
+        assert torch.equal(got, want)
+    trained = copy.deepcopy(head).requires_grad_(True)
+    with layers.precision_scope("bf16"):
+        got = traft.weight_head_apply(trained, cs, mr)
+        want = traft.weight_head_chain(trained, cs, mr)
+    assert got.requires_grad and torch.equal(got, want)
+    assert kernels.weight_head.launches == n0 + 1
+
+
+def test_weight_head_kernel_raises_under_grad(dev, weight_head_case):
+    """J has no backward: ``weight_head`` raises when autograd would record
+    an input, before it launches."""
+    _, (taps, consts) = weight_head_case
+    corr_rows, mean = _head_rows(dev, 8, torch.float32)
+    n0 = kernels.weight_head.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        whead.weight_head(corr_rows.requires_grad_(), mean, taps, consts)
+    assert kernels.weight_head.launches == n0
+
+
+def test_weight_head_wrapper_checks_inputs(dev, weight_head_case):
+    _, (taps, consts) = weight_head_case
+    corr_rows, mean = _head_rows(dev, 8, torch.float32)
+    with pytest.raises(ValueError):
+        kernels.weight_head(corr_rows[:, :300].contiguous(), mean, taps,
+                            consts)
+    with pytest.raises(TypeError):
+        kernels.weight_head(corr_rows.half(), mean, taps, consts)
+    with pytest.raises(ValueError):
+        kernels.weight_head(corr_rows, mean[:4], taps, consts)
+    with pytest.raises(ValueError):
+        kernels.weight_head(corr_rows, mean, taps[:128], consts)
+    with pytest.raises(ValueError):
+        kernels.weight_head(corr_rows.t().contiguous().t(), mean, taps,
+                            consts)
+
+
+def test_shared_step_1080p_with_kernel_j(dev, monkeypatch):
+    """``woft_fast_shared``'s program (``SharedMultiTracker`` on
+    ``WOFT_fast.py`` and the trained v4 weights, eight targets) on two
+    1080p frames of the walk: one launch of J a frame (the head over every
+    cell), the same check flags as with the unfused head, and the median
+    corner gap between the two within the shared cell's ``h_gap_median_px``
+    limit, 0.02 px."""
+    import sys
+
+    import numpy as np
+
+    sys.path.insert(0, str(kernels.CSRC.parents[1]))
+    import chip_smoke
+    from woft_tpu_torch.config import load_config
+    from woft_tpu_torch.flow import RaftFlow
+    from woft_tpu_torch.pipeline import SharedMultiTracker
+
+    template, frames, _ = chip_smoke.walk(1080, 1920, dev, n=2)
+    masks = chip_smoke.shared_masks(8, 1080, 1920)
+    conf = load_config(str(kernels.CSRC.parent / "configs" / "WOFT_fast.py"))
+    flower = RaftFlow(conf.flow_config, device=dev)
+
+    def run():
+        tracker = SharedMultiTracker(flower.model, flower.cfg,
+                                     conf.tracker_params, device=dev)
+        tracker.init(template, masks)
+        n0 = kernels.weight_head.launches
+        out = [tracker.track(f) for f in frames]
+        torch.cuda.synchronize()
+        return ([np.asarray(h) for h, _ in out],
+                [np.asarray(m["global_H_success"]) for _, m in out],
+                kernels.weight_head.launches - n0)
+
+    hs, oks, n = run()
+    assert n == len(frames)
+    with monkeypatch.context() as m:
+        m.setattr(whead, "fused_route", lambda *args: False)
+        hs_chain, oks_chain, n_chain = run()
+    assert n_chain == 0
+    for ok, ok_chain in zip(oks, oks_chain):
+        assert np.array_equal(ok, ok_chain)
+    gaps = [chip_smoke.h_diff_px(h[t], hc[t], chip_smoke.mask_corners(masks[t]))
+            for h, hc in zip(hs, hs_chain) for t in range(len(masks))]
+    assert np.median(gaps) <= 0.02

@@ -87,6 +87,7 @@ from .corr import (BlockedCorr, build_local_corr, corr_lookup,
                    corr_mean_response, corr_pyramid_fused)
 from .layers import conv, conv2d, init_conv_, norm_layer
 from . import update
+from . import weight_head as whead
 
 
 @dataclass(frozen=True)
@@ -627,7 +628,25 @@ def weight_head_apply(head, corr_sample, mean_response):
       although the channels are laid out level-major.
     mean_response: (B, H1, W1).
     Returns (B, H1, W1, 1) logits: the head convolves over each cell's
-    Kp x Kp patch and averages."""
+    Kp x Kp patch and averages. In bf16 mode on the card, WOFT's head with
+    no gradient is one launch of kernel J (``weight_head.fused_route``);
+    every other call runs ``weight_head_chain``."""
+    if not whead.fused_route(head, corr_sample, mean_response):
+        return weight_head_chain(head, corr_sample, mean_response)
+    B, H1, W1, Kp, _, L = corr_sample.shape
+    n = B * H1 * W1
+    params = layers.once_per_pass((id(head), "taps"),
+                                  lambda: whead.head_params(head))
+    w = whead.weight_head(corr_sample.reshape(n, Kp * Kp * L).contiguous(),
+                          mean_response.reshape(n).float().contiguous(),
+                          *params)
+    return w.reshape(B, H1, W1, 1)
+
+
+def weight_head_chain(head, corr_sample, mean_response):
+    """``weight_head_apply`` as the unfused conv stack: a convolution (cuDNN
+    on the card) and a ReLU a layer, over the cells' (L + 1, Kp, Kp)
+    patches, then the mean."""
     B, H1, W1, Kp, _, L = corr_sample.shape
     n = B * H1 * W1
     x = corr_sample.reshape(n, Kp, Kp, L)

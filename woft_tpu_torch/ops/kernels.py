@@ -12,12 +12,13 @@ their launches in a plain integer attribute (``<wrapper>.launches``). The
 callers (``ops/warp.py:warp_perspective_fast``, ``models/corr.py``:
 ``corr_lookup``, ``block_local_corr``, ``block_local_lookup*``;
 ``models/update.py``: ``gru_update``, ``gru_update_f32``,
-``motion_encoder_tail``, ``flow_head``)
+``motion_encoder_tail``, ``flow_head``; ``models/weight_head.py``:
+``weight_head``)
 take the plain PyTorch version for CPU tensors; a CUDA tensor always goes to
 the kernel. Under grad, B, C, D and E are reached through
 ``torch.autograd.Function``s (``models/corr.py``: B's backward is kernel
 B', C's, D's and E's the VJPs of their plain versions, as in the JAX
-package); A, F, G, H and I have no backward, and their callers raise
+package); A, F, G, H, I and J have no backward, and their callers raise
 (``require_no_grad``) rather than return an output with no graph.
 
 | kernel | source | TPU kernel it replaces |
@@ -33,9 +34,10 @@ package); A, F, G, H and I have no backward, and their callers raise
 | G's float32 form ``fused_gru_update_f32`` (the canonical float32 path) | ``csrc/gru_f32.cu`` | none: the JAX package runs its float32 GRU through XLA |
 | H ``motion_encoder_tail`` | ``csrc/update_tail.cu`` | ``ops/pallas/update_tail.py:motion_encoder_pallas`` |
 | I ``flow_head`` | ``csrc/flow_head.cu`` | ``ops/pallas/update_tail.py:flow_head_pallas`` |
+| J ``weight_head`` (the bf16 weight head) | ``csrc/weight_head.cu`` | none: the JAX package runs its weight head through XLA |
 
 G's float32 form is float32 FFMA (no tensor cores) and shares no kernel
-body with G. G, H and I share ``csrc/conv_wgmma.cuh`` (a convolution as per-tap
+body with G. G, H, I and J share ``csrc/conv_wgmma.cuh`` (a convolution as per-tap
 ``wgmma`` products, the taps brought in by TMA; the C entries encode the
 taps' tensor maps at the first call with a pointer and keep them); every
 ``csrc/*.cuh`` enters each library's content hash.
@@ -55,7 +57,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("warp", "corr_lookup", "local_corr", "local_lookup", "gru",
-           "gru_f32", "update_tail", "flow_head")
+           "gru_f32", "update_tail", "flow_head", "weight_head")
 # --fmad=false: no FMA contraction, so the kernels round like their plain
 # PyTorch versions (see the notes at the top of each source)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -100,6 +102,7 @@ _ENTRIES = {
     "gru_f32": {"woft_gru_update_f32": [_P] * 7 + [_I] * 5 + [_P]},
     "update_tail": {"woft_motion_encoder_tail": [_P] * 11 + [_I, _I, _P]},
     "flow_head": {"woft_flow_head": [_P] * 6 + [_I, _I, _P]},
+    "weight_head": {"woft_weight_head": [_P, _I, _P, _P, _P, _P, _I, _P]},
 }
 _entries = {}
 
@@ -196,7 +199,7 @@ def _stream():
 
 def require_no_grad(kernel, *tensors):
     """Raise when autograd would record one of ``tensors`` through
-    ``kernel``, a kernel with no backward (A, F, G, H, I; none has one in
+    ``kernel``, a kernel with no backward (A, F, G, H, I, J; none has one in
     the JAX package either): its output would carry no graph, and the
     gradient would be lost without an error. Checked before the device
     dispatch, so the CPU path refuses the same calls."""
@@ -934,3 +937,44 @@ def flow_head(net, w1, b1, w2, b2):
 
 
 flow_head.launches = 0
+
+
+HEAD_TAP_ROWS = 19 * 128        # kernel J's tap blocks of 128 output rows
+
+
+def weight_head(corr, mean, taps, consts):
+    """Kernel J: the weight head's logits of M rows in bf16 mode.
+
+    corr (M, 324) float32 or bf16 CUDA, a row's lookup in the dense
+    lookup's channel order; mean (M,) float32, its mean response; taps
+    (19 * 128, 128) bf16 and consts (513,) float32 from
+    ``models/weight_head.py:head_params``. Returns the (M,) float32 logits;
+    the rounding points are ``models/weight_head.py:weight_head_plain``'s."""
+    if corr.device.type != "cuda":
+        raise ValueError("weight_head takes CUDA tensors")
+    if corr.dim() != 2 or corr.shape[1] != 324 or corr.shape[0] == 0:
+        raise ValueError(f"corr must be a non-empty (M, 324), got "
+                         f"{tuple(corr.shape)}")
+    if corr.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"corr must be float32 or bfloat16, got {corr.dtype}")
+    device, M = corr.device, corr.shape[0]
+    if M >= 2 ** 31:
+        raise ValueError("the kernel takes fewer than 2^31 rows")
+    _check_tensor(corr, "corr", corr.dtype, device)
+    _check_tensor(mean, "mean", torch.float32, device)
+    if tuple(mean.shape) != (M,):
+        raise ValueError(f"mean must be ({M},), got {tuple(mean.shape)}")
+    _check_operand(taps, "taps", torch.bfloat16, device, (HEAD_TAP_ROWS, 128))
+    _check_operand(consts, "consts", torch.float32, device, (4 * 128 + 1,))
+    out = torch.empty(M, dtype=torch.float32, device=device)
+    fn = _entry("weight_head")
+    with _current(device):
+        rc = fn(corr.data_ptr(), int(corr.dtype == torch.bfloat16),
+                mean.data_ptr(), taps.data_ptr(), consts.data_ptr(),
+                out.data_ptr(), M, _stream())
+    _raise_on_error(rc, "weight_head")
+    weight_head.launches += 1
+    return out
+
+
+weight_head.launches = 0
