@@ -1228,9 +1228,8 @@ def update_case(dev):
                 flo1=torch.relu(randn(128)).bfloat16(), flow=3.0 * randn(2),
                 ub=ub)
     with layers.precision_scope("bf16"), torch.no_grad():
-        case["fused"] = traft.precompute_gru_context(ub.gru, inp, 128,
-                                                     fused=True)
-        case["unfused"] = traft.precompute_gru_context(ub.gru, inp, 128)
+        case["fused"] = update.LoopRoute("bf16").context(ub.gru, inp)
+        case["unfused"] = update.LoopRoute("unfused").context(ub.gru, inp)
     case["h"], case["x"] = update.nhwc(net), update.nhwc(case["motion"])
     case["head"] = update.flow_head_params(ub.flow_head)
     return case
@@ -1243,7 +1242,6 @@ def check_update_kernels(kernels, dev):
     same function: several cuDNN and elementwise calls, not one. Each is
     also printed beside its time before the redesign."""
     from woft_tpu_torch.models import layers, update
-    from woft_tpu_torch.models import raft as traft
 
     case = update_case(dev)
     px = (H_IMG // 8) * (W_IMG // 8)
@@ -1297,8 +1295,9 @@ def check_update_kernels(kernels, dev):
             f"G [{axis}]", (got - want).abs(), allowed,
             lambda: kernels.fused_gru_update(h, x, *args),
             lambda: update.gru_update_plain(h, x, *args),
-            lambda: traft._sep_conv_gru(net, motion, unfused[d:d + 1]),
-            bnd, by, "one unfused _sep_conv_gru direction (~20 calls)",
+            lambda: update.LoopRoute("unfused").sep_conv_gru(
+                net, motion, unfused[d:d + 1]),
+            bnd, by, "one unfused SepConvGRU direction (~20 calls)",
             parent_ms=PARENT_GRU_MS[axis]))
     # the main path launches each direction once an iteration: one row with
     # the mean of the two
@@ -1316,8 +1315,8 @@ def check_update_kernels(kernels, dev):
         inp32 = torch.relu(torch.randn(net.shape, device=dev,
                                        generator=torch.Generator(
                                            device=dev).manual_seed(12)))
-        f32 = traft.precompute_gru_context_f32(ub.gru, inp32, 128)
-        unfused32 = traft.precompute_gru_context(ub.gru, inp32, 128)
+        f32 = update.LoopRoute("f32").context(ub.gru, inp32)
+        unfused32 = update.LoopRoute("unfused").context(ub.gru, inp32)
     per_dir = []
     for d, args in enumerate(f32):
         axis = args[-1]
@@ -1331,8 +1330,9 @@ def check_update_kernels(kernels, dev):
             torch.full_like(want, GRU_F32_TOL),
             lambda: kernels.fused_gru_update_f32(h, x32, *args),
             lambda: update.gru_update_f32_plain(h, x32, *args),
-            lambda: traft._sep_conv_gru(net, motion32, unfused32[d:d + 1]),
-            bnd, by, "one unfused float32 _sep_conv_gru direction (~14 "
+            lambda: update.LoopRoute("unfused").sep_conv_gru(
+                net, motion32, unfused32[d:d + 1]),
+            bnd, by, "one unfused float32 SepConvGRU direction (~14 "
             "calls)", max_share=1.0, precision="highest"))
         per_dir[-1]["axis"] = axis
     rows["G (float32)"] = dict(per_dir[0], per_direction=per_dir,

@@ -225,14 +225,14 @@ def test_default_and_bf16_store_the_pyramid_in_bf16(weighted, frames):
     model, _ = weighted
     img1, img2 = frames
     seen = []
-    real = traft.corr_pyramid_fused
+    real = tcorr.corr_pyramid
 
     def spy(*a, **kw):
-        pyramid, mr = real(*a, **kw)
+        pyramid = real(*a, **kw)
         seen.append(pyramid[0].dtype)
-        return pyramid, mr
+        return pyramid
 
-    traft.corr_pyramid_fused = spy
+    tcorr.corr_pyramid = spy
     try:
         for precision in ("highest", "default", "bf16"):
             cfg = traft.RaftConfig(iters=1, precision=precision)
@@ -241,7 +241,7 @@ def test_default_and_bf16_store_the_pyramid_in_bf16(weighted, frames):
             assert out["weight_head_at"](torch.arange(6)).dtype == \
                 torch.float32
     finally:
-        traft.corr_pyramid_fused = real
+        tcorr.corr_pyramid = real
     assert seen == [torch.float32, torch.bfloat16, torch.bfloat16]
 
 

@@ -898,7 +898,7 @@ def _gru_f32_args(dev, ub, hw, seed):
                  for _ in range(3))
     h, x, inp = torch.tanh(h), torch.relu(x), torch.relu(inp)
     with layers.precision_scope("highest"), torch.no_grad():
-        pre = traft.precompute_gru_context_f32(ub.gru, inp, 128)
+        pre = update.LoopRoute("f32").context(ub.gru, inp)
     return update.nhwc(h), update.nhwc(x), pre
 
 
@@ -933,7 +933,7 @@ def test_gru_f32_kernel_border(dev, update_block_f32):
     x[0, -1, -1] = 1.0
     inp = torch.ones(1, 128, *hw, device=dev)
     with layers.precision_scope("highest"), torch.no_grad():
-        pre = traft.precompute_gru_context_f32(update_block_f32.gru, inp, 128)
+        pre = update.LoopRoute("f32").context(update_block_f32.gru, inp)
         for args in pre:
             got = update.gru_update_f32(h, x, *args)
             want = update.gru_update_f32_plain(h, x, *args)
@@ -971,7 +971,8 @@ def test_woft_step_720p_runs_the_float32_gru(dev, monkeypatch):
     H, flows, n = step()
     assert n == 24 * flows
     with monkeypatch.context() as m:
-        m.setattr(traft, "_gru_route", lambda *a, **k: False)
+        m.setattr(update, "loop_route",
+                  lambda *a, **k: update.LoopRoute("unfused"))
         H_unfused, _, n_unfused = step()
     assert n_unfused == 0
     assert chip_smoke.h_diff_px(H, H_unfused, corners) <= 1e-3
@@ -1214,8 +1215,7 @@ def test_fused_motion_encoder_module(dev, update_block):
 
 
 def _launches():
-    return {fn.__name__: fn.launches for fn in vars(kernels).values()
-            if callable(fn) and isinstance(getattr(fn, "launches", None), int)}
+    return {fn.__name__: n for fn, n in kernels.launch_counters().items()}
 
 
 @pytest.mark.parametrize("precision", ["bf16", "highest"])

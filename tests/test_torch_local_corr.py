@@ -27,7 +27,6 @@ from woft_tpu.models import corr as jcorr
 from woft_tpu.ops.pallas import local_corr as plc
 from woft_tpu.ops.pallas import local_lookup as pll
 from woft_tpu_torch.models import corr as tcorr
-from woft_tpu_torch.models import raft as traft
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -548,9 +547,9 @@ def test_blocked_convc1_equals_natural_conv(volumes):
         convc1.bias.copy_(torch.randn(256, generator=gen))
         blocked = tcorr.corr_lookup_local_blocked(
             vt, torch.from_numpy(smooth_coords(16, 32)), RADIUS)
-        got = traft._corr_conv1(convc1, blocked)
-        want = traft._corr_conv1(convc1,
-                                 blocked.to_natural().permute(0, 3, 1, 2))
+        got = tcorr.lookup_conv1x1(blocked, convc1.weight, convc1.bias)
+        want = tcorr.lookup_conv1x1(blocked.to_natural().permute(0, 3, 1, 2),
+                                    convc1.weight, convc1.bias)
     assert tuple(got.shape) == (1, 256, 16, 32)
     # one 243-term float32 sum in two orders
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4, rtol=0)

@@ -21,6 +21,8 @@ from the port's by 1e-4 to 1e-3; with that option off, 3 % differ, by 5e-7
 in the mean.
 """
 
+import dataclasses
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -121,17 +123,18 @@ def _gru_three_ways(tree, h, x, inp):
         pallas = np.asarray(sep_conv_gru_pallas(p, hj, xj, pre,
                                                 interpret=True))
     gru = _load(traft.SepConvGRU(128, 256), tree)
+    route = update.LoopRoute("bf16")
     with layers.precision_scope("bf16"), torch.no_grad():
-        tpre = traft.precompute_gru_context(gru, _nchw(inp), 128, fused=True)
-        port = traft._sep_conv_gru(_nchw(h), _nchw(x, torch.bfloat16), tpre,
-                                   fused=True)
+        tpre = route.context(gru, _nchw(inp))
+        port = route.sep_conv_gru(_nchw(h), _nchw(x, torch.bfloat16), tpre)
     assert port.dtype == torch.float32
     return oracle, xla, pallas, _nhwc_np(port)
 
 
 @pytest.mark.parametrize("H,W", [(16, 32), (19, 28), (2, 61), (11, 15)])
 def test_gru_plain_matches_pallas(H, W):
-    """Both directions through ``_sep_conv_gru(fused=True)``. Observed:
+    """Both directions through the bf16 route's
+    ``LoopRoute.sep_conv_gru``. Observed:
     e_xla 4.2e-3, e_port 3.9e-3, mean|port - pallas| 7.5e-4, largest single
     difference 0.105 (a gate whose rounding fell the other way in the first
     direction, on a state near 4)."""
@@ -366,9 +369,8 @@ def test_fused_paths_refuse_float32_mode():
             enc(torch.zeros(1, 2, 8, 8), torch.zeros(1, 324, 8, 8),
                 fused=True)
         with pytest.raises(ValueError):
-            traft.precompute_gru_context(traft.SepConvGRU(128, 256),
-                                         torch.zeros(1, 128, 8, 8), 128,
-                                         fused=True)
+            update.LoopRoute("bf16").context(traft.SepConvGRU(128, 256),
+                                             torch.zeros(1, 128, 8, 8))
 
 
 def test_a_cuda_tensor_never_takes_a_plain_version():
@@ -422,11 +424,12 @@ def _f32_case(seed, H, W):
 def _f32_directions(gru, h, x, inp):
     """Each direction's unfused step and float32-form step from the same
     state, as (axis, unfused, float32 form) NCHW tensors."""
+    unfused, f32 = update.LoopRoute("unfused"), update.LoopRoute("f32")
     with layers.precision_scope("highest"), torch.no_grad():
-        unfused = traft.precompute_gru_context(gru, inp, 128)
-        f32 = traft.precompute_gru_context_f32(gru, inp, 128)
-        return [(f32[d][-1], traft._sep_conv_gru(h, x, unfused[d:d + 1]),
-                 traft._sep_conv_gru(h, x, f32[d:d + 1], fused="f32"))
+        pre = unfused.context(gru, inp)
+        pre32 = f32.context(gru, inp)
+        return [(pre32[d][-1], unfused.sep_conv_gru(h, x, pre[d:d + 1]),
+                 f32.sep_conv_gru(h, x, pre32[d:d + 1]))
                 for d in range(2)]
 
 
@@ -481,7 +484,7 @@ def test_gru_f32_taps_layout():
 
 class _RouteSpy:
     """Counts the calls of the two fused GRU steps of ``models/update.py``
-    (``models/raft.py`` reaches them through the module at call time)."""
+    (``LoopRoute`` reaches them through the module at call time)."""
 
     def __init__(self, monkeypatch):
         self.calls = {"gru_update_f32": 0, "gru_update": 0}
@@ -497,9 +500,17 @@ class _RouteSpy:
 
 
 def _forced_unfused(monkeypatch, run):
-    """``run()`` with the unfused route forced, the route restored after."""
+    """``run()`` with the SepConvGRU's unfused route forced (RAFT-small
+    keeps its own block), the route restored after."""
+    route = update.loop_route
+
+    def unfused(*args):
+        r = route(*args)
+        return r if r.gru == "small" else dataclasses.replace(r,
+                                                              gru="unfused")
+
     with monkeypatch.context() as m:
-        m.setattr(traft, "_gru_route", lambda *a, **k: False)
+        m.setattr(update, "loop_route", unfused)
         return run()
 
 
@@ -599,5 +610,5 @@ def test_gru_f32_wrappers_refuse_and_dispatch():
         update.gru_update_f32(h.clone().requires_grad_(), *args[1:])
     assert update.gru_update_f32(*args).shape == h.shape
     with layers.precision_scope("bf16"), pytest.raises(ValueError):
-        traft.precompute_gru_context_f32(traft.SepConvGRU(128, 256),
-                                         torch.zeros(1, 128, 4, 6), 128)
+        update.LoopRoute("f32").context(traft.SepConvGRU(128, 256),
+                                        torch.zeros(1, 128, 4, 6))

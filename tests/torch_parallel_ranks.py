@@ -108,8 +108,8 @@ def sp_rank(rank, world, device, inputs):
     g = torch.Generator().manual_seed(7)
     f1 = torch.randn(1, 6, 20, 32, generator=g)
     f2 = torch.randn(1, 6, 20, 32, generator=g)
-    shard = CorrShard(mesh)
-    pyr, _ = shard.pyramid(f1, f2, 4)
+    columns = CorrShard(mesh).dense(3, 4)
+    pyr, _ = columns.build(f1, f2)
     whole, _ = tcorr.corr_pyramid_fused(f1, f2, 4)
     coords = (torch.stack(torch.meshgrid(
         torch.arange(20.0), torch.arange(6.0), indexing="xy"), -1)[None]
@@ -118,9 +118,9 @@ def sp_rank(rank, world, device, inputs):
     c_cells = coords.reshape(-1, 2)[cells][None, None].contiguous()
     out["lookup"] = dict(
         levels=len(pyr.levels),
-        dense=_np(shard.lookup(pyr, coords, 3)
+        dense=_np(columns.lookup_natural(coords)
                   - tcorr.corr_lookup(whole, coords, 3)),
-        indexed=_np(shard.lookup(pyr, c_cells, 3, rows=cells)
+        indexed=_np(columns.rows_at(coords)(cells)
                     - tcorr.corr_lookup(whole, c_cells, 3, rows=cells)))
     for form in ("dense", "local"):
         p = inputs[form]

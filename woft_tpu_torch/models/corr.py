@@ -67,6 +67,7 @@ import torch.nn.functional as F
 
 from ..ops import kernels
 from ..ops.warp import avg_pool2d
+from ..utils.profiling import span
 from . import layers
 
 
@@ -88,14 +89,20 @@ def corr_mean_response(fmap1, fmap2):
 
 
 def corr_pyramid_fused(fmap1, fmap2, num_levels=4, out_dtype=None):
+    """Correlation pyramid straight from pooled feature maps, and the mean
+    response: (``corr_pyramid``, ``corr_mean_response``)."""
+    return (corr_pyramid(fmap1, fmap2, num_levels, out_dtype),
+            corr_mean_response(fmap1, fmap2))
+
+
+def corr_pyramid(fmap1, fmap2, num_levels=4, out_dtype=None):
     """Correlation pyramid straight from pooled feature maps.
 
     Each level is computed and scaled in float32 from float32 features
     (level l+1 pools the float32 features of level l) and then stored in
     ``out_dtype`` (None: float32; ``torch.bfloat16`` rounds each level
     once, as the reference does in its 'bf16' and 'default' modes).
-    Returns (pyramid [(B*H*W, Hl, Wl) per level], mean_response (B, H, W)
-    float32)."""
+    Returns [(B*H*W, Hl, Wl) per level]."""
     B, H, W, D = fmap1.shape
     scale = 1.0 / math.sqrt(D)
     f1 = fmap1.reshape(B, H * W, D)
@@ -108,7 +115,7 @@ def corr_pyramid_fused(fmap1, fmap2, num_levels=4, out_dtype=None):
         pyramid.append(corr.to(out_dtype or torch.float32))
         if lvl + 1 < num_levels:
             lv = avg_pool2d(lv)
-    return pyramid, corr_mean_response(fmap1, fmap2)
+    return pyramid
 
 
 def _lookup_level_plain(corr_l, coords, radius, rows):
@@ -528,7 +535,7 @@ def block_local_corr(f1b, f2, d, nbh, nbw, out_dtype, b0=0):
 
 
 def build_local_corr(fmap1, fmap2, radius=4, num_levels=4, margin=16,
-                     out_dtype=None):
+                     out_dtype=None, blocks=None):
     """Block-local recentred correlation pyramid (p layout).
 
     Equal to the all-pairs pyramid's lookups (zero borders included) for
@@ -539,21 +546,25 @@ def build_local_corr(fmap1, fmap2, radius=4, num_levels=4, margin=16,
     rounds the features entering each level's product and the stored
     volume to bf16 (float32 accumulation); levels are pooled from float32
     features. All levels are pooled and cast first, then built by one call
-    (one launch on the card). Returns ``LocalCorrVolumes``."""
+    (one launch on the card). ``blocks``: None (the whole grid) or a
+    function of the grid's block count -> (b0, b1), the band of blocks to
+    build (a spatially sharded forward's, ``parallel/sharding.py``).
+    Returns ``LocalCorrVolumes``."""
     B, H1, W1, D = fmap1.shape
     if B != 1:
         raise ValueError("the block-local volume takes one frame pair")
     meta = _local_layout(H1, W1, radius, num_levels, margin)
     nbh, nbw = meta["nbh"], meta["nbw"]
+    b0, b1 = (0, nbh * nbw) if blocks is None else blocks(nbh * nbw)
     vol_dtype = out_dtype or torch.float32
     f1b = _to_blocked(fmap1.reshape(H1 * W1, D), meta)
-    f1b = f1b.reshape(nbh * nbw, -1, D).to(vol_dtype).contiguous()
+    f1b = f1b.reshape(nbh * nbw, -1, D)[b0:b1].to(vol_dtype).contiguous()
     levels = [fmap2]
     while len(levels) < num_levels:
         levels.append(avg_pool2d(levels[-1]))
     levels = [lv[0].to(vol_dtype).contiguous() for lv in levels]
     return LocalCorrVolumes(block_local_corr_levels(
-        f1b, levels, meta["levels"], nbh, nbw, vol_dtype), meta)
+        f1b, levels, meta["levels"], nbh, nbw, vol_dtype, b0), meta, b0)
 
 
 # ---------------------------------------------------------------------------
@@ -697,15 +708,44 @@ def block_local_lookup(vol, starts, frac, k, flag=None, out=None, channel=0):
 class BlockedCorr:
     """Lookup output in blocked channel-major form: ``data`` (NB, L*k*k,
     BQ), channel ``l*k*k + j*k + i`` (y-major within a level, the transpose
-    of the dense lookup's order). The motion encoder folds the (j, i) swap
-    into its weights (``models/raft.py:_corr_conv1``); ``to_natural`` pays
-    the transpose for consumers that need the dense layout."""
+    of the dense lookup's order). The motion encoder's ``convc1`` folds the
+    (j, i) swap into its weights (``conv1x1``); ``to_natural`` pays the
+    transpose for consumers that need the dense layout."""
 
     def __init__(self, data, meta, levels, k):
         self.data = data
         self.meta = meta
         self.levels = levels
         self.k = k
+
+    def conv1x1(self, weight, bias):
+        """A 1x1 convolution of the lookup, (co, L*k*k, 1, 1) ``weight`` ->
+        (1, co, H1, W1), under the precision scope.
+
+        The convolution is 1x1 and the only consumer of the raw lookup
+        channels, so both the relayout and the (j, i) -> (i, j) swap fold
+        into one matmul: the weight's input channels are permuted (exact:
+        every output channel is its own sum) and only the co-channel result
+        is laid out spatially."""
+        sd = layers.get_compute_dtype()
+        L, k = self.levels, self.k
+        co = weight.shape[0]
+        wv = (weight.reshape(co, L, k, k).permute(0, 1, 3, 2)   # (l, i, j)
+              .reshape(co, L * k * k))                          # -> (l, j, i)
+        data = self.data
+        if sd is not None:
+            data, wv, bias = data.to(sd), wv.to(sd), bias.to(sd)
+        else:
+            data = data.float()
+        nb, C, bq = data.shape
+        out = torch.baddbmm(bias.reshape(1, co, 1), wv.expand(nb, co, C),
+                            data)
+        meta = self.meta
+        out = out.reshape(meta["nbh"], meta["nbw"], co, meta["bh"],
+                          meta["bw"])
+        out = out.permute(2, 0, 3, 1, 4).reshape(
+            co, meta["nbh"] * meta["bh"], meta["nbw"] * meta["bw"])
+        return out[None, :, :meta["H1"], :meta["W1"]]
 
     def to_natural(self):
         """-> (1, H1, W1, L*k*k) in the dense lookup's order c = i*k + j."""
@@ -906,3 +946,195 @@ def corr_lookup_local(local, coords, radius=4, fine=True):
     layout: (1, H1, W1, L*(2r+1)^2)."""
     return corr_lookup_local_blocked(local, coords, radius,
                                      fine=fine).to_natural()
+
+
+def lookup_conv1x1(corr, weight, bias):
+    """A 1x1 convolution (the motion encoder's ``convc1``) of a loop lookup
+    (``Correlation.lookup``), under the precision scope: a natural (B,
+    L*k*k, H1, W1) lookup or a ``BlockedCorr`` -> (B, co, H1, W1)."""
+    if isinstance(corr, BlockedCorr):
+        return corr.conv1x1(weight, bias)
+    # 'default' mode: a bf16 lookup enters a float32 convolution
+    return layers.conv2d(corr if layers.get_compute_dtype() else corr.float(),
+                         weight, bias)
+
+
+# ---------------------------------------------------------------------------
+# one forward's correlation: the kinds and their factory
+# ---------------------------------------------------------------------------
+
+class Correlation:
+    """One forward's correlation volume and its window lookups, the seam
+    between ``models/raft.py:_raft_forward`` and the volume's format: one
+    implementation a kind (``DenseCorr``, ``BlockLocalCorr``,
+    ``AlternateCorr``; ``parallel/sharding.py`` adds the sharded two),
+    picked by ``make_correlation``. ``build`` (or ``build_volume``, then
+    ``mean_response``) first; the lookups read ``volume``. Coordinates are
+    (B, H1, W1, 2) level-0 (x, y) centroids of the queries.
+
+    graphable: the build and the loop's lookups may be captured in one CUDA
+        graph (``models/loop_graph.py``): no host sync, no collective and
+        no tensor made from host numbers a call.
+    """
+
+    graphable = False
+
+    def __init__(self, radius, num_levels):
+        self.radius = radius
+        self.num_levels = num_levels
+        self.volume = None
+
+    def build_volume(self, f1, f2):
+        """The volume of (B, H1, W1, D) features, kept as ``volume`` and
+        returned."""
+        raise NotImplementedError
+
+    def mean_response(self, f1, f2):
+        """Mean of each query's level-0 row (``corr_mean_response``)."""
+        return corr_mean_response(f1, f2)
+
+    def build(self, f1, f2):
+        """(volume, mean_response (B, H1, W1)): the volume first."""
+        return self.build_volume(f1, f2), self.mean_response(f1, f2)
+
+    def lookup(self, coords):
+        """The refinement loop's lookup: what ``lookup_conv1x1`` takes,
+        here the natural lookup laid out (B, L*k*k, H1, W1)."""
+        return self.lookup_natural(coords).permute(0, 3, 1, 2)
+
+    def lookup_natural(self, coords):
+        """(B, H1, W1, L*(2r+1)^2) float32 (bf16 from a bf16 block-local
+        volume), the dense lookup's channel order."""
+        raise NotImplementedError
+
+    def rows_at(self, coords):
+        """The sparse weight head's reader at the final coordinates:
+        ``rows(cells)``, (M,) int64 cells ``b*H1*W1 + cell`` -> (M,
+        L*(2r+1)^2) rows of ``lookup_natural(coords)``."""
+        raise NotImplementedError
+
+
+class DenseCorr(Correlation):
+    """The all-pairs pyramid (``corr_pyramid``, levels of ``out_dtype``),
+    looked up by kernel B; the sparse head reads its cells' rows in
+    place."""
+
+    def __init__(self, radius, num_levels, out_dtype=None):
+        super().__init__(radius, num_levels)
+        self.out_dtype = out_dtype
+
+    def build_volume(self, f1, f2):
+        self.volume = corr_pyramid(f1, f2, self.num_levels, self.out_dtype)
+        return self.volume
+
+    def _lookup(self, coords, rows=None):
+        return corr_lookup(self.volume, coords, self.radius, rows)
+
+    def lookup_natural(self, coords):
+        return self._lookup(coords)
+
+    def rows_at(self, coords):
+        flat = coords.reshape(-1, 2)
+
+        def rows(cells):
+            # pyramid row b*H1*W1 + cell holds batch element b's cell
+            return self._lookup(flat[cells][None, None], cells)[0, 0]
+
+        return rows
+
+
+class AlternateCorr(Correlation):
+    """No stored volume (``RaftConfig.alternate_corr``): each lookup is
+    computed from the features, ``chunk`` queries at a time
+    (``corr_lookup_alternate``); ``volume`` is the pair of feature maps."""
+
+    def __init__(self, radius, num_levels, chunk):
+        super().__init__(radius, num_levels)
+        self.chunk = chunk
+
+    def build_volume(self, f1, f2):
+        self.volume = (f1, f2)
+        return self.volume
+
+    def lookup_natural(self, coords):
+        f1, f2 = self.volume
+        return corr_lookup_alternate(
+            f1, f2, coords, self.radius, self.num_levels,
+            chunk=min(self.chunk, coords.numel() // 2))
+
+    def rows_at(self, coords):
+        f1, f2 = self.volume
+        B, H1, W1, D = f1.shape
+        f1, flat = f1.reshape(B * H1 * W1, D), coords.reshape(-1, 2)
+
+        def rows(cells):
+            return corr_lookup_alternate(
+                f1[cells][None, None], f2, flat[cells][None, None],
+                self.radius, self.num_levels,
+                chunk=min(self.chunk, cells.shape[0]),
+                batch=cells // (H1 * W1))[0, 0]
+
+        return rows
+
+
+class BlockLocalCorr(Correlation):
+    """The block-local volume of one frame pair (``build_local_corr``:
+    kernel C), looked up by kernels D and E in blocked form
+    (``corr_lookup_local_blocked``), which ``convc1`` consumes directly
+    (``BlockedCorr.conv1x1``). The loop's lookups rewrite blocks that left
+    their fine windows when ``fine_check``; the natural lookup always
+    does."""
+
+    graphable = True
+
+    def __init__(self, radius, num_levels, margin, fine_check=True,
+                 out_dtype=None):
+        super().__init__(radius, num_levels)
+        self.margin = margin
+        self.fine_check = fine_check
+        self.out_dtype = out_dtype
+
+    def build_volume(self, f1, f2):
+        self.volume = build_local_corr(f1, f2, self.radius, self.num_levels,
+                                       self.margin, self.out_dtype)
+        return self.volume
+
+    def blocked(self, coords, check=True):
+        """The guarded lookup -> ``BlockedCorr``."""
+        return corr_lookup_local_blocked(self.volume, coords, self.radius,
+                                         check=check)
+
+    def lookup(self, coords):
+        return self.blocked(coords, self.fine_check)
+
+    def lookup_natural(self, coords):
+        return self.blocked(coords).to_natural()
+
+    def rows_at(self, coords):
+        # queries are minor in the block-local volume, so per-cell reads
+        # would be strided: one natural lookup at the final coordinates,
+        # now (the weight head's stage), then a row select a call
+        with span("woft.weight_head", coords.device):
+            flat = self.lookup_natural(coords).flatten(0, 2)
+
+        def rows(cells):
+            return flat[cells]
+
+        return rows
+
+
+def make_correlation(cfg, batch, shard=None):
+    """The correlation kind of a forward of ``batch`` frame pairs under the
+    ``RaftConfig`` ``cfg``: ``alternate_corr`` first; ``corr_impl='local'``
+    for one frame pair; the dense pyramid otherwise. ``shard``
+    (``parallel/sharding.py:CorrShard``) spreads the pyramid or the
+    block-local volume over its ``sp`` ranks."""
+    if cfg.alternate_corr:
+        return AlternateCorr(cfg.radius, cfg.corr_levels, cfg.alt_chunk)
+    if cfg.corr_impl == "local" and batch == 1:
+        args = (cfg.radius, cfg.corr_levels, cfg.local_margin,
+                cfg.fine_check, cfg.volume_dtype)
+        return (BlockLocalCorr(*args) if shard is None
+                else shard.block_local(*args))
+    args = (cfg.radius, cfg.corr_levels, cfg.volume_dtype)
+    return DenseCorr(*args) if shard is None else shard.dense(*args)

@@ -89,6 +89,21 @@ def precision_scope(precision):
         _COMPUTE_DTYPE, _ROUNDED = prev
 
 
+@contextlib.contextmanager
+def fresh_pass():
+    """A new pass inside the current precision scope: the weights rounded
+    and the layouts made once a pass (``once_per_pass``) are made anew by
+    the enclosed code, and the outer pass's come back after it (a CUDA
+    graph's capture makes its own, on the graph's memory)."""
+    global _ROUNDED
+    prev = _ROUNDED
+    _ROUNDED = {}
+    try:
+        yield
+    finally:
+        _ROUNDED = prev
+
+
 def get_compute_dtype():
     """torch.bfloat16 in bf16 mode, else None."""
     return _COMPUTE_DTYPE

@@ -34,13 +34,6 @@ MAX_GRAPHS = 4          # graphs kept a model; the oldest is dropped first
 _graphs = weakref.WeakKeyDictionary()     # model -> OrderedDict(key -> entry)
 
 
-def _counters():
-    """The launch counters of the kernel wrappers: {wrapper: launches}."""
-    return {fn: fn.launches for fn in vars(kernels).values()
-            if callable(fn) and isinstance(getattr(fn, "launches", None),
-                                           int)}
-
-
 class _Entry:
     __slots__ = ("graph", "inputs", "outputs", "launches")
 
@@ -50,15 +43,14 @@ def _capture(fn, inputs):
     entry = _Entry()
     entry.inputs = tuple(t.clone() for t in inputs)
     entry.graph = torch.cuda.CUDAGraph()
-    before = _counters()
-    rounded = layers._ROUNDED
-    layers._ROUNDED = {}        # rounded weights are made inside the graph
+    before = kernels.launch_counters()
     try:
-        with torch.cuda.graph(entry.graph, capture_error_mode="thread_local"):
+        # rounded weights are made inside the graph
+        with layers.fresh_pass(), torch.cuda.graph(
+                entry.graph, capture_error_mode="thread_local"):
             entry.outputs = fn(*entry.inputs)
     finally:
-        layers._ROUNDED = rounded
-        after = _counters()
+        after = kernels.launch_counters()
         for wrapper, n in before.items():
             wrapper.launches = n
     entry.launches = {w: after[w] - n for w, n in before.items()

@@ -9,23 +9,34 @@ reliability weights), 'orig' (RAFT: flow only) and 'weighted_masked'
 (weights and a visibility mask from ``mask_head`` over the template
 features and the current features sampled at the flow's end points).
 
+The forward reads encode -> correlation -> refine -> upsample -> heads, and
+leaves two decisions to a module each, made once a forward:
+
+- the correlation (``models/corr.py:make_correlation``, a ``Correlation``):
+  the all-pairs pyramid built from pooled features and looked up 12x per
+  flow by kernel B; no stored volume, each lookup computed from the
+  features (plain PyTorch, as the reference's is XLA); or, for one frame
+  pair, the block-local volume built by kernel C and looked up by kernels
+  D and E in blocked form, which the motion encoder's 1x1 ``convc1``
+  consumes directly (``corr.lookup_conv1x1``); the pyramid and the
+  block-local volume also spread over ranks (``parallel/sharding.py``);
+- the refinement loop's route (``models/update.py:loop_route``, a
+  ``LoopRoute``): the SepConvGRU unfused, as kernel G's float32 form (every
+  'highest' forward of RAFT-large on one frame pair with no gradient
+  through the update block, no flag) or as the bf16 kernel G, the flow head
+  as kernel I or not, or RAFT-small's own block. Its loop-invariant context
+  (``inp``'s part of the SepConvGRU's convolutions) is computed once per
+  frame (``LoopRoute.context``; exact by conv linearity).
+
+Besides:
+
 - the template's features are encoded once per sequence
   (``encode_template``); per frame only the current frame is encoded,
-- ``corr_impl='dense'``: the correlation pyramid is built from pooled
-  features (``models/corr.py:corr_pyramid_fused``) and looked up 12x per
-  flow by kernel B; ``alternate_corr``: no pyramid, each lookup computed
-  from the features (``corr_lookup_alternate``, plain PyTorch, as the
-  reference's is XLA); ``corr_impl='local'`` (one frame pair): the block-local
-  volume is built by kernel C and looked up by kernels D and E in blocked
-  form, which the motion encoder's 1x1 ``convc1`` consumes directly
-  (``_corr_conv1``),
-- the loop-invariant context (``inp``) contribution to the SepConvGRU convs
-  is computed once per frame (``precompute_gru_context``; exact by conv
-  linearity), and the convex-upsample mask is computed after the loop from
-  the final hidden state (``mask_from_net``),
+- the convex-upsample mask is computed after the loop from the final
+  hidden state (``mask_from_net``),
 - ``sparse_weight_head=True`` defers the weight head to a closure
-  ``weight_head_at(cells)`` that evaluates the same logits at M cells only,
-  reading their pyramid rows in place.
+  ``weight_head_at(cells)`` that evaluates the same logits at M cells only
+  (``Correlation.rows_at``: the pyramid's rows read in place).
 - the forward's stages run inside the program's spans
   (``utils/profiling.py``; off unless a profiler records or
   ``recording()`` is open): ``woft.flow.encode``, ``woft.flow.volume``,
@@ -58,17 +69,6 @@ block-local volume.
 ``training/train.py``); ``weighted_raft_forward`` and ``encode_template``
 run under ``torch.no_grad``. ``RaftConfig.small`` is RAFT-small, the
 network of the training tests.
-
-The SepConvGRU's route by precision (``_gru_route``): in 'highest' every
-forward of RAFT-large on one frame pair that records no gradient through
-the update block runs each direction as one launch of kernel G's float32
-form (``models/update.py:gru_update_f32``: float32 FFMA, the unfused
-path's arithmetic in another summation order), with no flag; in 'bf16'
-``gru_fused`` / ``tail_fused`` (one frame pair) run the SepConvGRU and the
-flow head as one launch each of kernels G and I; 'default' (the TF32
-control), RAFT-small, a batch of pairs and a forward that trains the
-network keep the unfused path. On a fused route the GRU state lives
-channels-minor across the loop.
 """
 
 from dataclasses import dataclass
@@ -82,9 +82,7 @@ from ..ops import kernels
 from ..ops.warp import coords_grid, grid_sample, upflow8
 from ..utils.profiling import span
 from . import layers, loop_graph
-from .corr import (BlockedCorr, build_local_corr, corr_lookup,
-                   corr_lookup_alternate, corr_lookup_local_blocked,
-                   corr_mean_response, corr_pyramid_fused)
+from .corr import lookup_conv1x1, make_correlation
 from .layers import conv, conv2d, init_conv_, norm_layer
 from . import update
 from . import weight_head as whead
@@ -287,7 +285,8 @@ class BasicMotionEncoder(nn.Module):
             kernels.require_no_grad("H (motion_encoder_tail)",
                                     *self.parameters())
         sd = layers.get_compute_dtype()
-        cor = _corr_conv1(self.convc1, corr)
+        cor = F.relu(lookup_conv1x1(corr, self.convc1.weight,
+                                    self.convc1.bias))
         flo = F.relu(conv(self.convf1, flow, sd))
         if fused:
             update.require_bf16_mode("the fused motion encoder")
@@ -314,46 +313,12 @@ class SmallMotionEncoder(nn.Module):
 
     def forward(self, flow, corr):
         sd = layers.get_compute_dtype()
-        cor = _corr_conv1(self.convc1, corr)
+        cor = F.relu(lookup_conv1x1(corr, self.convc1.weight,
+                                    self.convc1.bias))
         flo = F.relu(conv(self.convf1, flow, sd))
         flo = F.relu(conv(self.convf2, flo, sd))
         out = F.relu(conv(self.conv, torch.cat([cor, flo], dim=1), sd))
         return torch.cat([out, flow.to(out.dtype)], dim=1)
-
-
-def _corr_conv1(convc1, corr):
-    """relu(convc1(corr)) for a natural (B, L*k*k, H1, W1) lookup or a
-    ``BlockedCorr``.
-
-    convc1 is 1x1 and the only consumer of the raw lookup channels, so for
-    a blocked lookup (NB, L*k*k, BQ), channels in (level, j, i) order, both
-    the relayout and the (j, i) -> (i, j) swap fold into one matmul: the
-    weight's input channels are permuted (exact: every output channel is
-    its own sum) and only the 256-channel result is laid out spatially."""
-    sd = layers.get_compute_dtype()
-    if not isinstance(corr, BlockedCorr):
-        # 'default' mode: a bf16 lookup enters a float32 convolution
-        return F.relu(conv(convc1, corr if sd else corr.float()))
-    L, k = corr.levels, corr.k
-    co = convc1.weight.shape[0]
-    wv = (convc1.weight.reshape(co, L, k, k).permute(0, 1, 3, 2)  # (l, i, j)
-          .reshape(co, L * k * k))                               # -> (l, j, i)
-    data, bias = corr.data, convc1.bias
-    if sd is not None:
-        data, wv, bias = data.to(sd), wv.to(sd), bias.to(sd)
-    else:
-        data = data.float()
-    nb, C, bq = data.shape
-    out = torch.baddbmm(bias.reshape(1, co, 1), wv.expand(nb, co, C), data)
-    meta = corr.meta
-    out = out.reshape(meta["nbh"], meta["nbw"], co, meta["bh"], meta["bw"])
-    out = out.permute(2, 0, 3, 1, 4).reshape(
-        co, meta["nbh"] * meta["bh"], meta["nbw"] * meta["bw"])
-    return F.relu(out[None, :, :meta["H1"], :meta["W1"]])
-
-
-_GRU_DIRS = (("convz1", "convr1", "convq1", (0, 2)),
-             ("convz2", "convr2", "convq2", (2, 0)))
 
 
 class SepConvGRU(nn.Module):
@@ -362,8 +327,8 @@ class SepConvGRU(nn.Module):
     def __init__(self, hidden_dim=128, input_dim=256):
         super().__init__()
         c = hidden_dim + input_dim
-        for names, ksize in ((_GRU_DIRS[0][:3], (1, 5)),
-                             (_GRU_DIRS[1][:3], (5, 1))):
+        for names, ksize in ((update.GRU_DIRS[0][:3], (1, 5)),
+                             (update.GRU_DIRS[1][:3], (5, 1))):
             pad = (ksize[0] // 2, ksize[1] // 2)
             for name in names:
                 setattr(self, name, nn.Conv2d(c, hidden_dim, ksize,
@@ -382,7 +347,7 @@ class ConvGRU(nn.Module):
     def forward(self, h, x):
         """One gated update of ``h`` by ``x`` = cat(inp, motion), z and r
         as one convolution; in bf16 mode the gates are bf16 and ``h``
-        stays float32, as in ``_sep_conv_gru``."""
+        stays float32, as in ``update.LoopRoute.sep_conv_gru``."""
         sd = layers.get_compute_dtype()
         C = h.shape[1]
         zr = conv2d(torch.cat([h.to(x.dtype), x], dim=1),
@@ -395,135 +360,6 @@ class ConvGRU(nn.Module):
                               self.convq.weight, self.convq.bias, padding=1,
                               out_dtype=sd))
         return (1 - z) * h + z * q
-
-
-def _gru_context(gru, inp, hd, names, pad, cast, sd):
-    """(zr_pre, q_pre): the ``inp`` rows of one direction's convolutions
-    ``names`` (z, r, q) convolved with ``inp`` (bias-free), z and r as one
-    convolution."""
-    ci = inp.shape[1]
-    wz, wr, wq = (getattr(gru, n).weight[:, hd:hd + ci] for n in names)
-    return (conv2d(inp, cast(torch.cat([wz, wr])), padding=pad,
-                   out_dtype=sd),
-            conv2d(inp, cast(wq), padding=pad, out_dtype=sd))
-
-
-def precompute_gru_context(gru, inp, hd, fused=False):
-    """Per-frame loop-invariant context terms of the SepConvGRU.
-
-    A convolution is linear in its input channels, so conv([h, inp, m]) =
-    conv_hm([h, m]) + conv_inp(inp): the ``inp`` rows are convolved once per
-    frame here (bias-free). Returns, per direction, (zr_pre, q_pre, w_zr,
-    b_zr, w_q, b_q, padding) — the context terms plus the recurrent
-    weights with the ``inp`` rows dropped and z, r fused into one conv.
-
-    ``fused`` (bf16 mode): the arguments of ``update.gru_update`` instead,
-    per direction (pre_zr, pre_q, wzr, wq, bzr, bq, axis): the same context
-    terms laid out channels-minor, the taps stacked tap-major (5, C_out,
-    256) and the biases in float32, all prepared here once per forward."""
-    if fused:
-        kernels.require_no_grad("G (fused_gru_update)", *gru.parameters())
-        update.require_bf16_mode("the fused SepConvGRU")
-    ci = inp.shape[1]
-    sd = layers.get_compute_dtype()
-    out = []
-
-    def cast(t):        # bf16 mode: round the derived weights once a frame
-        return t if sd is None else t.to(sd)
-
-    for kz, kr, kq, pad in _GRU_DIRS:
-        wz, wr, wq = (getattr(gru, n).weight for n in (kz, kr, kq))
-        bz, br, bq = (getattr(gru, n).bias for n in (kz, kr, kq))
-
-        def hm(w):
-            return torch.cat([w[:, :hd], w[:, hd + ci:]], dim=1)
-
-        zr_pre, q_pre = _gru_context(gru, inp, hd, (kz, kr, kq), pad, cast,
-                                     sd)
-        if fused:
-            w_zr, b_zr = update.gru_taps(gru, (kz, kr), hd, ci)
-            w_q, b_q = update.gru_taps(gru, (kq,), hd, ci)
-            out.append((update.nhwc(zr_pre), update.nhwc(q_pre), w_zr, w_q,
-                        b_zr, b_q, "w" if pad == (0, 2) else "h"))
-            continue
-        out.append((zr_pre, q_pre, cast(torch.cat([hm(wz), hm(wr)])),
-                    cast(torch.cat([bz, br])), cast(hm(wq)), cast(bq), pad))
-    return out
-
-
-def precompute_gru_context_f32(gru, inp, hd):
-    """``precompute_gru_context`` for kernel G's float32 form (float32
-    mode): per direction the arguments of ``update.gru_update_f32``,
-    (pre_zr, pre_q, w, b, axis): the same context terms laid out
-    channels-minor, the taps ``update.gru_taps_f32`` and the axis, all
-    prepared here once per forward."""
-    if layers.get_compute_dtype() is not None:
-        raise ValueError("kernel G's float32 form is a float32-mode path")
-    ci = inp.shape[1]
-    out = []
-    for kz, kr, kq, pad in _GRU_DIRS:
-        zr_pre, q_pre = _gru_context(gru, inp, hd, (kz, kr, kq), pad,
-                                     lambda t: t, None)
-        w, b = update.gru_taps_f32(gru, (kz, kr, kq), hd, ci)
-        out.append((update.nhwc(zr_pre), update.nhwc(q_pre), w, b,
-                    "w" if pad == (0, 2) else "h"))
-    return out
-
-
-def _gru_route(cfg, B, ub, *tensors):
-    """How the refinement loop runs its SepConvGRU, from what the forward
-    can observe: 'f32' (kernel G's float32 form) in float32 mode ('highest':
-    TF32 off) for RAFT-large on one frame pair when nothing it reads
-    records a gradient (``tensors``: the loop's inputs; and the update
-    block's parameters); True (the bf16 kernel G) under the opt-in
-    ``gru_fused`` in bf16 mode, one frame pair; False (the unfused path)
-    otherwise: 'default' (TF32 products), RAFT-small, a batch, a forward
-    that trains the network."""
-    if B != 1 or cfg.small:
-        return False
-    if layers.get_compute_dtype() == torch.bfloat16:
-        return cfg.gru_fused
-    if cfg.precision != "highest":
-        return False
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (*tensors, *ub.parameters())):
-        return False
-    return "f32"
-
-
-def _sep_conv_gru(h, x, pre, fused=False):
-    """One SepConvGRU update of hidden state ``h`` by motion features ``x``
-    with the hoisted context ``pre`` (``precompute_gru_context``). In bf16
-    mode the gates are bf16 and the state ``h`` stays float32: ``r * h``
-    and the convex blend are taken at the state's precision.
-
-    ``fused``: one kernel launch a direction, ``update.gru_update`` (True,
-    ``pre`` made with ``fused=True``: bf16 G) or ``update.gru_update_f32``
-    ('f32', ``pre`` from ``precompute_gru_context_f32``); ``h`` and ``x``
-    are re-laid channels-minor once per call. bf16 G's state is handed back
-    channels-minor in memory under its (B, C, H, W) shape, which costs no
-    copy; the float32 route copies it back to NCHW, since cuDNN's float32
-    flow and mask heads ran slower on a channels-last map (49.87 against
-    49.64 ms a 720p frame of ``WOFT.py``, in turns in one process)."""
-    if fused:
-        step = update.gru_update_f32 if fused == "f32" else update.gru_update
-        h, x = update.nhwc(h), update.nhwc(x)
-        for args in pre:
-            h = step(h, x, *args)
-        return _nchw(h).contiguous() if fused == "f32" else _nchw(h)
-    sd = layers.get_compute_dtype()
-    for zr_pre, q_pre, w_zr, b_zr, w_q, b_q, pad in pre:
-        zr = conv2d(torch.cat([h.to(x.dtype), x], dim=1), w_zr, b_zr,
-                    padding=pad, out_dtype=sd)
-        zr = zr + zr_pre
-        C = h.shape[1]
-        z = torch.sigmoid(zr[:, :C])
-        r = torch.sigmoid(zr[:, C:])
-        q = conv2d(torch.cat([(r * h).to(x.dtype), x], dim=1), w_q, b_q,
-                   padding=pad, out_dtype=sd)
-        q = torch.tanh(q + q_pre)
-        h = (1 - z) * h + z * q
-    return h
 
 
 class FlowHead(nn.Module):
@@ -562,27 +398,6 @@ class SmallUpdateBlock(nn.Module):
         self.encoder = SmallMotionEncoder(cor_planes)
         self.gru = ConvGRU(hidden_dim, 82 + 64)
         self.flow_head = FlowHead(hidden_dim, 128)
-
-
-def small_update_apply(block, net, inp, corr, flow):
-    """One RAFT-small refinement step -> (net, delta_flow)."""
-    motion = block.encoder(flow, corr)
-    net = block.gru(net, torch.cat([inp.to(motion.dtype), motion], dim=1))
-    return net, block.flow_head(net)
-
-
-def update_block_apply(block, net, corr, flow, pre, gru_fused=False,
-                       tail_fused=False):
-    """One refinement step -> (net, delta_flow). ``corr``: (B, L*k*k, H1,
-    W1) lookup or a ``BlockedCorr``; ``pre``: this frame's context terms
-    for the SepConvGRU's route ``gru_fused`` (``_gru_route``: False, True
-    or 'f32'; ``_sep_conv_gru``). The
-    convex-upsample mask is not computed here (``mask_from_net``: only the
-    last iteration's mask is consumed). The motion encoder stays unfused
-    under ``tail_fused``, as in the JAX package."""
-    motion = block.encoder(flow, corr, fused=False)
-    net = _sep_conv_gru(net, motion, pre, fused=gru_fused)
-    return net, block.flow_head(net, fused=tail_fused)
 
 
 def mask_from_net(block, net):
@@ -757,12 +572,11 @@ def weighted_raft_forward(model, cfg: RaftConfig, image1, image2,
             gives each element's logits as B separate calls would (the
             block-local volume takes B = 1).
         corr_shard: optional spatial sharding of the correlation over the
-            ``sp`` ranks of a mesh (``parallel/sharding.py``, the JAX
-            package's hook of this name): its ``pyramid`` and ``lookup``
-            replace ``corr_pyramid_fused`` and ``corr_lookup`` (each rank
-            holds a range of key columns, one ``all_reduce`` a lookup), its
-            ``local`` and ``lookup_local`` replace ``build_local_corr`` and
-            the block-local lookup (each rank holds a range of blocks).
+            ``sp`` ranks of a mesh (``parallel/sharding.py:CorrShard``, the
+            JAX package's hook of this name): ``corr.make_correlation``
+            takes its kinds in place of the pyramid (each rank holds a
+            range of key columns, one ``all_reduce`` a lookup) and of the
+            block-local volume (each rank holds a range of blocks).
     Returns:
         dict with 'flow' (B,H/8,W/8,2), 'flow_up' (B,H,W,2), 'fmap1' and
         'fmap2' (B,H/8,W/8,D) and 'mean_response' (B,H/8,W/8); under
@@ -806,7 +620,6 @@ def _raft_forward(model, cfg, image1, image2, flow_init, iters,
         raise ValueError("the sparse weight head needs the convex-upsampling "
                          "mask, which RAFT-small has not")
     iters = cfg.iters if iters is None else iters
-    radius = cfg.radius
     dev = image2.device
     with span("woft.flow.encode", dev):
         x2 = _nchw(2.0 * (image2 / 255.0) - 1.0)
@@ -822,118 +635,53 @@ def _raft_forward(model, cfg, image1, image2, flow_init, iters,
         H1, W1 = fmap2.shape[2:]
 
         f1, f2 = _nhwc(fmap1).contiguous(), _nhwc(fmap2).contiguous()
-    # the block-local volume and the loop as one CUDA graph (loop_graph.py)
-    graphed = (cfg.corr_impl == "local" and B == 1 and corr_shard is None
-               and not cfg.alternate_corr and not cfg.small
-               and x2.is_cuda and not torch.is_grad_enabled()
+    corr = make_correlation(cfg, B, corr_shard)
+    ub = model.update_block
+    route = update.loop_route(cfg, B, ub, net, inp, f1, f2)
+    # the volume and the loop as one CUDA graph (loop_graph.py)
+    graphed = (corr.graphable and not cfg.small and x2.is_cuda
+               and not torch.is_grad_enabled()
                and not torch.cuda.is_current_stream_capturing())
     with span("woft.flow.volume", dev):
-        local = None
-        if cfg.alternate_corr:
-            # no stored volume: each lookup from the features, chunked
-            mean_response = corr_mean_response(f1, f2)
-            chunk = min(cfg.alt_chunk, B * H1 * W1)
-
-            def lookup_natural(coords):
-                return corr_lookup_alternate(f1, f2, coords, radius,
-                                             cfg.corr_levels, chunk=chunk)
-
-            def lookup(coords):
-                return _nchw(lookup_natural(coords))
-        elif cfg.corr_impl == "local" and B == 1:
-            # exact within +-local_margin cells of residual flow, saturated
-            # beyond; 'bf16' and 'default' store the volume (and the lookups)
-            # in bf16
-            if corr_shard is None:
-                def volume(f1, f2):
-                    return build_local_corr(
-                        f1, f2, radius, cfg.corr_levels,
-                        margin=cfg.local_margin, out_dtype=cfg.volume_dtype)
-
-                if not graphed:     # else built in the loop's graph
-                    local = volume(f1, f2)
-                lookup_blocked = corr_lookup_local_blocked
-            else:           # this rank's band of blocks
-                local = corr_shard.local(f1, f2, radius, cfg.corr_levels,
-                                         cfg.local_margin, cfg.volume_dtype)
-                lookup_blocked = corr_shard.lookup_local
-            mean_response = corr_mean_response(f1, f2)
-
-            def lookup(coords):        # blocked: convc1 absorbs the layout
-                return lookup_blocked(local, coords, radius,
-                                      check=cfg.fine_check)
-
-            def lookup_natural(coords):
-                return lookup_blocked(local, coords, radius).to_natural()
+        if graphed:             # the volume is built in the loop's graph
+            mean_response = corr.mean_response(f1, f2)
         else:
-            if corr_shard is None:
-                pyramid, mean_response = corr_pyramid_fused(
-                    f1, f2, cfg.corr_levels, out_dtype=cfg.volume_dtype)
-                lookup_rows = corr_lookup
-            else:           # this rank's key columns of each level
-                pyramid, mean_response = corr_shard.pyramid(
-                    f1, f2, cfg.corr_levels, out_dtype=cfg.volume_dtype)
-                lookup_rows = corr_shard.lookup
+            _, mean_response = corr.build(f1, f2)
 
-            def lookup(coords):
-                return _nchw(lookup_rows(pyramid, coords, radius))
-
-            def lookup_natural(coords):
-                return lookup_rows(pyramid, coords, radius)
-
-    ub = model.update_block
     with span("woft.flow.refine", dev):
         coords0 = _nchw(coords_grid(B, H1, W1, x2.device))  # (B, 2, H1, W1)
         coords1 = (coords0 if flow_init is None
                    else coords0 + _nchw(flow_init))
-        # kernel I is a bf16-mode kernel for one frame pair; the GRU's
-        # route by _gru_route
-        tail_fused = (cfg.tail_fused and B == 1 and not cfg.small
-                      and layers.get_compute_dtype() == torch.bfloat16)
-        gru_fused = _gru_route(cfg, B, ub, net, inp, f1, f2)
 
-        def refine(lookup, net, inp, coords0, coords1):
-            if cfg.small:
-                pre = None
-            elif gru_fused == "f32":
-                pre = precompute_gru_context_f32(ub.gru, inp, cfg.hidden_dim)
-            else:
-                pre = precompute_gru_context(ub.gru, inp, cfg.hidden_dim,
-                                             fused=gru_fused)
+        def refine(net, inp, coords0, coords1):
+            ctx = route.context(ub.gru, inp)
             for _ in range(iters):         # no host sync inside this loop
                 # the coordinate chain is cut at every iteration (the
                 # reference's coords1.detach(); a no-op under no_grad)
                 coords1 = coords1.detach()
-                corr = lookup(_nhwc(coords1).contiguous())
-                if cfg.small:
-                    net, delta = small_update_apply(ub, net, inp, corr,
-                                                    coords1 - coords0)
-                else:
-                    net, delta = update_block_apply(ub, net, corr,
-                                                    coords1 - coords0, pre,
-                                                    gru_fused, tail_fused)
+                net, delta = route.step(
+                    ub, net, corr.lookup(_nhwc(coords1).contiguous()),
+                    coords1 - coords0, ctx)
                 coords1 = coords1 + delta
             return net, coords1
 
         if graphed:
             def volume_and_refine(f1, f2, net, inp, coords0, coords1):
-                nonlocal local          # what ``lookup`` reads
-                local = volume(f1, f2)
-                return (local, *refine(lookup, net, inp, coords0, coords1))
+                return (corr.build_volume(f1, f2),
+                        *refine(net, inp, coords0, coords1))
 
             # everything the graph reads besides its inputs: the
-            # configuration, the update block's weights, the routes and
+            # configuration, the update block's weights, the route and
             # the precision flags it was captured under
-            key = (cfg, iters, gru_fused, tail_fused,
-                   layers.get_compute_dtype(),
+            key = (cfg, iters, route, layers.get_compute_dtype(),
                    torch.backends.cuda.matmul.allow_tf32,
                    torch.backends.cudnn.allow_tf32,
                    tuple(p.data_ptr() for p in ub.parameters()))
-            local, net, coords1 = loop_graph.run(
+            corr.volume, net, coords1 = loop_graph.run(
                 model, key, volume_and_refine, f1, f2, net, inp, coords0,
                 coords1)
         else:
-            net, coords1 = refine(lookup, net, inp, coords0, coords1)
+            net, coords1 = refine(net, inp, coords0, coords1)
 
     with span("woft.flow.upsample", dev):
         if cfg.small:           # no mask head: bilinear x8 outputs
@@ -952,36 +700,17 @@ def _raft_forward(model, cfg, image1, image2, flow_init, iters,
     if cfg.variant == "orig":
         return out
 
-    k = 2 * radius + 1
+    k = 2 * cfg.radius + 1
     coords1 = _nhwc(coords1).contiguous()
     if sparse_weight_head and cfg.variant == "weighted":
-        # pyramid row b*H1*W1 + cell holds batch element b's cell
-        coords1_flat = coords1.reshape(B * H1 * W1, 2)
         mr_flat = mean_response.reshape(B * H1 * W1)
-        if local is not None:
-            # queries are minor in the block-local volume, so per-cell reads
-            # would be strided: one more dense lookup at the final
-            # coordinates, then a row select
-            with span("woft.weight_head", dev):
-                corr_dense_flat = lookup_natural(coords1).reshape(H1 * W1, -1)
+        rows = corr.rows_at(coords1)
 
         @torch.no_grad()
         def weight_head_at(cells):
             M = cells.shape[0]
             with span("woft.weight_head", dev):
-                if local is not None:
-                    corr_f = corr_dense_flat[cells]
-                elif cfg.alternate_corr:
-                    corr_f = corr_lookup_alternate(
-                        f1.reshape(B * H1 * W1, -1)[cells][None, None], f2,
-                        coords1_flat[cells][None, None], radius,
-                        cfg.corr_levels, chunk=min(cfg.alt_chunk, M),
-                        batch=cells // (H1 * W1))
-                else:
-                    corr_f = lookup_rows(
-                        pyramid, coords1_flat[cells][None, None], radius,
-                        rows=cells)                     # (1, 1, M, L*k*k)
-                corr_s = corr_f.reshape(1, 1, M, k, k, cfg.corr_levels)
+                corr_s = rows(cells).reshape(1, 1, M, k, k, cfg.corr_levels)
                 with layers.precision_scope(cfg.precision):
                     w = weight_head_apply(model.weight_head, corr_s,
                                           mr_flat[cells].reshape(1, 1, M))
@@ -991,7 +720,7 @@ def _raft_forward(model, cfg, image1, image2, flow_init, iters,
         return out
 
     with span("woft.weight_head", dev):
-        corr_final = lookup_natural(coords1)                # (B,H1,W1,L*k*k)
+        corr_final = corr.lookup_natural(coords1)          # (B,H1,W1,L*k*k)
         corr_sample = corr_final.reshape(B, H1, W1, k, k, cfg.corr_levels)
         weights = weight_head_apply(model.weight_head, corr_sample,
                                     mean_response)

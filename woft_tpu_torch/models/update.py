@@ -1,15 +1,16 @@
-"""The fused refinement loop: the update block's convolution chains as
-single kernels, their plain PyTorch versions, and the weight layouts both
-read.
+"""The refinement loop's route, and the fused loop: the update block's
+convolution chains as single kernels, their plain PyTorch versions, and the
+weight layouts both read.
 
-Which route each precision takes (``models/raft.py:_gru_route``): in
+``loop_route`` decides once a forward how the loop runs its update block
+(a ``LoopRoute``, which gives the per-frame context and the step): in
 float32 ('highest': TF32 off) every forward of RAFT-large on one frame pair
 that needs no gradient runs the SepConvGRU as kernel G's float32 form
 (``gru_update_f32``), one launch a direction; bf16 mode runs kernels G
 and I only under the opt-in flags (``RaftConfig.gru_fused``,
 ``tail_fused``), as the JAX package does; 'default' (TF32 products),
-RAFT-small, a batch of frame pairs and a forward that records a gradient
-keep the unfused path.
+a batch of frame pairs and a forward that records a gradient keep the
+unfused path; RAFT-small runs its own block (no fused kernel).
 
 PyTorch twin of ``woft_tpu/ops/pallas/gru.py`` (``sep_conv_gru_pallas``) and
 ``woft_tpu/ops/pallas/update_tail.py`` (``motion_encoder_pallas``,
@@ -49,10 +50,13 @@ convolution; the flow delta is never rounded. The unfused path
 two paths agree to bf16 rounding noise, not bit for bit.
 """
 
+from dataclasses import dataclass
+
 import torch
 import torch.nn.functional as F
 
 from . import layers
+from .layers import conv2d
 from ..ops import kernels
 
 _BF16 = torch.bfloat16
@@ -251,3 +255,157 @@ def flow_head_params(head):
             head.conv1.bias.detach().float().contiguous(),
             taps(head.conv2.weight),
             head.conv2.bias.detach().float().contiguous())
+
+
+# ---------------------------------------------------------------------------
+# the refinement loop's route
+# ---------------------------------------------------------------------------
+
+# a SepConvGRU direction: its z, r and q convolutions and their padding
+GRU_DIRS = (("convz1", "convr1", "convq1", (0, 2)),
+            ("convz2", "convr2", "convq2", (2, 0)))
+
+
+@dataclass(frozen=True)
+class LoopRoute:
+    """How one forward's refinement loop runs its update block
+    (``loop_route``). Hashable: ``models/loop_graph.py`` keys a graph on it.
+
+    gru: 'small' (RAFT-small's block: its motion encoder and 3x3 ConvGRU),
+        'unfused' (the SepConvGRU's convolutions through ``layers.conv2d``),
+        'f32' (kernel G's float32 form, ``gru_update_f32``) or 'bf16'
+        (kernel G, ``gru_update``). On a fused route the state is re-laid
+        channels-minor for the kernel once a step.
+    tail: the flow head as kernel I (``flow_head``). The motion encoder
+        stays unfused, as in the JAX package (kernel H is reached through
+        ``BasicMotionEncoder.forward(fused=True)``).
+    """
+    gru: str = "unfused"
+    tail: bool = False
+
+    def context(self, gru, inp):
+        """This frame's loop-invariant context: ``inp`` itself for 'small';
+        for a SepConvGRU ``gru``, per direction, the ``inp`` rows of its
+        convolutions convolved once (bias-free: conv([h, inp, m]) =
+        conv_hm([h, m]) + conv_inp(inp), exact by linearity) with the
+        recurrent weights the step reads.
+
+        'unfused': (zr_pre, q_pre, w_zr, b_zr, w_q, b_q, padding), z and r
+        as one convolution, the weights rounded once a frame in bf16 mode;
+        'bf16': ``gru_update``'s (pre_zr, pre_q, wzr, wq, bzr, bq, axis),
+        the terms channels-minor, the taps ``gru_taps``; 'f32':
+        ``gru_update_f32``'s (pre_zr, pre_q, w, b, axis), the taps
+        ``gru_taps_f32``."""
+        if self.gru == "small":
+            return inp
+        if self.gru == "bf16":
+            kernels.require_no_grad("G (fused_gru_update)",
+                                    *gru.parameters())
+            require_bf16_mode("the fused SepConvGRU")
+        sd = layers.get_compute_dtype()
+        if self.gru == "f32" and sd is not None:
+            raise ValueError("kernel G's float32 form is a float32-mode "
+                             "path")
+        hd, ci = gru.convz1.out_channels, inp.shape[1]
+
+        def cast(t):        # bf16 mode: round the derived weights once a frame
+            return t if sd is None else t.to(sd)
+
+        def hm(w):          # the recurrent rows: h and the motion features
+            return torch.cat([w[:, :hd], w[:, hd + ci:]], dim=1)
+
+        out = []
+        for kz, kr, kq, pad in GRU_DIRS:
+            wz, wr, wq = (getattr(gru, n).weight for n in (kz, kr, kq))
+            zr_pre = conv2d(inp, cast(torch.cat([wz[:, hd:hd + ci],
+                                                 wr[:, hd:hd + ci]])),
+                            padding=pad, out_dtype=sd)
+            q_pre = conv2d(inp, cast(wq[:, hd:hd + ci]), padding=pad,
+                           out_dtype=sd)
+            axis = "w" if pad == (0, 2) else "h"
+            if self.gru == "bf16":
+                w_zr, b_zr = gru_taps(gru, (kz, kr), hd, ci)
+                w_q, b_q = gru_taps(gru, (kq,), hd, ci)
+                out.append((nhwc(zr_pre), nhwc(q_pre), w_zr, w_q, b_zr, b_q,
+                            axis))
+            elif self.gru == "f32":
+                w, b = gru_taps_f32(gru, (kz, kr, kq), hd, ci)
+                out.append((nhwc(zr_pre), nhwc(q_pre), w, b, axis))
+            else:
+                bz, br, bq = (getattr(gru, n).bias for n in (kz, kr, kq))
+                out.append((zr_pre, q_pre, cast(torch.cat([hm(wz), hm(wr)])),
+                            cast(torch.cat([bz, br])), cast(hm(wq)),
+                            cast(bq), pad))
+        return out
+
+    def sep_conv_gru(self, h, x, ctx):
+        """One SepConvGRU update of the (B, C, H, W) state ``h`` by the
+        motion features ``x`` with the context ``ctx`` (``context``; a
+        slice of its directions runs those only). In bf16 mode the gates
+        are bf16 and the state stays float32: ``r * h`` and the convex
+        blend are taken at the state's precision.
+
+        On a fused route each direction is one launch. bf16 G's state is
+        handed back channels-minor in memory under its (B, C, H, W) shape,
+        which costs no copy; the float32 form copies it back to NCHW, since
+        cuDNN's float32 flow and mask heads ran slower on a channels-last
+        map (49.87 against 49.64 ms a 720p frame of ``WOFT.py``, in turns
+        in one process)."""
+        if self.gru != "unfused":
+            step = gru_update_f32 if self.gru == "f32" else gru_update
+            h, x = nhwc(h), nhwc(x)
+            for args in ctx:
+                h = step(h, x, *args)
+            h = h.permute(0, 3, 1, 2)
+            return h.contiguous() if self.gru == "f32" else h
+        sd = layers.get_compute_dtype()
+        for zr_pre, q_pre, w_zr, b_zr, w_q, b_q, pad in ctx:
+            zr = conv2d(torch.cat([h.to(x.dtype), x], dim=1), w_zr, b_zr,
+                        padding=pad, out_dtype=sd)
+            zr = zr + zr_pre
+            C = h.shape[1]
+            z = torch.sigmoid(zr[:, :C])
+            r = torch.sigmoid(zr[:, C:])
+            q = conv2d(torch.cat([(r * h).to(x.dtype), x], dim=1), w_q, b_q,
+                       padding=pad, out_dtype=sd)
+            q = torch.tanh(q + q_pre)
+            h = (1 - z) * h + z * q
+        return h
+
+    def step(self, block, net, corr, flow, ctx):
+        """One refinement step of the update block ``block`` -> (net, delta
+        flow). ``corr``: the loop's lookup (``Correlation.lookup``); ``ctx``:
+        ``context(block.gru, inp)``. The convex-upsample mask is not
+        computed here (``raft.mask_from_net``: only the last iteration's
+        mask is consumed)."""
+        if self.gru == "small":
+            motion = block.encoder(flow, corr)
+            net = block.gru(net, torch.cat([ctx.to(motion.dtype), motion],
+                                           dim=1))
+            return net, block.flow_head(net)
+        motion = block.encoder(flow, corr, fused=False)
+        net = self.sep_conv_gru(net, motion, ctx)
+        return net, block.flow_head(net, fused=self.tail)
+
+
+def loop_route(cfg, batch, block, *tensors):
+    """The ``LoopRoute`` of a forward of ``batch`` frame pairs under the
+    ``RaftConfig`` ``cfg``, from what it can observe: 'small' for
+    RAFT-small; on one frame pair, 'bf16' in bf16 mode under
+    ``cfg.gru_fused``, and 'f32' in 'highest' when nothing the loop reads
+    records a gradient (``tensors``: its inputs; and ``block``'s
+    parameters); 'unfused' otherwise ('default': TF32 products, a batch, a
+    forward that trains the network). ``tail`` under ``cfg.tail_fused`` in
+    bf16 mode on one frame pair."""
+    if cfg.small:
+        return LoopRoute("small")
+    bf16 = layers.get_compute_dtype() == torch.bfloat16
+    tail = cfg.tail_fused and batch == 1 and bf16
+    if batch != 1:
+        return LoopRoute("unfused", tail)
+    if bf16:
+        return LoopRoute("bf16" if cfg.gru_fused else "unfused", tail)
+    if cfg.precision != "highest" or torch.is_grad_enabled() and any(
+            t.requires_grad for t in (*tensors, *block.parameters())):
+        return LoopRoute("unfused", tail)
+    return LoopRoute("f32", tail)

@@ -8,7 +8,8 @@ with ``ctypes``. ``build()`` starts one ``nvcc`` per source, all together.
 The launch wrappers below take CUDA tensors only: they check device, dtype,
 shape and contiguity, allocate the output with ``torch.empty``, launch on
 the current stream, raise if the C entry reports a CUDA error, and count
-their launches in a plain integer attribute (``<wrapper>.launches``). The
+their launches in a plain integer attribute (``<wrapper>.launches``;
+``launch_counters()`` reads them all). The
 callers (``ops/warp.py:warp_perspective_fast``, ``models/corr.py``:
 ``corr_lookup``, ``block_local_corr``, ``block_local_lookup*``;
 ``models/update.py``: ``gru_update``, ``gru_update_f32``,
@@ -210,6 +211,22 @@ def require_no_grad(kernel, *tensors):
             f"torch.no_grad(), or on tensors that do not require grad")
 
 
+_COUNTED = []
+
+
+def _counted(wrapper):
+    """Registers a launch wrapper: ``wrapper.launches`` counts its launches
+    (the wrapper adds each one)."""
+    wrapper.launches = 0
+    _COUNTED.append(wrapper)
+    return wrapper
+
+
+def launch_counters():
+    """{wrapper: its launches so far} for every launch wrapper below."""
+    return {wrapper: wrapper.launches for wrapper in _COUNTED}
+
+
 def _raise_on_error(rc, name):
     if rc >= 20000:
         raise RuntimeError(f"CUDA kernel '{name}': the driver has no "
@@ -222,6 +239,7 @@ def _raise_on_error(rc, name):
                            f"cudaError {rc}")
 
 
+@_counted
 def warp_perspective_bilinear(img, hinv, out_h, out_w):
     """Kernel A: bilinear perspective warp with zero padding.
 
@@ -256,9 +274,6 @@ def warp_perspective_bilinear(img, hinv, out_h, out_w):
     _raise_on_error(rc, "warp")
     warp_perspective_bilinear.launches += 1
     return out
-
-
-warp_perspective_bilinear.launches = 0
 
 
 _level_table = [None, None]     # key and table of the pyramid last looked up
@@ -298,6 +313,7 @@ def _levels(pyramid, device):
     return _level_table[1]
 
 
+@_counted
 def corr_pyramid_lookup(pyramid, coords, radius, rows=None):
     """Kernel B: bilinear (2r+1)^2 window lookup in every pyramid level.
 
@@ -340,9 +356,7 @@ def corr_pyramid_lookup(pyramid, coords, radius, rows=None):
     return out
 
 
-corr_pyramid_lookup.launches = 0
-
-
+@_counted
 def corr_pyramid_lookup_backward(pyramid, coords, g, radius):
     """Kernel B': the backward of ``corr_pyramid_lookup`` with rows = query.
 
@@ -384,9 +398,6 @@ def corr_pyramid_lookup_backward(pyramid, coords, g, radius):
     return d_levels, d_coords
 
 
-corr_pyramid_lookup_backward.launches = 0
-
-
 _VOLUME_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -412,6 +423,7 @@ def local_corr_table(level_shapes, geoms):
 _corr_plan = [None, None]       # key and parameter block of the last launch
 
 
+@_counted
 def local_corr_build(f1b, levels, geoms, nbh, nbw, out_dtype, b0=0):
     """Kernel C: every level of the block-local correlation volume in one
     launch.
@@ -484,9 +496,6 @@ def local_corr_build(f1b, levels, geoms, nbh, nbw, out_dtype, b0=0):
     return outs
 
 
-local_corr_build.launches = 0
-
-
 def _check_volumes(vols, k):
     """Shared checks of the lookup wrappers -> (device, dtype, nb, bq)."""
     device, dtype = vols[0].device, vols[0].dtype
@@ -522,6 +531,7 @@ def _check_starts(starts, frac, shape, device):
                          f"{tuple(starts.shape)} and {tuple(frac.shape)}")
 
 
+@_counted
 def local_lookup_fine_multi(rcs, vols, rel, frac, k, out_dtype=torch.float32):
     """Kernel D: every level's fine-window lookup in one launch.
 
@@ -558,9 +568,7 @@ def local_lookup_fine_multi(rcs, vols, rel, frac, k, out_dtype=torch.float32):
     return out
 
 
-local_lookup_fine_multi.launches = 0
-
-
+@_counted
 def local_lookup_fine(rc0, vol, rel, frac, k, out_dtype=torch.float32):
     """Kernel F: kernel D for one level. rc0: (NB, 2) int32; vol: (NB, wh,
     ww, BQ); rel, frac: (2, NB, BQ). Returns (NB, k*k, BQ)."""
@@ -586,9 +594,7 @@ def local_lookup_fine(rc0, vol, rel, frac, k, out_dtype=torch.float32):
     return out
 
 
-local_lookup_fine.launches = 0
-
-
+@_counted
 def local_lookup_exact(vols, starts, frac, k, flag=None, out=None,
                        channel=0):
     """Kernel E: every level of a lookup over the whole stored windows, in
@@ -639,9 +645,6 @@ def local_lookup_exact(vols, starts, frac, k, flag=None, out=None,
     return out
 
 
-local_lookup_exact.launches = 0
-
-
 _lookup_table = [None, None]    # key and ctypes arrays of the last layout
 
 
@@ -678,6 +681,7 @@ def _coord_operands(coords, vols, table, k, b0):
     return (device, dtype, nb, bq) + _lookup_table[1] + (ptrs,)
 
 
+@_counted
 def local_lookup_coords(coords, vols, table, k, out_dtype, b0=0):
     """Kernel D from coordinates: every level's fine-window lookup in one
     launch, each query's start, fraction and its block's anchor and flags
@@ -711,9 +715,7 @@ def local_lookup_coords(coords, vols, table, k, out_dtype, b0=0):
     return out, bad
 
 
-local_lookup_coords.launches = 0
-
-
+@_counted
 def local_lookup_exact_coords(coords, vols, table, k, bad=None, out=None,
                               b0=0):
     """Kernel E from coordinates: every level of a lookup over the whole
@@ -758,9 +760,6 @@ def local_lookup_exact_coords(coords, vols, table, k, bad=None, out=None,
     return out
 
 
-local_lookup_exact_coords.launches = 0
-
-
 def _check_operand(t, what, dtype, device, shape):
     """An operand of the update-block kernels: exact shape, contiguous,
     16-byte aligned (the kernels read 16 bytes a thread)."""
@@ -771,6 +770,7 @@ def _check_operand(t, what, dtype, device, shape):
         raise ValueError(f"{what} must be 16-byte aligned")
 
 
+@_counted
 def fused_gru_update(h, x, pre_zr, pre_q, wzr, wq, bzr, bq, axis):
     """Kernel G: one direction of the SepConvGRU's gated update.
 
@@ -813,9 +813,7 @@ def fused_gru_update(h, x, pre_zr, pre_q, wzr, wq, bzr, bq, axis):
     return out
 
 
-fused_gru_update.launches = 0
-
-
+@_counted
 def fused_gru_update_f32(h, x, pre_zr, pre_q, w, b, axis):
     """Kernel G's float32 form: one direction of the SepConvGRU's gated
     update in float32, products on FFMA.
@@ -856,9 +854,7 @@ def fused_gru_update_f32(h, x, pre_zr, pre_q, w, b, axis):
     return out
 
 
-fused_gru_update_f32.launches = 0
-
-
+@_counted
 def motion_encoder_tail(cor1, flo1, flow, wc2, bc2, wf2, bf2, wcv, bcv,
                         mid=None):
     """Kernel H: the motion encoder's 3x3 stack, two launches.
@@ -904,9 +900,7 @@ def motion_encoder_tail(cor1, flo1, flow, wc2, bc2, wf2, bf2, wcv, bcv,
     return out
 
 
-motion_encoder_tail.launches = 0
-
-
+@_counted
 def flow_head(net, w1, b1, w2, b2):
     """Kernel I: the flow head, ``conv2(relu(conv1(net)))``.
 
@@ -936,12 +930,10 @@ def flow_head(net, w1, b1, w2, b2):
     return out
 
 
-flow_head.launches = 0
-
-
 HEAD_TAP_ROWS = 19 * 128        # kernel J's tap blocks of 128 output rows
 
 
+@_counted
 def weight_head(corr, mean, taps, consts):
     """Kernel J: the weight head's logits of M rows in bf16 mode.
 
@@ -975,6 +967,3 @@ def weight_head(corr, mean, taps, consts):
     _raise_on_error(rc, "weight_head")
     weight_head.launches += 1
     return out
-
-
-weight_head.launches = 0

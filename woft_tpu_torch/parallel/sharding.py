@@ -35,10 +35,8 @@ import math
 
 import torch
 
-from ..models.corr import (LocalCorrVolumes, _blocked_lookup_launch,
-                           _local_layout, _to_blocked, BlockedCorr,
-                           block_local_corr_levels, corr_lookup,
-                           corr_mean_response)
+from ..models.corr import (BlockedCorr, BlockLocalCorr, DenseCorr,
+                           build_local_corr, corr_lookup)
 from ..ops.warp import avg_pool2d
 from .mesh import all_reduce_sum, gather_by_sum, mesh_shape
 
@@ -151,11 +149,12 @@ class KeyColumnPyramid:
 
 class CorrShard:
     """The ``corr_shard`` hook of ``weighted_raft_forward`` for the ``sp``
-    ranks of ``mesh``: key columns of the pyramid, or bands of blocks of
-    the block-local volume. It keeps the last forward's per-rank volume
-    bytes, the all-reduced bytes of one lookup and the rank's blocks
-    (``volume_bytes``, ``reduce_bytes``, ``blocks``: (b0, b1)) and counts
-    its all-reduces (``reduces``)."""
+    ranks of ``mesh``: ``models/corr.py:make_correlation`` takes its
+    correlation kinds, key columns of the pyramid (``dense``) or a band of
+    blocks of the block-local volume (``block_local``). It keeps the last
+    forward's per-rank volume bytes, the all-reduced bytes of one lookup
+    and the rank's blocks (``volume_bytes``, ``reduce_bytes``, ``blocks``:
+    (b0, b1)) and counts its all-reduces (``reduces``)."""
 
     def __init__(self, mesh):
         self.mesh = mesh
@@ -165,31 +164,69 @@ class CorrShard:
         self.reduces = 0
         self._offsets = {}
 
+    def dense(self, radius, num_levels, out_dtype=None):
+        """The pyramid's kind over the ranks (``KeyColumnCorr``)."""
+        return KeyColumnCorr(self, radius, num_levels, out_dtype)
+
+    def block_local(self, radius, num_levels, margin, fine_check=True,
+                    out_dtype=None):
+        """The block-local kind over the ranks (``BlockBandCorr``)."""
+        return BlockBandCorr(self, radius, num_levels, margin, fine_check,
+                             out_dtype)
+
     def _gather(self, shape, parts, device):
         self.reduce_bytes = 4 * math.prod(shape)
         self.reduces += 1
         return gather_by_sum(shape, parts, self.mesh, "sp", device)
 
-    # ---- the pyramid: key columns ----
+    def _shifted(self, coords, c0):
+        if c0 == 0:
+            return coords
+        key = (coords.device, c0)
+        if key not in self._offsets:      # made once: a host->card copy
+            self._offsets[key] = torch.tensor([float(c0), 0.0],
+                                              device=coords.device)
+        return coords - self._offsets[key]
 
-    def pyramid(self, fmap1, fmap2, num_levels=4, out_dtype=None):
-        """``corr_pyramid_fused`` for this rank's key columns: one product
-        a level against the rank's columns of the pooled fmap2. Level l
-        splits when the level-0 width divides by ``sp * 2^l`` (so one shift
-        serves all split levels: they are a prefix); a level that does not
-        stays whole on ``sp`` rank 0, as the JAX package leaves a level
-        that does not divide replicated. Returns (``KeyColumnPyramid``,
-        mean_response (B, H, W) float32)."""
+    def band(self, nb_total):
+        """(b0, b1): this rank's blocks of a grid of ``nb_total``, the
+        ``sp`` ranks' bands contiguous and balanced."""
         r, sp = _sp_rank(self.mesh)
-        B, H, W, D = fmap1.shape
+        b0, b1 = r * nb_total // sp, (r + 1) * nb_total // sp
+        if b1 == b0:
+            raise ValueError(f"{nb_total} blocks do not give every one of "
+                             f"the sp ranks a block")
+        return b0, b1
+
+
+class KeyColumnCorr(DenseCorr):
+    """The pyramid from this rank's key columns (``KeyColumnPyramid``):
+    kernel B on the rank's levels with ``x`` shifted by ``-c0`` (each tap
+    of a window reads zero outside the rank's columns), the parts summed
+    over ``sp`` (zero channels for levels a rank does not hold); lookups
+    and rows equal ``DenseCorr``'s."""
+
+    def __init__(self, shard, radius, num_levels, out_dtype=None):
+        super().__init__(radius, num_levels, out_dtype)
+        self.shard = shard
+
+    def build_volume(self, f1, f2):
+        """One product a level against the rank's columns of the pooled
+        fmap2. Level l splits when the level-0 width divides by ``sp *
+        2^l`` (so one shift serves all split levels: they are a prefix); a
+        level that does not stays whole on ``sp`` rank 0, as the JAX
+        package leaves a level that does not divide replicated."""
+        r, sp = _sp_rank(self.shard.mesh)
+        num_levels = self.num_levels
+        B, H, W, D = f1.shape
         scale = 1.0 / math.sqrt(D)
-        W2 = fmap2.shape[2]
+        W2 = f2.shape[2]
         split = 0
         while split < num_levels and W2 % (sp << split) == 0:
             split += 1
-        f1 = fmap1.reshape(B, H * W, D)
+        f1 = f1.reshape(B, H * W, D)
         levels = []
-        lv = fmap2
+        lv = f2
         for lvl in range(num_levels):
             hl, wl = lv.shape[1:3]
             if lvl < split:
@@ -202,87 +239,61 @@ class CorrShard:
             wc = part.shape[2]
             corr = f1 @ part.reshape(B, hl * wc, D).transpose(1, 2)
             corr = (corr * scale).reshape(B * H * W, hl, wc)
-            levels.append(corr.to(out_dtype or torch.float32))
+            levels.append(corr.to(self.out_dtype or torch.float32))
             if lvl + 1 < num_levels:
                 lv = avg_pool2d(lv)
-        self.volume_bytes = sum(v.numel() * v.element_size() for v in levels)
-        pyr = KeyColumnPyramid(levels, r * W2 // sp, num_levels)
-        return pyr, corr_mean_response(fmap1, fmap2)
+        self.shard.volume_bytes = sum(v.numel() * v.element_size()
+                                      for v in levels)
+        self.volume = KeyColumnPyramid(levels, r * W2 // sp, num_levels)
+        return self.volume
 
-    def _shifted(self, coords, c0):
-        if c0 == 0:
-            return coords
-        key = (coords.device, c0)
-        if key not in self._offsets:      # made once: a host->card copy
-            self._offsets[key] = torch.tensor([float(c0), 0.0],
-                                              device=coords.device)
-        return coords - self._offsets[key]
-
-    def lookup(self, pyr, coords, radius=4, rows=None):
-        """``corr_lookup`` on the whole pyramid from this rank's part:
-        kernel B on the rank's levels with x shifted by ``-c0`` (each tap
-        of a window reads zero outside the rank's columns), the parts
-        summed over ``sp`` (zero channels for levels a rank does not
-        hold). Same arguments and result as ``corr_lookup``."""
-        k = 2 * radius + 1
+    def _lookup(self, coords, rows=None):
+        pyr, k = self.volume, 2 * self.radius + 1
         Q = coords.numel() // 2
         parts = []
         if pyr.levels:
-            part = corr_lookup(pyr.levels, self._shifted(coords, pyr.c0),
-                               radius, rows)
+            part = corr_lookup(pyr.levels,
+                               self.shard._shifted(coords, pyr.c0),
+                               self.radius, rows)
             parts.append(((slice(None), slice(0, part.shape[-1])),
                           part.reshape(Q, -1)))
-        full = self._gather((Q, pyr.num_levels * k * k), parts,
-                            coords.device)
+        full = self.shard._gather((Q, pyr.num_levels * k * k), parts,
+                                  coords.device)
         return full.reshape(*coords.shape[:-1], -1)
 
-    # ---- the block-local volume: bands of blocks ----
 
-    def band(self, nb_total):
-        """(b0, b1): this rank's blocks of a grid of ``nb_total``, the
-        ``sp`` ranks' bands contiguous and balanced."""
-        r, sp = _sp_rank(self.mesh)
-        return r * nb_total // sp, (r + 1) * nb_total // sp
+class BlockBandCorr(BlockLocalCorr):
+    """The block-local volume from this rank's band of blocks: kernel C
+    builds blocks ``b0 .. b1 - 1`` only (every level, one launch), kernels
+    D and E look them up, and one all-reduce a lookup assembles every
+    band's rows into the whole grid's ``BlockedCorr``. Not captured in a
+    graph: a lookup is a collective."""
 
-    def local(self, fmap1, fmap2, radius=4, num_levels=4, margin=16,
-              out_dtype=None):
-        """``build_local_corr`` for this rank's band of blocks: kernel C
-        builds blocks ``b0 .. b1 - 1`` only (every level, one launch).
-        Returns ``LocalCorrVolumes`` of the band (``b0`` set)."""
-        B, H1, W1, D = fmap1.shape
-        if B != 1:
-            raise ValueError("the block-local volume takes one frame pair")
-        meta = _local_layout(H1, W1, radius, num_levels, margin)
-        nbh, nbw = meta["nbh"], meta["nbw"]
-        b0, b1 = self.blocks = self.band(nbh * nbw)
-        if b1 == b0:
-            raise ValueError(f"{nbh * nbw} blocks do not give every one of "
-                             f"the sp ranks a block")
-        dtype = out_dtype or torch.float32
-        f1b = _to_blocked(fmap1.reshape(H1 * W1, D), meta)
-        f1b = f1b.reshape(nbh * nbw, -1, D)[b0:b1].to(dtype).contiguous()
-        levels = [fmap2]
-        while len(levels) < num_levels:
-            levels.append(avg_pool2d(levels[-1]))
-        levels = [lv[0].to(dtype).contiguous() for lv in levels]
-        vols = block_local_corr_levels(f1b, levels, meta["levels"], nbh,
-                                       nbw, dtype, b0)
-        self.volume_bytes = sum(v.numel() * v.element_size() for v in vols)
-        return LocalCorrVolumes(vols, meta, b0)
+    graphable = False
 
-    def lookup_local(self, local, coords, radius=4, check=True):
-        """``corr_lookup_local_blocked`` (``fine=True``) on the whole grid
-        from this rank's band: kernels D and E on the band's blocks, the
-        rows of every band assembled over ``sp`` -> ``BlockedCorr``."""
-        meta = local.meta
-        k = 2 * radius + 1
-        data = _blocked_lookup_launch(local, coords, k, True, check)
-        nb_total = meta["nbh"] * meta["nbw"]
-        b0 = local.b0
-        full = self._gather(
-            (nb_total, *data.shape[1:]),
+    def __init__(self, shard, radius, num_levels, margin, fine_check=True,
+                 out_dtype=None):
+        super().__init__(radius, num_levels, margin, fine_check, out_dtype)
+        self.shard = shard
+
+    def build_volume(self, f1, f2):
+        vol = build_local_corr(f1, f2, self.radius, self.num_levels,
+                               self.margin, self.out_dtype,
+                               blocks=self.shard.band)
+        self.shard.blocks = (vol.b0, vol.b0 + vol.volumes[0].shape[0])
+        self.shard.volume_bytes = sum(v.numel() * v.element_size()
+                                      for v in vol.volumes)
+        self.volume = vol
+        return vol
+
+    def blocked(self, coords, check=True):
+        part = super().blocked(coords, check)
+        meta, data = part.meta, part.data
+        b0 = self.volume.b0
+        full = self.shard._gather(
+            (meta["nbh"] * meta["nbw"], *data.shape[1:]),
             [((slice(b0, b0 + data.shape[0]),), data)], coords.device)
-        return BlockedCorr(full.to(data.dtype), meta, len(local.volumes), k)
+        return BlockedCorr(full.to(data.dtype), meta, part.levels, part.k)
 
 
 def spatial_sharded_forward(mesh, cfg, iters=None):
