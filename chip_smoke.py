@@ -33,8 +33,9 @@ Phases; any failure ends the script with a non-zero exit:
    lookup traced with ``torch.profiler``: two kernel launches;
 4. track 1280x720 frames through ``WOFTTracker`` with the canonical
    ``configs/WOFT.py``, with ``configs/WOFT_fast.py`` (block-local
-   correlation, bf16), and with ``WOFT_fast.py`` plus the fused refinement
-   loop (``gru_fused``, ``tail_fused``: kernels G and I); all full-width
+   correlation, bf16: the loop's card route, kernels G, H and I), and
+   with ``WOFT_fast.py`` plus the fused loop's flags (``gru_fused``,
+   ``tail_fused``: the same route on the card); all full-width
    RAFT-large on the trained full-frame weights
    (``weights/wraft_tpu_v4_torch.pt``), each with the launch counters
    zeroed before and read after, and each followed by the local-flow
@@ -198,6 +199,7 @@ Phases; any failure ends the script with a non-zero exit:
    at radius 3, ``radius3``), then the device JSON as the last line.
 """
 
+import contextlib
 import json
 import logging
 import math
@@ -1203,9 +1205,10 @@ def _time_coord_lookups(kernels, corr, local, coords, grid):
     return rows
 
 
-def update_case(dev):
-    """The 720p loop shape (90 x 160 cells) of kernels G, H and I, with the
-    update block's seeded weights: NCHW maps as the unfused path holds them
+def update_case(dev, H1=H_IMG // 8, W1=W_IMG // 8):
+    """A loop grid (by default 720p's, 90 x 160 cells) of kernels G, H and
+    I, with the update block's seeded weights: NCHW maps as the unfused
+    path holds them
     (``net``, ``motion``, ``cor1``, ``flo1``, ``flow``), the block ``ub``,
     G's per-direction operands ``gru`` (``fused``: for the kernel, ending in
     the axis; ``unfused``: the unfused path's), channels-minor ``h`` and
@@ -1213,7 +1216,6 @@ def update_case(dev):
     from woft_tpu_torch.models import layers, update
     from woft_tpu_torch.models import raft as traft
 
-    H1, W1 = H_IMG // 8, W_IMG // 8
     cfg = traft.RaftConfig(precision="bf16")
     ub = traft.init_raft_params(cfg, seed=0, device=dev).update_block
     g = torch.Generator(device=dev).manual_seed(11)
@@ -1235,16 +1237,18 @@ def update_case(dev):
     return case
 
 
-def check_update_kernels(kernels, dev):
+def check_update_kernels(kernels, dev, H1=H_IMG // 8, W1=W_IMG // 8):
     """Kernels G (both directions), H and I against their plain versions at
-    the 720p loop shape (90 x 160 cells), with the update block's seeded
-    weights. The yardstick of each is the port's own unfused path for the
-    same function: several cuDNN and elementwise calls, not one. Each is
-    also printed beside its time before the redesign."""
+    a loop grid (by default 720p's, 90 x 160 cells; the 1080p cells'
+    135 x 240 are ragged against every tile), with the update block's
+    seeded weights. The yardstick of each is the port's own unfused path
+    for the same function: several cuDNN and elementwise calls, not one.
+    Each is also printed beside its time before the redesign."""
     from woft_tpu_torch.models import layers, update
 
-    case = update_case(dev)
-    px = (H_IMG // 8) * (W_IMG // 8)
+    log(f"--- kernels G, H, I at the {H1} x {W1} loop grid")
+    case = update_case(dev, H1, W1)
+    px = H1 * W1
     net, motion, ub = case["net"], case["motion"], case["ub"]
     cor1, flo1, flow = case["cor1"], case["flo1"], case["flow"]
     rows = {}
@@ -1472,7 +1476,9 @@ COUNTED = ("warp_perspective_bilinear", "corr_pyramid_lookup",
 # G's float32 form runs in every float32 forward of RAFT-large on one frame
 # pair, J in every bf16 weight head on the card; a track checks their counts
 # where it names them (track_720p, track_shared), the others report them
-# unchecked
+# unchecked. G, H and I (every bf16 forward of one frame pair on the card)
+# are checked on every track: 0 where it does not name them
+UPDATE_KERNELS = ("fused_gru_update", "motion_encoder_tail", "flow_head")
 UNCHECKED = ("fused_gru_update_f32", "weight_head")
 FUSED_FLAGS = {"gru_fused": True, "tail_fused": True}
 
@@ -1533,6 +1539,14 @@ def read_counts(kernels):
     return {name: getattr(kernels, name).launches for name in COUNTED}
 
 
+def update_launches(bf16, n_flows):
+    """G's, H's and I's launches in ``n_flows`` forwards of one frame pair
+    on the card, 12 iterations each: G twice, H and I once an iteration in
+    bf16 mode; none in float32 (nor in a batch: pass ``bf16=False``)."""
+    per_iter = (2, 1, 1) if bf16 else (0, 0, 0)
+    return {k: 12 * n * n_flows for k, n in zip(UPDATE_KERNELS, per_iter)}
+
+
 def check_counts(what, launches, want, exact=(), n_frames=0, n_flows=0):
     """``want``: launches expected of each counted wrapper (others 0); at
     least that many, or exactly for the names in ``exact``."""
@@ -1551,9 +1565,10 @@ def check_counts(what, launches, want, exact=(), n_frames=0, n_flows=0):
 def track_720p(kernels, dev, config, fused=False):
     """A main path: ``WOFTTracker`` at 1280x720 through ``configs/<config>``
     (``WOFT.py``: dense pyramid, float32; ``WOFT_fast.py``: block-local
-    volume, bf16; ``fused``: with the fused refinement loop, kernels G and
-    I), on the trained full-frame weights the configs load. Returns the
-    launch counts of the run and its steady frame times."""
+    volume, bf16, the loop's card route, kernels G, H and I; ``fused``:
+    with the fused loop's flags too, which change nothing on the card), on
+    the trained full-frame weights the configs load. Returns the launch
+    counts of the run and its steady frame times."""
     from woft_tpu_torch.config import load_config
     from woft_tpu_torch.tracker import TrackerParams, WOFTTracker
 
@@ -1620,8 +1635,9 @@ def track_720p(kernels, dev, config, fused=False):
     # per flow: 12 iterations and one more lookup for the weight head; the
     # block-local path builds its 4 levels in one launch of C, and each
     # lookup is one launch of D and one of E (every level, the guard), both
-    # from the coordinates; the explicit-operand forms stay idle; the fused
-    # loop launches G once a direction and I once, every iteration
+    # from the coordinates; the explicit-operand forms stay idle; the bf16
+    # loop launches G once a direction, H and I once, every iteration, with
+    # or without the flags; the float32 loop none of them
     want = {"warp_perspective_bilinear": n_frames}
     if fast:
         want.update(local_corr_build=n_flows,
@@ -1629,8 +1645,8 @@ def track_720p(kernels, dev, config, fused=False):
                     local_lookup_exact_coords=13 * n_flows)
     else:
         want.update(corr_pyramid_lookup=13 * n_flows)
-    if fused:
-        want.update(fused_gru_update=2 * 12 * n_flows, flow_head=12 * n_flows)
+    want.update(update_launches(conf.flow_config.precision == "bf16",
+                                n_flows))
     # G's float32 form: once a direction every iteration of a float32 flow
     # (WOFT.py), never in bf16 mode; J: the bf16 weight head, at least once
     # a frame (the main step's), never in float32
@@ -1639,7 +1655,7 @@ def track_720p(kernels, dev, config, fused=False):
     # C, D and E: exactly one launch a flow and a lookup
     exact = (("local_corr_build", "local_lookup_coords",
               "local_lookup_exact_coords") if fast else ())
-    exact += ("fused_gru_update_f32",)
+    exact += ("fused_gru_update_f32", *UPDATE_KERNELS)
     check_counts(config, launches, want, exact, n_frames, n_flows)
     return launches, steady
 
@@ -1845,6 +1861,9 @@ def track_window(kernels, dev, what, h, w):
     n_frames, n_flows = res["n_frames"], res["n_flows"]
     want = {"warp_perspective_bilinear": 2 * n_frames + res["n_inits"]}
     exact = ["warp_perspective_bilinear"]
+    # the window step is bf16: the loop's card route (G, H, I)
+    want.update(update_launches(what == "window_step", n_flows))
+    exact += UPDATE_KERNELS
     if what == "window_step":
         want.update(local_corr_build=n_flows,
                     local_lookup_coords=13 * n_flows,
@@ -2222,12 +2241,26 @@ def check_local_equals_dense_720p(dev):
         raise AssertionError("block-local and dense forwards disagree")
 
 
+@contextlib.contextmanager
+def unfused_loop():
+    """The bf16 loop's unfused route on the card: the route's card
+    predicate answers no inside the block (the comparison's other side)."""
+    from woft_tpu_torch.models import update
+
+    on_card = update._on_card
+    update._on_card = lambda *tensors: False
+    try:
+        yield
+    finally:
+        update._on_card = on_card
+
+
 def check_fused_equals_unfused_720p(dev):
-    """The fused refinement loop against the unfused one at 1280x720 in
-    bf16, full width, on the card. Both round at bf16 but not at the very
-    same places (the unfused path rounds a bias before its bf16
-    convolution, and cuDNN sums in its own order), so they agree to bf16
-    rounding noise over 12 iterations."""
+    """The fused refinement loop (the card's bf16 route: G, H, I) against
+    the unfused one at 1280x720 in bf16, full width, on the card. Both
+    round at bf16 but not at the very same places (the unfused path rounds
+    a bias before its bf16 convolution, and cuDNN sums in its own order),
+    so they agree to bf16 rounding noise over 12 iterations."""
     from woft_tpu_torch.models.raft import (RaftConfig, init_raft_params,
                                             weighted_raft_forward)
 
@@ -2236,10 +2269,9 @@ def check_fused_equals_unfused_720p(dev):
     img2 = torch.roll(img1, shifts=(3, -5), dims=(1, 2))
     base = RaftConfig(corr_impl="local", precision="bf16")
     model = init_raft_params(base, seed=0, device=dev)
-    unfused = weighted_raft_forward(model, base, img1, img2)
-    fused = weighted_raft_forward(
-        model, RaftConfig(corr_impl="local", precision="bf16", **FUSED_FLAGS),
-        img1, img2)
+    with unfused_loop():
+        unfused = weighted_raft_forward(model, base, img1, img2)
+    fused = weighted_raft_forward(model, base, img1, img2)
     torch.cuda.synchronize()
     ferr = (fused["flow_up"] - unfused["flow_up"]).abs().max().item()
     werr = (fused["weights_up"] - unfused["weights_up"]).abs().max().item()
@@ -2742,10 +2774,10 @@ def track_shared(kernels, dev, model, cfg, tp):
     check_counts(f"shared x{n}", launches, {
         "warp_perspective_bilinear": T, "local_corr_build": T,
         "local_lookup_coords": 13 * T, "local_lookup_exact_coords": 13 * T,
-        "weight_head": T},
+        "weight_head": T, **update_launches(True, T)},
         ("warp_perspective_bilinear", "local_corr_build",
-         "local_lookup_coords", "local_lookup_exact_coords", "weight_head"),
-        T, T)
+         "local_lookup_coords", "local_lookup_exact_coords", "weight_head",
+         *UPDATE_KERNELS), T, T)
     errs = _report_multi(f"shared x{n}", n, frame_ms, hs, poses, masks, oks,
                          MULTI_CORNER_BOUND_PX)
 
@@ -2815,9 +2847,11 @@ def track_shared_x64(kernels, dev, model, cfg, tp, x8):
     peak = torch.cuda.max_memory_allocated() / 2**30
     check_counts(f"shared x{n}", launches, {
         "warp_perspective_bilinear": 4, "local_corr_build": 4,
-        "local_lookup_coords": 52, "local_lookup_exact_coords": 52},
+        "local_lookup_coords": 52, "local_lookup_exact_coords": 52,
+        **update_launches(True, 4)},
         ("warp_perspective_bilinear", "local_corr_build",
-         "local_lookup_coords", "local_lookup_exact_coords"), 4, 4)
+         "local_lookup_coords", "local_lookup_exact_coords",
+         *UPDATE_KERNELS), 4, 4)
     errs = _report_multi(f"shared x{n}, frames 5-8 in one chunk", n,
                          [wall / 4] * 4, hs, poses[4:8], masks,
                          meta["global_H_success"])
@@ -2896,8 +2930,10 @@ def track_window_batch(kernels, dev, precision=None):
     hs, oks = np.stack(hs), np.stack(oks)
     T = len(frames)
     check_counts(f"window batch x{n}", launches, {
-        "warp_perspective_bilinear": 2 * T + n, "corr_pyramid_lookup": 13 * T},
-        ("warp_perspective_bilinear", "corr_pyramid_lookup"), T, T)
+        "warp_perspective_bilinear": 2 * T + n, "corr_pyramid_lookup": 13 * T,
+        **update_launches(False, T)},
+        ("warp_perspective_bilinear", "corr_pyramid_lookup",
+         *UPDATE_KERNELS), T, T)
     errs = _report_multi(f"window batch x{n}", n, frame_ms, hs, poses, masks,
                          oks, MULTI_CORNER_BOUND_PX)
     if precision:
@@ -3292,7 +3328,8 @@ def eval_synthetic(kernels, dev, tmp, config, stress):
     # pre-warp a tracked frame; B 13 a flow, or C once and D, E 13 times
     render = math.ceil(EVAL_FRAMES / max(
         1, (1 << 30) // (H_IMG * W_IMG * 3 * 4)))
-    want = {"warp_perspective_bilinear": render + n_frames}
+    want = {"warp_perspective_bilinear": render + n_frames,
+            **update_launches(config == "WOFT_fast.py", n_flows)}
     if config == "WOFT_fast.py":
         want.update(local_corr_build=n_flows,
                     local_lookup_coords=13 * n_flows,
@@ -5314,7 +5351,8 @@ def track_scale_out(kernels, corr, dev, small_ckpt):
         for i, r in enumerate(res):
             want = ({"corr_pyramid_lookup": 13} if form == "pyramid" else
                     {"local_corr_build": 1, "local_lookup_coords": 13,
-                     "local_lookup_exact_coords": 13})
+                     "local_lookup_exact_coords": 13,
+                     **update_launches(True, 1)})
             check_counts(f"spatial {form} rank {i}", r[form]["launches"],
                          want, tuple(want), 0, 1)
             runs[f"gloo spatial {form} rank {i}, one flow"] = \
@@ -5384,6 +5422,7 @@ def main():
     c = check_local_corr(kernels, corr, dev)
     lookups = check_local_lookups(kernels, corr, dev)
     upd = check_update_kernels(kernels, dev)
+    upd_1080 = check_update_kernels(kernels, dev, MULTI_H // 8, MULTI_W // 8)
     torch.cuda.empty_cache()
     head_j = check_weight_head(kernels, dev)
     torch.cuda.empty_cache()
@@ -5394,7 +5433,7 @@ def main():
     fused, fused_ms = track_720p(kernels, dev, "WOFT_fast.py", fused=True)
     log(f"steady 720p frame: WOFT.py {sum(canon_ms) / len(canon_ms):.1f} ms, "
         f"WOFT_fast.py {sum(fast_ms) / len(fast_ms):.1f} ms, WOFT_fast.py "
-        f"with the fused loop {sum(fused_ms) / len(fused_ms):.1f} ms (host "
+        f"with the flags {sum(fused_ms) / len(fused_ms):.1f} ms (host "
         f"clock, {len(fast_ms)} frames each)")
     # the ablation configs: downscaled inputs (RAFT padding, the dense
     # head), IRLS-Huber, and the dense head at full frame
@@ -5463,9 +5502,9 @@ def main():
 
     # launches: A and B on the WOFT.py path, C, D, E (the last two from
     # coordinates) on the WOFT_fast.py
-    # path (which launches A too), G and I on the fused WOFT_fast.py path;
-    # F and H have no caller on a tracker path, as in the JAX package, and
-    # are launched in the kernel phase only
+    # path (which launches A too), G, H and I on the WOFT_fast.py path (the
+    # loop's card route); F has no caller on a tracker path, as in the JAX
+    # package, and is launched in the kernel phase only
     local_lookup = "woft_tpu_torch/csrc/local_lookup.cu"
     update_tail = "woft_tpu_torch/csrc/update_tail.cu"
     rows = [
@@ -5504,8 +5543,10 @@ def main():
         dict(name="fused_gru_update", route="cuda",
              source="woft_tpu_torch/csrc/gru.cu",
              replaces="woft_tpu/ops/pallas/gru.py:133",
-             launches=fused["fused_gru_update"],
-             note="times are the mean of the two directions", **upd["G"]),
+             launches=fast["fused_gru_update"],
+             note="times are the mean of the two directions; grid_1080p: "
+                  "at the 135 x 240 loop grid",
+             grid_1080p=upd_1080["G"], **upd["G"]),
         dict(name="fused_gru_update_f32", route="cuda",
              source="woft_tpu_torch/csrc/gru_f32.cu",
              replaces="none: woft_tpu runs its float32 GRU through XLA",
@@ -5515,14 +5556,16 @@ def main():
              **upd["G (float32)"]),
         dict(name="motion_encoder_tail", route="cuda", source=update_tail,
              replaces="woft_tpu/ops/pallas/update_tail.py:184",
-             launches=fused["motion_encoder_tail"],
-             note="no caller on a forward path, as in the JAX package; "
-                  "launched and checked in the kernel phase only",
-             **upd["H"]),
+             launches=fast["motion_encoder_tail"],
+             note="the loop's card route only: woft_tpu has no forward "
+                  "caller of its twin; grid_1080p: at the 135 x 240 loop "
+                  "grid", grid_1080p=upd_1080["H"], **upd["H"]),
         dict(name="flow_head", route="cuda",
              source="woft_tpu_torch/csrc/flow_head.cu",
              replaces="woft_tpu/ops/pallas/update_tail.py:283",
-             launches=fused["flow_head"], **upd["I"]),
+             launches=fast["flow_head"],
+             note="grid_1080p: at the 135 x 240 loop grid",
+             grid_1080p=upd_1080["I"], **upd["I"]),
         dict(name="weight_head", route="cuda",
              source="woft_tpu_torch/csrc/weight_head.cu",
              replaces="none: woft_tpu runs its weight head through XLA",

@@ -797,14 +797,22 @@ def test_local_wrappers_check_inputs(dev, local_volume):
 # fused update-block kernels G, H, I
 # ---------------------------------------------------------------------------
 
+UPDATE_KERNELS = ("fused_gru_update", "motion_encoder_tail", "flow_head")
+
+
+def _launches():
+    return {fn.__name__: n for fn, n in kernels.launch_counters().items()}
+
+
 ULP = 2.0 ** -8            # one bf16 ulp relative to a value's binade top
 # the last nine sit one pixel below, at and above the kernels' tiles: G lays
 # a map's lines end to end with two zero positions after each and gives a
 # CTA 124 output positions (one line of 122 pixels is exactly one tile,
-# along W for 1 x W, along H for H x 1); I gives a CTA 10 x 14 pixels
+# along W for 1 x W, along H for H x 1); I gives a CTA 10 x 14 pixels;
+# 135 x 240 is the 1080p loop's grid (ragged against every kernel's tile)
 UPDATE_SHAPES = [(16, 32), (19, 28), (8, 16), (90, 160), (5, 3),
                  (1, 121), (1, 122), (1, 123), (121, 1), (122, 1), (123, 1),
-                 (9, 13), (10, 14), (11, 15)]
+                 (9, 13), (10, 14), (11, 15), (135, 240)]
 UPDATE_IDS = [f"{h}x{w}" for h, w in UPDATE_SHAPES]
 
 
@@ -1049,10 +1057,11 @@ def _check_tail(got, want, mid, want_mid):
 
 
 # kernel H gives a CTA 8 x 16 output pixels in both launches: one row or
-# column short of a tile, exactly one, one over, and the 720p loop shape
-# with a ragged last tile row (90 = 11 * 8 + 2)
+# column short of a tile, exactly one, one over, the 720p loop shape with a
+# ragged last tile row (90 = 11 * 8 + 2) and the 1080p one (135 = 16 * 8 +
+# 7)
 TAIL_SHAPES = [(7, 16), (8, 15), (8, 16), (9, 17), (1, 1), (3, 200),
-               (17, 33), (90, 160), (89, 159)]
+               (17, 33), (90, 160), (89, 159), (135, 240)]
 
 
 @pytest.mark.parametrize("hw", TAIL_SHAPES,
@@ -1176,9 +1185,10 @@ def test_update_wrappers_check_inputs(dev, update_block):
                                    dict(gru_fused=True, tail_fused=True)],
                          ids=["gru", "tail", "both"])
 def test_fused_forward_on_card_matches_cpu(dev, flags):
-    """The fused forward on the card (kernels G, I) against the CPU path
-    (their plain versions), 64x96, bf16: 0.05 px, the bound the unfused
-    bf16 forward is held to between card and CPU."""
+    """The fused forward against the CPU path under the flags (their plain
+    versions of G, I), 64x96, bf16: 0.05 px, the bound the unfused bf16
+    forward is held to between card and CPU. The card takes its own route
+    whatever the flags: G twice, H and I once an iteration."""
     g = torch.Generator().manual_seed(5)
     img1 = torch.rand(1, 64, 96, 3, generator=g) * 255
     img2 = torch.roll(img1, shifts=(2, 3), dims=(1, 2))
@@ -1187,12 +1197,12 @@ def test_fused_forward_on_card_matches_cpu(dev, flags):
     outs = []
     for d in ("cpu", dev):
         model = traft.init_raft_params(cfg, seed=0, device=d)
-        n_g, n_i = kernels.fused_gru_update.launches, kernels.flow_head.launches
+        n0 = _launches()
         outs.append(traft.weighted_raft_forward(
             model, cfg, img1.to(d), img2.to(d))["flow_up"].cpu())
-    assert kernels.fused_gru_update.launches - n_g == (
-        8 if cfg.gru_fused else 0)
-    assert kernels.flow_head.launches - n_i == (4 if cfg.tail_fused else 0)
+    n1 = _launches()
+    assert {k: n1[k] - n0[k] for k in UPDATE_KERNELS} == {
+        "fused_gru_update": 8, "motion_encoder_tail": 4, "flow_head": 4}
     assert (outs[0] - outs[1]).abs().max().item() <= 0.05
 
 
@@ -1214,8 +1224,6 @@ def test_fused_motion_encoder_module(dev, update_block):
         update_block.encoder(flow, corr_feat, fused=True)   # float32 mode
 
 
-def _launches():
-    return {fn.__name__: n for fn, n in kernels.launch_counters().items()}
 
 
 @pytest.mark.parametrize("precision", ["bf16", "highest"])
@@ -1254,6 +1262,14 @@ def test_block_local_loop_graph_matches_eager(dev, precision):
     assert n_got == n_want
     assert n_got["local_corr_build"] == 1
     assert n_got["local_lookup_coords"] == cfg.iters + 1
+    # the loop's route: G, H (its second launch by programmatic dependent
+    # launch) and I in bf16; G's float32 form in 'highest'
+    bf16 = precision == "bf16"
+    assert n_got.get("fused_gru_update", 0) == (2 * cfg.iters if bf16 else 0)
+    assert n_got.get("motion_encoder_tail", 0) == (cfg.iters if bf16 else 0)
+    assert n_got.get("flow_head", 0) == (cfg.iters if bf16 else 0)
+    assert n_got.get("fused_gru_update_f32", 0) == (0 if bf16
+                                                     else 2 * cfg.iters)
     for key in ("flow", "flow_up", "up_mask", "mean_response"):
         assert torch.equal(got[key], want[key]), key
     assert torch.equal(w_got, w_want)
@@ -1291,6 +1307,78 @@ def test_block_local_loop_graph_keys(dev):
     trained_model = traft.init_raft_params(trained, seed=3, device=dev)
     traft.train_forward(trained_model, trained, *pair(64, 96))
     assert loop_graph.captured(trained_model) == 0
+
+
+# name: (RaftConfig overrides, frame pairs, training forward, G, H and I
+# launches an iteration)
+CARD_ROUTE_CASES = {
+    "bf16-local": (dict(precision="bf16", corr_impl="local"), 1, False,
+                   (2, 1, 1)),
+    "bf16-dense": (dict(precision="bf16"), 1, False, (2, 1, 1)),
+    "bf16-flags": (dict(precision="bf16", corr_impl="local",
+                        gru_fused=True, tail_fused=True), 1, False,
+                   (2, 1, 1)),
+    "bf16-batch": (dict(precision="bf16"), 2, False, (0, 0, 0)),
+    "bf16-train": (dict(precision="bf16"), 1, True, (0, 0, 0)),
+    "highest": (dict(corr_impl="local"), 1, False, (0, 0, 0)),
+    "default": (dict(precision="default"), 1, False, (0, 0, 0)),
+    "small-bf16": (dict(precision="bf16", small=True), 1, False, (0, 0, 0)),
+}
+
+
+@pytest.mark.parametrize("case", list(CARD_ROUTE_CASES))
+def test_card_route_launches(dev, case):
+    """The bf16 loop's route on the card, by what a forward observes: one
+    frame pair in bf16 mode with no gradient launches G twice, H and I
+    once an iteration, with or without the flags, graphed (block-local) or
+    eager (the pyramid); a batch, a training forward, float32, 'default'
+    and RAFT-small launch none of them."""
+    overrides, B, train, per_iter = CARD_ROUTE_CASES[case]
+    cfg = traft.RaftConfig(iters=2, **overrides)
+    model = traft.init_raft_params(cfg, seed=4, device=dev)
+    g = torch.Generator().manual_seed(12)
+    img1 = (torch.rand(B, 64, 96, 3, generator=g) * 255).to(dev)
+    img2 = torch.roll(img1, shifts=(2, 3), dims=(1, 2))
+    n0 = _launches()
+    if train:
+        traft.train_forward(model, cfg, img1, img2)["flow_up"].sum().backward()
+    else:
+        traft.weighted_raft_forward(model, cfg, img1, img2)
+    torch.cuda.synchronize()
+    n1 = _launches()
+    assert tuple(n1[k] - n0[k] for k in UPDATE_KERNELS) == tuple(
+        cfg.iters * n for n in per_iter)
+
+
+def test_card_route_graph_1080p_matches_eager(dev):
+    """The card's bf16 route at the 1080p loop grid (135 x 240 cells), 12
+    iterations, block-local: replayed from its CUDA graph (H's second
+    launch captured with its programmatic dependent launch) it equals, bit
+    for bit, an eager forward of a copy of the model; 24 launches of G and
+    12 each of H and I a flow, eager or replayed."""
+    cfg = traft.RaftConfig(corr_impl="local", precision="bf16")
+    model = traft.init_raft_params(cfg, seed=6, device=dev)
+    twin = copy.deepcopy(model)
+    g = torch.Generator().manual_seed(13)
+    imgs = [(torch.rand(1, 1080, 1920, 3, generator=g) * 255).to(dev)
+            for _ in range(3)]
+
+    def forward(m, frame):
+        n0 = _launches()
+        out = traft.weighted_raft_forward(m, cfg, imgs[0], frame)
+        torch.cuda.synchronize()
+        n1 = _launches()
+        return ({k: out[k].clone() for k in ("flow", "flow_up")},
+                tuple(n1[k] - n0[k] for k in UPDATE_KERNELS))
+
+    assert forward(model, imgs[1])[1] == (24, 12, 12)
+    assert loop_graph.captured(model) == 1
+    got, n_got = forward(model, imgs[2])
+    want, n_want = forward(twin, imgs[2])
+    assert n_got == n_want == (24, 12, 12)
+    assert got["flow"].shape[1:3] == (135, 240)
+    for key in got:
+        assert torch.equal(got[key], want[key]), key
 
 
 # ---------------------------------------------------------------------------
@@ -1471,4 +1559,55 @@ def test_shared_step_1080p_with_kernel_j(dev, monkeypatch):
         assert np.array_equal(ok, ok_chain)
     gaps = [chip_smoke.h_diff_px(h[t], hc[t], chip_smoke.mask_corners(masks[t]))
             for h, hc in zip(hs, hs_chain) for t in range(len(masks))]
+    assert np.median(gaps) <= 0.02
+
+
+def test_shared_step_1080p_card_route(dev, monkeypatch):
+    """``woft_fast_shared``'s program (``SharedMultiTracker`` on
+    ``WOFT_fast.py`` and the trained v4 weights, eight targets, no flag)
+    on three 1080p frames of the walk (the first forward eager and
+    captured, the others replayed): G 24, H 12 and I 12 launches a flow;
+    against the unfused loop (the route's card predicate answering no:
+    none of them), the same check flags and the median corner gap within
+    the shared cell's ``h_gap_median_px`` limit, 0.02 px."""
+    import sys
+
+    import numpy as np
+
+    sys.path.insert(0, str(kernels.CSRC.parents[1]))
+    import chip_smoke
+    from woft_tpu_torch.config import load_config
+    from woft_tpu_torch.flow import RaftFlow
+    from woft_tpu_torch.pipeline import SharedMultiTracker
+
+    template, frames, _ = chip_smoke.walk(1080, 1920, dev, n=3)
+    masks = chip_smoke.shared_masks(8, 1080, 1920)
+    conf = load_config(str(kernels.CSRC.parent / "configs" / "WOFT_fast.py"))
+    flower = RaftFlow(conf.flow_config, device=dev)
+    assert not (flower.cfg.gru_fused or flower.cfg.tail_fused)
+
+    def run():
+        tracker = SharedMultiTracker(flower.model, flower.cfg,
+                                     conf.tracker_params, device=dev)
+        tracker.init(template, masks)
+        n0 = _launches()
+        out = [tracker.track(f) for f in frames]
+        torch.cuda.synchronize()
+        n1 = _launches()
+        return ([np.asarray(h) for h, _ in out],
+                [np.asarray(m["global_H_success"]) for _, m in out],
+                tuple(n1[k] - n0[k] for k in UPDATE_KERNELS))
+
+    hs, oks, n = run()
+    T = len(frames)
+    assert n == (24 * T, 12 * T, 12 * T)
+    with monkeypatch.context() as m:
+        m.setattr(update, "_on_card", lambda *tensors: False)
+        hs_unfused, oks_unfused, n_unfused = run()
+    assert n_unfused == (0, 0, 0)
+    for ok, ok_unfused in zip(oks, oks_unfused):
+        assert np.array_equal(ok, ok_unfused)
+    gaps = [chip_smoke.h_diff_px(h[t], hu[t],
+                                 chip_smoke.mask_corners(masks[t]))
+            for h, hu in zip(hs, hs_unfused) for t in range(len(masks))]
     assert np.median(gaps) <= 0.02

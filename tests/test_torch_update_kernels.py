@@ -612,3 +612,146 @@ def test_gru_f32_wrappers_refuse_and_dispatch():
     with layers.precision_scope("bf16"), pytest.raises(ValueError):
         update.LoopRoute("f32").context(traft.SepConvGRU(128, 256),
                                         torch.zeros(1, 128, 4, 6))
+
+
+# ---------------------------------------------------------------------------
+# the card's bf16 route: kernels G, H and I by observation
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def route_block():
+    return traft.init_raft_params(traft.RaftConfig(), seed=5).update_block
+
+
+def _want_route(card, precision, B, grad, flags):
+    """The route ``loop_route`` owes a forward of RAFT-large: a batch and a
+    forward that trains the loop run unfused, except that the flags keep
+    their meaning in bf16 off the card's route; one frame pair without a
+    gradient runs G, H and I in bf16 on the card, G's float32 form in
+    'highest'."""
+    if B != 1:
+        return update.LoopRoute("unfused")
+    if precision == "bf16":
+        if card and not grad:
+            return update.LoopRoute("bf16", tail=True, encoder=True)
+        return update.LoopRoute("bf16" if flags else "unfused", flags)
+    if precision == "highest" and not grad:
+        return update.LoopRoute("f32")
+    return update.LoopRoute("unfused")
+
+
+@pytest.mark.parametrize("flags", [False, True], ids=["no-flags", "flags"])
+@pytest.mark.parametrize("grad", [False, True], ids=["no-grad", "grad"])
+@pytest.mark.parametrize("B", [1, 2], ids=["B1", "B2"])
+@pytest.mark.parametrize("precision", ["bf16", "highest", "default"])
+@pytest.mark.parametrize("card", [False, True], ids=["cpu", "card"])
+def test_loop_route_by_what_the_forward_observes(route_block, monkeypatch,
+                                                 card, precision, B, grad,
+                                                 flags):
+    """``loop_route`` over the card (its predicate patched, as J's is),
+    the precision, the batch, a gradient through the update block and the
+    flags: on the card a bf16 forward of one pair without grad takes G, H
+    and I whatever the flags; the CPU keeps the flags' parity route."""
+    monkeypatch.setattr(update, "_on_card", lambda *tensors: card)
+    cfg = traft.RaftConfig(precision=precision, gru_fused=flags,
+                           tail_fused=flags)
+    x = torch.zeros(B, 128, 4, 6)
+    with layers.precision_scope(precision), torch.set_grad_enabled(grad):
+        got = update.loop_route(cfg, B, route_block, x, x)
+    assert got == _want_route(card, precision, B, grad, flags)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "highest", "default"])
+@pytest.mark.parametrize("card", [False, True], ids=["cpu", "card"])
+def test_loop_route_small_keeps_its_block(monkeypatch, card, precision):
+    """RAFT-small runs its own block on every route, flags and card alike."""
+    monkeypatch.setattr(update, "_on_card", lambda *tensors: card)
+    cfg = traft.RaftConfig(small=True, precision=precision, gru_fused=True,
+                           tail_fused=True)
+    block = traft.SmallUpdateBlock(196, 96)
+    x = torch.zeros(1, 96, 4, 6)
+    with layers.precision_scope(precision), torch.no_grad():
+        assert update.loop_route(cfg, 1, block, x) == update.LoopRoute("small")
+
+
+ULP = 2.0 ** -8            # one bf16 ulp relative to a value's binade top
+
+
+def test_card_route_step_matches_unfused_step(route_block):
+    """One bf16 step of the card's route (kernels G, H, I through their
+    plain versions: CPU tensors) against the unfused step from the same
+    state, on a 17 x 30 grid (odd, as 1080p's 135 x 240 is against the
+    kernels' tiles), each stage from the same inputs within the kernels'
+    tolerances (README): H 2 ulps plus one of the map's scale, G 4 ulps of
+    max(1, |h|), I one ulp of its scale; the step's state and delta within
+    G's and I's. The two round at other points (the unfused path rounds
+    each bias to bf16 before its convolution): observed at 0.04-0.08, 0.25-
+    0.29 and 0.13-0.15 of the tolerances over three seeds, the step's
+    state at 0.3 and its delta at 0.5."""
+    ub = route_block
+    g = torch.Generator().manual_seed(6)
+    H, W = 17, 30
+    net = torch.tanh(torch.randn(1, 128, H, W, generator=g))
+    inp = torch.relu(torch.randn(1, 128, H, W, generator=g))
+    corr = torch.randn(1, 324, H, W, generator=g)
+    flow = 3 * torch.randn(1, 2, H, W, generator=g)
+    card = update.LoopRoute("bf16", tail=True, encoder=True)
+    unfused = update.LoopRoute("unfused")
+
+    def check_map(got, want):           # H's tolerance
+        got, want = got.float(), want.float()
+        allowed = 2 * ULP * want.abs() + ULP * want.abs().max()
+        assert ((got - want).abs() <= allowed).all()
+
+    def check_state(got, want):         # G's
+        allowed = 4 * ULP * want.abs().clamp(min=1.0)
+        assert ((got - want).abs() <= allowed).all()
+
+    def check_delta(got, want):         # I's
+        assert (got - want).abs().max() <= ULP * want.abs().max()
+
+    with layers.precision_scope("bf16"), torch.no_grad():
+        ctx_c, ctx_u = card.context(ub.gru, inp), unfused.context(ub.gru, inp)
+        motion = ub.encoder(flow, corr)
+        check_map(ub.encoder(flow, corr, fused=True), motion)
+        check_state(card.sep_conv_gru(net, motion, ctx_c),
+                    unfused.sep_conv_gru(net, motion, ctx_u))
+        check_delta(ub.flow_head(net, fused=True), ub.flow_head(net))
+        net_c, delta_c = card.step(ub, net, corr, flow, ctx_c)
+        net_u, delta_u = unfused.step(ub, net, corr, flow, ctx_u)
+    assert net_c.dtype == delta_c.dtype == torch.float32
+    assert net_c.shape == net_u.shape and delta_c.shape == delta_u.shape
+    check_state(net_c, net_u)
+    check_delta(delta_c, delta_u)
+    assert delta_u.abs().max().item() > 0.05
+
+
+def test_card_route_forward_on_the_cpu(small_forward, monkeypatch):
+    """A bf16 forward with the card's predicate patched takes the card's
+    route through the plain versions: each iteration one call of H, two of
+    G and one of I, with no flag; the kernels' taps made once a forward,
+    not once an iteration; the flow within bf16 noise of the unfused
+    forward's."""
+    model, img1, img2 = small_forward
+    cfg = _cfg("bf16")
+    want = traft.weighted_raft_forward(model, cfg, img1, img2)["flow_up"]
+    calls = dict.fromkeys(("gru_update", "motion_encoder_tail", "flow_head",
+                           "taps"), 0)
+
+    def counted(name, fn):
+        def call(*args):
+            calls[name] += 1
+            return fn(*args)
+        return call
+
+    for name in calls:
+        monkeypatch.setattr(update, name, counted(name, getattr(update,
+                                                                 name)))
+    monkeypatch.setattr(update, "_on_card", lambda *tensors: True)
+    got = traft.weighted_raft_forward(model, cfg, img1, img2)["flow_up"]
+    n = cfg.iters
+    # taps: G's four (z|r and q, two directions), H's three, I's two
+    assert calls == {"gru_update": 2 * n, "motion_encoder_tail": n,
+                     "flow_head": n, "taps": 9}
+    assert not torch.equal(got, want)
+    assert (got - want).abs().max().item() < 0.02

@@ -5,7 +5,6 @@ Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 tools/torch_profile_720p.py [--config WOFT.py] [--frames 4]
                                         [--warmup 2] [--host]
-                                        [--gru-fused] [--tail-fused]
                                         [--compare ROUNDS]
                                         [--compare-root DIR] [--windows]
                                         [--multi] [--ablations]
@@ -14,21 +13,21 @@ Tracks a synthetic homography walk with ``woft_tpu_torch/configs/<config>``
 (``WOFT.py``, the canonical tracker, or ``WOFT_fast.py``, block-local
 correlation in bf16; full-width RAFT-large on the weights the config
 loads, the trained ``weights/wraft_tpu_v4_torch.pt``) and profiles
-``--frames`` steady frames with ``torch.profiler``. ``--gru-fused`` and
-``--tail-fused`` switch on the fused refinement loop (``RaftConfig``'s
-``gru_fused`` / ``tail_fused``: kernels G and I; bf16 configs only). Prints the card, the per-frame wall time,
-the device busy share of the profiled window, the device time by kernel
-category and the top kernels by device time. ``--host`` then runs the same
-frames again under ``cProfile`` and prints the Python functions by
+``--frames`` steady frames with ``torch.profiler`` (a bf16 config runs the
+loop's card route, kernels G, H and I). Prints the card, the per-frame wall
+time, the device busy share of the profiled window, the device time by
+kernel category and the top kernels by device time. ``--host`` then runs
+the same frames again under ``cProfile`` and prints the Python functions by
 cumulative host time (``cProfile`` inflates every Python call, so read the
 proportions, not the totals). ``--compare ROUNDS`` first times the frames
-with and without the fused-loop flags in turns in this one process (two
-trackers on the same frames, the order swapped every round), because frame
-times on a shared host differ more between two runs than between the two
-paths. ``--compare-root DIR`` compares this tree's tracker instead with the
-one of the ``woft_tpu_torch`` tree under ``DIR`` (an older commit unpacked
-by ``git archive``, imported here under another package name), both with
-the same flags, in turns in this one process. ``--windows`` profiles
+with the loop's route and with its unfused route (the route's card
+predicate answering no for the second tracker) in turns in this one
+process (two trackers on the same frames, the order swapped every round),
+because frame times on a shared host differ more between two runs than
+between the two paths. ``--compare-root DIR`` compares this tree's tracker
+instead with the one of the ``woft_tpu_torch`` tree under ``DIR`` (an
+older commit unpacked by ``git archive``, imported here under another
+package name), in turns in this one process. ``--windows`` profiles
 instead each window path that ``chip_smoke.py`` drives (``WINDOW_TRACKS``:
 ``WOFT_window.py`` at 1280x720 and 1920x1080, ``WOFT_window_native.py`` at
 1280x720, ``bench.py``'s block-local bf16 window step at 1920x1080; the
@@ -42,6 +41,7 @@ instead its multi-target paths at 1920x1080: the shared-flow tracker with
 """
 
 import argparse
+import contextlib
 import cProfile
 import importlib
 import importlib.util
@@ -64,7 +64,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CATEGORIES = (
     ("kernel G (fused GRU)", ("gru_update_kernel",)),
     ("kernel I (flow head)", ("flow_head_kernel",)),
-    ("kernel H (motion tail)", ("motion_encoder_tail_kernel",)),
+    ("kernel H (motion tail)", ("motion_stage1_kernel",
+                                "motion_stage2_kernel")),
     ("kernel B (corr lookup)", ("corr_lookup_kernel",)),
     ("kernel C (local volume)", ("local_corr_",)),
     ("kernel E (exact local lookup)", ("local_lookup_exact_kernel",)),
@@ -108,20 +109,25 @@ def other_tree(root):
 
 
 def compare(first, second, template, mask, frames, args,
-            labels=("with the flags", "without")):
+            labels=("the loop's route", "its unfused route"),
+            scope=contextlib.nullcontext):
     """Frame times of two trackers on the same frames, in turns; the first
-    is initialised and warmed up already."""
-    second.init(template, mask)
-    for f in frames[:args.warmup]:
-        second.track(f)
+    is initialised and warmed up already, the second's calls run inside
+    ``scope()``."""
+    with scope():
+        second.init(template, mask)
+        for f in frames[:args.warmup]:
+            second.track(f)
     times = {labels[0]: [], labels[1]: []}
-    pair = [(labels[0], first), (labels[1], second)]
+    pair = [(labels[0], first, contextlib.nullcontext),
+            (labels[1], second, scope)]
     for _ in range(args.compare):
         for f in frames[args.warmup:]:
-            for name, tr in pair:
+            for name, tr, ctx in pair:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                tr.track(f)
+                with ctx():
+                    tr.track(f)
                 torch.cuda.synchronize()
                 times[name].append((time.perf_counter() - t0) * 1e3)
         pair.reverse()
@@ -287,13 +293,10 @@ def main():
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--host", action="store_true",
                     help="also profile the host side with cProfile")
-    ap.add_argument("--gru-fused", action="store_true",
-                    help="RaftConfig.gru_fused: kernel G in the loop")
-    ap.add_argument("--tail-fused", action="store_true",
-                    help="RaftConfig.tail_fused: kernel I in the loop")
     ap.add_argument("--compare", type=int, default=0, metavar="ROUNDS",
-                    help="time the flagged and the unflagged tracker in "
-                         "turns over ROUNDS passes of the frames")
+                    help="time the tracker on the loop's route and on its "
+                         "unfused route in turns over ROUNDS passes of the "
+                         "frames")
     ap.add_argument("--windows", action="store_true",
                     help="profile the window paths of chip_smoke.py "
                          "instead of the 720p tracker")
@@ -324,10 +327,9 @@ def main():
         if args.ablations:
             return profile_ablations(args)
         return profile_windows(args) if args.windows else profile_multi(args)
-    flags = {"gru_fused": args.gru_fused, "tail_fused": args.tail_fused}
-    print(f"config {args.config}, raft_flags {flags}")
+    print(f"config {args.config}")
     tracker = WOFTTracker(load_config(os.path.join(
-        ROOT, "woft_tpu_torch", "configs", args.config)), raft_flags=flags)
+        ROOT, "woft_tpu_torch", "configs", args.config)))
     dev = tracker.device
     g = torch.Generator().manual_seed(2)
     h, w = 720, 1280
@@ -357,12 +359,13 @@ def main():
         conf = load_config(os.path.join(ROOT, "woft_tpu_torch", "configs",
                                         args.config))
         conf.flow_config.of_class = wrapper_mod.RaftFlow
-        other = tracker_mod.WOFTTracker(conf, raft_flags=flags)
+        other = tracker_mod.WOFTTracker(conf)
         compare(tracker, other, template.numpy(), mask, frames, args,
                 labels=("this tree", f"the tree under {args.compare_root}"))
     elif args.compare:
+        import chip_smoke
         compare(tracker, WOFTTracker(tracker.C), template.numpy(), mask,
-                frames, args)
+                frames, args, scope=chip_smoke.unfused_loop)
 
     rc = profile_frames(lambda i: tracker.track(frames[args.warmup + i]),
                         args.frames, f"{args.config} at 1280x720")

@@ -21,12 +21,15 @@ leaves two decisions to a module each, made once a forward:
   consumes directly (``corr.lookup_conv1x1``); the pyramid and the
   block-local volume also spread over ranks (``parallel/sharding.py``);
 - the refinement loop's route (``models/update.py:loop_route``, a
-  ``LoopRoute``): the SepConvGRU unfused, as kernel G's float32 form (every
-  'highest' forward of RAFT-large on one frame pair with no gradient
-  through the update block, no flag) or as the bf16 kernel G, the flow head
-  as kernel I or not, or RAFT-small's own block. Its loop-invariant context
-  (``inp``'s part of the SepConvGRU's convolutions) is computed once per
-  frame (``LoopRoute.context``; exact by conv linearity).
+  ``LoopRoute``): for a forward of RAFT-large on one frame pair with no
+  gradient through the update block, no flag, the SepConvGRU as kernel G's
+  float32 form in 'highest', and in bf16 mode on the card the motion
+  encoder as kernel H, the SepConvGRU as the bf16 kernel G and the flow
+  head as kernel I; otherwise the unfused update block (bf16 on the CPU:
+  G and I under the flags below), or RAFT-small's own block. Its
+  loop-invariant context (``inp``'s part of the SepConvGRU's convolutions)
+  is computed once per frame (``LoopRoute.context``; exact by conv
+  linearity).
 
 Besides:
 
@@ -108,14 +111,16 @@ class RaftConfig:
         docstring).
     gru_fused: each direction of the SepConvGRU as one launch of the bf16
         kernel G in the refinement loop; the counterpart of the JAX
-        package's ``gru_pallas``. In effect only in bf16 mode and for one
-        frame pair; otherwise the precision's route runs (float32:
-        kernel G's float32 form, without this flag; 'default' and the
-        other cases: the unfused path).
+        package's ``gru_pallas``, and the CPU's parity switch: on the card
+        a bf16 forward of one frame pair with no gradient through the loop
+        runs G, H and I whatever the flags (``update.loop_route``). In
+        effect only in bf16 mode and for one frame pair; otherwise the
+        precision's route runs (float32: kernel G's float32 form, without
+        this flag; 'default' and the other cases: the unfused path).
     tail_fused: the flow head as one fused kernel (I) in the loop; the
         counterpart of ``tail_pallas``, with the same gating. As there, the
-        motion encoder stays unfused on the forward path (kernel H is
-        reached through ``BasicMotionEncoder.forward(fused=True)``).
+        motion encoder stays unfused under the flag (kernel H runs on the
+        card's route only).
     small: RAFT-small (bottleneck encoders, the small motion encoder, a
         3x3 ConvGRU, hidden 96, context 64, features 128, radius 3, the
         bilinear ``upflow8`` output: no convex-upsampling mask); the
@@ -663,7 +668,10 @@ def _raft_forward(model, cfg, image1, image2, flow_init, iters,
                     ub, net, corr.lookup(_nhwc(coords1).contiguous()),
                     coords1 - coords0, ctx)
                 coords1 = coords1 + delta
-            return net, coords1
+            # NCHW for the mask head: cuDNN's float32 convolutions run
+            # slower on the bf16 route's channels-minor state (a no-op on
+            # the other routes)
+            return net.contiguous(), coords1
 
         if graphed:
             def volume_and_refine(f1, f2, net, inp, coords0, coords1):

@@ -3,14 +3,18 @@ convolution chains as single kernels, their plain PyTorch versions, and the
 weight layouts both read.
 
 ``loop_route`` decides once a forward how the loop runs its update block
-(a ``LoopRoute``, which gives the per-frame context and the step): in
-float32 ('highest': TF32 off) every forward of RAFT-large on one frame pair
-that needs no gradient runs the SepConvGRU as kernel G's float32 form
-(``gru_update_f32``), one launch a direction; bf16 mode runs kernels G
-and I only under the opt-in flags (``RaftConfig.gru_fused``,
-``tail_fused``), as the JAX package does; 'default' (TF32 products),
-a batch of frame pairs and a forward that records a gradient keep the
-unfused path; RAFT-small runs its own block (no fused kernel).
+(a ``LoopRoute``, which gives the per-frame context and the step), from
+what the forward can observe. Every forward of RAFT-large on one frame
+pair that records no gradient through the loop runs fused: in float32
+('highest': TF32 off) the SepConvGRU as kernel G's float32 form
+(``gru_update_f32``), one launch a direction; in bf16 mode on the card the
+motion encoder's 3x3 stack as kernel H, each SepConvGRU direction as
+kernel G and the flow head as kernel I. bf16 mode on the CPU keeps the
+unfused path, the parity path of the JAX package's, where the flags
+``RaftConfig.gru_fused`` and ``tail_fused`` take G and I (as the JAX
+package's ``gru_pallas`` and ``tail_pallas`` do); 'default' (TF32
+products), a batch of frame pairs and a forward that records a gradient
+keep the unfused path; RAFT-small runs its own block (no fused kernel).
 
 PyTorch twin of ``woft_tpu/ops/pallas/gru.py`` (``sep_conv_gru_pallas``) and
 ``woft_tpu/ops/pallas/update_tail.py`` (``motion_encoder_pallas``,
@@ -276,12 +280,14 @@ class LoopRoute:
         'f32' (kernel G's float32 form, ``gru_update_f32``) or 'bf16'
         (kernel G, ``gru_update``). On a fused route the state is re-laid
         channels-minor for the kernel once a step.
-    tail: the flow head as kernel I (``flow_head``). The motion encoder
-        stays unfused, as in the JAX package (kernel H is reached through
-        ``BasicMotionEncoder.forward(fused=True)``).
+    tail: the flow head as kernel I (``flow_head``).
+    encoder: the motion encoder's 3x3 stack and its ``cat`` as kernel H
+        (``BasicMotionEncoder.forward(fused=True)``); the card's bf16 route
+        only, the JAX package has no caller of its twin.
     """
     gru: str = "unfused"
     tail: bool = False
+    encoder: bool = False
 
     def context(self, gru, inp):
         """This frame's loop-invariant context: ``inp`` itself for 'small';
@@ -383,29 +389,36 @@ class LoopRoute:
             net = block.gru(net, torch.cat([ctx.to(motion.dtype), motion],
                                            dim=1))
             return net, block.flow_head(net)
-        motion = block.encoder(flow, corr, fused=False)
+        motion = block.encoder(flow, corr, fused=self.encoder)
         net = self.sep_conv_gru(net, motion, ctx)
         return net, block.flow_head(net, fused=self.tail)
 
 
+def _on_card(*tensors):
+    return all(t.is_cuda for t in tensors)
+
+
 def loop_route(cfg, batch, block, *tensors):
     """The ``LoopRoute`` of a forward of ``batch`` frame pairs under the
-    ``RaftConfig`` ``cfg``, from what it can observe: 'small' for
-    RAFT-small; on one frame pair, 'bf16' in bf16 mode under
-    ``cfg.gru_fused``, and 'f32' in 'highest' when nothing the loop reads
-    records a gradient (``tensors``: its inputs; and ``block``'s
-    parameters); 'unfused' otherwise ('default': TF32 products, a batch, a
-    forward that trains the network). ``tail`` under ``cfg.tail_fused`` in
-    bf16 mode on one frame pair."""
+    ``RaftConfig`` ``cfg``, from what it can observe (``tensors``: the
+    loop's inputs; with ``block``'s parameters, what it reads): 'small' for
+    RAFT-small; 'unfused' for a batch. On one frame pair that records no
+    gradient through the loop: in bf16 mode on the card, kernels G, H and
+    I; in 'highest', 'f32'. Otherwise ('default': TF32 products; a forward
+    that trains the network; bf16 on the CPU) 'unfused', except that bf16
+    mode off the card takes 'bf16' under ``cfg.gru_fused`` and the flow
+    head as I under ``cfg.tail_fused``."""
     if cfg.small:
         return LoopRoute("small")
-    bf16 = layers.get_compute_dtype() == torch.bfloat16
-    tail = cfg.tail_fused and batch == 1 and bf16
     if batch != 1:
-        return LoopRoute("unfused", tail)
-    if bf16:
-        return LoopRoute("bf16" if cfg.gru_fused else "unfused", tail)
-    if cfg.precision != "highest" or torch.is_grad_enabled() and any(
-            t.requires_grad for t in (*tensors, *block.parameters())):
-        return LoopRoute("unfused", tail)
-    return LoopRoute("f32", tail)
+        return LoopRoute("unfused")
+    frozen = not (torch.is_grad_enabled() and any(
+        t.requires_grad for t in (*tensors, *block.parameters())))
+    if layers.get_compute_dtype() == torch.bfloat16:
+        if frozen and _on_card(*tensors):
+            return LoopRoute("bf16", tail=True, encoder=True)
+        return LoopRoute("bf16" if cfg.gru_fused else "unfused",
+                         cfg.tail_fused)
+    if cfg.precision != "highest" or not frozen:
+        return LoopRoute("unfused")
+    return LoopRoute("f32")

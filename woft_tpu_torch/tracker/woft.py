@@ -629,8 +629,9 @@ class WOFTTracker:
     does.
     ``raft_flags``: fields of ``RaftConfig`` that no config file carries,
     set on top of the flow config's, e.g. ``{"gru_fused": True,
-    "tail_fused": True}`` for the fused refinement loop (the JAX package's
-    ``bench.py`` sets its counterparts the same way, outside the configs)."""
+    "tail_fused": True}`` for the fused refinement loop on the CPU (the
+    JAX package's ``bench.py`` sets its counterparts the same way, outside
+    the configs; on the card a bf16 tracker runs it without them)."""
 
     def __init__(self, config, device=None, raft_flags=None):
         self.C = config
