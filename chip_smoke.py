@@ -68,9 +68,12 @@ Phases; any failure ends the script with a non-zero exit:
    are trained, 'default' also to the float32 track, each frame traced for
    device busy time); the masked forward on the card against the CPU path;
    ``MultiTargetTracker`` x8 on ``WOFT_window.py`` in bf16; the alternate
-   correlation against kernel B at 720p, one flow's time beside the dense
-   path's, and ``WOFT.py`` with ``alternate_corr`` at 3840x2160 (2 frames,
-   peak memory); then the window
+   correlation (kernel K) against kernel B at 720p, one flow's time beside
+   the dense path's, ``WOFT_alternate.py`` at 3840x2160 (2 frames, peak
+   memory, K 13 times a flow), one 4K flow through the plain chain and
+   through K in turns, and K at the 4K grid against its plain chain and
+   its bounds;
+   then the window
    paths on the trained window-mode weights
    (``weights/wraft_tpu_v5_torch.pt``), each counted from 0 the same way:
    ``WOFTWindowTracker`` under ``configs/WOFT_window.py`` at 1280x720 and
@@ -1472,7 +1475,7 @@ COUNTED = ("warp_perspective_bilinear", "corr_pyramid_lookup",
            "local_lookup_fine_multi",
            "local_lookup_exact", "local_lookup_fine", "fused_gru_update",
            "fused_gru_update_f32", "motion_encoder_tail", "flow_head",
-           "weight_head")
+           "weight_head", "alt_corr_lookup")
 # G's float32 form runs in every float32 forward of RAFT-large on one frame
 # pair, J in every bf16 weight head on the card; a track checks their counts
 # where it names them (track_720p, track_shared), the others report them
@@ -3117,17 +3120,39 @@ def check_masked_card_vs_cpu(dev):
     return dict(errs=errs, vis_target=float(vis[mask].mean()))
 
 
+@contextlib.contextmanager
+def plain_alternate():
+    """The alternate lookup's plain chain on the card: kernel K's launch
+    is the plain chain inside the block (the comparison's other side)."""
+    from woft_tpu_torch.models import corr
+
+    launch = corr._alt_lookup_launch
+    corr._alt_lookup_launch = corr._alt_lookup_plain
+    try:
+        yield
+    finally:
+        corr._alt_lookup_launch = launch
+
+
 def check_alternate(kernels, corr, dev):
-    """The alternate correlation: at 720p its lookup against kernel B on
-    the float32 pyramid of the same features (``ALT_LOOKUP_REL``) and one
-    flow's time against the dense path's (v4, 12 iterations, the dense
-    head); then ``WOFT.py`` with ``alternate_corr=True`` at 3840x2160, 2
-    frames of the walk: peak device memory, frame time and corners, where
-    the float32 pyramid would need the bytes printed."""
+    """The alternate correlation: at 720p kernel K's lookup against kernel
+    B on the float32 pyramid of the same features (``ALT_LOOKUP_REL``), K
+    timed beside its plain chain, and one flow's time against the dense
+    path's (v4, 12 iterations, the dense head); then ``WOFT_alternate.py``
+    at 3840x2160, 2 frames of the walk: peak device memory, frame time,
+    corners and K's launches (13 a flow, exactly), where the float32
+    pyramid would need the bytes printed; one 4K flow through the plain
+    chain and through K in turns (plain, K, K, plain), their times and the
+    largest difference of their upsampled flows; last K at the 4K grid,
+    dense and indexed (the sparse head's 4,500 rows), against its plain
+    chain on the same inputs (``ALT_LOOKUP_REL``) and timed against its
+    bounds."""
+    from benchmark.harness import alternate_work as aw
     from woft_tpu_torch.config import load_config
     from woft_tpu_torch.flow import RaftFlow
     from woft_tpu_torch.models.raft import weighted_raft_forward
 
+    m = {"fnet_dim": 256, "corr_levels": 4, "corr_radius": 4}
     g = torch.Generator(device=dev).manual_seed(11)
     f1 = torch.randn(1, 90, 160, 256, device=dev, generator=g)
     f2 = torch.randn(1, 90, 160, 256, device=dev, generator=g)
@@ -3136,18 +3161,24 @@ def check_alternate(kernels, corr, dev):
     coords = coords.contiguous()
     pyramid, _ = corr.corr_pyramid_fused(f1, f2, 4)
     dense = corr.corr_lookup(pyramid, coords, 4)
-    alt = corr.corr_lookup_alternate(f1, f2, coords, 4, 4)
+    levels = corr.alternate_levels(f2)
+    alt = corr.corr_lookup_alternate_levels(f1, levels, coords, 4)
     rel = ((alt - dense).abs().max() / dense.abs().max()).item()
-    alt_ms = time_ms(lambda: corr.corr_lookup_alternate(f1, f2, coords, 4, 4),
-                     iters=3, warmup=1)
+    alt_ms = time_ms(lambda: corr.corr_lookup_alternate_levels(
+        f1, levels, coords, 4))
+    plain_ms = time_ms(lambda: corr.corr_lookup_alternate_plain(
+        f1, levels, coords, 4), iters=3, warmup=1)
     b_ms = time_ms(lambda: corr.corr_lookup(pyramid, coords, 4))
-    log(f"alternate lookup at 720p (Q=14400): against kernel B on the "
-        f"float32 pyramid {rel:.3g} of the largest value (tol "
-        f"{ALT_LOOKUP_REL}); {alt_ms:.3f} ms a lookup, kernel B {b_ms:.4f} "
-        f"ms")
+    bound_720p = 1e3 * aw.bound_s(aw.alt_dense_bytes(m, 720, 1280),
+                                  aw.alt_lookup_flops(m, 90 * 160))
+    log(f"alternate lookup at 720p (Q=14400): kernel K against kernel B on "
+        f"the float32 pyramid {rel:.3g} of the largest value (tol "
+        f"{ALT_LOOKUP_REL}); K {alt_ms:.4f} ms a lookup (bound "
+        f"{bound_720p:.4f}), the plain chain {plain_ms:.3f} ms, kernel B "
+        f"{b_ms:.4f} ms")
     if not rel <= ALT_LOOKUP_REL:
         raise AssertionError(f"alternate lookup disagrees: {rel}")
-    del pyramid, dense, alt
+    del pyramid, dense, alt, levels
 
     conf = load_config(os.path.join(ROOT, "woft_tpu_torch", "configs",
                                     "WOFT.py"))
@@ -3169,25 +3200,107 @@ def check_alternate(kernels, corr, dev):
     q = (h // 8) * (w // 8)
     dense_bytes = sum(q * (h // 8 >> lvl) * (w // 8 >> lvl) * 4
                       for lvl in range(4))
-    res = ablation_walk(dev, "WOFT.py", h, w, kernels=kernels,
-                        flow={"alternate_corr": True}, n_frames=2,
-                        n_fallback=0)
+    res = ablation_walk(dev, "WOFT_alternate.py", h, w, kernels=kernels,
+                        n_frames=2, n_fallback=0)
     report_ablation_walk(res)
-    log(f"WOFT.py alternate_corr at {w}x{h}: peak device memory "
+    log(f"WOFT_alternate.py at {w}x{h}: peak device memory "
         f"{res['peak_gib']:.2f} GiB, where the float32 pyramid alone would "
         f"take {dense_bytes / 1e9:.1f} GB (level 0 "
         f"{q * q * 4 / 1e9:.1f} GB)")
-    check_counts(f"WOFT.py alternate_corr at {w}x{h}", res["launches"],
-                 {"warp_perspective_bilinear": res["n_frames"]},
-                 ("warp_perspective_bilinear",), res["n_frames"],
-                 res["n_flows"])
+    check_counts(f"WOFT_alternate.py at {w}x{h}", res["launches"],
+                 {"warp_perspective_bilinear": res["n_frames"],
+                  "alt_corr_lookup": 13 * res["n_flows"]},
+                 ("warp_perspective_bilinear", "alt_corr_lookup"),
+                 res["n_frames"], res["n_flows"])
     if not (np.isfinite(res["errs"]).all()
             and max(res["errs"]) <= ALT_4K_CORNER_BOUND_PX):
         raise AssertionError(f"4K alternate track: corner error "
                              f"{max(res['errs']):.3f} px, bound "
                              f"{ALT_4K_CORNER_BOUND_PX}")
-    return dict(lookup_rel=rel, lookup_ms=alt_ms, b_ms=b_ms, flows=flows,
-                track=res)
+    torch.cuda.empty_cache()
+
+    conf = load_config(os.path.join(ROOT, "woft_tpu_torch", "configs",
+                                    "WOFT_alternate.py"))
+    flower = RaftFlow(conf.flow_config, device=dev)
+    template, frames, _ = walk(h, w, dev, n=1)
+    img1, img2 = (torch.from_numpy(np.ascontiguousarray(f[..., ::-1])).to(
+        dev).to(torch.float32)[None] for f in (template, frames[0]))
+
+    def flow_4k():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        up = weighted_raft_forward(flower.model, flower.cfg, img1,
+                                   img2)["flow_up"]
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, up
+
+    flow_ms = {"plain": [], "K": []}
+    for name in ("warm", "plain", "K", "K", "plain"):
+        if name in ("warm", "plain"):
+            with plain_alternate():
+                ms, up_plain = flow_4k()
+        if name in ("warm", "K"):
+            n0 = kernels.alt_corr_lookup.launches
+            ms, up_k = flow_4k()
+            if kernels.alt_corr_lookup.launches - n0 != 13:
+                raise AssertionError("a 4K alternate flow launches K "
+                                     f"{kernels.alt_corr_lookup.launches - n0}"
+                                     " times, not 13")
+        if name != "warm":
+            flow_ms[name].append(ms)
+    flow_diff = (up_plain - up_k).abs().max().item()
+    log(f"one {w}x{h} flow (v4, 12 iterations, the dense head), in turns: "
+        f"the plain chain {', '.join(f'{t:.1f}' for t in flow_ms['plain'])}"
+        f" ms, K {', '.join(f'{t:.1f}' for t in flow_ms['K'])} ms; largest "
+        f"difference of the upsampled flows {flow_diff:.3g} px")
+    del flower, up_plain, up_k
+    torch.cuda.empty_cache()
+
+    h1, w1 = h // 8, w // 8
+    f1 = torch.randn(1, h1, w1, 256, device=dev, generator=g)
+    levels = corr.alternate_levels(torch.randn(1, h1, w1, 256, device=dev,
+                                               generator=g))
+    coords = (_cell_grid(dev, h1, w1) + 2.0 + (torch.rand(
+        1, h1, w1, 2, device=dev, generator=g) - 0.5) * 0.5).contiguous()
+    # the sparse head's rows: the 3x3 cells around 500 points of the
+    # centred half of each side
+    ys = h1 // 4 + torch.randint(0, h1 // 2, (500, 1), device=dev,
+                                 generator=g)
+    xs = w1 // 4 + torch.randint(0, w1 // 2, (500, 1), device=dev,
+                                 generator=g)
+    d = torch.arange(-1, 2, device=dev)
+    cells = ((ys + d).repeat_interleave(3, 1) * w1
+             + (xs + d).repeat(1, 3)).reshape(-1)
+    k4 = {}
+    for what, c in (("dense", None), ("indexed", cells)):
+        got = corr.corr_lookup_alternate_levels(f1, levels, coords, 4,
+                                                cells=c)
+        with plain_alternate():
+            want = corr.corr_lookup_alternate_levels(f1, levels, coords, 4,
+                                                     cells=c)
+        k_rel = ((got - want).abs().max() / want.abs().max()).item()
+        del got, want
+        ms = time_ms(lambda: kernels.alt_corr_lookup(f1, levels, coords, 4,
+                                                     c), iters=10)
+        n = h1 * w1 if c is None else c.shape[0]
+        n_bytes = (aw.alt_dense_bytes(m, h, w) if c is None
+                   else aw.alt_indexed_bytes(m, h, w, 0.5, n))
+        bound, by = bound_ms(n_bytes, aw.alt_lookup_flops(m, n))
+        k4[what] = dict(ms=ms, bound_ms=bound, bound_by=by, max_rel=k_rel)
+    log(f"kernel K at {w}x{h} (Q={q}) against its plain chain on the same "
+        f"inputs: dense {k4['dense']['max_rel']:.3g}, indexed "
+        f"{k4['indexed']['max_rel']:.3g} of the largest value (tol "
+        f"{ALT_LOOKUP_REL}); dense {k4['dense']['ms']:.4f} ms (bound "
+        f"{k4['dense']['bound_ms']:.4f}, {k4['dense']['bound_by']}), "
+        f"indexed M={cells.shape[0]} {k4['indexed']['ms']:.4f} ms (bound "
+        f"{k4['indexed']['bound_ms']:.4f})")
+    for what, row in k4.items():
+        if not row["max_rel"] <= ALT_LOOKUP_REL:
+            raise AssertionError(f"kernel K ({what}, 4K) disagrees with its "
+                                 f"plain chain: {row['max_rel']}")
+    return dict(lookup_rel=rel, lookup_ms=alt_ms, plain_ms=plain_ms,
+                bound_ms=bound_720p, b_ms=b_ms, flows=flows, track=res,
+                flow_4k_ms=flow_ms, flow_4k_diff_px=flow_diff, k4=k4)
 
 
 def track_flow_family(kernels, corr, dev):
@@ -5687,6 +5800,23 @@ def main():
         row["train_launches"]["RAFT-small, --train-flow"] = \
             small["train"]["launches"][row["name"]]
     rows[1]["radius3"] = small["B"]
+    alt = family["alternate"]
+    rows.append(dict(
+        name="alt_corr_lookup", route="cuda",
+        source="woft_tpu_torch/csrc/alt_corr.cu",
+        replaces="none: woft_tpu gathers its alternate lookup through XLA",
+        launches=alt["track"]["launches"]["alt_corr_lookup"],
+        note="kernel K; launches: WOFT_alternate.py at 3840x2160, 13 a "
+             "flow; max_rel: against its plain chain at the 4K grid (dense "
+             "Q=129600 and indexed M=4500, the larger), max_rel_vs_b: "
+             "against kernel B at the 720p grid; times: the 720p grid "
+             "(Q=14400), the 4K grid in 'grid_2160p'; flow_2160p_ms: one "
+             "4K flow, the plain chain and K in turns",
+        max_rel=max(r["max_rel"] for r in alt["k4"].values()),
+        max_rel_vs_b=alt["lookup_rel"], ms=alt["lookup_ms"],
+        plain_ms=alt["plain_ms"], bound_ms=alt["bound_ms"],
+        library_ms=None, grid_2160p=alt["k4"],
+        flow_2160p_ms=alt["flow_4k_ms"]))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1611,3 +1611,197 @@ def test_shared_step_1080p_card_route(dev, monkeypatch):
                                  chip_smoke.mask_corners(masks[t]))
             for h, hu in zip(hs, hs_unfused) for t in range(len(masks))]
     assert np.median(gaps) <= 0.02
+
+
+# ---------------------------------------------------------------------------
+# kernel K: the alternate (volume-free) lookup
+# ---------------------------------------------------------------------------
+
+# K and its plain version (``corr.corr_lookup_alternate_plain``) take the
+# same float32 products and blend; K sums a tap's 256 products in channel
+# order, the plain version's batched product in its own: 1e-5 of the
+# largest value (the sums' rounding is ~1e-7 of it)
+ALT_LOOKUP_REL = 1e-5
+
+
+def _alt_inputs(dev, h1, w1, spread, seed, batch=1, dim=256):
+    """Seeded features of both frames, fmap2's levels and level-0
+    coordinates: the cell grid, a smooth shift of a few cells and
+    ``spread`` cells of uniform noise."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f1 = torch.randn(batch, h1, w1, dim, device=dev, generator=g)
+    f2 = torch.randn(batch, h1, w1, dim, device=dev, generator=g)
+    ys, xs = torch.meshgrid(torch.arange(h1, device=dev, dtype=torch.float32),
+                            torch.arange(w1, device=dev, dtype=torch.float32),
+                            indexing="ij")
+    grid = torch.stack([xs + 2.5 + 1.5 * torch.sin(ys / 17.0),
+                        ys - 1.25 + 1.5 * torch.cos(xs / 23.0)], -1)
+    noise = torch.rand(batch, h1, w1, 2, device=dev, generator=g) - 0.5
+    coords = (grid[None] + spread * noise).contiguous()
+    return f1, corr.alternate_levels(f2), coords
+
+
+def _alt_rel(got, want):
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+@pytest.mark.parametrize("hw,spread,batch,radius", [
+    ((270, 480), 0.5, 1, 4),         # 3840x2160: the 4K cell's grid
+    ((90, 160), 80.0, 1, 4),         # scattered windows: taps from memory
+    ((21, 37), 3.0, 2, 4),           # ragged tiles, two batch elements
+    ((21, 37), 3.0, 1, 3),           # RAFT-small's radius
+], ids=["4k", "720p-scattered", "21x37-batch2", "21x37-r3"])
+def test_alt_corr_kernel_dense(dev, hw, spread, batch, radius):
+    """Every query of the grid, one launch, against the plain chain."""
+    f1, levels, coords = _alt_inputs(dev, *hw, spread, seed=1, batch=batch)
+    n0 = kernels.alt_corr_lookup.launches
+    got = corr.corr_lookup_alternate_levels(f1, levels, coords, radius)
+    torch.cuda.synchronize()
+    assert kernels.alt_corr_lookup.launches == n0 + 1
+    want = corr.corr_lookup_alternate_plain(f1, levels, coords, radius)
+    assert got.shape == want.shape
+    assert _alt_rel(got, want) <= ALT_LOOKUP_REL
+
+
+@pytest.mark.parametrize("hw,batch,m", [((270, 480), 1, 4500),
+                                        ((21, 37), 2, 301)],
+                         ids=["4k-4500", "21x37-batch2"])
+def test_alt_corr_kernel_indexed(dev, hw, batch, m):
+    """The sparse head's rows (cells of every batch element, in no order,
+    one twice) against the plain chain on the same cells, and equal to
+    the dense launch's rows at those cells."""
+    f1, levels, coords = _alt_inputs(dev, *hw, 0.5, seed=2, batch=batch)
+    g = torch.Generator(device=dev).manual_seed(3)
+    cells = torch.randperm(batch * hw[0] * hw[1], device=dev,
+                           generator=g)[:m - 1]
+    cells = torch.cat([cells, cells[:1]])
+    n0 = kernels.alt_corr_lookup.launches
+    got = corr.corr_lookup_alternate_levels(f1, levels, coords, 4,
+                                            cells=cells)
+    torch.cuda.synchronize()
+    assert kernels.alt_corr_lookup.launches == n0 + 1
+    D = f1.shape[3]
+    want = corr.corr_lookup_alternate_plain(
+        f1.reshape(-1, D)[cells][None, None], levels,
+        coords.reshape(-1, 2)[cells][None, None], 4,
+        batch=cells // (hw[0] * hw[1]))[0, 0]
+    assert _alt_rel(got, want) <= ALT_LOOKUP_REL
+    dense = corr.corr_lookup_alternate_levels(f1, levels, coords, 4)
+    assert _alt_rel(got, dense.reshape(-1, got.shape[1])[cells]) <= \
+        ALT_LOOKUP_REL
+
+
+def test_alt_corr_wrapper_checks_inputs(dev):
+    f1, levels, coords = _alt_inputs(dev, 16, 24, 1.0, seed=4)
+    with pytest.raises(ValueError, match="radius 3 or 4"):
+        kernels.alt_corr_lookup(f1, levels, coords, 2)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        kernels.alt_corr_lookup(f1[..., :12].contiguous(),
+                                [lv[..., :12].contiguous() for lv in levels],
+                                coords, 4)
+    with pytest.raises(ValueError, match="coords must be"):
+        kernels.alt_corr_lookup(f1, levels, coords[:, :8].contiguous(), 4)
+    with pytest.raises(TypeError):
+        kernels.alt_corr_lookup(f1, levels, coords, 4,
+                                torch.zeros(3, dtype=torch.int32,
+                                            device=dev))
+
+
+@pytest.mark.parametrize("indexed", [False, True], ids=["dense", "indexed"])
+def test_alt_corr_grads_match_plain(dev, indexed):
+    """Under grad K runs inside ``_AltLookup`` (one launch forward, the
+    plain chain's VJP backward): its output is K's, its gradients for the
+    query features, the features K's levels pool and the coordinates are
+    autograd's through the plain chain, within ``ALT_LOOKUP_REL``."""
+    f1, _, coords = _alt_inputs(dev, 21, 37, 3.0, seed=6, batch=2)
+    f2 = torch.randn(f1.shape, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(7))
+    cells = (torch.randperm(2 * 21 * 37, device=dev)[:301] if indexed
+             else None)
+
+    def grads(route):
+        leaves = [x.clone().requires_grad_() for x in (f1, coords, f2)]
+        out = route(leaves[0], corr.alternate_levels(leaves[2]), leaves[1])
+        w = torch.sin(torch.arange(out.numel(), device=dev,
+                                   dtype=torch.float32))
+        (out * w.reshape(out.shape)).sum().backward()
+        return out, [x.grad for x in leaves]
+
+    n0 = kernels.alt_corr_lookup.launches
+    out, got = grads(lambda a, lv, c: corr.corr_lookup_alternate_levels(
+        a, lv, c, 4, cells=cells))
+    assert kernels.alt_corr_lookup.launches == n0 + 1
+    assert type(out.grad_fn).__name__ == "_AltLookupBackward"
+    plain_out, want = grads(lambda a, lv, c: corr._alt_lookup_plain(
+        a, lv, c, 4, 4096, cells))
+    assert _alt_rel(out.detach(), plain_out.detach()) <= ALT_LOOKUP_REL
+    for name, a, b in zip(("fmap1", "coords", "fmap2"), got, want):
+        assert _alt_rel(a, b) <= ALT_LOOKUP_REL, name
+
+
+def test_alt_corr_train_grads_equal_dense(dev):
+    """A training forward's gradient at B = 1 on the card under
+    ``alternate_corr`` (K forward, the plain chain's VJP backward) equals
+    the dense path's (B, B'), as on the CPU
+    (``test_torch_alt_corr.py::test_train_grads_equal_dense``: 1e-4 of
+    each parameter's largest gradient, over those whose gradient reaches
+    1e-4 of the largest)."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    cfg = traft.RaftConfig(iters=2, weight_head_structure=((32, 3),))
+    model = traft.init_raft_params(cfg, seed=5, device=dev)
+    rng = np.random.default_rng(5)
+    img1 = torch.from_numpy(rng.uniform(0, 255, (1, 64, 96, 3)).astype(
+        np.float32)).to(dev)
+    img2 = img1.roll((2, 3), (1, 2))
+
+    def grads(c):
+        model.zero_grad()
+        out = traft.train_forward(model, c, img1, img2)
+        (out["flow_up"].abs().mean() + out["weights_up"].mean()).backward()
+        return [p.grad.clone() for p in model.parameters()]
+
+    dense = grads(cfg)
+    n0 = kernels.alt_corr_lookup.launches
+    alt = grads(replace(cfg, alternate_corr=True))
+    assert kernels.alt_corr_lookup.launches - n0 == 3   # 2 loop + the head
+    top = max(b.abs().max().item() for b in dense)
+    held = [(name, _alt_rel(a, b)) for (name, _), a, b in zip(
+        model.named_parameters(), alt, dense) if b.abs().max() > 1e-4 * top]
+    assert len(held) >= 90
+    assert max(rel for _, rel in held) <= 1e-4, held
+
+
+def _forward_launches(dev, cfg, sparse):
+    """K's launches in one 64x96 forward of ``cfg`` on seeded weights (the
+    sparse head's rows read once)."""
+    model = traft.init_raft_params(cfg, seed=3, device=dev)
+    g = torch.Generator().manual_seed(12)
+    imgs = [(torch.rand(1, 64, 96, 3, generator=g) * 255).to(dev)
+            for _ in range(2)]
+    n0 = kernels.alt_corr_lookup.launches
+    out = traft.weighted_raft_forward(model, cfg, *imgs,
+                                      sparse_weight_head=sparse)
+    if sparse:
+        out["weight_head_at"](torch.arange(0, 96, 3, device=dev))
+    torch.cuda.synchronize()
+    return kernels.alt_corr_lookup.launches - n0
+
+
+def test_alt_corr_launches_13_a_flow(dev):
+    """``WOFT_alternate.py``'s forward launches K 13 times a flow (12 in
+    the loop, one for the weight head, dense or sparse); ``WOFT.py``'s and
+    ``WOFT_fast.py``'s forwards never."""
+    from woft_tpu_torch.config import load_config
+    from woft_tpu_torch.flow.wrapper import raft_config
+
+    configs = kernels.CSRC.parent / "configs"
+    cfgs = {name: raft_config(load_config(str(configs / name)).flow_config)
+            for name in ("WOFT_alternate.py", "WOFT.py", "WOFT_fast.py")}
+    assert cfgs["WOFT_alternate.py"].alternate_corr
+    for sparse in (False, True):
+        assert _forward_launches(dev, cfgs["WOFT_alternate.py"], sparse) == 13
+        assert _forward_launches(dev, cfgs["WOFT.py"], sparse) == 0
+        assert _forward_launches(dev, cfgs["WOFT_fast.py"], sparse) == 0

@@ -21,7 +21,11 @@ PyTorch twin of ``woft_tpu/models/corr.py``. The dense path:
   float32 and the output is float32, as in the reference's Pallas kernel.
 - ``corr_lookup_alternate``: the same lookup computed from the features,
   chunk by chunk, with no stored volume (``RaftConfig.alternate_corr``, for
-  frames whose pyramid does not fit the card).
+  frames whose pyramid does not fit the card). ``AlternateCorr`` pools
+  fmap2's levels once a flow (``alternate_levels``) and looks them up with
+  ``corr_lookup_alternate_levels``: CPU tensors take the plain chain
+  (``corr_lookup_alternate_plain``), CUDA tensors launch kernel K
+  (``csrc/alt_corr.cu``) once a lookup, every level, dense or indexed.
 
 The block-local path (``corr_impl='local'``, the ``WOFT_fast`` tier):
 
@@ -240,25 +244,36 @@ def corr_lookup(pyramid, coords, radius=4, rows=None):
     return _lookup_launch(pyramid, coords, radius, rows)
 
 
-def corr_lookup_alternate(fmap1, fmap2, coords, radius=4, num_levels=4,
-                          chunk=4096, batch=None):
-    """``corr_lookup`` on the pyramid of ``fmap1`` against ``fmap2``,
-    computed from the features with no stored volume (the twin of
-    ``woft_tpu/models/corr.py:corr_lookup_alternate``).
+def alternate_levels(fmap2, num_levels=4):
+    """The alternate lookup's levels: (B, H2, W2, D) features and their 2x2
+    average pools, l times for level l, in float32 (each pools the one
+    before it): [(B, Hl, Wl, D)] a level, contiguous. Built once a flow
+    (``AlternateCorr.build_volume``)."""
+    lv = fmap2.to(torch.float32).contiguous()
+    levels = [lv]
+    for _ in range(1, num_levels):
+        lv = avg_pool2d(lv).contiguous()
+        levels.append(lv)
+    return levels
 
-    For each level (fmap2 average-pooled l times, in float32) and each
-    chunk of queries: gather the (2r+2)^2 integer taps of the level around
-    the query's centroid, take each one's product with the query's fmap1
-    row, zero the taps outside the level, scale by 1/sqrt(D), and blend
-    the four corner windows with the window's shared fraction. Peak memory
-    is O(chunk * (2r+2)^2 * D).
 
-    fmap1: (B, H1, W1, D), or (1, 1, M, D) for M chosen queries; fmap2:
-    (B, H2, W2, D) float32; coords: fmap1's shape with 2 channels, level-0
-    (x, y); batch: None (the queries are fmap2's batch elements in order)
-    or the (Q,) int64 batch element of each query. Returns (...,
+def corr_lookup_alternate_plain(fmap1, levels, coords, radius=4, chunk=4096,
+                                batch=None):
+    """Plain PyTorch version of kernel K (``corr_lookup_alternate`` on
+    levels already pooled, ``alternate_levels``).
+
+    For each level and each chunk of queries: gather the (2r+2)^2 integer
+    taps of the level around the query's centroid, take each one's product
+    with the query's fmap1 row, zero the taps outside the level, scale by
+    1/sqrt(D), and blend the four corner windows with the window's shared
+    fraction. Peak memory is O(chunk * (2r+2)^2 * D).
+
+    fmap1: (B, H1, W1, D), or (1, 1, M, D) for M chosen queries; levels:
+    [(B2, Hl, Wl, D)] float32; coords: fmap1's shape with 2 channels,
+    level-0 (x, y); batch: None (the queries are the levels' batch elements
+    in order) or the (Q,) int64 batch element of each query. Returns (...,
     L*(2r+1)^2) float32, the dense lookup's channel order."""
-    B2, _, _, D = fmap2.shape
+    B2, _, _, D = levels[0].shape
     Q = coords.numel() // 2
     k = 2 * radius + 1
     scale = 1.0 / math.sqrt(D)
@@ -269,8 +284,7 @@ def corr_lookup_alternate(fmap1, fmap2, coords, radius=4, num_levels=4,
             if batch is None else batch)
     offs = torch.arange(k + 1, device=dev) - radius
     outs = []
-    lv = fmap2.to(torch.float32)
-    for lvl in range(num_levels):
+    for lvl, lv in enumerate(levels):
         Hl, Wl = lv.shape[1:3]
         f2 = lv.reshape(B2 * Hl * Wl, D)
         level = torch.empty((Q, k * k), dtype=torch.float32, device=dev)
@@ -297,9 +311,82 @@ def corr_lookup_alternate(fmap1, fmap2, coords, radius=4, num_levels=4,
                      + fy * fx * win[:, 1:, 1:])             # [c, j, i]
             level[s:s + chunk] = blend.transpose(1, 2).reshape(n, k * k)
         outs.append(level)
-        if lvl + 1 < num_levels:
-            lv = avg_pool2d(lv)
     return torch.cat(outs, dim=-1).reshape(*coords.shape[:-1], -1)
+
+
+def corr_lookup_alternate(fmap1, fmap2, coords, radius=4, num_levels=4,
+                          chunk=4096, batch=None):
+    """``corr_lookup`` on the pyramid of ``fmap1`` against ``fmap2``,
+    computed from the features with no stored volume (the twin of
+    ``woft_tpu/models/corr.py:corr_lookup_alternate``): fmap2's levels
+    (``alternate_levels``), then ``corr_lookup_alternate_plain`` (its
+    arguments)."""
+    return corr_lookup_alternate_plain(
+        fmap1, alternate_levels(fmap2, num_levels), coords, radius, chunk,
+        batch)
+
+
+def _alt_lookup_plain(f1, levels, coords, radius, chunk, cells):
+    """``corr_lookup_alternate_levels`` through the plain chain."""
+    if cells is None:
+        return corr_lookup_alternate_plain(
+            f1, levels, coords, radius, min(chunk, coords.numel() // 2))
+    B, H1, W1, D = f1.shape
+    return corr_lookup_alternate_plain(
+        f1.reshape(B * H1 * W1, D)[cells][None, None], levels,
+        coords.reshape(-1, 2)[cells][None, None], radius,
+        min(chunk, cells.shape[0]), cells // (H1 * W1))[0, 0]
+
+
+def _alt_lookup_launch(f1, levels, coords, radius, chunk, cells):
+    """``corr_lookup_alternate_levels``' forward: the plain chain on CPU
+    tensors, kernel K on CUDA tensors."""
+    if coords.device.type == "cpu":
+        return _alt_lookup_plain(f1, levels, coords, radius, chunk, cells)
+    out = kernels.alt_corr_lookup(f1, levels, coords, radius, cells)
+    return out if cells is not None else out.reshape(*coords.shape[:-1], -1)
+
+
+class _AltLookup(torch.autograd.Function):
+    """``corr_lookup_alternate_levels`` with a backward: kernel K forward
+    on the card, the VJP of the plain chain backward, recomputed (K has no
+    backward kernel; the JAX package differentiates its XLA lookup)."""
+
+    @staticmethod
+    def forward(ctx, radius, chunk, cells, f1, coords, *levels):
+        ctx.args = (radius, chunk, cells)
+        ctx.save_for_backward(f1, coords, *levels)
+        return _alt_lookup_launch(f1, levels, coords, radius, chunk, cells)
+
+    @staticmethod
+    def backward(ctx, g):
+        radius, chunk, cells = ctx.args
+
+        def plain(f1, coords, *levels):
+            return _alt_lookup_plain(f1, levels, coords, radius, chunk,
+                                     cells)
+
+        return (None, None, None,
+                *_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[3:],
+                      [g]))
+
+
+def corr_lookup_alternate_levels(fmap1, levels, coords, radius=4,
+                                 chunk=4096, cells=None):
+    """The alternate lookup on ``alternate_levels``' levels: every query of
+    ``fmap1`` (B, H1, W1, D) at ``coords`` (B, H1, W1, 2) -> (B, H1, W1,
+    L*(2r+1)^2), or with ``cells`` ((M,) int64 cells ``b*H1*W1 + cell``)
+    those M rows -> (M, L*(2r+1)^2). CPU tensors take
+    ``corr_lookup_alternate_plain`` (``chunk`` queries at a time); CUDA
+    tensors launch kernel K once (``kernels.alt_corr_lookup``). Under grad,
+    when an input requires grad (training), through ``_AltLookup``: the
+    same forward, the plain chain's VJP backward."""
+    if torch.is_grad_enabled() and (
+            fmap1.requires_grad or coords.requires_grad
+            or any(lv.requires_grad for lv in levels)):
+        return _AltLookup.apply(radius, chunk, cells, fmap1, coords,
+                                *levels)
+    return _alt_lookup_launch(fmap1, levels, coords, radius, chunk, cells)
 
 
 # ---------------------------------------------------------------------------
@@ -1044,35 +1131,35 @@ class DenseCorr(Correlation):
 
 
 class AlternateCorr(Correlation):
-    """No stored volume (``RaftConfig.alternate_corr``): each lookup is
-    computed from the features, ``chunk`` queries at a time
-    (``corr_lookup_alternate``); ``volume`` is the pair of feature maps."""
+    """No stored volume (``RaftConfig.alternate_corr``): ``volume`` is the
+    query features and fmap2's levels, pooled once a flow
+    (``alternate_levels``); each lookup computes its windows from them
+    (``corr_lookup_alternate_levels``: kernel K on the card, one launch a
+    lookup, dense in the loop and indexed for the sparse head; ``chunk``
+    queries at a time on the CPU), inside the span
+    ``woft.corr.alternate``."""
 
     def __init__(self, radius, num_levels, chunk):
         super().__init__(radius, num_levels)
         self.chunk = chunk
 
     def build_volume(self, f1, f2):
-        self.volume = (f1, f2)
+        self.volume = (f1.float(), alternate_levels(f2, self.num_levels))
         return self.volume
 
     def lookup_natural(self, coords):
-        f1, f2 = self.volume
-        return corr_lookup_alternate(
-            f1, f2, coords, self.radius, self.num_levels,
-            chunk=min(self.chunk, coords.numel() // 2))
+        f1, levels = self.volume
+        with span("woft.corr.alternate", coords.device):
+            return corr_lookup_alternate_levels(f1, levels, coords,
+                                                self.radius, self.chunk)
 
     def rows_at(self, coords):
-        f1, f2 = self.volume
-        B, H1, W1, D = f1.shape
-        f1, flat = f1.reshape(B * H1 * W1, D), coords.reshape(-1, 2)
+        f1, levels = self.volume
 
         def rows(cells):
-            return corr_lookup_alternate(
-                f1[cells][None, None], f2, flat[cells][None, None],
-                self.radius, self.num_levels,
-                chunk=min(self.chunk, cells.shape[0]),
-                batch=cells // (H1 * W1))[0, 0]
+            with span("woft.corr.alternate", coords.device):
+                return corr_lookup_alternate_levels(
+                    f1, levels, coords, self.radius, self.chunk, cells)
 
         return rows
 

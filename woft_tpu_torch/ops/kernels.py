@@ -11,14 +11,15 @@ the current stream, raise if the C entry reports a CUDA error, and count
 their launches in a plain integer attribute (``<wrapper>.launches``;
 ``launch_counters()`` reads them all). The
 callers (``ops/warp.py:warp_perspective_fast``, ``models/corr.py``:
-``corr_lookup``, ``block_local_corr``, ``block_local_lookup*``;
+``corr_lookup``, ``block_local_corr``, ``block_local_lookup*``,
+``corr_lookup_alternate_levels``;
 ``models/update.py``: ``gru_update``, ``gru_update_f32``,
 ``motion_encoder_tail``, ``flow_head``; ``models/weight_head.py``:
 ``weight_head``)
 take the plain PyTorch version for CPU tensors; a CUDA tensor always goes to
-the kernel. Under grad, B, C, D and E are reached through
+the kernel. Under grad, B, C, D, E and K are reached through
 ``torch.autograd.Function``s (``models/corr.py``: B's backward is kernel
-B', C's, D's and E's the VJPs of their plain versions, as in the JAX
+B', C's, D's, E's and K's the VJPs of their plain versions, as in the JAX
 package); A, F, G, H, I and J have no backward, and their callers raise
 (``require_no_grad``) rather than return an output with no graph.
 
@@ -36,6 +37,7 @@ package); A, F, G, H, I and J have no backward, and their callers raise
 | H ``motion_encoder_tail`` | ``csrc/update_tail.cu`` | ``ops/pallas/update_tail.py:motion_encoder_pallas`` |
 | I ``flow_head`` | ``csrc/flow_head.cu`` | ``ops/pallas/update_tail.py:flow_head_pallas`` |
 | J ``weight_head`` (the bf16 weight head) | ``csrc/weight_head.cu`` | none: the JAX package runs its weight head through XLA |
+| K ``alt_corr_lookup`` (the volume-free lookup, ``alternate_corr``) | ``csrc/alt_corr.cu`` | none: the JAX package gathers its alternate lookup through XLA |
 
 G's float32 form is float32 FFMA (no tensor cores) and shares no kernel
 body with G. G, H, I and J share ``csrc/conv_wgmma.cuh`` (a convolution as per-tap
@@ -58,7 +60,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("warp", "corr_lookup", "local_corr", "local_lookup", "gru",
-           "gru_f32", "update_tail", "flow_head", "weight_head")
+           "gru_f32", "update_tail", "flow_head", "weight_head", "alt_corr")
 # --fmad=false: no FMA contraction, so the kernels round like their plain
 # PyTorch versions (see the notes at the top of each source)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -104,6 +106,9 @@ _ENTRIES = {
     "update_tail": {"woft_motion_encoder_tail": [_P] * 11 + [_I, _I, _P]},
     "flow_head": {"woft_flow_head": [_P] * 6 + [_I, _I, _P]},
     "weight_head": {"woft_weight_head": [_P, _I, _P, _P, _P, _P, _I, _P]},
+    "alt_corr": {"woft_alt_corr": [_P, _P, _P, _I, _P, _P, _P,
+                                   ctypes.c_longlong, _I, _I, _I, _I, _I, _P,
+                                   _P]},
 }
 _entries = {}
 
@@ -396,6 +401,67 @@ def corr_pyramid_lookup_backward(pyramid, coords, g, radius):
     _raise_on_error(rc, "corr_lookup_backward")
     corr_pyramid_lookup_backward.launches += 1
     return d_levels, d_coords
+
+
+@_counted
+def alt_corr_lookup(f1, levels, coords, radius, cells=None):
+    """Kernel K: the alternate (volume-free) lookup, every level in one
+    launch.
+
+    f1: (B, H1, W1, D) float32 CUDA query features, D a multiple of 8;
+    levels: list of (B, Hl, Wl, D) float32 levels (fmap2 average-pooled l
+    times, ``models/corr.py:alternate_levels``; Hl or Wl may be 0); coords:
+    (B, H1, W1, 2) float32 level-0 (x, y); radius 3 or 4; cells: None
+    (every query, output row q) or (M,) int64 cells ``b*H1*W1 + cell``
+    (output row m looks up cell cells[m]; the sparse weight head's rows).
+    Returns (B*H1*W1 or M, L*(2r+1)^2) float32, the dense lookup's channel
+    order: ``models/corr.py:corr_lookup_alternate_plain``'s function, its
+    tap sums in another order."""
+    device = coords.device
+    if device.type != "cuda":
+        raise ValueError("alt_corr_lookup takes CUDA tensors")
+    _check_tensor(f1, "f1", torch.float32, device)
+    _check_tensor(coords, "coords", torch.float32, device)
+    if radius not in (3, 4):
+        raise ValueError(f"kernel K takes radius 3 or 4, got {radius}")
+    if f1.dim() != 4 or min(f1.shape) == 0 or f1.shape[3] % 8:
+        raise ValueError(f"f1 must be a non-empty (B, H1, W1, D) with D a "
+                         f"multiple of 8, got {tuple(f1.shape)}")
+    B, H1, W1, D = f1.shape
+    if coords.shape != (B, H1, W1, 2):
+        raise ValueError(f"coords must be {(B, H1, W1, 2)}, got "
+                         f"{tuple(coords.shape)}")
+    L = len(levels)
+    if not 1 <= L <= 8:
+        raise ValueError(f"1 to 8 levels, got {L}")
+    for lvl, p in enumerate(levels):
+        _check_tensor(p, f"levels[{lvl}]", torch.float32, device)
+        if p.dim() != 4 or p.shape[0] != B or p.shape[3] != D:
+            raise ValueError(f"levels[{lvl}] must be ({B}, Hl, Wl, {D}), got "
+                             f"{tuple(p.shape)}")
+    n = B * H1 * W1
+    if n >= 2 ** 31:
+        raise ValueError("kernel K indexes queries with 32 bits")
+    if cells is not None:
+        _check_tensor(cells, "cells", torch.int64, device)
+        if cells.dim() != 1 or cells.shape[0] == 0:
+            raise ValueError(f"cells must be a non-empty (M,), got "
+                             f"{tuple(cells.shape)}")
+        n = cells.shape[0]
+    k = 2 * radius + 1
+    out = torch.empty((n, L * k * k), dtype=torch.float32, device=device)
+    ptrs = (ctypes.c_void_p * L)(*[p.data_ptr() for p in levels])
+    hs = (ctypes.c_int * L)(*[p.shape[1] for p in levels])
+    ws = (ctypes.c_int * L)(*[p.shape[2] for p in levels])
+    fn = _entry("alt_corr")
+    with _current(device):
+        rc = fn(ctypes.addressof(ptrs), ctypes.addressof(hs),
+                ctypes.addressof(ws), L, f1.data_ptr(), coords.data_ptr(),
+                None if cells is None else cells.data_ptr(), n, B, H1, W1, D,
+                radius, out.data_ptr(), _stream())
+    _raise_on_error(rc, "alt_corr")
+    alt_corr_lookup.launches += 1
+    return out
 
 
 _VOLUME_DTYPES = (torch.float32, torch.bfloat16)

@@ -344,7 +344,8 @@ def _device_ladder(n_lost, no_prewarp_after_n, last_good_h2init):
     return n_lost, torch.where(reset, eye, last_good_h2init)
 
 
-def build_track_step(raft_cfg: RaftConfig, tp: TrackerParams, flow_fn=None):
+def build_track_step(raft_cfg: RaftConfig, tp: TrackerParams, flow_fn=None,
+                     keep_tcs=False):
     """The per-frame step ``(model, state, frame) -> (new_state, H_cur2init,
     meta)``.
 
@@ -369,7 +370,9 @@ def build_track_step(raft_cfg: RaftConfig, tp: TrackerParams, flow_fn=None):
     no host sync (with a device estimator; the host fits copy the points
     to the host): ``ok``, ``lost`` and ``n_lost`` stay device tensors (in
     the state and in ``meta``) and the ladder is ``torch.where``, the JAX
-    step's ``no_local_h`` branch."""
+    step's ``no_local_h`` branch. ``keep_tcs``: ``meta['tcs']`` holds the
+    global fit's points as ``_flow_fits`` gives them (device tensors, one
+    target), for a check of the flow and weights the fit took."""
 
     def run_flow(model, img1, img2):
         if flow_fn is not None:
@@ -412,7 +415,8 @@ def build_track_step(raft_cfg: RaftConfig, tp: TrackerParams, flow_fn=None):
         fits = _flow_fits(model, raft_cfg, tp, flow_fn, state, frame,
                           last_good, use_vis=True)
         # weighted fit: current-prewarped -> template
-        H_pw2init, ok, inlier_frac = fits(state.template_mask[None])
+        tcs = {} if keep_tcs else None
+        H_pw2init, ok, inlier_frac = fits(state.template_mask[None], tcs)
         H_global = compose_h(last_good, H_pw2init[0])
         ok, inlier_frac = ok[0], inlier_frac[0]
 
@@ -427,6 +431,8 @@ def build_track_step(raft_cfg: RaftConfig, tp: TrackerParams, flow_fn=None):
                     "H_global_cur2init": H_global, "global_H_success": ok,
                     "inlier_frac": inlier_frac, "lost": ~ok,
                     "N_lost": n_lost}
+            if keep_tcs:
+                meta["tcs"] = tcs
             return new_state, H_global, meta
 
         with span("woft.wait", frame.device):
@@ -451,6 +457,8 @@ def build_track_step(raft_cfg: RaftConfig, tp: TrackerParams, flow_fn=None):
             "lost": not ok,
             "N_lost": n_lost,
         }
+        if keep_tcs:
+            meta["tcs"] = tcs
         if not (tp.redetection == "always" or ok):
             meta["H_local_cur2init"] = H_cur2init
         return new_state, H_cur2init, meta
@@ -469,11 +477,13 @@ def _flow_fits(model, raft_cfg, tp, flow_fn, state, frame, last_good,
     flow ('weighted_masked') joins the TC validity; the shared-flow step
     drops it, as the reference's does.
 
-    Returns ``fits(masks (N, H, W) bool) ->
+    Returns ``fits(masks (N, H, W) bool, tcs=None) ->
     (H_pw2init (N, 3, 3), ok (N,), inlier_frac (N,))``, a TC selection,
     Sobol-500 gather, fit and inlier check a target, all N in one batch
     (the host fits loop over the targets); the targets' sparse weight-head
-    cells come from the one forward."""
+    cells come from the one forward. A dict ``tcs`` receives the fit's
+    points: ``src`` (template) and ``dst`` (pre-warped frame) (N, n, 2),
+    ``w`` (N, n) sigmoided weights or None, ``valid`` (N, n) 0/1."""
     H_img, W_img = frame.shape[1:3]
     dev = frame.device
     with span("woft.prewarp", dev):
@@ -499,7 +509,7 @@ def _flow_fits(model, raft_cfg, tp, flow_fn, state, frame, last_good,
         if use_vis and vis is not None:
             in_pw = in_pw & (vis.reshape(-1) > 0.5)
 
-    def fits(masks):
+    def fits(masks, tcs=None):
         with span("woft.select", dev):
             valid = masks.reshape(masks.shape[0], -1) & in_pw
             if sparse:
@@ -508,6 +518,8 @@ def _flow_fits(model, raft_cfg, tp, flow_fn, state, frame, last_good,
             else:
                 src_g, dst_g, w_g, sel, _ = _select_tcs(flow, weights, valid,
                                                         tp.subsample_n)
+        if tcs is not None:
+            tcs.update(src=src_g, dst=dst_g, w=w_g, valid=sel)
         with span("woft.fit", dev):
             H_pw2init = _estimate_h(tp, dst_g, src_g, w_g, sel)
         with span("woft.check", dev):
@@ -631,9 +643,11 @@ class WOFTTracker:
     set on top of the flow config's, e.g. ``{"gru_fused": True,
     "tail_fused": True}`` for the fused refinement loop on the CPU (the
     JAX package's ``bench.py`` sets its counterparts the same way, outside
-    the configs; on the card a bf16 tracker runs it without them)."""
+    the configs; on the card a bf16 tracker runs it without them).
+    ``keep_tcs``: each ``track``'s ``meta.tcs`` holds the global fit's
+    points, still on the device (``build_track_step``)."""
 
-    def __init__(self, config, device=None, raft_flags=None):
+    def __init__(self, config, device=None, raft_flags=None, keep_tcs=False):
         self.C = config
         self.device = resolve_device(device)
         of_class = config.flow_config.of_class or RaftFlow
@@ -654,7 +668,9 @@ class WOFTTracker:
                 self.raft_cfg, self.tp, flow_fn=self.flower.make_flow_fn())
         else:
             self.raft_cfg = replace(self.flower.cfg, **(raft_flags or {}))
-            self._step = build_track_step(self.raft_cfg, self.tp)
+            self._step = (build_track_step(self.raft_cfg, self.tp,
+                                           keep_tcs=True) if keep_tcs
+                          else build_track_step(self.raft_cfg, self.tp))
         self.state = None
         self._fast_forward = None
 
