@@ -28,6 +28,8 @@ Phases; any failure ends the script with a non-zero exit:
    levels in one launch), E (every level of a lookup in one launch, with
    the guard's flagged blocks and with none), D, G (each direction), H
    (its two launches) and I, each beside its time before the redesign,
+   L (the encoder's instance norm; every call of one feature encoding in
+   each benchmark cell's precision and size, and the 13 calls timed),
    B's reads also counted in the 32-byte sectors device memory moves, as
    are D's (the union of each 16-query row's patches), E's bound counting the flagged blocks only; one guarded block-local
    lookup traced with ``torch.profiler``: two kernel launches;
@@ -160,13 +162,14 @@ Phases; any failure ends the script with a non-zero exit:
    checkpoint served by ``WOFT.py`` with ``class_params.small`` through
    the single step (``WOFTTracker``) and the shared step x2 at 1280x720
    and the window step and the window batch x2 at 1920x1080 (the 192x344
-   window), 8 frames of the walk each, run twice: with kernels A and B,
-   and with their plain versions on the card's tensors
+   window), 8 frames of the walk each, run twice: with kernels A, B and
+   L, and with their plain versions on the card's tensors
    (``PlainKernels``); H held to ``CORNER_TOL_PX`` where both pass and
    on every frame before the first whose ok flags differ, the ok flags
    to one frame in eight, the TC points whose validity flipped
-   counted, launches exact (A, B; every other kernel 0); the corner error
-   against the walk printed and not held (no trained RAFT-small weights);
+   counted, launches exact (A, B; L reported; every other kernel 0); the
+   corner error against the walk printed and not held (no trained
+   RAFT-small weights);
 10. scale-out (``track_scale_out``, ``woft_tpu_torch/parallel``): kernels
    C, D and E on rank 1's band of the 720p grid (blocks 60-119, ``b0`` =
    60) against their plain versions and the whole-grid launch's rows, C's
@@ -1469,20 +1472,193 @@ def check_weight_head(kernels, dev):
     return dict(out[HEAD_J_ROWS[1]], rows_4500=out[HEAD_J_ROWS[0]])
 
 
+# Kernel L sums each plane's statistics in another order than PyTorch's
+# batch-norm kernels: in float32 a few ulps of the largest normalised value;
+# in bf16 each rounding (the normalised value, the shortcut's, the sum: one
+# ulp each of the largest of them, at a tie to even) may fall the other way
+# on a small share of entries, and a value near 0, where x - mean cancels,
+# may move by the float32 gap
+NORM_F32_REL = 1e-5
+NORM_BF16_ULPS = {"relu": 1, "residual": 2, "shortcut": 3}
+NORM_BF16_SHARE = 1e-3
+NORM_LAUNCHES = 27      # one RAFT-large feature encoding: the stem's 3, 2
+#                         each for the other 12 calls
+# the feature encoder's input in the three benchmark cells
+NORM_CELLS = (("720p float32", 720, 1280, torch.float32),
+              ("1080p bf16", 1080, 1920, torch.bfloat16),
+              ("2160p float32", 2160, 3840, torch.float32))
+
+
+def encoder_norm_calls(h, w):
+    """Kernel L's calls in one RAFT-large feature encoding of an (h, w)
+    image: (channels, rows, columns, mode) with mode 'relu', 'residual' or
+    'shortcut', in order: the stem, then two calls a residual block."""
+    calls = [(64, h // 2, w // 2, "relu")]
+    for planes, div, stride in ((64, 2, 1), (96, 4, 2), (128, 8, 2)):
+        for first in (True, False):
+            end = "shortcut" if first and stride == 2 else "residual"
+            calls += [(planes, h // div, w // div, "relu"),
+                      (planes, h // div, w // div, end)]
+    return calls
+
+
+def _norm_inputs(shape, dtype, dev, seed):
+    """Two convolution-like maps of ``shape`` (each plane its own offset
+    and scale: a block's and its shortcut's), a block input (after a ReLU)
+    and the two convolutions' biases."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n, c = shape[:2]
+    scale = torch.rand(n, c, 1, 1, device=dev, generator=g) * 2.8 + 0.2
+    offset = torch.rand(n, c, 1, 1, device=dev, generator=g) * 6 - 3
+    x = torch.randn(shape, device=dev, generator=g) * scale + offset
+    sc = torch.randn(shape, device=dev, generator=g) * scale - offset
+    r = torch.randn(shape, device=dev, generator=g).relu()
+    b, sb = torch.randn(2, c, device=dev, generator=g)
+    return tuple(t.to(dtype) for t in (x, sc, r, b, sb))
+
+
+def _norm_kwargs(mode, sc, r, b, sb):
+    """Kernel L's keywords for a call of ``mode`` (biases None: none)."""
+    kw = {"relu": {}, "residual": {"residual": r},
+          "shortcut": {"shortcut": sc, "shortcut_bias": sb}}[mode]
+    return dict(kw, bias=b)
+
+
+def norm_gap(got, want, y, ulps):
+    """(largest gap over the largest value, share of entries that differ,
+    entries beyond ``ulps`` bf16 ulps of the largest of the two and of
+    ``y``, the normalised x, plus the float32 tolerance)."""
+    d = (got.float() - want.float()).abs()
+    scale = want.float().abs().max().clamp(min=1e-30)
+    top = torch.ldexp(torch.ones_like(d), torch.frexp(torch.maximum(
+        torch.maximum(got.float().abs(), want.float().abs()),
+        y.float().abs()))[1])
+    allowed = ulps * BF16_ULP * top + NORM_F32_REL * scale
+    return ((d.max() / scale).item(), (d > 0).float().mean().item(),
+            int((d > allowed).sum().item()))
+
+
+def check_norm_case(kernels, x, mode, kw, launches=2):
+    """Kernel L against its plain version on one call of ``mode`` with the
+    keywords ``kw``: float32 within ``NORM_F32_REL`` of the largest value,
+    bf16 within ``NORM_BF16_ULPS`` (and that tolerance) and differing on at
+    most ``NORM_BF16_SHARE`` of the entries. Returns ``norm_gap``'s
+    numbers."""
+    n0 = kernels.instance_norm_act.launches
+    got = kernels.instance_norm_act(x, **kw)
+    torch.cuda.synchronize()
+    if kernels.instance_norm_act.launches != n0 + launches:
+        raise AssertionError(f"kernel L: not {launches} launches a call")
+    want = kernels.instance_norm_act_plain(x, **kw)
+    y = kernels.instance_norm_act_plain(x, bias=kw["bias"])
+    rel, share, beyond = norm_gap(got, want, y, NORM_BF16_ULPS[mode])
+    ok = (rel <= NORM_F32_REL if x.dtype == torch.float32
+          else beyond == 0 and share <= NORM_BF16_SHARE)
+    if not ok:
+        raise AssertionError(
+            f"kernel L, {tuple(x.shape)} {x.dtype} {mode}: {rel:.3g} of the "
+            f"largest value, {share:.3g} of the entries differ, {beyond} "
+            f"beyond {NORM_BF16_ULPS[mode]} bf16 ulps")
+    return rel, share
+
+
+def check_instance_norm(kernels, dev):
+    """Kernel L against its plain version at every call of one feature
+    encoding in the three cells (720p float32, 1080p bf16, 3840x2160
+    float32; each with its convolution's bias, as on the main path) and at
+    an odd shape (the scalar loads; with and without biases), then one
+    encoding's 13 calls timed: the kernel, its plain version (the module
+    path's bias add, norm, ReLU, add and ReLU), the library chain
+    (``F.instance_norm`` + ``F.relu`` for each call, no bias and no add: a
+    yardstick the port never calls) and the bytes bound (each input map
+    read once, the output written once). Inputs repeat across the timed
+    calls, so what fits the 50 MB L2 may be read from it. Returns the
+    numbers by cell."""
+    out = {}
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            x, sc, r, b, sb = _norm_inputs((2, 3, 37, 53), dtype, dev, seed=1)
+            for mode in NORM_BF16_ULPS:
+                for biases in ((None, None), (b, sb)):
+                    rel, share = check_norm_case(
+                        kernels, x, mode, _norm_kwargs(mode, sc, r, *biases))
+                    log(f"kernel L, (2, 3, 37, 53) {dtype} {mode}, bias "
+                        f"{biases[0] is not None}: {rel:.3g} of the largest "
+                        f"value, {share:.3g} of entries differ")
+        for cell, h, w, dtype in NORM_CELLS:
+            calls = encoder_norm_calls(h, w)
+            maps = {}
+            for c, hh, ww, _ in calls:
+                if (c, hh, ww) not in maps:
+                    maps[c, hh, ww] = _norm_inputs((1, c, hh, ww), dtype, dev,
+                                                   seed=c)
+            args = [(maps[c, hh, ww][0],
+                     _norm_kwargs(mode, *maps[c, hh, ww][1:]), mode)
+                    for c, hh, ww, mode in calls]
+            # the stem's input has the channels-last strides of the
+            # convolution of an NHWC image: L's three-launch form
+            stem = args[0][0].contiguous(memory_format=torch.channels_last)
+            args[0] = (stem,) + args[0][1:]
+            worst = [0.0, 0.0]
+            for i, (x, kw, mode) in enumerate(args):
+                rel, share = check_norm_case(kernels, x, mode, kw,
+                                             3 if i == 0 else 2)
+                worst = [max(worst[0], rel), max(worst[1], share)]
+
+            def kernel():
+                for x, kw, _ in args:
+                    kernels.instance_norm_act(x, **kw)
+
+            def plain():
+                for x, kw, _ in args:
+                    kernels.instance_norm_act_plain(x, **kw)
+
+            def library():
+                for x, _, _ in args:
+                    F.relu(F.instance_norm(x))
+
+            n_bytes = sum(x.numel() * x.element_size() * (2 + (m != "relu"))
+                          for x, _, m in args)
+            bound = n_bytes / HBM_BYTES_PER_S * 1e3
+            ms = time_ms(kernel, iters=10)
+            plain_ms = time_ms(plain, iters=10)
+            library_ms = time_ms(library, iters=10)
+            big, big_kw = args[0][:2]
+            big_ms = time_ms(lambda: kernels.instance_norm_act(big, **big_kw),
+                             iters=10)
+            big_bound = 2 * big.numel() * big.element_size() / \
+                HBM_BYTES_PER_S * 1e3
+            log(f"kernel L, {cell}: {len(calls)} calls of one encoding, "
+                f"largest gap {worst[0]:.3g} of the largest value, at most "
+                f"{worst[1]:.3g} of entries differ; kernel {ms:.4f} ms, "
+                f"bound {bound:.4f} ms ({n_bytes / 1e9:.3f} GB), plain "
+                f"{plain_ms:.4f} ms, library chain {library_ms:.4f} ms; the "
+                f"stem's norm {tuple(big.shape)}: {big_ms:.4f} ms against "
+                f"{big_bound:.4f} (channels-last, its three launches)")
+            out[cell] = dict(max_rel=worst[0], diff_share=worst[1], ms=ms,
+                             bound_ms=bound, bound_by="bytes",
+                             plain_ms=plain_ms, library_ms=library_ms,
+                             stem_ms=big_ms, stem_bound_ms=big_bound)
+            del maps, args
+            torch.cuda.empty_cache()
+    return out
+
+
 COUNTED = ("warp_perspective_bilinear", "corr_pyramid_lookup",
            "corr_pyramid_lookup_backward", "local_corr_build",
            "local_lookup_coords", "local_lookup_exact_coords",
            "local_lookup_fine_multi",
            "local_lookup_exact", "local_lookup_fine", "fused_gru_update",
            "fused_gru_update_f32", "motion_encoder_tail", "flow_head",
-           "weight_head", "alt_corr_lookup")
+           "weight_head", "alt_corr_lookup", "instance_norm_act")
 # G's float32 form runs in every float32 forward of RAFT-large on one frame
-# pair, J in every bf16 weight head on the card; a track checks their counts
-# where it names them (track_720p, track_shared), the others report them
-# unchecked. G, H and I (every bf16 forward of one frame pair on the card)
+# pair, J in every bf16 weight head on the card, L (27 launches) in every
+# RAFT-large feature encoding that records no gradient; a track checks
+# their counts where it names them (track_720p, track_shared), the others
+# report them unchecked. G, H and I (every bf16 forward of one frame pair on the card)
 # are checked on every track: 0 where it does not name them
 UPDATE_KERNELS = ("fused_gru_update", "motion_encoder_tail", "flow_head")
-UNCHECKED = ("fused_gru_update_f32", "weight_head")
+UNCHECKED = ("fused_gru_update_f32", "weight_head", "instance_norm_act")
 FUSED_FLAGS = {"gru_fused": True, "tail_fused": True}
 
 
@@ -1655,6 +1831,13 @@ def track_720p(kernels, dev, config, fused=False):
     # a frame (the main step's), never in float32
     want.update(fused_gru_update_f32=0 if fast else 2 * 12 * n_flows,
                 weight_head=len(frames) if fast else 0)
+    # L: 27 launches an encoding, one encoding a flow at least (the
+    # templates' besides)
+    want["instance_norm_act"] = NORM_LAUNCHES * n_flows
+    if launches["instance_norm_act"] % NORM_LAUNCHES:
+        raise AssertionError(f"{config}: kernel L launched "
+                             f"{launches['instance_norm_act']} times, not "
+                             f"{NORM_LAUNCHES} an encoding")
     # C, D and E: exactly one launch a flow and a lookup
     exact = (("local_corr_build", "local_lookup_coords",
               "local_lookup_exact_coords") if fast else ())
@@ -4484,9 +4667,9 @@ def _small_conf(ckpt, config="WOFT.py"):
 
 
 class PlainKernels:
-    """Within the block, kernels A and B's wrappers are their plain
+    """Within the block, kernels A, B and L's wrappers are their plain
     versions on the card's tensors: the same step runs with nothing of the
-    two kernels in it, and launches nothing that is counted."""
+    three kernels in it, and launches nothing that is counted."""
 
     def __init__(self, kernels, warp, corr):
         self.kernels, self.warp, self.corr = kernels, warp, corr
@@ -4505,14 +4688,17 @@ class PlainKernels:
 
     def __enter__(self):
         k = self.kernels
-        self.saved = k.warp_perspective_bilinear, k.corr_pyramid_lookup
-        k.warp_perspective_bilinear, k.corr_pyramid_lookup = (self._warp,
-                                                              self._lookup)
+        self.saved = (k.warp_perspective_bilinear, k.corr_pyramid_lookup,
+                      k.instance_norm_act)
+        (k.warp_perspective_bilinear, k.corr_pyramid_lookup,
+         k.instance_norm_act) = (self._warp, self._lookup,
+                                 k.instance_norm_act_plain)
         return self
 
     def __exit__(self, *exc):
         k = self.kernels
-        k.warp_perspective_bilinear, k.corr_pyramid_lookup = self.saved
+        (k.warp_perspective_bilinear, k.corr_pyramid_lookup,
+         k.instance_norm_act) = self.saved
 
 
 class TcValidity:
@@ -5539,6 +5725,7 @@ def main():
     torch.cuda.empty_cache()
     head_j = check_weight_head(kernels, dev)
     torch.cuda.empty_cache()
+    norm_l = check_instance_norm(kernels, dev)
     canon, canon_ms = track_720p(kernels, dev, "WOFT.py")
     torch.cuda.empty_cache()
     fast, fast_ms = track_720p(kernels, dev, "WOFT_fast.py")
@@ -5686,6 +5873,14 @@ def main():
              note="times at M=32400 (the 1080p grid), rows_4500 at "
                   "WOFT_fast.py's 720p rows; launches: WOFT_fast.py at 720p",
              **head_j),
+        dict(name="instance_norm_act", route="cuda",
+             source="woft_tpu_torch/csrc/instance_norm.cu",
+             replaces="none: woft_tpu runs its instance norm through XLA",
+             launches=canon["instance_norm_act"],
+             note="kernel L; launches: WOFT.py at 720p, 27 an encoding; "
+                  "times: one encoding's 13 calls at 720p float32, the "
+                  "other cells' in 'cells'",
+             cells=norm_l, **norm_l["720p float32"]),
     ]
     # the window paths' and the multi-target paths' own runs, each counted
     # from 0 (kernels A-E), and A-E timed at the multi-target shapes

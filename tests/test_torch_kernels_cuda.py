@@ -1805,3 +1805,181 @@ def test_alt_corr_launches_13_a_flow(dev):
         assert _forward_launches(dev, cfgs["WOFT_alternate.py"], sparse) == 13
         assert _forward_launches(dev, cfgs["WOFT.py"], sparse) == 0
         assert _forward_launches(dev, cfgs["WOFT_fast.py"], sparse) == 0
+
+
+# ---------------------------------------------------------------------------
+# kernel L: the feature encoder's instance norm with its ReLU and residual
+# ---------------------------------------------------------------------------
+
+# L sums each plane's statistics in another order than PyTorch's batch-norm
+# kernels: in float32 a few ulps of the largest normalised value; in bf16
+# each rounding (the normalised value, the shortcut's, the sum: one ulp each
+# of the largest of them, at a tie to even) may fall the other way on a
+# small share of the entries, and a value near 0, where x - mean cancels,
+# may move by the float32 gap
+NORM_F32_REL = 1e-5
+NORM_BF16_ULPS = {"relu": 1, "residual": 2, "shortcut": 3}
+NORM_BF16_SHARE = 1e-3
+# the largest plane of each benchmark cell's feature encoder (the stem's
+# output and layer1: 64 channels at half the frame), and an odd shape
+NORM_SHAPES = {"720p-float32": ((1, 64, 360, 640), torch.float32),
+               "1080p-bf16": ((1, 64, 540, 960), torch.bfloat16),
+               "2160p-float32": ((1, 64, 1080, 1920), torch.float32),
+               "odd-float32": ((2, 3, 37, 53), torch.float32),
+               "odd-bf16": ((2, 3, 37, 53), torch.bfloat16)}
+
+
+def _norm_inputs(dev, shape, dtype, seed):
+    """A convolution-like map (each plane its own offset and scale), a
+    second one for a shortcut, a block input (after a ReLU) and the two
+    convolutions' biases."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n, c = shape[:2]
+    scale = torch.rand(n, c, 1, 1, device=dev, generator=g) * 2.8 + 0.2
+    offset = torch.rand(n, c, 1, 1, device=dev, generator=g) * 6 - 3
+    x = torch.randn(shape, device=dev, generator=g) * scale + offset
+    sc = torch.randn(shape, device=dev, generator=g) * scale - offset
+    r = torch.randn(shape, device=dev, generator=g).relu()
+    b, sb = torch.randn(2, c, device=dev, generator=g)
+    return tuple(t.to(dtype) for t in (x, sc, r, b, sb))
+
+
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "no-bias"])
+@pytest.mark.parametrize("mode", ["relu", "residual", "shortcut"])
+@pytest.mark.parametrize("case", list(NORM_SHAPES))
+def test_instance_norm_kernel_matches_plain(dev, case, mode, bias):
+    """L against its plain version (the encoder modules' own calls, the
+    convolutions' bias adds first): float32 within NORM_F32_REL of the
+    largest value; bf16 within NORM_BF16_ULPS ulps of the largest of the
+    two values and the normalised x (plus the float32 gap) on every entry,
+    differing on at most NORM_BF16_SHARE of them. Two launches a call."""
+    shape, dtype = NORM_SHAPES[case]
+    x, sc, r, b, sb = _norm_inputs(dev, shape, dtype, seed=len(case))
+    if not bias:
+        b = sb = None
+    kw = {"relu": {}, "residual": {"residual": r},
+          "shortcut": {"shortcut": sc, "shortcut_bias": sb}}[mode]
+    kw["bias"] = b
+    with torch.no_grad():
+        n0 = kernels.instance_norm_act.launches
+        got = kernels.instance_norm_act(x, **kw)
+        torch.cuda.synchronize()
+        assert kernels.instance_norm_act.launches == n0 + 2
+        want = kernels.instance_norm_act_plain(x, **kw)
+        y = kernels.instance_norm_act_plain(x, bias=b)
+    assert got.dtype == dtype and got.shape == x.shape
+    d = (got.float() - want.float()).abs()
+    f32_gap = NORM_F32_REL * want.float().abs().max()
+    if dtype == torch.float32:
+        assert (d <= f32_gap).all()
+    else:
+        top = torch.ldexp(torch.ones_like(d), torch.frexp(torch.maximum(
+            torch.maximum(got.float().abs(), want.float().abs()),
+            y.float().abs()))[1])
+        assert (d <= NORM_BF16_ULPS[mode] * ULP * top + f32_gap).all()
+        assert (d > 0).float().mean().item() <= NORM_BF16_SHARE
+
+
+# the stem's map (64 channels at half the frame; 32 for RAFT-small), as
+# the convolution of an NHWC image leaves it: channels-last strides
+NORM_STEMS = {"720p-float32": ((1, 64, 360, 640), torch.float32),
+              "1080p-bf16": ((1, 64, 540, 960), torch.bfloat16),
+              "2160p-float32": ((1, 64, 1080, 1920), torch.float32),
+              "small-bf16": ((2, 32, 32, 48), torch.bfloat16),
+              "odd-float32": ((2, 64, 37, 53), torch.float32),
+              "odd-bf16": ((2, 64, 37, 53), torch.bfloat16)}
+
+
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "no-bias"])
+@pytest.mark.parametrize("case", list(NORM_STEMS))
+def test_instance_norm_stem_matches_plain(dev, case, bias):
+    """L's channels-last form (the stem) against its plain version, to the
+    tolerances above: three launches, the output contiguous NCHW; an odd
+    H*W takes its scalar stores."""
+    shape, dtype = NORM_STEMS[case]
+    x, _, _, b, _ = _norm_inputs(dev, shape, dtype, seed=len(case))
+    x = x.contiguous(memory_format=torch.channels_last)
+    b = b if bias else None
+    with torch.no_grad():
+        n0 = kernels.instance_norm_act.launches
+        got = kernels.instance_norm_act(x, bias=b)
+        torch.cuda.synchronize()
+        assert kernels.instance_norm_act.launches == n0 + 3
+        want = kernels.instance_norm_act_plain(x, bias=b)
+    assert got.is_contiguous() and got.dtype == dtype
+    d = (got.float() - want.float()).abs()
+    f32_gap = NORM_F32_REL * want.float().abs().max()
+    if dtype == torch.float32:
+        assert (d <= f32_gap).all()
+    else:
+        top = torch.ldexp(torch.ones_like(d), torch.frexp(torch.maximum(
+            got.float().abs(), want.float().abs()))[1])
+        assert (d <= ULP * top + f32_gap).all()
+        assert (d > 0).float().mean().item() <= NORM_BF16_SHARE
+
+
+def _norm_launches(model, x, grad=False):
+    n0 = kernels.instance_norm_act.launches
+    if grad:
+        model.fnet(x).float().square().mean().backward()
+    else:
+        with torch.no_grad():
+            model.fnet(x)
+    torch.cuda.synchronize()
+    return kernels.instance_norm_act.launches - n0
+
+
+@pytest.mark.parametrize("precision", ["highest", "bf16"])
+@pytest.mark.parametrize("small", [False, True], ids=["large", "small"])
+def test_instance_norm_launches_an_encoded_image(dev, monkeypatch, precision,
+                                                 small):
+    """One feature encoding with no grad: every instance norm goes through L,
+    13 calls, 27 launches for RAFT-large (15 norms: each strided block's
+    shortcut norm rides its last call; the stem reads its convolution's
+    channels-last output in three launches), 19 calls, 39 launches for
+    RAFT-small, for one
+    image or a batch of two; the features within the float32 tolerance
+    (bf16: a few ulps) of the modules' path on the card. With grad on, L
+    launches 0 times."""
+    cfg = traft.RaftConfig(precision=precision, small=small)
+    model = traft.init_raft_params(cfg, seed=2, device=dev)
+    g = torch.Generator().manual_seed(7)
+    x = (torch.rand(2, 3, 64, 96, generator=g) * 2 - 1).to(dev)
+    x = x.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)  # NHWC images
+    per = 39 if small else 27
+    with layers.precision_scope(precision):
+        assert _norm_launches(model, x[:1]) == per
+        assert _norm_launches(model, x) == per
+        with torch.no_grad():
+            got = model.fnet(x)
+            with monkeypatch.context() as m:
+                m.setattr(traft, "_norm_route", lambda module: False)
+                want = model.fnet(x)
+        assert _norm_launches(model, x, grad=True) == 0
+    tol = 1e-4 if precision == "highest" else 0.05
+    assert (got - want).abs().max().item() <= tol * want.abs().max().item()
+
+
+def test_instance_norm_wrapper_checks_inputs(dev):
+    """L refuses what it does not take: another dtype, a non-contiguous map,
+    a residual of another shape, a residual and a shortcut at once, a bias
+    of another length or dtype, and a call that would record a gradient."""
+    x, sc, r, b, _ = _norm_inputs(dev, (1, 4, 8, 16), torch.float32, seed=3)
+    with torch.no_grad():
+        with pytest.raises(TypeError):
+            kernels.instance_norm_act(x.double())
+        with pytest.raises(ValueError):
+            kernels.instance_norm_act(x.transpose(2, 3))
+        with pytest.raises(ValueError):   # 4 bf16 channels: 8 bytes a row
+            kernels.instance_norm_act(
+                x.bfloat16().contiguous(memory_format=torch.channels_last))
+        with pytest.raises(ValueError):
+            kernels.instance_norm_act(x, residual=r[:, :2].contiguous())
+        with pytest.raises(ValueError):
+            kernels.instance_norm_act(x, residual=r, shortcut=sc)
+        with pytest.raises(ValueError):
+            kernels.instance_norm_act(x, bias=b[:3])
+        with pytest.raises(TypeError):
+            kernels.instance_norm_act(x, bias=b.bfloat16())
+    with pytest.raises(RuntimeError):
+        kernels.instance_norm_act(x.requires_grad_())

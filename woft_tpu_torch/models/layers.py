@@ -153,6 +153,14 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, out_dtype=None):
                     _rounded(weight, widen=True), bias, stride, padding)
 
 
+def conv_bias(bias, out_dtype=None):
+    """The bias ``conv2d`` adds to a result stored as ``out_dtype`` under
+    the current precision scope: rounded to bf16 where the result is."""
+    if _COMPUTE_DTYPE is not None and out_dtype == _COMPUTE_DTYPE:
+        return _rounded(bias)
+    return bias
+
+
 def conv(mod, x, out_dtype=None):
     """``conv2d`` with an ``nn.Conv2d``'s parameters and geometry."""
     return conv2d(x, mod.weight, mod.bias, mod.stride, mod.padding, out_dtype)

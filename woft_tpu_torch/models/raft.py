@@ -33,6 +33,14 @@ leaves two decisions to a module each, made once a forward:
 
 Besides:
 
+- in a forward that records no gradient the feature encoder's instance
+  norms, each with the convolution's bias before it, the ReLU after it and
+  at a block's end the residual add and its ReLU, run as kernel L on the
+  card (``kernels.instance_norm_act``,
+  13 calls and 27 launches an encoded image for RAFT-large, 19 and 39 for
+  RAFT-small; one fewer where the image comes NCHW-contiguous, as the
+  downscale paths' resize leaves it) and as its plain version, the
+  modules' calls, on the CPU,
 - the template's features are encoded once per sequence
   (``encode_template``); per frame only the current frame is encoded,
 - the convex-upsample mask is computed after the loop from the final
@@ -184,6 +192,46 @@ VARIANTS = ("weighted", "orig", "weighted_masked")
 # encoders (ref:raft_core/extractor.py, BasicEncoder)
 # ---------------------------------------------------------------------------
 
+def _norm_route(module):
+    """Whether an encoder module's norms take kernel L
+    (``kernels.instance_norm_act``: each instance norm with the
+    convolution's bias before it and the ReLU after it, and at a block's
+    end the residual add and its ReLU): under
+    ``norm_fn == 'instance'`` (the feature encoder) in a forward that
+    records no gradient, whatever the device and precision; the wrapper
+    takes its plain version, the modules' own calls, on the CPU. Training
+    keeps the modules."""
+    return (not torch.is_grad_enabled()
+            and isinstance(module.norm1, nn.InstanceNorm2d))
+
+
+def _norm_input(mod, x, sd):
+    """A convolution that feeds one of kernel L's norms, as (output, bias):
+    on the card without its bias, which L adds as PyTorch's own pass after
+    cuDNN's product does, with the same rounding; on the CPU with it."""
+    if not x.is_cuda:
+        return conv(mod, x, sd), None
+    return (conv2d(x, mod.weight, None, mod.stride, mod.padding, sd),
+            layers.conv_bias(mod.bias, sd))
+
+
+def _norm_act(mod, x, sd):
+    """``relu(norm(mod(x)))`` on kernel L's route."""
+    y, b = _norm_input(mod, x, sd)
+    return kernels.instance_norm_act(y, bias=b)
+
+
+def _block_end(block, mod, y, x, sd):
+    """A block's last norm on kernel L's route: ``relu(x +
+    relu(norm(mod(y))))``, ``x`` the block's input or, with a strided
+    shortcut, its convolution's output normalised in the same call."""
+    y, b = _norm_input(mod, y, sd)
+    if block.downsample is None:
+        return kernels.instance_norm_act(y, residual=x, bias=b)
+    s, sb = _norm_input(block.downsample[0], x, sd)
+    return kernels.instance_norm_act(y, shortcut=s, bias=b, shortcut_bias=sb)
+
+
 class ResidualBlock(nn.Module):
     def __init__(self, in_planes, planes, norm_fn, stride):
         super().__init__()
@@ -203,6 +251,9 @@ class ResidualBlock(nn.Module):
 
     def forward(self, x):
         sd = layers.get_compute_dtype()    # bf16 mode stores activations bf16
+        if _norm_route(self):
+            return _block_end(self, self.conv2, _norm_act(self.conv1, x, sd),
+                              x, sd)
         y = F.relu(self.norm1(conv(self.conv1, x, sd)))
         y = F.relu(self.norm2(conv(self.conv2, y, sd)))
         if self.downsample is not None:
@@ -234,6 +285,9 @@ class BottleneckBlock(nn.Module):
 
     def forward(self, x):
         sd = layers.get_compute_dtype()
+        if _norm_route(self):
+            y = _norm_act(self.conv2, _norm_act(self.conv1, x, sd), sd)
+            return _block_end(self, self.conv3, y, x, sd)
         y = F.relu(self.norm1(conv(self.conv1, x, sd)))
         y = F.relu(self.norm2(conv(self.conv2, y, sd)))
         y = F.relu(self.norm3(conv(self.conv3, y, sd)))
@@ -263,7 +317,14 @@ class BasicEncoder(nn.Module):
         self.conv2 = nn.Conv2d(cin, output_dim, 1)
 
     def forward(self, x):
-        x = F.relu(self.norm1(conv(self.conv1, x, layers.get_compute_dtype())))
+        sd = layers.get_compute_dtype()
+        if _norm_route(self):
+            # conv1 keeps its input's channels-last strides (the images are
+            # NHWC): L's stem form reads them and writes NCHW, where
+            # torch's instance norm copies the map first
+            x = _norm_act(self.conv1, x, sd)
+        else:
+            x = F.relu(self.norm1(conv(self.conv1, x, sd)))
         x = self.layer3(self.layer2(self.layer1(x)))
         return conv(self.conv2, x)              # features stay float32
 

@@ -5,7 +5,8 @@ with ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/`` at the repository
 root (a content-hashed file name, so an edited source rebuilds) and loaded
 with ``ctypes``. ``build()`` starts one ``nvcc`` per source, all together.
 
-The launch wrappers below take CUDA tensors only: they check device, dtype,
+The launch wrappers below take CUDA tensors only (all but L's, below):
+they check device, dtype,
 shape and contiguity, allocate the output with ``torch.empty``, launch on
 the current stream, raise if the C entry reports a CUDA error, and count
 their launches in a plain integer attribute (``<wrapper>.launches``;
@@ -17,11 +18,14 @@ callers (``ops/warp.py:warp_perspective_fast``, ``models/corr.py``:
 ``motion_encoder_tail``, ``flow_head``; ``models/weight_head.py``:
 ``weight_head``)
 take the plain PyTorch version for CPU tensors; a CUDA tensor always goes to
-the kernel. Under grad, B, C, D, E and K are reached through
-``torch.autograd.Function``s (``models/corr.py``: B's backward is kernel
-B', C's, D's, E's and K's the VJPs of their plain versions, as in the JAX
-package); A, F, G, H, I and J have no backward, and their callers raise
-(``require_no_grad``) rather than return an output with no graph.
+the kernel. L's wrapper (``instance_norm_act``, the encoders' caller in
+``models/raft.py``) makes that choice itself: a CPU tensor takes
+``instance_norm_act_plain``, in this module. Under grad, B, C, D, E and K
+are reached through ``torch.autograd.Function``s (``models/corr.py``: B's
+backward is kernel B', C's, D's, E's and K's the VJPs of their plain
+versions, as in the JAX package); A, F, G, H, I, J and L have no backward,
+and their callers raise (``require_no_grad``) rather than return an output
+with no graph.
 
 | kernel | source | TPU kernel it replaces |
 |---|---|---|
@@ -38,6 +42,7 @@ package); A, F, G, H, I and J have no backward, and their callers raise
 | I ``flow_head`` | ``csrc/flow_head.cu`` | ``ops/pallas/update_tail.py:flow_head_pallas`` |
 | J ``weight_head`` (the bf16 weight head) | ``csrc/weight_head.cu`` | none: the JAX package runs its weight head through XLA |
 | K ``alt_corr_lookup`` (the volume-free lookup, ``alternate_corr``) | ``csrc/alt_corr.cu`` | none: the JAX package gathers its alternate lookup through XLA |
+| L ``instance_norm_act`` (the feature encoder's norms, fused with the ReLU and the residual add) | ``csrc/instance_norm.cu`` | none: the JAX package runs its instance norm through XLA |
 
 G's float32 form is float32 FFMA (no tensor cores) and shares no kernel
 body with G. G, H, I and J share ``csrc/conv_wgmma.cuh`` (a convolution as per-tap
@@ -56,11 +61,13 @@ import subprocess
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("warp", "corr_lookup", "local_corr", "local_lookup", "gru",
-           "gru_f32", "update_tail", "flow_head", "weight_head", "alt_corr")
+           "gru_f32", "update_tail", "flow_head", "weight_head", "alt_corr",
+           "instance_norm")
 # --fmad=false: no FMA contraction, so the kernels round like their plain
 # PyTorch versions (see the notes at the top of each source)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -109,6 +116,11 @@ _ENTRIES = {
     "alt_corr": {"woft_alt_corr": [_P, _P, _P, _I, _P, _P, _P,
                                    ctypes.c_longlong, _I, _I, _I, _I, _I, _P,
                                    _P]},
+    "instance_norm": {
+        "woft_instance_norm": [_P] * 4 + [_I] * 8
+        + [ctypes.c_float, _P, _P, _P],
+        "woft_instance_norm_nhwc": [_P, _P] + [_I] * 6
+        + [ctypes.c_float, _P, _P, _P, _P]},
 }
 _entries = {}
 
@@ -1032,4 +1044,170 @@ def weight_head(corr, mean, taps, consts):
                 out.data_ptr(), M, _stream())
     _raise_on_error(rc, "weight_head")
     weight_head.launches += 1
+    return out
+
+
+_NORM_DTYPES = (torch.float32, torch.bfloat16)
+NORM_THREADS = 256              # kernel L's block
+NORM_MAX_SPLITS = 256           # partials a plane: one a thread of the merge
+_sm_counts = {}
+
+
+def instance_norm_plan(planes, hw, vec, sms):
+    """Kernel L's split of each of ``planes`` planes of ``hw`` elements:
+    (splits, chunk), chunk a multiple of ``vec`` (the elements of a load)
+    and every chunk non-empty. About two waves of eight 256-thread blocks
+    on each of ``sms`` SMs, no more splits than leave a block two
+    iterations of two loads a thread, and at most ``NORM_MAX_SPLITS``."""
+    per_block = 2 * 2 * NORM_THREADS * vec
+    splits = max(1, min(-(-16 * sms // planes), -(-hw // per_block),
+                        NORM_MAX_SPLITS))
+    chunk = -(-hw // splits)
+    chunk = -(-chunk // vec) * vec
+    return -(-hw // chunk), chunk
+
+
+def _sm_count(device):
+    if device.index not in _sm_counts:
+        _sm_counts[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sm_counts[device.index]
+
+
+def _add_bias(x, bias):
+    return x if bias is None else x + bias.view(1, -1, 1, 1)
+
+
+def instance_norm_act_plain(x, residual=None, shortcut=None, eps=1e-5,
+                            bias=None, shortcut_bias=None):
+    """Kernel L's function in PyTorch, the encoder modules' own calls:
+    ``relu(instance_norm(x))``; with ``residual``, ``relu(residual +
+    relu(instance_norm(x)))``; with ``shortcut``, the same with
+    ``instance_norm(shortcut)`` as the residual. ``bias``,
+    ``shortcut_bias``: (C,) added first to x and to the shortcut, as a
+    convolution on the card adds its bias after cuDNN's product."""
+    y = F.relu(F.instance_norm(_add_bias(x, bias), eps=eps))
+    if shortcut is not None:
+        residual = F.instance_norm(_add_bias(shortcut, shortcut_bias),
+                                   eps=eps)
+    return y if residual is None else F.relu(residual + y)
+
+
+@_counted
+def instance_norm_act(x, residual=None, shortcut=None, eps=1e-5, bias=None,
+                      shortcut_bias=None):
+    """Kernel L: the instance norm (affine-free, biased variance) of an
+    NCHW map with the convolution's bias before it, the ReLU after it and,
+    at a residual block's end, the add and its ReLU:
+    ``instance_norm_act_plain``'s function, two launches (the statistics,
+    then the apply pass), three for the stem.
+
+    x: (N, C, H, W) float32 or bf16, contiguous, or with channels-last
+    strides and no residual (the stem: a convolution's output that kept
+    its NHWC input's strides; three launches, the output contiguous);
+    residual: x's shape and type, the block's input; shortcut: the same,
+    the shortcut convolution's output, normalised on the fly (at most one
+    of the two); bias, shortcut_bias: None or (C,) of x's type. Each
+    biased value rounded to x's type, statistics in float32, each
+    normalised value rounded to x's type, the add in float32 rounded once.
+    A CPU tensor takes ``instance_norm_act_plain``."""
+    if residual is not None and shortcut is not None:
+        raise ValueError("a residual or a shortcut to normalise, not both")
+    if shortcut_bias is not None and shortcut is None:
+        raise ValueError("a shortcut bias needs a shortcut")
+    require_no_grad("L (instance_norm_act)", x, residual, shortcut, bias,
+                    shortcut_bias)
+    if x.device.type != "cuda":
+        return instance_norm_act_plain(x, residual, shortcut, eps, bias,
+                                       shortcut_bias)
+    device = x.device
+    if x.dtype not in _NORM_DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if x.dim() != 4 or x.numel() == 0:
+        raise ValueError(f"x must be a non-empty (N, C, H, W), got "
+                         f"{tuple(x.shape)}")
+    other = residual if shortcut is None else shortcut
+    # the stem: a convolution's output that kept its NHWC input's strides
+    stem = (other is None and not x.is_contiguous()
+            and x.is_contiguous(memory_format=torch.channels_last))
+    if not stem:
+        _check_tensor(x, "x", x.dtype, device)
+    if other is not None:
+        _check_tensor(other, "residual" if shortcut is None else "shortcut",
+                      x.dtype, device)
+        if other.shape != x.shape:
+            raise ValueError(f"the residual or shortcut must be "
+                             f"{tuple(x.shape)}, got {tuple(other.shape)}")
+    N, C, H, W = x.shape
+    for name, b in (("bias", bias), ("shortcut_bias", shortcut_bias)):
+        if b is not None:
+            _check_tensor(b, name, x.dtype, device)
+            if tuple(b.shape) != (C,):
+                raise ValueError(f"{name} must be ({C},), got "
+                                 f"{tuple(b.shape)}")
+    planes, hw = N * C, H * W
+    if hw >= 2 ** 31:
+        raise ValueError("kernel L indexes a plane with 32 bits")
+    if stem:
+        return _instance_norm_stem(x, bias, eps)
+    out = torch.empty_like(x)
+    vec = 16 // x.element_size()
+    if hw % vec or any(t.data_ptr() % 16 for t in (x, other, out)
+                       if t is not None):
+        vec = 1
+    splits, chunk = instance_norm_plan(planes, hw, vec, _sm_count(device))
+    mode = 0 if other is None else 1 if shortcut is None else 2
+    part = torch.empty((2 if mode == 2 else 1, planes, splits, 4),
+                       dtype=torch.float32, device=device)
+    fn = _entry("instance_norm")
+    with _current(device):
+        rc = fn(x.data_ptr(), None if other is None else other.data_ptr(),
+                None if bias is None else bias.data_ptr(),
+                None if shortcut_bias is None else shortcut_bias.data_ptr(),
+                mode, int(x.dtype == torch.bfloat16), planes, C, hw, splits,
+                chunk, vec, eps, part.data_ptr(), out.data_ptr(), _stream())
+    _raise_on_error(rc, "instance_norm")
+    instance_norm_act.launches += 2
+    return out
+
+
+NORM_STEM_MAX_CHANNELS = 128
+NORM_STEM_MAX_SPLITS = 1024     # partials a plane: 32 a lane of one warp
+
+
+def instance_norm_stem_plan(images, hw, sms):
+    """The stem form's split of each image's ``hw`` positions: (splits,
+    chunk), every chunk non-empty; about two waves of eight blocks an SM,
+    at least 256 positions a block, at most ``NORM_STEM_MAX_SPLITS``."""
+    splits = max(1, min(-(-16 * sms // images), -(-hw // 256),
+                        NORM_STEM_MAX_SPLITS))
+    chunk = -(-hw // splits)
+    return -(-hw // chunk), chunk
+
+
+def _instance_norm_stem(x, bias, eps):
+    """Kernel L's channels-last form (``instance_norm_act`` on a map with
+    NHWC strides, no residual): three launches (the statistics, the planes'
+    coefficients, the apply pass), the output NCHW."""
+    device = x.device
+    N, C, H, W = x.shape
+    vec = 16 // x.element_size()
+    if (C % vec or NORM_THREADS % (C // vec) or C > NORM_STEM_MAX_CHANNELS
+            or x.data_ptr() % 16 or N > 65535):
+        raise ValueError(f"kernel L takes a channels-last map with a multiple "
+                         f"of {vec} channels up to {NORM_STEM_MAX_CHANNELS} "
+                         f"(their 16-byte vectors dividing {NORM_THREADS}), "
+                         f"16-byte aligned; got {tuple(x.shape)}")
+    hw = H * W
+    splits, chunk = instance_norm_stem_plan(N, hw, _sm_count(device))
+    out = torch.empty((N, C, H, W), dtype=x.dtype, device=device)
+    part = torch.empty((N * C, splits, 4), dtype=torch.float32, device=device)
+    coef = torch.empty((N * C, 2), dtype=torch.float32, device=device)
+    fn = _entry("instance_norm", "woft_instance_norm_nhwc")
+    with _current(device):
+        rc = fn(x.data_ptr(), None if bias is None else bias.data_ptr(),
+                int(x.dtype == torch.bfloat16), N, C, hw, splits, chunk, eps,
+                part.data_ptr(), coef.data_ptr(), out.data_ptr(), _stream())
+    _raise_on_error(rc, "instance_norm")
+    instance_norm_act.launches += 3
     return out
