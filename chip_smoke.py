@@ -30,6 +30,10 @@ Phases; any failure ends the script with a non-zero exit:
    (its two launches) and I, each beside its time before the redesign,
    L (the encoder's instance norm; every call of one feature encoding in
    each benchmark cell's precision and size, and the 13 calls timed),
+   M (GMA's aggregation, at the 1080p grid after the shared paths, with
+   ``F.scaled_dot_product_attention`` as its library yardstick) and G at
+   GMA's 256 motion channels, then ``WOFT_gma_fast.py`` tracked x8 at
+   1080p (M 12 launches a flow; every other track holds M at 0),
    B's reads also counted in the 32-byte sectors device memory moves, as
    are D's (the union of each 16-query row's patches), E's bound counting the flagged blocks only; one guarded block-local
    lookup traced with ``torch.profiler``: two kernel launches;
@@ -1650,7 +1654,8 @@ COUNTED = ("warp_perspective_bilinear", "corr_pyramid_lookup",
            "local_lookup_fine_multi",
            "local_lookup_exact", "local_lookup_fine", "fused_gru_update",
            "fused_gru_update_f32", "motion_encoder_tail", "flow_head",
-           "weight_head", "alt_corr_lookup", "instance_norm_act")
+           "weight_head", "alt_corr_lookup", "instance_norm_act",
+           "gma_aggregate")
 # G's float32 form runs in every float32 forward of RAFT-large on one frame
 # pair, J in every bf16 weight head on the card, L (27 launches) in every
 # RAFT-large feature encoding that records no gradient; a track checks
@@ -3065,6 +3070,163 @@ def track_shared_x64(kernels, dev, model, cfg, tp, x8):
                              "targets")
     return dict(launches=launches, chunk_ms=wall, per_frame_launches=n_launch,
                 busy_ms=busy, peak_gib=peak, worst_err=max(errs))
+
+
+GMA_SHARED_CORNER_BOUND_PX = MULTI_CORNER_BOUND_PX
+
+
+def check_gma_kernels(kernels, dev, H1=MULTI_H // 8, W1=MULTI_W // 8):
+    """GMA's kernels at the 1080p loop grid (135 x 240 cells, N = 32,400):
+    kernel M against its plain version (the first 128 channels mf bit for
+    bit, the aggregated ones within one bf16 ulp plus gamma times the
+    largest |v| times (N / 16 + 1) 2^-23, the tensor cores' truncating
+    sums, at most 2 % differing)
+    and timed beside its plain version, the library's attention of the
+    same shape (``F.scaled_dot_product_attention``, bf16, one head of 128:
+    scores recomputed from q and k, which M reads stored) and its bound
+    (the product's operations at the bf16 peak; the least bytes, v read,
+    mf_g written, q and k read once, take less); kernel G at GMA's 256
+    motion channels against its plain version, each direction. Returns
+    {"M": row, "G (x = 256)": row}."""
+    from woft_tpu_torch.models import gma, layers, update
+    from woft_tpu_torch.models import raft as traft
+
+    N = H1 * W1
+    log(f"--- GMA's kernels at the {H1} x {W1} loop grid (N = {N})")
+    g = torch.Generator(device=dev).manual_seed(41)
+    att, agg = gma.Attention().to(dev), gma.Aggregate().to(dev)
+    with torch.no_grad():
+        agg.gamma.fill_(3.0)
+        inp = torch.relu(torch.randn(1, 128, H1, W1, device=dev, generator=g))
+        mf = torch.relu(torch.randn(N, 128, device=dev, generator=g)).bfloat16()
+        with layers.precision_scope("bf16"):
+            t0 = time.perf_counter()
+            attn = gma.template_attention(att, inp)[0]
+            torch.cuda.synchronize()
+            build_ms = (time.perf_counter() - t0) * 1e3
+            vt = gma.value_t(agg, mf)
+        got = kernels.gma_aggregate(attn, vt, mf, agg.gamma)
+        want = gma.gma_aggregate_plain(attn, vt, mf, agg.gamma)
+        torch.cuda.synchronize()
+        if not torch.equal(got[:, :128], mf):
+            raise AssertionError("kernel M: the first 128 channels are not mf")
+        diff = (got[:, 128:].float() - want[:, 128:].float()).abs()
+        share = (diff > 0).float().mean().item()
+        # one bf16 ulp (2^-7 of the result's magnitude at most), and the
+        # tensor cores' truncating float32 sums (up to an ulp a k16 step),
+        # which show where mf + gamma * out cancels
+        allowed = (2 * BF16_ULP * want[:, 128:].float().abs()
+                   + (N // 16 + 1) * 2.0 ** -23 * 3.0
+                   * vt.float().abs().max())
+        if not ((diff <= allowed).all() and share <= UPDATE_DIFF_SHARE):
+            raise AssertionError("kernel M disagrees with its plain version")
+        ms = time_ms(lambda: kernels.gma_aggregate(attn, vt, mf, agg.gamma))
+        plain_ms = time_ms(lambda: gma.gma_aggregate_plain(
+            attn, vt, mf, agg.gamma), iters=3, warmup=1)
+        q, k, v = (torch.randn(1, 1, N, 128, device=dev, generator=g)
+                   .bfloat16() for _ in range(3))
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                             iters=10)
+        bnd, by = bound_ms(4 * N * 128 * 2, 2 * N * N * 128, BF16_FLOPS)
+        read_ms = attn.shape[0] * attn.stride(0) * 2 / HBM_BYTES_PER_S * 1e3
+    log(f"kernel M: max_abs_err {diff.max().item():.3g}, entries that "
+        f"differ {100 * share:.3f} %; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, F.scaled_dot_product_attention {library_ms:.4f} "
+        f"ms, bound {bnd:.4f} ms ({by}), {100 * bnd / ms:.1f} % of it; "
+        f"reading the stored bf16 attention takes {read_ms:.4f} ms at HBM "
+        f"bandwidth; the template's attention built in {build_ms:.1f} ms")
+    rows = {"M": dict(max_abs_err=diff.max().item(), ms=ms,
+                      plain_ms=plain_ms, library_ms=library_ms,
+                      library_is="F.scaled_dot_product_attention, bf16, 1 "
+                                 "head of 128",
+                      bound_ms=bnd, bound_by=by, attention_read_ms=read_ms,
+                      template_attention_ms=build_ms)}
+    del attn, want, got
+    torch.cuda.empty_cache()
+
+    cfg = traft.RaftConfig(precision="bf16", gma=True)
+    ub = traft.init_raft_params(cfg, seed=0, device=dev).update_block
+    h = torch.tanh(torch.randn(1, H1, W1, 128, device=dev, generator=g))
+    x = torch.relu(torch.randn(1, H1, W1, 256, device=dev,
+                               generator=g)).bfloat16()
+    with layers.precision_scope("bf16"), torch.no_grad():
+        ctx = update.LoopRoute("bf16").context(
+            ub.gru, torch.relu(torch.randn(1, 128, H1, W1, device=dev,
+                                           generator=g)))
+        per_dir = {}
+        for args in ctx:
+            got = kernels.fused_gru_update(h, x, *args)
+            want = update.gru_update_plain(h, x, *args)
+            diff = (got - want).abs()
+            share = (diff > 1e-6).float().mean().item()
+            if not ((diff <= GRU_TOL_ULPS * BF16_ULP * h.abs().clamp(min=1.0))
+                    .all() and share <= UPDATE_DIFF_SHARE):
+                raise AssertionError("kernel G at 256 motion channels "
+                                     "disagrees with its plain version")
+            per_dir[args[-1]] = dict(
+                max_abs_err=diff.max().item(),
+                ms=time_ms(lambda: kernels.fused_gru_update(h, x, *args)))
+    bnd, by = bound_ms(0, 2 * N * 5 * 384 * (256 + 128), BF16_FLOPS)
+    log("kernel G at 256 motion channels: " + ", ".join(
+        f"[{a}] {r['ms']:.4f} ms (max_abs_err {r['max_abs_err']:.3g})"
+        for a, r in per_dir.items()) + f"; bound {bnd:.4f} ms ({by})")
+    rows["G (x = 256)"] = dict(per_direction=per_dir, bound_ms=bnd,
+                               bound_by=by)
+    return rows
+
+
+def track_shared_gma(kernels, dev):
+    """Shared-flow multi-target tracking at 1920x1080 on
+    ``WOFT_gma_fast.py`` (GMA: the trained v4 weights with its additions
+    drawn from their seed): 8 frames of the walk, 8 targets, counted from
+    0: M 12 times a flow (inside the loop's graph after the first), G 24,
+    H and I 12, C once, J once; every target passes its check on every
+    frame, its corners within ``GMA_SHARED_CORNER_BOUND_PX`` of the walk.
+    Returns the path's numbers."""
+    from woft_tpu_torch.config import load_config
+    from woft_tpu_torch.flow import RaftFlow
+    from woft_tpu_torch.pipeline import SharedMultiTracker
+
+    conf = load_config(os.path.join(ROOT, "woft_tpu_torch", "configs",
+                                    "WOFT_gma_fast.py"))
+    flower = RaftFlow(conf.flow_config, device=dev)
+    template, frames, poses = walk(MULTI_H, MULTI_W, dev)
+    masks = shared_masks(8)
+    n = len(masks)
+    log(f"--- shared flow x{n} at {MULTI_W}x{MULTI_H}: WOFT_gma_fast.py")
+    torch.cuda.synchronize()
+    zero_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    tracker = SharedMultiTracker(flower.model, flower.cfg,
+                                 conf.tracker_params, device=dev)
+    t0 = time.perf_counter()
+    tracker.init(template, masks)
+    torch.cuda.synchronize()
+    init_ms = (time.perf_counter() - t0) * 1e3
+    hs, oks, frame_ms = [], [], []
+    for f in frames:
+        t0 = time.perf_counter()
+        h, meta = tracker.track(f)
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        hs.append(h)
+        oks.append(meta["global_H_success"])
+    launches = read_counts(kernels)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    hs, oks = np.stack(hs), np.stack(oks)
+    T = len(frames)
+    check_counts(f"shared GMA x{n}", launches, {
+        "warp_perspective_bilinear": T, "local_corr_build": T,
+        "local_lookup_coords": 13 * T, "local_lookup_exact_coords": 13 * T,
+        "weight_head": T, "gma_aggregate": 12 * T,
+        **update_launches(True, T)},
+        ("warp_perspective_bilinear", "local_corr_build", "weight_head",
+         "gma_aggregate", *UPDATE_KERNELS), T, T)
+    errs = _report_multi(f"shared GMA x{n}", n, frame_ms, hs, poses, masks,
+                         oks, GMA_SHARED_CORNER_BOUND_PX)
+    log(f"shared GMA x{n}: init (the template's features and attention) "
+        f"{init_ms:.1f} ms; peak device memory {peak:.2f} GiB")
+    return dict(launches=launches, frame_ms=sum(frame_ms[1:]) / (T - 1),
+                init_ms=init_ms, peak_gib=peak, errs=errs)
 
 
 def track_window_batch(kernels, dev, precision=None):
@@ -5774,6 +5936,9 @@ def main():
         paths["shared x8 1920x1080"])
     del flower
     torch.cuda.empty_cache()
+    gma_rows = check_gma_kernels(kernels, dev)
+    paths["shared GMA x8 1920x1080"] = track_shared_gma(kernels, dev)
+    torch.cuda.empty_cache()
     paths["window batch x8 1920x1080"] = track_window_batch(kernels, dev)
 
     # evaluation and the entry points: the synthetic evals, A's render
@@ -5881,6 +6046,15 @@ def main():
                   "times: one encoding's 13 calls at 720p float32, the "
                   "other cells' in 'cells'",
              cells=norm_l, **norm_l["720p float32"]),
+        dict(name="gma_aggregate", route="cuda",
+             source="woft_tpu_torch/csrc/gma_aggregate.cu",
+             replaces="none: woft_tpu has no GMA",
+             launches=paths["shared GMA x8 1920x1080"]["launches"][
+                 "gma_aggregate"],
+             note="kernel M; launches: WOFT_gma_fast.py, shared x8 at "
+                  "1080p, 12 a flow; times at N = 32,400; gru_x256: kernel "
+                  "G at GMA's 256 motion channels, each direction",
+             gru_x256=gma_rows["G (x = 256)"], **gma_rows["M"]),
     ]
     # the window paths' and the multi-target paths' own runs, each counted
     # from 0 (kernels A-E), and A-E timed at the multi-target shapes

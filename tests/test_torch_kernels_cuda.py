@@ -1983,3 +1983,227 @@ def test_instance_norm_wrapper_checks_inputs(dev):
             kernels.instance_norm_act(x, bias=b.bfloat16())
     with pytest.raises(RuntimeError):
         kernels.instance_norm_act(x.requires_grad_())
+
+
+# ---------------------------------------------------------------------------
+# GMA: kernel M (the aggregation) and kernel G at 256 motion channels
+# ---------------------------------------------------------------------------
+
+GMA_SHAPES = [(135, 240), (90, 160), (19, 28), (1, 122), (122, 1)]
+GMA_IDS = [f"{h}x{w}" for h, w in GMA_SHAPES]
+
+
+@pytest.fixture(scope="module")
+def gma_update_block(dev):
+    cfg = traft.RaftConfig(precision="bf16", gma=True)
+    return traft.init_raft_params(cfg, seed=1, device=dev).update_block
+
+
+@pytest.mark.parametrize("hw", GMA_SHAPES, ids=GMA_IDS)
+@pytest.mark.parametrize("axis", ["w", "h"])
+def test_gru_kernel_gma_width_matches_plain(dev, gma_update_block, hw, axis):
+    """Kernel G with GMA's 256-channel motion input (taps (5, 256, 384) and
+    (5, 128, 384)) against its plain version, at the bound of
+    ``test_gru_kernel_matches_plain``: 4 ulps of max(1, |h|), at most 2 %
+    of the entries differing."""
+    gru = gma_update_block.gru
+    (h,) = _maps(dev, hw, 20, 128, dtype=torch.float32)
+    x, pre_zr, pre_q = _maps(dev, hw, 21, 256, 256, 128)
+    names = (("convz1", "convr1", "convq1") if axis == "w"
+             else ("convz2", "convr2", "convq2"))
+    wzr, bzr = update.gru_taps(gru, names[:2], 128, 128)
+    wq, bq = update.gru_taps(gru, names[2:], 128, 128)
+    assert wzr.shape == (5, 256, 384) and wq.shape == (5, 128, 384)
+    wzr, wq = ((4.0 * w.float()).bfloat16() for w in (wzr, wq))
+    n0 = kernels.fused_gru_update.launches
+    got = update.gru_update(h, x, pre_zr, pre_q, wzr, wq, bzr, bq, axis)
+    want = update.gru_update_plain(h, x, pre_zr, pre_q, wzr, wq, bzr, bq, axis)
+    torch.cuda.synchronize()
+    assert kernels.fused_gru_update.launches == n0 + 1
+    diff = (got - want).abs()
+    assert (diff <= 4 * ULP * h.abs().clamp(min=1.0)).all(), diff.max().item()
+    assert (diff > 1e-6).float().mean().item() <= 0.02
+
+
+def _gma_case(dev, hw, seed):
+    """Kernel M's operands at an (H1, W1) grid: the template's attention
+    of random context features (bf16 mode), v transposed, motion features,
+    gamma."""
+    from woft_tpu_torch.models import gma
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    att, agg = gma.Attention().to(dev), gma.Aggregate().to(dev)
+    with torch.no_grad():
+        agg.gamma.fill_(3.0)
+        inp = torch.relu(torch.randn(1, 128, *hw, device=dev, generator=g))
+        mf = torch.relu(torch.randn(hw[0] * hw[1], 128, device=dev,
+                                    generator=g)).bfloat16()
+        with layers.precision_scope("bf16"):
+            attn = gma.template_attention(att, inp)[0]
+            vt = gma.value_t(agg, mf)
+    return attn, vt, mf, agg.gamma.detach()
+
+
+@pytest.mark.parametrize("hw", [(135, 240), (8, 12), (7, 9), (1, 1)],
+                         ids=["135x240", "8x12", "7x9", "1x1"])
+def test_gma_aggregate_matches_plain(dev, hw):
+    """Kernel M against its plain version: the first 128 channels are mf
+    bit for bit; the aggregated ones within one bf16 ulp of the result
+    plus gamma times the largest |v| times (N / 16 + 1) 2^-23, and at most
+    2 % of them differ. The second term is the sums': the tensor cores add
+    each k16 product to the float32 accumulator with truncation (as kernel
+    J's notes find), so M's sum of N terms drifts by up to a float32 ulp a
+    step, which shows where mf + gamma * out cancels. 135 x 240 is the 1080p grid (127 CTAs, the last one ragged);
+    7 x 9 and 1 x 1 read rows of an N that is no multiple of 8 (strided
+    views)."""
+    from woft_tpu_torch.models import gma
+
+    attn, vt, mf, gamma = _gma_case(dev, hw, 30)
+    n0 = kernels.gma_aggregate.launches
+    got = gma.gma_aggregate(attn, vt, mf, gamma)
+    want = gma.gma_aggregate_plain(attn, vt, mf, gamma)
+    torch.cuda.synchronize()
+    assert kernels.gma_aggregate.launches == n0 + 1
+    assert got.shape == (hw[0] * hw[1], 256) and got.dtype == torch.bfloat16
+    assert torch.equal(got[:, :128], mf)
+    diff = (got[:, 128:].float() - want[:, 128:].float()).abs()
+    # one bf16 ulp (2^-7 of the result's magnitude at most) and the sums'
+    steps = hw[0] * hw[1] // 16 + 1
+    allowed = (2 * ULP * want[:, 128:].float().abs()
+               + steps * 2.0 ** -23 * gamma.abs() * vt.float().abs().max())
+    assert (diff <= allowed).all(), (diff - allowed).max().item()
+    assert (diff > 0).float().mean().item() <= 0.02
+
+
+def test_gma_aggregate_checks_inputs(dev):
+    """M refuses what it does not take: another dtype, a row stride that is
+    no multiple of 8, a shape that does not match, and a gradient."""
+    from woft_tpu_torch.models import gma
+
+    attn, vt, mf, gamma = _gma_case(dev, (8, 12), 31)
+    with torch.no_grad():
+        with pytest.raises(ValueError):
+            kernels.gma_aggregate(attn.float(), vt, mf, gamma)
+        wide = torch.zeros(96, 100, dtype=attn.dtype, device=dev)
+        with pytest.raises(ValueError):     # rows 100 elements apart
+            kernels.gma_aggregate(wide[:, :96], vt, mf, gamma)
+        with pytest.raises(ValueError):
+            kernels.gma_aggregate(attn, vt[:, :48], mf, gamma)
+        with pytest.raises(ValueError):
+            kernels.gma_aggregate(attn, vt, mf[:, :64], gamma)
+    with pytest.raises(RuntimeError):
+        gma.gma_aggregate(attn, vt, mf, gamma.clone().requires_grad_())
+
+
+def _m_launches(dev, cfg):
+    """M's launches in one 64x96 forward of ``cfg`` on seeded weights, and
+    in a second one (graphed where the loop is)."""
+    model = traft.init_raft_params(cfg, seed=3, device=dev)
+    g = torch.Generator().manual_seed(12)
+    imgs = [(torch.rand(1, 64, 96, 3, generator=g) * 255).to(dev)
+            for _ in range(2)]
+    counts = []
+    for _ in range(2):
+        n0 = kernels.gma_aggregate.launches
+        traft.weighted_raft_forward(model, cfg, *imgs,
+                                    sparse_weight_head=True)
+        torch.cuda.synchronize()
+        counts.append(kernels.gma_aggregate.launches - n0)
+    return counts
+
+
+@pytest.mark.parametrize("config, gma_launches", [
+    ("WOFT_gma_fast.py", 12), ("WOFT_fast.py", 0), ("WOFT.py", 0),
+    ("WOFT_alternate.py", 0)])
+def test_gma_launches_12_a_flow(dev, config, gma_launches):
+    """A forward of ``WOFT_gma_fast.py``'s network launches M once an
+    iteration, 12 a flow, eager and then replayed from the loop's graph
+    (counted at the capture, added at each replay); the other configs'
+    never."""
+    from woft_tpu_torch.config import load_config
+    from woft_tpu_torch.flow.wrapper import raft_config
+
+    conf = load_config(str(kernels.CSRC.parent / "configs" / config))
+    cfg = raft_config(conf.flow_config)
+    assert cfg.gma == bool(gma_launches)
+    assert _m_launches(dev, cfg) == [gma_launches] * 2
+
+
+def test_gma_route_launches(dev):
+    """GMA's other routes on the card run the aggregation in its plain
+    form: a batch, a training forward, float32 and 'default' launch no M;
+    one bf16 pair without grad launches M and G (2 an iteration), H, I."""
+    base = dict(gma=True, iters=2, corr_impl="local")
+    for overrides, B, train, m in (
+            (dict(precision="bf16"), 1, False, 2),
+            (dict(precision="bf16"), 2, False, 0),
+            (dict(precision="bf16"), 1, True, 0),
+            (dict(), 1, False, 0), (dict(precision="default"), 1, False, 0)):
+        cfg = traft.RaftConfig(**base, **overrides)
+        model = traft.init_raft_params(cfg, seed=4, device=dev)
+        g = torch.Generator().manual_seed(12)
+        img1 = (torch.rand(B, 64, 96, 3, generator=g) * 255).to(dev)
+        img2 = torch.roll(img1, shifts=(2, 3), dims=(1, 2))
+        n0 = _launches()
+        if train:
+            traft.train_forward(model, cfg, img1, img2)["flow_up"].sum() \
+                .backward()
+        else:
+            traft.weighted_raft_forward(model, cfg, img1, img2)
+        torch.cuda.synchronize()
+        n1 = _launches()
+        assert n1["gma_aggregate"] - n0["gma_aggregate"] == m, overrides
+        assert n1["fused_gru_update"] - n0["fused_gru_update"] == 2 * m
+
+
+def test_shared_step_1080p_gma(dev, monkeypatch):
+    """``woft_gma_shared``'s program (``SharedMultiTracker`` on
+    ``WOFT_gma_fast.py``: the trained v4 weights with GMA's additions,
+    eight targets) on three 1080p frames of the walk: M 12, G 24, H 12 and
+    I 12 launches a flow; against the route's card predicate answering no
+    (the plain aggregation and the unfused loop: none of them), the same
+    check flags and the median corner gap within the cell's
+    ``h_gap_median_px`` limit, 0.03 px."""
+    import sys
+
+    import numpy as np
+
+    sys.path.insert(0, str(kernels.CSRC.parents[1]))
+    import chip_smoke
+    from woft_tpu_torch.config import load_config
+    from woft_tpu_torch.flow import RaftFlow
+    from woft_tpu_torch.pipeline import SharedMultiTracker
+
+    template, frames, _ = chip_smoke.walk(1080, 1920, dev, n=3)
+    masks = chip_smoke.shared_masks(8, 1080, 1920)
+    conf = load_config(str(kernels.CSRC.parent / "configs"
+                           / "WOFT_gma_fast.py"))
+    flower = RaftFlow(conf.flow_config, device=dev)
+    assert flower.cfg.gma
+    names = ("gma_aggregate",) + UPDATE_KERNELS
+
+    def run():
+        tracker = SharedMultiTracker(flower.model, flower.cfg,
+                                     conf.tracker_params, device=dev)
+        tracker.init(template, masks)
+        n0 = _launches()
+        out = [tracker.track(f) for f in frames]
+        torch.cuda.synchronize()
+        n1 = _launches()
+        return ([np.asarray(h) for h, _ in out],
+                [np.asarray(m["global_H_success"]) for _, m in out],
+                tuple(n1[k] - n0[k] for k in names))
+
+    hs, oks, n = run()
+    T = len(frames)
+    assert n == (12 * T, 24 * T, 12 * T, 12 * T)
+    with monkeypatch.context() as m:
+        m.setattr(update, "_on_card", lambda *tensors: False)
+        hs_plain, oks_plain, n_plain = run()
+    assert n_plain == (0, 0, 0, 0)
+    for ok, ok_plain in zip(oks, oks_plain):
+        assert np.array_equal(ok, ok_plain)
+    gaps = [chip_smoke.h_diff_px(h[t], hp[t],
+                                 chip_smoke.mask_corners(masks[t]))
+            for h, hp in zip(hs, hs_plain) for t in range(len(masks))]
+    assert np.median(gaps) <= 0.03

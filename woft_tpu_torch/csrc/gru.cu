@@ -18,6 +18,10 @@
 // operands, float32 accumulation and float32 bias. h and out are float32,
 // x, pre_zr, pre_q and the taps bf16. These are the rounding points of the
 // TPU kernel (gru.py:104-126) and of models/update.py:gru_update_plain.
+// x is RAFT's 128 motion channels or GMA's 256 (cat(mf, mf_g), models/gma.py);
+// the kernel is instantiated for each width, which changes only the tile's
+// row (cat(h, x): 256 or 384 channels, 225 KB of shared memory in all at
+// 384) and the tap slices a pass streams (20 or 30).
 //
 // Bound on the H100 at 720p (90 x 160 pixels): 2 * 14,400 * 5 * 256 * 384
 // = 14.2 GFLOP, 0.014 ms at 989 TFLOP/s, against 30 MB of operands (0.009
@@ -73,26 +77,33 @@ namespace {
 
 using namespace woft;
 
-constexpr int kC = 128;                    // hidden channels = motion channels
+constexpr int kC = 128;                    // hidden channels
 constexpr int kWarpgroups = 2;             // consumers: 64 rows each
 constexpr int kConsumers = 128 * kWarpgroups;
 constexpr int kBlock = kConsumers + 128;   // + the producer warpgroup
 constexpr int kRows = 64 * kWarpgroups;    // z|r positions of a CTA: 128
 constexpr int kOut = kRows - 4;            // output positions: 124
 constexpr int kTile = kRows + 4;           // tile positions: 132
-constexpr int kLdA = 2 * kC + kPad;        // row of the tile
 constexpr int kRing = 4;
 constexpr uint32_t kStageBytes = kC * 128;       // [128][64] bf16
-constexpr int kSlicesPerTap = 2 * kC / kSliceK;  // 4
-constexpr int kSlices = 5 * kSlicesPerTap;       // a pass: 20
 constexpr int kLdZ = kC + kPad;            // row of the z tile
-constexpr int kTileBytes = kTile * kLdA * 2;
 constexpr int kZBytes = kRows * kLdZ * 2;
 constexpr int kBiasBytes = 3 * kC * 4;           // bzr | bq
 
+// What the motion input's width kX (128: RAFT; 256: GMA's cat(mf, mf_g))
+// changes: the tile's row, cat(h, x), and the slices of a tap.
+template <int kX>
+struct Shape {
+  static constexpr int kIn = kC + kX;                  // 256 or 384
+  static constexpr int kLdA = kIn + kPad;              // row of the tile
+  static constexpr int kSlicesPerTap = kIn / kSliceK;  // 4 or 6
+  static constexpr int kSlices = 5 * kSlicesPerTap;    // a pass: 20 or 30
+  static constexpr int kTileBytes = kTile * kLdA * 2;
+};
+
 struct GruParams {
-  CUtensorMap wzr;            // [5 * 256][256]: (tap, z|r channel), cat(h, x)
-  CUtensorMap wq;             // [5 * 128][256]
+  CUtensorMap wzr;            // [5 * 256][128 + kX]: (tap, z|r channel), cat(h, x)
+  CUtensorMap wq;             // [5 * 128][128 + kX]
   const float* h;
   const __nv_bfloat16* x;
   const __nv_bfloat16* pre_zr;
@@ -144,8 +155,12 @@ constexpr int kTanhN = 2 * (kTanhHi - kTanhLo) * 128;
 constexpr int kTables = kSigN + kTanhN;               // 11,264 entries
 static_assert(kTables % 8 == 0, "whole 16-byte copies");
 constexpr int kTableBytes = kTables * 2;
-constexpr size_t kSmem = 1024 + kRing * kStageBytes + kTileBytes + kZBytes +
-                         kBiasBytes + kTableBytes + 16 * kRing;
+template <int kX>
+constexpr size_t smem_bytes() {
+  return 1024 + kRing * kStageBytes + Shape<kX>::kTileBytes + kZBytes +
+         kBiasBytes + kTableBytes + 16 * kRing;
+}
+static_assert(smem_bytes<256>() <= 227 * 1024, "one CTA an SM");
 
 __device__ __align__(16) __nv_bfloat16 g_tables[kTables];  // sigmoid | tanh
 
@@ -218,14 +233,18 @@ __device__ __forceinline__ float2 blend2(const __nv_bfloat16* tab, float2 acc,
   return make_float2(keep.x * h.x + zq.x, keep.y * h.y + zq.y);
 }
 
+template <int kX>
 __global__ void __launch_bounds__(kBlock, 1)
 gru_update_kernel(const __grid_constant__ GruParams P) {
+  using S = Shape<kX>;
+  constexpr int kLdA = S::kLdA, kSlicesPerTap = S::kSlicesPerTap;
+  constexpr int kSlices = S::kSlices;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
   uint8_t* sm = smem_raw + (base - raw) + kRing * kStageBytes;
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(sm);
-  sm += kTileBytes;
+  sm += S::kTileBytes;
   __nv_bfloat16* Zs = reinterpret_cast<__nv_bfloat16*>(sm);
   sm += kZBytes;
   float* bias = reinterpret_cast<float*>(sm);   // bzr | bq
@@ -272,11 +291,11 @@ gru_update_kernel(const __grid_constant__ GruParams P) {
   };
 
   // the tile: row i is position p0 - 4 + i
-  for (int idx = tid; idx < kTile * (kC / 8); idx += kConsumers) {
-    const int i = idx / (kC / 8), c = (idx % (kC / 8)) * 8;
+  for (int idx = tid; idx < kTile * (kX / 8); idx += kConsumers) {
+    const int i = idx / (kX / 8), c = (idx % (kX / 8)) * 8;
     size_t pix = 0;
     const bool inside = pixel(p0 - 4 + i, pix);
-    cp_async_16_zfill(As + i * kLdA + kC + c, P.x + pix * kC + c, inside);
+    cp_async_16_zfill(As + i * kLdA + kC + c, P.x + pix * kX + c, inside);
   }
   for (int i = tid; i < kTables / 8; i += kConsumers) {
     cp_async_16_zfill(tab + 8 * i, g_tables + 8 * i, true);
@@ -409,17 +428,34 @@ gru_update_kernel(const __grid_constant__ GruParams P) {
   }
 }
 
-TapMaps<8> g_zr_maps, g_q_maps;
+// a site's maps by the motion width (0: 128, 1: 256), since a freed tap
+// stack's address may come back holding the other width's taps
+TapMaps<8> g_zr_maps[2], g_q_maps[2];
 constexpr int kMaxDevices = 64;
 bool g_tables_ready[kMaxDevices];
+
+template <int kX>
+int launch(const GruParams& P, void* stream) {
+  constexpr size_t smem = smem_bytes<kX>();
+  cudaError_t err = cudaFuncSetAttribute(
+      gru_update_kernel<kX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int positions = P.n_lines * (P.len + 2);
+  gru_update_kernel<kX><<<(positions + kOut - 1) / kOut, kBlock, smem,
+                          (cudaStream_t)stream>>>(P);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 // One gated update along an axis of a (n_lines x len)-pixel map whose pixel
 // (line, s) lies at pixel index line * line_stride + s * pos_stride: for a
 // channels-minor (H, W, C) map, along W: n_lines = H, len = W, strides (W,
 // 1); along H: n_lines = W, len = H, strides (1, W). h, out: float32, 128
-// channels; x, pre_q: bf16, 128; pre_zr: bf16, 256; wzr [5][256][256] and wq
-// [5][128][256] bf16, input channels minor; bzr (256), bq (128) float32. All
+// channels; x: bf16, `channels` = 128 (RAFT's motion features) or 256
+// (GMA's cat(mf, mf_g)); pre_q: bf16, 128; pre_zr: bf16, 256; wzr
+// [5][256][128 + channels] and wq [5][128][128 + channels] bf16, input
+// channels minor; bzr (256), bq (128) float32. All
 // contiguous and 16-byte aligned; out must not alias h. The taps' tensor
 // maps are encoded at the first call with a pointer and kept for the last
 // eight; the first call on a device also fills the gate tables (one small
@@ -431,14 +467,16 @@ extern "C" int woft_gru_update(const void* h, const void* x,
                                const void* bzr, const void* bq, void* out,
                                int channels, int n_lines, int len,
                                int line_stride, int pos_stride, void* stream) {
-  if (channels != kC || n_lines < 1 || len < 1 || line_stride < 1 ||
-      pos_stride < 1 || (long long)n_lines * (len + 2) > (1LL << 30)) {
+  if ((channels != 128 && channels != 256) || n_lines < 1 || len < 1 ||
+      line_stride < 1 || pos_stride < 1 ||
+      (long long)n_lines * (len + 2) > (1LL << 30)) {
     return (int)cudaErrorInvalidValue;
   }
+  const int wide = channels == 256, in = kC + channels;
   const CUtensorMap *mzr, *mq;
-  int rc = g_zr_maps.get(wzr, 2 * kC, 5 * 2 * kC, kC, &mzr);
+  int rc = g_zr_maps[wide].get(wzr, in, 5 * 2 * kC, kC, &mzr);
   if (rc) return rc;
-  if ((rc = g_q_maps.get(wq, 2 * kC, 5 * kC, kC, &mq))) return rc;
+  if ((rc = g_q_maps[wide].get(wq, in, 5 * kC, kC, &mq))) return rc;
   const GruParams P = {*mzr, *mq,
                        static_cast<const float*>(h),
                        static_cast<const __nv_bfloat16*>(x),
@@ -462,12 +500,5 @@ extern "C" int woft_gru_update(const void* h, const void* x,
     }
     g_tables_ready[device] = true;
   }
-  err = cudaFuncSetAttribute(
-      gru_update_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmem);
-  if (err != cudaSuccess) return (int)err;
-  const int positions = n_lines * (len + 2);
-  gru_update_kernel<<<(positions + kOut - 1) / kOut, kBlock, kSmem,
-                      (cudaStream_t)stream>>>(P);
-  return (int)cudaGetLastError();
+  return wide ? launch<256>(P, stream) : launch<128>(P, stream);
 }

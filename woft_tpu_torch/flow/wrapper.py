@@ -13,8 +13,8 @@ PyTorch twin of ``woft_tpu/flow/wrapper.py``:
 ``config.raft_type`` ('weighted', 'orig', 'weighted_masked') picks
 ``RaftConfig.variant``, ``class_params.small`` RAFT-small;
 ``class_params.mask_head_structure`` (default three 128-channel 3x3
-layers under 'weighted_masked') and ``class_params.alternate_corr`` pass
-through, as do ``config.corr_impl`` ('dense' or 'local'),
+layers under 'weighted_masked'), ``class_params.alternate_corr`` and
+``class_params.gma`` (GMA, ``models/gma.py``) pass through, as do ``config.corr_impl`` ('dense' or 'local'),
 ``config.local_margin`` and ``config.precision`` ('highest', 'default' or
 'bf16'); ``config.weights_postprocessing_fn``, when set, maps the weight
 logits before the optional sigmoid (the reference's hook);
@@ -23,6 +23,14 @@ identifies (``flow/cache.py``).
 
 Weights: ``config.model`` names a torch-readable state dict (``torch.save``
 of ``WeightedRAFT.state_dict()``, or ``params_from_jax_numpy`` output).
+Under ``gma`` a state dict of RAFT-large without GMA's tensors (the v4
+export: no GMA checkpoint is in the repository) is grafted onto GMA
+(``gma.graft``): every tensor the two share is copied, the SepConvGRU's
+weights into the first 384 of its 512 input rows, and GMA's additions
+(``att.to_qk``, ``update_block.aggregator``, the GRU's 128 new rows a
+convolution) are drawn from ``GMA_SEED`` with the new rows at
+``GMA_ROWS_SCALE`` of torch's default bound and ``gamma`` set to
+``GMA_GAMMA``.
 A state dict that lacks subtrees the variant has (the v4 weights under
 'weighted_masked': no ``mask_head``) loads what it has and keeps the
 seeded init for the rest; subtrees the variant lacks (``weight_head``
@@ -41,6 +49,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..models import gma
 from ..models.raft import RaftConfig, init_raft_params, weighted_raft_forward
 from ..ops.pad import make_padder
 from ..ops.resize import resize_down
@@ -48,6 +57,11 @@ from ..ops.sampling import featuremap_coords
 from .cache import FlowCache
 
 logger = logging.getLogger(__name__)
+
+# GMA's additions over a RAFT-large state dict (``load_model``)
+GMA_SEED = 2104
+GMA_ROWS_SCALE = 1.0
+GMA_GAMMA = 9.0
 
 
 def upload_bgr(img_bgr, device, downscale=0):
@@ -77,7 +91,8 @@ def raft_config(config):
         corr_impl=str(config.corr_impl) if config.corr_impl else "dense",
         local_margin=int(config.local_margin or 16),
         precision=str(config.precision) if config.precision else "highest",
-        small=bool(cp.small))
+        small=bool(cp.small),
+        gma=bool(cp.gma))
 
 
 def _head_structure(state):
@@ -99,8 +114,9 @@ def load_model(cfg, path, device):
     match), with its warning. The weight head takes the layers of the
     checkpoint's own head where they differ from ``cfg``'s (a
     ``train_wraft_torch.py --small`` checkpoint has one 32-channel layer,
-    the flow configs name three of 128). Without a file: the seeded
-    weights and a warning."""
+    the flow configs name three of 128). Under ``cfg.gma`` a state dict
+    without GMA's tensors is grafted (``gma.graft``, the module docstring).
+    Without a file: the seeded weights and a warning."""
     state = None
     if path and os.path.exists(str(path)):
         logger.info("Loading torch checkpoint %s", path)
@@ -117,7 +133,11 @@ def load_model(cfg, path, device):
         logger.warning("No torch-readable checkpoint (%s); using seeded "
                        "random weights (seed 0)", path or "none given")
     model = init_raft_params(cfg, seed=0)
-    if state is not None:
+    if state is not None and cfg.gma and not any(map(gma.gma_key, state)):
+        logger.info("checkpoint %s has no GMA tensors: GMA's additions are "
+                    "drawn from seed %d", path, GMA_SEED)
+        gma.graft(model, state, GMA_SEED, GMA_ROWS_SCALE, GMA_GAMMA)
+    elif state is not None:
         own = model.state_dict()
         if set(state) != set(own):
             logger.warning("checkpoint %s is a partial match; merging "

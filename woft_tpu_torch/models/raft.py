@@ -33,6 +33,10 @@ leaves two decisions to a module each, made once a forward:
 
 Besides:
 
+- under ``RaftConfig.gma``, GMA (``models/gma.py``): the template's
+  attention built with its features (``encode_template``) or, from both
+  images, in the forward, and aggregated in every iteration
+  (``LoopRoute.gma``); the loop's CUDA graph reads it in place,
 - in a forward that records no gradient the feature encoder's instance
   norms, each with the convolution's bias before it, the ReLU after it and
   at a block's end the residual add and its ReLU, run as kernel L on the
@@ -95,7 +99,7 @@ from ..utils.profiling import span
 from . import layers, loop_graph
 from .corr import lookup_conv1x1, make_correlation
 from .layers import conv, conv2d, init_conv_, norm_layer
-from . import update
+from . import gma, update
 from . import weight_head as whead
 
 
@@ -135,6 +139,12 @@ class RaftConfig:
         training tests' network, as in the JAX package. No fused kernel.
     radius: the lookup radius; 0 (the default) is 3 under ``small``, else
         4.
+    gma: GMA (``models/gma.py``): RAFT-large with one global attention over
+        the 1/8 grid from the context features (``att``, template state
+        under ``encode_template``), an aggregation of the motion features
+        in every iteration (``update_block.aggregator``; kernel M on the
+        card's bf16 route) and a SepConvGRU that reads ``cat(inp, mf,
+        mf_g)``. Not under ``small``.
     """
     iters: int = 12
     corr_levels: int = 4
@@ -151,6 +161,7 @@ class RaftConfig:
     gru_fused: bool = False
     tail_fused: bool = False
     small: bool = False
+    gma: bool = False
 
     @property
     def hidden_dim(self):
@@ -176,6 +187,9 @@ class RaftConfig:
         if self.variant not in VARIANTS:
             raise ValueError(f"variant must be one of {VARIANTS}, got "
                              f"{self.variant!r}")
+        if self.gma and self.small:
+            raise ValueError("GMA is RAFT-large's: gma and small exclude "
+                             "each other")
 
     @property
     def volume_dtype(self):
@@ -448,14 +462,20 @@ class FlowHead(nn.Module):
 
 
 class BasicUpdateBlock(nn.Module):
-    def __init__(self, cor_planes, hidden_dim=128):
+    """RAFT-large's update block; ``gma_block``: GMA's (``GMAUpdateBlock``: the
+    ``aggregator`` and a SepConvGRU reading ``cat(inp, mf, mf_g)``)."""
+
+    def __init__(self, cor_planes, hidden_dim=128, gma_block=False):
         super().__init__()
         self.encoder = BasicMotionEncoder(cor_planes)
-        self.gru = SepConvGRU(hidden_dim, 128 + hidden_dim)
+        self.gru = SepConvGRU(hidden_dim, 128 + hidden_dim
+                              + (gma.DIM if gma_block else 0))
         self.flow_head = FlowHead(hidden_dim, 256)
         self.mask = nn.Sequential(nn.Conv2d(128, 256, 3, padding=1),
                                   nn.ReLU(inplace=True),
                                   nn.Conv2d(256, 64 * 9, 1))
+        if gma_block:
+            self.aggregator = gma.Aggregate(gma.DIM)
 
 
 class SmallUpdateBlock(nn.Module):
@@ -552,7 +572,7 @@ def mask_head_apply(head, template_features, current_features):
 class WeightedRAFT(nn.Module):
     """The parameter container of RAFT-large and its weighted variants:
     ``weight_head`` unless ``cfg.variant == 'orig'``, ``mask_head`` under
-    'weighted_masked'."""
+    'weighted_masked'; under ``cfg.gma`` GMA's ``att`` and update block."""
 
     def __init__(self, cfg: RaftConfig):
         super().__init__()
@@ -562,13 +582,16 @@ class WeightedRAFT(nn.Module):
         self.cnet = BasicEncoder(hdim + cdim,
                                  "none" if cfg.small else "batch", cfg.small)
         self.update_block = (SmallUpdateBlock(cor_planes, hdim) if cfg.small
-                             else BasicUpdateBlock(cor_planes, hdim))
+                             else BasicUpdateBlock(cor_planes, hdim,
+                                                   cfg.gma))
         if cfg.variant != "orig":
             self.weight_head = WeightHead(cfg.weight_head_structure,
                                           cfg.corr_levels + 1)
         if cfg.variant == "weighted_masked":
             self.mask_head = WeightHead(cfg.mask_head_structure,
                                         2 * cfg.fnet_dim)
+        if cfg.gma:
+            self.att = gma.Attention(cdim)
 
 
 def init_raft_params(cfg: RaftConfig, seed=0, device="cpu"):
@@ -607,12 +630,18 @@ def _context(cfg, cnet):
 @torch.no_grad()
 def encode_template(model, cfg: RaftConfig, image1):
     """Frame-1 features for the forward pass: (fmap1, net0, inp), each
-    NHWC. image1: (B, H, W, 3) float RGB in [0, 255]."""
+    NHWC, and under ``cfg.gma`` the template's attention (B, N, N)
+    (``gma.template_attention``, in the span ``woft.template.attention``).
+    image1: (B, H, W, 3) float RGB in [0, 255]."""
     x1 = _nchw(2.0 * (image1 / 255.0) - 1.0)
     with layers.precision_scope(cfg.precision):
         fmap1 = model.fnet(x1)
         net, inp = _context(cfg, model.cnet(x1))
-    return _nhwc(fmap1), _nhwc(net), _nhwc(inp)
+        feats = (_nhwc(fmap1), _nhwc(net), _nhwc(inp))
+        if cfg.gma:
+            with span("woft.template.attention", image1.device):
+                feats += (gma.template_attention(model.att, inp),)
+    return feats
 
 
 @torch.no_grad()
@@ -629,7 +658,8 @@ def weighted_raft_forward(model, cfg: RaftConfig, image1, image2,
             ``image1`` may be None when ``template_feats`` is given.
         flow_init: optional (B, H/8, W/8, 2) initial flow.
         iters: GRU iterations (defaults to cfg.iters).
-        template_feats: optional (fmap1, net0, inp) from ``encode_template``.
+        template_feats: optional (fmap1, net0, inp) from ``encode_template``
+            (under ``cfg.gma`` with the template's attention after them).
         sparse_weight_head: ('weighted' only; the other variants ignore it,
             as the reference does) return ``weight_head_at(rows)`` — (M,)
             int64 rows ``b*H1*W1 + cell`` of flat 1/8-grid cells of batch
@@ -692,12 +722,14 @@ def _raft_forward(model, cfg, image1, image2, flow_init, iters,
         B = x2.shape[0]
 
         if template_feats is not None:
-            fmap1, net, inp = (_nchw(t) for t in template_feats)
+            fmap1, net, inp = (_nchw(t) for t in template_feats[:3])
+            attn = template_feats[3] if cfg.gma else None
             fmap2 = model.fnet(x2)
         else:
             x1 = _nchw(2.0 * (image1 / 255.0) - 1.0)
             fmap1, fmap2 = model.fnet(torch.cat([x1, x2])).split(B)
             net, inp = _context(cfg, model.cnet(x1))
+            attn = gma.template_attention(model.att, inp) if cfg.gma else None
         H1, W1 = fmap2.shape[2:]
 
         f1, f2 = _nhwc(fmap1).contiguous(), _nhwc(fmap2).contiguous()
@@ -727,7 +759,7 @@ def _raft_forward(model, cfg, image1, image2, flow_init, iters,
                 coords1 = coords1.detach()
                 net, delta = route.step(
                     ub, net, corr.lookup(_nhwc(coords1).contiguous()),
-                    coords1 - coords0, ctx)
+                    coords1 - coords0, ctx, attn)
                 coords1 = coords1 + delta
             # NCHW for the mask head: cuDNN's float32 convolutions run
             # slower on the bf16 route's channels-minor state (a no-op on
@@ -740,12 +772,16 @@ def _raft_forward(model, cfg, image1, image2, flow_init, iters,
                         *refine(net, inp, coords0, coords1))
 
             # everything the graph reads besides its inputs: the
-            # configuration, the update block's weights, the route and
-            # the precision flags it was captured under
+            # configuration, the update block's weights, the route, the
+            # precision flags it was captured under and GMA's attention,
+            # template state read in place (a copy a frame would cost
+            # more than its products)
             key = (cfg, iters, route, layers.get_compute_dtype(),
                    torch.backends.cuda.matmul.allow_tf32,
                    torch.backends.cudnn.allow_tf32,
-                   tuple(p.data_ptr() for p in ub.parameters()))
+                   tuple(p.data_ptr() for p in ub.parameters()),
+                   None if attn is None else
+                   (attn.data_ptr(), tuple(attn.shape), attn.stride()))
             corr.volume, net, coords1 = loop_graph.run(
                 model, key, volume_and_refine, f1, f2, net, inp, coords0,
                 coords1)

@@ -15,6 +15,11 @@ unfused path, the parity path of the JAX package's, where the flags
 package's ``gru_pallas`` and ``tail_pallas`` do); 'default' (TF32
 products), a batch of frame pairs and a forward that records a gradient
 keep the unfused path; RAFT-small runs its own block (no fused kernel).
+Under GMA (``RaftConfig.gma``) the step runs the aggregation
+(``models/gma.py``) between the motion encoder and the SepConvGRU: kernel
+M on the card's bf16 route, its plain form on every other; G then reads
+256 motion channels, and 'highest' keeps the unfused path (G's float32
+form reads 128).
 
 PyTorch twin of ``woft_tpu/ops/pallas/gru.py`` (``sep_conv_gru_pallas``) and
 ``woft_tpu/ops/pallas/update_tail.py`` (``motion_encoder_pallas``,
@@ -59,7 +64,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from . import layers
+from . import gma, layers
 from .layers import conv2d
 from ..ops import kernels
 
@@ -130,10 +135,11 @@ def gru_update_plain(h, x, pre_zr, pre_q, wzr, wq, bzr, bq, axis):
 def gru_update(h, x, pre_zr, pre_q, wzr, wq, bzr, bq, axis):
     """One direction of the SepConvGRU (``axis`` 'w': 1x5, 'h': 5x1).
 
-    h: (1, H, W, 128) float32 state; x: (1, H, W, 128) bf16 motion features;
-    pre_zr (1, H, W, 256), pre_q (1, H, W, 128): bf16 context terms; wzr (5,
-    256, 256), wq (5, 128, 256): ``gru_taps``; bzr, bq: float32 biases.
-    Returns the new float32 state."""
+    h: (1, H, W, 128) float32 state; x: (1, H, W, X) bf16 motion features,
+    X = 128, or 256 under GMA (``cat(mf, mf_g)``); pre_zr (1, H, W, 256),
+    pre_q (1, H, W, 128): bf16 context terms; wzr (5, 256, 128 + X), wq (5,
+    128, 128 + X): ``gru_taps``; bzr, bq: float32 biases. Returns the new
+    float32 state."""
     kernels.require_no_grad("G (fused_gru_update)", h, x, pre_zr, pre_q, wzr,
                             wq, bzr, bq)
     if h.device.type == "cuda":
@@ -284,10 +290,15 @@ class LoopRoute:
     encoder: the motion encoder's 3x3 stack and its ``cat`` as kernel H
         (``BasicMotionEncoder.forward(fused=True)``); the card's bf16 route
         only, the JAX package has no caller of its twin.
+    gma: GMA's aggregation between the motion encoder and the SepConvGRU
+        (``models/gma.py:aggregate``): '' (RAFT: none), 'kernel' (kernel M,
+        the card's bf16 route) or 'plain' (every other route); the GRU then
+        reads ``cat(mf, mf_g)``, 256 channels.
     """
     gru: str = "unfused"
     tail: bool = False
     encoder: bool = False
+    gma: str = ""
 
     def context(self, gru, inp):
         """This frame's loop-invariant context: ``inp`` itself for 'small';
@@ -378,18 +389,22 @@ class LoopRoute:
             h = (1 - z) * h + z * q
         return h
 
-    def step(self, block, net, corr, flow, ctx):
+    def step(self, block, net, corr, flow, ctx, attn=None):
         """One refinement step of the update block ``block`` -> (net, delta
         flow). ``corr``: the loop's lookup (``Correlation.lookup``); ``ctx``:
-        ``context(block.gru, inp)``. The convex-upsample mask is not
-        computed here (``raft.mask_from_net``: only the last iteration's
-        mask is consumed)."""
+        ``context(block.gru, inp)``; ``attn``: GMA's attention (B, N, N)
+        under ``gma``. The convex-upsample mask is not computed here
+        (``raft.mask_from_net``: only the last iteration's mask is
+        consumed)."""
         if self.gru == "small":
             motion = block.encoder(flow, corr)
             net = block.gru(net, torch.cat([ctx.to(motion.dtype), motion],
                                            dim=1))
             return net, block.flow_head(net)
         motion = block.encoder(flow, corr, fused=self.encoder)
+        if self.gma:
+            motion = gma.aggregate(block.aggregator, attn, motion,
+                                   self.gma == "kernel")
         net = self.sep_conv_gru(net, motion, ctx)
         return net, block.flow_head(net, fused=self.tail)
 
@@ -407,18 +422,23 @@ def loop_route(cfg, batch, block, *tensors):
     I; in 'highest', 'f32'. Otherwise ('default': TF32 products; a forward
     that trains the network; bf16 on the CPU) 'unfused', except that bf16
     mode off the card takes 'bf16' under ``cfg.gru_fused`` and the flow
-    head as I under ``cfg.tail_fused``."""
+    head as I under ``cfg.tail_fused``. Under ``cfg.gma`` the aggregation
+    runs as kernel M on the card's bf16 route and in its plain form on
+    every other, and 'highest' takes 'unfused' (kernel G's float32 form
+    reads 128 motion channels, GMA's GRU 256)."""
     if cfg.small:
         return LoopRoute("small")
+    plain = "plain" if cfg.gma else ""
     if batch != 1:
-        return LoopRoute("unfused")
+        return LoopRoute("unfused", gma=plain)
     frozen = not (torch.is_grad_enabled() and any(
         t.requires_grad for t in (*tensors, *block.parameters())))
     if layers.get_compute_dtype() == torch.bfloat16:
         if frozen and _on_card(*tensors):
-            return LoopRoute("bf16", tail=True, encoder=True)
+            return LoopRoute("bf16", tail=True, encoder=True,
+                             gma="kernel" if cfg.gma else "")
         return LoopRoute("bf16" if cfg.gru_fused else "unfused",
-                         cfg.tail_fused)
-    if cfg.precision != "highest" or not frozen:
-        return LoopRoute("unfused")
+                         cfg.tail_fused, gma=plain)
+    if cfg.precision != "highest" or not frozen or cfg.gma:
+        return LoopRoute("unfused", gma=plain)
     return LoopRoute("f32")

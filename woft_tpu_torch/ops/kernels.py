@@ -16,14 +16,14 @@ callers (``ops/warp.py:warp_perspective_fast``, ``models/corr.py``:
 ``corr_lookup_alternate_levels``;
 ``models/update.py``: ``gru_update``, ``gru_update_f32``,
 ``motion_encoder_tail``, ``flow_head``; ``models/weight_head.py``:
-``weight_head``)
+``weight_head``; ``models/gma.py``: ``gma_aggregate``)
 take the plain PyTorch version for CPU tensors; a CUDA tensor always goes to
 the kernel. L's wrapper (``instance_norm_act``, the encoders' caller in
 ``models/raft.py``) makes that choice itself: a CPU tensor takes
 ``instance_norm_act_plain``, in this module. Under grad, B, C, D, E and K
 are reached through ``torch.autograd.Function``s (``models/corr.py``: B's
 backward is kernel B', C's, D's, E's and K's the VJPs of their plain
-versions, as in the JAX package); A, F, G, H, I, J and L have no backward,
+versions, as in the JAX package); A, F, G, H, I, J, L and M have no backward,
 and their callers raise (``require_no_grad``) rather than return an output
 with no graph.
 
@@ -43,6 +43,7 @@ with no graph.
 | J ``weight_head`` (the bf16 weight head) | ``csrc/weight_head.cu`` | none: the JAX package runs its weight head through XLA |
 | K ``alt_corr_lookup`` (the volume-free lookup, ``alternate_corr``) | ``csrc/alt_corr.cu`` | none: the JAX package gathers its alternate lookup through XLA |
 | L ``instance_norm_act`` (the feature encoder's norms, fused with the ReLU and the residual add) | ``csrc/instance_norm.cu`` | none: the JAX package runs its instance norm through XLA |
+| M ``gma_aggregate`` (GMA's global motion aggregation, ``models/gma.py``) | ``csrc/gma_aggregate.cu`` | none: the JAX package has no GMA |
 
 G's float32 form is float32 FFMA (no tensor cores) and shares no kernel
 body with G. G, H, I and J share ``csrc/conv_wgmma.cuh`` (a convolution as per-tap
@@ -67,7 +68,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("warp", "corr_lookup", "local_corr", "local_lookup", "gru",
            "gru_f32", "update_tail", "flow_head", "weight_head", "alt_corr",
-           "instance_norm")
+           "instance_norm", "gma_aggregate")
 # --fmad=false: no FMA contraction, so the kernels round like their plain
 # PyTorch versions (see the notes at the top of each source)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -121,6 +122,8 @@ _ENTRIES = {
         + [ctypes.c_float, _P, _P, _P],
         "woft_instance_norm_nhwc": [_P, _P] + [_I] * 6
         + [ctypes.c_float, _P, _P, _P, _P]},
+    "gma_aggregate": {"woft_gma_aggregate": [_P, _I, _P, _I, _P, _P, _P, _I,
+                                             _P]},
 }
 _entries = {}
 
@@ -848,17 +851,21 @@ def _check_operand(t, what, dtype, device, shape):
         raise ValueError(f"{what} must be 16-byte aligned")
 
 
+GRU_X_CHANNELS = (128, 256)     # kernel G's motion widths: RAFT's and GMA's
+
+
 @_counted
 def fused_gru_update(h, x, pre_zr, pre_q, wzr, wq, bzr, bq, axis):
     """Kernel G: one direction of the SepConvGRU's gated update.
 
     All maps channels-minor, CUDA, contiguous: h (1, H, W, 128) float32
-    state; x (1, H, W, 128) bf16 motion features; pre_zr (1, H, W, 256) and
-    pre_q (1, H, W, 128) bf16 hoisted context terms; wzr (5, 256, 256) and
-    wq (5, 128, 256) bf16 taps over cat(h, x) and cat(r * h, x), input
-    channels minor; bzr (256,), bq (128,) float32. ``axis``: 'w' (the 1x5
-    update) or 'h' (5x1). Returns the new (1, H, W, 128) float32 state; the
-    rounding points are ``models/update.py:gru_update_plain``'s."""
+    state; x (1, H, W, X) bf16 motion features, X = 128 (RAFT) or 256
+    (GMA's ``cat(mf, mf_g)``); pre_zr (1, H, W, 256) and pre_q (1, H, W,
+    128) bf16 hoisted context terms; wzr (5, 256, 128 + X) and wq (5, 128,
+    128 + X) bf16 taps over cat(h, x) and cat(r * h, x), input channels
+    minor; bzr (256,), bq (128,) float32. ``axis``: 'w' (the 1x5 update) or
+    'h' (5x1). Returns the new (1, H, W, 128) float32 state; the rounding
+    points are ``models/update.py:gru_update_plain``'s."""
     if h.device.type != "cuda":
         raise ValueError("fused_gru_update takes CUDA tensors")
     if axis not in ("w", "h"):
@@ -868,12 +875,16 @@ def fused_gru_update(h, x, pre_zr, pre_q, wzr, wq, bzr, bq, axis):
                          f"{tuple(h.shape)}")
     device, hw = h.device, tuple(h.shape[1:3])
     bf16 = torch.bfloat16
+    cx = x.shape[-1] if x.dim() == 4 else 0
+    if cx not in GRU_X_CHANNELS:
+        raise ValueError(f"x must be (1, H, W, X), X in {GRU_X_CHANNELS}, "
+                         f"got {tuple(x.shape)}")
     _check_operand(h, "h", torch.float32, device, (1, *hw, 128))
-    _check_operand(x, "x", bf16, device, (1, *hw, 128))
+    _check_operand(x, "x", bf16, device, (1, *hw, cx))
     _check_operand(pre_zr, "pre_zr", bf16, device, (1, *hw, 256))
     _check_operand(pre_q, "pre_q", bf16, device, (1, *hw, 128))
-    _check_operand(wzr, "wzr", bf16, device, (5, 256, 256))
-    _check_operand(wq, "wq", bf16, device, (5, 128, 256))
+    _check_operand(wzr, "wzr", bf16, device, (5, 256, 128 + cx))
+    _check_operand(wq, "wq", bf16, device, (5, 128, 128 + cx))
     _check_operand(bzr, "bzr", torch.float32, device, (256,))
     _check_operand(bq, "bq", torch.float32, device, (128,))
     H, W = hw
@@ -884,7 +895,7 @@ def fused_gru_update(h, x, pre_zr, pre_q, wzr, wq, bzr, bq, axis):
     with _current(device):
         rc = fn(h.data_ptr(), x.data_ptr(), pre_zr.data_ptr(),
                 pre_q.data_ptr(), wzr.data_ptr(), wq.data_ptr(),
-                bzr.data_ptr(), bq.data_ptr(), out.data_ptr(), 128, *geom,
+                bzr.data_ptr(), bq.data_ptr(), out.data_ptr(), cx, *geom,
                 _stream())
     _raise_on_error(rc, "gru_update")
     fused_gru_update.launches += 1
@@ -1005,6 +1016,47 @@ def flow_head(net, w1, b1, w2, b2):
                 b2.data_ptr(), out.data_ptr(), *hw, _stream())
     _raise_on_error(rc, "flow_head")
     flow_head.launches += 1
+    return out
+
+
+@_counted
+def gma_aggregate(attn, vt, mf, gamma):
+    """Kernel M: GMA's aggregation with its residual, ``cat(mf, bf16(mf +
+    gamma * attn @ v))``.
+
+    attn (N, N) bf16 CUDA, the template's attention (rows sum to 1), rows
+    contiguous and their stride a multiple of 8 elements (a view of wider
+    rows is fine); vt (128, N) bf16, ``v`` transposed, rows as attn's; mf
+    (N, 128) bf16, contiguous, the motion features; gamma (1,) float32 on
+    the card, read there (no host copy). Returns (N, 256) bf16, ``mf`` then
+    ``mf_g``: the SepConvGRU's recurrent input. The products are bf16 with
+    float32 sums; the rounding points are
+    ``models/gma.py:gma_aggregate_plain``'s."""
+    if attn.device.type != "cuda":
+        raise ValueError("gma_aggregate takes CUDA tensors")
+    if attn.dim() != 2 or attn.shape[0] != attn.shape[1] or not attn.numel():
+        raise ValueError(f"attn must be a non-empty (N, N), got "
+                         f"{tuple(attn.shape)}")
+    device, N = attn.device, attn.shape[0]
+    bf16 = torch.bfloat16
+    for name, t, shape in (("attn", attn, (N, N)), ("vt", vt, (128, N))):
+        if t.device != device or t.dtype != bf16 or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be a {shape} bfloat16 tensor on "
+                             f"{device}, got {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}")
+        if t.stride(1) != 1 or t.stride(0) % 8 or t.data_ptr() % 16:
+            raise ValueError(f"{name}'s rows must be contiguous, 16-byte "
+                             f"aligned, a multiple of 8 elements apart")
+    _check_operand(mf, "mf", bf16, device, (N, 128))
+    _check_operand(gamma, "gamma", torch.float32, device, (1,))
+    out = torch.empty((N, 256), dtype=bf16, device=device)
+    fn = _entry("gma_aggregate")
+    with _current(device):
+        rc = fn(attn.data_ptr(), attn.stride(0), vt.data_ptr(), vt.stride(0),
+                mf.data_ptr(), gamma.data_ptr(), out.data_ptr(), N,
+                _stream())
+    _raise_on_error(rc, "gma_aggregate")
+    gma_aggregate.launches += 1
     return out
 
 

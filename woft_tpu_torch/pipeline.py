@@ -198,14 +198,15 @@ def build_full_track_chunk(raft_cfg: RaftConfig, tp: TrackerParams,
 
 
 def build_shared_multi_chunk(raft_cfg: RaftConfig, tp: TrackerParams,
-                             flow_fn=None, bgr_u8=False):
+                             flow_fn=None, bgr_u8=False, keep_tcs=False):
     """The shared-flow multi-target step over a chunk of frames, never
     syncing to the host: ``(model, state, masks (N, H*W), h_last (N, 3,
     3), frames (T, 1, H, W, 3)) -> (state, h_last, hs (T, N, 3, 3), meta
     of (T, ...))``; ``no_local_h`` forced. Each frame's step runs inside
     the span ``woft.step``."""
     tp = replace(tp, no_local_h=True)
-    step = build_shared_multi_step(raft_cfg, tp, flow_fn=flow_fn)
+    step = build_shared_multi_step(raft_cfg, tp, flow_fn=flow_fn,
+                                   **_kept(keep_tcs))
 
     def chunk(model, state, masks, h_last, frames):
         hs, metas = [], []
@@ -218,6 +219,12 @@ def build_shared_multi_chunk(raft_cfg: RaftConfig, tp: TrackerParams,
         return state, h_last, torch.stack(hs), _stack_meta(metas)
 
     return chunk
+
+
+def _kept(keep_tcs):
+    """The step builder's ``keep_tcs`` argument, passed only when set (a
+    step built without it takes the builder's signature as it was)."""
+    return {"keep_tcs": True} if keep_tcs else {}
 
 
 def _upload_chunk(frames_bgr, device):
@@ -285,17 +292,21 @@ class SharedMultiTracker:
     its ladder follow target 0; each target keeps its own last good H.
 
     ``model``: a ``WeightedRAFT`` (moved to ``device``, default ``cuda``).
-    ``flow_fn`` replaces the network as in ``build_track_step``."""
+    ``flow_fn`` replaces the network as in ``build_track_step``.
+    ``keep_tcs``: the meta of ``track`` and ``track_chunk`` also holds
+    every target's fit points (``tcs``, ``build_shared_multi_step``)."""
 
     def __init__(self, model, raft_cfg: RaftConfig, tp: TrackerParams,
-                 flow_fn=None, device=None):
+                 flow_fn=None, device=None, keep_tcs=False):
         self.device = resolve_device(device)
         self.model = None if model is None else model.to(self.device).eval()
         self.cfg = raft_cfg
         self.tp = replace(tp, no_local_h=True)
         self._flow_fn = flow_fn
+        self._keep_tcs = keep_tcs
         self._step = build_shared_multi_step(self.cfg, self.tp,
-                                             flow_fn=flow_fn)
+                                             flow_fn=flow_fn,
+                                             **_kept(keep_tcs))
         self._chunk_step = None
         self.state = None
         self.masks = None
@@ -337,7 +348,8 @@ class SharedMultiTracker:
         ``woft.step``."""
         if self._chunk_step is None:
             self._chunk_step = build_shared_multi_chunk(
-                self.cfg, self.tp, flow_fn=self._flow_fn, bgr_u8=True)
+                self.cfg, self.tp, flow_fn=self._flow_fn, bgr_u8=True,
+                keep_tcs=self._keep_tcs)
         with span("woft.chunk", self.device):
             with span("woft.upload", self.device):
                 frames = _upload_chunk(frames_bgr, self.device)

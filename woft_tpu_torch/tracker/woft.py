@@ -530,7 +530,7 @@ def _flow_fits(model, raft_cfg, tp, flow_fn, state, frame, last_good,
 
 
 def build_shared_multi_step(raft_cfg: RaftConfig, tp: TrackerParams,
-                            flow_fn=None):
+                            flow_fn=None, keep_tcs=False):
     """N targets from ONE full-frame flow a frame: the shared-correlation
     twin of ``woft_tpu/tracker/woft.py:build_shared_multi_step``.
 
@@ -549,7 +549,9 @@ def build_shared_multi_step(raft_cfg: RaftConfig, tp: TrackerParams,
     ``meta``: ``global_H_success`` and ``inlier_frac``, each (N,), and the
     control target's ladder: ``last_good_H2init`` (3, 3), the H the frame
     was pre-warped by, and ``N_lost``, its lost counter after the frame.
-    No host sync with a device estimator (the host fits copy the points to
+    ``keep_tcs``: ``meta['tcs']`` also holds each target's fit points as
+    (N, n, 6) float32 rows of template x, y, pre-warped x, y, weight, kept
+    (ones where the flow has no weights). No host sync with a device estimator (the host fits copy the points to
     the host and fit target by target): the state's ``lost`` and
     ``n_lost`` are device tensors. Needs
     ``no_local_h`` or ``redetection='always'`` (no per-target local
@@ -568,14 +570,22 @@ def build_shared_multi_step(raft_cfg: RaftConfig, tp: TrackerParams,
         n_t = masks.shape[0]
         masks = masks.reshape(n_t, -1)
         chunk = tp.multi_fit_chunk or n_t
+        kept = [] if keep_tcs else None
+
+        def fit(group):
+            tcs = None if kept is None else {}
+            out = fits(group, tcs)
+            if tcs is not None:
+                kept.append(tcs)
+            return out
         if n_t <= chunk:
-            h_fit, oks, fracs = fits(masks)
+            h_fit, oks, fracs = fit(masks)
         else:
             groups = -(-n_t // chunk)
             padded = torch.cat([masks, masks.new_zeros(
                 (groups * chunk - n_t, masks.shape[1]))])
             h_fit, oks, fracs = (torch.cat(r)[:n_t] for r in zip(
-                *(fits(g) for g in padded.split(chunk))))
+                *(fit(g) for g in padded.split(chunk))))
         h_fit = compose_h(last_good, h_fit)
         # per-target ladder: keep the last good H when a fit fails
         hs = torch.where(oks[:, None, None], h_fit, h_last)
@@ -585,12 +595,23 @@ def build_shared_multi_step(raft_cfg: RaftConfig, tp: TrackerParams,
             state, prev_img=frame, prev_h2init=hs[0],
             last_good_h2init=torch.where(ok0, hs[0], last_good), lost=~ok0,
             n_lost=n_lost)
-        return new_state, hs, hs, {"global_H_success": oks,
-                                   "inlier_frac": fracs,
-                                   "last_good_H2init": last_good,
-                                   "N_lost": n_lost}
+        meta = {"global_H_success": oks, "inlier_frac": fracs,
+                "last_good_H2init": last_good, "N_lost": n_lost}
+        if kept is not None:
+            meta["tcs"] = torch.cat([_tc_rows(t) for t in kept])[:n_t]
+        return new_state, hs, hs, meta
 
     return step
+
+
+def _tc_rows(tcs):
+    """A fit's points (``fits``' dict) as (N, n, 6) float32 rows: template
+    x, y, pre-warped x, y, weight (1 without weights), kept."""
+    src = tcs["src"].float()
+    w = (torch.ones_like(src[..., 0]) if tcs["w"] is None
+         else tcs["w"].float())
+    return torch.cat([src, tcs["dst"].float(), w[..., None],
+                      tcs["valid"].float()[..., None]], -1)
 
 
 def tracker_init_state(model, raft_cfg: RaftConfig, tp: TrackerParams,
