@@ -1648,6 +1648,88 @@ def check_instance_norm(kernels, dev):
     return out
 
 
+SOBOL_LAUNCHES = 2      # kernel N: the tiles' counts, then the select pass
+# kernel N's cells: the shared cells' eight targets at 1080p (the grid of
+# shared_masks), one target at 720p and at 3840x2160 (the centred box)
+SOBOL_CELLS = (("1080p x8", 1080, 1920, 8), ("720p x1", 720, 1280, 1),
+               ("2160p x1", 2160, 3840, 1))
+
+
+def sobol_gather_flat(valid, n=500):
+    """``masked_sobol_gather_plain`` on an (N, P) batch with its running
+    count taken over the batch as one row, which PyTorch scans with CUB's
+    device-wide scan, less each row's offset: the plain alternative to
+    kernel N, timed beside it. Equal to the plain version at every slot."""
+    from woft_tpu_torch.ops import sampling
+
+    N, P = valid.shape
+    cs = torch.cumsum(valid.reshape(-1).to(torch.int64), 0).reshape(N, P)
+    ends = cs[:, -1:]
+    n_valid = torch.diff(ends, dim=0, prepend=torch.zeros_like(ends[:1]))
+    cs = cs - (ends - n_valid)
+    sobol = sampling._sobol_on(n, valid.device)
+    sub = torch.round(n_valid.to(torch.float32) * sobol).to(torch.int64)
+    sub, _ = torch.sort(sub, dim=-1)
+    dup = torch.cat([torch.zeros_like(sub[:, :1], dtype=torch.bool),
+                     sub[:, 1:] == sub[:, :-1]], dim=-1)
+    first = torch.arange(n, device=valid.device)
+    use_sub = n_valid > n
+    targets = torch.where(use_sub, sub, first)
+    sel = torch.where(use_sub, ~dup, first < n_valid) & (targets < n_valid)
+    idx = torch.searchsorted(cs, targets + 1, side="left")
+    return idx.clamp(0, P - 1), sel
+
+
+def check_sobol_select(kernels, dev):
+    """Kernel N against its plain version at the three cells' selections
+    (each target's box, less a seeded tenth of its slots as the flow's
+    validity would, every index and flag equal), then timed: the kernel,
+    its plain version (the int64 cumsum, sort and searchsorted it
+    replaces), the same with one scan over the batch as a row
+    (``sobol_gather_flat``) and the bytes bound (the mask read once, the
+    outputs written once). No single PyTorch call selects. The mask
+    repeats across the timed calls, so it may be read from the 50 MB L2,
+    as on the path, where the selection reads the mask the step has just
+    written. Returns the numbers by cell."""
+    from woft_tpu_torch.ops import sampling
+
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(29)
+    for cell, h, w, n_t in SOBOL_CELLS:
+        boxes = (shared_masks(n_t, h, w) if n_t > 1
+                 else centred_mask(h, w, 0.5)[0][None])
+        valid = torch.from_numpy(boxes).to(dev).reshape(n_t, h * w)
+        valid &= torch.rand(valid.shape, generator=g, device=dev) >= 0.1
+        n0 = kernels.masked_sobol_select.launches
+        idx, sel = sampling.masked_sobol_gather(valid, 500)
+        torch.cuda.synchronize()
+        if kernels.masked_sobol_select.launches != n0 + SOBOL_LAUNCHES:
+            raise AssertionError(f"kernel N, {cell}: not two launches")
+        want_idx, want_sel = sampling.masked_sobol_gather_plain(valid, 500)
+        if not (torch.equal(idx, want_idx) and torch.equal(sel, want_sel)):
+            raise AssertionError(f"kernel N, {cell}: differs from its plain "
+                                 f"version")
+        flat_idx, flat_sel = sobol_gather_flat(valid, 500)
+        if not (torch.equal(flat_idx, want_idx)
+                and torch.equal(flat_sel, want_sel)):
+            raise AssertionError(f"{cell}: the one-row scan differs from "
+                                 f"the plain version")
+        ms = time_ms(lambda: sampling.masked_sobol_gather(valid, 500))
+        plain_ms = time_ms(
+            lambda: sampling.masked_sobol_gather_plain(valid, 500))
+        flat_ms = time_ms(lambda: sobol_gather_flat(valid, 500))
+        n_bytes = valid.numel() + 9 * idx.numel()
+        bound = n_bytes / HBM_BYTES_PER_S * 1e3
+        log(f"kernel N, {cell} ({n_t} x {h * w} slots, n = 500): exact; "
+            f"kernel {ms:.4f} ms, bound {bound:.4f} ms ({n_bytes / 1e6:.2f} "
+            f"MB), plain {plain_ms:.4f} ms, plain with one scan over the "
+            f"batch {flat_ms:.4f} ms")
+        out[cell] = dict(max_abs_err=0, ms=ms, bound_ms=bound,
+                         bound_by="bytes", plain_ms=plain_ms,
+                         flat_ms=flat_ms, library_ms=None)
+    return out
+
+
 COUNTED = ("warp_perspective_bilinear", "corr_pyramid_lookup",
            "corr_pyramid_lookup_backward", "local_corr_build",
            "local_lookup_coords", "local_lookup_exact_coords",
@@ -1655,15 +1737,17 @@ COUNTED = ("warp_perspective_bilinear", "corr_pyramid_lookup",
            "local_lookup_exact", "local_lookup_fine", "fused_gru_update",
            "fused_gru_update_f32", "motion_encoder_tail", "flow_head",
            "weight_head", "alt_corr_lookup", "instance_norm_act",
-           "gma_aggregate")
+           "gma_aggregate", "masked_sobol_select")
 # G's float32 form runs in every float32 forward of RAFT-large on one frame
 # pair, J in every bf16 weight head on the card, L (27 launches) in every
-# RAFT-large feature encoding that records no gradient; a track checks
-# their counts where it names them (track_720p, track_shared), the others
-# report them unchecked. G, H and I (every bf16 forward of one frame pair on the card)
+# RAFT-large feature encoding that records no gradient, N (2 launches) in
+# every Sobol selection of TCs on the card; a track checks their counts
+# where it names them (track_720p, the shared tracks), the others report
+# them unchecked. G, H and I (every bf16 forward of one frame pair on the card)
 # are checked on every track: 0 where it does not name them
 UPDATE_KERNELS = ("fused_gru_update", "motion_encoder_tail", "flow_head")
-UNCHECKED = ("fused_gru_update_f32", "weight_head", "instance_norm_act")
+UNCHECKED = ("fused_gru_update_f32", "weight_head", "instance_norm_act",
+             "masked_sobol_select")
 FUSED_FLAGS = {"gru_fused": True, "tail_fused": True}
 
 
@@ -1839,6 +1923,9 @@ def track_720p(kernels, dev, config, fused=False):
     # L: 27 launches an encoding, one encoding a flow at least (the
     # templates' besides)
     want["instance_norm_act"] = NORM_LAUNCHES * n_flows
+    # N: one selection a flow's fit (the main step's and the fallback's),
+    # two launches each
+    want["masked_sobol_select"] = SOBOL_LAUNCHES * n_flows
     if launches["instance_norm_act"] % NORM_LAUNCHES:
         raise AssertionError(f"{config}: kernel L launched "
                              f"{launches['instance_norm_act']} times, not "
@@ -1846,7 +1933,7 @@ def track_720p(kernels, dev, config, fused=False):
     # C, D and E: exactly one launch a flow and a lookup
     exact = (("local_corr_build", "local_lookup_coords",
               "local_lookup_exact_coords") if fast else ())
-    exact += ("fused_gru_update_f32", *UPDATE_KERNELS)
+    exact += ("fused_gru_update_f32", "masked_sobol_select", *UPDATE_KERNELS)
     check_counts(config, launches, want, exact, n_frames, n_flows)
     return launches, steady
 
@@ -2961,14 +3048,16 @@ def track_shared(kernels, dev, model, cfg, tp):
     hs, oks = np.stack(hs), np.stack(oks)
     T = len(frames)
     # J once a frame: 8 targets ask for more rows than the grid has, so the
-    # head runs once over every cell
+    # head runs once over every cell; N once a frame for the 8 targets'
+    # selections (one group of fits)
     check_counts(f"shared x{n}", launches, {
         "warp_perspective_bilinear": T, "local_corr_build": T,
         "local_lookup_coords": 13 * T, "local_lookup_exact_coords": 13 * T,
-        "weight_head": T, **update_launches(True, T)},
+        "weight_head": T, "masked_sobol_select": SOBOL_LAUNCHES * T,
+        **update_launches(True, T)},
         ("warp_perspective_bilinear", "local_corr_build",
          "local_lookup_coords", "local_lookup_exact_coords", "weight_head",
-         *UPDATE_KERNELS), T, T)
+         "masked_sobol_select", *UPDATE_KERNELS), T, T)
     errs = _report_multi(f"shared x{n}", n, frame_ms, hs, poses, masks, oks,
                          MULTI_CORNER_BOUND_PX)
 
@@ -3039,10 +3128,11 @@ def track_shared_x64(kernels, dev, model, cfg, tp, x8):
     check_counts(f"shared x{n}", launches, {
         "warp_perspective_bilinear": 4, "local_corr_build": 4,
         "local_lookup_coords": 52, "local_lookup_exact_coords": 52,
+        "masked_sobol_select": SOBOL_LAUNCHES * 4,
         **update_launches(True, 4)},
         ("warp_perspective_bilinear", "local_corr_build",
          "local_lookup_coords", "local_lookup_exact_coords",
-         *UPDATE_KERNELS), 4, 4)
+         "masked_sobol_select", *UPDATE_KERNELS), 4, 4)
     errs = _report_multi(f"shared x{n}, frames 5-8 in one chunk", n,
                          [wall / 4] * 4, hs, poses[4:8], masks,
                          meta["global_H_success"])
@@ -3218,9 +3308,10 @@ def track_shared_gma(kernels, dev):
         "warp_perspective_bilinear": T, "local_corr_build": T,
         "local_lookup_coords": 13 * T, "local_lookup_exact_coords": 13 * T,
         "weight_head": T, "gma_aggregate": 12 * T,
+        "masked_sobol_select": SOBOL_LAUNCHES * T,
         **update_launches(True, T)},
         ("warp_perspective_bilinear", "local_corr_build", "weight_head",
-         "gma_aggregate", *UPDATE_KERNELS), T, T)
+         "gma_aggregate", "masked_sobol_select", *UPDATE_KERNELS), T, T)
     errs = _report_multi(f"shared GMA x{n}", n, frame_ms, hs, poses, masks,
                          oks, GMA_SHARED_CORNER_BOUND_PX)
     log(f"shared GMA x{n}: init (the template's features and attention) "
@@ -4829,9 +4920,9 @@ def _small_conf(ckpt, config="WOFT.py"):
 
 
 class PlainKernels:
-    """Within the block, kernels A, B and L's wrappers are their plain
+    """Within the block, kernels A, B, L and N's wrappers are their plain
     versions on the card's tensors: the same step runs with nothing of the
-    three kernels in it, and launches nothing that is counted."""
+    four kernels in it, and launches nothing that is counted."""
 
     def __init__(self, kernels, warp, corr):
         self.kernels, self.warp, self.corr = kernels, warp, corr
@@ -4848,19 +4939,24 @@ class PlainKernels:
         out = self.corr.corr_lookup_plain(pyramid, coords, radius, rows)
         return out.reshape(coords.numel() // 2, -1)     # the kernel's shape
 
+    @staticmethod
+    def _select(valid, table):
+        from woft_tpu_torch.ops import sampling
+        return sampling.masked_sobol_gather_plain(valid, table.numel())
+
     def __enter__(self):
         k = self.kernels
         self.saved = (k.warp_perspective_bilinear, k.corr_pyramid_lookup,
-                      k.instance_norm_act)
+                      k.instance_norm_act, k.masked_sobol_select)
         (k.warp_perspective_bilinear, k.corr_pyramid_lookup,
-         k.instance_norm_act) = (self._warp, self._lookup,
-                                 k.instance_norm_act_plain)
+         k.instance_norm_act, k.masked_sobol_select) = (
+            self._warp, self._lookup, k.instance_norm_act_plain, self._select)
         return self
 
     def __exit__(self, *exc):
         k = self.kernels
         (k.warp_perspective_bilinear, k.corr_pyramid_lookup,
-         k.instance_norm_act) = self.saved
+         k.instance_norm_act, k.masked_sobol_select) = self.saved
 
 
 class TcValidity:
@@ -5888,6 +5984,7 @@ def main():
     head_j = check_weight_head(kernels, dev)
     torch.cuda.empty_cache()
     norm_l = check_instance_norm(kernels, dev)
+    sobol_n = check_sobol_select(kernels, dev)
     canon, canon_ms = track_720p(kernels, dev, "WOFT.py")
     torch.cuda.empty_cache()
     fast, fast_ms = track_720p(kernels, dev, "WOFT_fast.py")
@@ -6055,6 +6152,15 @@ def main():
                   "1080p, 12 a flow; times at N = 32,400; gru_x256: kernel "
                   "G at GMA's 256 motion channels, each direction",
              gru_x256=gma_rows["G (x = 256)"], **gma_rows["M"]),
+        dict(name="masked_sobol_select", route="cuda",
+             source="woft_tpu_torch/csrc/sobol_select.cu",
+             replaces="none: woft_tpu selects through XLA "
+                      "(woft_tpu/ops/sampling.py:masked_sobol_gather)",
+             launches=canon["masked_sobol_select"],
+             note="kernel N; launches: WOFT.py at 720p, 2 a flow's fit; "
+                  "times: the 1080p shared cells' 8 targets, the other "
+                  "cells' in 'cells'; library: no single call",
+             cells=sobol_n, **sobol_n["1080p x8"]),
     ]
     # the window paths' and the multi-target paths' own runs, each counted
     # from 0 (kernels A-E), and A-E timed at the multi-target shapes

@@ -2207,3 +2207,126 @@ def test_shared_step_1080p_gma(dev, monkeypatch):
                                  chip_smoke.mask_corners(masks[t]))
             for h, hp in zip(hs, hs_plain) for t in range(len(masks))]
     assert np.median(gaps) <= 0.03
+
+
+# ---------------------------------------------------------------------------
+# kernel N: the Sobol-n selection of tentative correspondences
+# ---------------------------------------------------------------------------
+
+SOBOL_P = {"720p": 921_600, "1080p": 2_073_600, "2160p": 8_294_400}
+SOBOL_FILLS = (0, 1, 499, 500, 501, 1003, "half", "all", "first", "last",
+               "tile-edge", "mixed")
+# (rows, P, n, fill, byte offset of the rows in their storage): the
+# cells' shapes at one and eight targets, then the window batch's grid,
+# training's sobol_n, a row length that is not a multiple of 16 and an
+# unaligned row (both take the byte loads)
+SOBOL_CASES = (
+    [(rows, P, 500, fill, 0) for rows in (1, 8) for P in SOBOL_P.values()
+     for fill in SOBOL_FILLS]
+    + [(8, 192 * 344, 500, "mixed", 0), (8, 192 * 344, 500, "half", 0),
+       (4, 288 * 384, 200, "mixed", 0), (8, 2_073_600, 1000, "mixed", 0),
+       (3, 1001, 500, "mixed", 0), (8, 2_073_600, 500, "mixed", 3),
+       (1, 921_600, 500, "tile-edge", 1)])
+SOBOL_IDS = [f"{rows}x{P}-n{n}-{fill}" + (f"-offset{off}" if off else "")
+             for rows, P, n, fill, off in SOBOL_CASES]
+
+
+def _sobol_rows(dev, rows, P, fill, offset, seed):
+    """(rows, P) bool on the card, a view ``offset`` bytes into its storage
+    (contiguous). A count: that many valid slots at seeded places; 'half':
+    each slot with probability 1/2; 'first', 'last': that slot alone;
+    'tile-edge': 300 slots each side of every fourth of kernel N's tile
+    boundaries; 'mixed': row r takes fill r of 0, 1, 499, 500, 501, 1003,
+    'half', 'all' (501 to 1003 valid slots round n = 500 Sobol targets to
+    duplicates)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    store = torch.zeros(rows * P + offset, dtype=torch.bool, device=dev)
+    valid = store[offset:].view(rows, P)
+    tile = kernels.sobol_select_plan(P)[0]
+    for r in range(rows):
+        f = (SOBOL_FILLS[r % 8] if fill == "mixed" else fill)
+        if isinstance(f, int):
+            valid[r, torch.randperm(P, generator=g, device=dev)[:f]] = True
+        elif f == "half":
+            valid[r] = torch.rand(P, generator=g, device=dev) < 0.5
+        elif f == "all":
+            valid[r] = True
+        elif f in ("first", "last"):
+            valid[r, 0 if f == "first" else P - 1] = True
+        else:
+            for edge in range(tile, P, 4 * tile):
+                valid[r, max(edge - 300, 0):edge + 300] = True
+    return valid
+
+
+@pytest.mark.parametrize("rows,P,n,fill,offset", SOBOL_CASES, ids=SOBOL_IDS)
+def test_sobol_select_matches_plain(dev, rows, P, n, fill, offset):
+    """Kernel N through ``masked_sobol_gather`` equals the plain version at
+    every slot, invalid targets included (their index is P - 1), two
+    launches a call."""
+    from woft_tpu_torch.ops import sampling
+
+    valid = _sobol_rows(dev, rows, P, fill, offset, seed=rows + P + n)
+    assert valid.is_contiguous() and (valid.data_ptr() % 16 == 0) == (
+        offset == 0)
+    n0 = kernels.masked_sobol_select.launches
+    idx, sel = sampling.masked_sobol_gather(valid, n)
+    torch.cuda.synchronize()
+    assert kernels.masked_sobol_select.launches == n0 + 2
+    want_idx, want_sel = sampling.masked_sobol_gather_plain(valid, n)
+    assert idx.dtype == torch.int64 and sel.dtype == torch.bool
+    assert idx.shape == sel.shape == (rows, n)
+    assert torch.equal(sel, want_sel)
+    assert torch.equal(idx, want_idx)
+    if fill != "mixed":
+        one_idx, one_sel = sampling.masked_sobol_gather(valid[-1], n)
+        assert torch.equal(one_idx, want_idx[-1])
+        assert torch.equal(one_sel, want_sel[-1])
+
+
+def test_sobol_gather_on_the_card_is_kernel_n_alone(dev):
+    """On a CUDA tensor the selection is N's two kernels and nothing else:
+    no scan, sort, search or int64 widening of the mask."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from woft_tpu_torch.ops import sampling
+
+    valid = _sobol_rows(dev, 8, 2_073_600, "mixed", 0, seed=5)
+    sampling.masked_sobol_gather(valid, 500)        # the table, made once
+    # a first trace starts the tracer, which can miss kernels of the
+    # window it is started in
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    # N's kernels queue behind a spin of ~10 ms, so they run well after
+    # the trace has started; the spin is not counted
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(20_000_000)
+        sampling.masked_sobol_gather(valid, 500)
+        torch.cuda.synchronize()
+    names = sorted(e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "spin" not in e.name)
+    assert len(names) == 2, names
+    assert "count" in names[0] and "select" in names[1], names
+    assert all("sobol_gather" in name for name in names), names
+
+
+def test_sobol_select_wrapper_checks_inputs(dev):
+    """N refuses another dtype, a non-contiguous mask, a mask of another
+    rank, and a table that is not float32 on the mask's card."""
+    from woft_tpu_torch.ops import sampling
+
+    valid = torch.ones(2, 4096, dtype=torch.bool, device=dev)
+    table = sampling._sobol_sorted_on(500, valid.device)
+    with pytest.raises(TypeError):
+        kernels.masked_sobol_select(valid.to(torch.uint8), table)
+    with pytest.raises(ValueError):
+        kernels.masked_sobol_select(valid[:, ::2], table)
+    with pytest.raises(ValueError):
+        kernels.masked_sobol_select(valid[0], table)
+    with pytest.raises(TypeError):
+        kernels.masked_sobol_select(valid, table.double())
+    with pytest.raises(ValueError):
+        kernels.masked_sobol_select(valid, table.cpu())

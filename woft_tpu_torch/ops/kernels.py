@@ -16,7 +16,8 @@ callers (``ops/warp.py:warp_perspective_fast``, ``models/corr.py``:
 ``corr_lookup_alternate_levels``;
 ``models/update.py``: ``gru_update``, ``gru_update_f32``,
 ``motion_encoder_tail``, ``flow_head``; ``models/weight_head.py``:
-``weight_head``; ``models/gma.py``: ``gma_aggregate``)
+``weight_head``; ``models/gma.py``: ``gma_aggregate``; ``ops/sampling.py``:
+``masked_sobol_gather``)
 take the plain PyTorch version for CPU tensors; a CUDA tensor always goes to
 the kernel. L's wrapper (``instance_norm_act``, the encoders' caller in
 ``models/raft.py``) makes that choice itself: a CPU tensor takes
@@ -25,7 +26,8 @@ are reached through ``torch.autograd.Function``s (``models/corr.py``: B's
 backward is kernel B', C's, D's, E's and K's the VJPs of their plain
 versions, as in the JAX package); A, F, G, H, I, J, L and M have no backward,
 and their callers raise (``require_no_grad``) rather than return an output
-with no graph.
+with no graph. N's outputs are integer indices and flags, which carry no
+gradient.
 
 | kernel | source | TPU kernel it replaces |
 |---|---|---|
@@ -44,6 +46,7 @@ with no graph.
 | K ``alt_corr_lookup`` (the volume-free lookup, ``alternate_corr``) | ``csrc/alt_corr.cu`` | none: the JAX package gathers its alternate lookup through XLA |
 | L ``instance_norm_act`` (the feature encoder's norms, fused with the ReLU and the residual add) | ``csrc/instance_norm.cu`` | none: the JAX package runs its instance norm through XLA |
 | M ``gma_aggregate`` (GMA's global motion aggregation, ``models/gma.py``) | ``csrc/gma_aggregate.cu`` | none: the JAX package has no GMA |
+| N ``masked_sobol_select`` (the trackers' Sobol-n selection of TCs, two launches: tile counts, then one warp a target) | ``csrc/sobol_select.cu`` | none: the JAX package selects through XLA (``woft_tpu/ops/sampling.py:masked_sobol_gather``) |
 
 G's float32 form is float32 FFMA (no tensor cores) and shares no kernel
 body with G. G, H, I and J share ``csrc/conv_wgmma.cuh`` (a convolution as per-tap
@@ -68,7 +71,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("warp", "corr_lookup", "local_corr", "local_lookup", "gru",
            "gru_f32", "update_tail", "flow_head", "weight_head", "alt_corr",
-           "instance_norm", "gma_aggregate")
+           "instance_norm", "gma_aggregate", "sobol_select")
 # --fmad=false: no FMA contraction, so the kernels round like their plain
 # PyTorch versions (see the notes at the top of each source)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -124,6 +127,8 @@ _ENTRIES = {
         + [ctypes.c_float, _P, _P, _P, _P]},
     "gma_aggregate": {"woft_gma_aggregate": [_P, _I, _P, _I, _P, _P, _P, _I,
                                              _P]},
+    "sobol_select": {"woft_sobol_select": [_P, _P] + [_I] * 6
+                     + [_P, _P, _P, _P]},
 }
 _entries = {}
 
@@ -1263,3 +1268,57 @@ def _instance_norm_stem(x, bias, eps):
     _raise_on_error(rc, "instance_norm")
     instance_norm_act.launches += 3
     return out
+
+
+SOBOL_TILE = 8192               # kernel N's tile of mask bytes
+SOBOL_MAX_TILES = 8192          # a row's tile prefixes in the select pass
+
+
+def sobol_select_plan(P):
+    """Kernel N's tiles of a row of ``P`` slots: (tile, tiles), the tile
+    the least multiple of ``SOBOL_TILE`` that cuts the row into at most
+    ``SOBOL_MAX_TILES`` (the select pass keeps their prefixes in shared
+    memory)."""
+    tile = SOBOL_TILE * -(-P // (SOBOL_TILE * SOBOL_MAX_TILES))
+    return tile, -(-P // tile)
+
+
+@_counted
+def masked_sobol_select(valid, sobol):
+    """Kernel N: the Sobol-n selection of each row's valid slots,
+    ``ops/sampling.py:masked_sobol_gather_plain``'s function, two launches
+    (the tiles' counts, then one warp a target).
+
+    valid (N, P) bool CUDA, contiguous, one row a target, P < 2^31; sobol
+    (n,) float32 on the same card: the first n points of the 1-D Sobol
+    sequence sorted ascending (``ops/sampling.py:_sobol_sorted_on``).
+    Returns (idx (N, n) int64, sel (N, n) bool), equal to the plain
+    version's at every slot."""
+    if valid.device.type != "cuda":
+        raise ValueError("masked_sobol_select takes CUDA tensors")
+    device = valid.device
+    _check_tensor(valid, "valid", torch.bool, device)
+    if valid.dim() != 2 or valid.numel() == 0:
+        raise ValueError(f"valid must be a non-empty (N, P), got "
+                         f"{tuple(valid.shape)}")
+    N, P = valid.shape
+    if P >= 2 ** 31 or N > 65535:
+        raise ValueError(f"kernel N takes fewer than 2^31 slots a row and "
+                         f"at most 65,535 rows, got {tuple(valid.shape)}")
+    _check_tensor(sobol, "sobol", torch.float32, device)
+    if sobol.dim() != 1 or sobol.numel() == 0:
+        raise ValueError(f"sobol must be a non-empty (n,), got "
+                         f"{tuple(sobol.shape)}")
+    n = sobol.numel()
+    tile, tiles = sobol_select_plan(P)
+    counts = torch.empty((N, tiles), dtype=torch.int32, device=device)
+    idx = torch.empty((N, n), dtype=torch.int64, device=device)
+    sel = torch.empty((N, n), dtype=torch.bool, device=device)
+    vec = int(P % 16 == 0 and valid.data_ptr() % 16 == 0)
+    fn = _entry("sobol_select")
+    with _current(device):
+        rc = fn(valid.data_ptr(), sobol.data_ptr(), N, P, n, tile, tiles, vec,
+                counts.data_ptr(), idx.data_ptr(), sel.data_ptr(), _stream())
+    _raise_on_error(rc, "sobol_select")
+    masked_sobol_select.launches += 2
+    return idx, sel

@@ -4,13 +4,17 @@ PyTorch twin of ``woft_tpu/ops/sampling.py``: the reference subsamples
 tentative correspondences (TCs: template<->current point pairs taken from
 the dense flow) to <= 500 points with a 1-D Sobol draw;
 ``masked_sobol_gather`` re-expresses that selection as a fixed-size gather
-plus per-slot validity, and gives the same indices as the JAX package.
+plus per-slot validity, and gives the same indices as the JAX package. On
+the card it is kernel N (``kernels.masked_sobol_select``); on the CPU its
+plain version, ``masked_sobol_gather_plain``.
 """
 
 import functools
 
 import numpy as np
 import torch
+
+from . import kernels
 
 
 def sobol_1d(n, dtype=np.float32):
@@ -45,8 +49,30 @@ def _sobol_on(n, device):
     return torch.from_numpy(sobol_1d(n)).to(device)
 
 
+@functools.lru_cache(maxsize=8)
+def _sobol_sorted_on(n, device):
+    """Kernel N's table: ``sobol_1d(n)`` sorted ascending, on ``device``,
+    made once. x -> round(float32(n_valid * x)) is non-decreasing in x, so
+    rounding the sorted table gives the sorted targets, duplicates
+    included, and the kernel sorts nothing."""
+    return torch.from_numpy(np.sort(sobol_1d(n))).to(device)
+
+
 def masked_sobol_gather(valid, n=500):
-    """Static-shape Sobol subsampling of the valid entries of a point list.
+    """Static-shape Sobol subsampling of the valid entries of a point list:
+    kernel N on a CUDA tensor, ``masked_sobol_gather_plain`` on the CPU,
+    equal at every slot (see there for the arguments and the result)."""
+    if valid.device.type != "cuda":
+        return masked_sobol_gather_plain(valid, n)
+    lead, P = valid.shape[:-1], valid.shape[-1]
+    idx, sel = kernels.masked_sobol_select(
+        valid.reshape(-1, P).contiguous(), _sobol_sorted_on(n, valid.device))
+    return idx.reshape(*lead, n), sel.reshape(*lead, n)
+
+
+def masked_sobol_gather_plain(valid, n=500):
+    """Static-shape Sobol subsampling of the valid entries of a point list:
+    ``masked_sobol_gather``'s plain version, which CPU tensors take.
 
     Args:
         valid: (P,) or (N, P) bool — validity of each point slot, one row
